@@ -1,0 +1,23 @@
+"""Diversity maximization in bounded doubling dimension — PyTorch/CUDA port.
+
+The port of the JAX package ``repro``, placed beside it.  It imports
+``torch``, numpy and the standard library only — never ``jax`` nor
+anything of ``repro``.  The front door is
+``repro_torch.diversify(ProblemSpec, ExecutionSpec)``; its sweeps run the
+hand-written CUDA kernels of ``repro_torch.kernels`` on the card (the
+default device) and a plain torch version on the CPU.  This slice ports the
+batch, unconstrained path (see ROADMAP.md for the rest).
+"""
+
+_API = ("diversify", "plan", "ProblemSpec", "ExecutionSpec", "Plan",
+        "DiversityResult")
+
+__all__ = list(_API)
+
+
+def __getattr__(name):
+    # lazy: `import repro_torch` stays light; the facade loads on first use
+    if name in _API:
+        from repro_torch import api
+        return getattr(api, name)
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")
