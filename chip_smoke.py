@@ -21,11 +21,13 @@ Phases, each printing one JSON line:
               agree to rtol 1e-4, meets_target and the executed schedule are
               equal, and the kernel launch counters moved on the kernel runs
               only (they are zeroed just before each call); each call runs
-              in turns kernel, plain, plain, kernel and must repeat exactly.
+              ten times per side in turns kernel, plain, plain, kernel, ...
+              (median and spread of the seconds) and must repeat exactly.
 4. times    — median kernel and plain times at the main shape by CUDA
               events, beside the bytes bound at 3.35 TB/s.
-5. profile  — torch.profiler over call (a): device time by kernel and the
-              device's busy share (full table in chiprun_out/).
+5. profile  — a device-only torch.profiler trace of call (a): device time
+              by kernel and the device's busy share of that call's wall
+              time (full table in chiprun_out/).
 
 The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before it.
@@ -219,30 +221,48 @@ def _run(x, problem, knobs, use_pallas, device):
     return res, idx, time.perf_counter() - t0, dict(ops.LAUNCHES)
 
 
-def phase_main(x, device, check_launches: bool):
+def _spread(secs):
+    return {"median": statistics.median(secs), "min": min(secs),
+            "max": max(secs), "all": secs}
+
+
+def phase_main(x, device, check_launches: bool, pairs: int = 10):
     import numpy as np
     launches = {"gmm_topb": 0, "gmm_update_select": 0}
+    kernel_median_s = {}
     # untimed warm-up of both paths: a process's first engine call pays
     # one-time library set-up (~0.1-0.4 s) that would land on whichever
     # side runs first
     for use_pallas in ("auto", False):
         _run(x, *CALLS["a_cosine_defaults"], use_pallas, device)
+    order = ("auto", False, False, "auto") * (pairs // 2)
     for name, (problem, knobs) in CALLS.items():
-        # in turns (kernel, plain, plain, kernel) so neither side always
-        # runs first; the first pair is held to the agreement checks, the
-        # repeats must reproduce it exactly (no atomics, no data races)
-        kres, kidx, ks, kl = _run(x, problem, knobs, "auto", device)
-        pres, pidx, ps, pl = _run(x, problem, knobs, False, device)
-        pres2, pidx2, ps2, pl2 = _run(x, problem, knobs, False, device)
-        kres2, kidx2, ks2, _ = _run(x, problem, knobs, "auto", device)
-        if not (np.array_equal(kidx, kidx2) and np.array_equal(pidx, pidx2)
-                and kres.value == kres2.value and pres.value == pres2.value):
-            fail(f"{name}: a repeated run gave another answer")
+        # `pairs` calls per side in turns (kernel, plain, plain, kernel, ...)
+        # so neither side always runs first; the first call of each side is
+        # held to the agreement checks, the repeats must reproduce it
+        # exactly (no atomics, no data races)
+        runs = {"auto": [], False: []}
+        for use_pallas in order:
+            runs[use_pallas].append(_run(x, problem, knobs, use_pallas,
+                                         device))
+        (kres, kidx, _, kl), (pres, pidx, _, pl) = runs["auto"][0], \
+            runs[False][0]
+        for first, idx0, side in ((kres, kidx, "auto"), (pres, pidx, False)):
+            for res, idx, _, _ in runs[side][1:]:
+                if not (np.array_equal(idx, idx0)
+                        and res.value == first.value):
+                    fail(f"{name}: a repeated run gave another answer")
+        if any(lc != kl for *_, lc in runs["auto"]):
+            fail(f"{name}: kernel launch counts differ between repeats")
+        ks = [r[2] for r in runs["auto"]]
+        ps = [r[2] for r in runs[False]]
         kc, pc = kres.cert, pres.cert
         row = {"phase": "main", "call": name, "n": int(x.shape[0]),
                "d": int(x.shape[1]), "problem": problem, "knobs": knobs,
-               "kernel_seconds": [ks, ks2], "plain_seconds": [ps, ps2],
-               "kernel_launches": kl, "plain_launches": [pl, pl2],
+               "kernel_seconds": _spread(ks), "plain_seconds": _spread(ps),
+               "kernel_over_plain_median":
+                   statistics.median(ks) / statistics.median(ps),
+               "kernel_launches": kl,
                "value": [kres.value, pres.value],
                "coreset_radius": [float(kres.coreset.radius),
                                   float(pres.coreset.radius)],
@@ -271,7 +291,7 @@ def phase_main(x, device, check_launches: bool):
                 and kres.solution.shape == (problem["k"], x.shape[1])
                 and len(set(kidx.tolist())) == problem["k"]):
             fail(f"{name}: solution is not k distinct finite rows")
-        if any(pl.values()) or any(pl2.values()):
+        if any(any(lc.values()) for *_, lc in runs[False]):
             fail(f"{name}: a kernel launched on a plain run")
         if check_launches:
             want = "gmm_update_select" if knobs.get("b") == 1 else "gmm_topb"
@@ -279,7 +299,8 @@ def phase_main(x, device, check_launches: bool):
                 fail(f"{name}: {want} never launched on the kernel run")
         for k, v in kl.items():
             launches[k] += v
-    return launches
+        kernel_median_s[name] = statistics.median(ks)
+    return launches, kernel_median_s
 
 
 # --------------------------------------------------------------------------
@@ -309,12 +330,12 @@ def _time_ms(fn, reps: int = 10):
     return statistics.median(ts), statistics.median(hs)
 
 
-def bound_ms(n, d, b, p, tiles):
-    """Least time for one sweep: the larger of the bytes it must move
-    (points read once, min_in/xsq/mask read, min_out written, centers read,
-    tile winners written) over the memory rate and its fp32 flops over the
-    CUDA-core rate."""
-    bytes_ = n * d * 4 + 9 * n + b * d * 4 + tiles * p * 8
+def bound_ms(n, d, b, p):
+    """Least time for one cosine sweep: the larger of the bytes the function
+    must move (points and centers read once, min_in and mask read, min_out
+    written, the p (value, index) pairs written) over the memory rate and
+    its fp32 flops over the CUDA-core rate."""
+    bytes_ = n * d * 4 + 9 * n + b * d * 4 + p * 8
     flops = 2 * n * d * b
     tb, to = bytes_ / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
@@ -335,7 +356,7 @@ def phase_times(x, seed: int):
                                         device=x.device)]
         for p in (1, 128):
             bn = tile_rows(p)
-            bms, bby = bound_ms(n, d, b, p, -(-n // bn))
+            bms, bby = bound_ms(n, d, b, p)
             kern = (lambda: ops.gmm_update_select(
                 prep.points, cen, min_in, mask, "cosine", prepared=True)) \
                 if p == 1 else (lambda: ops.gmm_topb(
@@ -366,26 +387,38 @@ def phase_times(x, seed: int):
 # phase 5: where the time of one main-path call goes
 # --------------------------------------------------------------------------
 
-def phase_profile(x, out: Path):
-    """torch.profiler over call (a) with the kernels: device time by kernel
-    name and the device's busy share of the profiled wall time (one stream,
-    so kernel times do not overlap).  Profiling slows the host side, so the
-    unprofiled seconds of phase 3 stay the end-to-end figure."""
+def phase_profile(x, out: Path, unprofiled_s: float):
+    """Device-only torch.profiler trace (CUPTI kernel activity, no host-op
+    recording) over one call (a) with the kernels: device time by kernel
+    name, and the device's busy share of that same call's wall time — the
+    union of the device activity intervals over the host time from entry to
+    the final synchronize.  The second of two traced calls is kept (the
+    first pays CUPTI set-up).  ``unprofiled_s`` (phase 3's median) is
+    printed beside it to show what the trace itself costs the call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     import repro_torch
     ex = repro_torch.ExecutionSpec(device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        res = repro_torch.diversify(x, k=16, metric="cosine", execution=ex)
-        res.indices
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = repro_torch.diversify(x, k=16, metric="cosine",
+                                        execution=ex)
+            res.indices
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == cuda)
+    busy_us, end = 0.0, float("-inf")
+    for s, e in spans:                   # union of the device intervals
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
     kernels = []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != cuda:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -393,13 +426,14 @@ def phase_profile(x, out: Path):
         kernels.append({"name": e.key[:90], "ms": us / 1e3,
                         "count": e.count})
     kernels.sort(key=lambda r: -r["ms"])
-    busy = sum(r["ms"] for r in kernels) / 1e3
     (out / "profile_call_a.json").write_text(json.dumps(
-        {"wall_s": wall, "kernels": kernels}, indent=1))
+        {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+         "kernels": kernels}, indent=1))
     emit({"phase": "profile", "call": "a_cosine_defaults",
-          "profiled_wall_s": wall,
-          "device_busy_s": busy if kernels else "not measured",
-          "device_busy_share": busy / wall if kernels else "not measured",
+          "profiled_wall_s": wall, "unprofiled_median_s": unprofiled_s,
+          "device_busy_s": busy_us / 1e6 if spans else "not measured",
+          "device_busy_share": busy_us / 1e6 / wall if spans
+          else "not measured",
           "top": kernels[:8]})
 
 
@@ -436,7 +470,7 @@ def main(argv=None) -> int:
     if args.rehearse:
         x = musixmatch_like(3000, 64, args.seed, "cpu")
         phase_kernels(x, args.seed, small_only=True)
-        phase_main(x, "cpu", check_launches=False)
+        phase_main(x, "cpu", check_launches=False, pairs=2)
         emit({"phase": "rehearsal", "ok": True})
         return 0
 
@@ -474,12 +508,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- 3. main path ------------------------------------------------------
-    launches = phase_main(x, "cuda", check_launches=True)
+    launches, main_s = phase_main(x, "cuda", check_launches=True)
     torch.cuda.empty_cache()
 
-    # ---- 4. times ----------------------------------------------------------
+    # ---- 4. times, 5. profile ---------------------------------------------
     rows = phase_times(x, args.seed)
-    phase_profile(x, out)
+    phase_profile(x, out, main_s["a_cosine_defaults"])
     pick = {"gmm_topb": next(r for r in rows if r["b"] == 8 and r["p"] == 128),
             "gmm_update_select": next(r for r in rows if r["b"] == 1
                                       and r["p"] == 1)}

@@ -9,16 +9,15 @@ import torch
 from ..device import to_numpy
 
 
-def _match_rows(pts: torch.Tensor, sol, k: int, *, row_labels=None,
-                sol_labels=None, chunk: int = 65536) -> np.ndarray:
+def _match_rows(pts: torch.Tensor, sol, k: int, *,
+                chunk: int = 65536) -> np.ndarray:
     """Map solution points back to distinct row indices (exact match by row).
 
     ``pts`` stays on its device: the (n, k) distances of every row to every
     solution point are computed there in row chunks (exact differences, not
     the factorized form, so an identical row scores exactly 0), then each
-    pick is a masked first-argmin over rows not taken yet.  With
-    ``row_labels``/``sol_labels``, candidates are restricted to rows of the
-    solution point's own group.  One host read at the end.
+    pick is a masked first-argmin over rows not taken yet.  One host read at
+    the end.
     """
     dev = pts.device
     sol = torch.as_tensor(sol, dtype=pts.dtype, device=dev).reshape(-1,
@@ -29,11 +28,6 @@ def _match_rows(pts: torch.Tensor, sol, k: int, *, row_labels=None,
         dist[s:s + chunk] = torch.cdist(
             pts[s:s + chunk], sol,
             compute_mode="donot_use_mm_for_euclid_dist")
-    if row_labels is not None:
-        rl = torch.as_tensor(np.asarray(row_labels), device=dev)
-        sl = torch.as_tensor(np.asarray(sol_labels), device=dev)
-        dist = torch.where(rl[:, None] == sl[None, :], dist,
-                           torch.full_like(dist, float("inf")))
     taken = torch.zeros((n,), dtype=torch.bool, device=dev)
     picks, finite = [], []
     for t in range(sol.shape[0]):

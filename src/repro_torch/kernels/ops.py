@@ -63,8 +63,6 @@ def _inputs(points, centers, metric_name, xsq, prepared):
         points, xsq = prepare(points, metric_name)
         if norm:
             centers = _normalize(centers)
-    elif xsq is None and mode in ("sqeuclidean", "euclidean"):
-        xsq = torch.sum(points * points, dim=-1)
     return mode, points, centers, xsq
 
 
