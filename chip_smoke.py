@@ -3,15 +3,19 @@
 
     python3 chip_smoke.py            # the full run, on one CUDA card
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line (or one per call):
 
 1. env      — the card (``nvidia-smi`` name and power limit), torch/CUDA
               versions, TF32 switched off, the kernels built from
-              ``src/repro_torch/kernels/csrc`` with nvcc (build seconds).
+              ``src/repro_torch/kernels/csrc`` with nvcc, one process per
+              source, all started together (build seconds).
 2. kernels  — every CUDA kernel held against its plain torch version on the
-              card: modes {sqeuclidean, euclidean, dot, cosine}, small ragged
-              shapes and the main shape, b in {1, 8}, p in {1, 32, 128, 256};
-              fields and selected values must match to 3e-5.
+              card: modes {sqeuclidean, euclidean, dot, cosine}.  The sweeps
+              (B1, B2) at small ragged shapes and the main shape, b in
+              {1, 8}, p in {1, 32, 128, 256}; the distance tile (B3) at
+              small ragged shapes and the four streaming tile shapes below,
+              where a one-column call must also equal its tile's column bit
+              for bit.  Values must match to 3e-5.
 3. main     — ``repro_torch.diversify`` at the paper's musiXmatch shape
               (237,662 songs x 5,000 words, cosine), synthesized on the card
               from ``--seed``: (a) cosine with default knobs, (b) euclidean
@@ -23,15 +27,30 @@ Phases, each printing one JSON line:
               only (they are zeroed just before each call); each call runs
               ten times per side in turns kernel, plain, plain, kernel, ...
               (median and spread of the seconds) and must repeat exactly.
-4. times    — median kernel and plain times at the main shape by CUDA
-              events, beside the bytes bound at 3.35 TB/s.
-5. profile  — a device-only torch.profiler trace of call (a): device time
-              by kernel and the device's busy share of that call's wall
-              time (full table in chiprun_out/).
+4. stream   — ``repro_torch.diversify`` on streaming problems, data made
+              on the card from ``--seed``: (a) the musiXmatch shape, cosine,
+              remote-edge, k = 128, default knobs (k' = 256, chunk 4,096);
+              (b) the same with k' = 1,024; (c) remote-clique (SMM-EXT),
+              k = 32, k' = 128; (d) 2^24 points on the unit sphere in 3-D
+              (the paper's synthetic streaming set), euclidean, SMM-GEN,
+              k = 64, k' = 512, chunk 65,536, fed as a chunk iterator.  Each
+              call runs three times per side, kernel and plain in turns; it
+              prints seconds, points/s, chunks, far inserts, merges and host
+              reads per chunk, and kernel and plain must agree on the
+              core-set, d_i, the phase log, the certificate and the picks,
+              and on the value to rtol 1e-4.
+5. times    — median kernel and plain times by CUDA events: the sweeps at
+              the main shape beside their bytes bound, the distance tile at
+              the streaming shapes beside its bound and, for euclidean,
+              ``torch.cdist``'s time (the library call; the port never
+              calls it on this path).
+6. profile  — device-only torch.profiler traces of batch call (a) and stream
+              call (b): device time by kernel and the device's busy share
+              of that call's wall time (full tables in chiprun_out/).
 
 The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before it.
-``--rehearse`` runs phases 2-3 at a tiny size on the CPU with the plain
+``--rehearse`` runs phases 2-4 at a tiny size on the CPU with the plain
 versions (no build, no timings, no ``ok`` line) to check the script itself.
 """
 from __future__ import annotations
@@ -61,6 +80,10 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gmm_sweep.cu",
         "replaces": "src/repro/kernels/gmm_update.py:96"},
+    "pairwise": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pairwise.cu",
+        "replaces": "src/repro/kernels/pairwise.py:59"},
 }
 
 
@@ -97,6 +120,15 @@ def musixmatch_like(n: int, d: int, seed: int, device):
                  torch.ones((), device=device).expand(int(keep.sum())),
                  accumulate=True)
     return x
+
+
+def unit_sphere(n: int, seed: int, device):
+    """Points uniform on the unit sphere in 3-D, the paper's synthetic
+    streaming distribution (benchmarks/bench_streaming.py)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((n, 3), generator=g, device=device)
+    return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
 
 
 # --------------------------------------------------------------------------
@@ -163,11 +195,55 @@ def check_pair(x, mode, b, p, gen, errs, label):
         fail(f"gmm_topb disagrees with plain at {label}")
 
 
-def phase_kernels(big, seed: int, small_only: bool):
+def check_pairwise(x, y, mode, errs, label):
+    """One B3 case: the kernel against its plain version on the same
+    prepared rows (the same chain of rounded products and adds, so they
+    agree bit for bit on the card; the stated bound is 3e-5), and a
+    one-column call against its tile's column, bit for bit."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    px, py = ops.prepare(x, mode), ops.prepare(y, mode)
+    got = ops.pairwise(px.points, py.points, mode, xsq=px.xsq, ysq=py.xsq,
+                       prepared=True)
+    want = ref.pairwise_ref(px.points, py.points, mode, xsq=px.xsq,
+                            ysq=py.xsq)
+    errs["pairwise"] = max(errs["pairwise"], _err(got, want))
+    if not _close(got, want):
+        fail(f"pairwise disagrees with plain at {label}")
+    n = y.shape[0]
+    for s in sorted({0, n // 2, n - 1}):
+        col = ops.pairwise(px.points, py.points[s:s + 1], mode, xsq=px.xsq,
+                           ysq=None if py.xsq is None else py.xsq[s:s + 1],
+                           prepared=True)
+        if not torch.equal(col[:, 0], got[:, s]):
+            fail(f"pairwise one-column call differs from its tile at "
+                 f"{label}, column {s}")
+
+
+STREAM_TILES = {"chunk": 4096, "caps": (257, 1025, 129),
+                "sphere_chunk": 65536, "sphere_cap": 513}
+REHEARSAL_TILES = {"chunk": 512, "caps": (9, 65, 17), "sphere_chunk": 4096,
+                   "sphere_cap": 65}
+
+
+def stream_tiles(big, sphere, shapes):
+    """The distance tiles the stream calls run: a chunk of rows against
+    k'+1 other rows of the same data."""
+    m, caps = shapes["chunk"], shapes["caps"]
+    far = big.shape[0] // 2
+    out = [(f"stream tile {m}x{c}x{big.shape[1]} cosine", big[:m],
+            big[far:far + c], "cosine") for c in caps]
+    ms, cs = shapes["sphere_chunk"], shapes["sphere_cap"]
+    out.append((f"stream tile {ms}x{cs}x3 euclidean", sphere[:ms],
+                sphere[-cs:], "euclidean"))
+    return out
+
+
+def phase_kernels(big, seed: int, small_only: bool, tiles=()):
     import torch
     dev = big.device
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    errs = {"gmm_topb": 0.0, "gmm_update_select": 0.0}
+    errs = {"gmm_topb": 0.0, "gmm_update_select": 0.0, "pairwise": 0.0}
     cases = 0
     t0 = time.perf_counter()
     for n in (33, 1000, 4097):
@@ -187,6 +263,18 @@ def phase_kernels(big, seed: int, small_only: bool):
                     check_pair(big, mode, b, p, gen, errs,
                                f"main shape {mode} b={b} p={p}")
                     cases += 1
+    # B3: ragged m, n, d (none a multiple of a tile edge; n <= 4 takes the
+    # narrow tile, the others the medium and wide ones)
+    for m, n, d in ((33, 5, 3), (1000, 129, 17), (4097, 300, 128),
+                    (1, 1, 5), (70, 4, 64), (300, 1025, 3)):
+        x = torch.randn((m, d), generator=gen, device=dev)
+        y = torch.randn((n, d), generator=gen, device=dev)
+        for mode in MODES:
+            check_pairwise(x, y, mode, errs, f"m={m} n={n} d={d} {mode}")
+            cases += 1
+    for label, x, y, mode in tiles:
+        check_pairwise(x, y, mode, errs, label)
+        cases += 1
     if dev.type == "cuda":
         torch.cuda.synchronize()
     emit({"phase": "kernels", "cases": cases, "tolerance": TOL,
@@ -228,7 +316,7 @@ def _spread(secs):
 
 def phase_main(x, device, check_launches: bool, pairs: int = 10):
     import numpy as np
-    launches = {"gmm_topb": 0, "gmm_update_select": 0}
+    launches = {"gmm_topb": 0, "gmm_update_select": 0, "pairwise": 0}
     kernel_median_s = {}
     # untimed warm-up of both paths: a process's first engine call pays
     # one-time library set-up (~0.1-0.4 s) that would land on whichever
@@ -304,7 +392,164 @@ def phase_main(x, device, check_launches: bool, pairs: int = 10):
 
 
 # --------------------------------------------------------------------------
-# phase 4: times at the main shape
+# phase 4: the streaming path
+# --------------------------------------------------------------------------
+
+def stream_calls(full: bool):
+    """(name, data, problem, knobs) of the stream calls; ``full=False`` is
+    the rehearsal's tiny size."""
+    if full:
+        return [
+            ("a_cosine_edge_k128", "mxm", dict(k=128, metric="cosine"), {}),
+            ("b_cosine_edge_k128_kp1024", "mxm",
+             dict(k=128, metric="cosine"), dict(kprime=1024)),
+            ("c_cosine_clique_k32_ext", "mxm",
+             dict(k=32, metric="cosine", measure="remote-clique"),
+             dict(kprime=128)),
+            ("d_sphere_gen_k64", "sphere", dict(k=64),
+             dict(kprime=512, chunk=65536, smm_mode="gen")),
+        ]
+    return [
+        ("a_cosine_edge", "mxm", dict(k=8, metric="cosine"),
+         dict(chunk=512)),
+        ("b_cosine_edge_kp64", "mxm", dict(k=8, metric="cosine"),
+         dict(kprime=64, chunk=512)),
+        ("c_cosine_clique_ext", "mxm",
+         dict(k=4, metric="cosine", measure="remote-clique"),
+         dict(kprime=16, chunk=512)),
+        ("d_sphere_gen", "sphere", dict(k=8),
+         dict(kprime=64, chunk=4096, smm_mode="gen")),
+    ]
+
+
+def _stream_source(data, x, chunk):
+    """The points as a user streams them: the on-card array with
+    ``mode="streaming"`` (musiXmatch shape), or a chunk iterator over the
+    on-card sphere points."""
+    if data == "mxm":
+        return x, {"mode": "streaming"}
+    return (x[i:i + chunk] for i in range(0, x.shape[0], chunk)), {}
+
+
+def _run_stream(x, data, problem, knobs, use_pallas, device):
+    import torch
+    import repro_torch
+    from repro_torch.kernels import ops
+    src, extra = _stream_source(data, x, knobs["chunk"] if "chunk" in knobs
+                                else 4096)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = repro_torch.diversify(src, execution=repro_torch.ExecutionSpec(
+        use_pallas=use_pallas, device=device, trace=True, **extra, **knobs),
+        **problem)
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, dict(ops.LAUNCHES)
+
+
+def _near(a, b) -> bool:
+    """Floats derived from distances (d_i, the certificate) agree to rtol
+    1e-5; kernel and plain compute the same chain, so they are expected
+    equal, and the bound only absorbs a last-ulp difference of sqrt/acos."""
+    import numpy as np
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    return a.shape == b.shape and bool(np.allclose(a, b, rtol=1e-5, atol=0))
+
+
+def _coreset_rows(res):
+    """The core-set as host arrays: its points (valid rows, in slot order)
+    and, for a generalized one, the multiplicities."""
+    from repro_torch.device import to_numpy
+    cs = res.coreset
+    if hasattr(cs, "multiplicity"):
+        m = to_numpy(cs.multiplicity)
+        return to_numpy(cs.points)[m > 0], m[m > 0]
+    v = to_numpy(cs.valid)
+    return to_numpy(cs.points)[v], None
+
+
+def phase_stream(data, device, check_launches: bool, runs: int = 3,
+                 full: bool = True):
+    """The stream calls, ``runs`` per side in turns (kernel, plain, plain,
+    kernel, ...).  Returns (launches of the first kernel run of each call,
+    summed; per-call kernel median seconds)."""
+    import numpy as np
+    launches = {"gmm_topb": 0, "gmm_update_select": 0, "pairwise": 0}
+    median_s = {}
+    order = ["auto", False, False, "auto"] * runs
+    order = order[:2 * runs]
+    for name, kind, problem, knobs in stream_calls(full):
+        x = data[kind]
+        n = int(x.shape[0])
+        out = {"auto": [], False: []}
+        for use_pallas in order:
+            out[use_pallas].append(_run_stream(x, kind, problem, knobs,
+                                               use_pallas, device))
+        (kres, _, kl), (pres, _, pl) = out["auto"][0], out[False][0]
+        for side in ("auto", False):
+            first = out[side][0][0]
+            for res, _, lc in out[side][1:]:
+                if not (np.array_equal(res.solution, first.solution)
+                        and res.value == first.value):
+                    fail(f"{name}: a repeated run gave another answer")
+        kc, pc = kres.cert, pres.cert
+        (kp, km), (pp, pm) = _coreset_rows(kres), _coreset_rows(pres)
+        same_coreset = (kp.shape == pp.shape and np.array_equal(kp, pp)
+                        and (km is None or np.array_equal(km, pm)))
+        tr = kres.telemetry
+        chunk = knobs.get("chunk", 4096)
+        chunks = -(-n // chunk)
+        ks = [r[1] for r in out["auto"]]
+        ps = [r[1] for r in out[False]]
+        row = {"phase": "stream", "call": name, "n": n,
+               "d": int(x.shape[1]), "problem": problem, "knobs": knobs,
+               "kernel_seconds": _spread(ks), "plain_seconds": _spread(ps),
+               "kernel_points_per_s": n / statistics.median(ks),
+               "plain_points_per_s": n / statistics.median(ps),
+               "chunks": chunks,
+               "far_inserts": tr.counters.get("far_inserts", 0),
+               "merges": tr.extras["merges"],
+               "host_reads_per_chunk": tr.counters["host_syncs"] / chunks,
+               "distance_tiles": tr.counters["device_dispatches"],
+               "kernel_launches": kl,
+               "coreset_rows": int(kp.shape[0]),
+               "agree": {
+                   "coreset": bool(same_coreset),
+                   "d_thr": _near(float(kres.coreset.radius),
+                                  float(pres.coreset.radius)),
+                   "phase_log": kc.counts == pc.counts
+                   and _near(kc.radii, pc.radii),
+                   "certificate": kc.meets_target == pc.meets_target
+                   and _near((kc.radius, kc.scale, kc.ratio),
+                             (pc.radius, pc.scale, pc.ratio)),
+                   "picks": bool(np.array_equal(kres.solution,
+                                                pres.solution)),
+                   "value": bool(np.isclose(kres.value, pres.value,
+                                            rtol=RTOL_E2E, atol=0.0))},
+               "value": [kres.value, pres.value],
+               "radius": [kc.radius, pc.radius],
+               "scale": [kc.scale, pc.scale],
+               "ratio": [kc.ratio, pc.ratio]}
+        emit(row)
+        bad = [k for k, ok in row["agree"].items() if not ok]
+        if bad:
+            fail(f"{name}: kernel and plain disagree on {bad}")
+        if not (np.isfinite(kres.solution).all()
+                and kres.solution.shape == (problem["k"], x.shape[1])
+                and np.isfinite(kres.value)):
+            fail(f"{name}: the solution is not k finite rows")
+        if any(any(lc.values()) for *_, lc in out[False]):
+            fail(f"{name}: a kernel launched on a plain run")
+        if check_launches and kl["pairwise"] <= 0:
+            fail(f"{name}: pairwise never launched on the kernel run")
+        for k, v in kl.items():
+            launches[k] += v
+        median_s[name] = statistics.median(ks)
+    return launches, median_s
+
+
+# --------------------------------------------------------------------------
+# phase 5: times
 # --------------------------------------------------------------------------
 
 def _time_ms(fn, reps: int = 10):
@@ -383,29 +628,68 @@ def phase_times(x, seed: int):
     return rows
 
 
+def pairwise_bound_ms(m, n, d):
+    """Least time for one distance tile: its fp32 operations (2·m·n·d) over
+    the CUDA-core rate, or its bytes (both inputs read once, the output
+    written once) over the memory rate, whichever is larger."""
+    to = 2 * m * n * d / FP32_FLOPS * 1e3
+    tb = ((m + n) * d + m * n) * 4 / HBM_BYTES_PER_S * 1e3
+    return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def phase_times_pairwise(tiles):
+    """B3 at the streaming tile shapes: the wrapper the stream calls
+    (kernel), its plain version, and for euclidean the one PyTorch call
+    that computes the same function, ``torch.cdist`` with the matrix-product
+    form (the library time; the port never calls it here)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    rows = []
+    for label, x, y, mode in tiles:
+        px, py = ops.prepare(x, mode), ops.prepare(y, mode)
+        m, d = px.points.shape
+        n = py.points.shape[0]
+        kern = (lambda: ops.pairwise(px.points, py.points, mode, xsq=px.xsq,
+                                     ysq=py.xsq, prepared=True))
+        plain = (lambda: ref.pairwise_ref(px.points, py.points, mode,
+                                          xsq=px.xsq, ysq=py.xsq))
+        ms, host_ms = _time_ms(kern)
+        pms, _ = _time_ms(plain, reps=3)
+        lib = None
+        if mode == "euclidean":
+            lib, _ = _time_ms(lambda: torch.cdist(
+                px.points, py.points,
+                compute_mode="use_mm_for_euclid_dist"))
+        bms, bby = pairwise_bound_ms(m, n, d)
+        rows.append({"kernel": "pairwise", "tile": label, "mode": mode,
+                     "m": m, "n": n, "d": d, "ms": ms, "host_ms": host_ms,
+                     "plain_ms": pms, "library_ms": lib, "bound_ms": bms,
+                     "bound_by": bby, "share_of_bound": bms / ms,
+                     "gflops": 2 * m * n * d / (ms * 1e-3) / 1e9})
+    emit({"phase": "times", "rows": rows})
+    return rows
+
+
 # --------------------------------------------------------------------------
 # phase 5: where the time of one main-path call goes
 # --------------------------------------------------------------------------
 
-def phase_profile(x, out: Path, unprofiled_s: float):
+def phase_profile(call, name: str, out: Path, unprofiled_s: float):
     """Device-only torch.profiler trace (CUPTI kernel activity, no host-op
-    recording) over one call (a) with the kernels: device time by kernel
-    name, and the device's busy share of that same call's wall time — the
-    union of the device activity intervals over the host time from entry to
-    the final synchronize.  The second of two traced calls is kept (the
-    first pays CUPTI set-up).  ``unprofiled_s`` (phase 3's median) is
-    printed beside it to show what the trace itself costs the call."""
+    recording) over one main-path call with the kernels (``call()``):
+    device time by kernel name, and the device's busy share of that same
+    call's wall time — the union of the device activity intervals over the
+    host time from entry to the final synchronize.  The second of two
+    traced calls is kept (the first pays CUPTI set-up).  ``unprofiled_s``
+    (the call's median from its phase) is printed beside it to show what
+    the trace itself costs the call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    import repro_torch
-    ex = repro_torch.ExecutionSpec(device="cuda")
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = repro_torch.diversify(x, k=16, metric="cosine",
-                                        execution=ex)
-            res.indices
+            call()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
@@ -426,10 +710,10 @@ def phase_profile(x, out: Path, unprofiled_s: float):
         kernels.append({"name": e.key[:90], "ms": us / 1e3,
                         "count": e.count})
     kernels.sort(key=lambda r: -r["ms"])
-    (out / "profile_call_a.json").write_text(json.dumps(
+    (out / f"profile_{name}.json").write_text(json.dumps(
         {"wall_s": wall, "device_busy_s": busy_us / 1e6,
          "kernels": kernels}, indent=1))
-    emit({"phase": "profile", "call": "a_cosine_defaults",
+    emit({"phase": "profile", "call": name,
           "profiled_wall_s": wall, "unprofiled_median_s": unprofiled_s,
           "device_busy_s": busy_us / 1e6 if spans else "not measured",
           "device_busy_share": busy_us / 1e6 / wall if spans
@@ -452,7 +736,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse", action="store_true",
-                    help="tiny CPU run of phases 2-3 with the plain versions")
+                    help="tiny CPU run of phases 2-4 with the plain versions")
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -468,9 +752,13 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
 
     if args.rehearse:
-        x = musixmatch_like(3000, 64, args.seed, "cpu")
-        phase_kernels(x, args.seed, small_only=True)
-        phase_main(x, "cpu", check_launches=False, pairs=2)
+        data = {"mxm": musixmatch_like(3000, 64, args.seed, "cpu"),
+                "sphere": unit_sphere(20000, args.seed, "cpu")}
+        phase_kernels(data["mxm"], args.seed, small_only=True,
+                      tiles=stream_tiles(data["mxm"], data["sphere"],
+                                         REHEARSAL_TILES))
+        phase_main(data["mxm"], "cpu", check_launches=False, pairs=2)
+        phase_stream(data, "cpu", check_launches=False, runs=1, full=False)
         emit({"phase": "rehearsal", "ok": True})
         return 0
 
@@ -495,28 +783,55 @@ def main(argv=None) -> int:
     # ---- data -------------------------------------------------------------
     t0 = time.perf_counter()
     x = musixmatch_like(237662, 5000, args.seed, "cuda")
+    sphere = unit_sphere(2 ** 24, args.seed, "cuda")
     torch.cuda.synchronize()
     nnz = (x > 0).sum(dim=1).float()
     emit({"phase": "data", "shape": list(x.shape), "seed": args.seed,
           "gb": x.numel() * 4 / 1e9,
           "words_per_row": [float(nnz.min()), float(nnz.mean()),
                             float(nnz.max())],
+          "sphere_shape": list(sphere.shape),
+          "sphere_gb": sphere.numel() * 4 / 1e9,
           "seconds": time.perf_counter() - t0})
+    tiles = stream_tiles(x, sphere, STREAM_TILES)
 
     # ---- 2. kernels vs plain ---------------------------------------------
-    errs = phase_kernels(x, args.seed, small_only=False)
+    errs = phase_kernels(x, args.seed, small_only=False, tiles=tiles)
     torch.cuda.empty_cache()
 
-    # ---- 3. main path ------------------------------------------------------
+    # ---- 3. batch path, 4. streaming path -------------------------------
     launches, main_s = phase_main(x, "cuda", check_launches=True)
     torch.cuda.empty_cache()
+    s_launches, stream_s = phase_stream({"mxm": x, "sphere": sphere},
+                                        "cuda", check_launches=True)
+    for k, v in s_launches.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
 
-    # ---- 4. times, 5. profile ---------------------------------------------
+    # ---- 5. times, 6. profile ---------------------------------------------
     rows = phase_times(x, args.seed)
-    phase_profile(x, out, main_s["a_cosine_defaults"])
+    far = x.shape[0] // 2
+    b_rows = phase_times_pairwise(tiles + [(
+        "stream tile 4096x1025x5000 euclidean", x[:4096],
+        x[far:far + 1025], "euclidean")])
+    import repro_torch
+    phase_profile(lambda: repro_torch.diversify(
+        x, k=16, metric="cosine",
+        execution=repro_torch.ExecutionSpec(device="cuda")).indices,
+        "batch_a_cosine_defaults", out, main_s["a_cosine_defaults"])
+    _, kind, problem, knobs = stream_calls(True)[1]
+    phase_profile(lambda: repro_torch.diversify(
+        x, execution=repro_torch.ExecutionSpec(
+            mode="streaming", device="cuda", **knobs), **problem),
+        "stream_b_cosine_edge_k128_kp1024", out,
+        stream_s["b_cosine_edge_k128_kp1024"])
     pick = {"gmm_topb": next(r for r in rows if r["b"] == 8 and r["p"] == 128),
             "gmm_update_select": next(r for r in rows if r["b"] == 1
-                                      and r["p"] == 1)}
+                                      and r["p"] == 1),
+            "pairwise": next(r for r in b_rows if r["d"] == 3)}
+    at_keys = {"gmm_topb": ("mode", "n", "d", "b", "p"),
+               "gmm_update_select": ("mode", "n", "d", "b", "p"),
+               "pairwise": ("mode", "m", "n", "d")}
     if "jax" in sys.modules or "repro" in sys.modules:
         fail("the port pulled in jax or the reference package")
     emit({"phase": "memory",
@@ -527,8 +842,10 @@ def main(argv=None) -> int:
          "max_abs_err": errs[name], "ms": pick[name]["ms"],
          "plain_ms": pick[name]["plain_ms"],
          "bound_ms": pick[name]["bound_ms"],
-         "bound_by": pick[name]["bound_by"], "library_ms": None,
-         "at": {k: pick[name][k] for k in ("mode", "n", "d", "b", "p")}}
+         "bound_by": pick[name]["bound_by"],
+         # B1/B2: no single PyTorch call fuses distance, min and top-p
+         "library_ms": pick[name].get("library_ms"),
+         "at": {k: pick[name][k] for k in at_keys[name]}}
         for name in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

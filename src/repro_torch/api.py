@@ -1,5 +1,5 @@
 """One front door: ``repro_torch.diversify(ProblemSpec, ExecutionSpec)``
-(port of ``repro.api``, batch slice).
+(port of ``repro.api``, batch and streaming slices).
 
 * ``ProblemSpec`` says WHAT to solve (points, ``k``, measure, metric);
 * ``ExecutionSpec`` says HOW: the reference's fields (so one kwargs dict
@@ -11,12 +11,15 @@
   ``DiversityResult`` — ``solution``, ``value``, ``indices``, the
   ``RadiusCertificate`` and per-phase telemetry.
 
-``use_pallas="auto"`` resolves to the hand-written CUDA sweep kernels on a
-CUDA device (plain torch on the CPU, and for ``manhattan``, which has no
-kernel mode); ``True`` on the CPU raises.  Only batch mode is ported:
-streaming, MapReduce, serving, dynamic and constrained problems raise
-``NotImplementedError`` from ``plan()`` naming the ROADMAP slice that
-brings them.
+``use_pallas="auto"`` resolves to the hand-written CUDA kernels on a CUDA
+device (plain torch on the CPU, and for ``manhattan``, which has no kernel
+mode); ``True`` on the CPU raises.  Batch and streaming modes are ported:
+a chunk iterator, ``mode="streaming"`` or an array over
+``memory_budget_bytes`` runs the one-pass SMM core-set
+(``core.smm.StreamingCoreset``), whose distance tiles go through the B3
+kernel.  MapReduce, serving, dynamic and constrained problems, and
+``resilience=`` on a stream, raise ``NotImplementedError`` from ``plan()``
+naming the ROADMAP slice that brings them.
 
 >>> import numpy as np
 >>> import repro_torch
@@ -41,12 +44,13 @@ _MODES = ("auto", "batch", "streaming", "mapreduce", "serving", "dynamic")
 
 # modes and problem kinds of the reference that later slices bring
 _NOT_PORTED = {
-    "streaming": "streaming mode (ROADMAP A, slice 9: core/smm.py)",
     "mapreduce": "mapreduce mode (ROADMAP A, slice 10: core/distributed.py)",
     "constrained": "constrained selection (ROADMAP A, slice 11: "
                    "repro.constrained)",
     "serving": "serving mode (ROADMAP A, slice 13: serving/rerank.py)",
     "dynamic": "dynamic mode (ROADMAP A, slice 14: repro.dynamic)",
+    "resilience": "resilience= on a stream (ROADMAP A, slice 12: "
+                  "ResiliencePolicy, CheckpointManager)",
 }
 
 
@@ -62,11 +66,12 @@ def _not_ported(what: str):
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ProblemSpec:
-    """WHAT to solve: an in-memory ``(n, d)`` array or tensor ``points``,
-    the budget ``k``, the measure and the metric.  ``weights`` are optional
-    integer multiplicities for a pre-weighted (generalized) batch input.
-    ``labels``/``matroid``/``quotas``/``dim`` keep the reference's fields;
-    the constrained and streamed problems they describe are not ported."""
+    """WHAT to solve: an in-memory ``(n, d)`` array or tensor ``points``, or
+    an iterable of ``(c, d)`` chunks (a stream; ``dim`` optionally names d
+    up front), the budget ``k``, the measure and the metric.  ``weights``
+    are optional integer multiplicities for a pre-weighted (generalized)
+    batch input.  ``labels``/``matroid``/``quotas`` keep the reference's
+    fields; the constrained problems they describe are not ported."""
     points: Any
     k: int
     measure: str = "remote-edge"
@@ -195,11 +200,13 @@ class Plan:
 
     def explain(self, actual: bool = False) -> str:
         """Stable human-readable rendering — the reference's text for the
-        same batch specs.  ``actual=True`` appends predicted vs measured
-        rows read from the last ``execute()``."""
+        same batch or streaming specs.  ``actual=True`` appends predicted vs
+        measured rows read from the last ``execute()``."""
         from .core.sequential import SEQ_ALPHA
 
         k = self.knobs
+        shape = (f"({self.n}, {self.d})" if self.n is not None
+                 else f"stream (d={self.d if self.d is not None else '?'})")
         rows = ("?" if self.coreset_rows is None else
                 f"{'<=' if k['kprime'] == 'auto' else ''}{self.coreset_rows}")
         bts = ("?" if self.coreset_bytes is None else
@@ -209,7 +216,7 @@ class Plan:
             "DiversityPlan",
             f"  mode: {self.mode} ({self.reason})",
             f"  problem: k={self.problem.k}, measure={self.problem.measure},"
-            f" metric={self.problem.metric}, input=({self.n}, {self.d}),"
+            f" metric={self.problem.metric}, input={shape},"
             " constrained=no",
             f"  coreset: {self.variant} construction, {self.kprime_plan}",
             f"  engine: b={k['b']}, chunk={k['chunk']},"
@@ -260,7 +267,7 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
     """Compile (ProblemSpec, ExecutionSpec) into an inspectable ``Plan``.
 
     Pure resolution — nothing executes.  Raises ``NotImplementedError`` for
-    the modes and problem kinds this slice does not port, and
+    the modes and problem kinds this port does not cover yet, and
     ``RuntimeError`` when ``device`` names a CUDA device that is absent.
     """
     from .core.adaptive import auto_milestones, resolve_bars
@@ -271,45 +278,54 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
     if problem.measure not in MEASURES:
         raise ValueError(f"unknown measure {problem.measure!r}; "
                          f"one of {sorted(MEASURES)}")
-    metric_name = get_metric(problem.metric).name
+    metric = get_metric(problem.metric)
     if problem.k < 1:
         raise ValueError(f"k must be >= 1, got {problem.k}")
     if ex.mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}, got {ex.mode!r}")
     device = resolve_device(ex.device)
 
-    if not _is_array(problem.points):
-        raise _not_ported("streaming")     # chunk iterators / update streams
-    if problem.points.ndim == 3:
+    arr = _is_array(problem.points)
+    if arr and problem.points.ndim == 3:
         raise _not_ported("serving")
     if (problem.labels is not None or problem.matroid is not None
             or problem.quotas is not None):
         raise _not_ported("constrained")
-    n = int(problem.points.shape[0])
-    d = int(problem.points.shape[1]) if problem.points.ndim > 1 else None
+    n = int(problem.points.shape[0]) if arr else None
+    d = (int(problem.points.shape[1]) if arr and problem.points.ndim > 1
+         else problem.dim)
 
     # ---- mode ------------------------------------------------------------
     if ex.mode != "auto":
-        if ex.mode != "batch":
+        if ex.mode not in ("batch", "streaming"):
             raise _not_ported(ex.mode)
-        mode, reason = "batch", "requested"
+        mode, reason = ex.mode, "requested"
+    elif not arr:
+        mode, reason = "streaming", "auto: chunk-iterator input"
     elif ex.mesh is not None or (ex.num_reducers or 0) > 1:
         raise _not_ported("mapreduce")
     elif (ex.memory_budget_bytes is not None
           and n * (d or 1) * _itemsize(problem.points)
           > ex.memory_budget_bytes):
-        raise _not_ported("streaming")
+        mode, reason = "streaming", (
+            f"auto: input {n * (d or 1) * _itemsize(problem.points)} B "
+            f"exceeds memory budget {ex.memory_budget_bytes} B")
     else:
         mode, reason = "batch", "auto: in-memory array"
+    if not arr and mode != "streaming":
+        raise ValueError(f"a chunk-iterator source only supports "
+                         f"mode='streaming', got {mode!r}")
     if ex.rebuild not in ("auto", None):
-        raise ValueError("rebuild= tunes the dynamic index and has no batch "
-                         "path")
+        raise ValueError(f"rebuild= tunes the dynamic index and has no "
+                         f"{mode} path")
     if ex.three_round:
         raise ValueError("three_round=True needs the mapreduce mesh path "
                          "(use generalized=True for the simulated path)")
     if ex.recursive:
         raise ValueError("recursive=True needs the unconstrained mapreduce "
                          "mesh path")
+    if problem.weights is not None and mode != "batch":
+        raise ValueError("weights= is batch-only (generalized input)")
     if problem.weights is not None \
             and len(np.atleast_1d(np.asarray(problem.weights))) != n:
         raise ValueError(
@@ -320,12 +336,18 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
         raise ValueError(f"smm_mode must be one of 'plain'/'ext'/'gen', "
                          f"got {ex.smm_mode!r}")
     if ex.resilience is not None:
+        if mode == "streaming":
+            raise _not_ported("resilience")
         raise ValueError("resilience= applies to streaming and mapreduce "
                          "runs (batch is one local dispatch with nothing to "
                          "retry or degrade to)")
+    if mode == "streaming" and not metric.is_metric:
+        raise ValueError(f"SMM needs a true metric, got {problem.metric!r}")
 
     # ---- variant ---------------------------------------------------------
-    if ex.generalized or ex.smm_mode == "gen":
+    if mode == "streaming" and ex.smm_mode is not None:
+        variant = ex.smm_mode
+    elif ex.generalized or ex.smm_mode == "gen":
         variant = "gen"
     else:
         variant = "ext" if problem.measure in NEEDS_INJECTIVE else "plain"
@@ -333,12 +355,14 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
     # ---- knobs -----------------------------------------------------------
     k = problem.k
     kprime = ex.kprime
-    if kprime is None:
-        kprime = max(2 * k, 32)
-    if isinstance(kprime, (int, np.integer)):
+    if kprime is None or (kprime == "auto" and mode == "streaming"):
+        kprime = max(2 * k, 32)           # the SMM state is fixed-size
+    if isinstance(kprime, (int, np.integer)) and mode == "batch":
         kprime = min(int(kprime), n)      # the batch engine clamps k' to n
-    chunk = 0 if ex.chunk == "auto" else ex.chunk
-    use_pallas = resolve_use_pallas(ex.use_pallas, device, metric_name)
+    chunk = ex.chunk
+    if chunk == "auto":
+        chunk = 4096 if mode == "streaming" else 0
+    use_pallas = resolve_use_pallas(ex.use_pallas, device, metric.name)
     eps_eff = 0.1 if ex.eps is None else ex.eps
     tau, cliff = resolve_bars(ex.tau, ex.cliff)
     knobs = {"kprime": kprime, "b": ex.b, "chunk": chunk, "eps": ex.eps,
@@ -346,7 +370,11 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
              "tau": tau, "cliff": cliff, "sprint": ex.sprint,
              "device": device}
 
-    # ---- k' plan + footprint --------------------------------------------
+    # ---- k' plan + layout + footprint ------------------------------------
+    if mode == "streaming":
+        layout = f"one pass, chunk={chunk}, state cap 1x({kprime}+1) centers"
+    else:
+        layout = "single machine, one partition"
     if isinstance(kprime, (int, np.integer)):
         kp_num = int(kprime)
         kprime_plan = f"kprime={kp_num} (fixed)"
@@ -361,8 +389,7 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
         rows_per * 4 if variant == "gen" else 0)
     return Plan(problem=problem, execution=ex, mode=mode, reason=reason,
                 constrained=False, matroid=None, variant=variant, mesh=None,
-                num_reducers=None, knobs=knobs,
-                layout="single machine, one partition",
+                num_reducers=None, knobs=knobs, layout=layout,
                 kprime_plan=kprime_plan, coreset_rows=rows_per,
                 coreset_bytes=bytes_, n=n, d=d)
 
@@ -384,15 +411,35 @@ def _value_of(sol, measure: str, metric: str) -> float:
 def _indices_of(plan_: Plan, pts, sol):
     """Thunk recovering distinct input-row indices for the solution (run
     lazily on first ``DiversityResult.indices`` access) from the device
-    copy of the points, or None when the path cannot recover rows."""
-    if plan_.variant == "gen":
+    copy of the points (``pts``; None moves the input array there on first
+    access), or None when the path cannot recover rows (a stream, a
+    generalized core-set)."""
+    if plan_.n is None or plan_.variant == "gen":
         return None
 
     def match():
         from .data.selection import _match_rows
-        return _match_rows(pts, sol, plan_.problem.k)
+        rows = pts if pts is not None else as_points(
+            plan_.problem.points, plan_.knobs["device"])
+        return _match_rows(rows, sol, plan_.problem.k)
 
     return match
+
+
+def _chunks_of(problem: ProblemSpec, chunk: int):
+    """The points source as an iterator of chunks.  A tensor is sliced
+    where it lies (a tensor on the card is never copied to the host); any
+    other array is cast per chunk, never as a whole, so the memory-budget
+    streaming path holds one chunk at a time."""
+    pts = problem.points
+    if not _is_array(pts):
+        yield from pts
+        return
+    step = chunk if chunk and chunk > 0 else 4096
+    for i in range(0, int(pts.shape[0]), step):
+        part = pts[i:i + step]
+        yield part if isinstance(part, torch.Tensor) else \
+            np.asarray(part, np.float32)
 
 
 def _run_batch(plan_: Plan, tr) -> DiversityResult:
@@ -442,15 +489,58 @@ def _run_batch(plan_: Plan, tr) -> DiversityResult:
             cs, "size", None)), plan=plan_)
 
 
+def _run_streaming(plan_: Plan, tr) -> DiversityResult:
+    """One pass of the SMM core-set over the chunks, then the sequential
+    solver on the core-set (phases stream / finalize / solve / value)."""
+    from .core.sequential import solve_on_coreset
+    from .core.smm import StreamingCoreset
+
+    p, kb = plan_.problem, plan_.knobs
+    smm: Optional[StreamingCoreset] = None
+    dim = plan_.d
+    t = time.perf_counter()
+    n_seen = 0
+    for chunk in _chunks_of(p, kb["chunk"]):
+        chunk = as_points(chunk, kb["device"])
+        if chunk.ndim < 2:
+            chunk = chunk.reshape(1, -1)
+        if smm is None:
+            dim = chunk.shape[1] if dim is None else dim
+            smm = StreamingCoreset(p.k, int(kb["kprime"]), dim,
+                                   metric=p.metric, mode=plan_.variant,
+                                   eps=kb["eps"], device=kb["device"],
+                                   use_pallas=kb["use_pallas"])
+        smm.update(chunk)
+        n_seen += chunk.shape[0]
+    if smm is None:
+        raise ValueError("empty stream")
+    t = tr.phase("stream", t, sync=smm.state)
+    cs = smm.finalize()
+    t = tr.phase("finalize", t, sync=cs)
+    sol = solve_on_coreset(cs, p.k, p.measure, metric=p.metric)
+    t = tr.phase("solve", t, sync=sol)
+    value = _value_of(sol, p.measure, p.metric)
+    tr.phase("value", t)
+    return DiversityResult(
+        solution=to_numpy(sol), value=value,
+        _indices=_indices_of(plan_, None, sol), labels=None, cert=cs.cert,
+        coreset=cs,
+        telemetry=tr.annotate(mode="streaming", n_seen=n_seen,
+                              merges=len(smm.phase_log),
+                              coreset_size=getattr(cs, "size", None)),
+        plan=plan_)
+
+
 def _execute(plan_: Plan) -> DiversityResult:
     from . import obs
 
     tr = obs.trace_from_spec(plan_.execution.trace)
+    run = _run_streaming if plan_.mode == "streaming" else _run_batch
     if tr.enabled:
         with obs.activate(tr):
-            res = _run_batch(plan_, tr)
+            res = run(plan_, tr)
     else:
-        res = _run_batch(plan_, tr)
+        res = run(plan_, tr)
     object.__setattr__(plan_, "_trace", tr)
     return res
 

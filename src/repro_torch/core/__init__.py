@@ -1,7 +1,8 @@
-"""Core library of the port: the batch, unconstrained engine in PyTorch.
+"""Core library of the port: the batch and streaming, unconstrained engines
+in PyTorch.
 
-Streaming (``smm``), MapReduce (``distributed``, ``afz``) and the legacy
-``diversity_maximize`` wrapper are later slices (see ROADMAP.md).
+MapReduce (``distributed``, ``afz``) and the legacy ``diversity_maximize``
+wrapper are later slices (see ROADMAP.md).
 """
 from .adaptive import (AdaptiveGMMResult, RadiusCertificate, auto_kprime,
                        gmm_adaptive)
@@ -14,6 +15,7 @@ from .measures import (MEASURES, NEEDS_INJECTIVE, brute_force_opt, diversity,
                        diversity_of_subset)
 from .metrics import Metric, get_metric, register_metric
 from .sequential import SEQ_ALPHA, solve, solve_on_coreset
+from .smm import SMMState, StreamingCoreset
 
 __all__ = [
     "Coreset", "GeneralizedCoreset", "build_coreset", "coreset_from_points",
@@ -23,5 +25,5 @@ __all__ = [
     "AdaptiveGMMResult", "RadiusCertificate", "auto_kprime", "gmm_adaptive",
     "MEASURES", "NEEDS_INJECTIVE", "brute_force_opt", "diversity",
     "diversity_of_subset", "Metric", "get_metric", "register_metric",
-    "SEQ_ALPHA", "solve", "solve_on_coreset",
+    "SEQ_ALPHA", "solve", "solve_on_coreset", "SMMState", "StreamingCoreset",
 ]

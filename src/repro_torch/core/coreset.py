@@ -107,7 +107,8 @@ def build_coreset(points, k: int, kprime, measure: str, *,
     if generalized:
         if auto:
             ext = gmm_ext_from_kernel(points, kernel.idx, kernel.radius, k,
-                                      metric=metric, chunk=chunk)
+                                      metric=metric, chunk=chunk,
+                                      use_pallas=use_pallas)
             return GeneralizedCoreset(points=points[ext.kernel_idx],
                                       multiplicity=ext.multiplicity,
                                       radius=ext.radius, cert=cert)
@@ -117,7 +118,8 @@ def build_coreset(points, k: int, kprime, measure: str, *,
     if measure in NEEDS_INJECTIVE:
         if auto:
             ext = gmm_ext_from_kernel(points, kernel.idx, kernel.radius, k,
-                                      metric=metric, chunk=chunk)
+                                      metric=metric, chunk=chunk,
+                                      use_pallas=use_pallas)
         else:
             ext = _gmm_ext(points, k, kprime, metric=metric,
                            use_pallas=use_pallas, b=b, chunk=chunk,

@@ -59,7 +59,8 @@ def _sweep_dist(prep: kops.Prepared, centers, metric_name: str):
     """Plain torch distance of every prepared point to its nearest center
     in ``centers`` (rows of ``prep.points``)."""
     if metric_name in ("euclidean", "sqeuclidean", "cosine"):
-        d = kref.pairwise_ref(prep.points, centers, metric_name, xsq=prep.xsq)
+        d = kref.sweep_dist_ref(prep.points, centers, metric_name,
+                                xsq=prep.xsq)
     else:
         d = get_metric(metric_name).pairwise(prep.points, centers)
     return d.min(dim=1).values
@@ -454,18 +455,32 @@ def delegates_from_assign(idx, assign, mask, k: int, kprime: int):
     return cand, valid, mult, assign
 
 
-def _assign_to_centers(points, idx, chunk: int, metric_name: str):
+def _assign_to_centers(points, idx, chunk: int, metric_name: str,
+                       use_pallas: bool = False):
     """Nearest-selected-center index for every point, in row chunks of a
-    (chunk, k') distance tile; the (n, k') matrix never materializes."""
+    (chunk, k') distance tile; the (n, k') matrix never materializes.  With
+    ``use_pallas`` the tiles are the B3 kernel's (``kernels.ops.pairwise``,
+    on rows prepared once); otherwise the plain metric."""
     n = points.shape[0]
     if _counting():
         _count("device_dispatches")
         _count("distance_evals", n * int(idx.shape[0]))
         _count("bytes_swept", _sweep_bytes(n, points.shape[1]))
     ch = _adjust_chunk(n, chunk or 4096)
+    out = torch.empty((n,), dtype=torch.int64, device=points.device)
+    if use_pallas:
+        prep = kops.prepare(points, metric_name)
+        cidx = idx.to(points.device)
+        centers = prep.points.index_select(0, cidx)
+        csq = None if prep.xsq is None else prep.xsq.index_select(0, cidx)
+        for s in range(0, n, ch):
+            xsq = None if prep.xsq is None else prep.xsq[s:s + ch]
+            out[s:s + ch] = torch.argmin(kops.pairwise(
+                prep.points[s:s + ch], centers, metric_name, xsq=xsq,
+                ysq=csq, prepared=True), dim=1)
+        return out
     metric = get_metric(metric_name)
     centers = points.index_select(0, idx)
-    out = torch.empty((n,), dtype=torch.int64, device=points.device)
     for s in range(0, n, ch):
         out[s:s + ch] = torch.argmin(metric.pairwise(points[s:s + ch],
                                                      centers), dim=1)
@@ -491,7 +506,9 @@ def gmm_ext(points, k: int, kprime: int, *, metric="euclidean", mask=None,
         idx, radius, _ = gmm_batched(points, kprime, b=b, metric=metric,
                                      mask=mask, start=start, chunk=chunk,
                                      use_pallas=use_pallas, schedule=schedule)
-        assign = _assign_to_centers(points, idx, chunk, metric_name)
+        assign = _assign_to_centers(
+            points, idx, chunk, metric_name,
+            resolve_use_pallas(use_pallas, points.device, metric_name))
     else:
         res = gmm(points, kprime, metric=metric, mask=mask, start=start,
                   use_pallas=use_pallas)
@@ -504,17 +521,20 @@ def gmm_ext(points, k: int, kprime: int, *, metric="euclidean", mask=None,
 
 
 def gmm_ext_from_kernel(points, idx, radius, k: int, *, metric="euclidean",
-                        mask=None, chunk: int = 0,
+                        mask=None, chunk: int = 0, use_pallas="auto",
                         device=None) -> GMMExtResult:
     """Delegate extraction for an already-selected kernel ``idx`` (k',): one
-    chunked argmin pass recovers the assignment, then the shared delegate
-    table is built."""
+    chunked argmin pass recovers the assignment (through the B3 kernel when
+    ``use_pallas`` resolves to it), then the shared delegate table is
+    built."""
     points = as_points(points, device)
     mask = _as_mask(mask, points)
     metric_name = get_metric(metric).name
     idx = torch.as_tensor(idx, dtype=torch.int64, device=points.device)
     kprime = int(idx.shape[0])
-    assign = _assign_to_centers(points, idx, chunk, metric_name)
+    assign = _assign_to_centers(
+        points, idx, chunk, metric_name,
+        resolve_use_pallas(use_pallas, points.device, metric_name))
     cand, valid, mult, assign = delegates_from_assign(idx, assign, mask, k,
                                                       kprime)
     return GMMExtResult(kernel_idx=idx, delegate_idx=cand,

@@ -3,8 +3,11 @@
 The system has no weights; what crosses over is the engine state and the
 results.  ``from_reference`` turns the reference's ``RadiusCertificate``,
 ``Coreset``/``GeneralizedCoreset`` and ``DiversityResult`` (their arrays
-read as numpy arrays) into the port's types; ``to_numpy`` goes the other
-way, to plain numpy arrays and dataclass fields.  Nothing here imports the
+read as numpy arrays) into the port's types, and ``stream_from_reference``
+the reference's ``StreamingCoreset.state_dict()`` into a live port stream;
+``to_numpy`` goes the other way, to plain numpy arrays and dataclass fields
+(for a stream, the ``(arrays, meta)`` pair the reference's
+``StreamingCoreset.from_state_dict`` takes).  Nothing here imports the
 reference: objects are recognised by their fields.
 """
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 
 from .core.adaptive import RadiusCertificate
 from .core.coreset import Coreset, GeneralizedCoreset
+from .core.smm import StreamingCoreset
 from .device import to_numpy as _host
 
 _CERT_FIELDS = tuple(f.name for f in dataclasses.fields(RadiusCertificate))
@@ -66,14 +70,31 @@ def from_reference(obj, device="cpu"):
     raise TypeError(f"no port counterpart for {type(obj).__name__}")
 
 
+def stream_from_reference(arrays, meta, device="cpu",
+                          use_pallas="auto") -> StreamingCoreset:
+    """The port's ``StreamingCoreset`` resuming a reference stream from its
+    ``state_dict()``: ``arrays`` (read as numpy arrays) and ``meta`` as the
+    reference wrote them.  The stream goes on where the reference's
+    stopped; fed the same chunks, both finalize to the same core-set."""
+    arrays = {name: np.asarray(a) for name, a in arrays.items()}
+    return StreamingCoreset.from_state_dict(arrays, dict(meta),
+                                            device=device,
+                                            use_pallas=use_pallas)
+
+
 def to_numpy(obj):
     """Plain numpy/dataclass form of a port object: tensors become numpy
     arrays; containers become dicts of their fields; a certificate is
-    returned as is (its fields are host values already)."""
+    returned as is (its fields are host values already); a
+    ``StreamingCoreset`` becomes its ``(arrays, meta)`` state in the
+    reference's layout, arrays as numpy."""
     if obj is None or isinstance(obj, RadiusCertificate):
         return obj
     if isinstance(obj, torch.Tensor):
         return _host(obj)
+    if isinstance(obj, StreamingCoreset):
+        arrays, meta = obj.state_dict()
+        return {name: _host(a) for name, a in arrays.items()}, meta
     if isinstance(obj, (Coreset, GeneralizedCoreset)):
         return {f: to_numpy(getattr(obj, f)) for f in obj._fields}
     if hasattr(obj, "solution") and hasattr(obj, "value"):

@@ -9,8 +9,9 @@ stale library is never loaded.  A missing ``nvcc`` or a failed build raises
 with the compiler's output.
 
 ``LAUNCHES`` counts kernel launches per wrapper (``gmm_topb``,
-``gmm_update_select``); each wrapper adds one where it launches its kernel
-and nowhere else, so a run can show that it went through the kernels.
+``gmm_update_select``, ``pairwise``); each wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that it went
+through the kernels.
 """
 from __future__ import annotations
 
@@ -23,12 +24,12 @@ import tempfile
 import time
 from pathlib import Path
 
-LAUNCHES = {"gmm_topb": 0, "gmm_update_select": 0}
+LAUNCHES = {"gmm_topb": 0, "gmm_update_select": 0, "pairwise": 0}
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
 
 _LIB = None
@@ -67,9 +68,41 @@ def _bind(path: Path):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.repro_gmm_sweep.argtypes = [vp] * 9 + [ci] * 7 + [vp]
     lib.repro_gmm_sweep.restype = ci
+    lib.repro_pairwise.argtypes = [vp] * 5 + [ci] * 4 + [vp]
+    lib.repro_pairwise.restype = ci
     lib.repro_error_string.argtypes = [ci]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _run_all(cmds):
+    """Run the commands side by side (their output goes to
+    ``BUILD_INFO["log"]``); raise with the output of the first that
+    fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    BUILD_INFO["log"] += "".join(logs)
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                f"{log}")
+
+
+def _compile_and_link(nvcc: str, tmp_dir: Path, out: Path) -> None:
+    """One nvcc per source, all started together, then one link.  The
+    library is written under a temporary name and renamed, so concurrent
+    first uses never load a half-written one."""
+    BUILD_INFO["log"] = ""
+    srcs = [src for src in _sources() if src.suffix == ".cu"]
+    objs = [tmp_dir / (src.stem + ".o") for src in srcs]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+              for o, src in zip(objs, srcs)])
+    tmp_lib = tmp_dir / LIB_NAME
+    _run_all([[nvcc, "-shared", "-o", str(tmp_lib), *map(str, objs)]])
+    os.replace(tmp_lib, out)
 
 
 def library():
@@ -87,19 +120,8 @@ def library():
                 "building the CUDA kernels needs nvcc (not on PATH, not "
                 "under $CUDA_HOME/bin or /usr/local/cuda/bin)")
         out.parent.mkdir(parents=True, exist_ok=True)
-        # build to a temporary name and rename: concurrent first uses never
-        # load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_INFO["log"] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-                f"{BUILD_INFO['log']}")
-        os.replace(tmp, out)
+        with tempfile.TemporaryDirectory(dir=out.parent) as tmp_dir:
+            _compile_and_link(nvcc, Path(tmp_dir), out)
     _LIB = _bind(out)
     BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(out),
                       cached=cached)

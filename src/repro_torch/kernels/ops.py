@@ -7,10 +7,12 @@ kernel is a pure dot + arccos), keep ``bn >= p`` and clamp indices to
 the plain torch version (``kernels.ref``) only because the tensors it was
 given lie on the CPU; there is no switch that swaps the kernel out.
 
-``prepare`` computes the loop invariants of a run (normalized points for
-cosine, squared norms for the euclidean modes) once; engines pass them back
-in with ``prepared=True`` so no sweep re-reads the points to recompute
-them.  ``LAUNCHES`` counts kernel launches per wrapper.
+``pairwise`` is the distance tile (B3) of the streaming core-set and the
+assignment pass.  ``prepare`` computes the loop invariants of a run
+(normalized points for cosine, squared norms for the euclidean modes) once;
+engines pass them back in with ``prepared=True`` so no sweep re-reads the
+points to recompute them.  ``LAUNCHES`` counts kernel launches per
+wrapper.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from . import ref
 from .build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
 from .gmm_topb import gmm_topb_cuda
 from .gmm_update import gmm_update_select_cuda
+from .pairwise import pairwise_cuda
 
 
 def _metric_to_mode(metric_name: str):
@@ -64,6 +67,34 @@ def _inputs(points, centers, metric_name, xsq, prepared):
         if norm:
             centers = _normalize(centers)
     return mode, points, centers, xsq
+
+
+def pairwise(x, y, metric_name: str = "sqeuclidean", *, xsq=None, ysq=None,
+             prepared: bool = False):
+    """Distance matrix (m, n) between the rows of x and y (port of
+    ``repro.kernels.ops.pairwise``): the B3 kernel for CUDA tensors, its
+    plain version ``ref.pairwise_ref`` for CPU tensors.
+
+    Cosine normalizes both sides first; the euclidean modes compute the
+    squared norms not passed in.  With ``prepared=True`` the rows are
+    already in kernel form (``prepare``) and ``xsq``/``ysq`` carry their
+    squared norms: a caller that meets the same rows again (the streaming
+    core-set's centers) passes them in and every call sees the same values.
+    Nothing is padded or copied.
+    """
+    mode, norm = _metric_to_mode(metric_name)
+    x = x.to(torch.float32).contiguous()
+    y = y.to(torch.float32).contiguous()
+    if not prepared and norm:
+        x, y = _normalize(x), _normalize(y)
+    if mode in ("sqeuclidean", "euclidean"):
+        xsq = torch.sum(x * x, dim=-1) if xsq is None else xsq
+        ysq = torch.sum(y * y, dim=-1) if ysq is None else ysq
+    else:
+        xsq = ysq = None
+    if x.is_cuda:
+        return pairwise_cuda(x, y, xsq, ysq, mode=mode)
+    return ref.pairwise_ref(x, y, mode, xsq=xsq, ysq=ysq)
 
 
 def gmm_update_select(points, centers, min_in, mask, metric_name: str,

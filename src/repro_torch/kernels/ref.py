@@ -1,4 +1,5 @@
-"""Plain torch versions of the sweep kernels (port of ``repro.kernels.ref``).
+"""Plain torch versions of the kernels (port of ``repro.kernels.ref``):
+the sweeps (B1, B2) and the distance tile (B3, ``pairwise_ref``).
 
 These are the ``ref`` side of every kernel-vs-plain comparison: the CPU
 tests run them, ``chip_smoke.py`` holds the CUDA kernels against them on the
@@ -21,23 +22,65 @@ def _sq(x):
     return torch.sum(x * x, dim=-1)
 
 
-def pairwise_ref(x, y, mode: str = "sqeuclidean", xsq=None):
-    """Distance matrix (m, n).
+def _transform(dot, xsq, ysq, mode):
+    """The kernels' epilogue on an (m, n) block of dot products."""
+    if mode in ("sqeuclidean", "euclidean"):
+        d2 = torch.clamp(xsq[:, None] + ysq[None, :] - 2.0 * dot, min=0.0)
+        return torch.sqrt(d2) if mode == "euclidean" else d2
+    if mode == "dot":
+        return -dot
+    if mode == "cosine":
+        return torch.arccos(torch.clamp(dot, -1.0, 1.0))
+    raise ValueError(mode)
+
+
+def _norms(x, y, xsq, ysq, mode):
+    if mode not in ("sqeuclidean", "euclidean"):
+        return None, None
+    return (_sq(x) if xsq is None else xsq), (_sq(y) if ysq is None else ysq)
+
+
+def sweep_dist_ref(x, y, mode: str = "sqeuclidean", xsq=None):
+    """Distance block (m, n) of the sweep kernels' plain versions: the
+    factorized form over one BLAS product ``x @ y.T``.
 
     modes: sqeuclidean | euclidean | dot (similarity, negated so that larger
     = farther is monotone with distance) | cosine (arccos of cosine sim —
     inputs are expected pre-normalized by the ops wrapper).
     """
-    if mode in ("sqeuclidean", "euclidean"):
-        xx = _sq(x) if xsq is None else xsq
-        d2 = xx[:, None] + _sq(y)[None, :] - 2.0 * (x @ y.T)
-        d2 = torch.clamp(d2, min=0.0)
-        return torch.sqrt(d2) if mode == "euclidean" else d2
-    if mode == "dot":
-        return -(x @ y.T)
-    if mode == "cosine":
-        return torch.arccos(torch.clamp(x @ y.T, -1.0, 1.0))
-    raise ValueError(mode)
+    xsq, ysq = _norms(x, y, xsq, None, mode)
+    return _transform(x @ y.T, xsq, ysq, mode)
+
+
+def dot_in_order(x, y):
+    """``x @ y.T`` with every entry summed over d in index order, one
+    rounded product and one rounded add per step — the B3 kernel's own
+    chain.  An entry depends on its two rows only, so a one-column call
+    equals the same column of a full tile bit for bit; a BLAS product does
+    not promise that (MKL sums a matrix-vector product in another order
+    than a matrix product)."""
+    out = torch.zeros((x.shape[0], y.shape[0]), dtype=torch.float32,
+                      device=x.device)
+    for k in range(x.shape[1]):
+        out += x[:, k, None] * y[None, :, k]
+    return out
+
+
+def pairwise_ref(x, y, mode: str = "sqeuclidean", xsq=None, ysq=None):
+    """Plain version of the B3 distance kernel: the (m, n) distance matrix
+    in the factorized form (modes as in ``sweep_dist_ref``; ``xsq``/``ysq``
+    optionally pass the squared norms in).
+
+    The dot products are the kernel's chain (``dot_in_order``), on any
+    device: each entry depends on its two rows only — the streaming
+    core-set's far-point path recomputes one column after each insert and
+    relies on it — and on the card the kernel and this version agree bit
+    for bit, so a stream decides the same on both paths.  It repeats the
+    kernel's arithmetic and is no yardstick of speed: d launches per call
+    (``torch.cdist`` is the library call a time is held against).
+    """
+    xsq, ysq = _norms(x, y, xsq, ysq, mode)
+    return _transform(dot_in_order(x, y), xsq, ysq, mode)
 
 
 def topk_stable(values, p: int):
@@ -62,7 +105,7 @@ def gmm_update_select_ref(points, centers, min_in, mask,
 
     Returns (min_out (n,), argmax () int64, max ()).
     """
-    d = pairwise_ref(points, centers, mode, xsq=xsq).min(dim=1).values
+    d = sweep_dist_ref(points, centers, mode, xsq=xsq).min(dim=1).values
     min_out, masked = masked_field(min_in, d, mask)
     j = torch.argmax(masked)
     return min_out, j, take(masked, j)
@@ -79,7 +122,7 @@ def gmm_topb_ref(points, centers, min_in, mask, mode: str = "euclidean",
     """Fused batched GMM round: running min plus the exact global top-p of
     the updated masked field.  Returns (min_out (n,), vals (p,), idx (p,))."""
     p = centers.shape[0] if p is None else p
-    d = pairwise_ref(points, centers, mode, xsq=xsq).min(dim=1).values
+    d = sweep_dist_ref(points, centers, mode, xsq=xsq).min(dim=1).values
     new_min, masked = masked_field(min_in, d, mask)
     vals, idx = topk_stable(masked, p)
     return new_min, vals, idx
@@ -105,7 +148,7 @@ def gmm_topb_tiled_ref(points, centers, min_in, mask, mode: str = "euclidean",
     if bn < p:
         raise ValueError(f"tile rows bn={bn} < p={p}")
     n = points.shape[0]
-    d = pairwise_ref(points, centers, mode, xsq=xsq).min(dim=1).values
+    d = sweep_dist_ref(points, centers, mode, xsq=xsq).min(dim=1).values
     new_min, masked = masked_field(min_in, d, mask)
     tiles = -(-n // bn)
     pad = tiles * bn - n

@@ -168,19 +168,27 @@ def test_tensor_points_stay_on_their_device():
 def test_unported_modes_raise_with_their_slice(kind):
     pts = np.zeros((64, 4), np.float32)
     ex, prob = {}, dict(points=pts, k=4)
-    if kind in ("streaming", "mapreduce", "serving", "dynamic"):
+    if kind in ("mapreduce", "serving", "dynamic"):
         ex["mode"] = kind
+    elif kind in ("streaming", "budget"):
+        # streaming itself is ported (slice 9); resilience= on a stream is
+        # the part still to come (slice 12)
+        ex["resilience"] = object()
+        if kind == "streaming":
+            ex["mode"] = "streaming"
+        else:
+            ex["memory_budget_bytes"] = 16
     elif kind == "constrained":
         prob["labels"] = np.zeros(64, int)
-    elif kind == "budget":
-        ex["memory_budget_bytes"] = 16
     else:
         ex["num_reducers"] = 4
     with pytest.raises(NotImplementedError, match="ROADMAP A, slice"):
         repro_torch.plan(repro_torch.ProblemSpec(**prob),
                          repro_torch.ExecutionSpec(device="cpu", **ex))
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        repro_torch.plan(repro_torch.ProblemSpec(points=iter([pts]), k=4),
+    # a constrained stream names the constrained slice
+    with pytest.raises(NotImplementedError, match="slice 11"):
+        repro_torch.plan(repro_torch.ProblemSpec(points=iter([pts]), k=4,
+                                                 quotas=[2, 2]),
                          repro_torch.ExecutionSpec(device="cpu"))
 
 

@@ -1,20 +1,25 @@
 """Tests that need a CUDA card: the hand-written kernels against their plain
-torch versions, and the engine with the kernels against the engine without
-them.  They skip without a card (the CUDA kernels have no CPU mode) and
-import nothing of JAX, so they run where only PyTorch for CUDA is
-installed:
+torch versions, and the engine (batch and streaming) with the kernels
+against the engine without them.  They skip without a card (the CUDA
+kernels have no CPU mode) and import nothing of JAX, so they run where only
+PyTorch for CUDA is installed:
 
     python -m pytest -q tests/test_torch_cuda.py
 
 Tolerance: rtol = atol = 3e-5 for the kernels (the reference's kernel
 parity); the engine runs must agree exactly on picks and schedules and to
-rtol 1e-4 on radii and values (the reference's end-to-end parity).
+rtol 1e-4 on radii and values (the reference's end-to-end parity).  The B3
+kernel and its plain version compute the same chain of rounded products
+and adds, so a stream's decisions must be equal on both paths; its d_i
+(and the phase log's) agree to rtol 1e-5, which only absorbs a last-ulp
+difference of sqrt/acos between the kernel's and torch's math library.
 """
 import numpy as np
 import pytest
 import torch
 
 import repro_torch
+import repro_torch.core
 from repro_torch.kernels import ops, ref
 
 MODES = ["sqeuclidean", "euclidean", "dot", "cosine"]
@@ -46,7 +51,8 @@ def test_cuda_kernels_match_plain_on_card(cuda_device, mode):
         ops.reset_launches()
         g_min, g_val, g_idx = ops.gmm_topb(x, c, m, k, mode, p=p)
         u_min, u_arg, u_max = ops.gmm_update_select(x, c, m, k, mode)
-        assert ops.LAUNCHES == {"gmm_topb": 1, "gmm_update_select": 1}
+        assert ops.LAUNCHES == {"gmm_topb": 1, "gmm_update_select": 1,
+                                "pairwise": 0}
         prep = ops.prepare(x, mode)
         cc = ops._normalize(c) if mode == "cosine" else c
         r_min, r_val, r_idx = ref.gmm_topb_ref(prep.points, cc, m, k, mode,
@@ -86,3 +92,96 @@ def test_cuda_engine_with_and_without_kernels(cuda_device, metric, knobs):
         assert kern.cert.meets_target == plain.cert.meets_target
         np.testing.assert_allclose(kern.cert.radii, plain.cert.radii,
                                    rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_pairwise_matches_plain_on_card(cuda_device, mode):
+    # ragged m, n, d; the three tile configurations (narrow n <= 4, medium,
+    # wide) all run, and every entry is the same chain in each
+    g = torch.Generator().manual_seed(3)
+    for m, n, d in [(33, 5, 3), (1000, 17, 129), (4097, 300, 64),
+                    (4097, 1025, 17), (70, 1, 5000)]:
+        x = torch.randn((m, d), generator=g).to(cuda_device)
+        y = torch.randn((n, d), generator=g).to(cuda_device)
+        ops.reset_launches()
+        got = ops.pairwise(x, y, mode)
+        assert ops.LAUNCHES["pairwise"] == 1
+        px, py = ops.prepare(x, mode), ops.prepare(y, mode)
+        want = ref.pairwise_ref(px.points, py.points, mode, xsq=px.xsq,
+                                ysq=py.xsq)
+        torch.testing.assert_close(got, want, **TOL)
+        full = ops.pairwise(px.points, py.points, mode, xsq=px.xsq,
+                            ysq=py.xsq, prepared=True)
+        assert torch.equal(full, got)
+        for s in sorted({0, n // 2, n - 1}):
+            col = ops.pairwise(px.points, py.points[s:s + 1], mode,
+                               xsq=px.xsq,
+                               ysq=None if py.xsq is None
+                               else py.xsq[s:s + 1], prepared=True)
+            assert torch.equal(col[:, 0], full[:, s]), (m, n, d, s)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+@pytest.mark.parametrize("smm_mode", ["plain", "ext", "gen"])
+def test_cuda_stream_with_and_without_kernels(cuda_device, metric, smm_mode):
+    rg = np.random.default_rng(9)
+    n = 20000
+    pts = (rg.normal(size=(n, 8)) * (1 + np.arange(n)[:, None] / 2000)) \
+        .astype(np.float32)
+    x = torch.as_tensor(pts, device=cuda_device)
+    runs = {}
+    for use_pallas in ("auto", False):
+        smm = repro_torch.core.StreamingCoreset(
+            6, 48, 8, metric=metric, mode=smm_mode, use_pallas=use_pallas)
+        ops.reset_launches()
+        for i in range(0, n, 1500):
+            smm.update(x[i:i + 1500])
+        launched = ops.LAUNCHES["pairwise"]
+        assert (launched > 0) == (use_pallas == "auto")
+        runs[use_pallas] = smm
+    kern, plain = runs["auto"], runs[False]
+    ks, ps = kern.state, plain.state
+    assert torch.equal(ks.t_valid, ps.t_valid)
+    assert torch.equal(ks.T[ks.t_valid], ps.T[ps.t_valid])
+    assert torch.equal(ks.e_cnt, ps.e_cnt)
+    np.testing.assert_allclose(float(ks.d_thr), float(ps.d_thr), rtol=1e-5)
+    assert [c for c, _ in kern.phase_log] == [c for c, _ in plain.phase_log]
+    np.testing.assert_allclose([d for _, d in kern.phase_log],
+                               [d for _, d in plain.phase_log], rtol=1e-5)
+    assert kern.generation == plain.generation
+    kc, pc = kern.certificate(), plain.certificate()
+    assert kc.counts == pc.counts
+    np.testing.assert_allclose([kc.radius, kc.scale],
+                               [pc.radius, pc.scale], rtol=1e-5)
+
+
+def test_cuda_streaming_facade_runs_the_kernel_by_default(cuda_device):
+    pts = np.random.default_rng(2).normal(size=(9000, 16)) \
+        .astype(np.float32)
+    ops.reset_launches()
+    res = repro_torch.diversify(
+        (pts[i:i + 1000] for i in range(0, 9000, 1000)), k=5,
+        measure="remote-clique", metric="cosine")
+    assert ops.LAUNCHES["pairwise"] > 0
+    assert res.coreset.points.is_cuda
+    assert res.solution.shape == (5, 16) and np.isfinite(res.value)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_cuda_batch_ext_assignment_runs_the_kernel(cuda_device, metric):
+    # remote-clique's batch core-set recovers each point's nearest kernel
+    # center through B3 tiles on the card (plain metric tiles without it)
+    pts = np.random.default_rng(4).normal(size=(6000, 24)) \
+        .astype(np.float32)
+    x = torch.as_tensor(pts, device=cuda_device)
+    runs = {}
+    for use_pallas in ("auto", False):
+        ops.reset_launches()
+        runs[use_pallas] = repro_torch.diversify(
+            x, k=6, measure="remote-clique", metric=metric,
+            execution=repro_torch.ExecutionSpec(use_pallas=use_pallas))
+        assert (ops.LAUNCHES["pairwise"] > 0) == (use_pallas == "auto")
+    kern, plain = runs["auto"], runs[False]
+    np.testing.assert_array_equal(kern.indices, plain.indices)
+    np.testing.assert_allclose(kern.value, plain.value, rtol=1e-4)
+    assert torch.equal(kern.coreset.valid, plain.coreset.valid)

@@ -23,8 +23,9 @@ PORT = SRC / "repro_torch"
 
 def test_import_pulls_in_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.core, "
-            "repro_torch.kernels, repro_torch.obs, repro_torch.data.selection,"
-            " repro_torch.interop\n"
+            "repro_torch.core.smm, repro_torch.kernels, "
+            "repro_torch.kernels.pairwise, repro_torch.obs, "
+            "repro_torch.data.selection, repro_torch.interop\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -38,7 +39,10 @@ def test_import_pulls_in_neither_jax_nor_repro():
 def test_sources_never_import_jax_or_repro():
     pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|"
                      r"(from|import)\s+repro(\.|\s|$))", re.M)
-    hits = [str(p) for p in PORT.rglob("*.py") if pat.search(p.read_text())]
+    scanned = list(PORT.rglob("*.py"))
+    assert PORT / "core" / "smm.py" in scanned
+    assert PORT / "kernels" / "pairwise.py" in scanned
+    hits = [str(p) for p in scanned if pat.search(p.read_text())]
     assert not hits, hits
 
 
@@ -51,6 +55,18 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
         port_device.as_points(pts)
     with pytest.raises(RuntimeError, match="cuda"):
         repro_torch.plan(repro_torch.ProblemSpec(points=pts, k=2))
+
+
+def test_stream_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.zeros((16, 2), np.float32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        repro_torch.diversify(iter([pts]), k=2)
+    from repro_torch.core import StreamingCoreset
+    with pytest.raises(RuntimeError, match="cuda"):
+        StreamingCoreset(2, 8, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        StreamingCoreset(2, 8, 2, device="cpu", use_pallas=True)
 
 
 def test_kernel_switch_refuses_cpu_tensors():
@@ -86,7 +102,8 @@ def test_build_module_needs_nvcc_only_when_asked(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_LIB", None)
     monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
     monkeypatch.setattr(build, "find_nvcc", lambda: None)
-    assert build.LAUNCHES.keys() == {"gmm_topb", "gmm_update_select"}
+    assert build.LAUNCHES.keys() == {"gmm_topb", "gmm_update_select",
+                                     "pairwise"}
     with pytest.raises(RuntimeError, match="nvcc"):
         build.library()
     assert not any(tmp_path.iterdir())

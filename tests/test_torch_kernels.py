@@ -151,7 +151,9 @@ def test_cpu_wrappers_launch_nothing():
     pts, cs, mi, mask = _case(64, 3, 2, 0)
     ops.gmm_topb(*_port(pts, cs, mi, mask), "cosine", p=4)
     ops.gmm_update_select(*_port(pts, cs, mi, mask), "euclidean")
-    assert ops.LAUNCHES == {"gmm_topb": 0, "gmm_update_select": 0}
+    ops.pairwise(*_port(pts, cs), "euclidean")
+    assert ops.LAUNCHES == {"gmm_topb": 0, "gmm_update_select": 0,
+                            "pairwise": 0}
 
 
 def test_manhattan_has_no_kernel_mode():
