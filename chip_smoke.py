@@ -15,7 +15,12 @@ Phases, each printing one JSON line (or one per call):
               {1, 8}, p in {1, 32, 128, 256}; the distance tile (B3) at
               small ragged shapes and the four streaming tile shapes below,
               where a one-column call must also equal its tile's column bit
-              for bit.  Values must match to 3e-5.
+              for bit; the grouped sweep (B4) at ragged n, m in {2, 16, 64}
+              groups of 8 centers (m = 64 reads the centers from device
+              memory, the others stage them in shared memory; m = 2 also
+              runs the device-memory path), one empty group, rows labelled
+              -1, p in {1, 8, 128, 256}, and at the main shape.  Values
+              must match to 3e-5; every B4 index must lie in [0, n).
 3. main     — ``repro_torch.diversify`` at the paper's musiXmatch shape
               (237,662 songs x 5,000 words, cosine), synthesized on the card
               from ``--seed``: (a) cosine with default knobs, (b) euclidean
@@ -39,18 +44,37 @@ Phases, each printing one JSON line (or one per call):
               reads per chunk, and kernel and plain must agree on the
               core-set, d_i, the phase log, the certificate and the picks,
               and on the value to rtol 1e-4.
-5. times    — median kernel and plain times by CUDA events: the sweeps at
-              the main shape beside their bytes bound, the distance tile at
-              the streaming shapes beside its bound and, for euclidean,
-              ``torch.cdist``'s time (the library call; the port never
-              calls it on this path).
-6. profile  — device-only torch.profiler traces of batch call (a) and stream
-              call (b): device time by kernel and the device's busy share
-              of that call's wall time (full tables in chiprun_out/).
+5. constrained — ``repro_torch.diversify`` on constrained problems at the
+              musiXmatch shape, with synthetic "genre" labels over 16 groups
+              with Zipf(1) shares made on the card from ``--seed`` (the
+              follow-up paper's genre partition; its label file is not in
+              the repo): (e) remote-edge, k = 32, labels alone (2 per
+              group), default knobs, cosine and euclidean; (f) the same
+              with ``kprime=64, b=1``; (g) remote-clique, quotas 2 per
+              group, ``kprime=8`` (the delegates pass through B3); three
+              calls per side in turns, kernel and plain agreeing on the
+              picks and labels, the quotas, the value (rtol 1e-4), the
+              per-group radius and certificate, the schedule and every
+              counter.  (h) the constrained stream, remote-edge, k = 32,
+              quotas 2 per group, k' = 256, chunk 4,096: the kernel side
+              runs the whole stream three times, and the agreement runs
+              kernel and plain once each on the first 8 of the 59 chunks
+              (the plain B3 chain costs ~0.1 s a tile at d = 5,000).
+6. times    — median kernel and plain times by CUDA events: the sweeps at
+              the main shape beside their bytes bound, the grouped sweep
+              there (16 groups of 8 centers, p in {1, 128}; 64 groups on
+              the device-memory path), the distance tile at the streaming
+              shapes beside its bound and, for euclidean, ``torch.cdist``'s
+              time (the library call; the port never calls it on this
+              path).
+7. profile  — device-only torch.profiler traces of batch call (a), stream
+              call (b) and constrained call (e) cosine: device time by
+              kernel and the device's busy share of that call's wall time
+              (full tables in chiprun_out/).
 
 The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before it.
-``--rehearse`` runs phases 2-4 at a tiny size on the CPU with the plain
+``--rehearse`` runs phases 2-5 at a tiny size on the CPU with the plain
 versions (no build, no timings, no ``ok`` line) to check the script itself.
 """
 from __future__ import annotations
@@ -84,7 +108,12 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pairwise.cu",
         "replaces": "src/repro/kernels/pairwise.py:59"},
+    "gmm_grouped_topb": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gmm_grouped.cu",
+        "replaces": "src/repro/kernels/gmm_update.py:187"},
 }
+GROUPS = 16                    # synthetic genres of the constrained phase
 
 
 def emit(obj) -> None:
@@ -220,6 +249,60 @@ def check_pairwise(x, y, mode, errs, label):
                  f"{label}, column {s}")
 
 
+def check_grouped(x, mode, m, p, gen, errs, label, staged=None, bc=8):
+    """One B4 case: the grouped sweep against its plain version on the same
+    prepared inputs.  Group 1 is empty, ~5 % of the rows are labelled -1
+    (they keep min_in and are never candidates), centers are data rows
+    pushed off the data, and min_in straddles each row's own-group
+    distance.  ``staged`` forces the kernel's center path (None: shared
+    memory where the centers fit)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.gmm_update import gmm_grouped_topb_cuda
+    n, d = x.shape
+    dev = x.device
+    rows = torch.randint(0, n, (m * bc,), generator=gen, device=dev)
+    cen = (x[rows] + torch.rand((m * bc, d), generator=gen, device=dev)
+           * 2.0 - 1.0).view(m, bc, d)
+    prep = ops.prepare(x, mode)
+    cen_k = (ops._normalize(cen) if mode == "cosine" else cen).contiguous()
+    labels = torch.randint(0, m, (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    labels[labels == 1] = 0
+    labels[torch.rand((n,), generator=gen, device=dev) < 0.05] = -1
+    inf = torch.full((n,), float("inf"), device=dev)
+    own = ref.gmm_grouped_topb_ref(prep.points, cen_k, inf, labels, mode, 1,
+                                   xsq=prep.xsq)[0]
+    own = torch.where(torch.isinf(own), torch.ones_like(own), own)
+    min_in = own * (0.5 + torch.rand((n,), generator=gen, device=dev))
+    if x.is_cuda:
+        km, kv, ki = gmm_grouped_topb_cuda(prep.points, cen_k, prep.xsq,
+                                           min_in, labels, mode=mode, p=p,
+                                           staged=staged)
+    else:
+        km, kv, ki = ops.grouped_gmm_topb(prep.points, cen_k, min_in,
+                                          labels, mode, p, xsq=prep.xsq,
+                                          prepared=True)
+    rm, rv, ri = ref.gmm_grouped_topb_ref(prep.points, cen_k, min_in, labels,
+                                          mode, p, xsq=prep.xsq)
+    field = torch.where(labels[None, :] == torch.arange(
+        m, device=dev)[:, None], rm[None, :], float("-inf"))
+
+    def picked(vals, idx):
+        # the values an index set selects (exact ties pass); a -inf fill
+        # entry selects nothing, its index only has to lie in [0, n)
+        return torch.sort(torch.where(torch.isfinite(vals),
+                                      torch.gather(field, 1, idx),
+                                      float("-inf")), dim=1).values
+    ok = (_close(km, rm) and _close(kv, rv)
+          and bool(((ki >= 0) & (ki < n)).all())
+          and _close(picked(kv, ki), picked(rv, ri)))
+    errs["gmm_grouped_topb"] = max(errs["gmm_grouped_topb"], _err(km, rm),
+                                   _err(kv, rv))
+    if not ok:
+        fail(f"gmm_grouped_topb disagrees with plain at {label}")
+
+
 STREAM_TILES = {"chunk": 4096, "caps": (257, 1025, 129),
                 "sphere_chunk": 65536, "sphere_cap": 513}
 REHEARSAL_TILES = {"chunk": 512, "caps": (9, 65, 17), "sphere_chunk": 4096,
@@ -243,7 +326,7 @@ def phase_kernels(big, seed: int, small_only: bool, tiles=()):
     import torch
     dev = big.device
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    errs = {"gmm_topb": 0.0, "gmm_update_select": 0.0, "pairwise": 0.0}
+    errs = dict.fromkeys(KERNELS, 0.0)
     cases = 0
     t0 = time.perf_counter()
     for n in (33, 1000, 4097):
@@ -275,6 +358,24 @@ def phase_kernels(big, seed: int, small_only: bool, tiles=()):
     for label, x, y, mode in tiles:
         check_pairwise(x, y, mode, errs, label)
         cases += 1
+    # B4: ragged n, both center paths (m = 64 reads device memory; m = 2
+    # also runs that path forced), p up to 256
+    for n, d in ((1000, 17), (4097, 128)):
+        x = torch.randn((n, d), generator=gen, device=dev)
+        for mode in MODES:
+            for m, staged in ((2, None), (2, False), (16, None), (64, None)):
+                for p in (1, 8, 128, 256):
+                    check_grouped(x, mode, m, p, gen, errs,
+                                  f"n={n} d={d} {mode} m={m} p={p} "
+                                  f"staged={staged}", staged=staged)
+                    cases += 1
+    if not small_only:
+        for mode in MODES:
+            for m in (2, GROUPS, 64):
+                for p in (1, 128):
+                    check_grouped(big, mode, m, p, gen, errs,
+                                  f"main shape {mode} m={m} p={p}")
+                    cases += 1
     if dev.type == "cuda":
         torch.cuda.synchronize()
     emit({"phase": "kernels", "cases": cases, "tolerance": TOL,
@@ -316,7 +417,7 @@ def _spread(secs):
 
 def phase_main(x, device, check_launches: bool, pairs: int = 10):
     import numpy as np
-    launches = {"gmm_topb": 0, "gmm_update_select": 0, "pairwise": 0}
+    launches = dict.fromkeys(KERNELS, 0)
     kernel_median_s = {}
     # untimed warm-up of both paths: a process's first engine call pays
     # one-time library set-up (~0.1-0.4 s) that would land on whichever
@@ -474,7 +575,7 @@ def phase_stream(data, device, check_launches: bool, runs: int = 3,
     kernel, ...).  Returns (launches of the first kernel run of each call,
     summed; per-call kernel median seconds)."""
     import numpy as np
-    launches = {"gmm_topb": 0, "gmm_update_select": 0, "pairwise": 0}
+    launches = dict.fromkeys(KERNELS, 0)
     median_s = {}
     order = ["auto", False, False, "auto"] * runs
     order = order[:2 * runs]
@@ -549,7 +650,237 @@ def phase_stream(data, device, check_launches: bool, runs: int = 3,
 
 
 # --------------------------------------------------------------------------
-# phase 5: times
+# phase 5: the constrained path
+# --------------------------------------------------------------------------
+
+def genre_labels(n: int, m: int, seed: int, device):
+    """Synthetic "genre" labels: m groups with Zipf(1) shares (the smallest
+    of 16 holds ~1.8 % of the rows).  The follow-up paper
+    (arXiv:2002.03175) runs musiXmatch under a genre partition matroid;
+    its label file is not in the repo, so the labels are made here."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed + 3)
+    w = 1.0 / torch.arange(1, m + 1, dtype=torch.float64, device=device)
+    return torch.multinomial((w / w.sum()).float(), n, replacement=True,
+                             generator=g).to(torch.int32)
+
+
+def constrained_calls(full: bool):
+    """(name, problem, knobs) of the constrained batch calls; ``full=False``
+    is the rehearsal's tiny size."""
+    k = 32 if full else GROUPS
+    quotas = [k // GROUPS] * GROUPS
+    return [
+        ("e_cosine_labels_k32", dict(k=k, metric="cosine"), {}),
+        ("e_euclidean_labels_k32", dict(k=k), {}),
+        ("f_cosine_labels_k32_kp64_b1", dict(k=k, metric="cosine"),
+         dict(kprime=64 if full else 16, b=1)),
+        ("g_cosine_clique_quotas_k32_kp8",
+         dict(k=k, metric="cosine", measure="remote-clique", quotas=quotas),
+         dict(kprime=8 if full else 4)),
+    ]
+
+
+def _run_constrained(x, labels, problem, knobs, use_pallas, device):
+    import torch
+    import repro_torch
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = repro_torch.diversify(x, labels=labels,
+                                execution=repro_torch.ExecutionSpec(
+                                    use_pallas=use_pallas, device=device,
+                                    trace=True, **knobs), **problem)
+    idx = res.indices
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    return res, idx, time.perf_counter() - t0, dict(ops.LAUNCHES)
+
+
+def _agree_constrained(kres, pres, kidx, pidx, labels_np):
+    """Kernel against plain on one constrained call: the same picks and
+    labels, quotas met, value to rtol 1e-4, per-group radius and
+    certificate to rtol 1e-4, the same executed schedule, equal
+    counters."""
+    import numpy as np
+    from repro_torch.device import to_numpy
+    mat = kres.plan.matroid
+    kc, pc = kres.cert, pres.cert
+
+    def close(a, b):
+        a, b = np.asarray(a, float), np.asarray(b, float)
+        return a.shape == b.shape and bool(np.allclose(a, b, rtol=RTOL_E2E,
+                                                       atol=0.0))
+    agree = {
+        "picks": bool(np.array_equal(kidx, pidx)),
+        "labels": bool(np.array_equal(kres.labels, pres.labels)
+                       and np.array_equal(labels_np[kidx], kres.labels)),
+        "quotas": bool(mat.basis_feasible(np.bincount(kres.labels,
+                                                      minlength=mat.m))),
+        "value": bool(np.isclose(kres.value, pres.value, rtol=RTOL_E2E,
+                                 atol=0.0)),
+        "counters": dict(kres.telemetry.counters)
+        == dict(pres.telemetry.counters),
+    }
+    if kres.coreset is not None:
+        agree["group_radius"] = close(to_numpy(kres.coreset.radius),
+                                      to_numpy(pres.coreset.radius))
+    if kc is not None or pc is not None:
+        agree["certificate"] = (
+            kc.meets_target == pc.meets_target
+            and close((kc.radius, kc.scale, kc.ratio),
+                      (pc.radius, pc.scale, pc.ratio))
+            and close(kc.group_ratios, pc.group_ratios))
+        agree["b_schedule"] = kc.b_schedule == pc.b_schedule
+    return agree
+
+
+def phase_constrained(x, labels, device, check_launches: bool,
+                      runs: int = 3, full: bool = True):
+    """The constrained batch calls, ``runs`` per side in turns, then the
+    constrained stream.  Returns (launches of the first kernel run of each
+    call, summed; per-call kernel median seconds)."""
+    import numpy as np
+    from repro_torch.device import to_numpy
+    launches = dict.fromkeys(KERNELS, 0)
+    median_s = {}
+    labels_np = to_numpy(labels)
+    sizes = np.bincount(labels_np, minlength=GROUPS)
+    emit({"phase": "constrained", "labels": "synthetic genres, Zipf(1)",
+          "groups": GROUPS, "group_rows": sizes.tolist()})
+    order = (["auto", False, False, "auto"] * runs)[:2 * runs]
+    for name, problem, knobs in constrained_calls(full):
+        out = {"auto": [], False: []}
+        for use_pallas in order:
+            out[use_pallas].append(_run_constrained(x, labels, problem, knobs,
+                                                    use_pallas, device))
+        (kres, kidx, _, kl), (pres, pidx, _, _) = out["auto"][0], \
+            out[False][0]
+        for side in ("auto", False):
+            first, idx0 = out[side][0][0], out[side][0][1]
+            for res, idx, _, _ in out[side][1:]:
+                if not (np.array_equal(idx, idx0)
+                        and res.value == first.value):
+                    fail(f"{name}: a repeated run gave another answer")
+        ks = [r[2] for r in out["auto"]]
+        ps = [r[2] for r in out[False]]
+        kc = kres.cert
+        row = {"phase": "constrained", "call": name, "n": int(x.shape[0]),
+               "d": int(x.shape[1]),
+               "problem": {k: v for k, v in problem.items()
+                           if k != "quotas"},
+               "quotas": f"{problem['quotas'][0]} per group"
+               if "quotas" in problem else "labels alone (balanced)",
+               "knobs": knobs,
+               "kernel_seconds": _spread(ks), "plain_seconds": _spread(ps),
+               "kernel_over_plain_median":
+                   statistics.median(ks) / statistics.median(ps),
+               "kernel_launches": kl,
+               "coreset_rows": kres.telemetry.extras["coreset_size"],
+               "counters": dict(kres.telemetry.counters),
+               "value": [kres.value, pres.value],
+               "agree": _agree_constrained(kres, pres, kidx, pidx,
+                                           labels_np)}
+        if kres.coreset is not None:
+            row["group_radius"] = [to_numpy(kres.coreset.radius).tolist(),
+                                   to_numpy(pres.coreset.radius).tolist()]
+        if kc is not None:
+            row.update({"ratio": [kc.ratio, pres.cert.ratio],
+                        "meets_target": kc.meets_target,
+                        "kprime": kc.kprime,
+                        "b_schedule": list(map(list, kc.b_schedule)),
+                        "worst_group_ratio": max(kc.group_ratios)})
+        emit(row)
+        bad = [k for k, ok in row["agree"].items() if not ok]
+        if bad:
+            fail(f"{name}: kernel and plain disagree on {bad}")
+        if not (np.isfinite(kres.solution).all()
+                and kres.solution.shape == (problem["k"], x.shape[1])
+                and len(set(kidx.tolist())) == problem["k"]):
+            fail(f"{name}: solution is not k distinct finite rows")
+        if any(any(lc.values()) for *_, lc in out[False]):
+            fail(f"{name}: a kernel launched on a plain run")
+        if check_launches:
+            want = ["gmm_grouped_topb"] + (
+                ["pairwise"] if problem.get("measure") == "remote-clique"
+                else [])
+            if any(kl[w] <= 0 for w in want):
+                fail(f"{name}: {want} not all launched on the kernel run")
+        for k, v in kl.items():
+            launches[k] += v
+        median_s[name] = statistics.median(ks)
+    s_launches, s_median = phase_constrained_stream(
+        x, labels, device, check_launches, runs=runs, full=full)
+    for k, v in s_launches.items():
+        launches[k] += v
+    median_s.update(s_median)
+    return launches, median_s
+
+
+def phase_constrained_stream(x, labels, device, check_launches: bool,
+                             runs: int = 3, full: bool = True):
+    """Call (h): the constrained stream.  The kernel side runs the whole
+    stream ``runs`` times; kernel and plain then run once each on the first
+    8 chunks and must agree (the plain B3 chain is launch-bound at
+    d = 5,000)."""
+    import numpy as np
+    import torch
+    from repro_torch.device import to_numpy
+    k = 32 if full else GROUPS
+    chunk = 4096 if full else 512
+    problem = dict(k=k, metric="cosine", quotas=[k // GROUPS] * GROUPS)
+    knobs = dict(mode="streaming", kprime=256 if full else 16, chunk=chunk)
+    name = "h_cosine_stream_quotas_k32_kp256"
+    n = int(x.shape[0])
+    chunks = -(-n // chunk)
+    full_runs = [_run_constrained(x, labels, problem, knobs, "auto", device)
+                 for _ in range(runs)]
+    kres, kidx, _, kl = full_runs[0]
+    for res, idx, _, _ in full_runs[1:]:
+        if not (np.array_equal(idx, kidx) and res.value == kres.value):
+            fail(f"{name}: a repeated run gave another answer")
+    part = 8 * chunk
+    xs, ls = x[:part], labels[:part]
+    kp = _run_constrained(xs, ls, problem, knobs, "auto", device)
+    pp = _run_constrained(xs, ls, problem, knobs, False, device)
+    ks = [r[2] for r in full_runs]
+    tr = kres.telemetry
+    row = {"phase": "constrained", "call": name, "n": n,
+           "d": int(x.shape[1]), "problem": {"k": k, "metric": "cosine"},
+           "quotas": f"{k // GROUPS} per group", "knobs": knobs,
+           "kernel_seconds": _spread(ks),
+           "kernel_points_per_s": n / statistics.median(ks),
+           "chunks": chunks, "tiles": tr.counters["device_dispatches"],
+           "merges": tr.counters.get("merges", 0),
+           "far_inserts": tr.counters.get("far_inserts", 0),
+           "host_reads_per_chunk": tr.counters["host_syncs"] / chunks,
+           "coreset_rows": tr.extras["coreset_size"],
+           "kernel_launches": kl, "value": kres.value,
+           "ratio": kres.cert.ratio,
+           "worst_group_ratio": max(kres.cert.group_ratios),
+           "reduced": f"plain on 8 of {chunks} chunks",
+           "reduced_kernel_seconds": kp[2], "reduced_plain_seconds": pp[2],
+           "agree": _agree_constrained(kp[0], pp[0], kp[1], pp[1],
+                                       to_numpy(ls))}
+    emit(row)
+    bad = [key for key, ok in row["agree"].items() if not ok]
+    if bad:
+        fail(f"{name}: kernel and plain disagree on {bad}")
+    if not (np.isfinite(kres.solution).all()
+            and kres.solution.shape == (k, x.shape[1])
+            and len(set(kidx.tolist())) == k):
+        fail(f"{name}: solution is not k distinct finite rows")
+    if any(pp[3].values()):
+        fail(f"{name}: a kernel launched on a plain run")
+    if check_launches and kl["pairwise"] <= 0:
+        fail(f"{name}: pairwise never launched on the kernel run")
+    if x.is_cuda:
+        torch.cuda.empty_cache()
+    return kl, {name: statistics.median(ks)}
+
+
+# --------------------------------------------------------------------------
+# phase 6: times
 # --------------------------------------------------------------------------
 
 def _time_ms(fn, reps: int = 10):
@@ -628,6 +959,64 @@ def phase_times(x, seed: int):
     return rows
 
 
+def grouped_bound_ms(n, d, m, bc, p):
+    """Least time for one grouped sweep: the larger of its bytes (points and
+    centers read once, min_in and labels read, min_out written, the m·p
+    (value, index) pairs written) over the memory rate and its own-group
+    fp32 operations (2·n·bc·d) over the CUDA-core rate."""
+    bytes_ = n * d * 4 + 12 * n + m * bc * d * 4 + m * p * 8
+    tb = bytes_ / HBM_BYTES_PER_S * 1e3
+    to = 2 * n * bc * d / FP32_FLOPS * 1e3
+    return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def phase_times_grouped(x, labels, seed: int):
+    """B4 at the main shape: 16 groups of 8 centers at p = 128 (the block
+    step's pool at b = 8) and p = 1, the same 16 groups forced onto the
+    device-memory center path, and 64 groups (where that path is the
+    kernel's own choice) at p = 128.  No single PyTorch call fuses the
+    own-group distance, the min and a per-group top-p, so there is no
+    library time."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.gmm_update import (gmm_grouped_topb_cuda,
+                                                grouped_tile_rows)
+    n, d = x.shape
+    gen = torch.Generator(device=x.device).manual_seed(seed + 4)
+    prep = ops.prepare(x, "cosine")
+    min_in = torch.full((n,), float("inf"), device=x.device)
+    rows = []
+    for m, p, staged in ((GROUPS, 128, None), (GROUPS, 1, None),
+                         (GROUPS, 128, False), (64, 128, None)):
+        bc = 8
+        lab = labels if m == GROUPS else torch.randint(
+            0, m, (n,), generator=gen, device=x.device, dtype=torch.int32)
+        cen = prep.points[torch.randint(0, n, (m * bc,), generator=gen,
+                                        device=x.device)].view(m, bc, d)
+        kern = (lambda: ops.grouped_gmm_topb(prep.points, cen, min_in, lab,
+                                             "cosine", p, prepared=True)) \
+            if staged is None else (lambda: gmm_grouped_topb_cuda(
+                prep.points, cen, None, min_in, lab, mode="cosine", p=p,
+                staged=staged))
+        plain = (lambda: ref.gmm_grouped_topb_ref(prep.points, cen, min_in,
+                                                  lab, "cosine", p))
+        ms, host_ms = _time_ms(kern)
+        pms, _ = _time_ms(plain)
+        bms, bby = grouped_bound_ms(n, d, m, bc, p)
+        rows.append({"kernel": "gmm_grouped_topb", "mode": "cosine", "n": n,
+                     "d": d, "m": m, "bc": bc, "p": p,
+                     "bn": grouped_tile_rows(p),
+                     "centers": "shared memory"
+                     if m * bc <= 128 and staged is None
+                     else "device memory",
+                     "ms": ms, "host_ms": host_ms, "plain_ms": pms,
+                     "library_ms": None, "bound_ms": bms, "bound_by": bby,
+                     "share_of_bound": bms / ms,
+                     "GBps": (n * d * 4 + 12 * n) / (ms * 1e-3) / 1e9})
+    emit({"phase": "times", "rows": rows})
+    return rows
+
+
 def pairwise_bound_ms(m, n, d):
     """Least time for one distance tile: its fp32 operations (2·m·n·d) over
     the CUDA-core rate, or its bytes (both inputs read once, the output
@@ -671,7 +1060,7 @@ def phase_times_pairwise(tiles):
 
 
 # --------------------------------------------------------------------------
-# phase 5: where the time of one main-path call goes
+# phase 7: where the time of one main-path call goes
 # --------------------------------------------------------------------------
 
 def phase_profile(call, name: str, out: Path, unprofiled_s: float):
@@ -738,6 +1127,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny CPU run of phases 2-4 with the plain versions")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -759,6 +1149,9 @@ def main(argv=None) -> int:
                                          REHEARSAL_TILES))
         phase_main(data["mxm"], "cpu", check_launches=False, pairs=2)
         phase_stream(data, "cpu", check_launches=False, runs=1, full=False)
+        phase_constrained(data["mxm"], genre_labels(3000, GROUPS, args.seed,
+                                                    "cpu"),
+                          "cpu", check_launches=False, runs=1, full=False)
         emit({"phase": "rehearsal", "ok": True})
         return 0
 
@@ -808,8 +1201,17 @@ def main(argv=None) -> int:
         launches[k] += v
     torch.cuda.empty_cache()
 
-    # ---- 5. times, 6. profile ---------------------------------------------
+    # ---- 5. constrained path --------------------------------------------
+    genres = genre_labels(x.shape[0], GROUPS, args.seed, "cuda")
+    c_launches, constrained_s = phase_constrained(x, genres, "cuda",
+                                                  check_launches=True)
+    for k, v in c_launches.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+
+    # ---- 6. times, 7. profile ---------------------------------------------
     rows = phase_times(x, args.seed)
+    g_rows = phase_times_grouped(x, genres, args.seed)
     far = x.shape[0] // 2
     b_rows = phase_times_pairwise(tiles + [(
         "stream tile 4096x1025x5000 euclidean", x[:4096],
@@ -825,17 +1227,28 @@ def main(argv=None) -> int:
             mode="streaming", device="cuda", **knobs), **problem),
         "stream_b_cosine_edge_k128_kp1024", out,
         stream_s["b_cosine_edge_k128_kp1024"])
+    _, problem, knobs = constrained_calls(True)[0]
+    phase_profile(lambda: repro_torch.diversify(
+        x, labels=genres, execution=repro_torch.ExecutionSpec(
+            device="cuda", **knobs), **problem).indices,
+        "constrained_e_cosine_labels_k32", out,
+        constrained_s["e_cosine_labels_k32"])
     pick = {"gmm_topb": next(r for r in rows if r["b"] == 8 and r["p"] == 128),
             "gmm_update_select": next(r for r in rows if r["b"] == 1
                                       and r["p"] == 1),
-            "pairwise": next(r for r in b_rows if r["d"] == 3)}
+            "pairwise": next(r for r in b_rows if r["d"] == 3),
+            "gmm_grouped_topb": next(r for r in g_rows
+                                     if r["m"] == GROUPS and r["p"] == 128
+                                     and r["centers"] == "shared memory")}
     at_keys = {"gmm_topb": ("mode", "n", "d", "b", "p"),
                "gmm_update_select": ("mode", "n", "d", "b", "p"),
-               "pairwise": ("mode", "m", "n", "d")}
+               "pairwise": ("mode", "m", "n", "d"),
+               "gmm_grouped_topb": ("mode", "n", "d", "m", "bc", "p")}
     if "jax" in sys.modules or "repro" in sys.modules:
         fail("the port pulled in jax or the reference package")
     emit({"phase": "memory",
-          "max_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+          "max_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "script_seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],
@@ -843,7 +1256,7 @@ def main(argv=None) -> int:
          "plain_ms": pick[name]["plain_ms"],
          "bound_ms": pick[name]["bound_ms"],
          "bound_by": pick[name]["bound_by"],
-         # B1/B2: no single PyTorch call fuses distance, min and top-p
+         # B1/B2/B4: no single PyTorch call fuses distance, min and top-p
          "library_ms": pick[name].get("library_ms"),
          "at": {k: pick[name][k] for k in at_keys[name]}}
         for name in KERNELS]})

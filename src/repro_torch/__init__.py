@@ -5,8 +5,9 @@ The port of the JAX package ``repro``, placed beside it.  It imports
 anything of ``repro``.  The front door is
 ``repro_torch.diversify(ProblemSpec, ExecutionSpec)``; its sweeps run the
 hand-written CUDA kernels of ``repro_torch.kernels`` on the card (the
-default device) and a plain torch version on the CPU.  This slice ports the
-batch, unconstrained path (see ROADMAP.md for the rest).
+default device) and a plain torch version on the CPU.  Ported so far: the batch
+and streaming paths, unconstrained and constrained (``repro_torch.
+constrained``); see ROADMAP.md for the rest.
 """
 
 _API = ("diversify", "plan", "ProblemSpec", "ExecutionSpec", "Plan",

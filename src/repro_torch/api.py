@@ -1,5 +1,5 @@
 """One front door: ``repro_torch.diversify(ProblemSpec, ExecutionSpec)``
-(port of ``repro.api``, batch and streaming slices).
+(port of ``repro.api``: batch, streaming and constrained slices).
 
 * ``ProblemSpec`` says WHAT to solve (points, ``k``, measure, metric);
 * ``ExecutionSpec`` says HOW: the reference's fields (so one kwargs dict
@@ -17,9 +17,13 @@ mode); ``True`` on the CPU raises.  Batch and streaming modes are ported:
 a chunk iterator, ``mode="streaming"`` or an array over
 ``memory_budget_bytes`` runs the one-pass SMM core-set
 (``core.smm.StreamingCoreset``), whose distance tiles go through the B3
-kernel.  MapReduce, serving, dynamic and constrained problems, and
-``resilience=`` on a stream, raise ``NotImplementedError`` from ``plan()``
-naming the ROADMAP slice that brings them.
+kernel.  Constrained problems (``labels=`` with ``quotas=``, a
+``matroid=`` or the labels alone) run in both modes through
+``repro_torch.constrained``: per-group core-sets on the grouped sweep (B4)
+in batch, one SMM state per group in a stream.  MapReduce (constrained or
+not), serving and dynamic modes, and ``resilience=`` on a stream, raise
+``NotImplementedError`` from ``plan()`` naming the ROADMAP slice that
+brings them.
 
 >>> import numpy as np
 >>> import repro_torch
@@ -45,8 +49,8 @@ _MODES = ("auto", "batch", "streaming", "mapreduce", "serving", "dynamic")
 # modes and problem kinds of the reference that later slices bring
 _NOT_PORTED = {
     "mapreduce": "mapreduce mode (ROADMAP A, slice 10: core/distributed.py)",
-    "constrained": "constrained selection (ROADMAP A, slice 11: "
-                   "repro.constrained)",
+    "constrained_mapreduce": "constrained mapreduce (ROADMAP A, slice 10: "
+                             "constrained/mapreduce.py)",
     "serving": "serving mode (ROADMAP A, slice 13: serving/rerank.py)",
     "dynamic": "dynamic mode (ROADMAP A, slice 14: repro.dynamic)",
     "resilience": "resilience= on a stream (ROADMAP A, slice 12: "
@@ -70,8 +74,11 @@ class ProblemSpec:
     an iterable of ``(c, d)`` chunks (a stream; ``dim`` optionally names d
     up front), the budget ``k``, the measure and the metric.  ``weights``
     are optional integer multiplicities for a pre-weighted (generalized)
-    batch input.  ``labels``/``matroid``/``quotas`` keep the reference's
-    fields; the constrained problems they describe are not ported."""
+    batch input.  ``labels`` (an ``(n,)`` int array of group ids; for a
+    stream, the source yields ``(chunk, labels)`` pairs) with ``quotas``
+    (exact per-group counts) or ``matroid`` (any ``constrained.matroid``
+    oracle) makes the problem constrained; labels alone balance k across
+    the groups."""
     points: Any
     k: int
     measure: str = "remote-edge"
@@ -200,8 +207,9 @@ class Plan:
 
     def explain(self, actual: bool = False) -> str:
         """Stable human-readable rendering — the reference's text for the
-        same batch or streaming specs.  ``actual=True`` appends predicted vs
-        measured rows read from the last ``execute()``."""
+        same batch or streaming specs, constrained or not.  ``actual=True``
+        appends predicted vs measured rows read from the last
+        ``execute()``."""
         from .core.sequential import SEQ_ALPHA
 
         k = self.knobs
@@ -212,12 +220,14 @@ class Plan:
         bts = ("?" if self.coreset_bytes is None else
                f"{'<=' if k['kprime'] == 'auto' else ''}"
                f"{_fmt_bytes(self.coreset_bytes)}")
+        cons = (f"yes ({self.matroid.__class__.__name__}, m={self.matroid.m})"
+                if self.constrained else "no")
         lines = [
             "DiversityPlan",
             f"  mode: {self.mode} ({self.reason})",
             f"  problem: k={self.problem.k}, measure={self.problem.measure},"
             f" metric={self.problem.metric}, input={shape},"
-            " constrained=no",
+            f" constrained={cons}",
             f"  coreset: {self.variant} construction, {self.kprime_plan}",
             f"  engine: b={k['b']}, chunk={k['chunk']},"
             f" schedule={'none' if k['schedule'] is None else k['schedule']},"
@@ -228,7 +238,9 @@ class Plan:
             f"  layout: {self.layout}",
             f"  predicted coreset: {rows} rows, {bts}",
             f"  solver: sequential alpha={SEQ_ALPHA[self.problem.measure]}"
-            f" ({self.problem.measure})",
+            f" ({self.problem.measure})"
+            + (f", feasible greedy + {self.execution.swap_rounds}"
+               " swap rounds" if self.constrained else ""),
         ]
         if actual:
             lines.extend(self._explain_actual())
@@ -262,6 +274,39 @@ class Plan:
         return _execute(self)
 
 
+def _resolve_constraint(problem: ProblemSpec, streamed: bool):
+    """Resolve (constrained, matroid), as the reference does: quotas and
+    matroid are mutually exclusive, labels alone balance k across groups,
+    and a streamed constrained source must spell the matroid out."""
+    from .constrained import PartitionMatroid
+
+    labels, matroid, quotas = problem.labels, problem.matroid, problem.quotas
+    if matroid is None and quotas is None and labels is None:
+        return False, None
+    if matroid is not None and quotas is not None:
+        raise ValueError("pass either matroid= or quotas=, not both")
+    if labels is None and not streamed:
+        raise ValueError("quotas=/matroid= require group_labels= "
+                         "(ProblemSpec.labels=) for array input")
+    if matroid is not None:
+        mat = matroid
+    elif quotas is not None:
+        quotas = np.asarray(quotas, np.int64)
+        if int(quotas.sum()) != problem.k:
+            raise ValueError(
+                f"sum(quotas)={int(quotas.sum())} != k={problem.k}")
+        mat = PartitionMatroid(quotas)
+    else:
+        if streamed:
+            raise ValueError("a constrained stream needs matroid= or "
+                             "quotas= (labels arrive with the chunks)")
+        from .data.selection import balanced_quotas
+        mat = PartitionMatroid(balanced_quotas(to_numpy(labels), problem.k))
+    if mat.k != problem.k:
+        raise ValueError(f"matroid.k={mat.k} != k={problem.k}")
+    return True, mat
+
+
 def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
          ) -> Plan:
     """Compile (ProblemSpec, ExecutionSpec) into an inspectable ``Plan``.
@@ -288,22 +333,22 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
     arr = _is_array(problem.points)
     if arr and problem.points.ndim == 3:
         raise _not_ported("serving")
-    if (problem.labels is not None or problem.matroid is not None
-            or problem.quotas is not None):
-        raise _not_ported("constrained")
     n = int(problem.points.shape[0]) if arr else None
     d = (int(problem.points.shape[1]) if arr and problem.points.ndim > 1
          else problem.dim)
+    constrained, mat = _resolve_constraint(problem, streamed=not arr)
+    mr_slice = "constrained_mapreduce" if constrained else "mapreduce"
 
     # ---- mode ------------------------------------------------------------
     if ex.mode != "auto":
         if ex.mode not in ("batch", "streaming"):
-            raise _not_ported(ex.mode)
+            raise _not_ported(mr_slice if ex.mode == "mapreduce"
+                              else ex.mode)
         mode, reason = ex.mode, "requested"
     elif not arr:
         mode, reason = "streaming", "auto: chunk-iterator input"
     elif ex.mesh is not None or (ex.num_reducers or 0) > 1:
-        raise _not_ported("mapreduce")
+        raise _not_ported(mr_slice)
     elif (ex.memory_budget_bytes is not None
           and n * (d or 1) * _itemsize(problem.points)
           > ex.memory_budget_bytes):
@@ -318,13 +363,15 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
     if ex.rebuild not in ("auto", None):
         raise ValueError(f"rebuild= tunes the dynamic index and has no "
                          f"{mode} path")
+    if constrained and (ex.generalized or ex.three_round):
+        raise ValueError("generalized/three-round has no constrained path")
     if ex.three_round:
         raise ValueError("three_round=True needs the mapreduce mesh path "
                          "(use generalized=True for the simulated path)")
     if ex.recursive:
         raise ValueError("recursive=True needs the unconstrained mapreduce "
                          "mesh path")
-    if problem.weights is not None and mode != "batch":
+    if problem.weights is not None and (mode != "batch" or constrained):
         raise ValueError("weights= is batch-only (generalized input)")
     if problem.weights is not None \
             and len(np.atleast_1d(np.asarray(problem.weights))) != n:
@@ -371,10 +418,14 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
              "device": device}
 
     # ---- k' plan + layout + footprint ------------------------------------
+    m_groups = mat.m if constrained else 1
     if mode == "streaming":
-        layout = f"one pass, chunk={chunk}, state cap 1x({kprime}+1) centers"
+        layout = (f"one pass, chunk={chunk}, "
+                  f"state cap {m_groups}x({kprime}+1) centers")
     else:
         layout = "single machine, one partition"
+    if constrained:
+        layout += f", {m_groups} matroid groups"
     if isinstance(kprime, (int, np.integer)):
         kp_num = int(kprime)
         kprime_plan = f"kprime={kp_num} (fixed)"
@@ -384,11 +435,14 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
         arrow = " -> ".join(str(c) for c in miles + [kmax])
         kprime_plan = (f"kprime=auto (milestones {arrow}, eps={eps_eff}, "
                        "x2 first step, secant-refined)")
-    rows_per = kp_num * (k if variant == "ext" else 1)
+    if constrained:
+        kprime_plan += f" x {m_groups} groups"
+    rows_per = m_groups * kp_num * (k if variant == "ext" else 1)
     bytes_ = None if d is None else rows_per * d * 4 + (
         rows_per * 4 if variant == "gen" else 0)
     return Plan(problem=problem, execution=ex, mode=mode, reason=reason,
-                constrained=False, matroid=None, variant=variant, mesh=None,
+                constrained=constrained, matroid=mat, variant=variant,
+                mesh=None,
                 num_reducers=None, knobs=knobs, layout=layout,
                 kprime_plan=kprime_plan, coreset_rows=rows_per,
                 coreset_bytes=bytes_, n=n, d=d)
@@ -408,12 +462,13 @@ def _value_of(sol, measure: str, metric: str) -> float:
     return diversity(measure, to_numpy(get_metric(metric).pairwise(sol, sol)))
 
 
-def _indices_of(plan_: Plan, pts, sol):
+def _indices_of(plan_: Plan, pts, sol, sol_labels=None):
     """Thunk recovering distinct input-row indices for the solution (run
     lazily on first ``DiversityResult.indices`` access) from the device
     copy of the points (``pts``; None moves the input array there on first
-    access), or None when the path cannot recover rows (a stream, a
-    generalized core-set)."""
+    access), or None when the path cannot recover rows (a chunk iterator, a
+    generalized core-set).  With ``sol_labels`` (a constrained stream) a
+    solution point only matches rows of its own group."""
     if plan_.n is None or plan_.variant == "gen":
         return None
 
@@ -421,25 +476,32 @@ def _indices_of(plan_: Plan, pts, sol):
         from .data.selection import _match_rows
         rows = pts if pts is not None else as_points(
             plan_.problem.points, plan_.knobs["device"])
+        if sol_labels is not None and plan_.problem.labels is not None:
+            return _match_rows(rows, sol, plan_.problem.k,
+                               row_labels=plan_.problem.labels,
+                               sol_labels=sol_labels)
         return _match_rows(rows, sol, plan_.problem.k)
 
     return match
 
 
-def _chunks_of(problem: ProblemSpec, chunk: int):
-    """The points source as an iterator of chunks.  A tensor is sliced
-    where it lies (a tensor on the card is never copied to the host); any
-    other array is cast per chunk, never as a whole, so the memory-budget
-    streaming path holds one chunk at a time."""
+def _chunks_of(problem: ProblemSpec, chunk: int, constrained: bool = False):
+    """The points source as an iterator of chunks (of ``(chunk, labels)``
+    pairs for a constrained run).  A tensor is sliced where it lies (a
+    tensor on the card is never copied to the host); any other array is
+    cast per chunk, never as a whole, so the memory-budget streaming path
+    holds one chunk at a time."""
     pts = problem.points
     if not _is_array(pts):
         yield from pts
         return
+    lab = None if problem.labels is None else to_numpy(problem.labels)
     step = chunk if chunk and chunk > 0 else 4096
     for i in range(0, int(pts.shape[0]), step):
         part = pts[i:i + step]
-        yield part if isinstance(part, torch.Tensor) else \
+        part = part if isinstance(part, torch.Tensor) else \
             np.asarray(part, np.float32)
+        yield (part, lab[i:i + step]) if constrained else part
 
 
 def _run_batch(plan_: Plan, tr) -> DiversityResult:
@@ -531,11 +593,93 @@ def _run_streaming(plan_: Plan, tr) -> DiversityResult:
         plan=plan_)
 
 
+def _run_batch_constrained(plan_: Plan, tr) -> DiversityResult:
+    """Per-group core-sets on the grouped engine, then the feasible greedy +
+    swap solver on their union; the indices come straight from the
+    core-set (no row matching)."""
+    from .constrained import grouped_coreset
+    from .constrained.solver import solve_and_value
+
+    p, kb, mat = plan_.problem, plan_.knobs, plan_.matroid
+    t = time.perf_counter()
+    pts = as_points(p.points, kb["device"])     # the one move to the device
+    labels_np = np.asarray(to_numpy(p.labels))
+    cs = grouped_coreset(pts, labels_np, mat.m, mat.k, kb["kprime"],
+                         measure=p.measure, metric=p.metric,
+                         use_pallas=kb["use_pallas"], b=kb["b"],
+                         chunk=kb["chunk"], schedule=kb["schedule"],
+                         eps=kb["eps"], tau=plan_.execution.tau,
+                         cliff=plan_.execution.cliff, sprint=kb["sprint"])
+    t = tr.phase("coreset", t, sync=cs)
+    cand_idx, cand_labels = cs.flatten()
+    cand = pts.index_select(0, torch.as_tensor(cand_idx, device=pts.device))
+    sel, value = solve_and_value(cand, cand_labels, measure=p.measure,
+                                 matroid=mat, metric=p.metric,
+                                 swap_rounds=plan_.execution.swap_rounds)
+    tr.phase("solve", t)
+    indices = np.asarray(cand_idx[sel])
+    return DiversityResult(
+        solution=to_numpy(cand[torch.as_tensor(sel, device=pts.device)]),
+        value=value, _indices=indices, labels=labels_np[indices],
+        cert=cs.cert, coreset=cs,
+        telemetry=tr.annotate(mode="batch", coreset_size=cs.size),
+        plan=plan_)
+
+
+def _run_streaming_constrained(plan_: Plan, tr) -> DiversityResult:
+    """One SMM state per group over the labelled chunks, then the feasible
+    greedy + swap solver on the union (phases stream / finalize / solve)."""
+    from .constrained import FairStreamingCoreset
+    from .constrained.solver import solve_and_value
+
+    p, kb, mat = plan_.problem, plan_.knobs, plan_.matroid
+    dim = plan_.d
+    smm: Optional[FairStreamingCoreset] = None
+    t = time.perf_counter()
+    n_seen = 0
+    for chunk, labels in _chunks_of(p, kb["chunk"], constrained=True):
+        chunk = as_points(chunk, kb["device"])
+        if chunk.ndim < 2:
+            chunk = chunk.reshape(1, -1)
+        if smm is None:
+            dim = chunk.shape[1] if dim is None else dim
+            smm = FairStreamingCoreset(matroid=mat, kprime=int(kb["kprime"]),
+                                       dim=dim, metric=p.metric,
+                                       mode=plan_.variant, eps=kb["eps"],
+                                       device=kb["device"],
+                                       use_pallas=kb["use_pallas"])
+        smm.update(chunk, labels)
+        n_seen += chunk.shape[0]
+    if smm is None:
+        raise ValueError("empty stream")
+    t = tr.phase("stream", t, sync=smm.state)
+    cand_pts, cand_labels = smm.finalize()
+    cert = smm.certificate()
+    t = tr.phase("finalize", t, sync=cand_pts)
+    sel, value = solve_and_value(cand_pts, cand_labels, measure=p.measure,
+                                 matroid=mat, metric=p.metric,
+                                 swap_rounds=plan_.execution.swap_rounds)
+    tr.phase("solve", t)
+    sol = cand_pts[torch.as_tensor(sel, device=cand_pts.device)]
+    sol_lab = cand_labels[sel]
+    return DiversityResult(
+        solution=to_numpy(sol), value=value,
+        _indices=_indices_of(plan_, None, sol, sol_labels=sol_lab),
+        labels=np.asarray(sol_lab), cert=cert, coreset=None,
+        telemetry=tr.annotate(mode="streaming", n_seen=n_seen,
+                              coreset_size=int(cand_pts.shape[0])),
+        plan=plan_)
+
+
 def _execute(plan_: Plan) -> DiversityResult:
     from . import obs
 
     tr = obs.trace_from_spec(plan_.execution.trace)
-    run = _run_streaming if plan_.mode == "streaming" else _run_batch
+    if plan_.constrained:
+        run = (_run_streaming_constrained if plan_.mode == "streaming"
+               else _run_batch_constrained)
+    else:
+        run = _run_streaming if plan_.mode == "streaming" else _run_batch
     if tr.enabled:
         with obs.activate(tr):
             res = run(plan_, tr)

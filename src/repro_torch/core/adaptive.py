@@ -283,7 +283,7 @@ def _resume_impl(prep, labels, min_dist, idx, start: int, end: int, m: int,
 
 
 # --------------------------------------------------------------------------
-# the host-paced adaptive loop (m=1 == unconstrained)
+# the host-paced adaptive loop (generic over m groups; m=1 == unconstrained)
 # --------------------------------------------------------------------------
 
 @dataclasses.dataclass
@@ -328,12 +328,12 @@ def adaptive_select(points, labels, starts, m: int, k_cap: int, *,
     continuation.  With ``milestones`` and ``eps`` the loop stops at the
     first milestone whose measured certificate ratio meets ``eps`` (the
     ``auto_kprime`` growth loop); an unmet milestone re-plans the next one
-    with ``_secant_next``.  Only m=1 (unconstrained) is ported.
+    with ``_secant_next``.  The loop is generic over ``m`` groups (m = 1
+    is the unconstrained engine): a block truncates when a group that still
+    has fresh points (``group_counts`` above the picks so far) fails a bar,
+    and a milestone is met when every inhabited, unfinished group meets
+    ``eps``.
     """
-    if m != 1:
-        raise NotImplementedError(
-            "grouped adaptive selection (m > 1) belongs to the constrained "
-            "slice (ROADMAP A, slice 11), which is not ported yet")
     tau, cliff = resolve_bars(tau, cliff)
     points = as_points(points, device)
     dev = points.device

@@ -17,8 +17,10 @@ PyTorch runs eagerly, so the reference's ``fori_loop``/``lax.map`` bodies
 are Python loops over device tensors; no loop here reads a device value on
 the host.  Index tensors are int64.  Invalid points are handled with
 ``mask`` (their field value is pinned to −inf, so they are never selected).
-Only the unconstrained m=1 engine is ported; the grouped m>1 sweep belongs
-to the constrained slice.
+The selection engine is generic over m groups: m = 1 is the unconstrained
+sweep (B1/B2), m > 1 the constrained engine's grouped sweep (B4,
+``kernels.ops.grouped_gmm_topb``), where each point folds only its own
+group's centers.
 """
 from __future__ import annotations
 
@@ -147,51 +149,108 @@ def gmm(points, k: int, *, metric="euclidean", mask=None, start=0,
 
 
 # --------------------------------------------------------------------------
-# the single-sweep selection engine (schedule-driven; m=1 ported)
+# the single-sweep selection engine (schedule-driven, generic over m groups)
 # --------------------------------------------------------------------------
 
 def _make_grouped_sweep(prep, labels, m: int, p: int, chunk: int,
                         metric_name: str, use_pallas: bool):
     """Build the fused sweep closure ``sweep(min_dist, cidx)``: fold the
-    center block ``prep.points[cidx]`` ((m, bc) int64 indices) into the
-    running-min field and extract the top-``p`` candidates.  Rows with
-    label < 0 can never be selected.  ``chunk`` is unused: the kernel masks
-    the ragged tile itself and the plain sweep takes the whole array."""
-    if m != 1:
-        raise NotImplementedError(
-            "the grouped (m > 1) sweep belongs to the constrained slice "
-            "(ROADMAP A, slice 11), which is not ported yet")
-    mask = labels >= 0
+    center block ``prep.points[cidx]`` ((m, bc) int64 indices, bc centers
+    per group) into the shared running-min field and extract every group's
+    top-``p`` candidates ((m, p) values and indices).
+
+    A point folds only its OWN group's bc centers (the per-group GMM runs
+    are independent), so the field stays (n,) and a sweep costs n·bc·d
+    distance work.  ``m == 1`` is the unconstrained sweep (B1/B2 on the
+    kernel path); ``m > 1`` the grouped one (B4), whose plain version
+    computes the (n, m·bc) block with the kernel's arithmetic
+    (``kref.grouped_dist_ref``) and keeps each row's own part.  Rows with
+    label < 0 can never be selected.  ``chunk`` is unused: the kernels mask
+    the ragged tile themselves and the plain sweeps take the whole array."""
+    if m == 1:
+        mask = labels >= 0
+
+        def sweep(min_dist, cidx):
+            md, cd, ci = _fold(prep, cidx[0], min_dist, mask, metric_name,
+                               p, use_pallas)
+            return md, cd[None, :], ci[None, :]
+        return sweep
+
+    x = prep.points
 
     def sweep(min_dist, cidx):
-        md, cd, ci = _fold(prep, cidx[0], min_dist, mask, metric_name, p,
-                           use_pallas)
-        return md, cd[None, :], ci[None, :]
+        bc = cidx.shape[1]
+        centers = x.index_select(0, cidx.reshape(-1))
+        if use_pallas:
+            return kops.grouped_gmm_topb(
+                x, centers.view(m, bc, -1), min_dist, labels, metric_name, p,
+                xsq=prep.xsq, prepared=True)
+        if metric_name in ("euclidean", "sqeuclidean", "cosine"):
+            dist = kref.grouped_dist_ref(x, centers, metric_name,
+                                         xsq=prep.xsq)
+        else:
+            dist = get_metric(metric_name).pairwise(x, centers)
+        return kref.grouped_field(dist, min_dist, labels, m, p)
     return sweep
 
 
-def _grouped_inblock(points, metric_name: str, cand_d, cand_i, take: int):
-    """Exact local GMM over each group's candidate pool (p×p): greedily keep
-    ``take`` of the p candidates, correcting for mutual distances within
-    the pool.  Returns (chosen (m, take), seld (m, take)) where
-    ``seld[g, j]`` is pick j's corrected anticover distance.  The pick loop
-    stays on the device: no host read."""
+def _pool_distance(metric_name: str, pool):
+    """The in-block GMM's distance from every pool member to one picked
+    member per group: returns ``f(c)`` mapping (m, d) picks to (m, p)
+    distances for the (m, p, d) pools.  One group (the unconstrained
+    engine) keeps the metric's own ``point_to_set``; several groups take a
+    batched form of the same formula, so a pick costs the same launches for
+    any m.  The pool's norms are loop invariants, computed once."""
     metric = get_metric(metric_name)
-    chosen_all, seld_all = [], []
-    for cd, ci in zip(cand_d, cand_i):
-        pool = points.index_select(0, ci)
-        cd = cd.clone()
-        chosen = torch.zeros((take,), dtype=torch.int64, device=cd.device)
-        seld = torch.zeros((take,), dtype=torch.float32, device=cd.device)
-        for j in range(take):
-            s = torch.argmax(cd).reshape(1)
-            chosen[j:j + 1] = ci.index_select(0, s)
-            seld[j:j + 1] = cd.index_select(0, s)
-            dd = metric.point_to_set(pool, pool.index_select(0, s)[0])
-            cd = torch.minimum(cd, dd).index_fill_(0, s, NEG_INF)
-        chosen_all.append(chosen)
-        seld_all.append(seld)
-    return torch.stack(chosen_all), torch.stack(seld_all)
+    if pool.shape[0] == 1:
+        return lambda c: metric.point_to_set(pool[0], c[0])[None]
+    if metric_name in ("euclidean", "sqeuclidean"):
+        xsq = torch.sum(pool * pool, dim=-1)
+
+        def f(c):
+            d2 = torch.clamp(xsq + torch.sum(c * c, dim=-1)[:, None]
+                             - 2.0 * torch.bmm(pool, c[:, :, None])[..., 0],
+                             min=0.0)
+            return torch.sqrt(d2) if metric_name == "euclidean" else d2
+        return f
+    if metric_name == "cosine":
+        xn = pool / torch.clamp(torch.linalg.vector_norm(
+            pool, dim=-1, keepdim=True), min=1e-30)
+
+        def f(c):
+            cn = c / torch.clamp(torch.linalg.vector_norm(
+                c, dim=-1, keepdim=True), min=1e-30)
+            return torch.arccos(torch.clamp(
+                torch.bmm(xn, cn[:, :, None])[..., 0], -1.0, 1.0))
+        return f
+    if metric_name == "manhattan":
+        return lambda c: torch.sum(torch.abs(pool - c[:, None, :]), dim=-1)
+    return lambda c: torch.stack([metric.point_to_set(pool[g], c[g])
+                                  for g in range(pool.shape[0])])
+
+
+def _grouped_inblock(points, metric_name: str, cand_d, cand_i, take: int):
+    """Exact local GMM over every group's candidate pool (p×p): greedily
+    keep ``take`` of the p candidates, correcting for mutual distances
+    within the pool.  Returns (chosen (m, take), seld (m, take)) where
+    ``seld[g, j]`` is pick j's corrected anticover distance.  Each pick is
+    one (m, p) argmax / gather / min over all groups at once, on the
+    device: no host read, and launches per block do not grow with m."""
+    m, p = cand_d.shape
+    dev = cand_d.device
+    pool = points.index_select(0, cand_i.reshape(-1)).view(m, p, -1)
+    dist_to = _pool_distance(metric_name, pool)
+    rows = torch.arange(m, device=dev)
+    cd = cand_d.clone()
+    chosen = torch.zeros((m, take), dtype=torch.int64, device=dev)
+    seld = torch.zeros((m, take), dtype=torch.float32, device=dev)
+    for j in range(take):
+        s = torch.argmax(cd, dim=1, keepdim=True)
+        chosen[:, j:j + 1] = torch.gather(cand_i, 1, s)
+        seld[:, j:j + 1] = torch.gather(cd, 1, s)
+        dd = dist_to(pool[rows, s[:, 0]])
+        cd = torch.minimum(cd, dd).scatter_(1, s, NEG_INF)
+    return chosen, seld
 
 
 def validate_schedule(schedule, k: int):

@@ -2,10 +2,10 @@
 
 The system has no weights; what crosses over is the engine state and the
 results.  ``from_reference`` turns the reference's ``RadiusCertificate``,
-``Coreset``/``GeneralizedCoreset`` and ``DiversityResult`` (their arrays
-read as numpy arrays) into the port's types, and ``stream_from_reference``
-the reference's ``StreamingCoreset.state_dict()`` into a live port stream;
-``to_numpy`` goes the other way, to plain numpy arrays and dataclass fields
+``Coreset``/``GeneralizedCoreset``, ``GroupedCoreset`` (a constrained
+core-set) and ``DiversityResult`` (their arrays read as numpy arrays) into
+the port's types, and ``stream_from_reference`` the reference's
+``StreamingCoreset.state_dict()`` into a live port stream; ``to_numpy`` goes the other way, to plain numpy arrays and dataclass fields
 (for a stream, the ``(arrays, meta)`` pair the reference's
 ``StreamingCoreset.from_state_dict`` takes).  Nothing here imports the
 reference: objects are recognised by their fields.
@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .constrained.coreset import GroupedCoreset
 from .core.adaptive import RadiusCertificate
 from .core.coreset import Coreset, GeneralizedCoreset
 from .core.smm import StreamingCoreset
@@ -37,8 +38,8 @@ def from_reference(obj, device="cpu"):
     """The port's counterpart of a reference object (None passes through).
 
     ``RadiusCertificate`` -> ``RadiusCertificate``; ``Coreset`` /
-    ``GeneralizedCoreset`` -> the port's container with tensors on
-    ``device`` (indices as int64); ``DiversityResult`` -> the port's
+    ``GeneralizedCoreset`` / ``GroupedCoreset`` -> the port's container
+    with tensors on ``device`` (indices as int64); ``DiversityResult`` -> the port's
     ``DiversityResult`` with its solution, value, indices, certificate and
     core-set converted (no plan or telemetry)."""
     if obj is None:
@@ -50,6 +51,13 @@ def from_reference(obj, device="cpu"):
             points=_tensor(obj.points, device, torch.float32),
             multiplicity=_tensor(obj.multiplicity, device, torch.int32),
             radius=_tensor(obj.radius, device, torch.float32),
+            cert=from_reference(obj.cert))
+    if hasattr(obj, "group_count") and hasattr(obj, "idx"):
+        return GroupedCoreset(
+            idx=_tensor(obj.idx, device, torch.int64),
+            valid=_tensor(obj.valid, device, torch.bool),
+            radius=_tensor(obj.radius, device, torch.float32),
+            group_count=_tensor(obj.group_count, device, torch.int32),
             cert=from_reference(obj.cert))
     if hasattr(obj, "valid") and hasattr(obj, "weights"):
         return Coreset(points=_tensor(obj.points, device, torch.float32),
@@ -95,7 +103,7 @@ def to_numpy(obj):
     if isinstance(obj, StreamingCoreset):
         arrays, meta = obj.state_dict()
         return {name: _host(a) for name, a in arrays.items()}, meta
-    if isinstance(obj, (Coreset, GeneralizedCoreset)):
+    if isinstance(obj, (Coreset, GeneralizedCoreset, GroupedCoreset)):
         return {f: to_numpy(getattr(obj, f)) for f in obj._fields}
     if hasattr(obj, "solution") and hasattr(obj, "value"):
         return {"solution": np.asarray(obj.solution),

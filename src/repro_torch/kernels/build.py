@@ -9,9 +9,9 @@ stale library is never loaded.  A missing ``nvcc`` or a failed build raises
 with the compiler's output.
 
 ``LAUNCHES`` counts kernel launches per wrapper (``gmm_topb``,
-``gmm_update_select``, ``pairwise``); each wrapper adds one where it
-launches its kernel and nowhere else, so a run can show that it went
-through the kernels.
+``gmm_update_select``, ``pairwise``, ``gmm_grouped_topb``); each wrapper
+adds one where it launches its kernel and nowhere else, so a run can show
+that it went through the kernels.
 """
 from __future__ import annotations
 
@@ -24,7 +24,8 @@ import tempfile
 import time
 from pathlib import Path
 
-LAUNCHES = {"gmm_topb": 0, "gmm_update_select": 0, "pairwise": 0}
+LAUNCHES = {"gmm_topb": 0, "gmm_update_select": 0, "pairwise": 0,
+            "gmm_grouped_topb": 0}
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -70,6 +71,8 @@ def _bind(path: Path):
     lib.repro_gmm_sweep.restype = ci
     lib.repro_pairwise.argtypes = [vp] * 5 + [ci] * 4 + [vp]
     lib.repro_pairwise.restype = ci
+    lib.repro_grouped_sweep.argtypes = [vp] * 9 + [ci] * 9 + [vp]
+    lib.repro_grouped_sweep.restype = ci
     lib.repro_error_string.argtypes = [ci]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib

@@ -38,6 +38,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "sweep_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -45,35 +47,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kNB = 8;      // centers folded per pass over a row
 constexpr int kDC = 1024;   // d-chunk of the centers staged in shared memory
 constexpr int kSub = 256;   // rows whose partial dot products are held
-
-enum Mode { kSqEuclidean = 0, kEuclidean = 1, kDot = 2, kCosine = 3 };
-
-template <int MODE>
-__device__ __forceinline__ float transform(float dot, float xs, float cs) {
-  if (MODE == kSqEuclidean || MODE == kEuclidean) {
-    const float d2 = fmaxf((xs + cs) - 2.0f * dot, 0.0f);
-    return MODE == kEuclidean ? sqrtf(d2) : d2;
-  } else if (MODE == kDot) {
-    return -dot;
-  } else {
-    return acosf(fminf(fmaxf(dot, -1.0f), 1.0f));
-  }
-}
-
-// the top-p order: larger value first, ties to the lower index
-__device__ __forceinline__ bool before(float va, int ia, float vb, int ib) {
-  return va > vb || (va == vb && ia < ib);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
 
 // Dot products of two rows (one d-chunk of dc values each) with the kNB
 // centers staged in shared memory, summed over the warp (every lane ends

@@ -1,23 +1,31 @@
-"""Fused GMM round on the card: running min plus the masked global
-(max, argmax).
+"""Fused GMM rounds on the card: the masked global (max, argmax) of the
+unconstrained engine and the grouped sweep of the constrained one.
 
-Port of ``repro.kernels.gmm_update.gmm_update_select_pallas``.  It is the
-p = 1 instance of the sweep in ``csrc/gmm_sweep.cu``: each tile reduces its
+``gmm_update_select_cuda`` ports
+``repro.kernels.gmm_update.gmm_update_select_pallas``.  It is the p = 1
+instance of the sweep in ``csrc/gmm_sweep.cu``: each tile reduces its
 masked field to one (max, first argmax) pair, and the cross-tile argmax
 stays here, as it did in the reference.  The plain version is
 ``ref.gmm_update_select_ref``.
 
-The grouped sweep of the reference's constrained subsystem
-(``gmm_grouped_topb_pallas``) is not ported yet (ROADMAP, constrained
-slice).
+``gmm_grouped_topb_cuda`` ports ``gmm_grouped_topb_pallas``; the CUDA body
+is ``csrc/gmm_grouped.cu`` (see the note there on its bound and design).
+Each row folds only its own group's center block, each tile keeps every
+group's top-p, and the per-group merge of the tile winners stays here.  The
+plain version is ``ref.gmm_grouped_topb_ref``.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build
-from .gmm_topb import launch_sweep, tile_rows
-from .ref import gmm_update_select_ref, take  # noqa: F401  (plain version)
+from .gmm_topb import MODES, TILE_ROWS, launch_sweep, tile_rows
+from .ref import (gmm_grouped_topb_ref, gmm_update_select_ref,  # noqa: F401
+                  merge_tiles_grouped, take)
+
+# m * min(bc, 8) center rows of a 256-float d-chunk fit the kernel's 128 KB
+# of staged centers up to this count
+STAGED_ROWS = 128
 
 
 def gmm_update_select_cuda(points, centers, xsq, min_in, mask, *, mode: str,
@@ -31,3 +39,88 @@ def gmm_update_select_cuda(points, centers, xsq, min_in, mask, *, mode: str,
     build.LAUNCHES["gmm_update_select"] += 1
     g = torch.argmax(tv)
     return min_out, take(ti, g).long(), take(tv, g)
+
+
+def grouped_tile_rows(p: int) -> int:
+    """Rows per tile of the grouped sweep: ``tile_rows(p)``, at least 1024
+    (a tile's center staging and sort serve more rows)."""
+    return max(1024, tile_rows(p))
+
+
+def _check_grouped(points, centers, xsq, min_in, labels, mode, p, bn):
+    n, d = points.shape
+    if centers.ndim != 3 or centers.shape[2] != d:
+        raise ValueError(f"centers {tuple(centers.shape)} must be (m, bc, "
+                         f"{d})")
+    named = {"points": points, "centers": centers, "min_in": min_in}
+    if mode in ("sqeuclidean", "euclidean"):
+        if xsq is None:
+            raise ValueError(f"mode {mode!r} needs the squared norms xsq")
+        named["xsq"] = xsq
+    for name, t in named.items():
+        if not t.is_cuda or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.device != points.device:
+            raise ValueError(f"{name} must be a contiguous float32 tensor on "
+                             f"{points.device}")
+    if min_in.shape != (n,) or (xsq is not None and xsq.shape != (n,)):
+        raise ValueError("min_in and xsq must have shape (n,)")
+    if labels.shape != (n,) or labels.dtype != torch.int32 \
+            or labels.device != points.device or not labels.is_contiguous():
+        raise ValueError("labels must be a contiguous (n,) int32 tensor on "
+                         f"{points.device}")
+    if mode not in MODES:
+        raise ValueError(f"no kernel mode {mode!r}")
+    if bn not in TILE_ROWS or bn < 1024 or bn < p:
+        raise ValueError(f"tile rows bn={bn} must be one of {TILE_ROWS[2:]} "
+                         f"and >= p={p}")
+    m = centers.shape[0]
+    if n >= 2 ** 31 - bn or m * (-(-n // bn)) * p >= 2 ** 31:
+        raise ValueError(f"n={n}, m={m}, p={p} exceed the kernel's int32 "
+                         "sizes")
+
+
+def gmm_grouped_topb_cuda(points, centers, xsq, min_in, labels, *,
+                          mode: str, p: int, bn: int = None, staged=None):
+    """Grouped round on the card.  points (n, d), centers (m, bc, d), xsq
+    (n,) squared norms (euclidean modes; None otherwise), min_in (n,) (each
+    row's distance to its own group's selected centers), labels (n,) int32
+    (a label outside [0, m) matches no group) -> (min_out (n,), cand_val
+    (m, p), cand_idx (m, p) int64): every group's exact top-p of the updated
+    field over its own rows.  A group with fewer than p rows ends in -inf
+    entries whose indices lie in [0, n).  ``staged`` picks where the rows
+    meet the centers (True: shared memory, which needs m·min(bc, 8) <=
+    128; False: device memory; None: shared memory where they fit)."""
+    bn = grouped_tile_rows(p) if bn is None else bn
+    _check_grouped(points, centers, xsq, min_in, labels, mode, p, bn)
+    n, d = points.shape
+    m, bc, _ = centers.shape
+    fits = m * min(8, bc) <= STAGED_ROWS
+    staged = fits if staged is None else bool(staged)
+    if staged and not fits:
+        raise ValueError(f"m={m} groups of {bc} centers do not fit the "
+                         "kernel's staged centers (m * min(bc, 8) <= "
+                         f"{STAGED_ROWS})")
+    # the centers' squared norms as the plain version computes them
+    cflat = centers.view(m * bc, d)
+    csq = torch.sum(cflat * cflat, dim=-1) if xsq is not None else None
+    tiles = -(-n // bn)
+    min_out = torch.empty_like(min_in)
+    tile_val = torch.empty((m, tiles * p), dtype=torch.float32,
+                           device=points.device)
+    tile_idx = torch.empty((m, tiles * p), dtype=torch.int32,
+                           device=points.device)
+    vec = int(d % 4 == 0 and points.data_ptr() % 16 == 0
+              and centers.data_ptr() % 16 == 0)
+    lib = build.library()
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream(points.device).cuda_stream
+        rc = lib.repro_grouped_sweep(
+            points.data_ptr(), 0 if xsq is None else xsq.data_ptr(),
+            centers.data_ptr(), 0 if csq is None else csq.data_ptr(),
+            min_in.data_ptr(), labels.data_ptr(), min_out.data_ptr(),
+            tile_val.data_ptr(), tile_idx.data_ptr(), n, d, m, bc, p,
+            MODES[mode], bn, int(staged), vec, stream)
+    build.check(rc)
+    build.LAUNCHES["gmm_grouped_topb"] += 1
+    vals, idx = merge_tiles_grouped(tile_val, tile_idx.long(), p)
+    return min_out, vals, idx

@@ -8,7 +8,8 @@ the plain torch version (``kernels.ref``) only because the tensors it was
 given lie on the CPU; there is no switch that swaps the kernel out.
 
 ``pairwise`` is the distance tile (B3) of the streaming core-set and the
-assignment pass.  ``prepare`` computes the loop invariants of a run
+assignment pass; ``grouped_gmm_topb`` the grouped sweep (B4) of the
+constrained engine.  ``prepare`` computes the loop invariants of a run
 (normalized points for cosine, squared norms for the euclidean modes) once;
 engines pass them back in with ``prepared=True`` so no sweep re-reads the
 points to recompute them.  ``LAUNCHES`` counts kernel launches per
@@ -23,7 +24,7 @@ import torch
 from . import ref
 from .build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
 from .gmm_topb import gmm_topb_cuda
-from .gmm_update import gmm_update_select_cuda
+from .gmm_update import gmm_grouped_topb_cuda, gmm_update_select_cuda
 from .pairwise import pairwise_cuda
 
 
@@ -144,3 +145,44 @@ def gmm_topb(points, centers, min_in, mask, metric_name: str,
         idx = torch.cat([idx, idx.new_full((fill,), n - 1)])
     return min_out, vals, torch.clamp(idx, max=n - 1)
 
+
+def grouped_gmm_topb(points, centers, min_in, labels, metric_name: str,
+                     b: int, bn: int = None, *, xsq=None,
+                     prepared: bool = False):
+    """Fused group-blocked batched GMM round (the constrained engine's
+    sweep, port of ``repro.kernels.ops.grouped_gmm_topb``).
+
+    points (n, d), centers (m, bc, d), min_in (n,) (own-group running min),
+    labels (n,) in [0, m) (-1 matches no group: such a row keeps its
+    min_in and is never a candidate) -> (min_out (n,), cand_val (m, b),
+    cand_idx (m, b)): one sweep serves all m groups, each row folding only
+    its own group's block.  Indices always lie in [0, n).  With
+    ``prepared=True`` the points and centers are already in kernel form
+    (``prepare``) and ``xsq`` carries the points' squared norms.
+    """
+    mode, norm = _metric_to_mode(metric_name)
+    centers = centers.to(torch.float32)
+    if not prepared:
+        points, xsq = prepare(points, metric_name)
+        if norm:
+            centers = _normalize(centers)
+    centers = centers.contiguous()
+    min_in = min_in.to(torch.float32).contiguous()
+    labels = torch.as_tensor(labels, device=points.device).to(
+        torch.int32).contiguous()
+    n = points.shape[0]
+    if points.is_cuda:
+        min_out, vals, idx = gmm_grouped_topb_cuda(
+            points, centers, xsq, min_in, labels, mode=mode, p=b, bn=bn)
+    else:
+        min_out, vals, idx = ref.gmm_grouped_topb_ref(
+            points, centers, min_in, labels, mode, b, xsq=xsq)
+    if vals.shape[1] < b:
+        # b > n: as in the reference, the pad rows enter as -inf after
+        # every real row; their indices clamp to n - 1 below
+        fill = b - vals.shape[1]
+        vals = torch.cat([vals, vals.new_full((vals.shape[0], fill),
+                                              float("-inf"))], dim=1)
+        idx = torch.cat([idx, idx.new_full((idx.shape[0], fill), n - 1)],
+                        dim=1)
+    return min_out, vals, torch.clamp(idx, max=n - 1)

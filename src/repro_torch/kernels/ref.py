@@ -1,5 +1,6 @@
 """Plain torch versions of the kernels (port of ``repro.kernels.ref``):
-the sweeps (B1, B2) and the distance tile (B3, ``pairwise_ref``).
+the sweeps (B1, B2), the distance tile (B3, ``pairwise_ref``) and the
+grouped sweep of the constrained engine (B4, ``gmm_grouped_topb_ref``).
 
 These are the ``ref`` side of every kernel-vs-plain comparison: the CPU
 tests run them, ``chip_smoke.py`` holds the CUDA kernels against them on the
@@ -159,3 +160,100 @@ def gmm_topb_tiled_ref(points, centers, min_in, mask, mode: str = "euclidean",
     ti = torch.gather(ids.view(tiles, bn), 1, ti)
     vals, idx = merge_tiles(tv[:, :p].reshape(-1), ti[:, :p].reshape(-1), p)
     return new_min, vals, torch.clamp(idx, max=n - 1)
+
+
+def grouped_field(dist, min_in, labels, m: int, p: int):
+    """The grouped sweep's epilogue on an (n, m·bc) distance block to the
+    flattened ``(m, bc)`` centers: each row's own-group distance (the min
+    over its group's bc columns; +inf for a label outside [0, m), so such a
+    row keeps ``min_in``), the running min, and every group's top-p of the
+    new field over its own rows.  Returns (min_out (n,), vals (m, p'),
+    idx (m, p')) with p' = min(p, n); a group with fewer than p' rows ends
+    in -inf entries (at the lowest-indexed rows of other groups, the order
+    ``lax.top_k`` gives)."""
+    n = dist.shape[0]
+    bc = dist.shape[1] // m
+    lab = labels.to(torch.int64)
+    mine = (lab >= 0) & (lab < m)
+    own = torch.gather(dist.view(n, m, bc), 1,
+                       torch.where(mine, lab, 0).view(n, 1, 1)
+                       .expand(n, 1, bc)).view(n, bc).min(dim=1).values
+    own = torch.where(mine, own, torch.full_like(own, float("inf")))
+    new_min = torch.minimum(min_in, own)
+    gids = torch.arange(m, device=dist.device)[:, None]
+    masked = torch.where(lab[None, :] == gids, new_min[None, :],
+                         torch.full_like(new_min, NEG_INF)[None, :])
+    vals, idx = torch.sort(masked, dim=1, descending=True, stable=True)
+    return new_min, vals[:, :p], idx[:, :p]
+
+
+def grouped_dist_ref(x, y, mode: str = "sqeuclidean", xsq=None,
+                     chunk: int = 16384):
+    """Distance block (m, n) with the B4 kernel's arithmetic: each dot
+    product accumulated in float64 and rounded once to float32 (any float64
+    summation order rounds to the same float32 but for sums within ~1e-16
+    of a rounding boundary), then the epilogue in float32, one rounded op
+    at a time.  So the kernel and this version agree bit for bit, and an
+    engine run decides the same on both paths.  Rows go through in chunks
+    so the float64 copy stays small."""
+    y64 = y.to(torch.float64)
+    dot = torch.empty((x.shape[0], y.shape[0]), dtype=torch.float32,
+                      device=x.device)
+    for s in range(0, x.shape[0], chunk):
+        dot[s:s + chunk] = (x[s:s + chunk].to(torch.float64) @ y64.T).to(
+            torch.float32)
+    xsq, ysq = _norms(x, y, xsq, None, mode)
+    return _transform(dot, xsq, ysq, mode)
+
+
+def gmm_grouped_topb_ref(points, centers, min_in, labels,
+                         mode: str = "euclidean", p: int = 8, xsq=None):
+    """Plain version of the grouped sweep (B4): points (n, d), centers
+    (m, bc, d), min_in (n,), labels (n,) -> (min_out (n,), vals (m, p'),
+    idx (m, p')), see ``grouped_field``.  It computes the distance of every
+    row to all m·bc centers in one product (``grouped_dist_ref``, the
+    kernel's arithmetic) and keeps its own group's block; the kernel
+    computes the own block only."""
+    m, bc, d = centers.shape
+    dist = grouped_dist_ref(points, centers.reshape(m * bc, d), mode,
+                            xsq=xsq)
+    return grouped_field(dist, min_in, labels, m, p)
+
+
+def gmm_grouped_topb_tiled_ref(points, centers, min_in, labels,
+                               mode: str = "euclidean", p: int = 8,
+                               bn: int = 1024, xsq=None):
+    """Torch emulation of the B4 kernel's tiling: each ``bn``-row tile keeps
+    every group's local top-p, a group with fewer than p rows in the tile
+    filling its tail with -inf at the tile's first row, and the wrapper's
+    merge (``merge_tiles_grouped``) combines them per group.  Equal to
+    ``gmm_grouped_topb_ref`` in values and in the indices of every finite
+    entry; the tests hold the two against each other."""
+    if bn < p:
+        raise ValueError(f"tile rows bn={bn} < p={p}")
+    m, bc, d = centers.shape
+    n = points.shape[0]
+    dist = grouped_dist_ref(points, centers.reshape(m * bc, d), mode,
+                            xsq=xsq)
+    new_min, _, _ = grouped_field(dist, min_in, labels, m, 1)
+    tiles = -(-n // bn)
+    lab = torch.cat([labels.to(torch.int64),
+                     labels.new_full((tiles * bn - n,), -1).to(torch.int64)])
+    field = torch.cat([new_min, new_min.new_full((tiles * bn - n,), NEG_INF)])
+    gids = torch.arange(m, device=points.device)[:, None]
+    masked = torch.where(lab[None, :] == gids, field[None, :],
+                         torch.full_like(field, NEG_INF)[None, :])
+    tv, ti = torch.sort(masked.view(m, tiles, bn), dim=2, descending=True,
+                        stable=True)
+    tv, ti = tv[:, :, :p], ti[:, :, :p]
+    first = (torch.arange(tiles, device=points.device) * bn)[None, :, None]
+    ti = torch.where(torch.isinf(tv) & (tv < 0), first, ti + first)
+    vals, idx = merge_tiles_grouped(tv.reshape(m, -1), ti.reshape(m, -1), p)
+    return new_min, vals, idx
+
+
+def merge_tiles_grouped(tile_vals, tile_idx, p: int):
+    """Per-group cross-tile merge of (m, T·p) tile winners laid out in tile
+    order (``merge_tiles`` for each group)."""
+    vals, sel = torch.sort(tile_vals, dim=1, descending=True, stable=True)
+    return vals[:, :p], torch.gather(tile_idx, 1, sel[:, :p])

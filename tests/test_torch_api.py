@@ -179,17 +179,22 @@ def test_unported_modes_raise_with_their_slice(kind):
         else:
             ex["memory_budget_bytes"] = 16
     elif kind == "constrained":
+        # constrained batch and streaming are ported (slice 11);
+        # constrained MapReduce comes with the MapReduce slice (10)
         prob["labels"] = np.zeros(64, int)
+        ex["num_reducers"] = 4
     else:
         ex["num_reducers"] = 4
     with pytest.raises(NotImplementedError, match="ROADMAP A, slice"):
         repro_torch.plan(repro_torch.ProblemSpec(**prob),
                          repro_torch.ExecutionSpec(device="cpu", **ex))
-    # a constrained stream names the constrained slice
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        repro_torch.plan(repro_torch.ProblemSpec(points=iter([pts]), k=4,
-                                                 quotas=[2, 2]),
-                         repro_torch.ExecutionSpec(device="cpu"))
+    # a constrained stream plans; resilience= on it names slice 12
+    spec = repro_torch.ProblemSpec(points=iter([pts]), k=4, quotas=[2, 2])
+    assert repro_torch.plan(spec, repro_torch.ExecutionSpec(
+        device="cpu")).constrained
+    with pytest.raises(NotImplementedError, match="slice 12"):
+        repro_torch.plan(spec, repro_torch.ExecutionSpec(
+            device="cpu", resilience=object()))
 
 
 def test_from_reference_round_trip():

@@ -52,7 +52,7 @@ def test_cuda_kernels_match_plain_on_card(cuda_device, mode):
         g_min, g_val, g_idx = ops.gmm_topb(x, c, m, k, mode, p=p)
         u_min, u_arg, u_max = ops.gmm_update_select(x, c, m, k, mode)
         assert ops.LAUNCHES == {"gmm_topb": 1, "gmm_update_select": 1,
-                                "pairwise": 0}
+                                "pairwise": 0, "gmm_grouped_topb": 0}
         prep = ops.prepare(x, mode)
         cc = ops._normalize(c) if mode == "cosine" else c
         r_min, r_val, r_idx = ref.gmm_topb_ref(prep.points, cc, m, k, mode,
@@ -185,3 +185,90 @@ def test_cuda_batch_ext_assignment_runs_the_kernel(cuda_device, metric):
     np.testing.assert_array_equal(kern.indices, plain.indices)
     np.testing.assert_allclose(kern.value, plain.value, rtol=1e-4)
     assert torch.equal(kern.coreset.valid, plain.coreset.valid)
+
+
+def _grouped_case(n, d, m, bc, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    pts = torch.randn((n, d), generator=g)
+    cen = torch.randn((m, bc, d), generator=g)
+    mi = torch.rand((n,), generator=g) * 3.7 + 0.3
+    lab = torch.randint(0, m, (n,), generator=g, dtype=torch.int32)
+    lab[lab == 1] = 0                               # group 1 empty
+    lab[torch.rand((n,), generator=g) < 0.1] = -1   # rows in no group
+    return [t.to(device) for t in (pts, cen, mi, lab)]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n,d,m,staged", [(4097, 128, 2, None),
+                                          (4097, 128, 2, False),
+                                          (3001, 1000, 64, None),
+                                          (1000, 1000, 2, None),
+                                          (33, 5, 16, None)])
+@pytest.mark.parametrize("p", [1, 8, 256])
+def test_cuda_grouped_kernel_matches_plain_on_card(cuda_device, mode, n, d,
+                                                   m, staged, p):
+    """B4 against its plain version: both center paths (shared memory for
+    m = 2, device memory for m = 64 and when forced), an empty group, rows
+    labelled -1 (they keep min_in and are never candidates), every index
+    in [0, n)."""
+    from repro_torch.kernels.gmm_update import gmm_grouped_topb_cuda
+    x, c, mi, lab = _grouped_case(n, d, m, 8, n + m + p, cuda_device)
+    prep = ops.prepare(x, mode)
+    cc = (ops._normalize(c) if mode == "cosine" else c).contiguous()
+    ops.reset_launches()
+    g_min, g_val, g_idx = gmm_grouped_topb_cuda(prep.points, cc, prep.xsq,
+                                                mi, lab, mode=mode, p=p,
+                                                staged=staged)
+    assert ops.LAUNCHES["gmm_grouped_topb"] == 1
+    r_min, r_val, r_idx = ref.gmm_grouped_topb_ref(prep.points, cc, mi, lab,
+                                                   mode, p, xsq=prep.xsq)
+    torch.testing.assert_close(g_min, r_min, **TOL)
+    assert torch.equal(g_min[lab < 0], mi[lab < 0])
+    # the plain version keeps min(p, n) entries a group; the kernel's tiles
+    # hold at least p rows, so its entries past n are -inf fills
+    q = r_val.shape[1]
+    assert bool(torch.isneginf(g_val[:, q:]).all())
+    g_val, g_idx = g_val[:, :q], g_idx[:, :q]
+    torch.testing.assert_close(g_val, r_val, **TOL)
+    assert int(g_idx.min()) >= 0 and int(g_idx.max()) < n
+    assert bool(torch.isneginf(g_val[1]).all())
+    # index sets are compared through the values they select; a -inf fill
+    # entry selects nothing (its index only has to be in range)
+    field = torch.where(lab[None, :] == torch.arange(m, device=cuda_device)
+                        [:, None], r_min[None, :], float("-inf"))
+
+    def picked(vals, idx):
+        return torch.sort(torch.where(torch.isfinite(vals),
+                                      torch.gather(field, 1, idx),
+                                      float("-inf")), dim=1).values
+    torch.testing.assert_close(picked(g_val, g_idx), picked(r_val, r_idx),
+                               **TOL)
+
+
+@pytest.mark.parametrize("knobs", [{}, {"kprime": 32, "b": 1},
+                                   {"kprime": 8, "b": 4}])
+@pytest.mark.parametrize("measure", ["remote-edge", "remote-clique"])
+def test_cuda_constrained_with_and_without_kernels(cuda_device, knobs,
+                                                   measure):
+    rg = np.random.default_rng(9)
+    pts = rg.normal(size=(6000, 24)).astype(np.float32)
+    lab = rg.integers(0, 5, size=6000).astype(np.int32)
+    x = torch.as_tensor(pts, device=cuda_device)
+    runs = {}
+    for use_pallas in ("auto", False):
+        ops.reset_launches()
+        runs[use_pallas] = repro_torch.diversify(
+            x, k=10, labels=lab, measure=measure,
+            execution=repro_torch.ExecutionSpec(use_pallas=use_pallas,
+                                                trace=True, **knobs))
+        launched = ops.LAUNCHES["gmm_grouped_topb"]
+        assert (launched > 0) == (use_pallas == "auto")
+    got, want = runs["auto"], runs[False]
+    np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_array_equal(got.labels, want.labels)
+    np.testing.assert_allclose(got.value, want.value, rtol=1e-4)
+    assert dict(got.telemetry.counters) == dict(want.telemetry.counters)
+    if want.cert is not None:
+        assert got.cert.b_schedule == want.cert.b_schedule
+        np.testing.assert_allclose(got.cert.group_ratios,
+                                   want.cert.group_ratios, rtol=1e-4)

@@ -165,7 +165,17 @@ def test_pad_for_engine_and_labels():
 
 
 def test_grouped_sweep_is_a_later_slice():
-    prep = gmm._sweep_points(torch.ones((4, 2)), "euclidean")
-    with pytest.raises(NotImplementedError, match="constrained"):
-        gmm._make_grouped_sweep(prep, torch.zeros(4, dtype=torch.int32), 2,
-                                1, 0, "euclidean", False)
+    """The grouped (m > 1) sweep came with the constrained slice: each row
+    folds only its own group's centers, and a row labelled -1 keeps its
+    running min and is never a candidate."""
+    pts = torch.as_tensor([[0.0, 0.0], [1.0, 0.0], [0.0, 3.0], [5.0, 5.0]])
+    prep = gmm._sweep_points(pts, "euclidean")
+    labels = torch.tensor([0, 1, 0, -1], dtype=torch.int32)
+    sweep = gmm._make_grouped_sweep(prep, labels, 2, 1, 0, "euclidean",
+                                    False)
+    md, cd, ci = sweep(torch.full((4,), float("inf")),
+                       torch.tensor([[0], [1]]))
+    np.testing.assert_allclose(md[:3].numpy(), [0.0, 0.0, 3.0], atol=1e-6)
+    assert float(md[3]) == float("inf")
+    np.testing.assert_allclose(cd[:, 0].numpy(), [3.0, 0.0], atol=1e-6)
+    assert ci[:, 0].tolist() == [2, 1]

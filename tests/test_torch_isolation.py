@@ -103,7 +103,7 @@ def test_build_module_needs_nvcc_only_when_asked(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
     monkeypatch.setattr(build, "find_nvcc", lambda: None)
     assert build.LAUNCHES.keys() == {"gmm_topb", "gmm_update_select",
-                                     "pairwise"}
+                                     "pairwise", "gmm_grouped_topb"}
     with pytest.raises(RuntimeError, match="nvcc"):
         build.library()
     assert not any(tmp_path.iterdir())

@@ -152,8 +152,10 @@ def test_cpu_wrappers_launch_nothing():
     ops.gmm_topb(*_port(pts, cs, mi, mask), "cosine", p=4)
     ops.gmm_update_select(*_port(pts, cs, mi, mask), "euclidean")
     ops.pairwise(*_port(pts, cs), "euclidean")
+    ops.grouped_gmm_topb(*_port(pts, cs[None], mi), torch.zeros(64), "dot",
+                         2)
     assert ops.LAUNCHES == {"gmm_topb": 0, "gmm_update_select": 0,
-                            "pairwise": 0}
+                            "pairwise": 0, "gmm_grouped_topb": 0}
 
 
 def test_manhattan_has_no_kernel_mode():

@@ -148,9 +148,10 @@ def test_not_ported_and_rejected():
     with pytest.raises(NotImplementedError, match="slice 12"):
         plan(repro_torch.ProblemSpec(points=pts, k=3), mode="streaming",
              resilience=object())
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    # constrained streams are ported (slice 11); resilience= on one is not
+    with pytest.raises(NotImplementedError, match="slice 12"):
         plan(repro_torch.ProblemSpec(points=iter([pts]), k=3,
-                                     quotas=[1, 2]))
+                                     quotas=[1, 2]), resilience=object())
     with pytest.raises(ValueError, match="only supports mode='streaming'"):
         plan(spec, mode="batch")
     with pytest.raises(ValueError, match="true metric"):
