@@ -14,13 +14,18 @@ Phases, each printing one JSON line (or one per call):
               (B1, B2) at small ragged shapes and the main shape, b in
               {1, 8}, p in {1, 32, 128, 256}; the distance tile (B3) at
               small ragged shapes and the four streaming tile shapes below,
-              where a one-column call must also equal its tile's column bit
-              for bit; the grouped sweep (B4) at ragged n, m in {2, 16, 64}
-              groups of 8 centers (m = 64 reads the centers from device
-              memory, the others stage them in shared memory; m = 2 also
-              runs the device-memory path), one empty group, rows labelled
-              -1, p in {1, 8, 128, 256}, and at the main shape.  Values
-              must match to 3e-5; every B4 index must lie in [0, n).
+              where a one-column call must equal its tile's column and a
+              tail of the rows the tile's rows, bit for bit; the grouped
+              sweep (B4) at ragged n, m in {2, 16, 64} groups of 8 centers
+              and m = 4 groups of 1, 3 and 9, one empty group, rows
+              labelled -1, p in {1, 8, 128, 256}, and at the main shape.
+              Values must match to 3e-5; every B4 index must lie in
+              [0, n).  B3 and B4 share one arithmetic with their plain
+              versions (float64 sums rounded once), so each case also
+              counts the entries where kernel and plain differ (expected
+              0; a nonzero count is printed, not failed: such an entry is
+              a float64 sum within float64 rounding of an fp32 rounding
+              boundary, one ulp off).
 3. main     — ``repro_torch.diversify`` at the paper's musiXmatch shape
               (237,662 songs x 5,000 words, cosine), synthesized on the card
               from ``--seed``: (a) cosine with default knobs, (b) euclidean
@@ -56,17 +61,16 @@ Phases, each printing one JSON line (or one per call):
               picks and labels, the quotas, the value (rtol 1e-4), the
               per-group radius and certificate, the schedule and every
               counter.  (h) the constrained stream, remote-edge, k = 32,
-              quotas 2 per group, k' = 256, chunk 4,096: the kernel side
-              runs the whole stream three times, and the agreement runs
-              kernel and plain once each on the first 8 of the 59 chunks
-              (the plain B3 chain costs ~0.1 s a tile at d = 5,000).
+              quotas 2 per group, k' = 256, chunk 4,096, over the whole
+              stream, three calls per side in turns, with the same
+              agreement.
 6. times    — median kernel and plain times by CUDA events: the sweeps at
               the main shape beside their bytes bound, the grouped sweep
-              there (16 groups of 8 centers, p in {1, 128}; 64 groups on
-              the device-memory path), the distance tile at the streaming
-              shapes beside its bound and, for euclidean, ``torch.cdist``'s
-              time (the library call; the port never calls it on this
-              path).
+              there (16 groups of 8 centers, p in {1, 128}; 16 groups of one
+              center, p = 1; 64 groups at p = 128), the distance tile at the
+              streaming shapes beside its
+              bound and, for euclidean, ``torch.cdist``'s time (the library
+              call; the port never calls it on this path).
 7. profile  — device-only torch.profiler traces of batch call (a), stream
               call (b) and constrained call (e) cosine: device time by
               kernel and the device's busy share of that call's wall time
@@ -92,6 +96,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+FP64_TC_FLOPS = 67e12          # H100 SXM float64 on the tensor cores
 TOL = 3e-5                     # kernel parity (reference tests/test_kernels.py)
 RTOL_E2E = 1e-4                # end-to-end parity (reference test_kernels.py)
 MODES = ("sqeuclidean", "euclidean", "dot", "cosine")
@@ -224,11 +229,13 @@ def check_pair(x, mode, b, p, gen, errs, label):
         fail(f"gmm_topb disagrees with plain at {label}")
 
 
-def check_pairwise(x, y, mode, errs, label):
+def check_pairwise(x, y, mode, errs, diffs, label):
     """One B3 case: the kernel against its plain version on the same
-    prepared rows (the same chain of rounded products and adds, so they
-    agree bit for bit on the card; the stated bound is 3e-5), and a
-    one-column call against its tile's column, bit for bit."""
+    prepared rows (float64 sums rounded once on both sides, so they agree
+    bit for bit on the card but for sums within float64 rounding of an fp32
+    rounding boundary; the stated bound is 3e-5, and ``diffs[label]`` counts
+    the entries that differ), a one-column call against its tile's column
+    and a tail of the rows against the tile's rows, bit for bit."""
     import torch
     from repro_torch.kernels import ops, ref
     px, py = ops.prepare(x, mode), ops.prepare(y, mode)
@@ -237,9 +244,10 @@ def check_pairwise(x, y, mode, errs, label):
     want = ref.pairwise_ref(px.points, py.points, mode, xsq=px.xsq,
                             ysq=py.xsq)
     errs["pairwise"] = max(errs["pairwise"], _err(got, want))
+    diffs[label] = int((got != want).sum())
     if not _close(got, want):
         fail(f"pairwise disagrees with plain at {label}")
-    n = y.shape[0]
+    m, n = x.shape[0], y.shape[0]
     for s in sorted({0, n // 2, n - 1}):
         col = ops.pairwise(px.points, py.points[s:s + 1], mode, xsq=px.xsq,
                            ysq=None if py.xsq is None else py.xsq[s:s + 1],
@@ -247,15 +255,21 @@ def check_pairwise(x, y, mode, errs, label):
         if not torch.equal(col[:, 0], got[:, s]):
             fail(f"pairwise one-column call differs from its tile at "
                  f"{label}, column {s}")
+    r = m // 3
+    tail = ops.pairwise(px.points[r:], py.points, mode,
+                        xsq=None if px.xsq is None else px.xsq[r:],
+                        ysq=py.xsq, prepared=True)
+    if not torch.equal(tail, got[r:]):
+        fail(f"pairwise rows from {r} on differ from their tile at {label}")
 
 
-def check_grouped(x, mode, m, p, gen, errs, label, staged=None, bc=8):
+def check_grouped(x, mode, m, p, gen, errs, diffs, label, bc=8):
     """One B4 case: the grouped sweep against its plain version on the same
     prepared inputs.  Group 1 is empty, ~5 % of the rows are labelled -1
     (they keep min_in and are never candidates), centers are data rows
     pushed off the data, and min_in straddles each row's own-group
-    distance.  ``staged`` forces the kernel's center path (None: shared
-    memory where the centers fit)."""
+    distance.  ``diffs[label]`` counts the min_out and top-p values that
+    differ from the plain version's (expected 0, as for B3)."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.gmm_update import gmm_grouped_topb_cuda
@@ -277,8 +291,7 @@ def check_grouped(x, mode, m, p, gen, errs, label, staged=None, bc=8):
     min_in = own * (0.5 + torch.rand((n,), generator=gen, device=dev))
     if x.is_cuda:
         km, kv, ki = gmm_grouped_topb_cuda(prep.points, cen_k, prep.xsq,
-                                           min_in, labels, mode=mode, p=p,
-                                           staged=staged)
+                                           min_in, labels, mode=mode, p=p)
     else:
         km, kv, ki = ops.grouped_gmm_topb(prep.points, cen_k, min_in,
                                           labels, mode, p, xsq=prep.xsq,
@@ -299,6 +312,8 @@ def check_grouped(x, mode, m, p, gen, errs, label, staged=None, bc=8):
           and _close(picked(kv, ki), picked(rv, ri)))
     errs["gmm_grouped_topb"] = max(errs["gmm_grouped_topb"], _err(km, rm),
                                    _err(kv, rv))
+    q = rv.shape[1]
+    diffs[label] = int((km != rm).sum()) + int((kv[:, :q] != rv).sum())
     if not ok:
         fail(f"gmm_grouped_topb disagrees with plain at {label}")
 
@@ -322,11 +337,12 @@ def stream_tiles(big, sphere, shapes):
     return out
 
 
-def phase_kernels(big, seed: int, small_only: bool, tiles=()):
+def phase_kernels(big, seed: int, small_only: bool, tiles=(), out=None):
     import torch
     dev = big.device
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     errs = dict.fromkeys(KERNELS, 0.0)
+    diffs = {"pairwise": {}, "gmm_grouped_topb": {}}
     cases = 0
     t0 = time.perf_counter()
     for n in (33, 1000, 4097):
@@ -346,42 +362,56 @@ def phase_kernels(big, seed: int, small_only: bool, tiles=()):
                     check_pair(big, mode, b, p, gen, errs,
                                f"main shape {mode} b={b} p={p}")
                     cases += 1
-    # B3: ragged m, n, d (none a multiple of a tile edge; n <= 4 takes the
+    # B3: ragged m, n, d (none a multiple of a tile edge; n <= 8 takes the
     # narrow tile, the others the medium and wide ones)
     for m, n, d in ((33, 5, 3), (1000, 129, 17), (4097, 300, 128),
-                    (1, 1, 5), (70, 4, 64), (300, 1025, 3)):
+                    (1, 1, 5), (70, 4, 64), (300, 1025, 3), (65, 9, 1),
+                    (130, 70, 5000)):
         x = torch.randn((m, d), generator=gen, device=dev)
         y = torch.randn((n, d), generator=gen, device=dev)
         for mode in MODES:
-            check_pairwise(x, y, mode, errs, f"m={m} n={n} d={d} {mode}")
+            check_pairwise(x, y, mode, errs, diffs["pairwise"],
+                           f"m={m} n={n} d={d} {mode}")
             cases += 1
     for label, x, y, mode in tiles:
-        check_pairwise(x, y, mode, errs, label)
+        check_pairwise(x, y, mode, errs, diffs["pairwise"], label)
         cases += 1
-    # B4: ragged n, both center paths (m = 64 reads device memory; m = 2
-    # also runs that path forced), p up to 256
+    # B4: ragged n, m groups of bc centers (bc = 9 takes two passes of 8),
+    # p up to 256
     for n, d in ((1000, 17), (4097, 128)):
         x = torch.randn((n, d), generator=gen, device=dev)
         for mode in MODES:
-            for m, staged in ((2, None), (2, False), (16, None), (64, None)):
+            for m, bc in ((2, 8), (16, 8), (64, 8), (4, 1), (4, 3), (4, 9)):
                 for p in (1, 8, 128, 256):
                     check_grouped(x, mode, m, p, gen, errs,
-                                  f"n={n} d={d} {mode} m={m} p={p} "
-                                  f"staged={staged}", staged=staged)
+                                  diffs["gmm_grouped_topb"],
+                                  f"n={n} d={d} {mode} m={m} bc={bc} p={p}",
+                                  bc=bc)
                     cases += 1
     if not small_only:
         for mode in MODES:
             for m in (2, GROUPS, 64):
                 for p in (1, 128):
                     check_grouped(big, mode, m, p, gen, errs,
+                                  diffs["gmm_grouped_topb"],
                                   f"main shape {mode} m={m} p={p}")
                     cases += 1
     if dev.type == "cuda":
         torch.cuda.synchronize()
+    if out is not None:
+        (out / "kernel_differing_entries.json").write_text(
+            json.dumps(diffs, indent=1))
     emit({"phase": "kernels", "cases": cases, "tolerance": TOL,
           "max_abs_err": errs,
+          "differing_entries": {k: sum(v.values()) for k, v in diffs.items()},
+          "cases_with_differing_entries": {
+              k: {c: n for c, n in v.items() if n} for k, v in diffs.items()},
           "seconds": time.perf_counter() - t0})
-    return errs
+    # every B3 and B4 case with its count (expected 0 each)
+    for k, v in diffs.items():
+        emit({"phase": "differing_entries", "kernel": k,
+              "cases": len(v), "counts": list(v.values())})
+    return errs, diffs
 
 
 # --------------------------------------------------------------------------
@@ -819,10 +849,8 @@ def phase_constrained(x, labels, device, check_launches: bool,
 
 def phase_constrained_stream(x, labels, device, check_launches: bool,
                              runs: int = 3, full: bool = True):
-    """Call (h): the constrained stream.  The kernel side runs the whole
-    stream ``runs`` times; kernel and plain then run once each on the first
-    8 chunks and must agree (the plain B3 chain is launch-bound at
-    d = 5,000)."""
+    """Call (h): the constrained stream over the whole data, ``runs`` calls
+    per side in turns; kernel and plain must agree."""
     import numpy as np
     import torch
     from repro_torch.device import to_numpy
@@ -833,23 +861,26 @@ def phase_constrained_stream(x, labels, device, check_launches: bool,
     name = "h_cosine_stream_quotas_k32_kp256"
     n = int(x.shape[0])
     chunks = -(-n // chunk)
-    full_runs = [_run_constrained(x, labels, problem, knobs, "auto", device)
-                 for _ in range(runs)]
-    kres, kidx, _, kl = full_runs[0]
-    for res, idx, _, _ in full_runs[1:]:
-        if not (np.array_equal(idx, kidx) and res.value == kres.value):
-            fail(f"{name}: a repeated run gave another answer")
-    part = 8 * chunk
-    xs, ls = x[:part], labels[:part]
-    kp = _run_constrained(xs, ls, problem, knobs, "auto", device)
-    pp = _run_constrained(xs, ls, problem, knobs, False, device)
-    ks = [r[2] for r in full_runs]
+    out = {"auto": [], False: []}
+    for use_pallas in (["auto", False, False, "auto"] * runs)[:2 * runs]:
+        out[use_pallas].append(_run_constrained(x, labels, problem, knobs,
+                                                use_pallas, device))
+    for side in ("auto", False):
+        res0, idx0 = out[side][0][0], out[side][0][1]
+        for res, idx, _, _ in out[side][1:]:
+            if not (np.array_equal(idx, idx0) and res.value == res0.value):
+                fail(f"{name}: a repeated run gave another answer")
+    kres, kidx, _, kl = out["auto"][0]
+    pres, pidx, _, _ = out[False][0]
+    ks = [r[2] for r in out["auto"]]
+    ps = [r[2] for r in out[False]]
     tr = kres.telemetry
     row = {"phase": "constrained", "call": name, "n": n,
            "d": int(x.shape[1]), "problem": {"k": k, "metric": "cosine"},
            "quotas": f"{k // GROUPS} per group", "knobs": knobs,
-           "kernel_seconds": _spread(ks),
+           "kernel_seconds": _spread(ks), "plain_seconds": _spread(ps),
            "kernel_points_per_s": n / statistics.median(ks),
+           "plain_points_per_s": n / statistics.median(ps),
            "chunks": chunks, "tiles": tr.counters["device_dispatches"],
            "merges": tr.counters.get("merges", 0),
            "far_inserts": tr.counters.get("far_inserts", 0),
@@ -858,10 +889,8 @@ def phase_constrained_stream(x, labels, device, check_launches: bool,
            "kernel_launches": kl, "value": kres.value,
            "ratio": kres.cert.ratio,
            "worst_group_ratio": max(kres.cert.group_ratios),
-           "reduced": f"plain on 8 of {chunks} chunks",
-           "reduced_kernel_seconds": kp[2], "reduced_plain_seconds": pp[2],
-           "agree": _agree_constrained(kp[0], pp[0], kp[1], pp[1],
-                                       to_numpy(ls))}
+           "agree": _agree_constrained(kres, pres, kidx, pidx,
+                                       to_numpy(labels))}
     emit(row)
     bad = [key for key, ok in row["agree"].items() if not ok]
     if bad:
@@ -870,7 +899,7 @@ def phase_constrained_stream(x, labels, device, check_launches: bool,
             and kres.solution.shape == (k, x.shape[1])
             and len(set(kidx.tolist())) == k):
         fail(f"{name}: solution is not k distinct finite rows")
-    if any(pp[3].values()):
+    if any(any(lc.values()) for *_, lc in out[False]):
         fail(f"{name}: a kernel launched on a plain run")
     if check_launches and kl["pairwise"] <= 0:
         fail(f"{name}: pairwise never launched on the kernel run")
@@ -963,41 +992,36 @@ def grouped_bound_ms(n, d, m, bc, p):
     """Least time for one grouped sweep: the larger of its bytes (points and
     centers read once, min_in and labels read, min_out written, the m·p
     (value, index) pairs written) over the memory rate and its own-group
-    fp32 operations (2·n·bc·d) over the CUDA-core rate."""
+    operations (2·n·bc·d, float64 on the FP64 tensor cores) over their
+    rate."""
     bytes_ = n * d * 4 + 12 * n + m * bc * d * 4 + m * p * 8
     tb = bytes_ / HBM_BYTES_PER_S * 1e3
-    to = 2 * n * bc * d / FP32_FLOPS * 1e3
+    to = 2 * n * bc * d / FP64_TC_FLOPS * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
 
 
 def phase_times_grouped(x, labels, seed: int):
     """B4 at the main shape: 16 groups of 8 centers at p = 128 (the block
-    step's pool at b = 8) and p = 1, the same 16 groups forced onto the
-    device-memory center path, and 64 groups (where that path is the
-    kernel's own choice) at p = 128.  No single PyTorch call fuses the
-    own-group distance, the min and a per-group top-p, so there is no
-    library time."""
+    step's pool at b = 8) and p = 1, 16 groups of one center at p = 1 (the
+    sweep of call (f)), and 64 groups of 8 at p = 128.  No single PyTorch
+    call fuses the own-group distance, the min and a per-group top-p, so
+    there is no library time."""
     import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.gmm_update import (gmm_grouped_topb_cuda,
-                                                grouped_tile_rows)
+    from repro_torch.kernels.gmm_update import grouped_tile_rows
     n, d = x.shape
     gen = torch.Generator(device=x.device).manual_seed(seed + 4)
     prep = ops.prepare(x, "cosine")
     min_in = torch.full((n,), float("inf"), device=x.device)
     rows = []
-    for m, p, staged in ((GROUPS, 128, None), (GROUPS, 1, None),
-                         (GROUPS, 128, False), (64, 128, None)):
-        bc = 8
+    for m, p, bc in ((GROUPS, 128, 8), (GROUPS, 1, 8), (GROUPS, 1, 1),
+                     (64, 128, 8)):
         lab = labels if m == GROUPS else torch.randint(
             0, m, (n,), generator=gen, device=x.device, dtype=torch.int32)
         cen = prep.points[torch.randint(0, n, (m * bc,), generator=gen,
                                         device=x.device)].view(m, bc, d)
         kern = (lambda: ops.grouped_gmm_topb(prep.points, cen, min_in, lab,
-                                             "cosine", p, prepared=True)) \
-            if staged is None else (lambda: gmm_grouped_topb_cuda(
-                prep.points, cen, None, min_in, lab, mode="cosine", p=p,
-                staged=staged))
+                                             "cosine", p, prepared=True))
         plain = (lambda: ref.gmm_grouped_topb_ref(prep.points, cen, min_in,
                                                   lab, "cosine", p))
         ms, host_ms = _time_ms(kern)
@@ -1005,11 +1029,8 @@ def phase_times_grouped(x, labels, seed: int):
         bms, bby = grouped_bound_ms(n, d, m, bc, p)
         rows.append({"kernel": "gmm_grouped_topb", "mode": "cosine", "n": n,
                      "d": d, "m": m, "bc": bc, "p": p,
-                     "bn": grouped_tile_rows(p),
-                     "centers": "shared memory"
-                     if m * bc <= 128 and staged is None
-                     else "device memory",
-                     "ms": ms, "host_ms": host_ms, "plain_ms": pms,
+                     "bn": grouped_tile_rows(p), "ms": ms,
+                     "host_ms": host_ms, "plain_ms": pms,
                      "library_ms": None, "bound_ms": bms, "bound_by": bby,
                      "share_of_bound": bms / ms,
                      "GBps": (n * d * 4 + 12 * n) / (ms * 1e-3) / 1e9})
@@ -1018,10 +1039,12 @@ def phase_times_grouped(x, labels, seed: int):
 
 
 def pairwise_bound_ms(m, n, d):
-    """Least time for one distance tile: its fp32 operations (2·m·n·d) over
-    the CUDA-core rate, or its bytes (both inputs read once, the output
-    written once) over the memory rate, whichever is larger."""
-    to = 2 * m * n * d / FP32_FLOPS * 1e3
+    """Least time for one distance tile: its operations (2·m·n·d, run in
+    float64 on the FP64 tensor cores) over their rate, 67 TFLOP/s (the
+    same figure as fp32 outside the tensor cores), or its bytes (both
+    inputs read once, the output written once) over the memory rate,
+    whichever is larger."""
+    to = 2 * m * n * d / FP64_TC_FLOPS * 1e3
     tb = ((m + n) * d + m * n) * 4 / HBM_BYTES_PER_S * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
 
@@ -1189,7 +1212,8 @@ def main(argv=None) -> int:
     tiles = stream_tiles(x, sphere, STREAM_TILES)
 
     # ---- 2. kernels vs plain ---------------------------------------------
-    errs = phase_kernels(x, args.seed, small_only=False, tiles=tiles)
+    errs, _ = phase_kernels(x, args.seed, small_only=False, tiles=tiles,
+                            out=out)
     torch.cuda.empty_cache()
 
     # ---- 3. batch path, 4. streaming path -------------------------------
@@ -1236,10 +1260,12 @@ def main(argv=None) -> int:
     pick = {"gmm_topb": next(r for r in rows if r["b"] == 8 and r["p"] == 128),
             "gmm_update_select": next(r for r in rows if r["b"] == 1
                                       and r["p"] == 1),
-            "pairwise": next(r for r in b_rows if r["d"] == 3),
+            # the tile where B3 meets a library call: (b)'s size, euclidean
+            "pairwise": next(r for r in b_rows if r["d"] == x.shape[1]
+                             and r["mode"] == "euclidean"),
             "gmm_grouped_topb": next(r for r in g_rows
                                      if r["m"] == GROUPS and r["p"] == 128
-                                     and r["centers"] == "shared memory")}
+                                     and r["bc"] == 8)}
     at_keys = {"gmm_topb": ("mode", "n", "d", "b", "p"),
                "gmm_update_select": ("mode", "n", "d", "b", "p"),
                "pairwise": ("mode", "m", "n", "d"),

@@ -71,7 +71,7 @@ def _bind(path: Path):
     lib.repro_gmm_sweep.restype = ci
     lib.repro_pairwise.argtypes = [vp] * 5 + [ci] * 4 + [vp]
     lib.repro_pairwise.restype = ci
-    lib.repro_grouped_sweep.argtypes = [vp] * 9 + [ci] * 9 + [vp]
+    lib.repro_grouped_sweep.argtypes = [vp] * 9 + [ci] * 8 + [vp]
     lib.repro_grouped_sweep.restype = ci
     lib.repro_error_string.argtypes = [ci]
     lib.repro_error_string.restype = ctypes.c_char_p

@@ -20,80 +20,59 @@
 //
 // What differs from the TPU kernel: that one does one (bn, d) x (m*bc, d)
 // product per tile for all m groups and masks away all but each row's own
-// group, because products are cheap on the MXU.  On CUDA cores they are
-// not: at m = 16 the full product is 16x the own-group work.  Here each
-// row meets only its own group's bc centers, so a sweep does 2*n*bc*d flops,
-// as the ungrouped sweep (gmm_sweep.cu) does.
+// group.  Here each row meets only its own group's bc centers, so a sweep
+// does 2*n*bc*d operations, not m times that.
 //
-// Arithmetic shared with the plain version, so the two agree bit for bit
-// and the engine decides the same on both paths (a run makes thousands of
-// argmax decisions among near-equal distances; summed in two different
-// fp32 orders, one of them flips and the runs part): every dot product is
-// accumulated in float64 and rounded once to float32, and the epilogue is
-// one correctly rounded fp32 operation at a time (no contraction into
-// FMA), as torch evaluates ref.gmm_grouped_topb_ref.  float64 sums in any
-// order round to the same float32 unless the exact sum lies within ~1e-16
-// of a rounding boundary.
+// Arithmetic shared with the plain version (kernels/ref.py
+// grouped_dist_ref, the B3 contract), so the two agree bit for bit and the
+// engine decides the same on both paths (a run makes thousands of argmax
+// decisions among near-equal distances; summed in two different fp32
+// orders, one of them flips and the runs part): every dot product is
+// accumulated in float64 from exact fp32 products and rounded once to
+// float32, and the epilogue is one correctly rounded fp32 operation at a
+// time.  float64 sums in any order round to the same float32 unless the
+// exact sum lies within ~1e-16 of a rounding boundary.
 //
-// Bound: bytes.  A sweep must read the points once, n*d*4 bytes, plus 12n
-// bytes of row state (min_in and label read, min_out written) and the
-// squared norms in the euclidean modes; the own-group arithmetic, 2*n*bc*d
-// operations in float64, is below the fp64 rate for the engine's blocks
-// (bc <= 8).  The design:
-//   - one warp takes two rows at a time, lanes striding over d with 16-byte
-//     loads (four in flight per lane) when d % 4 == 0 — the loop of
-//     gmm_sweep.cu, except that each row of the pair meets its own group's
-//     centers;
-//   - where all m groups' centers of a d-chunk fit in 128 KB of shared
-//     memory (m * min(bc, 8) <= 128 at a 256-float chunk) they are staged
-//     there and the rows meet them in shared memory (STAGED); otherwise each
-//     row reads its own block from device memory with __ldg, where the
-//     m*bc*d*4 bytes of centers stay L2-resident;
+// Bound: bytes.  A sweep must read the points once, n*d*4 bytes (4.75 GB
+// at the musiXmatch shape, 1.42 ms at 3.35 TB/s), plus 12n bytes of row
+// state and the squared norms in the euclidean modes; the own-group
+// products, 2*n*bc*d operations in float64, take 0.28 ms on the FP64
+// tensor cores.  The design:
+//   - the wrapper converts the centers to float64 once per sweep, into a
+//     (m, bc, dp) scratch zero-padded to dp = d rounded up to 16 (5.1 MB at
+//     m = 16, bc = 8, d = 5,000, L2-resident); lanes whose center lies
+//     past bc read nothing and take zeros;
+//   - each tile buckets its rows by group (a counting sort in shared
+//     memory), and a warp takes up to 32 rows of one group at a time: its
+//     task is a (32 x d) . (d x 8) product on the FP64 tensor cores
+//     (mma16x8x4, dmma.cuh), so every center value the warp reads serves
+//     all 32 rows, and the per-row, per-center float64 sums stay in the
+//     accumulator fragments over the whole of d, with no reduction across
+//     lanes and no barrier until the task ends;
+//   - each point value is loaded once (16-byte loads, three 16-value blocks
+//     of 32 rows in flight a warp, 16 warps an SM) and converted to float64
+//     once, for all 8 centers of a block (bc > 8 takes one pass per block
+//     of 8);
 //   - the per-group top-p is one bitonic sort of the tile's (group, value,
 //     index) keys, group first; each group's run then starts at a position
 //     found by binary search;
 //   - the ragged last tile is masked here, so the caller never pads.
-// No tensor cores (TF32 cannot meet the 3e-5 parity with the reference).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "dmma.cuh"
 #include "sweep_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kNB = 8;                // centers of a group folded per pass
-constexpr int kSub = 512;             // rows whose partial dot products are held
-constexpr int kStageFloats = 32768;   // 128 KB for the staged centers
-constexpr int kNoGroup = 0x7fffffff;  // group key of a row in no group
-
-template <bool STAGED>
-__device__ __forceinline__ float4 load_c4(const float* c, int t) {
-  const float4* c4 = reinterpret_cast<const float4*>(c);
-  if (STAGED) return c4[t];
-  return __ldg(c4 + t);
-}
-
-template <bool STAGED>
-__device__ __forceinline__ float load_c(const float* c, int t) {
-  if (STAGED) return c[t];
-  return __ldg(c + t);
-}
-
-__device__ __forceinline__ double dot4d(float4 a, float4 b, double s) {
-  s = fma((double)a.x, (double)b.x, s);
-  s = fma((double)a.y, (double)b.y, s);
-  s = fma((double)a.z, (double)b.z, s);
-  return fma((double)a.w, (double)b.w, s);
-}
-
-__device__ __forceinline__ double warp_sum_d(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+constexpr int kTaskRows = 32;            // rows of one group a warp takes
+constexpr int kLaneRows = kTaskRows / 8;  // rows a lane loads
+constexpr int kFrags = kTaskRows / 16;    // accumulator fragments a warp
+constexpr int kBlocks = 3;                // 16-value blocks in flight
+constexpr int kNoGroup = 0x7fffffff;   // group key of a row in no group
 
 // The metric transform of a float32 dot product, one correctly rounded
 // operation at a time: torch's order for (xs + cs) - 2 * dot, clamp at 0,
@@ -111,197 +90,203 @@ __device__ __forceinline__ float transform_rn(float dot, float xs, float cs) {
   }
 }
 
-// Dot products of two rows (dc values each) with their own groups' first
-// nb centers (ca, cb: each row's first center; centers cstride floats
-// apart), accumulated in float64 and summed over the warp (every lane ends
-// with the sums).
-template <bool STAGED>
-__device__ __forceinline__ void dot_rows_own(const float* __restrict__ xa,
-                                             const float* __restrict__ xb,
-                                             const float* ca, const float* cb,
-                                             int cstride, int nb, int dc,
-                                             int vec, int lane,
-                                             double (&sa)[kNB],
-                                             double (&sb)[kNB]) {
-#pragma unroll
-  for (int j = 0; j < kNB; ++j) sa[j] = sb[j] = 0.0;
-  if (vec) {
-    const float4* a4 = reinterpret_cast<const float4*>(xa);
-    const float4* b4 = reinterpret_cast<const float4*>(xb);
-    const int dc4 = dc >> 2;
-    int t = lane;
-    for (; t + 32 < dc4; t += 64) {
-      const float4 a0 = __ldg(a4 + t), b0 = __ldg(b4 + t);
-      const float4 a1 = __ldg(a4 + t + 32), b1 = __ldg(b4 + t + 32);
-#pragma unroll
-      for (int j = 0; j < kNB; ++j) {
-        if (j < nb) {
-          const float* cj = ca + j * cstride;
-          const float* dj = cb + j * cstride;
-          sa[j] = dot4d(a1, load_c4<STAGED>(cj, t + 32),
-                        dot4d(a0, load_c4<STAGED>(cj, t), sa[j]));
-          sb[j] = dot4d(b1, load_c4<STAGED>(dj, t + 32),
-                        dot4d(b0, load_c4<STAGED>(dj, t), sb[j]));
-        }
-      }
-    }
-    if (t < dc4) {
-      const float4 a0 = __ldg(a4 + t), b0 = __ldg(b4 + t);
-#pragma unroll
-      for (int j = 0; j < kNB; ++j) {
-        if (j < nb) {
-          sa[j] = dot4d(a0, load_c4<STAGED>(ca + j * cstride, t), sa[j]);
-          sb[j] = dot4d(b0, load_c4<STAGED>(cb + j * cstride, t), sb[j]);
-        }
-      }
-    }
-  } else {
-    for (int t = lane; t < dc; t += 32) {
-      const float a = __ldg(xa + t), b = __ldg(xb + t);
-#pragma unroll
-      for (int j = 0; j < kNB; ++j) {
-        if (j < nb) {
-          sa[j] = fma((double)a, (double)load_c<STAGED>(ca + j * cstride, t),
-                      sa[j]);
-          sb[j] = fma((double)b, (double)load_c<STAGED>(cb + j * cstride, t),
-                      sb[j]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kNB; ++j) {
-    sa[j] = warp_sum_d(sa[j]);
-    sb[j] = warp_sum_d(sb[j]);
-  }
-}
-
 // the tile order: group ascending, then the top-p order within a group
 __device__ __forceinline__ bool precedes(int ga, float va, int ia, int gb,
                                          float vb, int ib) {
   return ga < gb || (ga == gb && before(va, ia, vb, ib));
 }
 
-template <int BN>
-__host__ __device__ constexpr int sub_rows() {
-  return BN < kSub ? BN : kSub;
+// Four values of a row from column k on (zeros past d or for a missing
+// row).  VEC: one 16-byte load (d % 4 == 0, 16-byte aligned rows).
+template <bool VEC>
+__device__ __forceinline__ float4 load4(const float* __restrict__ row, int k,
+                                        int d) {
+  if (row == nullptr || k >= d) return make_float4(0.f, 0.f, 0.f, 0.f);
+  if (VEC) return __ldg(reinterpret_cast<const float4*>(row + k));
+  float4 v;
+  v.x = __ldg(row + k);
+  v.y = k + 1 < d ? __ldg(row + k + 1) : 0.f;
+  v.z = k + 2 < d ? __ldg(row + k + 2) : 0.f;
+  v.w = k + 3 < d ? __ldg(row + k + 3) : 0.f;
+  return v;
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// One 16-value block of d: the four tensor-core steps of a task.  Lane
+// (g, t) holds columns k + 4t .. k + 4t + 3 of rows g, g + 8, g + 16, ...
+// (x) and of center g (c); step j takes column k + 4t + j of both, so every
+// product pairs a row value with the center value of its column.
+__device__ __forceinline__ void task_block(double (&acc)[kFrags][4],
+                                           const float4 (&x)[kLaneRows],
+                                           const double (&c)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int f = 0; f < kFrags; ++f) {
+      const double a[2] = {(double)lane_of(x[2 * f], j),
+                           (double)lane_of(x[2 * f + 1], j)};
+      mma16x8x4(acc[f], a, c[j]);
+    }
+  }
+}
+
+// Four float64 values of a center from column k on (zeros for a center
+// past bc: it is never read).
+__device__ __forceinline__ void load_c4(double (&c)[4],
+                                        const double* __restrict__ cp, int k) {
+  if (cp == nullptr) {
+    c[0] = c[1] = c[2] = c[3] = 0.0;
+    return;
+  }
+  const double2 lo = __ldg(reinterpret_cast<const double2*>(cp + k));
+  const double2 hi = __ldg(reinterpret_cast<const double2*>(cp + k + 2));
+  c[0] = lo.x;
+  c[1] = lo.y;
+  c[2] = hi.x;
+  c[3] = hi.y;
 }
 
 template <int BN>
-size_t smem_bytes(bool staged, int m, int nbs, int dcs) {
-  return (size_t)BN * (sizeof(float) + 2 * sizeof(int)) +
-         (size_t)sub_rows<BN>() * kNB * sizeof(double) +
-         (staged ? (size_t)m * nbs * dcs * sizeof(float) : 0);
+size_t smem_bytes(int m) {
+  return (size_t)BN * 4 * sizeof(int) + (size_t)(3 * m + 2) * sizeof(int);
 }
 
-template <int MODE, int BN, bool STAGED>
-__global__ void __launch_bounds__(kThreads)
+template <int MODE, int BN, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
 grouped_sweep_kernel(const float* __restrict__ X,
                      const float* __restrict__ xsq,
-                     const float* __restrict__ C,
+                     const double* __restrict__ C64,
                      const float* __restrict__ csq,
                      const float* __restrict__ min_in,
                      const int* __restrict__ labels,
                      float* __restrict__ min_out, float* __restrict__ tile_val,
                      int* __restrict__ tile_idx, int n, int d, int m, int bc,
-                     int p, int dcs, int vec) {
-  constexpr int SUB = sub_rows<BN>();
+                     int dp, int p) {
   constexpr bool kNorms = (MODE == kSqEuclidean || MODE == kEuclidean);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* acc = reinterpret_cast<double*>(smem_raw);  // SUB * kNB
-  float* key = reinterpret_cast<float*>(acc + SUB * kNB);  // BN
-  int* kid = reinterpret_cast<int*>(key + BN);         // BN
-  int* klab = kid + BN;                                // BN
-  float* cs = reinterpret_cast<float*>(klab + BN);     // m * nbs * dcs
+  float* key = reinterpret_cast<float*>(smem_raw);  // BN
+  int* kid = reinterpret_cast<int*>(key + BN);      // BN
+  int* klab = kid + BN;                             // BN
+  int* order = klab + BN;                           // BN: rows by group
+  int* cnt = order + BN;                            // m: rows of each group
+  int* off = cnt + m;                               // m + 1: bucket starts
+  int* first = off + m + 1;                         // m + 1: first task
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t = lane & 3;
   const long long tile0 = (long long)blockIdx.x * BN;
-  const int nbs = min(kNB, bc);
 
   // klab[r]: the row's group, kNoGroup for a label outside [0, m) and for
-  // the rows past n of the ragged last tile; key[r]: the running min over
-  // the center passes folded so far
+  // the rows past n of the ragged last tile; key[r]: the own-group min
+  for (int g = tid; g < m; g += kThreads) cnt[g] = 0;
+  __syncthreads();
   for (int r = tid; r < BN; r += kThreads) {
     const long long i = tile0 + r;
     const int g = i < n ? labels[i] : -1;
-    klab[r] = (g >= 0 && g < m) ? g : kNoGroup;
+    const bool mine = g >= 0 && g < m;
+    klab[r] = mine ? g : kNoGroup;
     key[r] = CUDART_INF_F;
+    if (mine) atomicAdd(&cnt[g], 1);
+  }
+  __syncthreads();
+  if (tid == 0) {  // bucket starts and each group's first task
+    int o = 0, f = 0;
+    for (int g = 0; g < m; ++g) {
+      off[g] = o;
+      first[g] = f;
+      o += cnt[g];
+      f += (cnt[g] + kTaskRows - 1) / kTaskRows;
+      cnt[g] = 0;  // becomes the fill cursor
+    }
+    off[m] = o;
+    first[m] = f;
+  }
+  __syncthreads();
+  // the bucket order within a group is the atomics' order: a row's sums do
+  // not depend on the rows it shares a task with
+  for (int r = tid; r < BN; r += kThreads) {
+    const int g = klab[r];
+    if (g != kNoGroup) order[off[g] + atomicAdd(&cnt[g], 1)] = r;
   }
   __syncthreads();
 
-  for (int s0 = 0; s0 < BN; s0 += SUB) {
-    const long long row0 = tile0 + s0;
-    if (row0 >= n) break;  // block-uniform
-    const int srows = (int)min((long long)SUB, (long long)n - row0);
-    for (int g0 = 0; g0 < bc; g0 += kNB) {
-      const int nb = min(kNB, bc - g0);
-      __syncthreads();  // the previous fold has read acc
-      for (int t = tid; t < SUB * kNB; t += kThreads) acc[t] = 0.0;
-      __syncthreads();
-      for (int k0 = 0; k0 < d; k0 += dcs) {
-        const int dc = min(dcs, d - k0);
-        if (STAGED) {
-          // centers g0..g0+nb-1 of every group, d-chunk k0: one warp per
-          // center row
-          __syncthreads();  // every warp is done with the previous chunk
-          for (int row = warp; row < m * nbs; row += kWarps) {
-            const int g = row / nbs, j = row - g * nbs;
-            if (j >= nb) continue;
-            const float* src = C + (size_t)(g * bc + g0 + j) * d + k0;
-            float* dst = cs + (size_t)row * dcs;
-            if (vec) {
-              for (int c = 4 * lane; c < dc; c += 128)
-                *reinterpret_cast<float4*>(dst + c) =
-                    __ldg(reinterpret_cast<const float4*>(src + c));
-            } else {
-              for (int c = lane; c < dc; c += 32) dst[c] = __ldg(src + c);
-            }
-          }
-          __syncthreads();
-        }
-        // two rows per warp, each with its own group's centers; a lone last
-        // row pairs with itself, and a row in no group borrows its
-        // partner's block (its sums are never read)
-        for (int r = 2 * warp; r < srows; r += 2 * kWarps) {
-          const int rb = min(r + 1, srows - 1);
-          const int la = klab[s0 + r], lb = klab[s0 + rb];
-          if (la == kNoGroup && lb == kNoGroup) continue;  // warp-uniform
-          const int ga = la == kNoGroup ? lb : la;
-          const int gb = lb == kNoGroup ? la : lb;
-          const float* ca;
-          const float* cb;
-          if (STAGED) {
-            ca = cs + (size_t)ga * nbs * dcs;
-            cb = cs + (size_t)gb * nbs * dcs;
-          } else {
-            ca = C + (size_t)(ga * bc + g0) * d + k0;
-            cb = C + (size_t)(gb * bc + g0) * d + k0;
-          }
-          double sa[kNB], sb[kNB];
-          dot_rows_own<STAGED>(X + (size_t)(row0 + r) * d + k0,
-                               X + (size_t)(row0 + rb) * d + k0, ca, cb,
-                               STAGED ? dcs : d, nb, dc, vec, lane, sa, sb);
-          if (lane == 0) {
+  const int tasks = first[m];
+  for (int task = warp; task < tasks; task += kWarps) {
+    int lo = 0, hi = m - 1;  // the group whose tasks hold this one
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (first[mid] <= task) lo = mid;
+      else hi = mid - 1;
+    }
+    const int g = lo;
+    const int base = off[g] + (task - first[g]) * kTaskRows;
+    const int len = min(kTaskRows, off[g + 1] - base);
+    const float* rp[kLaneRows];  // rows g8, g8 + 8, ... of the task
 #pragma unroll
-            for (int j = 0; j < kNB; ++j) acc[r * kNB + j] += sa[j];
-            if (rb != r) {
+    for (int f = 0; f < kLaneRows; ++f) {
+      const int slot = g8 + 8 * f;
+      rp[f] = slot < len ? X + (tile0 + order[base + slot]) * (long long)d
+                         : nullptr;
+    }
+    for (int cb = 0; cb < bc; cb += 8) {
+      const double* cp = cb + g8 < bc
+                              ? C64 + ((size_t)g * bc + cb + g8) * dp + 4 * t
+                              : nullptr;
+      double acc[kFrags][4];
 #pragma unroll
-              for (int j = 0; j < kNB; ++j) acc[rb * kNB + j] += sb[j];
-            }
-          }
+      for (int f = 0; f < kFrags; ++f)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[f][v] = 0.0;
+      int k = 0;
+      for (; k + 16 * (kBlocks - 1) < d; k += 16 * kBlocks) {
+        float4 x[kBlocks][kLaneRows];  // every load of the step in flight
+        double c[kBlocks][4];
+#pragma unroll
+        for (int u = 0; u < kBlocks; ++u) {
+#pragma unroll
+          for (int f = 0; f < kLaneRows; ++f)
+            x[u][f] = load4<VEC>(rp[f], k + 16 * u + 4 * t, d);
+          load_c4(c[u], cp, k + 16 * u);
         }
+#pragma unroll
+        for (int u = 0; u < kBlocks; ++u) task_block(acc, x[u], c[u]);
       }
-      __syncthreads();
-      for (int r = tid; r < srows; r += kThreads) {
-        const int g = klab[s0 + r];
-        if (g == kNoGroup) continue;
-        const float xs = kNorms ? xsq[row0 + r] : 0.f;
-        float best = key[s0 + r];
-        for (int j = 0; j < nb; ++j) {
-          const float c2 = kNorms ? csq[g * bc + g0 + j] : 0.f;
-          best = fminf(best, transform_rn<MODE>((float)acc[r * kNB + j], xs,
-                                                c2));
+      for (; k < d; k += 16) {
+        float4 x[kLaneRows];
+        double c[4];
+#pragma unroll
+        for (int f = 0; f < kLaneRows; ++f)
+          x[f] = load4<VEC>(rp[f], k + 4 * t, d);
+        load_c4(c, cp, k);
+        task_block(acc, x, c);
+      }
+      // acc[f][2h + e]: row slot g8 + 8h + 16f, center cb + 2t + e
+#pragma unroll
+      for (int f = 0; f < kFrags; ++f) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int slot = g8 + 8 * h + 16 * f;
+          const int r = slot < len ? order[base + slot] : -1;
+          float best = CUDART_INF_F;
+          if (r >= 0) {
+            const float xs = kNorms ? xsq[tile0 + r] : 0.f;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = cb + 2 * t + e;
+              if (c < bc) {
+                const float c2 = kNorms ? csq[g * bc + c] : 0.f;
+                best = fminf(best, transform_rn<MODE>(
+                                       __double2float_rn(acc[f][2 * h + e]),
+                                       xs, c2));
+              }
+            }
+          }
+          best = fminf(best, __shfl_xor_sync(0xffffffffu, best, 1));
+          best = fminf(best, __shfl_xor_sync(0xffffffffu, best, 2));
+          if (t == 0 && r >= 0) key[r] = fminf(key[r], best);
         }
-        key[s0 + r] = best;
       }
     }
   }
@@ -348,8 +333,8 @@ grouped_sweep_kernel(const float* __restrict__ X,
 
   // group g's winners are the first min(p, rows of g) entries of its run;
   // the rest of its p slots are -inf at the tile's first row
-  for (int t = tid; t < m * p; t += kThreads) {
-    const int g = t / p, j = t - g * p;
+  for (int e = tid; e < m * p; e += kThreads) {
+    const int g = e / p, j = e - g * p;
     int lo = 0, hi = BN;  // first position whose group is >= g
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
@@ -369,60 +354,46 @@ grouped_sweep_kernel(const float* __restrict__ X,
   }
 }
 
-template <int MODE, int BN, bool STAGED>
-cudaError_t launch(const float* X, const float* xsq, const float* C,
+template <int MODE, int BN>
+cudaError_t launch(const float* X, const float* xsq, const double* C64,
                    const float* csq, const float* min_in, const int* labels,
                    float* min_out, float* tile_val, int* tile_idx, int n,
-                   int d, int m, int bc, int p, int dcs, int vec,
+                   int d, int m, int bc, int p, bool vec,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes<BN>(STAGED, m, min(kNB, bc), dcs);
-  auto kern = grouped_sweep_kernel<MODE, BN, STAGED>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
+  const size_t smem = smem_bytes<BN>(m);
+  auto kern = vec ? grouped_sweep_kernel<MODE, BN, true>
+                  : grouped_sweep_kernel<MODE, BN, false>;
+  static size_t sized[2] = {0, 0};  // the largest shared memory allowed yet
+  if (smem > sized[vec]) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    sized[vec] = smem;
+  }
   const int tiles = (int)(((long long)n + BN - 1) / BN);
-  kern<<<tiles, kThreads, smem, stream>>>(X, xsq, C, csq, min_in, labels,
+  const int dp = (d + 15) / 16 * 16;
+  kern<<<tiles, kThreads, smem, stream>>>(X, xsq, C64, csq, min_in, labels,
                                           min_out, tile_val, tile_idx, n, d,
-                                          m, bc, p, dcs, vec);
+                                          m, bc, dp, p);
   return cudaGetLastError();
 }
 
-template <int MODE, bool STAGED>
-cudaError_t launch_tile(const float* X, const float* xsq, const float* C,
+template <int MODE>
+cudaError_t launch_mode(const float* X, const float* xsq, const double* C64,
                         const float* csq, const float* min_in,
                         const int* labels, float* min_out, float* tile_val,
                         int* tile_idx, int n, int d, int m, int bc, int p,
-                        int bn, int dcs, int vec, cudaStream_t st) {
-#define REPRO_ARGS                                                          \
-  X, xsq, C, csq, min_in, labels, min_out, tile_val, tile_idx, n, d, m, bc, \
-      p, dcs, vec, st
+                        int bn, bool vec, cudaStream_t st) {
+#define REPRO_ARGS                                                            \
+  X, xsq, C64, csq, min_in, labels, min_out, tile_val, tile_idx, n, d, m, bc, \
+      p, vec, st
   switch (bn) {
-    case 1024: return launch<MODE, 1024, STAGED>(REPRO_ARGS);
-    case 2048: return launch<MODE, 2048, STAGED>(REPRO_ARGS);
-    case 4096: return launch<MODE, 4096, STAGED>(REPRO_ARGS);
+    case 1024: return launch<MODE, 1024>(REPRO_ARGS);
+    case 2048: return launch<MODE, 2048>(REPRO_ARGS);
+    case 4096: return launch<MODE, 4096>(REPRO_ARGS);
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_ARGS
-}
-
-template <int MODE>
-cudaError_t launch_mode(const float* X, const float* xsq, const float* C,
-                        const float* csq, const float* min_in,
-                        const int* labels, float* min_out, float* tile_val,
-                        int* tile_idx, int n, int d, int m, int bc, int p,
-                        int bn, int staged, int vec, cudaStream_t st) {
-  if (!staged)
-    return launch_tile<MODE, false>(X, xsq, C, csq, min_in, labels, min_out,
-                                    tile_val, tile_idx, n, d, m, bc, p, bn, d,
-                                    vec, st);
-  // the widest staged d-chunk whose m * min(bc, 8) center rows fit
-  const long long rows = (long long)m * min(kNB, bc);
-  int dcs = 1024;
-  while (dcs >= 256 && rows * dcs > kStageFloats) dcs >>= 1;
-  if (dcs < 256) return cudaErrorInvalidValue;
-  return launch_tile<MODE, true>(X, xsq, C, csq, min_in, labels, min_out,
-                                 tile_val, tile_idx, n, d, m, bc, p, bn, dcs,
-                                 vec, st);
 }
 
 }  // namespace
@@ -430,22 +401,23 @@ cudaError_t launch_mode(const float* X, const float* xsq, const float* C,
 extern "C" {
 
 // One grouped sweep.  Pointers are device pointers; xsq and csq may be null
-// for the dot and cosine modes.  C holds m*bc center rows (group-major),
-// tile_val/tile_idx hold m * ceil(n / bn) * p entries (group-major, then
-// tile, then rank).  staged = 1 stages the centers in shared memory (needs
-// m * min(bc, 8) <= 128), 0 reads them from device memory.  Returns the
+// for the dot and cosine modes.  C64 holds the centers in float64, zero
+// padded to (m, bc, dp) with dp = d rounded up to 16; csq the m*bc squared
+// norms of the fp32 centers.  tile_val /
+// tile_idx hold m * ceil(n / bn) * p entries (group-major, then tile, then
+// rank).  vec = 1 when d % 4 == 0 and X is 16-byte aligned.  Returns the
 // launch's cudaError_t (0 = launched).
-int repro_grouped_sweep(const float* X, const float* xsq, const float* C,
+int repro_grouped_sweep(const float* X, const float* xsq, const double* C64,
                         const float* csq, const float* min_in,
                         const int* labels, float* min_out, float* tile_val,
                         int* tile_idx, int n, int d, int m, int bc, int p,
-                        int mode, int bn, int staged, int vec, void* stream) {
+                        int mode, int bn, int vec, void* stream) {
   if (n <= 0 || d <= 0 || m <= 0 || bc <= 0 || p <= 0 || p > bn)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_ARGS                                                          \
-  X, xsq, C, csq, min_in, labels, min_out, tile_val, tile_idx, n, d, m, bc, \
-      p, bn, staged, vec, st
+#define REPRO_ARGS                                                            \
+  X, xsq, C64, csq, min_in, labels, min_out, tile_val, tile_idx, n, d, m, bc, \
+      p, bn, vec != 0, st
   switch (mode) {
     case kSqEuclidean: return (int)launch_mode<kSqEuclidean>(REPRO_ARGS);
     case kEuclidean: return (int)launch_mode<kEuclidean>(REPRO_ARGS);

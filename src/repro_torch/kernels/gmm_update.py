@@ -11,7 +11,8 @@ stays here, as it did in the reference.  The plain version is
 ``gmm_grouped_topb_cuda`` ports ``gmm_grouped_topb_pallas``; the CUDA body
 is ``csrc/gmm_grouped.cu`` (see the note there on its bound and design).
 Each row folds only its own group's center block, each tile keeps every
-group's top-p, and the per-group merge of the tile winners stays here.  The
+group's top-p, and the per-group merge of the tile winners stays here, as
+does the conversion of the centers to the kernel's float64 scratch.  The
 plain version is ``ref.gmm_grouped_topb_ref``.
 """
 from __future__ import annotations
@@ -22,11 +23,6 @@ from . import build
 from .gmm_topb import MODES, TILE_ROWS, launch_sweep, tile_rows
 from .ref import (gmm_grouped_topb_ref, gmm_update_select_ref,  # noqa: F401
                   merge_tiles_grouped, take)
-
-# m * min(bc, 8) center rows of a 256-float d-chunk fit the kernel's 128 KB
-# of staged centers up to this count
-STAGED_ROWS = 128
-
 
 def gmm_update_select_cuda(points, centers, xsq, min_in, mask, *, mode: str,
                            bn: int = None):
@@ -80,46 +76,42 @@ def _check_grouped(points, centers, xsq, min_in, labels, mode, p, bn):
 
 
 def gmm_grouped_topb_cuda(points, centers, xsq, min_in, labels, *,
-                          mode: str, p: int, bn: int = None, staged=None):
+                          mode: str, p: int, bn: int = None):
     """Grouped round on the card.  points (n, d), centers (m, bc, d), xsq
     (n,) squared norms (euclidean modes; None otherwise), min_in (n,) (each
     row's distance to its own group's selected centers), labels (n,) int32
     (a label outside [0, m) matches no group) -> (min_out (n,), cand_val
     (m, p), cand_idx (m, p) int64): every group's exact top-p of the updated
     field over its own rows.  A group with fewer than p rows ends in -inf
-    entries whose indices lie in [0, n).  ``staged`` picks where the rows
-    meet the centers (True: shared memory, which needs m·min(bc, 8) <=
-    128; False: device memory; None: shared memory where they fit)."""
+    entries whose indices lie in [0, n)."""
     bn = grouped_tile_rows(p) if bn is None else bn
     _check_grouped(points, centers, xsq, min_in, labels, mode, p, bn)
     n, d = points.shape
     m, bc, _ = centers.shape
-    fits = m * min(8, bc) <= STAGED_ROWS
-    staged = fits if staged is None else bool(staged)
-    if staged and not fits:
-        raise ValueError(f"m={m} groups of {bc} centers do not fit the "
-                         "kernel's staged centers (m * min(bc, 8) <= "
-                         f"{STAGED_ROWS})")
-    # the centers' squared norms as the plain version computes them
+    # the centers' squared norms as the plain version computes them, and
+    # the centers in float64, converted once a sweep into the kernel's
+    # scratch, its rows zero-padded to a multiple of 16
     cflat = centers.view(m * bc, d)
     csq = torch.sum(cflat * cflat, dim=-1) if xsq is not None else None
+    c64 = torch.zeros((m, bc, -(-d // 16) * 16), dtype=torch.float64,
+                      device=points.device)
+    c64[:, :, :d] = centers
     tiles = -(-n // bn)
     min_out = torch.empty_like(min_in)
     tile_val = torch.empty((m, tiles * p), dtype=torch.float32,
                            device=points.device)
     tile_idx = torch.empty((m, tiles * p), dtype=torch.int32,
                            device=points.device)
-    vec = int(d % 4 == 0 and points.data_ptr() % 16 == 0
-              and centers.data_ptr() % 16 == 0)
+    vec = int(d % 4 == 0 and points.data_ptr() % 16 == 0)
     lib = build.library()
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream(points.device).cuda_stream
         rc = lib.repro_grouped_sweep(
             points.data_ptr(), 0 if xsq is None else xsq.data_ptr(),
-            centers.data_ptr(), 0 if csq is None else csq.data_ptr(),
+            c64.data_ptr(), 0 if csq is None else csq.data_ptr(),
             min_in.data_ptr(), labels.data_ptr(), min_out.data_ptr(),
             tile_val.data_ptr(), tile_idx.data_ptr(), n, d, m, bc, p,
-            MODES[mode], bn, int(staged), vec, stream)
+            MODES[mode], bn, vec, stream)
     build.check(rc)
     build.LAUNCHES["gmm_grouped_topb"] += 1
     vals, idx = merge_tiles_grouped(tile_val, tile_idx.long(), p)

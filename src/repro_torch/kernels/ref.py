@@ -53,35 +53,37 @@ def sweep_dist_ref(x, y, mode: str = "sqeuclidean", xsq=None):
     return _transform(x @ y.T, xsq, ysq, mode)
 
 
-def dot_in_order(x, y):
-    """``x @ y.T`` with every entry summed over d in index order, one
-    rounded product and one rounded add per step — the B3 kernel's own
-    chain.  An entry depends on its two rows only, so a one-column call
-    equals the same column of a full tile bit for bit; a BLAS product does
-    not promise that (MKL sums a matrix-vector product in another order
-    than a matrix product)."""
-    out = torch.zeros((x.shape[0], y.shape[0]), dtype=torch.float32,
+def dot64(x, y):
+    """``x @ y.T`` with the B3 and B4 kernels' arithmetic: every dot product
+    accumulated in float64 from exact fp32 products and rounded once to
+    float32.  Two float64 sums in different orders round to the same
+    float32 unless the exact sum lies within float64 rounding (~1e-16
+    relative) of an fp32 rounding boundary, so kernel and plain agree bit
+    for bit but for such entries (one ulp apart), and an entry depends on
+    its two rows only, whatever the shape.  Rows go through in chunks so
+    the float64 copies of x and of the block stay at most 2^24 entries."""
+    y64 = y.to(torch.float64)
+    out = torch.empty((x.shape[0], y.shape[0]), dtype=torch.float32,
                       device=x.device)
-    for k in range(x.shape[1]):
-        out += x[:, k, None] * y[None, :, k]
+    rows = max(1, (1 << 24) // max(1, y.shape[0], x.shape[1]))
+    for s in range(0, x.shape[0], rows):
+        out[s:s + rows] = (x[s:s + rows].to(torch.float64) @ y64.T).to(
+            torch.float32)
     return out
 
 
 def pairwise_ref(x, y, mode: str = "sqeuclidean", xsq=None, ysq=None):
     """Plain version of the B3 distance kernel: the (m, n) distance matrix
     in the factorized form (modes as in ``sweep_dist_ref``; ``xsq``/``ysq``
-    optionally pass the squared norms in).
-
-    The dot products are the kernel's chain (``dot_in_order``), on any
-    device: each entry depends on its two rows only — the streaming
-    core-set's far-point path recomputes one column after each insert and
-    relies on it — and on the card the kernel and this version agree bit
-    for bit, so a stream decides the same on both paths.  It repeats the
-    kernel's arithmetic and is no yardstick of speed: d launches per call
+    optionally pass the squared norms in): the float64 product rounded
+    once (``dot64``), then the epilogue in float32, one rounded op at a
+    time.  On the card the kernel and this version agree bit for bit (see
+    ``dot64`` for the exception), so a stream decides the same on both
+    paths.  It repeats the kernel's arithmetic and is no yardstick of speed
     (``torch.cdist`` is the library call a time is held against).
     """
     xsq, ysq = _norms(x, y, xsq, ysq, mode)
-    return _transform(dot_in_order(x, y), xsq, ysq, mode)
+    return _transform(dot64(x, y), xsq, ysq, mode)
 
 
 def topk_stable(values, p: int):
@@ -187,23 +189,12 @@ def grouped_field(dist, min_in, labels, m: int, p: int):
     return new_min, vals[:, :p], idx[:, :p]
 
 
-def grouped_dist_ref(x, y, mode: str = "sqeuclidean", xsq=None,
-                     chunk: int = 16384):
-    """Distance block (m, n) with the B4 kernel's arithmetic: each dot
-    product accumulated in float64 and rounded once to float32 (any float64
-    summation order rounds to the same float32 but for sums within ~1e-16
-    of a rounding boundary), then the epilogue in float32, one rounded op
-    at a time.  So the kernel and this version agree bit for bit, and an
-    engine run decides the same on both paths.  Rows go through in chunks
-    so the float64 copy stays small."""
-    y64 = y.to(torch.float64)
-    dot = torch.empty((x.shape[0], y.shape[0]), dtype=torch.float32,
-                      device=x.device)
-    for s in range(0, x.shape[0], chunk):
-        dot[s:s + chunk] = (x[s:s + chunk].to(torch.float64) @ y64.T).to(
-            torch.float32)
-    xsq, ysq = _norms(x, y, xsq, None, mode)
-    return _transform(dot, xsq, ysq, mode)
+def grouped_dist_ref(x, y, mode: str = "sqeuclidean", xsq=None):
+    """Distance block (m, n) with the B4 kernel's arithmetic, which is B3's
+    (``pairwise_ref``: each dot product accumulated in float64 and rounded
+    once, the epilogue in float32), so the kernel and this version agree
+    bit for bit and an engine run decides the same on both paths."""
+    return pairwise_ref(x, y, mode, xsq=xsq)
 
 
 def gmm_grouped_topb_ref(points, centers, min_in, labels,

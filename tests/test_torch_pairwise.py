@@ -5,11 +5,11 @@ Pallas kernel in interpret mode, as tests/test_kernels.py runs it) and
 against the reference's oracle ``ref.pairwise_ref``, on the same numpy
 inputs.
 
-Tolerance: rtol = atol = 3e-5, the reference's own kernel parity — fp32 dot
-products are summed in another order by XLA and by torch.  Two places get
-a stated wider bound because the transform amplifies a 1-ulp difference of
-the dot product: ``arccos`` near |sim| = 1 (slope 1/sqrt(1 - sim²)) and
-``sqrt`` near 0 (slope 1/(2 sqrt(d²))).
+Tolerance: rtol = atol = 3e-5, the reference's own kernel parity — XLA
+sums the dot products in fp32, the port in float64 rounded once.  Two
+places get a stated wider bound because the transform amplifies a 1-ulp
+difference of the dot product: ``arccos`` near |sim| = 1 (slope
+1/sqrt(1 - sim²)) and ``sqrt`` near 0 (slope 1/(2 sqrt(d²))).
 """
 import numpy as np
 import pytest
@@ -104,8 +104,8 @@ def test_euclidean_near_zero_wider_bound():
                                    (1000, 17, 129)])
 def test_one_column_call_equals_tile_column_bit_for_bit(mode, shape):
     # the far-point path of the streaming core-set recomputes one column
-    # after each insert: in the plain version every entry is summed in the
-    # same order over d whatever the shape, as in the kernel
+    # after each insert: in the plain version every entry is a float64 sum
+    # rounded once, which depends on its two rows only, as in the kernel
     m, d, n = shape
     x, y = _inputs(m, d, n, 11)
     px = ops.prepare(torch.as_tensor(x), mode)
@@ -125,13 +125,41 @@ def test_one_column_call_equals_tile_column_bit_for_bit(mode, shape):
 
 
 def test_plain_version_order_matches_sweep_distances():
-    # the ordered plain sum and the BLAS product behind the sweeps agree to
-    # the kernel tolerance (they differ only in summation order)
+    # the float64 plain product and the fp32 BLAS product behind the sweeps
+    # agree to the kernel tolerance (they differ only in rounding)
     x, y = _inputs(300, 40, 70, 5)
     tx, ty = torch.as_tensor(x), torch.as_tensor(y)
     for mode in MODES:
         torch.testing.assert_close(ref.pairwise_ref(tx, ty, mode),
                                    ref.sweep_dist_ref(tx, ty, mode), **TOL)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_version_is_grouped_sweeps_product(mode):
+    # B3 and B4 share one plain arithmetic: the same rows give the same
+    # distances through pairwise_ref and grouped_dist_ref, bit for bit
+    x, y = _inputs(513, 77, 40, 13)
+    px = ops.prepare(torch.as_tensor(x), mode)
+    py = ops.prepare(torch.as_tensor(y), mode)
+    got = ref.pairwise_ref(px.points, py.points, mode, xsq=px.xsq)
+    want = ref.grouped_dist_ref(px.points, py.points, mode, xsq=px.xsq)
+    assert torch.equal(got, want)
+
+
+def test_plain_dot_is_float64_product_rounded_once():
+    # every dot product is the float64 sum of exact fp32 products, rounded
+    # once to float32 (numpy's float64 product rounds to the same float32:
+    # no sum of these inputs lies within float64 rounding of an fp32
+    # rounding boundary)
+    x, y = _inputs(300, 500, 90, 17)
+    got = ref.pairwise_ref(torch.as_tensor(x), torch.as_tensor(y),
+                           "dot").numpy()
+    want = -(x.astype(np.float64) @ y.astype(np.float64).T).astype(
+        np.float32)
+    np.testing.assert_array_equal(got, want)
+    # and it is not the fp32 product: the two part in the last bits
+    fp32 = -(torch.as_tensor(x) @ torch.as_tensor(y).T).numpy()
+    assert (got != fp32).any()
 
 
 def test_cuda_wrapper_rejects_cpu_tensors():
