@@ -64,21 +64,41 @@ Phases, each printing one JSON line (or one per call):
               quotas 2 per group, k' = 256, chunk 4,096, over the whole
               stream, three calls per side in turns, with the same
               agreement.
-6. times    — median kernel and plain times by CUDA events: the sweeps at
+6. mapreduce — ``repro_torch.diversify`` with ``mode="mapreduce"``, the
+              simulated reducers: (i) the musiXmatch shape, cosine,
+              remote-edge, k = 128, 16 reducers, default knobs (the probe
+              through B1, then round 1 as 16-group B4 sweeps); (j)
+              remote-clique (EXT), k = 32, k' = 64, 16 reducers, random
+              partition (delegates through B3); (k) remote-clique,
+              generalized, k = 16, k' = 64, 8 reducers (multiplicities,
+              instantiation through B3 columns); (l) remote-edge, k = 32,
+              the genre labels alone, 4 reducers (one 64-group B4 run);
+              (m) the 2^24-point sphere, euclidean, k = 64, k' = 512, 16
+              reducers, adversarial partition.  Kernel and plain runs in
+              turns; each call prints its seconds, the probe, round-1 and
+              solve seconds, the frozen schedule, the core-set size, the
+              counters and launches, and an ``agree`` dict (picks, labels,
+              value, radius and certificate to rtol 1e-4, counters); round 1
+              must make one B4 launch a fold, as the run's own
+              ``mr.round1`` span records them.
+7. times    — median kernel and plain times by CUDA events: the sweeps at
               the main shape beside their bytes bound, the grouped sweep
               there (16 groups of 8 centers, p in {1, 128}; 16 groups of one
               center, p = 1; 64 groups at p = 128), the distance tile at the
               streaming shapes beside its
               bound and, for euclidean, ``torch.cdist``'s time (the library
-              call; the port never calls it on this path).
-7. profile  — device-only torch.profiler traces of batch call (a), stream
-              call (b) and constrained call (e) cosine: device time by
-              kernel and the device's busy share of that call's wall time
-              (full tables in chiprun_out/).
+              call; the port never calls it on this path), and B4 at the
+              MapReduce round-1 shapes with its merge time and tile filler,
+              each shape first held against its plain version entry for
+              entry (its differing entries, expected 0, join phase 2's).
+8. profile  — device-only torch.profiler traces of batch call (a), stream
+              call (b), constrained call (e) cosine and MapReduce call (i):
+              device time by kernel and the device's busy share of that
+              call's wall time (full tables in chiprun_out/).
 
 The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before it.
-``--rehearse`` runs phases 2-5 at a tiny size on the CPU with the plain
+``--rehearse`` runs phases 2-6 at a tiny size on the CPU with the plain
 versions (no build, no timings, no ``ok`` line) to check the script itself.
 """
 from __future__ import annotations
@@ -290,32 +310,45 @@ def check_grouped(x, mode, m, p, gen, errs, diffs, label, bc=8):
     own = torch.where(torch.isinf(own), torch.ones_like(own), own)
     min_in = own * (0.5 + torch.rand((n,), generator=gen, device=dev))
     if x.is_cuda:
-        km, kv, ki = gmm_grouped_topb_cuda(prep.points, cen_k, prep.xsq,
-                                           min_in, labels, mode=mode, p=p)
+        k_out = gmm_grouped_topb_cuda(prep.points, cen_k, prep.xsq, min_in,
+                                      labels, mode=mode, p=p)
     else:
-        km, kv, ki = ops.grouped_gmm_topb(prep.points, cen_k, min_in,
-                                          labels, mode, p, xsq=prep.xsq,
-                                          prepared=True)
-    rm, rv, ri = ref.gmm_grouped_topb_ref(prep.points, cen_k, min_in, labels,
-                                          mode, p, xsq=prep.xsq)
+        k_out = ops.grouped_gmm_topb(prep.points, cen_k, min_in, labels,
+                                     mode, p, xsq=prep.xsq, prepared=True)
+    r_out = ref.gmm_grouped_topb_ref(prep.points, cen_k, min_in, labels,
+                                     mode, p, xsq=prep.xsq)
+    compare_grouped(k_out, r_out, labels, m, errs, diffs, label)
+
+
+def compare_grouped(k_out, r_out, labels, m, errs, diffs, label):
+    """Hold one B4 output (min_out, top-p values, indices) against its
+    plain version's on the same inputs: min_out and the values equal entry
+    for entry, every index in [0, n), and the indices select the same
+    own-group min_out values (exact ties pass; a -inf fill entry selects
+    nothing).  ``diffs[label]`` counts the min_out and top-p values that
+    differ; any difference fails the run."""
+    import torch
+    km, kv, ki = k_out
+    rm, rv, ri = r_out
+    n = km.shape[0]
     field = torch.where(labels[None, :] == torch.arange(
-        m, device=dev)[:, None], rm[None, :], float("-inf"))
+        m, device=km.device)[:, None], rm[None, :], float("-inf"))
 
     def picked(vals, idx):
-        # the values an index set selects (exact ties pass); a -inf fill
-        # entry selects nothing, its index only has to lie in [0, n)
         return torch.sort(torch.where(torch.isfinite(vals),
                                       torch.gather(field, 1, idx),
                                       float("-inf")), dim=1).values
-    ok = (_close(km, rm) and _close(kv, rv)
-          and bool(((ki >= 0) & (ki < n)).all())
-          and _close(picked(kv, ki), picked(rv, ri)))
+    if kv.shape != rv.shape or ki.shape != ri.shape:
+        fail(f"gmm_grouped_topb at {label}: top-p of shape "
+             f"{tuple(kv.shape)}, plain {tuple(rv.shape)}")
+    diffs[label] = int((km != rm).sum()) + int((kv != rv).sum())
     errs["gmm_grouped_topb"] = max(errs["gmm_grouped_topb"], _err(km, rm),
                                    _err(kv, rv))
-    q = rv.shape[1]
-    diffs[label] = int((km != rm).sum()) + int((kv[:, :q] != rv).sum())
+    ok = (diffs[label] == 0 and bool(((ki >= 0) & (ki < n)).all())
+          and bool(torch.equal(picked(kv, ki), picked(rv, ri))))
     if not ok:
-        fail(f"gmm_grouped_topb disagrees with plain at {label}")
+        fail(f"gmm_grouped_topb disagrees with plain at {label} "
+             f"({diffs[label]} differing entries)")
 
 
 STREAM_TILES = {"chunk": 4096, "caps": (257, 1025, 129),
@@ -909,7 +942,210 @@ def phase_constrained_stream(x, labels, device, check_launches: bool,
 
 
 # --------------------------------------------------------------------------
-# phase 6: times
+# phase 6: the simulated MapReduce path
+# --------------------------------------------------------------------------
+
+def mapreduce_calls(full: bool):
+    """(name, data, problem, knobs, kernel runs, plain runs) of the
+    MapReduce calls; ``full=False`` is the rehearsal's tiny size.  Data
+    "mxm" is the musiXmatch shape, "mxm+genres" the same with the
+    constrained phase's labels, "sphere" the 2^24-point unit sphere."""
+    if full:
+        return [
+            ("i_cosine_edge_k128_l16", "mxm",
+             dict(k=128, metric="cosine"), dict(num_reducers=16), 3, 1),
+            ("j_cosine_clique_k32_kp64_l16_random", "mxm",
+             dict(k=32, metric="cosine", measure="remote-clique"),
+             dict(kprime=64, num_reducers=16, partition="random"), 2, 1),
+            ("k_cosine_clique_gen_k16_kp64_l8", "mxm",
+             dict(k=16, metric="cosine", measure="remote-clique"),
+             dict(kprime=64, num_reducers=8, generalized=True), 3, 1),
+            ("l_cosine_labels_k32_l4", "mxm+genres",
+             dict(k=32, metric="cosine"), dict(num_reducers=4), 3, 1),
+            ("m_sphere_edge_k64_kp512_l16_adversarial", "sphere",
+             dict(k=64), dict(kprime=512, num_reducers=16,
+                              partition="adversarial"), 3, 1),
+        ]
+    return [
+        ("i_cosine_edge_l16", "mxm", dict(k=8, metric="cosine"),
+         dict(num_reducers=16), 1, 1),
+        ("j_cosine_clique_kp16_l16_random", "mxm",
+         dict(k=4, metric="cosine", measure="remote-clique"),
+         dict(kprime=16, num_reducers=16, partition="random"), 1, 1),
+        ("k_cosine_clique_gen_kp16_l8", "mxm",
+         dict(k=4, metric="cosine", measure="remote-clique"),
+         dict(kprime=16, num_reducers=8, generalized=True), 1, 1),
+        ("l_cosine_labels_l4", "mxm+genres", dict(k=GROUPS, metric="cosine"),
+         dict(num_reducers=4), 1, 1),
+        ("m_sphere_edge_kp64_l16_adversarial", "sphere", dict(k=8),
+         dict(kprime=64, num_reducers=16, partition="adversarial"), 1, 1),
+    ]
+
+
+def _find_span(trace, name):
+    """The first span called ``name`` in a run's trace, or None."""
+    todo = list(trace.spans)
+    while todo:
+        sp = todo.pop(0)
+        if sp.name == name:
+            return sp
+        todo.extend(sp.children)
+    return None
+
+
+def _span_seconds(trace, name):
+    """Seconds of the first span called ``name`` in a run's trace."""
+    sp = _find_span(trace, name)
+    return 0.0 if sp is None else sp.seconds
+
+
+def _run_mr(x, labels, problem, knobs, use_pallas, device):
+    import torch
+    import repro_torch
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = repro_torch.diversify(x, labels=labels,
+                                execution=repro_torch.ExecutionSpec(
+                                    mode="mapreduce", use_pallas=use_pallas,
+                                    device=device, trace=True, **knobs),
+                                **problem)
+    idx = res.indices
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    return res, idx, time.perf_counter() - t0, dict(ops.LAUNCHES)
+
+
+def _agree_mr(kres, pres, kidx, pidx):
+    """Kernel against plain on one MapReduce call: the same picks (and
+    labels), value, core-set radius and certificate floats within rtol
+    1e-4, equal certificate counts and schedules, equal counters."""
+    import numpy as np
+
+    def close(a, b):
+        a, b = np.asarray(a, float), np.asarray(b, float)
+        return a.shape == b.shape and bool(np.allclose(a, b, rtol=RTOL_E2E,
+                                                       atol=0.0))
+    agree = {
+        "picks": bool(np.array_equal(kres.solution, pres.solution)
+                      and (kidx is None) == (pidx is None)
+                      and (kidx is None or np.array_equal(kidx, pidx))),
+        "value": close(kres.value, pres.value),
+        "counters": dict(kres.telemetry.counters)
+        == dict(pres.telemetry.counters),
+    }
+    if kres.labels is not None:
+        agree["labels"] = bool(np.array_equal(kres.labels, pres.labels))
+    if kres.coreset is not None:
+        agree["radius"] = close(float(kres.coreset.radius),
+                                float(pres.coreset.radius))
+        agree["coreset_size"] = (kres.telemetry.extras.get("coreset_size")
+                                 == pres.telemetry.extras.get("coreset_size"))
+    kc, pc = kres.cert, pres.cert
+    if kc is not None or pc is not None:
+        agree["certificate"] = (
+            kc is not None and pc is not None
+            and kc.meets_target == pc.meets_target
+            and kc.counts == pc.counts and kc.kprime == pc.kprime
+            and kc.b_schedule == pc.b_schedule
+            and close((kc.radius, kc.scale, kc.ratio),
+                      (pc.radius, pc.scale, pc.ratio)))
+    return agree
+
+
+def phase_mapreduce(data, device, check_launches: bool, full: bool = True):
+    """The MapReduce calls, kernel and plain runs in turns (kernel first,
+    plain second, then the remaining kernel runs).  Returns (launches of
+    the first kernel run of each call, summed; per-call kernel median
+    seconds)."""
+    import numpy as np
+    import torch
+    launches = dict.fromkeys(KERNELS, 0)
+    median_s = {}
+    for name, kind, problem, knobs, kruns, pruns in mapreduce_calls(full):
+        x = data["mxm" if kind == "mxm+genres" else kind]
+        labels = data["genres"] if kind == "mxm+genres" else None
+        order = (["auto", False] * max(kruns, pruns))
+        out = {"auto": [], False: []}
+        for use_pallas in order:
+            if len(out[use_pallas]) < (kruns if use_pallas else pruns):
+                out[use_pallas].append(_run_mr(x, labels, problem, knobs,
+                                               use_pallas, device))
+        (kres, kidx, _, kl), (pres, pidx, _, _) = out["auto"][0], \
+            out[False][0]
+        for side in ("auto", False):
+            res0, idx0 = out[side][0][0], out[side][0][1]
+            for res, idx, _, _ in out[side][1:]:
+                if not (np.array_equal(res.solution, res0.solution)
+                        and res.value == res0.value):
+                    fail(f"{name}: a repeated run gave another answer")
+        if any(lc != kl for *_, lc in out["auto"]):
+            fail(f"{name}: kernel launch counts differ between repeats")
+        # the timed run's own record of round 1: its frozen schedule, fold
+        # count and the launches made inside the span
+        r1 = _find_span(kres.telemetry, "mr.round1")
+        if r1 is None:
+            fail(f"{name}: the run recorded no mr.round1 span")
+        ks = [r[2] for r in out["auto"]]
+        ps = [r[2] for r in out[False]]
+        tr = kres.telemetry
+        rounds = tr.phases[0]["seconds"]
+        probe_s = _span_seconds(tr, "mr.probe")
+        round1_s = _span_seconds(tr, "mr.round1")
+        row = {"phase": "mapreduce", "call": name, "n": int(x.shape[0]),
+               "d": int(x.shape[1]), "problem": problem, "knobs": knobs,
+               "labels": "synthetic genres, Zipf(1), 16 groups"
+               if labels is not None else None,
+               "kernel_seconds": _spread(ks), "plain_seconds": _spread(ps),
+               "kernel_over_plain_median":
+                   statistics.median(ks) / statistics.median(ps),
+               "rounds_s": rounds, "probe_s": probe_s,
+               "round1_s": round1_s,
+               "solve_s": rounds - probe_s - round1_s,
+               "plain_round1_s": _span_seconds(pres.telemetry, "mr.round1"),
+               "kprime": r1.attrs["kprime"],
+               "schedule": r1.attrs["schedule"],
+               "round1_sweeps": r1.attrs["folds"],
+               "round1_launches": r1.attrs["launches"],
+               "round1_b4_launches": r1.attrs["launches"]["gmm_grouped_topb"],
+               "coreset_size": tr.extras.get("coreset_size"),
+               "counters": dict(tr.counters),
+               "kernel_launches": kl, "value": [kres.value, pres.value],
+               "agree": _agree_mr(kres, pres, kidx, pidx)}
+        if kres.cert is not None:
+            row.update({"ratio": [kres.cert.ratio, pres.cert.ratio],
+                        "meets_target": kres.cert.meets_target,
+                        "probe_b_schedule": list(map(list,
+                                                     kres.cert.b_schedule))})
+        emit(row)
+        bad = [k for k, ok in row["agree"].items() if not ok]
+        if bad:
+            fail(f"{name}: kernel and plain disagree on {bad}")
+        if not (np.isfinite(kres.solution).all()
+                and kres.solution.shape == (problem["k"], x.shape[1])
+                and np.isfinite(kres.value)):
+            fail(f"{name}: the solution is not k finite rows")
+        if kidx is not None and len(set(kidx.tolist())) != problem["k"]:
+            fail(f"{name}: the indices are not k distinct rows")
+        if any(any(lc.values()) for *_, lc in out[False]):
+            fail(f"{name}: a kernel launched on a plain run")
+        if check_launches:
+            if row["round1_b4_launches"] != row["round1_sweeps"]:
+                fail(f"{name}: round 1 made {row['round1_b4_launches']} B4 "
+                     f"launches for {row['round1_sweeps']} folds")
+            if (problem.get("measure") == "remote-clique"
+                    and kl["pairwise"] <= 0):
+                fail(f"{name}: pairwise never launched on the kernel run")
+        for k, v in kl.items():
+            launches[k] += v
+        median_s[name] = statistics.median(ks)
+        if x.is_cuda:
+            torch.cuda.empty_cache()
+    return launches, median_s
+
+
+# --------------------------------------------------------------------------
+# phase 7: times
 # --------------------------------------------------------------------------
 
 def _time_ms(fn, reps: int = 10):
@@ -1038,6 +1274,97 @@ def phase_times_grouped(x, labels, seed: int):
     return rows
 
 
+def phase_times_round1(x, sphere, genres, seed: int, errs, diffs):
+    """B4 at the shapes of the MapReduce round 1: the contiguous reducer
+    shards of calls (i) (16 groups, cosine) and (m) (16 groups, the 2^24
+    sphere, euclidean) at the lookahead sweep (bc = 8, p = 32) and the b = 1
+    tail (bc = 1, p = 1), and call (l)'s 64 reducer x genre groups.  Before
+    timing, each case's wrapper output is held entry for entry against its
+    plain version (``compare_grouped``), on the timed inputs (min_in = inf)
+    and with min_in straddling each row's own-group distance; the counts
+    of differing entries join phase 2's B4 cases in ``diffs``.  Beside each time: the
+    per-group merge of the tile winners alone (``merge_ms``), and the
+    tile-output slots a sweep writes (m x tiles x p) against the ones that
+    hold a row of their group; the rest are -inf filler."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.gmm_update import grouped_tile_rows
+    gen = torch.Generator(device=x.device).manual_seed(seed + 5)
+    rows = []
+
+    def contiguous(n, ell):
+        per = -(-n // ell)
+        return (torch.arange(n, device=x.device) // per).to(torch.int32)
+
+    cases = [("i", x, "cosine", contiguous(x.shape[0], 16), 16, 8, 32),
+             ("i", x, "cosine", contiguous(x.shape[0], 16), 16, 1, 1),
+             ("l", x, "cosine", contiguous(x.shape[0], 4) * GROUPS + genres,
+              4 * GROUPS, 8, 32),
+             ("m", sphere, "euclidean", contiguous(sphere.shape[0], 16), 16,
+              8, 32),
+             ("m", sphere, "euclidean", contiguous(sphere.shape[0], 16), 16,
+              1, 1)]
+    for call, pts, mode, lab, m, bc, p in cases:
+        n, d = pts.shape
+        prep = ops.prepare(pts, mode)
+        min_in = torch.full((n,), float("inf"), device=pts.device)
+        cen = prep.points[torch.randint(0, n, (m * bc,), generator=gen,
+                                        device=pts.device)].view(m, bc, d)
+        bn = grouped_tile_rows(p)
+        tiles = -(-n // bn)
+        kern = (lambda: ops.grouped_gmm_topb(prep.points, cen, min_in, lab,
+                                             mode, p, xsq=prep.xsq,
+                                             prepared=True))
+        r_out = ref.gmm_grouped_topb_ref(prep.points, cen, min_in, lab, mode,
+                                         p, xsq=prep.xsq)
+        own = torch.where(torch.isinf(r_out[0]), 1.0, r_out[0])
+        straddled = own * (0.5 + torch.rand((n,), generator=gen,
+                                            device=pts.device))
+        del own
+        at = f"round 1 ({call}) n={n} d={d} {mode} m={m} bc={bc} p={p}"
+        compare_grouped(kern(), r_out, lab, m, errs,
+                        diffs["gmm_grouped_topb"], f"{at} min_in=inf")
+        del r_out
+        compare_grouped(
+            ops.grouped_gmm_topb(prep.points, cen, straddled, lab, mode, p,
+                                 xsq=prep.xsq, prepared=True),
+            ref.gmm_grouped_topb_ref(prep.points, cen, straddled, lab, mode,
+                                     p, xsq=prep.xsq),
+            lab, m, errs, diffs["gmm_grouped_topb"],
+            f"{at} min_in straddled")
+        del straddled
+        torch.cuda.empty_cache()
+        ms, host_ms = _time_ms(kern)
+        tv = torch.randn((m, tiles * p), generator=gen, device=pts.device)
+        ti = torch.randint(0, n, (m, tiles * p), generator=gen,
+                           device=pts.device)
+        merge_ms, _ = _time_ms(lambda: ref.merge_tiles_grouped(tv, ti, p))
+        plain = (lambda: ref.gmm_grouped_topb_ref(prep.points, cen, min_in,
+                                                  lab, mode, p,
+                                                  xsq=prep.xsq))
+        pms, _ = _time_ms(plain, reps=3)
+        # slots holding a row of their group: min(rows of g in tile t, p)
+        tile_of = torch.arange(n, device=pts.device) // bn
+        per_tile = torch.bincount(tile_of * m + lab.long(),
+                                  minlength=tiles * m)
+        real = int(torch.clamp(per_tile, max=p).sum())
+        slots = m * tiles * p
+        bms, bby = grouped_bound_ms(n, d, m, bc, p)
+        rows.append({"kernel": "gmm_grouped_topb", "call": call,
+                     "mode": mode, "n": n, "d": d, "m": m, "bc": bc, "p": p,
+                     "bn": bn, "tiles": tiles, "ms": ms, "host_ms": host_ms,
+                     "merge_ms": merge_ms, "plain_ms": pms,
+                     "library_ms": None, "bound_ms": bms, "bound_by": bby,
+                     "share_of_bound": bms / ms, "tile_slots": slots,
+                     "filler_slots": slots - real,
+                     "filler_write_ms_at_hbm_rate":
+                         (slots - real) * 8 / HBM_BYTES_PER_S * 1e3})
+        del prep
+        torch.cuda.empty_cache()
+    emit({"phase": "times", "rows": rows})
+    return rows
+
+
 def pairwise_bound_ms(m, n, d):
     """Least time for one distance tile: its operations (2·m·n·d, run in
     float64 on the FP64 tensor cores) over their rate, 67 TFLOP/s (the
@@ -1083,7 +1410,7 @@ def phase_times_pairwise(tiles):
 
 
 # --------------------------------------------------------------------------
-# phase 7: where the time of one main-path call goes
+# phase 8: where the time of one main-path call goes
 # --------------------------------------------------------------------------
 
 def phase_profile(call, name: str, out: Path, unprofiled_s: float):
@@ -1148,7 +1475,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse", action="store_true",
-                    help="tiny CPU run of phases 2-4 with the plain versions")
+                    help="tiny CPU run of phases 2-6 with the plain versions")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1172,9 +1499,11 @@ def main(argv=None) -> int:
                                          REHEARSAL_TILES))
         phase_main(data["mxm"], "cpu", check_launches=False, pairs=2)
         phase_stream(data, "cpu", check_launches=False, runs=1, full=False)
-        phase_constrained(data["mxm"], genre_labels(3000, GROUPS, args.seed,
-                                                    "cpu"),
-                          "cpu", check_launches=False, runs=1, full=False)
+        genres = genre_labels(3000, GROUPS, args.seed, "cpu")
+        phase_constrained(data["mxm"], genres, "cpu", check_launches=False,
+                          runs=1, full=False)
+        phase_mapreduce(dict(data, genres=genres), "cpu",
+                        check_launches=False, full=False)
         emit({"phase": "rehearsal", "ok": True})
         return 0
 
@@ -1212,8 +1541,8 @@ def main(argv=None) -> int:
     tiles = stream_tiles(x, sphere, STREAM_TILES)
 
     # ---- 2. kernels vs plain ---------------------------------------------
-    errs, _ = phase_kernels(x, args.seed, small_only=False, tiles=tiles,
-                            out=out)
+    errs, diffs = phase_kernels(x, args.seed, small_only=False, tiles=tiles,
+                                out=out)
     torch.cuda.empty_cache()
 
     # ---- 3. batch path, 4. streaming path -------------------------------
@@ -1233,9 +1562,26 @@ def main(argv=None) -> int:
         launches[k] += v
     torch.cuda.empty_cache()
 
-    # ---- 6. times, 7. profile ---------------------------------------------
+    # ---- 6. MapReduce path -----------------------------------------------
+    m_launches, mr_s = phase_mapreduce(
+        {"mxm": x, "sphere": sphere, "genres": genres}, "cuda",
+        check_launches=True)
+    for k, v in m_launches.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+
+    # ---- 7. times, 8. profile ---------------------------------------------
     rows = phase_times(x, args.seed)
     g_rows = phase_times_grouped(x, genres, args.seed)
+    b4_cases = set(diffs["gmm_grouped_topb"])
+    phase_times_round1(x, sphere, genres, args.seed, errs, diffs)
+    (out / "kernel_differing_entries.json").write_text(
+        json.dumps(diffs, indent=1))
+    round1 = {c: v for c, v in diffs["gmm_grouped_topb"].items()
+              if c not in b4_cases}
+    emit({"phase": "differing_entries", "kernel": "gmm_grouped_topb",
+          "at": "round-1 shapes", "cases": len(round1),
+          "counts": list(round1.values())})
     far = x.shape[0] // 2
     b_rows = phase_times_pairwise(tiles + [(
         "stream tile 4096x1025x5000 euclidean", x[:4096],
@@ -1257,6 +1603,12 @@ def main(argv=None) -> int:
             device="cuda", **knobs), **problem).indices,
         "constrained_e_cosine_labels_k32", out,
         constrained_s["e_cosine_labels_k32"])
+    _, _, problem, knobs, _, _ = mapreduce_calls(True)[0]
+    phase_profile(lambda: repro_torch.diversify(
+        x, execution=repro_torch.ExecutionSpec(
+            mode="mapreduce", device="cuda", **knobs), **problem).indices,
+        "mapreduce_i_cosine_edge_k128_l16", out,
+        mr_s["i_cosine_edge_k128_l16"])
     pick = {"gmm_topb": next(r for r in rows if r["b"] == 8 and r["p"] == 128),
             "gmm_update_select": next(r for r in rows if r["b"] == 1
                                       and r["p"] == 1),

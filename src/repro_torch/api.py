@@ -1,12 +1,13 @@
 """One front door: ``repro_torch.diversify(ProblemSpec, ExecutionSpec)``
-(port of ``repro.api``: batch, streaming and constrained slices).
+(port of ``repro.api``: batch, streaming, constrained and simulated
+MapReduce slices).
 
 * ``ProblemSpec`` says WHAT to solve (points, ``k``, measure, metric);
 * ``ExecutionSpec`` says HOW: the reference's fields (so one kwargs dict
   builds both specs) plus ``device`` (default ``"cuda"``; the points move
   there once and stay);
 * ``plan()`` compiles the two into an inspectable ``Plan`` whose
-  ``explain()`` prints the same text as the reference's for a batch plan;
+  ``explain()`` prints the same text as the reference's;
 * ``Plan.execute()`` / ``diversify()`` runs it and returns a
   ``DiversityResult`` — ``solution``, ``value``, ``indices``, the
   ``RadiusCertificate`` and per-phase telemetry.
@@ -20,8 +21,13 @@ a chunk iterator, ``mode="streaming"`` or an array over
 kernel.  Constrained problems (``labels=`` with ``quotas=``, a
 ``matroid=`` or the labels alone) run in both modes through
 ``repro_torch.constrained``: per-group core-sets on the grouped sweep (B4)
-in batch, one SMM state per group in a stream.  MapReduce (constrained or
-not), serving and dynamic modes, and ``resilience=`` on a stream, raise
+in batch, one SMM state per group in a stream.  ``mode="mapreduce"`` with
+``num_reducers=ℓ`` (or ``num_reducers > 1`` under ``mode="auto"``) runs
+the simulated ℓ-reducer MapReduce (``core.distributed``,
+``constrained.mapreduce``): round 1 of all reducers is one grouped-engine
+run whose every fold is one B4 sweep.  The mesh path (``mesh=`` or a
+sharded input), serving and dynamic modes, ``resilience=`` on a stream or
+a MapReduce run, and ``trace="reducers"`` on MapReduce raise
 ``NotImplementedError`` from ``plan()`` naming the ROADMAP slice that
 brings them.
 
@@ -37,31 +43,24 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .device import as_points, resolve_device, resolve_use_pallas, to_numpy
+from .device import (as_points, not_ported, resolve_device, resolve_use_pallas,
+                     to_numpy)
 
 _MODES = ("auto", "batch", "streaming", "mapreduce", "serving", "dynamic")
 
-# modes and problem kinds of the reference that later slices bring
-_NOT_PORTED = {
-    "mapreduce": "mapreduce mode (ROADMAP A, slice 10: core/distributed.py)",
-    "constrained_mapreduce": "constrained mapreduce (ROADMAP A, slice 10: "
-                             "constrained/mapreduce.py)",
-    "serving": "serving mode (ROADMAP A, slice 13: serving/rerank.py)",
-    "dynamic": "dynamic mode (ROADMAP A, slice 14: repro.dynamic)",
-    "resilience": "resilience= on a stream (ROADMAP A, slice 12: "
-                  "ResiliencePolicy, CheckpointManager)",
-}
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{_NOT_PORTED[what]} is not ported to repro_torch yet; use the "
-        "reference package repro for it")
+def _warn_legacy(name: str) -> None:
+    """The one DeprecationWarning every legacy wrapper emits (and the facade
+    path never does)."""
+    warnings.warn(
+        f"{name} is a legacy entry point; prefer "
+        "repro_torch.diversify(ProblemSpec, ExecutionSpec) — one front door "
+        "to the same engine.", DeprecationWarning, stacklevel=3)
 
 
 # --------------------------------------------------------------------------
@@ -170,6 +169,12 @@ def _fmt_bytes(n: float) -> str:
     return f"{n:.1f} GiB"                            # pragma: no cover
 
 
+def _is_sharded(points) -> bool:
+    """A distributed tensor (``torch.distributed.tensor.DTensor``) carries
+    its device mesh; its MapReduce path is the mesh one."""
+    return getattr(points, "device_mesh", None) is not None
+
+
 def _itemsize(points) -> int:
     dt = points.dtype
     if isinstance(dt, torch.dtype):
@@ -207,7 +212,8 @@ class Plan:
 
     def explain(self, actual: bool = False) -> str:
         """Stable human-readable rendering — the reference's text for the
-        same batch or streaming specs, constrained or not.  ``actual=True``
+        same batch, streaming or simulated MapReduce specs, constrained or
+        not.  ``actual=True``
         appends predicted vs measured rows read from the last
         ``execute()``."""
         from .core.sequential import SEQ_ALPHA
@@ -318,6 +324,7 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
     from .core.adaptive import auto_milestones, resolve_bars
     from .core.measures import MEASURES, NEEDS_INJECTIVE
     from .core.metrics import get_metric
+    from .obs.trace import trace_from_spec
 
     ex = execution or ExecutionSpec()
     if problem.measure not in MEASURES:
@@ -332,23 +339,27 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
 
     arr = _is_array(problem.points)
     if arr and problem.points.ndim == 3:
-        raise _not_ported("serving")
+        raise not_ported("serving")
     n = int(problem.points.shape[0]) if arr else None
     d = (int(problem.points.shape[1]) if arr and problem.points.ndim > 1
          else problem.dim)
     constrained, mat = _resolve_constraint(problem, streamed=not arr)
-    mr_slice = "constrained_mapreduce" if constrained else "mapreduce"
+    if ex.mesh is not None or (arr and _is_sharded(problem.points)):
+        raise not_ported("mesh")
 
     # ---- mode ------------------------------------------------------------
+    num_red = ex.num_reducers
     if ex.mode != "auto":
-        if ex.mode not in ("batch", "streaming"):
-            raise _not_ported(mr_slice if ex.mode == "mapreduce"
-                              else ex.mode)
+        if ex.mode in ("serving", "dynamic"):
+            raise not_ported(ex.mode)
         mode, reason = ex.mode, "requested"
+        if mode == "mapreduce" and not (num_red or 0) > 1:
+            raise ValueError("mode='mapreduce' needs mesh= or "
+                             "num_reducers > 1")
     elif not arr:
         mode, reason = "streaming", "auto: chunk-iterator input"
-    elif ex.mesh is not None or (ex.num_reducers or 0) > 1:
-        raise _not_ported(mr_slice)
+    elif (num_red or 0) > 1:
+        mode, reason = "mapreduce", f"auto: num_reducers={num_red}"
     elif (ex.memory_budget_bytes is not None
           and n * (d or 1) * _itemsize(problem.points)
           > ex.memory_budget_bytes):
@@ -366,6 +377,8 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
     if constrained and (ex.generalized or ex.three_round):
         raise ValueError("generalized/three-round has no constrained path")
     if ex.three_round:
+        # the simulated path's generalized scheme is the three-round
+        # equivalent — spell it generalized=True there
         raise ValueError("three_round=True needs the mapreduce mesh path "
                          "(use generalized=True for the simulated path)")
     if ex.recursive:
@@ -382,9 +395,12 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
                                                        "gen"):
         raise ValueError(f"smm_mode must be one of 'plain'/'ext'/'gen', "
                          f"got {ex.smm_mode!r}")
+    if mode == "mapreduce" and trace_from_spec(ex.trace).reducers:
+        raise not_ported("mr_reducers")
     if ex.resilience is not None:
-        if mode == "streaming":
-            raise _not_ported("resilience")
+        if mode in ("streaming", "mapreduce"):
+            raise not_ported("resilience" if mode == "streaming"
+                              else "mr_resilience")
         raise ValueError("resilience= applies to streaming and mapreduce "
                          "runs (batch is one local dispatch with nothing to "
                          "retry or degrade to)")
@@ -419,7 +435,13 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
 
     # ---- k' plan + layout + footprint ------------------------------------
     m_groups = mat.m if constrained else 1
-    if mode == "streaming":
+    ell = int(num_red) if mode == "mapreduce" else 1
+    if mode == "mapreduce":
+        # the reference's wording: its reducers are a vmap over shards, here
+        # the groups of one grouped-engine run
+        layout = (f"simulated mapreduce, {ell} reducers "
+                  f"(vmap, partition={ex.partition})")
+    elif mode == "streaming":
         layout = (f"one pass, chunk={chunk}, "
                   f"state cap {m_groups}x({kprime}+1) centers")
     else:
@@ -430,20 +452,23 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
         kp_num = int(kprime)
         kprime_plan = f"kprime={kp_num} (fixed)"
     else:
-        kmax, miles = auto_milestones(k, n)
+        kmax, miles = auto_milestones(k, n if n is not None else 10 ** 9)
         kp_num = kmax
         arrow = " -> ".join(str(c) for c in miles + [kmax])
         kprime_plan = (f"kprime=auto (milestones {arrow}, eps={eps_eff}, "
                        "x2 first step, secant-refined)")
+    if mode == "mapreduce":
+        kprime_plan += f", composed over {ell} reducers"
     if constrained:
         kprime_plan += f" x {m_groups} groups"
-    rows_per = m_groups * kp_num * (k if variant == "ext" else 1)
+    rows_per = ell * m_groups * kp_num * (k if variant == "ext" else 1)
     bytes_ = None if d is None else rows_per * d * 4 + (
         rows_per * 4 if variant == "gen" else 0)
     return Plan(problem=problem, execution=ex, mode=mode, reason=reason,
                 constrained=constrained, matroid=mat, variant=variant,
                 mesh=None,
-                num_reducers=None, knobs=knobs, layout=layout,
+                num_reducers=ell if mode == "mapreduce" else None,
+                knobs=knobs, layout=layout,
                 kprime_plan=kprime_plan, coreset_rows=rows_per,
                 coreset_bytes=bytes_, n=n, d=d)
 
@@ -453,13 +478,8 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
 # --------------------------------------------------------------------------
 
 def _value_of(sol, measure: str, metric: str) -> float:
-    """The objective of the solution, its (k, k) distance matrix computed
-    where the solution lives."""
-    from .core.measures import diversity
-    from .core.metrics import get_metric
-
-    sol = torch.as_tensor(sol, dtype=torch.float32)
-    return diversity(measure, to_numpy(get_metric(metric).pairwise(sol, sol)))
+    from .core.measures import solution_value
+    return solution_value(sol, measure, metric)
 
 
 def _indices_of(plan_: Plan, pts, sol, sol_labels=None):
@@ -671,11 +691,63 @@ def _run_streaming_constrained(plan_: Plan, tr) -> DiversityResult:
         plan=plan_)
 
 
+def _run_mapreduce(plan_: Plan, tr) -> DiversityResult:
+    """The simulated ℓ-reducer run (one ``rounds`` phase: probe, round 1,
+    solve and, for the generalized scheme, instantiation).  Generalized
+    instantiation may fall back to kernel-point replicas that are not input
+    rows, so it recovers no indices."""
+    from .core.distributed import _simulate_mr_impl
+
+    p, kb, ex = plan_.problem, plan_.knobs, plan_.execution
+    t = time.perf_counter()
+    pts = as_points(p.points, kb["device"])     # the one move to the device
+    sol, value, cs, _ = _simulate_mr_impl(
+        pts, p.k, p.measure, num_reducers=plan_.num_reducers,
+        kprime=kb["kprime"], metric=p.metric,
+        generalized=plan_.variant == "gen", partition=ex.partition,
+        seed=ex.seed, b=kb["b"], chunk=kb["chunk"],
+        eps=0.1 if kb["eps"] is None else kb["eps"], tau=ex.tau,
+        cliff=ex.cliff, use_pallas=kb["use_pallas"])
+    tr.phase("rounds", t, sync=sol)
+    return DiversityResult(
+        solution=to_numpy(sol), value=value,
+        _indices=_indices_of(plan_, pts, sol), labels=None,
+        cert=getattr(cs, "cert", None), coreset=cs,
+        telemetry=tr.annotate(mode="mapreduce",
+                              coreset_size=getattr(cs, "size", None)),
+        plan=plan_)
+
+
+def _run_mapreduce_constrained(plan_: Plan, tr) -> DiversityResult:
+    """The simulated ℓ-reducer constrained run (one ``rounds`` phase)."""
+    from .constrained.mapreduce import _simulate_fair_mr_impl
+
+    p, kb, ex = plan_.problem, plan_.knobs, plan_.execution
+    t = time.perf_counter()
+    pts = as_points(p.points, kb["device"])     # the one move to the device
+    sol, sol_lab, value, cert, _ = _simulate_fair_mr_impl(
+        pts, to_numpy(p.labels), matroid=plan_.matroid,
+        num_reducers=plan_.num_reducers, measure=p.measure,
+        kprime=kb["kprime"], metric=p.metric, partition=ex.partition,
+        seed=ex.seed, swap_rounds=ex.swap_rounds, b=kb["b"],
+        chunk=kb["chunk"], eps=0.1 if kb["eps"] is None else kb["eps"],
+        tau=ex.tau, cliff=ex.cliff, use_pallas=kb["use_pallas"])
+    tr.phase("rounds", t, sync=sol)
+    return DiversityResult(
+        solution=to_numpy(sol), value=value,
+        _indices=_indices_of(plan_, pts, sol, sol_labels=sol_lab),
+        labels=np.asarray(sol_lab), cert=cert, coreset=None,
+        telemetry=tr.annotate(mode="mapreduce"), plan=plan_)
+
+
 def _execute(plan_: Plan) -> DiversityResult:
     from . import obs
 
     tr = obs.trace_from_spec(plan_.execution.trace)
-    if plan_.constrained:
+    if plan_.mode == "mapreduce":
+        run = (_run_mapreduce_constrained if plan_.constrained
+               else _run_mapreduce)
+    elif plan_.constrained:
         run = (_run_streaming_constrained if plan_.mode == "streaming"
                else _run_batch_constrained)
     else:

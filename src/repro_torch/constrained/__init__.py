@@ -10,18 +10,20 @@ variant of the paper's problem, Ceccarello et al., arXiv:2002.03175).
   single-sweep engine whose sweep is the B4 kernel on the card;
 * ``matroid``: the numpy oracles (the port's own copy);
 * ``solver``: feasible greedy + oracle-checked local search on the union;
-* ``streaming``: one SMM state per group.
+* ``streaming``: one SMM state per group;
+* ``mapreduce``: the simulated ℓ-reducer run, all reducers' groups in one
+  grouped-engine run (its mesh path is ROADMAP slice 10b).
 
-Constrained MapReduce (``repro.constrained.mapreduce``) comes with the
-MapReduce slice (ROADMAP A, slice 10), and the legacy drivers
-(``fair_diversity_maximize``, ``fair_streaming_diversity``) with the legacy
-wrappers; ``repro_torch.diversify`` is the front door.
+The legacy drivers (``fair_diversity_maximize``,
+``fair_streaming_diversity``) come with the legacy wrappers;
+``repro_torch.diversify`` is the front door.
 """
 from .coreset import GroupedCoreset, grouped_adaptive, grouped_coreset
 from .matroid import (LaminarMatroid, Matroid, PartitionMatroid,
                       TransversalMatroid, as_matroid)
 from .solver import (brute_force_constrained, constrained_solve,
                      feasible_greedy, local_search, solve_and_value)
+from .mapreduce import FairCoreset, simulate_fair_mr
 from .streaming import FairStreamingCoreset
 
 __all__ = [
@@ -29,5 +31,5 @@ __all__ = [
     "constrained_solve", "feasible_greedy", "local_search",
     "brute_force_constrained", "solve_and_value", "FairStreamingCoreset",
     "Matroid", "PartitionMatroid", "TransversalMatroid", "LaminarMatroid",
-    "as_matroid",
+    "as_matroid", "FairCoreset", "simulate_fair_mr",
 ]

@@ -117,8 +117,9 @@ def _grouped_delegates_impl(points, labels, idx, m: int, k: int, kprime: int,
     ``(chunk, k')`` distance tile (the B3 kernel with ``use_pallas``, its
     plain version otherwise; the same chain of rounded products and adds,
     so both pick the same centers), then the shared delegate extraction per
-    group.  Returns (didx (m, k'·k), dvalid (m, k'·k)).  The group sizes are
-    read to the host once."""
+    group.  Returns (didx (m, k'·k), dvalid (m, k'·k), mult (m, k')), where
+    ``mult[g, j]`` = min(|cluster j of group g|, k) is GMM-GEN's
+    multiplicity.  The group sizes are read to the host once."""
     n = points.shape[0]
     dev = points.device
     masks, counts, _ = _group_stats(labels, m)
@@ -152,16 +153,32 @@ def _grouped_delegates_impl(points, labels, idx, m: int, k: int, kprime: int,
                 dist = kref.pairwise_ref(x, centers, metric_name, xsq=xsq,
                                          ysq=csq)
             assign.index_copy_(0, r, torch.argmin(dist, dim=1))
-    didx, dvalid = [], []
+    didx, dvalid, mult = [], [], []
     for g in range(m):
-        cand, valid, _, _ = delegates_from_assign(idx[g], assign, masks[g],
-                                                  k, kprime)
+        cand, valid, mg, _ = delegates_from_assign(idx[g], assign, masks[g],
+                                                   k, kprime)
         didx.append(cand.reshape(-1))
         dvalid.append(valid.reshape(-1))
+        mult.append(mg)
     # an empty group contributes nothing (the center-forcing step in the
     # delegate extraction would otherwise fabricate one spurious delegate)
     dvalid = torch.stack(dvalid) & (counts > 0)[:, None]
-    return torch.stack(didx), dvalid
+    return torch.stack(didx), dvalid, torch.stack(mult)
+
+
+def _grouped_ext_blocked_impl(points, labels, m: int, k: int, kprime: int,
+                              b: int, chunk: int, metric_name: str,
+                              use_pallas: bool, schedule=None):
+    """Grouped GMM-EXT on the single-sweep engine: blocked (or scheduled)
+    selection + the one-pass delegate extraction.  Returns (didx, dvalid,
+    radius, counts)."""
+    idx, _, radius, counts, _ = _grouped_select_impl(
+        points, labels, m, kprime, b, chunk, metric_name, use_pallas,
+        schedule=schedule)
+    didx, dvalid, _ = _grouped_delegates_impl(points, labels, idx, m, k,
+                                              kprime, chunk, metric_name,
+                                              use_pallas)
+    return didx, dvalid, radius, counts
 
 
 # --------------------------------------------------------------------------
@@ -231,9 +248,9 @@ def grouped_adaptive(points, labels, m: int, k: int, kprime, *,
         b_schedule=run.schedule, group_ratios=ratios)
     idx = torch.as_tensor(run.idx, device=dev)
     if measure in NEEDS_INJECTIVE:
-        didx, dvalid = _grouped_delegates_impl(points, labels_t, idx, m, k,
-                                               kp, chunk, metric_name,
-                                               use_pallas)
+        didx, dvalid, _ = _grouped_delegates_impl(points, labels_t, idx, m,
+                                                  k, kp, chunk, metric_name,
+                                                  use_pallas)
         return GroupedCoreset(idx=didx, valid=dvalid, radius=radius,
                               group_count=counts, cert=cert)
     valid = (torch.arange(kp, device=dev)[None, :]
@@ -300,12 +317,13 @@ def grouped_coreset(points, labels, m: Optional[int] = None,
         _count("distance_evals", n * sum(folds))
         _count("bytes_swept", _sweep_bytes(n, int(points.shape[1]),
                                            sweeps=len(folds), m=m))
-    idx, valid, radius, counts, _ = _grouped_select_impl(
-        points, labels, m, kprime, b, chunk, metric_name, use_pallas,
-        schedule=schedule)
     if measure in NEEDS_INJECTIVE:
-        idx, valid = _grouped_delegates_impl(points, labels, idx, m, k,
-                                             kprime, chunk, metric_name,
-                                             use_pallas)
+        idx, valid, radius, counts = _grouped_ext_blocked_impl(
+            points, labels, m, k, kprime, b, chunk, metric_name, use_pallas,
+            schedule=schedule)
+    else:
+        idx, valid, radius, counts, _ = _grouped_select_impl(
+            points, labels, m, kprime, b, chunk, metric_name, use_pallas,
+            schedule=schedule)
     return GroupedCoreset(idx=idx, valid=valid, radius=radius,
                           group_count=counts)

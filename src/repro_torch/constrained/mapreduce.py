@@ -1,0 +1,175 @@
+"""MapReduce matroid-constrained diversity, simulated on one device (port of
+the simulated half of ``repro.constrained.mapreduce``).
+
+The MR rounds are matroid-agnostic — they only see group labels; the
+matroid oracle (``quotas=`` sugar or ``matroid=``) enters at the final
+solve.  Round 1: every reducer builds the per-group core-set of its shard
+(m GMM / GMM-EXT runs); round 2: the feasible greedy + local-search solver
+on the union.
+
+The reference vmaps one grouped core-set per shard.  Here all ℓ reducers'
+m groups are the ℓ·m groups of ONE grouped-engine run over the partitioned
+array, with labels = reducer · m + group: every row folds only its own
+(reducer, group) centers, so every fold of the whole round is one grouped
+sweep (B4 on the card), and EXT's delegates one B3 pass per (reducer,
+group).  Each (reducer, group) starts at its first row in the shard, as the
+reference's per-shard engine does.  Round 1 is charged by the reference's
+model counters (``core.distributed._count_round1``).
+
+The mesh path (``mr_grouped_coreset``, ``mr_fair_diversity``) is ROADMAP
+slice 10b and raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.distributed import (_count_round1, _mesh_path,
+                                _resolve_reducer_plan, _round1_schedule,
+                                _round1_span, partition_shards)
+from ..core.measures import NEEDS_INJECTIVE
+from ..core.metrics import get_metric
+from ..device import resolve_use_pallas, to_numpy
+from ..obs.trace import count as _count, counting as _counting
+from .coreset import _grouped_ext_blocked_impl, _grouped_select_impl
+from .solver import solve_and_value
+
+
+class FairCoreset(NamedTuple):
+    """Union core-set tagged with group labels (points, not input indices —
+    the reducers' rows are gathered into one union)."""
+    points: torch.Tensor     # (cap, d)
+    labels: torch.Tensor     # (cap,) int32 group ids
+    valid: torch.Tensor      # (cap,) bool
+    radius: torch.Tensor     # () max per-group, per-reducer proxy radius
+    cert: Optional[object] = None  # probe RadiusCertificate (auto paths)
+
+    def compact(self) -> Tuple[torch.Tensor, np.ndarray]:
+        """(valid points on the core-set's device, their host labels)."""
+        v = to_numpy(self.valid)
+        keep = torch.as_tensor(v, device=self.points.device)
+        return self.points[keep], to_numpy(self.labels)[v]
+
+    @property
+    def size(self) -> int:
+        return int(to_numpy(self.valid).sum())
+
+
+mr_grouped_coreset = _mesh_path("mr_grouped_coreset")
+mr_fair_diversity = _mesh_path("mr_fair_diversity")
+_mr_fair_diversity_impl = _mesh_path("_mr_fair_diversity_impl")
+
+
+def _sim_round1(pts, slabels, m: int, k: int, kprime: int, metric_name: str,
+                mode: str, b: int = 1, chunk: int = 0, schedule=None,
+                use_pallas="auto"):
+    """Round 1 of all ℓ reducers as one grouped run over the ℓ·m groups
+    ``reducer · m + label`` (a label outside [0, m) matches no group).
+    Returns per reducer (pts (l, m·s, d), labels (l, m·s) int32, valid
+    (l, m·s), radius (l,)), the reference's layout; ``s`` = k' (plain) or
+    k'·k (ext delegates)."""
+    num_reducers, per = slabels.shape
+    dev = pts.device
+    use_pallas = resolve_use_pallas(use_pallas, dev, metric_name)
+    lab = slabels.to(torch.int32)
+    red = torch.arange(num_reducers, dtype=torch.int32, device=dev)[:, None]
+    glab = torch.where((lab >= 0) & (lab < m), red * m + lab,
+                       torch.full_like(lab, -1)).reshape(-1)
+    groups = num_reducers * m
+    schedule = _round1_schedule(kprime, b, schedule)
+    if mode == "ext":
+        idx, valid, radius, _ = _grouped_ext_blocked_impl(
+            pts, glab, groups, k, kprime, b, chunk, metric_name, use_pallas,
+            schedule=schedule)
+    else:
+        idx, valid, radius, _, _ = _grouped_select_impl(
+            pts, glab, groups, kprime, b, chunk, metric_name, use_pallas,
+            schedule=schedule)
+    s = idx.shape[1]
+    g_pts = pts[idx.reshape(-1)].view(num_reducers, m * s, -1)
+    g_lab = torch.arange(m, dtype=torch.int32, device=dev).repeat_interleave(
+        s).repeat(num_reducers, 1)
+    return (g_pts, g_lab, valid.view(num_reducers, m * s),
+            radius.view(num_reducers, m).max(dim=1).values)
+
+
+def _simulate_fair_mr_impl(points, labels, quotas=None, *, matroid=None,
+                           num_reducers: int,
+                           measure: str = "remote-edge",
+                           kprime=None, metric="euclidean",
+                           partition: str = "contiguous", seed: int = 0,
+                           swap_rounds: int = 10, b=1, chunk: int = 0,
+                           eps: float = 0.1, tau=None, cliff=None,
+                           use_pallas="auto", device=None):
+    """Execution body of the simulated ℓ-reducer constrained MR run (the
+    ``repro_torch.diversify`` facade routes here).  Returns (sol (k, d)
+    tensor on the points' device, sol_labels, value, cert, report);
+    ``report`` is always None: ``resilience=`` and ``trace="reducers"``
+    are slice 12, which ``plan()`` rejects."""
+    from .matroid import as_matroid
+
+    mat = as_matroid(matroid, quotas)
+    m, k = mat.m, mat.k
+    if kprime is None:
+        kprime = max(2 * k, 32)
+    pts, shards, slabels = partition_shards(
+        points, num_reducers, partition=partition, seed=seed,
+        labels=np.asarray(to_numpy(labels), np.int32), device=device)
+    d = pts.shape[1]
+    per_shard = int(shards.shape[1])
+    if kprime != "auto":
+        kprime = min(kprime, per_shard)
+    kprime, schedule, b, cert = _resolve_reducer_plan(
+        pts, k, kprime, b, eps=eps, metric=metric, chunk=chunk,
+        per_shard=per_shard, labels=to_numpy(slabels).reshape(-1), m=m,
+        tau=tau, cliff=cliff, use_pallas=use_pallas)
+    mode = "ext" if measure in NEEDS_INJECTIVE else "plain"
+
+    if _counting():
+        _count_round1(num_reducers, per_shard, d, kprime, b, schedule, mode)
+    with _round1_span(num_reducers, kprime,
+                     _round1_schedule(kprime, b, schedule), groups=m):
+        g_pts, g_lab, g_valid, g_rad = _sim_round1(
+            pts, slabels, m, k, kprime, get_metric(metric).name, mode, b,
+            chunk, schedule, use_pallas)
+        _count("device_dispatches")
+    flat_valid = g_valid.reshape(-1)
+    cand_pts = g_pts.reshape(-1, d)[flat_valid]
+    cand_lab = to_numpy(g_lab.reshape(-1)[flat_valid])
+    sel, value = solve_and_value(cand_pts, cand_lab, measure=measure,
+                                 matroid=mat, metric=metric,
+                                 swap_rounds=swap_rounds)
+    sol = cand_pts[torch.as_tensor(sel, device=cand_pts.device)]
+    return sol, cand_lab[sel], value, cert, None
+
+
+def simulate_fair_mr(points, labels, quotas=None, *, matroid=None,
+                     num_reducers: int,
+                     measure: str = "remote-edge",
+                     kprime=None, metric="euclidean",
+                     partition: str = "contiguous", seed: int = 0,
+                     swap_rounds: int = 10, b=1, chunk: int = 0,
+                     eps: float = 0.1, tau=None, cliff=None,
+                     device="cuda"):
+    """Simulate the ℓ-reducer 2-round constrained MR run on one device.
+
+    Legacy spelling of ``repro_torch.diversify`` with a constrained
+    ``ProblemSpec`` and ``ExecutionSpec(mode="mapreduce",
+    num_reducers=...)`` — prefer the facade for new code.  Returns
+    (solution_points, solution_labels, value), as host arrays."""
+    from ..api import ExecutionSpec, ProblemSpec, _warn_legacy, diversify
+    from .matroid import as_matroid
+
+    _warn_legacy("repro_torch.constrained.simulate_fair_mr")
+    mat = as_matroid(matroid, quotas)
+    res = diversify(
+        ProblemSpec(points=points, k=mat.k, measure=measure, metric=metric,
+                    labels=labels, matroid=mat),
+        ExecutionSpec(mode="mapreduce", num_reducers=num_reducers,
+                      kprime=kprime, b=b, chunk=chunk, eps=eps,
+                      partition=partition, seed=seed,
+                      swap_rounds=swap_rounds, tau=tau, cliff=cliff,
+                      device=device))
+    return res.solution, res.labels, res.value

@@ -1,11 +1,11 @@
-"""Core library of the port: the batch and streaming, unconstrained engines
-in PyTorch.
+"""Core library of the port: the batch, streaming and simulated MapReduce
+unconstrained engines in PyTorch.
 
-MapReduce (``distributed``, ``afz``) and the legacy ``diversity_maximize``
-wrapper are later slices (see ROADMAP.md).
+The MapReduce mesh path (``distributed.mr_coreset`` and its kin) and the
+legacy ``diversity_maximize`` wrapper are later slices (see ROADMAP.md).
 """
 from .adaptive import (AdaptiveGMMResult, RadiusCertificate, auto_kprime,
-                       gmm_adaptive)
+                       gmm_adaptive, resolve_engine_plan)
 from .coreset import (Coreset, GeneralizedCoreset, build_coreset,
                       coreset_from_points)
 from .gmm import (GMMExtResult, GMMResult, ScheduleResult, effective_block,
@@ -14,7 +14,7 @@ from .gmm import (GMMExtResult, GMMResult, ScheduleResult, effective_block,
 from .measures import (MEASURES, NEEDS_INJECTIVE, brute_force_opt, diversity,
                        diversity_of_subset)
 from .metrics import Metric, get_metric, register_metric
-from .sequential import SEQ_ALPHA, solve, solve_on_coreset
+from .sequential import SEQ_ALPHA, instantiate, solve, solve_on_coreset
 from .smm import SMMState, StreamingCoreset
 
 __all__ = [
@@ -23,7 +23,8 @@ __all__ = [
     "effective_block", "gmm", "gmm_batched", "gmm_ext", "gmm_gen",
     "gmm_schedule", "schedule_sweep_counts", "validate_schedule",
     "AdaptiveGMMResult", "RadiusCertificate", "auto_kprime", "gmm_adaptive",
-    "MEASURES", "NEEDS_INJECTIVE", "brute_force_opt", "diversity",
+    "resolve_engine_plan", "MEASURES", "NEEDS_INJECTIVE", "brute_force_opt", "diversity",
     "diversity_of_subset", "Metric", "get_metric", "register_metric",
-    "SEQ_ALPHA", "solve", "solve_on_coreset", "SMMState", "StreamingCoreset",
+    "SEQ_ALPHA", "instantiate", "solve", "solve_on_coreset", "SMMState",
+    "StreamingCoreset",
 ]

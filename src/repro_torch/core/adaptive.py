@@ -17,8 +17,8 @@ the resume's picks and radii.  Sprint mode runs post-certified segments in
 one host loop that reads a single ``full`` flag per round (a device-paced
 CUDA-graph version is later work); its picks, trajectory, executed
 schedule and certificate are bit-identical to ``sprint=False``.
-``plan_from_schedule``/``resolve_engine_plan`` belong to the MapReduce
-slice and are not ported yet.
+``plan_from_schedule``/``resolve_engine_plan`` freeze a probe run into the
+static (block, rounds) schedule the MapReduce reducers share.
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ from ..device import as_points, resolve_use_pallas, to_numpy
 from ..obs.trace import (count as _count, counting as _counting,
                          span as _span, sweep_bytes as _sweep_bytes)
 from .gmm import (_as_mask, _grouped_inblock, _make_grouped_sweep,
-                  _sweep_points, mask_to_labels)
+                  _sweep_points, mask_to_labels, validate_schedule)
 from .metrics import get_metric
 
 # Greedy-consistency bars of the adaptive-b controller (see
@@ -686,3 +686,93 @@ def auto_kprime(points, k: int, eps: float = 0.1,
     cert = certificate_from_trajectory(run.counts, run.traj[:, 0], k,
                                        eps=eps, b_schedule=run.schedule)
     return _result(run, cert, points.device)
+
+
+# --------------------------------------------------------------------------
+# probe -> static plan (for the MapReduce reducers, which share one schedule)
+# --------------------------------------------------------------------------
+
+def plan_from_schedule(executed, kprime: int,
+                       probe_k: int) -> Tuple[Tuple[int, int], ...]:
+    """Convert an executed adaptive schedule into a static two-phase plan
+    covering ``kprime`` picks: keep the probe's leading full-size blocks for
+    the same *fraction* of the run, finish at b=1.  Exact-GMM tails and
+    whole-run lookahead both fall out naturally."""
+    if not executed:
+        return ((1, kprime),)
+    b0 = executed[0][0]
+    head_picks = 1  # the seed
+    for bsz, rounds in executed:
+        if bsz != b0:
+            break
+        head_picks += bsz * rounds
+    if b0 <= 1:
+        return ((1, kprime),)
+    frac = min(1.0, head_picks / max(probe_k, 1))
+    head_rounds = int(frac * kprime) // b0
+    head_rounds = max(0, min(head_rounds, kprime // b0))
+    tail = kprime - head_rounds * b0
+    if head_rounds == 0:
+        return ((1, kprime),)
+    if tail == 0:
+        return ((b0, head_rounds),)
+    return ((b0, head_rounds), (1, tail))
+
+
+def resolve_engine_plan(points, k: int, kprime, b, *, eps: float = 0.1,
+                        metric="euclidean", labels=None, m: int = 1,
+                        chunk: int = 0, use_pallas="auto",
+                        sample: int = 8192, tau: Optional[float] = None,
+                        cliff: Optional[float] = None, sprint="auto",
+                        device=None):
+    """Resolve ``b="auto"`` / ``kprime="auto"`` into static engine inputs
+    for the MapReduce reducers, which all run one shared schedule: a cheap
+    strided-subsample probe runs the adaptive controller once (on the
+    card, through the sweep kernels, with ``use_pallas="auto"``), and its
+    outcome is frozen into (kprime:int, schedule|None, cert).  ``labels``
+    (host ints, one per point) probe the grouped engine over ``m`` groups.
+
+    Numeric knobs pass through untouched (schedule=None means "use ``b`` as
+    given")."""
+    if b != "auto" and kprime != "auto":
+        return kprime, None, None
+    points = as_points(points, device)
+    n = points.shape[0]
+    stride = max(1, n // max(1, min(sample, n)))
+    sub = points[::stride]
+    sn = sub.shape[0]
+    lab = (np.zeros((sn,), np.int32) if labels is None
+           else np.asarray(to_numpy(labels))[::stride].astype(np.int32))
+    mm = 1 if labels is None else m
+    counts = np.bincount(lab[lab >= 0], minlength=mm)[:mm]
+    starts = np.zeros((mm,), np.int64)
+    for g in range(mm):
+        hits = np.nonzero(lab == g)[0]
+        starts[g] = hits[0] if hits.size else 0
+    k_probe = min(k, sn)
+    group_counts = counts if labels is not None else None
+    if kprime == "auto":
+        kmax, miles = auto_milestones(k_probe, sn)
+        run = adaptive_select(sub, lab, starts, mm, kmax,
+                              b0=8 if b == "auto" else max(1, int(b)),
+                              tau=tau, cliff=cliff, chunk=chunk,
+                              metric=metric, use_pallas=use_pallas,
+                              milestones=miles, eps=eps,
+                              scale_count=k_probe,
+                              group_counts=group_counts, sprint=sprint)
+        kp = run.ksel
+    else:
+        kp = int(kprime)
+        run = adaptive_select(sub, lab, starts, mm, min(kp, sn), b0=8,
+                              tau=tau, cliff=cliff, chunk=chunk,
+                              metric=metric, use_pallas=use_pallas,
+                              scale_count=k_probe,
+                              group_counts=group_counts, sprint=sprint)
+    cert = certificate_from_trajectory(
+        run.counts, run.traj.max(axis=1), k_probe,
+        eps=eps if kprime == "auto" else None, b_schedule=run.schedule)
+    schedule = (plan_from_schedule(run.schedule, kp, run.ksel)
+                if b == "auto" else None)
+    if schedule is not None:
+        validate_schedule(schedule, kp)
+    return kp, schedule, cert

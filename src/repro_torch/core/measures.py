@@ -207,6 +207,16 @@ def diversity(measure: str, dm, weights=None) -> float:
     return _FUNCS[measure](dm, weights)
 
 
+def solution_value(sol, measure: str, metric: str) -> float:
+    """The objective of a (k, d) solution, its (k, k) distance matrix
+    computed where the solution lives."""
+    from .metrics import get_metric
+
+    sol = torch.as_tensor(sol, dtype=torch.float32)
+    dm = get_metric(metric).pairwise(sol, sol)
+    return diversity(measure, dm.detach().cpu().numpy())
+
+
 def diversity_of_subset(measure: str, points, idx, metric, weights=None) -> float:
     from .metrics import get_metric
 

@@ -1,6 +1,5 @@
 """Final-stage sequential α-approximation solvers (paper Table 1 / Fact 2)
-(port of ``repro.core.sequential``; ``instantiate`` waits for the
-streaming/MapReduce slices).
+and the δ-instantiation of Lemma 7 (port of ``repro.core.sequential``).
 
 Per Fact 2 the best sequential algorithms are "essentially based on either
 finding a maximal matching or running GMM on the input set":
@@ -22,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import to_numpy
+from ..device import resolve_use_pallas, to_numpy
+from ..kernels import ops as kops
 from .coreset import GeneralizedCoreset
 from .metrics import get_metric
 
@@ -132,3 +132,45 @@ def solve_on_coreset(cs, k: int, measure: str, *,
         pts = cs.compact()
         idx = solve(measure, pts, k, metric=metric)
     return pts[torch.as_tensor(idx, device=pts.device)]
+
+
+def instantiate(generalized_solution_pts, generalized_solution_counts,
+                pool, radius: float, *, metric="euclidean",
+                use_pallas="auto") -> torch.Tensor:
+    """δ-instantiation (Lemma 7): replace each replica of a kernel point with
+    a distinct pool point at distance <= radius.  ``pool`` is the input the
+    kernel was drawn from (the MapReduce run's partitioned array).  Falls
+    back to the kernel point itself when the pool can't supply enough
+    distinct delegates (never happens when pool ⊇ original shard, by
+    construction of the multiplicities).
+
+    Each kernel point's distances to the pool are one column of the B3
+    distance kernel (``kernels.ops.pairwise`` with one center; its plain
+    version on the CPU or with ``use_pallas=False``), on the pool's
+    device; one host read per kernel point finds its delegates.  Returns the
+    (sum of counts, d) points on the pool's device."""
+    pool = torch.as_tensor(pool, dtype=torch.float32)
+    dev = pool.device
+    pts = torch.as_tensor(generalized_solution_pts, dtype=torch.float32,
+                          device=dev)
+    met = get_metric(metric)
+    kernel_metric = met.name in ("euclidean", "sqeuclidean", "cosine")
+    use_pallas = resolve_use_pallas(use_pallas, dev, met.name)
+    prep = kops.prepare(pool, met.name) if kernel_metric else None
+    thr = torch.tensor(radius * (1 + 1e-6), dtype=torch.float32, device=dev)
+    used = torch.zeros((pool.shape[0],), dtype=torch.bool, device=dev)
+    out = []
+    for p, cnt in zip(pts, np.asarray(generalized_solution_counts)):
+        if not kernel_metric:
+            d = met.point_to_set(pool, p)
+        else:
+            c = kops.prepare(p[None], met.name)
+            args = (prep.points, c.points, met.name)
+            kw = dict(xsq=prep.xsq, ysq=c.xsq)
+            d = (kops.pairwise(*args, **kw, prepared=True) if use_pallas
+                 else kops.ref.pairwise_ref(*args, **kw))[:, 0]
+        take = torch.nonzero((d <= thr) & ~used).flatten()[:int(cnt)]
+        used[take] = True
+        out.append(pool.index_select(0, take))
+        out.extend([p[None]] * (int(cnt) - int(take.shape[0])))
+    return torch.cat(out) if out else pool[:0]

@@ -13,6 +13,31 @@ import torch
 
 DEFAULT_DEVICE = "cuda"
 
+# paths of the reference that later slices of the port bring, each with its
+# ROADMAP slice; ``plan()`` raises on them before any work
+NOT_PORTED = {
+    "mesh": "the MapReduce mesh path (mesh= or a device-sharded input; "
+            "ROADMAP A, slice 10b: torch.distributed)",
+    "serving": "serving mode (ROADMAP A, slice 13: serving/rerank.py)",
+    "dynamic": "dynamic mode (ROADMAP A, slice 14: repro.dynamic)",
+    "resilience": "resilience= on a stream (ROADMAP A, slice 12: "
+                  "ResiliencePolicy, CheckpointManager)",
+    "mr_resilience": "resilience= on MapReduce (ROADMAP A, slice 12: "
+                     "ResiliencePolicy)",
+    "mr_reducers": "trace='reducers' on MapReduce (ROADMAP A, slice 12: "
+                   "per-reducer spans, StragglerPolicy)",
+}
+
+
+def not_ported(what: str, name: str = "") -> NotImplementedError:
+    """The error for the path ``NOT_PORTED[what]`` (reached through
+    function ``name``, if given)."""
+    text = f"{name}: {NOT_PORTED[what]}" if name else NOT_PORTED[what]
+    return NotImplementedError(
+        f"{text} is not ported to repro_torch yet; use the reference "
+        "package repro for it")
+
+
 # metrics the CUDA sweep kernels implement (``kernels.ops._metric_to_mode``)
 _KERNEL_METRICS = ("euclidean", "sqeuclidean", "dot", "cosine")
 

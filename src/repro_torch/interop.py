@@ -2,8 +2,9 @@
 
 The system has no weights; what crosses over is the engine state and the
 results.  ``from_reference`` turns the reference's ``RadiusCertificate``,
-``Coreset``/``GeneralizedCoreset``, ``GroupedCoreset`` (a constrained
-core-set) and ``DiversityResult`` (their arrays read as numpy arrays) into
+``Coreset``/``GeneralizedCoreset`` (of a batch or MapReduce run),
+``GroupedCoreset`` (a constrained core-set), ``FairCoreset`` (a constrained
+MapReduce union) and ``DiversityResult`` (their arrays read as numpy arrays) into
 the port's types, and ``stream_from_reference`` the reference's
 ``StreamingCoreset.state_dict()`` into a live port stream; ``to_numpy`` goes the other way, to plain numpy arrays and dataclass fields
 (for a stream, the ``(arrays, meta)`` pair the reference's
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from .constrained.coreset import GroupedCoreset
+from .constrained.mapreduce import FairCoreset
 from .core.adaptive import RadiusCertificate
 from .core.coreset import Coreset, GeneralizedCoreset
 from .core.smm import StreamingCoreset
@@ -38,7 +40,8 @@ def from_reference(obj, device="cpu"):
     """The port's counterpart of a reference object (None passes through).
 
     ``RadiusCertificate`` -> ``RadiusCertificate``; ``Coreset`` /
-    ``GeneralizedCoreset`` / ``GroupedCoreset`` -> the port's container
+    ``GeneralizedCoreset`` / ``GroupedCoreset`` / ``FairCoreset`` -> the
+    port's container
     with tensors on ``device`` (indices as int64); ``DiversityResult`` -> the port's
     ``DiversityResult`` with its solution, value, indices, certificate and
     core-set converted (no plan or telemetry)."""
@@ -59,6 +62,12 @@ def from_reference(obj, device="cpu"):
             radius=_tensor(obj.radius, device, torch.float32),
             group_count=_tensor(obj.group_count, device, torch.int32),
             cert=from_reference(obj.cert))
+    if all(hasattr(obj, f) for f in ("points", "labels", "valid", "radius")):
+        return FairCoreset(points=_tensor(obj.points, device, torch.float32),
+                           labels=_tensor(obj.labels, device, torch.int32),
+                           valid=_tensor(obj.valid, device, torch.bool),
+                           radius=_tensor(obj.radius, device, torch.float32),
+                           cert=from_reference(obj.cert))
     if hasattr(obj, "valid") and hasattr(obj, "weights"):
         return Coreset(points=_tensor(obj.points, device, torch.float32),
                        valid=_tensor(obj.valid, device, torch.bool),
@@ -103,7 +112,8 @@ def to_numpy(obj):
     if isinstance(obj, StreamingCoreset):
         arrays, meta = obj.state_dict()
         return {name: _host(a) for name, a in arrays.items()}, meta
-    if isinstance(obj, (Coreset, GeneralizedCoreset, GroupedCoreset)):
+    if isinstance(obj, (Coreset, GeneralizedCoreset, GroupedCoreset,
+                        FairCoreset)):
         return {f: to_numpy(getattr(obj, f)) for f in obj._fields}
     if hasattr(obj, "solution") and hasattr(obj, "value"):
         return {"solution": np.asarray(obj.solution),

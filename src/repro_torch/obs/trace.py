@@ -137,7 +137,8 @@ class RunTrace(Mapping):
     the run paths annotate (``mode``, ``coreset_size``, ...);
     ``enabled=True`` additionally activates the counters, nested spans and
     profiler annotations.  ``reducers=True`` is accepted for spec
-    compatibility (the MapReduce slice is not ported).
+    compatibility (per-reducer spans are not ported: a MapReduce plan
+    under it raises).
     """
 
     def __init__(self, enabled: bool = False, reducers: bool = False):

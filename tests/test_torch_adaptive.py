@@ -133,12 +133,12 @@ def test_helpers_match_reference():
 
 def test_grouped_adaptive_is_a_later_slice():
     """The grouped (m > 1) loop came with the constrained slice: it now runs
-    and keeps each group's picks inside the group; what stays a later
-    slice is the MapReduce planner (``resolve_engine_plan``)."""
+    and keeps each group's picks inside the group; the MapReduce planner
+    (``resolve_engine_plan``) came with the MapReduce slice."""
     pts = torch.as_tensor(_normal(64, 2, 3))
     labels = torch.as_tensor(np.arange(64) % 2, dtype=torch.int32)
     run = adaptive.adaptive_select(pts, labels, [0, 1], 2, 4,
                                    group_counts=[32, 32], device="cpu")
     assert run.idx.shape == (2, 4)
     assert np.all(run.idx % 2 == np.arange(2)[:, None])
-    assert not hasattr(adaptive, "resolve_engine_plan")
+    assert callable(adaptive.resolve_engine_plan)

@@ -170,6 +170,10 @@ def test_unported_modes_raise_with_their_slice(kind):
     ex, prob = {}, dict(points=pts, k=4)
     if kind in ("mapreduce", "serving", "dynamic"):
         ex["mode"] = kind
+        if kind == "mapreduce":
+            # the simulated reducers are ported (slice 10); the mesh path
+            # over several cards is slice 10b
+            ex["mesh"] = object()
     elif kind in ("streaming", "budget"):
         # streaming itself is ported (slice 9); resilience= on a stream is
         # the part still to come (slice 12)
@@ -179,12 +183,15 @@ def test_unported_modes_raise_with_their_slice(kind):
         else:
             ex["memory_budget_bytes"] = 16
     elif kind == "constrained":
-        # constrained batch and streaming are ported (slice 11);
-        # constrained MapReduce comes with the MapReduce slice (10)
+        # constrained batch, streaming and simulated MapReduce are ported
+        # (slices 11 and 10); resilience= on MapReduce is slice 12
         prob["labels"] = np.zeros(64, int)
         ex["num_reducers"] = 4
+        ex["resilience"] = object()
     else:
+        # per-reducer spans of a simulated MapReduce run are slice 12
         ex["num_reducers"] = 4
+        ex["trace"] = "reducers"
     with pytest.raises(NotImplementedError, match="ROADMAP A, slice"):
         repro_torch.plan(repro_torch.ProblemSpec(**prob),
                          repro_torch.ExecutionSpec(device="cpu", **ex))

@@ -216,7 +216,7 @@ def test_delegates_pass_matches_reference(metric):
                                      False)[0]
     r_didx, r_dvalid = rcs._grouped_delegates_impl(pp, ll, r_idx, m, k, kp,
                                                    ch, metric)
-    g_didx, g_dvalid = pcs._grouped_delegates_impl(
+    g_didx, g_dvalid, _ = pcs._grouped_delegates_impl(
         torch.as_tensor(pts), torch.as_tensor(lab),
         torch.as_tensor(np.array(r_idx), dtype=torch.int64), m, k, kp, 500,
         metric, False)

@@ -202,10 +202,14 @@ def test_later_slices_and_bad_specs_raise():
     pts, lab = _data(n=200)
     ex = repro_torch.ExecutionSpec
     spec = repro_torch.ProblemSpec(points=pts, k=6, labels=lab)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        repro_torch.plan(spec, ex(device="cpu", num_reducers=4))
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        repro_torch.plan(spec, ex(device="cpu", mode="mapreduce"))
+    # the simulated reducers are ported; the mesh path and per-reducer
+    # spans are not
+    with pytest.raises(NotImplementedError, match="slice 10b"):
+        repro_torch.plan(spec, ex(device="cpu", num_reducers=4,
+                                  mesh=object()))
+    with pytest.raises(NotImplementedError, match="slice 12"):
+        repro_torch.plan(spec, ex(device="cpu", mode="mapreduce",
+                                  num_reducers=4, trace="reducers"))
     with pytest.raises(NotImplementedError, match="slice 12"):
         repro_torch.plan(spec, ex(device="cpu", mode="streaming",
                                   resilience=object()))

@@ -393,3 +393,90 @@ def test_cuda_constrained_with_and_without_kernels(cuda_device, knobs,
         assert got.cert.b_schedule == want.cert.b_schedule
         np.testing.assert_allclose(got.cert.group_ratios,
                                    want.cert.group_ratios, rtol=1e-4)
+
+
+def _reducer_labels(n, m, contiguous, g):
+    """Round-1 labels of a simulated MapReduce run: m equal contiguous
+    shards (labels = reducer id, n divisible by m) or random labels over
+    m groups (reducer x genre under a constraint)."""
+    if contiguous:
+        return torch.arange(m, dtype=torch.int32).repeat_interleave(n // m)
+    return torch.randint(0, m, (n,), generator=g, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n,d,m,contiguous", [
+    (16 * 1031, 200, 16, True),       # equal shards, none a tile multiple
+    (9000, 64, 64, False), (9000, 64, 128, False),
+    (3 * 2 ** 16, 3, 16, True), (2 ** 16, 3, 64, False)])
+@pytest.mark.parametrize("p,bc", [(1, 1), (32, 8)])
+def test_cuda_grouped_kernel_at_round1_shapes(cuda_device, mode, n, d, m,
+                                              contiguous, p, bc):
+    """B4 at the shapes of a simulated MapReduce round 1, bit for bit
+    against its plain version: m = 16 contiguous reducer shards (every tile
+    edge inside a shard, shard edges inside tiles), random reducer x genre
+    labels at m = 64 and 128, and d = 3 with about 2^16 rows per call."""
+    g = torch.Generator().manual_seed(n + m + p)
+    x = torch.randn((n, d), generator=g)
+    c = torch.randn((m, bc, d), generator=g)
+    mi = torch.rand((n,), generator=g) * 3.7 + 0.3
+    lab = _reducer_labels(n, m, contiguous, g)
+    x, c, mi, lab = [t.to(cuda_device) for t in (x, c, mi, lab)]
+    _grouped_equal(x, c, mi, lab, mode, p, cuda_device)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_grouped_kernel_group_spans_a_tile_edge(cuda_device, mode):
+    """One group's rows straddle the edge between two 1,024-row tiles (and
+    a second edge), the rest of both tiles held by other groups: its top-p
+    merges entries from both tiles."""
+    n, d, m = 4096, 48, 6
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((n, d), generator=g)
+    c = torch.randn((m, 8, d), generator=g)
+    mi = torch.rand((n,), generator=g) * 3.7 + 0.3
+    lab = torch.randint(2, m, (n,), generator=g, dtype=torch.int32)
+    lab[1000:1050] = 0                              # across rows 1023/1024
+    lab[2040:3100] = 1                              # across 2047/2048, 3071
+    x, c, mi, lab = [t.to(cuda_device) for t in (x, c, mi, lab)]
+    g_val = _grouped_equal(x, c, mi, lab, mode, 64, cuda_device)
+    # group 0 holds 50 rows (its tail is -inf fill), group 1 over 64
+    assert bool(torch.isfinite(g_val[0, :50]).all())
+    assert bool(torch.isneginf(g_val[0, 50:]).all())
+    assert bool(torch.isfinite(g_val[1]).all())
+
+
+@pytest.mark.parametrize("measure,knobs", [
+    ("remote-edge", {}), ("remote-edge", {"kprime": 32, "b": 1}),
+    ("remote-clique", {"kprime": 16, "b": 4, "partition": "random"}),
+    ("remote-clique", {"kprime": 16, "generalized": True}),
+    ("remote-edge", {"kprime": 24, "partition": "adversarial",
+                     "labels": True})])
+def test_cuda_mapreduce_with_and_without_kernels(cuda_device, measure, knobs):
+    """The simulated MapReduce facade at a small size: round 1 of all
+    reducers runs through B4 (one launch per fold), and kernel and plain
+    runs give the same picks, value and counters."""
+    knobs = dict(knobs)
+    rg = np.random.default_rng(11)
+    pts = rg.normal(size=(8000, 24)).astype(np.float32)
+    lab = (rg.integers(0, 4, size=8000).astype(np.int32)
+           if knobs.pop("labels", False) else None)
+    x = torch.as_tensor(pts, device=cuda_device)
+    runs = {}
+    for use_pallas in ("auto", False):
+        ops.reset_launches()
+        runs[use_pallas] = repro_torch.diversify(
+            x, k=8, labels=lab, measure=measure,
+            execution=repro_torch.ExecutionSpec(
+                mode="mapreduce", num_reducers=4, use_pallas=use_pallas,
+                trace=True, **knobs))
+        launched = ops.LAUNCHES["gmm_grouped_topb"]
+        assert (launched > 0) == (use_pallas == "auto")
+    got, want = runs["auto"], runs[False]
+    np.testing.assert_array_equal(got.solution, want.solution)
+    if want.indices is not None:
+        np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_allclose(got.value, want.value, rtol=1e-4)
+    assert dict(got.telemetry.counters) == dict(want.telemetry.counters)
+    if want.cert is not None:
+        assert got.cert.b_schedule == want.cert.b_schedule

@@ -25,7 +25,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.core, "
             "repro_torch.core.smm, repro_torch.kernels, "
             "repro_torch.kernels.pairwise, repro_torch.obs, "
-            "repro_torch.data.selection, repro_torch.interop\n"
+            "repro_torch.data.selection, repro_torch.interop, "
+            "repro_torch.core.distributed, repro_torch.core.afz, "
+            "repro_torch.constrained.mapreduce\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -42,6 +44,9 @@ def test_sources_never_import_jax_or_repro():
     scanned = list(PORT.rglob("*.py"))
     assert PORT / "core" / "smm.py" in scanned
     assert PORT / "kernels" / "pairwise.py" in scanned
+    for mod in (("core", "distributed.py"), ("core", "afz.py"),
+                ("constrained", "mapreduce.py")):
+        assert PORT.joinpath(*mod) in scanned
     hits = [str(p) for p in scanned if pat.search(p.read_text())]
     assert not hits, hits
 
