@@ -88,18 +88,49 @@ Phases, each printing one JSON line (or one per call):
               streaming shapes beside its
               bound and, for euclidean, ``torch.cdist``'s time (the library
               call; the port never calls it on this path), and B4 at the
-              MapReduce round-1 shapes with its merge time and tile filler,
-              each shape first held against its plain version entry for
-              entry (its differing entries, expected 0, join phase 2's).
+              MapReduce round-1 shapes and at the serving shape (phase 9's
+              256 requests x 1,024 rows x 768 as 256 groups, bc = 1, p = 1)
+              with its merge time and tile filler, each shape first held
+              against its plain version entry for entry (its differing
+              entries, expected 0, join phase 2's).
 8. profile  — device-only torch.profiler traces of batch call (a), stream
-              call (b), constrained call (e) cosine and MapReduce call (i):
+              call (b), constrained call (e) cosine, MapReduce call (i)
+              and serving call (s):
               device time by kernel and the device's busy share of that
               call's wall time (full tables in chiprun_out/).
+9. serving  — data made on the card from ``--seed``: (s) the facade on
+              an (R, n, d) = (256, 1,024, 768) tensor of candidate
+              embeddings (each request its query plus one of 8 topics plus
+              noise), cosine, remote-edge, k = 32: the fused multi-tenant
+              rerank, every fold of all 256 requests one B4 launch; (s')
+              ``serving.rerank_batched`` on a ragged list of 256 requests of
+              512-1,024 candidates, euclidean; (t) the session reranker,
+              ``OnlineReranker(k=16, kprime=64, metric="cosine")`` over 64
+              sessions x 8 rounds of ``rerank_many``, 256 candidates x 768
+              a request, each session drawing from its own shifted Gaussian
+              (``benchmarks/bench_serving.py``), then again under a byte
+              budget of half the sessions' ``session_nbytes``, and 4
+              sessions checkpointed midway, restored into a new reranker
+              and finished there (their slates and certificates must equal
+              the uninterrupted reranker's).  Three calls a side in turns;
+              kernel and plain agree on every index, on radii and values to
+              rtol 1e-4 and on every counter; B4 launches equal the folds
+              the runs' spans record.
+10. resilience — each variant once, on the kernel side, held to the
+              kernel run phase 6 or 4 already made: MapReduce call (i)
+              with ``trace="reducers"`` and with a retried reducer 3
+              (picks, core-set, certificate equal to phase 6's, 16
+              ``mr.reducer[i]`` spans), with reducer 3 lost under
+              ``on_failure="degrade"`` (degraded certificate, surviving
+              shards, coverage), and stream (b) checkpointed every 8
+              chunks, killed at chunk 30 and resumed (core-set rows, d_i,
+              phase log, certificate and picks equal to phase 4's).
 
-The line before the last is the ``kernels`` summary; the last line is
-``{"ok": true, "device": {...}}``.  Any failure exits nonzero before it.
-``--rehearse`` runs phases 2-6 at a tiny size on the CPU with the plain
-versions (no build, no timings, no ``ok`` line) to check the script itself.
+Phases run in the order 1-6, 9, 10, 7, 8.  The line before the last is
+the ``kernels`` summary; the last line is ``{"ok": true, "device":
+{...}}``.  Any failure exits nonzero before it.  ``--rehearse`` runs phases
+2-6, 9 and 10 at a tiny size on the CPU with the plain versions (no build,
+no timings, no ``ok`` line) to check the script itself.
 """
 from __future__ import annotations
 
@@ -139,6 +170,7 @@ KERNELS = {
         "replaces": "src/repro/kernels/gmm_update.py:187"},
 }
 GROUPS = 16                    # synthetic genres of the constrained phase
+FIRST = {}                     # first kernel runs phase 10 is held to
 
 
 def emit(obj) -> None:
@@ -636,7 +668,8 @@ def phase_stream(data, device, check_launches: bool, runs: int = 3,
                  full: bool = True):
     """The stream calls, ``runs`` per side in turns (kernel, plain, plain,
     kernel, ...).  Returns (launches of the first kernel run of each call,
-    summed; per-call kernel median seconds)."""
+    summed; per-call kernel median seconds).  The first kernel run of call
+    (b) stays in ``FIRST`` for phase 10."""
     import numpy as np
     launches = dict.fromkeys(KERNELS, 0)
     median_s = {}
@@ -709,6 +742,8 @@ def phase_stream(data, device, check_launches: bool, runs: int = 3,
         for k, v in kl.items():
             launches[k] += v
         median_s[name] = statistics.median(ks)
+        if name.startswith("b_"):
+            FIRST["stream_b"] = (kres, median_s[name])
     return launches, median_s
 
 
@@ -1057,7 +1092,8 @@ def phase_mapreduce(data, device, check_launches: bool, full: bool = True):
     """The MapReduce calls, kernel and plain runs in turns (kernel first,
     plain second, then the remaining kernel runs).  Returns (launches of
     the first kernel run of each call, summed; per-call kernel median
-    seconds)."""
+    seconds).  The first kernel run of call (i) stays in ``FIRST`` for
+    phase 10."""
     import numpy as np
     import torch
     launches = dict.fromkeys(KERNELS, 0)
@@ -1139,6 +1175,8 @@ def phase_mapreduce(data, device, check_launches: bool, full: bool = True):
         for k, v in kl.items():
             launches[k] += v
         median_s[name] = statistics.median(ks)
+        if name.startswith("i_"):
+            FIRST["mapreduce_i"] = (kres, kidx, median_s[name])
         if x.is_cuda:
             torch.cuda.empty_cache()
     return launches, median_s
@@ -1274,7 +1312,8 @@ def phase_times_grouped(x, labels, seed: int):
     return rows
 
 
-def phase_times_round1(x, sphere, genres, seed: int, errs, diffs):
+def phase_times_round1(x, sphere, genres, seed: int, errs, diffs,
+                       serving=None):
     """B4 at the shapes of the MapReduce round 1: the contiguous reducer
     shards of calls (i) (16 groups, cosine) and (m) (16 groups, the 2^24
     sphere, euclidean) at the lookahead sweep (bc = 8, p = 32) and the b = 1
@@ -1285,7 +1324,9 @@ def phase_times_round1(x, sphere, genres, seed: int, errs, diffs):
     of differing entries join phase 2's B4 cases in ``diffs``.  Beside each time: the
     per-group merge of the tile winners alone (``merge_ms``), and the
     tile-output slots a sweep writes (m x tiles x p) against the ones that
-    hold a row of their group; the rest are -inf filler."""
+    hold a row of their group; the rest are -inf filler.  With ``serving``
+    (phase 9's (R, n, d) requests) B4 is also timed at the fused rerank's
+    shape: m = R request groups, bc = 1, p = 1 over all R·n rows."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.gmm_update import grouped_tile_rows
@@ -1304,6 +1345,10 @@ def phase_times_round1(x, sphere, genres, seed: int, errs, diffs):
               8, 32),
              ("m", sphere, "euclidean", contiguous(sphere.shape[0], 16), 16,
               1, 1)]
+    if serving is not None:
+        R, rn, rd = serving.shape
+        cases.append(("s", serving.view(R * rn, rd), "cosine",
+                      contiguous(R * rn, R), R, 1, 1))
     for call, pts, mode, lab, m, bc, p in cases:
         n, d = pts.shape
         prep = ops.prepare(pts, mode)
@@ -1321,7 +1366,8 @@ def phase_times_round1(x, sphere, genres, seed: int, errs, diffs):
         straddled = own * (0.5 + torch.rand((n,), generator=gen,
                                             device=pts.device))
         del own
-        at = f"round 1 ({call}) n={n} d={d} {mode} m={m} bc={bc} p={p}"
+        at = (f"{'serving' if call == 's' else 'round 1'} ({call}) n={n} "
+              f"d={d} {mode} m={m} bc={bc} p={p}")
         compare_grouped(kern(), r_out, lab, m, errs,
                         diffs["gmm_grouped_topb"], f"{at} min_in=inf")
         del r_out
@@ -1462,6 +1508,469 @@ def phase_profile(call, name: str, out: Path, unprofiled_s: float):
 
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# phase 9: serving
+# --------------------------------------------------------------------------
+
+def serving_requests(R: int, n: int, d: int, seed: int, device):
+    """(R, n, d) candidate embeddings made on the device from ``seed``: each
+    request's candidates are its query vector plus one of 8 topic offsets
+    plus noise, the shape of a retrieval server's decode group (top-n
+    candidates per query at BERT-base width)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed + 11)
+    out = torch.randn((R, n, d), generator=g, device=device)
+    out.mul_(0.5)
+    topics = torch.randn((R, 8, d), generator=g, device=device)
+    which = torch.randint(0, 8, (R, n), generator=g, device=device)
+    for r in range(R):            # per request: no (R, n, d) temporaries
+        out[r] += topics[r, which[r]] * 0.7
+    out += torch.randn((R, 1, d), generator=g, device=device)
+    return out
+
+
+def session_workload(S: int, rounds: int, n: int, d: int, seed: int, device):
+    """rounds x S candidate batches, as ``benchmarks/bench_serving.py``
+    makes them, on the device: each session draws from its own shifted
+    Gaussian (centers at scale 4), so later batches land inside the
+    session's certified radius and exercise the cached-slate path."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed + 13)
+    centers = 4.0 * torch.randn((S, d), generator=g, device=device)
+    return [[centers[s] + torch.randn((n, d), generator=g, device=device)
+             for s in range(S)] for _ in range(rounds)]
+
+
+def serving_data(cfg, seed: int, device):
+    """Phase 9's inputs, made on the device: the (s) requests, the (s')
+    requests (each later cut to its own length) and the (t) sessions'
+    batches."""
+    R, n, d = cfg["R"], cfg["n"], cfg["d"]
+    return {"serving": serving_requests(R, n, d, seed, device),
+            "serving_ragged": serving_requests(R, cfg["ragged"][1], d,
+                                               seed + 1, device),
+            "sessions": session_workload(cfg["S"], cfg["rounds"],
+                                         cfg["batch"], d, seed, device)}
+
+
+def serving_calls(full: bool):
+    """Sizes of phase 9: (s)/(s') requests x candidates x d, and the
+    session reranker's (t) sessions, rounds, batch rows, d, k, k'."""
+    if full:
+        return {"R": 256, "n": 1024, "d": 768, "k": 32, "ragged": (512, 1024),
+                "S": 64, "rounds": 8, "batch": 256, "tk": 16, "tkp": 64}
+    return {"R": 8, "n": 64, "d": 16, "k": 4, "ragged": (32, 64),
+            "S": 6, "rounds": 4, "batch": 48, "tk": 4, "tkp": 16}
+
+
+def _traced(fn):
+    """Run ``fn(trace)`` under an enabled ``RunTrace`` with the kernel
+    counts set to 0 just before; returns (output, seconds, launches,
+    trace)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.obs.trace import RunTrace, activate
+    tr = RunTrace(enabled=True)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with activate(tr):
+        out = fn(tr)
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(ops.LAUNCHES), tr
+
+
+def _spans(trace, name):
+    out, todo = [], list(trace.spans)
+    while todo:
+        sp = todo.pop(0)
+        if sp.name == name:
+            out.append(sp)
+        todo.extend(sp.children)
+    return out
+
+
+def _fold_launches(trace, name):
+    """(folds, B4 launches) summed over the spans called ``name``."""
+    sps = _spans(trace, name)
+    return (sum(sp.attrs.get("folds", 0) for sp in sps),
+            sum(sp.attrs.get("launches", {}).get("gmm_grouped_topb", 0)
+                for sp in sps))
+
+
+def _turns(call, runs: int):
+    """``runs`` calls a side in turns (kernel, plain, plain, kernel, ...);
+    every repeat must reproduce its side's first answer.  Returns
+    {side: [(out, seconds, launches, trace), ...]}."""
+    out = {"auto": [], False: []}
+    for use_pallas in (["auto", False, False, "auto"] * runs)[:2 * runs]:
+        out[use_pallas].append(_traced(lambda tr: call(use_pallas, tr)))
+    return out
+
+
+def phase_serving(data, device, check_launches: bool, runs: int = 3,
+                  full: bool = True, seed: int = 0):
+    """(s) the facade on an (R, n, d) tensor, cosine, remote-edge; (s')
+    ``rerank_batched`` on a ragged list, euclidean; (t) the session
+    reranker, S sessions x rounds of ``rerank_many``, with a byte budget of
+    half the sessions' ``session_nbytes`` as a second run, and 4 sessions
+    checkpointed midway, restored into a new reranker and finished there.
+    Kernel and plain in turns; they must agree on every index, on radii
+    and values to rtol 1e-4 and on every counter, and every fold of a
+    fused run is one B4 launch.  Returns (launches of the first kernel run
+    of each call, summed; seconds)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.serving import (OnlineReranker, rerank_batched,
+                                     session_nbytes)
+    cfg = serving_calls(full)
+    launches = dict.fromkeys(KERNELS, 0)
+    seconds = {}
+
+    def close(a, b):
+        return bool(np.allclose(np.asarray(a, float), np.asarray(b, float),
+                                rtol=RTOL_E2E, atol=0.0))
+
+    # (s) and (s'): the stateless fused rerank
+    x = data["serving"]
+    g = torch.Generator().manual_seed(seed + 17)
+    lo, hi = cfg["ragged"]
+    sizes = torch.randint(lo, hi + 1, (cfg["R"],), generator=g).tolist()
+    ragged = [data["serving_ragged"][r, :sizes[r]] for r in range(cfg["R"])]
+    k = cfg["k"]
+    calls = {
+        "s_fused_cosine_edge": lambda up, tr: repro_torch.diversify(
+            x, k=k, metric="cosine", execution=repro_torch.ExecutionSpec(
+                device=device, use_pallas=up, trace=tr)),
+        "s_prime_ragged_euclidean_edge": lambda up, tr: rerank_batched(
+            ragged, k, metric="euclidean", use_pallas=up)}
+    for name, call in calls.items():
+        out = _turns(call, runs)
+        (kout, _, kl, ktr), (pout, _, _, ptr) = out["auto"][0], out[False][0]
+        if name.startswith("s_fused"):
+            kidx, pidx = kout.indices, pout.indices
+            kv, pv = kout.telemetry["values"], pout.telemetry["values"]
+            kr, pr = kout.telemetry["radii"], pout.telemetry["radii"]
+            reqs = int(x.shape[0])
+        else:
+            kidx, pidx = kout.indices, pout.indices
+            kv, pv, kr, pr = kout.values, pout.values, kout.radii, pout.radii
+            reqs = len(ragged)
+        for side in ("auto", False):
+            for o, *_ in out[side][1:]:
+                if not np.array_equal(o.indices, out[side][0][0].indices):
+                    fail(f"{name}: a repeated run gave another answer")
+        folds, b4 = _fold_launches(ktr, "serving.rerank_batched")
+        ks = [r[1] for r in out["auto"]]
+        ps = [r[1] for r in out[False]]
+        row = {"phase": "serving", "call": name, "requests": reqs,
+               "candidates": int(x.shape[1]) if name.startswith("s_fused")
+               else [min(sizes), max(sizes)], "d": int(x.shape[2]), "k": k,
+               "kernel_seconds": _spread(ks), "plain_seconds": _spread(ps),
+               "kernel_requests_per_s": reqs / statistics.median(ks),
+               "plain_requests_per_s": reqs / statistics.median(ps),
+               "folds": folds, "b4_launches": b4, "kernel_launches": kl,
+               "counters": dict(ktr.counters),
+               "mean_value": [float(np.mean(kv)), float(np.mean(pv))],
+               "agree": {"indices": bool(np.array_equal(kidx, pidx)),
+                         "radii": close(kr, pr), "values": close(kv, pv),
+                         "counters": dict(ktr.counters)
+                         == dict(ptr.counters)}}
+        emit(row)
+        bad = [c for c, ok in row["agree"].items() if not ok]
+        if bad:
+            fail(f"{name}: kernel and plain disagree on {bad}")
+        if kidx.shape != (reqs, k) or not np.isfinite(kv).all() \
+                or any(len(set(r.tolist())) != k for r in kidx):
+            fail(f"{name}: not k distinct picks a request")
+        if any(any(lc.values()) for _, _, lc, _ in out[False]):
+            fail(f"{name}: a kernel launched on a plain run")
+        if check_launches and not (b4 == folds == k
+                                   and kl["gmm_grouped_topb"] == b4):
+            fail(f"{name}: {b4} B4 launches for {folds} folds")
+        for c, v in kl.items():
+            launches[c] += v
+        seconds[name] = statistics.median(ks)
+
+    # (t): the session reranker
+    work = data["sessions"]
+    S, rounds = cfg["S"], cfg["rounds"]
+
+    def sessions(up, budget=None, upto=None, keys=None):
+        rr = OnlineReranker(k=cfg["tk"], dim=cfg["d"], kprime=cfg["tkp"],
+                            metric="cosine", device=device, use_pallas=up,
+                            memory_budget_bytes=budget)
+        return rr, _session_rounds(rr, work, upto, keys)
+
+    def call(up, tr, budget=None):
+        return sessions(up, budget)
+
+    out = _turns(call, runs)
+    (krr, kres), _, kl, ktr = out["auto"][0]
+    (prr, pres), _, _, ptr = out[False][0]
+    per = session_nbytes(krr.store.get("s0").coreset)
+    budget = S * per // 2
+    ev = {up: _traced(lambda tr, up=up: call(up, tr, budget))
+          for up in ("auto", False)}
+
+    def same(a, b):
+        return (np.array_equal(a.slate, b.slate) and a.reused == b.reused
+                and a.cert.counts == b.cert.counts
+                and close((a.cert.radius, a.cert.scale, a.cert.ratio),
+                          (b.cert.radius, b.cert.scale, b.cert.ratio)))
+    agree = {
+        "slates_and_certificates": all(
+            same(kres[r][key], pres[r][key])
+            for r in range(rounds) for key in kres[r]),
+        "counters": dict(ktr.counters) == dict(ptr.counters),
+        "stats": krr.stats() == prr.stats(),
+        "budget_stats": ev["auto"][0][0].stats() == ev[False][0][0].stats(),
+        "budget_counters": dict(ev["auto"][3].counters)
+        == dict(ev[False][3].counters)}
+    for side in ("auto", False):
+        first = out[side][0][0][1]
+        for (_, again), *_ in out[side][1:]:
+            if not all(np.array_equal(first[r][key].slate,
+                                      again[r][key].slate)
+                       for r in range(rounds) for key in first[r]):
+                fail("t_sessions: a repeated run gave another answer")
+    # midway checkpoint: 4 sessions saved after half the rounds, restored
+    # into a new reranker that finishes their rounds
+    half, keys = rounds // 2, [f"s{s}" for s in range(4)]
+    tmp = ROOT / "build" / "chip_smoke_sessions"
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        rr, _ = sessions("auto", upto=half)
+        for key in keys:               # one checkpoint directory a session
+            rr.save_session(key, CheckpointManager(f"{tmp}/{key}"), half)
+        again = OnlineReranker(k=cfg["tk"], dim=cfg["d"], kprime=cfg["tkp"],
+                               metric="cosine", device=device)
+        if not all(again.restore_session(key, CheckpointManager(
+                f"{tmp}/{key}")) for key in keys):
+            fail("t_sessions: a checkpointed session did not restore")
+        resumed = _session_rounds(again, work[half:], None, keys)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # a restored session has no cached slate yet, so only its first
+    # answer's ``reused`` flag may differ
+    agree["resumed_sessions"] = all(
+        np.array_equal(resumed[r][key].slate, kres[half + r][key].slate)
+        and resumed[r][key].cert == kres[half + r][key].cert
+        and resumed[r][key].generation == kres[half + r][key].generation
+        for r in range(rounds - half) for key in keys)
+    folds, b4 = _fold_launches(ktr, "serving.solve_fused")
+    ks = [r[1] for r in out["auto"]]
+    ps = [r[1] for r in out[False]]
+    row = {"phase": "serving", "call": "t_sessions_cosine_k16_kp64",
+           "sessions": S, "rounds": rounds, "batch": cfg["batch"],
+           "d": cfg["d"], "kernel_seconds": _spread(ks),
+           "plain_seconds": _spread(ps),
+           "kernel_seconds_per_round": statistics.median(ks) / rounds,
+           "plain_seconds_per_round": statistics.median(ps) / rounds,
+           "counters": {c: ktr.counters.get(c, 0) for c in (
+               "coreset_reuses", "rerank_batched", "sessions_active")},
+           "stats": krr.stats(), "fused_solves": len(_spans(
+               ktr, "serving.solve_fused")), "folds": folds,
+           "b4_launches": b4, "b3_launches": kl["pairwise"],
+           "kernel_launches": kl, "session_nbytes": per,
+           "budget_bytes": budget,
+           "budget_evictions": ev["auto"][0][0].stats()["evictions"],
+           "budget_seconds": ev["auto"][1],
+           "budget_counters": {c: ev["auto"][3].counters.get(c, 0) for c in (
+               "coreset_reuses", "rerank_batched", "sessions_active")},
+           "agree": agree}
+    emit(row)
+    bad = [c for c, ok in agree.items() if not ok]
+    if bad:
+        fail(f"t_sessions: disagreement on {bad}")
+    if any(any(lc.values()) for _, _, lc, _ in out[False]):
+        fail("t_sessions: a kernel launched on a plain run")
+    if check_launches and not (b4 == folds == kl["gmm_grouped_topb"] > 0
+                               and kl["pairwise"] > 0):
+        fail(f"t_sessions: {b4} B4 launches for {folds} folds, "
+             f"{kl['pairwise']} B3 launches")
+    for c, v in kl.items():
+        launches[c] += v
+    seconds["t_sessions"] = statistics.median(ks)
+    return launches, seconds
+
+
+def _session_rounds(rr, work, upto=None, keys=None):
+    """Serve ``work`` (rounds x sessions batches) through ``rr.rerank_many``
+    round by round (only ``keys`` if given, only the first ``upto``
+    rounds); returns the per-round result dicts."""
+    res = []
+    for batch in work[:upto]:
+        res.append(rr.rerank_many({f"s{s}": c for s, c in enumerate(batch)
+                                   if keys is None or f"s{s}" in keys}))
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 10: resilience
+# --------------------------------------------------------------------------
+
+def phase_resilience(data, device, full: bool = True):
+    """MapReduce call (i) with ``trace="reducers"``, under a retry policy
+    with reducer 3 failing once, and under ``on_failure="degrade"`` with
+    reducer 3 lost; stream (b) killed at a chunk and resumed from its
+    checkpoint.  Each runs once, on the kernel side: it is held to phase
+    6's or phase 4's kernel run (equal picks, core-set and certificate).
+    Returns (launches, seconds)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch.distributed import (FailureInjector, InjectedFailure,
+                                         ResiliencePolicy)
+    launches = dict.fromkeys(KERNELS, 0)
+    seconds = {}
+    name, kind, problem, knobs, _, _ = mapreduce_calls(full)[0]
+    base, base_idx, base_s = FIRST["mapreduce_i"]
+    x = data[kind]
+    ell = knobs["num_reducers"]
+
+    def mr(tr, **extra):
+        res = repro_torch.diversify(x, execution=repro_torch.ExecutionSpec(
+            mode="mapreduce", device=device, trace=tr, **knobs, **extra),
+            **problem)
+        return res, res.indices
+    variants = {
+        "reducers": dict(),
+        "retry": dict(resilience=ResiliencePolicy(
+            on_failure="retry", injector=FailureInjector(
+                fail_at=("reducer:3",)))),
+        "degrade": dict(resilience=ResiliencePolicy(
+            on_failure="degrade", injector=FailureInjector(
+                fail_at=("reducer:3",))))}
+    for var, extra in variants.items():
+        (res, idx), secs, kl, _ = _traced(
+            lambda tr, extra=extra, var=var: mr(
+                "reducers" if var == "reducers" else True, **extra))
+        tr = res.telemetry
+        r1 = _spans(tr, "mr.round1")[0]
+        row = {"phase": "resilience", "call": f"{name}_{var}",
+               "seconds": secs, "default_seconds": base_s,
+               "reducer_spans": sum(sp.name.startswith("mr.reducer[")
+                                    for sp in r1.children),
+               "round1_s": r1.seconds,
+               "default_round1_s": _span_seconds(base.telemetry,
+                                                 "mr.round1"),
+               "round1_b4_launches": r1.attrs["launches"][
+                   "gmm_grouped_topb"],
+               "default_round1_b4_launches": _spans(
+                   base.telemetry, "mr.round1")[0].attrs["launches"][
+                   "gmm_grouped_topb"],
+               "reducer_seconds": [sp.seconds for sp in r1.children],
+               "stragglers": tr.extras.get("mr_stragglers"),
+               "resilience": tr.extras.get("resilience"),
+               "counters": {c: tr.counters.get(c, 0) for c in (
+                   "retries", "failures_injected", "reducers_recovered")},
+               "kernel_launches": kl}
+        if var == "degrade":
+            c = res.cert
+            row.update({"degraded": c.degraded,
+                        "surviving_shards": list(c.surviving_shards),
+                        "points_covered": c.points_covered,
+                        "points_total": c.points_total,
+                        "value": [res.value, base.value]})
+            ok = (c.degraded and 3 not in c.surviving_shards
+                  and len(c.surviving_shards) == ell - 1
+                  and c.points_covered * ell == c.points_total * (ell - 1)
+                  and np.isfinite(res.solution).all())
+            emit(row)
+            if not ok:
+                fail(f"{name}_{var}: the degraded run's certificate is "
+                     f"wrong ({row})")
+        else:
+            agree = {
+                "picks": bool(np.array_equal(res.solution, base.solution)
+                              and np.array_equal(idx, base_idx)),
+                "coreset": bool(torch.equal(res.coreset.points,
+                                            base.coreset.points)
+                                and torch.equal(res.coreset.valid,
+                                                base.coreset.valid)),
+                "certificate": res.cert == base.cert,
+                "value": res.value == base.value,
+                "reducer_spans": row["reducer_spans"] == ell}
+            if var == "retry":
+                agree["counters"] = row["counters"] == {
+                    "retries": 1, "failures_injected": 1,
+                    "reducers_recovered": 1}
+            row["agree"] = agree
+            emit(row)
+            bad = [c for c, ok in agree.items() if not ok]
+            if bad:
+                fail(f"{name}_{var}: differs from phase 6's run on {bad}")
+        for c, v in kl.items():
+            launches[c] += v
+        seconds[f"mr_i_{var}"] = secs
+        if x.is_cuda:
+            torch.cuda.empty_cache()
+
+    # stream (b): killed at a chunk, resumed from its checkpoint
+    sname, skind, sproblem, sknobs = stream_calls(full)[1]
+    sbase, sbase_s = FIRST["stream_b"]
+    every, kill = (8, 30) if full else (2, 4)
+    tmp = ROOT / "build" / "chip_smoke_checkpoints"
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        def stream(tr, pol):
+            src, extra = _stream_source(skind, data[skind],
+                                        sknobs.get("chunk", 4096))
+            return repro_torch.diversify(src, execution=repro_torch.
+                                         ExecutionSpec(
+                                             device=device, trace=tr,
+                                             resilience=pol, **extra,
+                                             **sknobs), **sproblem)
+        t0 = time.perf_counter()
+        try:
+            stream(True, ResiliencePolicy(
+                on_failure="raise", checkpoint_dir=str(tmp),
+                checkpoint_every=every,
+                injector=FailureInjector(fail_at=(f"chunk:{kill}",))))
+            fail(f"{sname}: the injected failure at chunk {kill} did not "
+                 "stop the stream")
+        except InjectedFailure:
+            pass
+        killed_s = time.perf_counter() - t0
+        res, secs, kl, _ = _traced(lambda tr: stream(tr, ResiliencePolicy(
+            checkpoint_dir=str(tmp), checkpoint_every=every)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (gp, gm), (bp, bm) = _coreset_rows(res), _coreset_rows(sbase)
+    kc, bc = res.cert, sbase.cert
+    agree = {"coreset": bool(gp.shape == bp.shape and np.array_equal(gp, bp)
+                             and (gm is None or np.array_equal(gm, bm))),
+             "d_thr": float(res.coreset.radius) == float(sbase.coreset.radius),
+             "phase_log": kc.counts == bc.counts and kc.radii == bc.radii,
+             "certificate": kc == bc,
+             "picks": bool(np.array_equal(res.solution, sbase.solution)),
+             "resumed_from": res.telemetry["resilience"]["resumed_from"]
+             == (kill // every) * every}
+    row = {"phase": "resilience", "call": f"{sname}_kill_resume",
+           "checkpoint_every": every, "killed_at_chunk": kill,
+           "killed_run_seconds": killed_s, "resumed_run_seconds": secs,
+           "default_seconds": sbase_s,
+           "resilience": res.telemetry["resilience"],
+           "checkpoints_written": res.telemetry.counters.get(
+               "checkpoints_written", 0), "kernel_launches": kl,
+           "agree": agree}
+    emit(row)
+    bad = [c for c, ok in agree.items() if not ok]
+    if bad:
+        fail(f"{sname}: the resumed stream differs from phase 4's on {bad}")
+    for c, v in kl.items():
+        launches[c] += v
+    seconds["stream_b_resumed"] = secs
+    return launches, seconds
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1475,7 +1984,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse", action="store_true",
-                    help="tiny CPU run of phases 2-6 with the plain versions")
+                    help="tiny CPU run of phases 2-6, 9 and 10 with the "
+                         "plain versions")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1504,6 +2014,11 @@ def main(argv=None) -> int:
                           runs=1, full=False)
         phase_mapreduce(dict(data, genres=genres), "cpu",
                         check_launches=False, full=False)
+        cfg = serving_calls(False)
+        data.update(serving_data(cfg, args.seed, "cpu"))
+        phase_serving(data, "cpu", check_launches=False, runs=1, full=False,
+                      seed=args.seed)
+        phase_resilience(data, "cpu", full=False)
         emit({"phase": "rehearsal", "ok": True})
         return 0
 
@@ -1570,17 +2085,42 @@ def main(argv=None) -> int:
         launches[k] += v
     torch.cuda.empty_cache()
 
+    # ---- 9. serving, 10. resilience ----------------------------------------
+    t0 = time.perf_counter()
+    serving = serving_data(serving_calls(True), args.seed, "cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "data", "serving_shape": list(serving["serving"].shape),
+          "serving_gb": serving["serving"].numel() * 4 / 1e9,
+          "sessions": [len(serving["sessions"]),
+                       len(serving["sessions"][0]),
+                       list(serving["sessions"][0][0].shape)],
+          "seconds": time.perf_counter() - t0})
+    v_launches, serve_s = phase_serving(serving, "cuda", check_launches=True,
+                                        seed=args.seed)
+    for k, v in v_launches.items():
+        launches[k] += v
+    del serving["serving_ragged"], serving["sessions"]
+    torch.cuda.empty_cache()
+    r_launches, _ = phase_resilience(
+        {"mxm": x, "sphere": sphere}, "cuda")
+    for k, v in r_launches.items():
+        launches[k] += v
+    FIRST.clear()
+    torch.cuda.empty_cache()
+
     # ---- 7. times, 8. profile ---------------------------------------------
     rows = phase_times(x, args.seed)
     g_rows = phase_times_grouped(x, genres, args.seed)
     b4_cases = set(diffs["gmm_grouped_topb"])
-    phase_times_round1(x, sphere, genres, args.seed, errs, diffs)
+    requests = serving.pop("serving")
+    phase_times_round1(x, sphere, genres, args.seed, errs, diffs,
+                       serving=requests)
     (out / "kernel_differing_entries.json").write_text(
         json.dumps(diffs, indent=1))
     round1 = {c: v for c, v in diffs["gmm_grouped_topb"].items()
               if c not in b4_cases}
     emit({"phase": "differing_entries", "kernel": "gmm_grouped_topb",
-          "at": "round-1 shapes", "cases": len(round1),
+          "at": "round-1 and serving shapes", "cases": len(round1),
           "counts": list(round1.values())})
     far = x.shape[0] // 2
     b_rows = phase_times_pairwise(tiles + [(
@@ -1609,6 +2149,11 @@ def main(argv=None) -> int:
             mode="mapreduce", device="cuda", **knobs), **problem).indices,
         "mapreduce_i_cosine_edge_k128_l16", out,
         mr_s["i_cosine_edge_k128_l16"])
+    phase_profile(lambda: repro_torch.diversify(
+        requests, k=serving_calls(True)["k"], metric="cosine",
+        execution=repro_torch.ExecutionSpec(device="cuda")).indices,
+        "serving_s_fused_cosine_edge", out, serve_s["s_fused_cosine_edge"])
+    del requests
     pick = {"gmm_topb": next(r for r in rows if r["b"] == 8 and r["p"] == 128),
             "gmm_update_select": next(r for r in rows if r["b"] == 1
                                       and r["p"] == 1),

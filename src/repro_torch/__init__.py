@@ -5,15 +5,19 @@ The port of the JAX package ``repro``, placed beside it.  It imports
 anything of ``repro``.  The front door is
 ``repro_torch.diversify(ProblemSpec, ExecutionSpec)``; its sweeps run the
 hand-written CUDA kernels of ``repro_torch.kernels`` on the card (the
-default device) and a plain torch version on the CPU.  Ported so far: the batch
-and streaming paths, unconstrained and constrained (``repro_torch.
-constrained``); see ROADMAP.md for the rest.
+default device) and a plain torch version on the CPU.  Ported so far: the batch,
+streaming, simulated MapReduce and serving paths, unconstrained and
+constrained (``repro_torch.constrained``), with checkpoints and resilience
+(``repro_torch.checkpoint``, ``repro_torch.distributed``); see ROADMAP.md
+for the rest.
 """
 
 _API = ("diversify", "plan", "ProblemSpec", "ExecutionSpec", "Plan",
         "DiversityResult")
+# ``ExecutionSpec(resilience=repro_torch.ResiliencePolicy(...))`` spelling
+_RESILIENCE = ("ResiliencePolicy", "FailureInjector")
 
-__all__ = list(_API)
+__all__ = list(_API) + list(_RESILIENCE)
 
 
 def __getattr__(name):
@@ -21,4 +25,7 @@ def __getattr__(name):
     if name in _API:
         from repro_torch import api
         return getattr(api, name)
+    if name in _RESILIENCE:
+        from repro_torch.distributed import fault_tolerance
+        return getattr(fault_tolerance, name)
     raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

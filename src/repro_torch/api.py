@@ -1,6 +1,6 @@
 """One front door: ``repro_torch.diversify(ProblemSpec, ExecutionSpec)``
-(port of ``repro.api``: batch, streaming, constrained and simulated
-MapReduce slices).
+(port of ``repro.api``: batch, streaming, constrained, simulated
+MapReduce and serving slices, with resilience).
 
 * ``ProblemSpec`` says WHAT to solve (points, ``k``, measure, metric);
 * ``ExecutionSpec`` says HOW: the reference's fields (so one kwargs dict
@@ -25,10 +25,16 @@ in batch, one SMM state per group in a stream.  ``mode="mapreduce"`` with
 ``num_reducers=ℓ`` (or ``num_reducers > 1`` under ``mode="auto"``) runs
 the simulated ℓ-reducer MapReduce (``core.distributed``,
 ``constrained.mapreduce``): round 1 of all reducers is one grouped-engine
-run whose every fold is one B4 sweep.  The mesh path (``mesh=`` or a
-sharded input), serving and dynamic modes, ``resilience=`` on a stream or
-a MapReduce run, and ``trace="reducers"`` on MapReduce raise
-``NotImplementedError`` from ``plan()`` naming the ROADMAP slice that
+run whose every fold is one B4 sweep; ``trace="reducers"`` and
+``resilience=`` (a ``repro_torch.distributed.ResiliencePolicy``) run it
+one reducer at a time, each reducer a span and a unit that can be retried
+or dropped.  ``resilience=`` on a stream retries or drops chunks and, with
+``checkpoint_dir``, checkpoints the SMM state every ``checkpoint_every``
+chunks and resumes from the latest checkpoint.  A 3-D ``(requests,
+candidates, d)`` input (or ``mode="serving"``) runs the fused multi-tenant
+rerank (``serving.rerank_batched``): every fold of all requests is one B4
+sweep.  The mesh path (``mesh=`` or a sharded input) and the dynamic mode
+raise ``NotImplementedError`` from ``plan()`` naming the ROADMAP slice that
 brings them.
 
 >>> import numpy as np
@@ -212,13 +218,36 @@ class Plan:
 
     def explain(self, actual: bool = False) -> str:
         """Stable human-readable rendering — the reference's text for the
-        same batch, streaming or simulated MapReduce specs, constrained or
-        not.  ``actual=True``
-        appends predicted vs measured rows read from the last
-        ``execute()``."""
+        same batch, streaming, simulated MapReduce or serving specs,
+        constrained or not.  ``actual=True`` appends predicted vs measured
+        rows read from the last ``execute()``."""
         from .core.sequential import SEQ_ALPHA
 
         k = self.knobs
+        if self.mode == "serving":
+            lines = [
+                "DiversityPlan",
+                f"  mode: serving ({self.reason})",
+                f"  problem: k={self.problem.k},"
+                f" measure={self.problem.measure},"
+                f" metric={self.problem.metric},"
+                f" input=({self.requests}, {self.n}, {self.d}),"
+                " constrained=no",
+                f"  rerank: fused multi-tenant vmap of the m=1 engine,"
+                f" {self.requests} requests per dispatch",
+                f"  engine: b=1 (exact per-request GMM slate),"
+                f" chunk={k['chunk']}, use_pallas={k['use_pallas']}",
+                f"  layout: {self.layout}",
+                f"  predicted slate: {self.requests} x {self.problem.k}"
+                f" rows, {_fmt_bytes(self.coreset_bytes)}",
+                f"  solver: sequential"
+                f" alpha={SEQ_ALPHA[self.problem.measure]}"
+                f" ({self.problem.measure}), stateless — session reuse via"
+                " serving.OnlineReranker",
+            ]
+            if actual:
+                lines.extend(self._explain_actual())
+            return "\n".join(lines)
         shape = (f"({self.n}, {self.d})" if self.n is not None
                  else f"stream (d={self.d if self.d is not None else '?'})")
         rows = ("?" if self.coreset_rows is None else
@@ -248,6 +277,9 @@ class Plan:
             + (f", feasible greedy + {self.execution.swap_rounds}"
                " swap rounds" if self.constrained else ""),
         ]
+        if self.execution.resilience is not None:
+            lines.append(
+                f"  resilience: {self.execution.resilience.describe()}")
         if actual:
             lines.extend(self._explain_actual())
         return "\n".join(lines)
@@ -324,7 +356,6 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
     from .core.adaptive import auto_milestones, resolve_bars
     from .core.measures import MEASURES, NEEDS_INJECTIVE
     from .core.metrics import get_metric
-    from .obs.trace import trace_from_spec
 
     ex = execution or ExecutionSpec()
     if problem.measure not in MEASURES:
@@ -338,11 +369,14 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
     device = resolve_device(ex.device)
 
     arr = _is_array(problem.points)
+    requests = None
     if arr and problem.points.ndim == 3:
-        raise not_ported("serving")
-    n = int(problem.points.shape[0]) if arr else None
-    d = (int(problem.points.shape[1]) if arr and problem.points.ndim > 1
-         else problem.dim)
+        # (requests, candidates, d) tensor — the serving-mode input shape
+        requests, n, d = (int(s) for s in problem.points.shape)
+    else:
+        n = int(problem.points.shape[0]) if arr else None
+        d = (int(problem.points.shape[1]) if arr and problem.points.ndim > 1
+             else problem.dim)
     constrained, mat = _resolve_constraint(problem, streamed=not arr)
     if ex.mesh is not None or (arr and _is_sharded(problem.points)):
         raise not_ported("mesh")
@@ -350,7 +384,7 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
     # ---- mode ------------------------------------------------------------
     num_red = ex.num_reducers
     if ex.mode != "auto":
-        if ex.mode in ("serving", "dynamic"):
+        if ex.mode == "dynamic":
             raise not_ported(ex.mode)
         mode, reason = ex.mode, "requested"
         if mode == "mapreduce" and not (num_red or 0) > 1:
@@ -358,6 +392,8 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
                              "num_reducers > 1")
     elif not arr:
         mode, reason = "streaming", "auto: chunk-iterator input"
+    elif requests is not None:
+        mode, reason = "serving", "auto: (requests, candidates, d) tensor"
     elif (num_red or 0) > 1:
         mode, reason = "mapreduce", f"auto: num_reducers={num_red}"
     elif (ex.memory_budget_bytes is not None
@@ -371,6 +407,38 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
     if not arr and mode != "streaming":
         raise ValueError(f"a chunk-iterator source only supports "
                          f"mode='streaming', got {mode!r}")
+    if mode == "serving" and requests is None:
+        raise ValueError("mode='serving' needs a 3-D (requests, candidates, "
+                         "d) array of per-request candidate embeddings")
+    if mode != "serving" and requests is not None:
+        raise ValueError(f"a 3-D (requests, candidates, d) tensor only "
+                         f"supports mode='serving', got {mode!r}")
+    if mode == "serving":
+        from .serving.rerank import GMM_PREFIX_MEASURES
+        if constrained:
+            raise ValueError(
+                "mode='serving' is unconstrained — serve quota-constrained "
+                "slates through repro_torch.serving.OnlineReranker("
+                "matroid=...) sessions instead")
+        if problem.measure not in GMM_PREFIX_MEASURES:
+            raise ValueError(
+                f"mode='serving' answers per-request slates with the "
+                f"GMM-prefix engine; measure {problem.measure!r} is not "
+                f"GMM-solvable (one of {GMM_PREFIX_MEASURES})")
+        if n < problem.k:
+            raise ValueError(f"k={problem.k} exceeds the {n} candidates "
+                             f"per request")
+        # knobs without a serving execution path must fail at plan time
+        if ex.kprime not in ("auto", None):
+            raise ValueError("kprime= has no serving path (stateless "
+                             "per-request slates build no core-set)")
+        if ex.b not in ("auto", 1):
+            raise ValueError("mode='serving' runs the exact b=1 engine "
+                             "per request; b= has no serving path")
+        if ex.schedule is not None:
+            raise ValueError("schedule= has no serving path")
+        if ex.generalized or ex.smm_mode is not None:
+            raise ValueError("generalized=/smm_mode= have no serving path")
     if ex.rebuild not in ("auto", None):
         raise ValueError(f"rebuild= tunes the dynamic index and has no "
                          f"{mode} path")
@@ -395,15 +463,20 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
                                                        "gen"):
         raise ValueError(f"smm_mode must be one of 'plain'/'ext'/'gen', "
                          f"got {ex.smm_mode!r}")
-    if mode == "mapreduce" and trace_from_spec(ex.trace).reducers:
-        raise not_ported("mr_reducers")
     if ex.resilience is not None:
-        if mode in ("streaming", "mapreduce"):
-            raise not_ported("resilience" if mode == "streaming"
-                              else "mr_resilience")
-        raise ValueError("resilience= applies to streaming and mapreduce "
-                         "runs (batch is one local dispatch with nothing to "
-                         "retry or degrade to)")
+        from .distributed.fault_tolerance import ResiliencePolicy
+        if not isinstance(ex.resilience, ResiliencePolicy):
+            raise TypeError("resilience= must be a "
+                            "repro_torch.distributed.ResiliencePolicy, got "
+                            f"{type(ex.resilience).__name__}")
+        if mode in ("batch", "serving"):
+            raise ValueError("resilience= applies to streaming and "
+                             f"mapreduce runs ({mode} is one local dispatch "
+                             "with nothing to retry or degrade to)")
+        if (mode == "streaming" and constrained
+                and ex.resilience.checkpoint_dir is not None):
+            raise ValueError("checkpoint/resume is not yet supported for "
+                             "constrained streams (retry/degrade are)")
     if mode == "streaming" and not metric.is_metric:
         raise ValueError(f"SMM needs a true metric, got {problem.metric!r}")
 
@@ -432,6 +505,19 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
              "schedule": ex.schedule, "use_pallas": use_pallas,
              "tau": tau, "cliff": cliff, "sprint": ex.sprint,
              "device": device}
+
+    if mode == "serving":
+        # stateless fused slates: no core-set, no reducers — the predicted
+        # footprint is the (requests x k) slate tensor itself
+        return Plan(
+            problem=problem, execution=ex, mode=mode, reason=reason,
+            constrained=False, matroid=None, variant="plain", mesh=None,
+            num_reducers=None, knobs=knobs,
+            layout=(f"multi-tenant vmap, {requests} requests x {n} "
+                    f"candidates per dispatch"),
+            kprime_plan="none (stateless per-request slate)",
+            coreset_rows=requests * k, coreset_bytes=requests * k * d * 4,
+            n=n, d=d, requests=requests)
 
     # ---- k' plan + layout + footprint ------------------------------------
     m_groups = mat.m if constrained else 1
@@ -573,16 +659,43 @@ def _run_batch(plan_: Plan, tr) -> DiversityResult:
 
 def _run_streaming(plan_: Plan, tr) -> DiversityResult:
     """One pass of the SMM core-set over the chunks, then the sequential
-    solver on the core-set (phases stream / finalize / solve / value)."""
+    solver on the core-set (phases stream / finalize / solve / value).
+
+    Under a ``ResiliencePolicy`` every chunk is one ``run_unit`` (retried,
+    dropped or raised as the policy says); with ``checkpoint_dir`` the SMM
+    state is checkpointed every ``checkpoint_every`` chunks and a rerun
+    restores the latest checkpoint and skips the chunks already folded in
+    (the state is chunk-invariant, so the resumed run continues
+    bit-identically).  A run that dropped chunks stamps its certificate
+    with the chunk coverage ("shards" reads "chunks")."""
     from .core.sequential import solve_on_coreset
     from .core.smm import StreamingCoreset
 
     p, kb = plan_.problem, plan_.knobs
+    pol = plan_.execution.resilience
     smm: Optional[StreamingCoreset] = None
     dim = plan_.d
     t = time.perf_counter()
     n_seen = 0
-    for chunk in _chunks_of(p, kb["chunk"]):
+    report = mgr = None
+    chunks_done = 0          # chunks already folded in (restored on resume)
+    lost_points = 0
+    if pol is not None:
+        from .distributed.fault_tolerance import ResilienceReport, run_unit
+        report = ResilienceReport(scope="chunk", policy=pol.describe())
+        if pol.checkpoint_dir is not None:
+            from .checkpoint import CheckpointManager
+            mgr = CheckpointManager(pol.checkpoint_dir, keep_k=2)
+            smm, step = StreamingCoreset.restore(
+                mgr, device=kb["device"], use_pallas=kb["use_pallas"])
+            if smm is not None:
+                chunks_done = step
+                n_seen = smm.n_seen
+                dim = smm.dim
+                report.resumed_from = step
+    for j, chunk in enumerate(_chunks_of(p, kb["chunk"])):
+        if j < chunks_done:
+            continue
         chunk = as_points(chunk, kb["device"])
         if chunk.ndim < 2:
             chunk = chunk.reshape(1, -1)
@@ -592,17 +705,36 @@ def _run_streaming(plan_: Plan, tr) -> DiversityResult:
                                    metric=p.metric, mode=plan_.variant,
                                    eps=kb["eps"], device=kb["device"],
                                    use_pallas=kb["use_pallas"])
-        smm.update(chunk)
+        if pol is None:
+            smm.update(chunk)
+        elif not run_unit(lambda: smm.update(chunk), pol, point=f"chunk:{j}",
+                          unit=j, report=report):
+            lost_points += chunk.shape[0]
         n_seen += chunk.shape[0]
+        chunks_done = j + 1
+        if mgr is not None and chunks_done % pol.checkpoint_every == 0:
+            smm.save(mgr, chunks_done)
+            report.checkpoints_written += 1
     if smm is None:
         raise ValueError("empty stream")
     t = tr.phase("stream", t, sync=smm.state)
     cs = smm.finalize()
+    if report is not None and report.degraded:
+        # dropped chunks: the core-set covers the consumed points only
+        failed = set(report.failed)
+        cs = cs._replace(cert=dataclasses.replace(
+            cs.cert, degraded=True,
+            surviving_shards=tuple(i for i in range(chunks_done)
+                                   if i not in failed),
+            total_shards=chunks_done, points_covered=n_seen - lost_points,
+            points_total=n_seen))
     t = tr.phase("finalize", t, sync=cs)
     sol = solve_on_coreset(cs, p.k, p.measure, metric=p.metric)
     t = tr.phase("solve", t, sync=sol)
     value = _value_of(sol, p.measure, p.metric)
     tr.phase("value", t)
+    if report is not None:
+        tr.annotate(resilience=report.to_dict())
     return DiversityResult(
         solution=to_numpy(sol), value=value,
         _indices=_indices_of(plan_, None, sol), labels=None, cert=cs.cert,
@@ -648,16 +780,23 @@ def _run_batch_constrained(plan_: Plan, tr) -> DiversityResult:
 
 def _run_streaming_constrained(plan_: Plan, tr) -> DiversityResult:
     """One SMM state per group over the labelled chunks, then the feasible
-    greedy + swap solver on the union (phases stream / finalize / solve)."""
+    greedy + swap solver on the union (phases stream / finalize / solve).
+    Under a ``ResiliencePolicy`` every chunk is one ``run_unit``."""
     from .constrained import FairStreamingCoreset
     from .constrained.solver import solve_and_value
 
     p, kb, mat = plan_.problem, plan_.knobs, plan_.matroid
+    pol = plan_.execution.resilience
     dim = plan_.d
     smm: Optional[FairStreamingCoreset] = None
     t = time.perf_counter()
     n_seen = 0
-    for chunk, labels in _chunks_of(p, kb["chunk"], constrained=True):
+    report = None
+    if pol is not None:
+        from .distributed.fault_tolerance import ResilienceReport, run_unit
+        report = ResilienceReport(scope="chunk", policy=pol.describe())
+    for j, (chunk, labels) in enumerate(_chunks_of(p, kb["chunk"],
+                                                   constrained=True)):
         chunk = as_points(chunk, kb["device"])
         if chunk.ndim < 2:
             chunk = chunk.reshape(1, -1)
@@ -668,10 +807,16 @@ def _run_streaming_constrained(plan_: Plan, tr) -> DiversityResult:
                                        mode=plan_.variant, eps=kb["eps"],
                                        device=kb["device"],
                                        use_pallas=kb["use_pallas"])
-        smm.update(chunk, labels)
+        if pol is None:
+            smm.update(chunk, labels)
+        else:
+            run_unit(lambda: smm.update(chunk, labels), pol,
+                     point=f"chunk:{j}", unit=j, report=report)
         n_seen += chunk.shape[0]
     if smm is None:
         raise ValueError("empty stream")
+    if report is not None:
+        tr.annotate(resilience=report.to_dict())
     t = tr.phase("stream", t, sync=smm.state)
     cand_pts, cand_labels = smm.finalize()
     cert = smm.certificate()
@@ -701,14 +846,17 @@ def _run_mapreduce(plan_: Plan, tr) -> DiversityResult:
     p, kb, ex = plan_.problem, plan_.knobs, plan_.execution
     t = time.perf_counter()
     pts = as_points(p.points, kb["device"])     # the one move to the device
-    sol, value, cs, _ = _simulate_mr_impl(
+    sol, value, cs, report = _simulate_mr_impl(
         pts, p.k, p.measure, num_reducers=plan_.num_reducers,
         kprime=kb["kprime"], metric=p.metric,
         generalized=plan_.variant == "gen", partition=ex.partition,
         seed=ex.seed, b=kb["b"], chunk=kb["chunk"],
         eps=0.1 if kb["eps"] is None else kb["eps"], tau=ex.tau,
-        cliff=ex.cliff, use_pallas=kb["use_pallas"])
+        cliff=ex.cliff, use_pallas=kb["use_pallas"],
+        resilience=ex.resilience)
     tr.phase("rounds", t, sync=sol)
+    if report is not None:
+        tr.annotate(resilience=report.to_dict())
     return DiversityResult(
         solution=to_numpy(sol), value=value,
         _indices=_indices_of(plan_, pts, sol), labels=None,
@@ -725,13 +873,16 @@ def _run_mapreduce_constrained(plan_: Plan, tr) -> DiversityResult:
     p, kb, ex = plan_.problem, plan_.knobs, plan_.execution
     t = time.perf_counter()
     pts = as_points(p.points, kb["device"])     # the one move to the device
-    sol, sol_lab, value, cert, _ = _simulate_fair_mr_impl(
+    sol, sol_lab, value, cert, report = _simulate_fair_mr_impl(
         pts, to_numpy(p.labels), matroid=plan_.matroid,
         num_reducers=plan_.num_reducers, measure=p.measure,
         kprime=kb["kprime"], metric=p.metric, partition=ex.partition,
         seed=ex.seed, swap_rounds=ex.swap_rounds, b=kb["b"],
         chunk=kb["chunk"], eps=0.1 if kb["eps"] is None else kb["eps"],
-        tau=ex.tau, cliff=ex.cliff, use_pallas=kb["use_pallas"])
+        tau=ex.tau, cliff=ex.cliff, use_pallas=kb["use_pallas"],
+        resilience=ex.resilience)
+    if report is not None:
+        tr.annotate(resilience=report.to_dict())
     tr.phase("rounds", t, sync=sol)
     return DiversityResult(
         solution=to_numpy(sol), value=value,
@@ -740,11 +891,41 @@ def _run_mapreduce_constrained(plan_: Plan, tr) -> DiversityResult:
         telemetry=tr.annotate(mode="mapreduce"), plan=plan_)
 
 
+def _run_serving(plan_: Plan, tr) -> DiversityResult:
+    """Stateless fused multi-tenant rerank: one grouped engine run answers
+    every request's exact-GMM slate.  ``solution`` is (R, k, d),
+    ``indices`` (R, k) rows into each request's candidate set and ``value``
+    the mean per-request diversity objective (per-request values ride in
+    ``telemetry["values"]``)."""
+    from .serving.rerank import rerank_batched
+
+    p, kb = plan_.problem, plan_.knobs
+    t = time.perf_counter()
+    pts = as_points(p.points, kb["device"])     # the one move to the device
+    out = rerank_batched(pts, p.k, measure=p.measure, metric=p.metric,
+                         chunk=kb["chunk"], use_pallas=kb["use_pallas"])
+    t = tr.phase("rerank", t)
+    idx = torch.as_tensor(out.indices, device=pts.device)
+    sol = to_numpy(torch.gather(
+        pts, 1, idx[:, :, None].expand(-1, -1, pts.shape[2])))
+    tr.phase("value", t)
+    return DiversityResult(
+        solution=sol, value=float(np.mean(out.values)),
+        _indices=np.asarray(out.indices), labels=None, cert=None,
+        coreset=None,
+        telemetry=tr.annotate(mode="serving", requests=int(pts.shape[0]),
+                              values=out.values.tolist(),
+                              radii=out.radii.tolist()),
+        plan=plan_)
+
+
 def _execute(plan_: Plan) -> DiversityResult:
     from . import obs
 
     tr = obs.trace_from_spec(plan_.execution.trace)
-    if plan_.mode == "mapreduce":
+    if plan_.mode == "serving":
+        run = _run_serving    # plan() rejects constrained serving
+    elif plan_.mode == "mapreduce":
         run = (_run_mapreduce_constrained if plan_.constrained
                else _run_mapreduce)
     elif plan_.constrained:

@@ -88,19 +88,23 @@ def _group_stats(labels, m: int):
 
 def _grouped_select_impl(points, labels, m: int, kprime: int, b: int,
                          chunk: int, metric_name: str, use_pallas: bool,
-                         schedule=None):
+                         schedule=None, prep=None, grouped: bool = False):
     """All ``m`` per-group GMM runs in lock-step: one fused sweep per round.
 
     Returns (idx (m, k'), valid (m, k'), radius (m,), counts (m,),
     min_dist (n,)).  ``b=1`` is exact per-group GMM; ``b>1`` the lookahead-b
     approximation (kprime must be a multiple of b); ``schedule`` overrides
-    ``b`` with an explicit (block, rounds) phase plan."""
+    ``b`` with an explicit (block, rounds) phase plan.  ``prep`` passes the
+    sweep invariants in (computed here when None); ``grouped`` as in
+    ``core.gmm._schedule_select_impl``."""
     _, counts, starts = _group_stats(labels, m)
     if schedule is None:
         schedule = ((b, kprime // b),)
+    if prep is None:
+        prep = _sweep_points(points, metric_name)
     idx, rad, min_dist, _, _ = _schedule_select_impl(
-        _sweep_points(points, metric_name), points, labels, starts, m,
-        kprime, schedule, chunk, metric_name, use_pallas)
+        prep, points, labels, starts, m, kprime, schedule, chunk,
+        metric_name, use_pallas, grouped)
     radius = torch.where(counts > 0, torch.clamp(rad, min=0.0),
                          torch.zeros_like(rad))
     # a group with c < k' members yields duplicate selections at the tail;
@@ -111,7 +115,8 @@ def _grouped_select_impl(points, labels, m: int, kprime: int, b: int,
 
 
 def _grouped_delegates_impl(points, labels, idx, m: int, k: int, kprime: int,
-                            chunk: int, metric_name: str, use_pallas: bool):
+                            chunk: int, metric_name: str, use_pallas: bool,
+                            prep=None):
     """Delegate extraction for a grouped kernel ``idx`` (m, k'): every row's
     nearest OWN-group kernel center, one group at a time in row chunks of a
     ``(chunk, k')`` distance tile (the B3 kernel with ``use_pallas``, its
@@ -119,14 +124,16 @@ def _grouped_delegates_impl(points, labels, idx, m: int, k: int, kprime: int,
     so both pick the same centers), then the shared delegate extraction per
     group.  Returns (didx (m, k'·k), dvalid (m, k'·k), mult (m, k')), where
     ``mult[g, j]`` = min(|cluster j of group g|, k) is GMM-GEN's
-    multiplicity.  The group sizes are read to the host once."""
+    multiplicity.  The group sizes are read to the host once.  ``prep``
+    passes the run's sweep invariants (``core.gmm._sweep_points``) in."""
     n = points.shape[0]
     dev = points.device
     masks, counts, _ = _group_stats(labels, m)
     ch = _adjust_chunk(n, chunk or 4096)
     kernel_metric = metric_name in ("euclidean", "sqeuclidean", "cosine")
-    prep = (kops.prepare(points, metric_name) if kernel_metric
-            else kops.Prepared(points, None))
+    if prep is None:
+        prep = (kops.prepare(points, metric_name) if kernel_metric
+                else kops.Prepared(points, None))
     order = torch.argsort(labels.to(torch.int64), stable=True)
     # one read: the group sizes and the rows labelled below 0, which sort
     # first (a label >= m sorts last and is never reached)
@@ -168,16 +175,19 @@ def _grouped_delegates_impl(points, labels, idx, m: int, k: int, kprime: int,
 
 def _grouped_ext_blocked_impl(points, labels, m: int, k: int, kprime: int,
                               b: int, chunk: int, metric_name: str,
-                              use_pallas: bool, schedule=None):
+                              use_pallas: bool, schedule=None, prep=None,
+                              grouped: bool = False):
     """Grouped GMM-EXT on the single-sweep engine: blocked (or scheduled)
     selection + the one-pass delegate extraction.  Returns (didx, dvalid,
     radius, counts)."""
+    if prep is None:
+        prep = _sweep_points(points, metric_name)
     idx, _, radius, counts, _ = _grouped_select_impl(
         points, labels, m, kprime, b, chunk, metric_name, use_pallas,
-        schedule=schedule)
+        schedule=schedule, prep=prep, grouped=grouped)
     didx, dvalid, _ = _grouped_delegates_impl(points, labels, idx, m, k,
                                               kprime, chunk, metric_name,
-                                              use_pallas)
+                                              use_pallas, prep=prep)
     return didx, dvalid, radius, counts
 
 

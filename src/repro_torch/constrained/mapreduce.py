@@ -14,7 +14,9 @@ array, with labels = reducer · m + group: every row folds only its own
 sweep (B4 on the card), and EXT's delegates one B3 pass per (reducer,
 group).  Each (reducer, group) starts at its first row in the shard, as the
 reference's per-shard engine does.  Round 1 is charged by the reference's
-model counters (``core.distributed._count_round1``).
+model counters (``core.distributed._count_round1``).  ``trace="reducers"``
+and ``resilience=`` run it one reducer at a time, as
+``core.distributed`` does, with the same result.
 
 The mesh path (``mr_grouped_coreset``, ``mr_fair_diversity``) is ROADMAP
 slice 10b and raises ``NotImplementedError``.
@@ -26,13 +28,15 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.distributed import (_count_round1, _mesh_path,
+from ..core.distributed import (_count_round1, _mesh_path, _reducer_units,
                                 _resolve_reducer_plan, _round1_schedule,
-                                _round1_span, partition_shards)
+                                _round1_span, _sim_round1_detail,
+                                _sim_round1_resilient, partition_shards)
 from ..core.measures import NEEDS_INJECTIVE
 from ..core.metrics import get_metric
 from ..device import resolve_use_pallas, to_numpy
-from ..obs.trace import count as _count, counting as _counting
+from ..obs.trace import (count as _count, counting as _counting,
+                         reducer_detail as _reducer_detail)
 from .coreset import _grouped_ext_blocked_impl, _grouped_select_impl
 from .solver import solve_and_value
 
@@ -64,12 +68,13 @@ _mr_fair_diversity_impl = _mesh_path("_mr_fair_diversity_impl")
 
 def _sim_round1(pts, slabels, m: int, k: int, kprime: int, metric_name: str,
                 mode: str, b: int = 1, chunk: int = 0, schedule=None,
-                use_pallas="auto"):
+                use_pallas="auto", prep=None):
     """Round 1 of all ℓ reducers as one grouped run over the ℓ·m groups
     ``reducer · m + label`` (a label outside [0, m) matches no group).
     Returns per reducer (pts (l, m·s, d), labels (l, m·s) int32, valid
     (l, m·s), radius (l,)), the reference's layout; ``s`` = k' (plain) or
-    k'·k (ext delegates)."""
+    k'·k (ext delegates).  ``prep`` passes the sweep invariants of ``pts``
+    in."""
     num_reducers, per = slabels.shape
     dev = pts.device
     use_pallas = resolve_use_pallas(use_pallas, dev, metric_name)
@@ -82,13 +87,16 @@ def _sim_round1(pts, slabels, m: int, k: int, kprime: int, metric_name: str,
     if mode == "ext":
         idx, valid, radius, _ = _grouped_ext_blocked_impl(
             pts, glab, groups, k, kprime, b, chunk, metric_name, use_pallas,
-            schedule=schedule)
+            schedule=schedule, prep=prep, grouped=True)
     else:
         idx, valid, radius, _, _ = _grouped_select_impl(
             pts, glab, groups, kprime, b, chunk, metric_name, use_pallas,
-            schedule=schedule)
+            schedule=schedule, prep=prep, grouped=True)
     s = idx.shape[1]
-    g_pts = pts[idx.reshape(-1)].view(num_reducers, m * s, -1)
+    # an invalid slot holds zeros, not whatever row the engine left there,
+    # so it does not depend on the other groups of the run
+    g_pts = torch.where(valid.reshape(-1, 1), pts[idx.reshape(-1)],
+                        0.0).view(num_reducers, m * s, -1)
     g_lab = torch.arange(m, dtype=torch.int32, device=dev).repeat_interleave(
         s).repeat(num_reducers, 1)
     return (g_pts, g_lab, valid.view(num_reducers, m * s),
@@ -102,12 +110,12 @@ def _simulate_fair_mr_impl(points, labels, quotas=None, *, matroid=None,
                            partition: str = "contiguous", seed: int = 0,
                            swap_rounds: int = 10, b=1, chunk: int = 0,
                            eps: float = 0.1, tau=None, cliff=None,
-                           use_pallas="auto", device=None):
+                           use_pallas="auto", device=None, resilience=None):
     """Execution body of the simulated ℓ-reducer constrained MR run (the
     ``repro_torch.diversify`` facade routes here).  Returns (sol (k, d)
-    tensor on the points' device, sol_labels, value, cert, report);
-    ``report`` is always None: ``resilience=`` and ``trace="reducers"``
-    are slice 12, which ``plan()`` rejects."""
+    tensor on the points' device, sol_labels, value, cert, report) —
+    ``report`` is the ``ResilienceReport`` when a ``ResiliencePolicy``
+    governed the run, else None."""
     from .matroid import as_matroid
 
     mat = as_matroid(matroid, quotas)
@@ -129,12 +137,33 @@ def _simulate_fair_mr_impl(points, labels, quotas=None, *, matroid=None,
 
     if _counting():
         _count_round1(num_reducers, per_shard, d, kprime, b, schedule, mode)
+    metric_name = get_metric(metric).name
+    report = None
     with _round1_span(num_reducers, kprime,
                      _round1_schedule(kprime, b, schedule), groups=m):
-        g_pts, g_lab, g_valid, g_rad = _sim_round1(
-            pts, slabels, m, k, kprime, get_metric(metric).name, mode, b,
-            chunk, schedule, use_pallas)
-        _count("device_dispatches")
+        if resilience is not None or _reducer_detail():
+            unit = _reducer_units(
+                pts, num_reducers, metric_name,
+                lambda rows, prep, i: _sim_round1(
+                    rows, slabels[i:i + 1], m, k, kprime, metric_name, mode,
+                    b, chunk, schedule, use_pallas, prep=prep))
+            if resilience is not None:
+                g_pts, g_lab, g_valid, g_rad, report = _sim_round1_resilient(
+                    num_reducers, unit, resilience)
+            else:
+                g_pts, g_lab, g_valid, g_rad = _sim_round1_detail(
+                    num_reducers, unit)
+        else:
+            g_pts, g_lab, g_valid, g_rad = _sim_round1(
+                pts, slabels, m, k, kprime, metric_name, mode, b, chunk,
+                schedule, use_pallas)
+            _count("device_dispatches")
+    if report is not None and report.degraded:
+        from ..distributed.fault_tolerance import degraded_certificate
+        cert = degraded_certificate(cert, kprime=kprime,
+                                    radius=float(torch.max(g_rad)),
+                                    survivors=report.survivors,
+                                    total=num_reducers, per_shard=per_shard)
     flat_valid = g_valid.reshape(-1)
     cand_pts = g_pts.reshape(-1, d)[flat_valid]
     cand_lab = to_numpy(g_lab.reshape(-1)[flat_valid])
@@ -142,7 +171,7 @@ def _simulate_fair_mr_impl(points, labels, quotas=None, *, matroid=None,
                                  matroid=mat, metric=metric,
                                  swap_rounds=swap_rounds)
     sol = cand_pts[torch.as_tensor(sel, device=cand_pts.device)]
-    return sol, cand_lab[sel], value, cert, None
+    return sol, cand_lab[sel], value, cert, report
 
 
 def simulate_fair_mr(points, labels, quotas=None, *, matroid=None,

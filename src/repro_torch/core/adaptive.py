@@ -202,7 +202,8 @@ def _block_step_impl(prep, points, labels, min_dist, pending, m: int,
     sweep = _make_grouped_sweep(prep, labels, m, p, chunk, metric_name,
                                 use_pallas)
     md, cd, ci = sweep(min_dist, pending)
-    chosen, seld = _grouped_inblock(points, metric_name, cd, ci, take)
+    chosen, seld = _grouped_inblock(points, metric_name, cd, ci, take,
+                                    prep=prep if m > 1 else None)
     return md, chosen, torch.cat([cd[:, :1], seld], dim=1)
 
 
@@ -237,7 +238,8 @@ def _sprint_impl(prep, points, labels, min_dist, pending, counts, pos0: int,
         md, cd, ci = sweep(md, pend)
         rnow = cd[:, 0]
         traj[r] = rnow
-        chosen, seld = _grouped_inblock(points, metric_name, cd, ci, b)
+        chosen, seld = _grouped_inblock(points, metric_name, cd, ci, b,
+                                        prep=prep if m > 1 else None)
         # the host controller's truncation test, verbatim: every pick past
         # the first must clear tau*radius AND cliff*previous-pick in every
         # group that still has fresh points, else the block truncates

@@ -23,13 +23,20 @@ generalized scheme's multiplicity re-dispatch included), so the counters
 compare; the engines' own counting does not run here, and
 ``kernels.ops.LAUNCHES`` counts the real launches.
 
+``trace="reducers"`` and ``resilience=`` run round 1 one reducer at a
+time instead (``_sim_round1_detail``, ``_sim_round1_resilient``): each
+reducer is the same grouped run over its own rows alone, so it costs ℓ
+launches a fold, gets its own ``mr.reducer[i]`` span (fenced on the
+device, so ``StragglerPolicy`` sees device time) and is a unit that can be
+retried or dropped.  A reducer's picks depend only on its own rows, and
+the grouped sweep and in-block distances of a row depend only on its own
+group, so these paths return the same tensors as the one-run path.
+
 The mesh path (``mr_coreset``, ``mr_diversity``, the three-round and
 recursive schemes over ``torch.distributed``) is ROADMAP slice 10b; its
 functions raise ``NotImplementedError``.
 """
 from __future__ import annotations
-
-import contextlib
 
 import numpy as np
 import torch
@@ -37,8 +44,11 @@ import torch
 from ..device import (NOT_PORTED, as_points, not_ported,
                       resolve_use_pallas, to_numpy)
 from ..kernels.build import LAUNCHES
-from ..obs.trace import (count as _count, counting as _counting,
-                         span as _span, sweep_bytes as _sweep_bytes)
+from ..kernels.ops import Prepared
+from ..obs.trace import (_block, active as _obs_active, count as _count,
+                         counting as _counting, launch_span as _launch_span,
+                         reducer_detail as _reducer_detail, span as _span,
+                         sweep_bytes as _sweep_bytes)
 from .coreset import Coreset, GeneralizedCoreset
 from .gmm import (_schedule_select_impl, _sweep_points, effective_block,
                   schedule_fold_sizes)
@@ -126,23 +136,15 @@ def _round1_schedule(kprime: int, b, schedule):
     return ((b, kprime // b),)
 
 
-@contextlib.contextmanager
 def _round1_span(num_reducers: int, kprime: int, schedule, **attrs):
     """The ``mr.round1`` span of a simulated run.  Besides ``attrs`` it
     records the schedule round 1 runs, its fold count (one grouped sweep of
-    all reducers each) and, on exit, the kernel launches made inside it,
-    per kernel; the exit waits for the device, so the span times the
-    work.  A no-op unless a trace is enabled."""
-    with _span("mr.round1", reducers=num_reducers, kprime=kprime,
-               schedule=[list(s) for s in schedule],
-               folds=len(schedule_fold_sizes(schedule)), **attrs) as sp:
-        before = dict(LAUNCHES)
-        yield
-        if sp is not None:
-            if torch.cuda.is_initialized():
-                torch.cuda.synchronize()
-            sp.attrs["launches"] = {k: v - before[k]
-                                    for k, v in LAUNCHES.items()}
+    all reducers each, or one per reducer on the per-reducer paths) and, on
+    exit, the kernel launches made inside it, per kernel
+    (``obs.trace.launch_span``).  A no-op unless a trace is enabled."""
+    return _launch_span("mr.round1", LAUNCHES, reducers=num_reducers,
+                        kprime=kprime, schedule=[list(s) for s in schedule],
+                        folds=len(schedule_fold_sizes(schedule)), **attrs)
 
 
 # --------------------------------------------------------------------------
@@ -200,12 +202,13 @@ def _reducer_labels(num_reducers: int, per: int, device):
 
 def _sim_round1(pts, num_reducers: int, k: int, kprime: int, metric: str,
                 mode: str, b: int = 1, chunk: int = 0, schedule=None,
-                use_pallas="auto"):
+                use_pallas="auto", prep=None):
     """Round 1 of all ℓ reducers as ONE grouped-engine run over the
     partitioned array ``pts`` (l·per, d), labels = reducer id: every fold of
     every reducer is one grouped sweep (B4 on the card).  ``schedule`` is the
     frozen probe plan, else ``b`` lookahead blocks (snapped to a divisor of
-    k'; b = 1 is exact GMM).
+    k'; b = 1 is exact GMM).  ``prep`` passes the sweep invariants of
+    ``pts`` in (``core.gmm._sweep_points``; computed here when None).
 
     Returns per reducer: plain -> (points (l, k', d), valid (l, k'),
     radius (l,)); ext -> (delegates (l, k'·k, d), valid (l, k'·k), radius);
@@ -217,20 +220,97 @@ def _sim_round1(pts, num_reducers: int, k: int, kprime: int, metric: str,
     metric_name = get_metric(metric).name
     use_pallas = resolve_use_pallas(use_pallas, pts.device, metric_name)
     labels, starts = _reducer_labels(num_reducers, per, pts.device)
+    if prep is None:
+        prep = _sweep_points(pts, metric_name)
     idx, radius, _, _, _ = _schedule_select_impl(
-        _sweep_points(pts, metric_name), pts, labels, starts, num_reducers,
-        kprime, _round1_schedule(kprime, b, schedule), chunk, metric_name,
-        use_pallas)
+        prep, pts, labels, starts, num_reducers, kprime,
+        _round1_schedule(kprime, b, schedule), chunk, metric_name,
+        use_pallas, grouped=True)
     if mode == "plain":
         valid = torch.ones((num_reducers, kprime), dtype=torch.bool,
                            device=pts.device)
         return pts[idx], valid, radius
     didx, dvalid, mult = _grouped_delegates_impl(
         pts, labels, idx, num_reducers, k, kprime, chunk, metric_name,
-        use_pallas)
+        use_pallas, prep=prep)
     if mode == "ext":
-        return pts[didx], dvalid, radius
+        # an invalid delegate slot holds zeros, not whatever row the
+        # extraction left there, so it does not depend on the other groups
+        return torch.where(dvalid[..., None], pts[didx], 0.0), dvalid, radius
     return pts[idx], mult, radius
+
+
+def _reducer_units(pts, num_reducers: int, metric_name: str, round1):
+    """``unit(i)``: reducer i's round 1 alone, ``round1(rows, prep, i)`` on
+    its ``per`` rows and their slice of the sweep invariants (computed once
+    over all rows, so each reducer sees the values the one-run path sees),
+    inside an ``mr.reducer[i]`` span that waits for the device before it
+    reads the clock.  The device is waited for with no trace on as well, so
+    a ``StragglerPolicy`` timing the unit sees device time.  Returns
+    (outputs, span or None)."""
+    per = pts.shape[0] // num_reducers
+    prep = _sweep_points(pts, metric_name)
+
+    def unit(i):
+        lo, hi = i * per, (i + 1) * per
+        sub = Prepared(prep.points[lo:hi],
+                       None if prep.xsq is None else prep.xsq[lo:hi])
+        out = []
+        with _span(f"mr.reducer[{i}]", sync=out, reducer=i) as sp:
+            out.append(round1(pts[lo:hi], sub, i))
+        _block(out)
+        _count("device_dispatches")
+        return out[0], sp
+    return unit
+
+
+def _merge_reducers(outs):
+    return tuple(torch.cat([o[j] for o in outs]) for j in range(len(outs[0])))
+
+
+def _sim_round1_detail(num_reducers: int, unit):
+    """Per-reducer observability path (``ExecutionSpec(trace="reducers")``):
+    ``unit(i)`` (``_reducer_units``) once per reducer, so every reducer gets
+    a span with its own device time.  The times feed
+    ``distributed.fault_tolerance.StragglerPolicy`` (warmup-aware: reducer
+    0 carries the kernel build) and flagged reducers land in the trace
+    extras as ``mr_stragglers``.  ℓ launches a fold where the one-run path
+    makes one: an observability mode, not a production path."""
+    from ..distributed.fault_tolerance import StragglerPolicy
+
+    policy = StragglerPolicy(min_history=3)
+    outs, stragglers = [], []
+    for i in range(num_reducers):
+        out, sp = unit(i)
+        outs.append(out)
+        if sp is not None and policy.observe(sp.seconds):
+            stragglers.append(i)
+    tr = _obs_active()
+    if tr is not None:
+        tr.annotate(mr_stragglers=tuple(stragglers))
+    return _merge_reducers(outs)
+
+
+def _sim_round1_resilient(num_reducers: int, unit, policy):
+    """Round 1 under a ``ResiliencePolicy``: ``unit(i)`` once per reducer,
+    each an independently retryable unit.  Failed reducers
+    (``on_failure="degrade"``) contribute an all-zeros block (``valid`` /
+    multiplicity 0) — the merged layout is the one-run path's, and the
+    composable core-set property keeps the surviving union a valid
+    core-set of the surviving shards.  Returns the merged outputs plus the
+    ``ResilienceReport``."""
+    from ..distributed.fault_tolerance import run_resilient
+
+    outs, report = run_resilient(num_reducers, lambda i: unit(i)[0], policy,
+                                 scope="reducer")
+    ok = [o for o in outs if o is not None]
+    if not ok:
+        raise RuntimeError(
+            f"all {num_reducers} reducers failed under on_failure="
+            f"{policy.on_failure!r}; nothing to merge")
+    outs = [o if o is not None else tuple(torch.zeros_like(t) for t in ok[0])
+            for o in outs]
+    return _merge_reducers(outs) + (report,)
 
 
 def _simulate_mr_impl(points, k: int, measure: str, *, num_reducers: int,
@@ -238,12 +318,13 @@ def _simulate_mr_impl(points, k: int, measure: str, *, num_reducers: int,
                       generalized: bool = False,
                       partition: str = "contiguous",
                       seed: int = 0, b=1, chunk: int = 0, eps: float = 0.1,
-                      tau=None, cliff=None, use_pallas="auto", device=None):
+                      tau=None, cliff=None, use_pallas="auto", device=None,
+                      resilience=None):
     """Execution body of the simulated ℓ-reducer MR run (the
     ``repro_torch.diversify`` facade routes here).  Returns (sol (k, d)
-    tensor on the points' device, value, cs, report); ``report`` is always
-    None: ``resilience=`` and ``trace="reducers"`` are slice 12, which
-    ``plan()`` rejects."""
+    tensor on the points' device, value, cs, report) — ``report`` is the
+    ``ResilienceReport`` when a ``ResiliencePolicy`` governed the run, else
+    None."""
     if kprime is None:
         kprime = max(2 * k, 32)
     pts, shards, _ = partition_shards(points, num_reducers,
@@ -259,22 +340,46 @@ def _simulate_mr_impl(points, k: int, measure: str, *, num_reducers: int,
             "ext" if measure in NEEDS_INJECTIVE else "plain")
     if _counting():
         _count_round1(num_reducers, per_shard, d, kprime, b, schedule, mode)
+    report = None
     with _round1_span(num_reducers, kprime,
                      _round1_schedule(kprime, b, schedule)):
-        g_pts, g_aux, g_rad = _sim_round1(pts, num_reducers, k, kprime,
-                                          metric, mode, b, chunk, schedule,
-                                          use_pallas)
-        _count("device_dispatches")
+        if resilience is not None or _reducer_detail():
+            unit = _reducer_units(
+                pts, num_reducers, get_metric(metric).name,
+                lambda rows, prep, i: _sim_round1(
+                    rows, 1, k, kprime, metric, mode, b, chunk, schedule,
+                    use_pallas, prep=prep))
+            if resilience is not None:
+                g_pts, g_aux, g_rad, report = _sim_round1_resilient(
+                    num_reducers, unit, resilience)
+            else:
+                g_pts, g_aux, g_rad = _sim_round1_detail(num_reducers, unit)
+        else:
+            g_pts, g_aux, g_rad = _sim_round1(pts, num_reducers, k, kprime,
+                                              metric, mode, b, chunk,
+                                              schedule, use_pallas)
+            _count("device_dispatches")
     radius = torch.max(g_rad)
+    degraded = report is not None and report.degraded
+    if degraded:
+        from ..distributed.fault_tolerance import degraded_certificate
+        cert = degraded_certificate(cert, kprime=kprime,
+                                    radius=float(radius),
+                                    survivors=report.survivors,
+                                    total=num_reducers, per_shard=per_shard)
 
     if generalized:
         # the reference re-dispatches round 1 for the integer
-        # multiplicities; here they came from the same delegate pass, and
-        # its dispatch is charged by the reference's model
+        # multiplicities (over the survivors only in a degraded run); here
+        # they came from the same delegate pass, and its dispatch is
+        # charged by the reference's model
         _count("device_dispatches")
+        if degraded:
+            keep = torch.as_tensor(report.survivors, device=g_pts.device)
+            g_pts, g_aux, g_rad = g_pts[keep], g_aux[keep], g_rad[keep]
         cs = GeneralizedCoreset(points=g_pts.reshape(-1, d),
                                 multiplicity=g_aux.reshape(-1),
-                                radius=radius, cert=cert)
+                                radius=torch.max(g_rad), cert=cert)
         p, m = cs.compact()
         idx = solve(measure, p, k, weights=m, metric=metric)
         uniq, counts = np.unique(idx, return_counts=True)
@@ -287,7 +392,7 @@ def _simulate_mr_impl(points, k: int, measure: str, *, num_reducers: int,
                      weights=flat_valid.to(torch.int32), radius=radius,
                      cert=cert)
         sol = solve_on_coreset(cs, k, measure, metric=metric)
-    return sol, solution_value(sol, measure, metric), cs, None
+    return sol, solution_value(sol, measure, metric), cs, report
 
 
 def simulate_mr(points, k: int, measure: str, *, num_reducers: int,

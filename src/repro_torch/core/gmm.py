@@ -153,7 +153,8 @@ def gmm(points, k: int, *, metric="euclidean", mask=None, start=0,
 # --------------------------------------------------------------------------
 
 def _make_grouped_sweep(prep, labels, m: int, p: int, chunk: int,
-                        metric_name: str, use_pallas: bool):
+                        metric_name: str, use_pallas: bool,
+                        grouped: bool = False):
     """Build the fused sweep closure ``sweep(min_dist, cidx)``: fold the
     center block ``prep.points[cidx]`` ((m, bc) int64 indices, bc centers
     per group) into the shared running-min field and extract every group's
@@ -165,9 +166,14 @@ def _make_grouped_sweep(prep, labels, m: int, p: int, chunk: int,
     kernel path); ``m > 1`` the grouped one (B4), whose plain version
     computes the (n, m·bc) block with the kernel's arithmetic
     (``kref.grouped_dist_ref``) and keeps each row's own part.  Rows with
-    label < 0 can never be selected.  ``chunk`` is unused: the kernels mask
-    the ragged tile themselves and the plain sweeps take the whole array."""
-    if m == 1:
+    label < 0 can never be selected.  ``grouped=True`` takes the grouped
+    sweep for m = 1 too (a per-reducer or one-request run then computes
+    what its group computes in a run of many groups).  The centers' squared
+    norms are the run's (``prep.xsq`` gathered), not recomputed per sweep,
+    so a distance never depends on the other groups of the sweep.
+    ``chunk`` is unused: the kernels mask the ragged tile themselves and
+    the plain sweeps take the whole array."""
+    if m == 1 and not grouped:
         mask = labels >= 0
 
         def sweep(min_dist, cidx):
@@ -180,14 +186,16 @@ def _make_grouped_sweep(prep, labels, m: int, p: int, chunk: int,
 
     def sweep(min_dist, cidx):
         bc = cidx.shape[1]
-        centers = x.index_select(0, cidx.reshape(-1))
+        flat = cidx.reshape(-1)
+        centers = x.index_select(0, flat)
+        csq = None if prep.xsq is None else prep.xsq.index_select(0, flat)
         if use_pallas:
             return kops.grouped_gmm_topb(
                 x, centers.view(m, bc, -1), min_dist, labels, metric_name, p,
-                xsq=prep.xsq, prepared=True)
+                xsq=prep.xsq, csq=csq, prepared=True)
         if metric_name in ("euclidean", "sqeuclidean", "cosine"):
             dist = kref.grouped_dist_ref(x, centers, metric_name,
-                                         xsq=prep.xsq)
+                                         xsq=prep.xsq, ysq=csq)
         else:
             dist = get_metric(metric_name).pairwise(x, centers)
         return kref.grouped_field(dist, min_dist, labels, m, p)
@@ -198,49 +206,63 @@ def _pool_distance(metric_name: str, pool):
     """The in-block GMM's distance from every pool member to one picked
     member per group: returns ``f(c)`` mapping (m, d) picks to (m, p)
     distances for the (m, p, d) pools.  One group (the unconstrained
-    engine) keeps the metric's own ``point_to_set``; several groups take a
-    batched form of the same formula, so a pick costs the same launches for
-    any m.  The pool's norms are loop invariants, computed once."""
+    engine) keeps the metric's own ``point_to_set``; the grouped engine
+    takes ``_pool_matrix`` for the kernel metrics, and this batched form
+    (manhattan) or a loop over the groups otherwise."""
     metric = get_metric(metric_name)
     if pool.shape[0] == 1:
         return lambda c: metric.point_to_set(pool[0], c[0])[None]
-    if metric_name in ("euclidean", "sqeuclidean"):
-        xsq = torch.sum(pool * pool, dim=-1)
-
-        def f(c):
-            d2 = torch.clamp(xsq + torch.sum(c * c, dim=-1)[:, None]
-                             - 2.0 * torch.bmm(pool, c[:, :, None])[..., 0],
-                             min=0.0)
-            return torch.sqrt(d2) if metric_name == "euclidean" else d2
-        return f
-    if metric_name == "cosine":
-        xn = pool / torch.clamp(torch.linalg.vector_norm(
-            pool, dim=-1, keepdim=True), min=1e-30)
-
-        def f(c):
-            cn = c / torch.clamp(torch.linalg.vector_norm(
-                c, dim=-1, keepdim=True), min=1e-30)
-            return torch.arccos(torch.clamp(
-                torch.bmm(xn, cn[:, :, None])[..., 0], -1.0, 1.0))
-        return f
     if metric_name == "manhattan":
         return lambda c: torch.sum(torch.abs(pool - c[:, None, :]), dim=-1)
     return lambda c: torch.stack([metric.point_to_set(pool[g], c[g])
                                   for g in range(pool.shape[0])])
 
 
-def _grouped_inblock(points, metric_name: str, cand_d, cand_i, take: int):
+def _pool_matrix(prep, metric_name: str, cand_i):
+    """(m, p, p) distances within every group's candidate pool, with the
+    B3 kernel's arithmetic on the run's prepared rows: each dot product
+    summed in float64 and rounded once, the epilogue in float32 with the
+    run's squared norms.  An entry depends on its two rows only, so a
+    group's in-block picks are the same however many groups share the run.
+    Groups go through in slices that keep the float64 pool under 2^25
+    entries."""
+    m, p = cand_i.shape
+    flat = cand_i.reshape(-1)
+    pool = prep.points.index_select(0, flat).view(m, p, -1)
+    step = max(1, (1 << 25) // max(1, p * pool.shape[2]))
+    dot = torch.cat([torch.bmm(c64, c64.transpose(1, 2)).to(torch.float32)
+                     for c64 in (c.to(torch.float64)
+                                 for c in pool.split(step))])
+    if metric_name == "cosine":
+        return torch.arccos(torch.clamp(dot, -1.0, 1.0))
+    sq = prep.xsq.index_select(0, flat).view(m, p)
+    d2 = torch.clamp(sq[:, :, None] + sq[:, None, :] - 2.0 * dot, min=0.0)
+    return torch.sqrt(d2) if metric_name == "euclidean" else d2
+
+
+def _grouped_inblock(points, metric_name: str, cand_d, cand_i, take: int,
+                     prep=None):
     """Exact local GMM over every group's candidate pool (p×p): greedily
     keep ``take`` of the p candidates, correcting for mutual distances
     within the pool.  Returns (chosen (m, take), seld (m, take)) where
     ``seld[g, j]`` is pick j's corrected anticover distance.  Each pick is
     one (m, p) argmax / gather / min over all groups at once, on the
-    device: no host read, and launches per block do not grow with m."""
+    device: no host read, and launches per block do not grow with m.
+
+    With ``prep`` (the grouped engine's runs) the pool distances come from
+    ``_pool_matrix`` on the prepared rows, so a group's picks depend on its
+    own pool alone; without it (the unconstrained engine) from the metric's
+    ``point_to_set``."""
     m, p = cand_d.shape
     dev = cand_d.device
-    pool = points.index_select(0, cand_i.reshape(-1)).view(m, p, -1)
-    dist_to = _pool_distance(metric_name, pool)
     rows = torch.arange(m, device=dev)
+    if prep is not None and metric_name in ("euclidean", "sqeuclidean",
+                                            "cosine"):
+        dist_to = None
+    else:
+        pool = points.index_select(0, cand_i.reshape(-1)).view(m, p, -1)
+        dist_to = _pool_distance(metric_name, pool)
+    dm = None
     cd = cand_d.clone()
     chosen = torch.zeros((m, take), dtype=torch.int64, device=dev)
     seld = torch.zeros((m, take), dtype=torch.float32, device=dev)
@@ -248,7 +270,14 @@ def _grouped_inblock(points, metric_name: str, cand_d, cand_i, take: int):
         s = torch.argmax(cd, dim=1, keepdim=True)
         chosen[:, j:j + 1] = torch.gather(cand_i, 1, s)
         seld[:, j:j + 1] = torch.gather(cd, 1, s)
-        dd = dist_to(pool[rows, s[:, 0]])
+        if j + 1 == take:
+            break                   # the last pick's distances go unused
+        if dist_to is not None:
+            dd = dist_to(pool[rows, s[:, 0]])
+        else:
+            if dm is None:
+                dm = _pool_matrix(prep, metric_name, cand_i)
+            dd = dm[rows, s[:, 0]]
         cd = torch.minimum(cd, dd).scatter_(1, s, NEG_INF)
     return chosen, seld
 
@@ -299,13 +328,15 @@ def schedule_fold_sizes(schedule):
 
 def _schedule_select_impl(prep, points, labels, starts, m: int, k: int,
                           schedule, chunk: int, metric_name: str,
-                          use_pallas: bool):
+                          use_pallas: bool, grouped: bool = False):
     """All ``m`` per-group GMM runs in lock-step under a selection schedule.
 
     Phase (b, r) selects r blocks of b centers each; b > 1 sweeps oversample
     4b candidates per group and an exact in-block GMM keeps the best b
     (block 0 lookahead-fills slots 1..b-1 from the seed sweep's pool).
-    b = 1 is exact sequential GMM.
+    b = 1 is exact sequential GMM.  ``grouped=True`` runs the grouped sweep
+    and in-block arithmetic at m = 1 too (see ``_make_grouped_sweep``), so
+    one group alone picks what it picks among many.
 
     Returns (idx (m, k), radius (m,), min_dist (n,), traj (S, m),
     bcd (S-1, m)) where S = len(schedule_sweep_counts(schedule)).
@@ -322,8 +353,10 @@ def _schedule_select_impl(prep, points, labels, starts, m: int, k: int,
     def get_sweep(p):
         if p not in sweeps:
             sweeps[p] = _make_grouped_sweep(prep, labels, m, p, chunk,
-                                            metric_name, use_pallas)
+                                            metric_name, use_pallas, grouped)
         return sweeps[p]
+
+    inprep = prep if (m > 1 or grouped) else None
 
     sc = 0          # sweep counter
     pos = 0         # picks committed
@@ -334,7 +367,8 @@ def _schedule_select_impl(prep, points, labels, starts, m: int, k: int,
             # seed sweep: fold the per-group seeds, lookahead-fill 1..b-1
             md, cd, ci = sweep(md, idx[:, 0:1])
             traj[sc] = cd[:, 0]
-            chosen, seld = _grouped_inblock(points, metric_name, cd, ci, b)
+            chosen, seld = _grouped_inblock(points, metric_name, cd, ci, b,
+                                            prep=inprep)
             idx[:, 1:b] = chosen[:, :b - 1]
             bcd[sc] = seld[:, :b - 1].min(dim=1).values
             sc += 1
@@ -343,7 +377,8 @@ def _schedule_select_impl(prep, points, labels, starts, m: int, k: int,
             prev_b = schedule[pi - 1][0]
             md, cd, ci = sweep(md, idx[:, pos - prev_b:pos])
             traj[sc] = cd[:, 0]
-            chosen, seld = _grouped_inblock(points, metric_name, cd, ci, b)
+            chosen, seld = _grouped_inblock(points, metric_name, cd, ci, b,
+                                            prep=inprep)
             idx[:, pos:pos + b] = chosen
             bcd[sc] = seld.min(dim=1).values
             sc += 1
@@ -351,7 +386,8 @@ def _schedule_select_impl(prep, points, labels, starts, m: int, k: int,
             md, cd, ci = sweep(md, idx[:, pos + (t - 1) * b:pos + t * b])
             si = sc + t - 1
             traj[si] = cd[:, 0]
-            chosen, seld = _grouped_inblock(points, metric_name, cd, ci, b)
+            chosen, seld = _grouped_inblock(points, metric_name, cd, ci, b,
+                                            prep=inprep)
             idx[:, pos + t * b:pos + (t + 1) * b] = chosen
             bcd[si] = seld.min(dim=1).values
         sc += max(r - 1, 0)

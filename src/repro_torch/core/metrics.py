@@ -2,7 +2,9 @@
 
 Every metric exposes ``pairwise(x, y) -> (m, n)`` and
 ``point_to_set(x, c) -> (n,)`` on torch tensors, on whatever device the
-inputs share.  The euclidean family keeps the factorized
+inputs share.  ``pairwise`` also takes batches, ``(..., m, d)`` against
+``(..., n, d)`` -> ``(..., m, n)``, one batched product (the serving
+path's per-request slate matrices).  The euclidean family keeps the factorized
 ``||x||² + ||y||² − 2x·y`` form clamped at 0, and cosine the ``1e-30``
 normalization floor, so values match the reference's.  ``sqeuclidean`` is
 not a metric (ordering only) and must not be fed to SMM.
@@ -35,9 +37,9 @@ def _normalize(x):
 
 def _sqeuclidean_pairwise(x, y):
     # ||x-y||^2 = ||x||^2 + ||y||^2 - 2 x.y
-    xx = _sq_norms(x)[:, None]
-    yy = _sq_norms(y)[None, :]
-    return torch.clamp(xx + yy - 2.0 * (x @ y.T), min=0.0)
+    xx = _sq_norms(x)[..., :, None]
+    yy = _sq_norms(y)[..., None, :]
+    return torch.clamp(xx + yy - 2.0 * (x @ y.transpose(-1, -2)), min=0.0)
 
 
 def _euclidean_pairwise(x, y):
@@ -55,7 +57,8 @@ def _euclidean_p2s(x, c):
 
 def _cosine_pairwise(x, y):
     # arccos of cosine similarity -- the paper's distance for musiXmatch (§7).
-    sim = torch.clamp(_normalize(x) @ _normalize(y).T, -1.0, 1.0)
+    sim = torch.clamp(_normalize(x) @ _normalize(y).transpose(-1, -2),
+                      -1.0, 1.0)
     return torch.arccos(sim)
 
 

@@ -63,10 +63,6 @@ from .coreset import Coreset, GeneralizedCoreset
 from .metrics import get_metric
 
 INF = float("inf")
-_NOT_PORTED_CKPT = ("checkpoint save/restore of a stream needs "
-                    "CheckpointManager, which is not ported to repro_torch "
-                    "yet (ROADMAP A, slice 12: resilience); state_dict() and "
-                    "from_state_dict() carry the state in memory")
 
 
 class SMMState(NamedTuple):
@@ -610,8 +606,34 @@ class StreamingCoreset:
         return smm
 
     def save(self, manager, step: int) -> None:
-        raise NotImplementedError(_NOT_PORTED_CKPT)
+        """Blocking checkpoint at ``step`` (for a stream: chunks consumed so
+        far) through a ``CheckpointManager`` of either package: the arrays
+        (host copies) and meta are the reference's layout."""
+        arrays, meta = self.state_dict()
+        manager.save(step, {k: to_numpy(v) for k, v in arrays.items()},
+                     extra=meta, blocking=True)
+        _count("checkpoints_written")
 
     @classmethod
-    def restore(cls, manager, step: Optional[int] = None):
-        raise NotImplementedError(_NOT_PORTED_CKPT)
+    def restore(cls, manager, step: Optional[int] = None, *, device=None,
+                use_pallas="auto"):
+        """Rebuild a ``StreamingCoreset`` from checkpoint ``step`` (default:
+        the latest) on ``device``, through a ``CheckpointManager`` of either
+        package.  Returns ``(smm, step)``, or ``(None, None)`` when the
+        directory holds no checkpoint yet."""
+        if step is None:
+            step = manager.latest_step()
+            if step is None:
+                return None, None
+        meta = manager.read_meta(step)["extra"]
+        dt = np.dtype(meta["dtype"])
+        # numpy leaves carry the dtypes: a template both managers read
+        template = {name: np.zeros((0,), dt) for name in
+                    ("prefix", "T", "e_pts", "M", "d_thr")}
+        template.update(t_valid=np.zeros((0,), bool),
+                        m_valid=np.zeros((0,), bool),
+                        e_cnt=np.zeros((0,), np.int32),
+                        n_phases=np.zeros((0,), np.int32))
+        arrays = manager.restore(step, template)
+        return cls.from_state_dict(arrays, meta, device=device,
+                                   use_pallas=use_pallas), step

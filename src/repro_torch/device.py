@@ -18,14 +18,7 @@ DEFAULT_DEVICE = "cuda"
 NOT_PORTED = {
     "mesh": "the MapReduce mesh path (mesh= or a device-sharded input; "
             "ROADMAP A, slice 10b: torch.distributed)",
-    "serving": "serving mode (ROADMAP A, slice 13: serving/rerank.py)",
     "dynamic": "dynamic mode (ROADMAP A, slice 14: repro.dynamic)",
-    "resilience": "resilience= on a stream (ROADMAP A, slice 12: "
-                  "ResiliencePolicy, CheckpointManager)",
-    "mr_resilience": "resilience= on MapReduce (ROADMAP A, slice 12: "
-                     "ResiliencePolicy)",
-    "mr_reducers": "trace='reducers' on MapReduce (ROADMAP A, slice 12: "
-                   "per-reducer spans, StragglerPolicy)",
 }
 
 

@@ -76,23 +76,31 @@ def _check_grouped(points, centers, xsq, min_in, labels, mode, p, bn):
 
 
 def gmm_grouped_topb_cuda(points, centers, xsq, min_in, labels, *,
-                          mode: str, p: int, bn: int = None):
+                          mode: str, p: int, bn: int = None, csq=None):
     """Grouped round on the card.  points (n, d), centers (m, bc, d), xsq
     (n,) squared norms (euclidean modes; None otherwise), min_in (n,) (each
     row's distance to its own group's selected centers), labels (n,) int32
     (a label outside [0, m) matches no group) -> (min_out (n,), cand_val
     (m, p), cand_idx (m, p) int64): every group's exact top-p of the updated
     field over its own rows.  A group with fewer than p rows ends in -inf
-    entries whose indices lie in [0, n)."""
+    entries whose indices lie in [0, n).  ``csq`` optionally passes the
+    centers' (m·bc,) squared norms in (euclidean modes)."""
     bn = grouped_tile_rows(p) if bn is None else bn
     _check_grouped(points, centers, xsq, min_in, labels, mode, p, bn)
     n, d = points.shape
     m, bc, _ = centers.shape
-    # the centers' squared norms as the plain version computes them, and
-    # the centers in float64, converted once a sweep into the kernel's
-    # scratch, its rows zero-padded to a multiple of 16
-    cflat = centers.view(m * bc, d)
-    csq = torch.sum(cflat * cflat, dim=-1) if xsq is not None else None
+    # the centers' squared norms as the plain version computes them (unless
+    # given), and the centers in float64, converted once a sweep into the
+    # kernel's scratch, its rows zero-padded to a multiple of 16
+    if xsq is None:
+        csq = None
+    elif csq is None:
+        cflat = centers.view(m * bc, d)
+        csq = torch.sum(cflat * cflat, dim=-1)
+    else:
+        csq = csq.to(device=points.device, dtype=torch.float32).contiguous()
+        if csq.shape != (m * bc,):
+            raise ValueError(f"csq must have shape ({m * bc},)")
     c64 = torch.zeros((m, bc, -(-d // 16) * 16), dtype=torch.float64,
                       device=points.device)
     c64[:, :, :d] = centers

@@ -147,7 +147,7 @@ def gmm_topb(points, centers, min_in, mask, metric_name: str,
 
 
 def grouped_gmm_topb(points, centers, min_in, labels, metric_name: str,
-                     b: int, bn: int = None, *, xsq=None,
+                     b: int, bn: int = None, *, xsq=None, csq=None,
                      prepared: bool = False):
     """Fused group-blocked batched GMM round (the constrained engine's
     sweep, port of ``repro.kernels.ops.grouped_gmm_topb``).
@@ -158,7 +158,9 @@ def grouped_gmm_topb(points, centers, min_in, labels, metric_name: str,
     cand_idx (m, b)): one sweep serves all m groups, each row folding only
     its own group's block.  Indices always lie in [0, n).  With
     ``prepared=True`` the points and centers are already in kernel form
-    (``prepare``) and ``xsq`` carries the points' squared norms.
+    (``prepare``) and ``xsq`` carries the points' squared norms; ``csq``
+    optionally carries the centers' (m·bc,) squared norms (computed from
+    the centers when not given).
     """
     mode, norm = _metric_to_mode(metric_name)
     centers = centers.to(torch.float32)
@@ -173,10 +175,11 @@ def grouped_gmm_topb(points, centers, min_in, labels, metric_name: str,
     n = points.shape[0]
     if points.is_cuda:
         min_out, vals, idx = gmm_grouped_topb_cuda(
-            points, centers, xsq, min_in, labels, mode=mode, p=b, bn=bn)
+            points, centers, xsq, min_in, labels, mode=mode, p=b, bn=bn,
+            csq=csq)
     else:
         min_out, vals, idx = ref.gmm_grouped_topb_ref(
-            points, centers, min_in, labels, mode, b, xsq=xsq)
+            points, centers, min_in, labels, mode, b, xsq=xsq, csq=csq)
     if vals.shape[1] < b:
         # b > n: as in the reference, the pad rows enter as -inf after
         # every real row; their indices clamp to n - 1 below

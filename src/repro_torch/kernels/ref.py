@@ -189,25 +189,27 @@ def grouped_field(dist, min_in, labels, m: int, p: int):
     return new_min, vals[:, :p], idx[:, :p]
 
 
-def grouped_dist_ref(x, y, mode: str = "sqeuclidean", xsq=None):
+def grouped_dist_ref(x, y, mode: str = "sqeuclidean", xsq=None, ysq=None):
     """Distance block (m, n) with the B4 kernel's arithmetic, which is B3's
     (``pairwise_ref``: each dot product accumulated in float64 and rounded
     once, the epilogue in float32), so the kernel and this version agree
     bit for bit and an engine run decides the same on both paths."""
-    return pairwise_ref(x, y, mode, xsq=xsq)
+    return pairwise_ref(x, y, mode, xsq=xsq, ysq=ysq)
 
 
 def gmm_grouped_topb_ref(points, centers, min_in, labels,
-                         mode: str = "euclidean", p: int = 8, xsq=None):
+                         mode: str = "euclidean", p: int = 8, xsq=None,
+                         csq=None):
     """Plain version of the grouped sweep (B4): points (n, d), centers
     (m, bc, d), min_in (n,), labels (n,) -> (min_out (n,), vals (m, p'),
     idx (m, p')), see ``grouped_field``.  It computes the distance of every
     row to all m·bc centers in one product (``grouped_dist_ref``, the
     kernel's arithmetic) and keeps its own group's block; the kernel
-    computes the own block only."""
+    computes the own block only.  ``csq`` optionally passes the centers'
+    (m·bc,) squared norms in, as the kernel wrapper takes them."""
     m, bc, d = centers.shape
     dist = grouped_dist_ref(points, centers.reshape(m * bc, d), mode,
-                            xsq=xsq)
+                            xsq=xsq, ysq=csq)
     return grouped_field(dist, min_in, labels, m, p)
 
 

@@ -15,7 +15,7 @@
 
 ``jit_recompiles`` has no counterpart in the port: PyTorch runs eagerly and
 compiles nothing per shape, so the counter exists and stays 0.  The
-exporters of ``repro.obs.export`` are not ported yet.
+exporters are ``obs.export``.
 
 ``RunTrace`` is also a ``Mapping`` so the legacy telemetry dict contract
 (``res.telemetry["phases"]`` -> ``[{"name", "seconds"}, ...]``) holds.
@@ -136,9 +136,9 @@ class RunTrace(Mapping):
     ``enabled=False`` records only the top-level phase rows and the extras
     the run paths annotate (``mode``, ``coreset_size``, ...);
     ``enabled=True`` additionally activates the counters, nested spans and
-    profiler annotations.  ``reducers=True`` is accepted for spec
-    compatibility (per-reducer spans are not ported: a MapReduce plan
-    under it raises).
+    profiler annotations.  ``reducers=True`` (``trace="reducers"``) also
+    asks a simulated MapReduce run for one ``mr.reducer[i]`` span per
+    reducer.
     """
 
     def __init__(self, enabled: bool = False, reducers: bool = False):
@@ -254,6 +254,22 @@ def span(name: str, sync=None, **attrs):
     if t is None or not t.enabled:
         return _NULL_SPAN
     return _SpanCtx(t, name, sync, attrs or None)
+
+
+@contextlib.contextmanager
+def launch_span(name: str, launches, **attrs):
+    """A span that also records, on exit, how far each count of the mapping
+    ``launches`` (``kernels.build.LAUNCHES``) moved inside it, as its
+    ``launches`` attribute; the exit waits for the card, so the span times
+    the work.  A no-op unless an enabled trace is active."""
+    with span(name, **attrs) as sp:
+        before = dict(launches)
+        yield sp
+        if sp is not None:
+            if torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+            sp.attrs["launches"] = {k: v - before.get(k, 0)
+                                    for k, v in launches.items()}
 
 
 def reducer_detail() -> bool:

@@ -166,7 +166,13 @@ def test_tensor_points_stay_on_their_device():
                                   "dynamic", "constrained", "budget",
                                   "reducers"])
 def test_unported_modes_raise_with_their_slice(kind):
-    pts = np.zeros((64, 4), np.float32)
+    """The mesh path (slice 10b) and the dynamic mode (slice 14) raise from
+    ``plan()`` naming their slice; serving, resilience= on a stream or a
+    constrained MapReduce run, and trace="reducers" (slices 12 and 13)
+    plan and run."""
+    from repro_torch.distributed import ResiliencePolicy
+
+    pts = np.random.default_rng(0).normal(size=(64, 4)).astype(np.float32)
     ex, prob = {}, dict(points=pts, k=4)
     if kind in ("mapreduce", "serving", "dynamic"):
         ex["mode"] = kind
@@ -174,34 +180,48 @@ def test_unported_modes_raise_with_their_slice(kind):
             # the simulated reducers are ported (slice 10); the mesh path
             # over several cards is slice 10b
             ex["mesh"] = object()
+        elif kind == "serving":
+            prob["points"] = pts.reshape(4, 16, 4)
     elif kind in ("streaming", "budget"):
-        # streaming itself is ported (slice 9); resilience= on a stream is
-        # the part still to come (slice 12)
-        ex["resilience"] = object()
+        ex["resilience"] = ResiliencePolicy()
         if kind == "streaming":
             ex["mode"] = "streaming"
         else:
             ex["memory_budget_bytes"] = 16
     elif kind == "constrained":
-        # constrained batch, streaming and simulated MapReduce are ported
-        # (slices 11 and 10); resilience= on MapReduce is slice 12
-        prob["labels"] = np.zeros(64, int)
+        prob["labels"] = np.arange(64) % 2
         ex["num_reducers"] = 4
-        ex["resilience"] = object()
+        ex["kprime"] = 8
+        ex["resilience"] = ResiliencePolicy()
     else:
-        # per-reducer spans of a simulated MapReduce run are slice 12
         ex["num_reducers"] = 4
+        ex["kprime"] = 8
         ex["trace"] = "reducers"
-    with pytest.raises(NotImplementedError, match="ROADMAP A, slice"):
-        repro_torch.plan(repro_torch.ProblemSpec(**prob),
-                         repro_torch.ExecutionSpec(device="cpu", **ex))
-    # a constrained stream plans; resilience= on it names slice 12
+    spec = repro_torch.ProblemSpec(**prob)
+    exs = repro_torch.ExecutionSpec(device="cpu", **ex)
+    if kind in ("mapreduce", "dynamic"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A, slice"):
+            repro_torch.plan(spec, exs)
+        return
+    planned = repro_torch.plan(spec, exs)
+    res = planned.execute()
+    want_mode = {"serving": "serving", "streaming": "streaming",
+                 "budget": "streaming"}.get(kind, "mapreduce")
+    assert planned.mode == want_mode and res.telemetry["mode"] == want_mode
+    if kind == "serving":
+        assert res.solution.shape == (4, 4, 4)
+    else:
+        assert res.solution.shape == (4, 4)
+    if kind == "reducers":
+        assert "mr_stragglers" in res.telemetry.extras
+    elif kind != "serving":
+        assert res.telemetry["resilience"]["units"] >= 1
+    # a constrained stream plans, with resilience= on it as well
     spec = repro_torch.ProblemSpec(points=iter([pts]), k=4, quotas=[2, 2])
     assert repro_torch.plan(spec, repro_torch.ExecutionSpec(
         device="cpu")).constrained
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        repro_torch.plan(spec, repro_torch.ExecutionSpec(
-            device="cpu", resilience=object()))
+    assert repro_torch.plan(spec, repro_torch.ExecutionSpec(
+        device="cpu", resilience=ResiliencePolicy())).constrained
 
 
 def test_from_reference_round_trip():

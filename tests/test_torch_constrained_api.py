@@ -202,15 +202,20 @@ def test_later_slices_and_bad_specs_raise():
     pts, lab = _data(n=200)
     ex = repro_torch.ExecutionSpec
     spec = repro_torch.ProblemSpec(points=pts, k=6, labels=lab)
-    # the simulated reducers are ported; the mesh path and per-reducer
-    # spans are not
+    # the simulated reducers are ported, with per-reducer spans and
+    # resilience= (slice 12); the mesh path is slice 10b
+    from repro_torch.distributed import ResiliencePolicy
+
     with pytest.raises(NotImplementedError, match="slice 10b"):
         repro_torch.plan(spec, ex(device="cpu", num_reducers=4,
                                   mesh=object()))
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        repro_torch.plan(spec, ex(device="cpu", mode="mapreduce",
-                                  num_reducers=4, trace="reducers"))
-    with pytest.raises(NotImplementedError, match="slice 12"):
+    assert repro_torch.plan(spec, ex(device="cpu", mode="mapreduce",
+                                     num_reducers=4,
+                                     trace="reducers")).mode == "mapreduce"
+    assert repro_torch.plan(spec, ex(
+        device="cpu", mode="streaming",
+        resilience=ResiliencePolicy())).mode == "streaming"
+    with pytest.raises(TypeError, match="ResiliencePolicy"):
         repro_torch.plan(spec, ex(device="cpu", mode="streaming",
                                   resilience=object()))
     with pytest.raises(ValueError, match="not both"):

@@ -480,3 +480,113 @@ def test_cuda_mapreduce_with_and_without_kernels(cuda_device, measure, knobs):
     assert dict(got.telemetry.counters) == dict(want.telemetry.counters)
     if want.cert is not None:
         assert got.cert.b_schedule == want.cert.b_schedule
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_grouped_kernel_at_the_serving_shape(cuda_device, mode):
+    """B4 at the fused rerank's shape: m = 256 requests of 1,024 rows
+    each, one center a group (bc = 1), p = 1, bit for bit against its plain
+    version.  Each 1,024-row tile holds one request and writes a slot for
+    all 256."""
+    n, d, m = 256 * 1024, 64, 256
+    g = torch.Generator().manual_seed(16)
+    x = torch.randn((n, d), generator=g)
+    c = torch.randn((m, 1, d), generator=g)
+    mi = torch.rand((n,), generator=g) * 3.7 + 0.3
+    lab = _reducer_labels(n, m, True, g)
+    x, c, mi, lab = [t.to(cuda_device) for t in (x, c, mi, lab)]
+    _grouped_equal(x, c, mi, lab, mode, 1, cuda_device)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_cuda_rerank_batched_kernel_equals_plain(cuda_device, metric, ragged):
+    """The fused rerank with B4 against the same run on plain torch:
+    indices, radii and values equal, one B4 launch a fold (k folds)."""
+    from repro_torch.serving import rerank_batched
+
+    rg = np.random.default_rng(5)
+    if ragged:
+        cands = [torch.as_tensor(rg.normal(size=(n, 48)).astype(np.float32),
+                                 device=cuda_device)
+                 for n in rg.integers(64, 129, size=32)]
+    else:
+        cands = torch.as_tensor(rg.normal(size=(32, 128, 48)).astype(
+            np.float32), device=cuda_device)
+    ops.reset_launches()
+    got = rerank_batched(cands, k=12, metric=metric)
+    assert ops.LAUNCHES["gmm_grouped_topb"] == 12
+    assert sum(ops.LAUNCHES.values()) == 12
+    want = rerank_batched(cands, k=12, metric=metric, use_pallas=False)
+    np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_array_equal(got.radii, want.radii)
+    np.testing.assert_array_equal(got.values, want.values)
+
+
+def test_cuda_session_reranker_kernel_equals_plain(cuda_device):
+    """Sessions on the card (B3 chunk filters, B4 fused solves) against
+    the same sessions on plain torch: slates, certificates and counters."""
+    from repro_torch.serving import OnlineReranker
+
+    rg = np.random.default_rng(6)
+    rr = {up: OnlineReranker(k=8, dim=32, kprime=32, metric="cosine",
+                             use_pallas=up) for up in ("auto", False)}
+    for rnd in range(4):
+        batch = {f"s{s}": torch.as_tensor(
+            (rg.normal(size=(96, 32)) + s).astype(np.float32),
+            device=cuda_device) for s in range(6)}
+        out = {up: r.rerank_many(batch) for up, r in rr.items()}
+        for key in batch:
+            a, b = out["auto"][key], out[False][key]
+            np.testing.assert_array_equal(a.slate, b.slate)
+            assert a.reused == b.reused and a.cert == b.cert
+    assert rr["auto"].stats() == rr[False].stats()
+
+
+@pytest.mark.parametrize("measure,knobs", [
+    ("remote-edge", {}), ("remote-clique", {"kprime": 16, "b": 1}),
+    ("remote-edge", {"kprime": 24, "labels": True})])
+def test_cuda_per_reducer_round1_equals_grouped(cuda_device, measure, knobs):
+    """trace="reducers" and a retried reducer run round 1 one reducer at a
+    time (4 x the B4 launches); the result is torch.equal to the one-run
+    grouped round 1."""
+    from repro_torch.distributed import FailureInjector, ResiliencePolicy
+
+    knobs = dict(knobs)
+    rg = np.random.default_rng(12)
+    pts = rg.normal(size=(8000, 24)).astype(np.float32)
+    lab = (rg.integers(0, 4, size=8000).astype(np.int32)
+           if knobs.pop("labels", False) else None)
+    x = torch.as_tensor(pts, device=cuda_device)
+
+    def round1_launches(res):
+        def find(spans):
+            for s in spans:
+                if s.name == "mr.round1":
+                    return s
+                hit = find(s.children)
+                if hit is not None:
+                    return hit
+        return find(res.telemetry.spans).attrs["launches"][
+            "gmm_grouped_topb"]
+
+    runs, launches = {}, {}
+    for name, extra in (("grouped", dict(trace=True)),
+                        ("reducers", dict(trace="reducers")),
+                        ("retry", dict(trace=True, resilience=ResiliencePolicy(
+                            injector=FailureInjector(
+                                fail_at=("reducer:2",)))))):
+        ops.reset_launches()
+        runs[name] = repro_torch.diversify(
+            x, k=8, labels=lab, measure=measure,
+            execution=repro_torch.ExecutionSpec(
+                mode="mapreduce", num_reducers=4, **extra, **knobs))
+        launches[name] = round1_launches(runs[name])
+    base = runs["grouped"]
+    for name in ("reducers", "retry"):
+        got = runs[name]
+        np.testing.assert_array_equal(got.solution, base.solution)
+        assert got.value == base.value and got.cert == base.cert
+        if base.coreset is not None:
+            assert torch.equal(got.coreset.points, base.coreset.points)
+        assert launches[name] == 4 * launches["grouped"]

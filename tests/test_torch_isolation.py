@@ -27,7 +27,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.kernels.pairwise, repro_torch.obs, "
             "repro_torch.data.selection, repro_torch.interop, "
             "repro_torch.core.distributed, repro_torch.core.afz, "
-            "repro_torch.constrained.mapreduce\n"
+            "repro_torch.constrained.mapreduce, repro_torch.checkpoint, "
+            "repro_torch.distributed, repro_torch.obs.export, "
+            "repro_torch.serving, repro_torch.serving.engine\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -45,7 +47,12 @@ def test_sources_never_import_jax_or_repro():
     assert PORT / "core" / "smm.py" in scanned
     assert PORT / "kernels" / "pairwise.py" in scanned
     for mod in (("core", "distributed.py"), ("core", "afz.py"),
-                ("constrained", "mapreduce.py")):
+                ("constrained", "mapreduce.py"),
+                ("checkpoint", "__init__.py"), ("checkpoint", "manager.py"),
+                ("distributed", "__init__.py"),
+                ("distributed", "fault_tolerance.py"),
+                ("obs", "export.py"), ("serving", "__init__.py"),
+                ("serving", "rerank.py"), ("serving", "engine.py")):
         assert PORT.joinpath(*mod) in scanned
     hits = [str(p) for p in scanned if pat.search(p.read_text())]
     assert not hits, hits

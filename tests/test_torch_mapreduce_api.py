@@ -185,15 +185,31 @@ def test_explain_text_for_auto_and_constrained_plans():
 @pytest.mark.parametrize("kw,match", [
     (dict(mode="mapreduce", num_reducers=4, mesh=object()), "slice 10b"),
     (dict(num_reducers=4, mesh=object()), "slice 10b"),
-    (dict(mode="mapreduce", num_reducers=4, resilience=object()),
-     "slice 12"),
-    (dict(mode="mapreduce", num_reducers=4, trace="reducers"), "slice 12"),
-    (dict(num_reducers=4, trace="reducers"), "slice 12")])
+    (dict(mode="mapreduce", num_reducers=4, resilience="policy"), None),
+    (dict(mode="mapreduce", num_reducers=4, trace="reducers"), None),
+    (dict(num_reducers=4, trace="reducers"), None)])
 def test_not_ported_cases_raise_from_plan(kw, match):
+    """The mesh path (slice 10b) raises; resilience= and trace="reducers"
+    (slice 12) plan and run the per-reducer round 1, whose result equals
+    the one-run path's."""
+    from repro_torch.distributed import ResiliencePolicy
+
     pts = _pts(100, 3)
-    with pytest.raises(NotImplementedError, match=match):
-        repro_torch.plan(repro_torch.ProblemSpec(points=pts, k=3),
-                         repro_torch.ExecutionSpec(device="cpu", **kw))
+    spec = repro_torch.ProblemSpec(points=pts, k=3)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            repro_torch.plan(spec, repro_torch.ExecutionSpec(device="cpu",
+                                                             **kw))
+        return
+    if kw.get("resilience") == "policy":
+        kw["resilience"] = ResiliencePolicy()
+    got = repro_torch.diversify(spec, repro_torch.ExecutionSpec(
+        device="cpu", kprime=8, **kw))
+    want = repro_torch.diversify(spec, repro_torch.ExecutionSpec(
+        device="cpu", kprime=8, num_reducers=4))
+    assert got.plan.mode == "mapreduce"
+    np.testing.assert_array_equal(got.solution, want.solution)
+    assert got.value == want.value and got.cert == want.cert
 
 
 def test_mesh_functions_name_their_slice():

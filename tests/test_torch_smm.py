@@ -310,8 +310,16 @@ def test_rejections():
         StreamingCoreset(2, 8, 3, metric="sqeuclidean", device="cpu")
     with pytest.raises(ValueError, match="k' must be >= k"):
         StreamingCoreset(9, 8, 3, device="cpu")
+    # save/restore are ported (slice 12): a checkpoint of a stream still
+    # in its prefix buffer restores to the same stream
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+
     smm = StreamingCoreset(2, 8, 3, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        smm.save(None, 0)
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        StreamingCoreset.restore(None)
+    smm.update(np.ones((3, 3), np.float32))
+    with tempfile.TemporaryDirectory() as d:
+        smm.save(CheckpointManager(d), 0)
+        back, step = StreamingCoreset.restore(CheckpointManager(d),
+                                              device="cpu")
+    assert step == 0 and back.n_seen == 3 and back.state is None

@@ -142,16 +142,23 @@ def test_not_ported_and_rejected():
     def plan(source, **kw):
         return repro_torch.plan(source, ex(device="cpu", **kw))
 
+    # resilience= on a stream is ported (slice 12): a ResiliencePolicy
+    # plans, anything else is refused as in the reference
+    from repro_torch.distributed import ResiliencePolicy
+
     spec = repro_torch.ProblemSpec(points=iter([pts]), k=3)
-    with pytest.raises(NotImplementedError, match="slice 12"):
+    with pytest.raises(TypeError, match="ResiliencePolicy"):
         plan(spec, resilience=object())
-    with pytest.raises(NotImplementedError, match="slice 12"):
+    assert plan(spec, resilience=ResiliencePolicy()).mode == "streaming"
+    with pytest.raises(TypeError, match="ResiliencePolicy"):
         plan(repro_torch.ProblemSpec(points=pts, k=3), mode="streaming",
              resilience=object())
-    # constrained streams are ported (slice 11); resilience= on one is not
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        plan(repro_torch.ProblemSpec(points=iter([pts]), k=3,
-                                     quotas=[1, 2]), resilience=object())
+    assert plan(repro_torch.ProblemSpec(points=pts, k=3), mode="streaming",
+                resilience=ResiliencePolicy()).mode == "streaming"
+    # constrained streams are ported (slice 11), and retry/degrade on one
+    assert plan(repro_torch.ProblemSpec(points=iter([pts]), k=3,
+                                        quotas=[1, 2]),
+                resilience=ResiliencePolicy()).constrained
     with pytest.raises(ValueError, match="only supports mode='streaming'"):
         plan(spec, mode="batch")
     with pytest.raises(ValueError, match="true metric"):
