@@ -94,10 +94,11 @@ Phases, each printing one JSON line (or one per call):
               against its plain version entry for entry (its differing
               entries, expected 0, join phase 2's).
 8. profile  — device-only torch.profiler traces of batch call (a), stream
-              call (b), constrained call (e) cosine, MapReduce call (i)
-              and serving call (s):
-              device time by kernel and the device's busy share of that
-              call's wall time (full tables in chiprun_out/).
+              call (b), constrained call (e) cosine, MapReduce call (i),
+              serving call (s) and one churn round of dynamic call (u):
+              device time by kernel, the device's busy share of that
+              call's wall time and its idle gaps (full tables in the
+              script's output directory).
 9. serving  — data made on the card from ``--seed``: (s) the facade on
               an (R, n, d) = (256, 1,024, 768) tensor of candidate
               embeddings (each request its query plus one of 8 topics plus
@@ -125,12 +126,33 @@ Phases, each printing one JSON line (or one per call):
               shards, coverage), and stream (b) checkpointed every 8
               chunks, killed at chunk 30 and resumed (core-set rows, d_i,
               phase log, certificate and picks equal to phase 4's).
+11. dynamic — ``repro_torch.dynamic.DynamicIndex`` under churn, data made
+              on the card from ``--seed``, each call's kernel side (B3
+              tiles for every maintenance distance, B1 at p = 1 for the
+              query) and plain side (``use_pallas=False``) in turn: (u)
+              the churn schedule of ``benchmarks/bench_dynamic.py:33-50``
+              at catalog scale, a Gaussian x 10 at d = 8, euclidean, k = 8,
+              k' = 64, 2^20 live points, 10 rounds of 52,428 deletes,
+              52,428 inserts and one query; (u') the same at churn 0.25 for
+              6 rounds (a rebuild fires); (v) a sliding window over the
+              musiXmatch stand-in, cosine, k = 32: 65,536 songs, then 8
+              rounds of 4,096 inserted, the oldest 4,096 deleted, a query.
+              Each prints seconds per round and updates/s, boot, rebuild
+              and query seconds, live centers per level and the frozen
+              depth, rebuilds, B3 and B1 launches, host syncs per round
+              and an ``agree`` dict: the two sides' level arrays, liveness,
+              covers and frozen flags equal entry for entry, the same query
+              ids and levels, certificate floats within rtol 1e-5.  (w)
+              the facade over (u)'s 21 ops, checkpointed every 4, killed at
+              op 7 and resumed from op 4: equal to the uninterrupted
+              facade run on every field.
 
-Phases run in the order 1-6, 9, 10, 7, 8.  The line before the last is
-the ``kernels`` summary; the last line is ``{"ok": true, "device":
-{...}}``.  Any failure exits nonzero before it.  ``--rehearse`` runs phases
-2-6, 9 and 10 at a tiny size on the CPU with the plain versions (no build,
-no timings, no ``ok`` line) to check the script itself.
+Phases run in the order 1-6, 9, 10, 11, 7, 8 (8 also traces one churn
+round of (u)).  The line before the last is the ``kernels`` summary; the
+last line is ``{"ok": true, "device": {...}}``.  Any failure exits nonzero
+before it.  ``--rehearse`` runs phases 2-6 and 9-11 at a tiny size on the
+CPU with the plain versions (no build, no timings, no ``ok`` line) to
+check the script itself.
 """
 from __future__ import annotations
 
@@ -1481,8 +1503,11 @@ def phase_profile(call, name: str, out: Path, unprofiled_s: float):
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.device_type == cuda)
     busy_us, end = 0.0, float("-inf")
+    gaps = []
     for s, e in spans:                   # union of the device intervals
         if e > end:
+            if s > end > float("-inf"):
+                gaps.append(s - end)
             busy_us += e - max(s, end)
             end = e
     kernels = []
@@ -1503,6 +1528,17 @@ def phase_profile(call, name: str, out: Path, unprofiled_s: float):
           "device_busy_s": busy_us / 1e6 if spans else "not measured",
           "device_busy_share": busy_us / 1e6 / wall if spans
           else "not measured",
+          # idle gaps between device activity, inside the traced span
+          "idle_gaps": {"count": len(gaps),
+                        "over_50us": sum(g > 50 for g in gaps),
+                        "largest_ms": max(gaps, default=0.0) / 1e3,
+                        "sum_ms": sum(gaps) / 1e3},
+          # device ms of the hand-written kernels (B1 and B2 share one)
+          "kernel_ms": {name: sum(r["ms"] for r in kernels
+                                  if key in r["name"])
+                        for name, key in (("B1/B2", "gmm_sweep_kernel"),
+                                          ("B3", "pairwise"),
+                                          ("B4", "grouped_sweep_kernel"))},
           "top": kernels[:8]})
 
 
@@ -1971,6 +2007,327 @@ def phase_resilience(data, device, full: bool = True):
     return launches, seconds
 
 
+# --------------------------------------------------------------------------
+# phase 11: dynamic
+# --------------------------------------------------------------------------
+
+def dynamic_calls(full: bool):
+    """Sizes of phase 11: (u) and (u') the churn schedule of
+    ``benchmarks/bench_dynamic.py`` at catalog scale, (v) the sliding
+    window over the musiXmatch stand-in, (w) the facade's kill point."""
+    if full:
+        return {"u": dict(n0=2 ** 20, d=8, frac=0.05, rounds=10, k=8,
+                          kprime=64),
+                "u_prime": dict(n0=2 ** 20, d=8, frac=0.25, rounds=6, k=8,
+                                kprime=64),
+                "v": dict(window=65536, step=4096, rounds=8, k=32),
+                "w": dict(every=4, kill=7), "profile_rounds": 2}
+    return {"u": dict(n0=4096, d=8, frac=0.05, rounds=3, k=8, kprime=64),
+            "u_prime": dict(n0=4096, d=8, frac=0.25, rounds=6, k=8,
+                            kprime=64),
+            "v": dict(window=512, step=64, rounds=3, k=8),
+            "w": dict(every=2, kill=3), "profile_rounds": 0}
+
+
+def churn_schedule(n0: int, d: int, frac: float, rounds: int, seed: int,
+                   device):
+    """The churn script of ``benchmarks/bench_dynamic.py:33-50``, made on
+    the device from ``seed``: a Gaussian x 10 boot set of ``n0`` points in
+    ``d`` dimensions, then per round (delete_ids, new_points): ``frac *
+    n0`` random live ids (sorted) and as many fresh points."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    boot = torch.randn((n0, d), generator=g, device=device) * 10.0
+    c = max(1, int(frac * n0))
+    alive = torch.ones((n0,), dtype=torch.bool, device=device)
+    script = []
+    for _ in range(rounds):
+        live = torch.nonzero(alive).flatten()
+        pick = torch.randperm(live.numel(), generator=g, device=device)[:c]
+        kill = torch.sort(live[pick]).values
+        alive[kill] = False
+        fresh = torch.randn((c, d), generator=g, device=device) * 10.0
+        alive = torch.cat([alive, torch.ones((c,), dtype=torch.bool,
+                                             device=device)])
+        script.append((kill, fresh))
+    return boot, script
+
+
+def _sync():
+    import torch
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def _agree_dynamic(ka, pa):
+    """Kernel run ``ka`` against plain run ``pa`` (dicts of their final
+    state and per-round queries): the structure equal entry for entry, the
+    same query ids every round, certificate floats within rtol 1e-5 and
+    equal ints."""
+    import numpy as np
+    (karr, kmeta), (parr, pmeta) = ka["state"], pa["state"]
+    agree = {name: bool(karr[name].shape == parr[name].shape
+                        and np.array_equal(karr[name], parr[name]))
+             for name in ("center", "assign", "adist", "alive", "cover",
+                          "frozen", "dirty", "radii", "points")}
+    agree["meta"] = kmeta == pmeta
+    agree["query_ids"] = all(np.array_equal(a.ids, b.ids) for a, b in
+                             zip(ka["queries"], pa["queries"]))
+    agree["query_level"] = [q.level for q in ka["queries"]] == \
+        [q.level for q in pa["queries"]]
+    ok = True
+    for a, b in zip(ka["queries"], pa["queries"]):
+        for f, v in a.cert.to_dict().items():
+            w = b.cert.to_dict()[f]
+            if isinstance(v, float):
+                ok &= bool(np.isclose(v, w, rtol=1e-5, atol=0.0)
+                           or v == w)
+            elif isinstance(v, tuple) and v and isinstance(v[0], float):
+                ok &= bool(np.allclose(v, w, rtol=1e-5, atol=0.0))
+            else:
+                ok &= v == w
+    agree["certificates"] = bool(ok)
+    return agree
+
+
+def _churn_run(boot, script, cfg, metric, use_pallas, device,
+               windows=False):
+    """One side of a churn call: a ``DynamicIndex`` booted on ``boot``,
+    then per round the round's ops and one k-query.  ``script`` holds
+    (delete_ids, new_points) rounds (``windows``: (new_points,
+    delete_ids), insert first).  Returns the run's record and the index."""
+    import numpy as np
+    import torch
+    from repro_torch.dynamic import DynamicIndex
+    from repro_torch.kernels import ops
+    idx = DynamicIndex(dim=int(boot.shape[1]), metric=metric,
+                       budget=cfg.get("kprime", max(2 * cfg["k"], 64)),
+                       device=device, use_pallas=use_pallas)
+    rebuild_s = []
+    plain_maybe = idx._maybe_rebuild
+
+    def timed_rebuild():
+        before = idx.rebuilds
+        t = time.perf_counter()
+        plain_maybe()
+        if idx.rebuilds > before:
+            _sync()
+            rebuild_s.append(time.perf_counter() - t)
+    idx._maybe_rebuild = timed_rebuild
+    ops.reset_launches()
+    _sync()
+    t0 = time.perf_counter()
+    idx.insert(boot)
+    _sync()
+    boot_s = time.perf_counter() - t0
+    boot_syncs = idx.host_syncs
+    rounds, queries, query_s, syncs, updates = [], [], [], [], []
+    for first, second in script:
+        s0 = idx.host_syncs
+        t0 = time.perf_counter()
+        if windows:
+            idx.insert(first)
+            idx.delete(second)
+        else:
+            idx.delete(first)
+            idx.insert(second)
+        _sync()
+        t1 = time.perf_counter()
+        q = idx.query(cfg["k"])
+        _sync()
+        t2 = time.perf_counter()
+        rounds.append(t2 - t0)
+        query_s.append(t2 - t1)
+        syncs.append(idx.host_syncs - s0)
+        updates.append(int(first.shape[0]) + int(second.shape[0]))
+        queries.append(q)
+    launches = dict(ops.LAUNCHES)
+    lv = idx._levels
+    counts = lv.center_counts(idx._alive).tolist()
+    frozen = int(np.argmax(lv.frozen)) if lv.frozen.any() else lv.L
+    rec = {"boot_s": boot_s, "boot_syncs": boot_syncs,
+           "round_s": rounds, "query_s": query_s, "syncs": syncs,
+           "updates_per_s": [u / s for u, s in zip(updates, rounds)],
+           "rebuild_s": rebuild_s, "rebuilds": idx.rebuilds,
+           "phase_log": [list(e) for e in idx.phase_log],
+           "centers_per_level": counts, "active_levels": frozen,
+           "radii": [float(r) for r in lv.radii],
+           "launches": launches, "queries": queries,
+           "state": idx.state_dict()}
+    idx._maybe_rebuild = plain_maybe
+    return rec, idx
+
+
+def phase_dynamic(data, device, full: bool = True, seed: int = 0):
+    """(u) churn at catalog scale, (u') the same at churn 0.25 with a
+    rebuild, (v) a sliding window at the musiXmatch shape (cosine), each
+    with its kernel side (B3 tiles, B1 query sweeps) and its plain side
+    (``use_pallas=False`` on the same device), held to each other; (w) the
+    facade over (u)'s ops, killed at an op and resumed, held to the
+    uninterrupted facade run.  Returns (launches of the kernel sides,
+    summed; seconds; what phase 8 profiles)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch.distributed import (FailureInjector, InjectedFailure,
+                                         ResiliencePolicy)
+    from repro_torch.kernels import ops
+    cfgs = dynamic_calls(full)
+    launches = dict.fromkeys(KERNELS, 0)
+    seconds, keep = {}, {}
+    calls = {"u_churn_0.05": ("u", "euclidean"),
+             "u_prime_churn_0.25": ("u_prime", "euclidean"),
+             "v_window_cosine": ("v", "cosine")}
+    for name, (key, metric) in calls.items():
+        cfg = cfgs[key]
+        if key == "v":
+            x, w, st = data["mxm"], cfg["window"], cfg["step"]
+            boot = x[:w]
+            script = [(x[w + i * st:w + (i + 1) * st],
+                       torch.arange(i * st, (i + 1) * st, device=x.device))
+                      for i in range(cfg["rounds"])]
+        else:
+            extra = cfgs["profile_rounds"] if key == "u" else 0
+            boot, script = churn_schedule(cfg["n0"], cfg["d"], cfg["frac"],
+                                          cfg["rounds"] + extra, seed,
+                                          device)
+            if extra:
+                keep["profile_script"] = script[cfg["rounds"]:]
+                script = script[:cfg["rounds"]]
+        _sync()
+        runs = {}
+        for up in ("auto", False):
+            runs[up], idx = _churn_run(boot, script, cfg, metric, up, device,
+                                       windows=key == "v")
+            if key == "u" and up == "auto":
+                keep["u_index"], keep["u_cfg"] = idx, cfg
+                keep["u_ops"] = [repro_torch.Insert(boot)] + [
+                    op for kill, fresh in script
+                    for op in (repro_torch.Delete(kill),
+                               repro_torch.Insert(fresh))]
+            del idx
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+        k, p = runs["auto"], runs[False]
+        agree = _agree_dynamic(k, p)
+        kl = k["launches"]
+        row = {"phase": "dynamic", "call": name, "metric": metric,
+               **{c: v for c, v in cfg.items()},
+               "seconds_per_round": _spread(k["round_s"]),
+               "plain_seconds_per_round": _spread(p["round_s"]),
+               "updates_per_s": _spread(k["updates_per_s"]),
+               "boot_s": k["boot_s"], "plain_boot_s": p["boot_s"],
+               "rebuild_s": k["rebuild_s"], "plain_rebuild_s": p["rebuild_s"],
+               "query_s": _spread(k["query_s"]),
+               "centers_per_level": k["centers_per_level"],
+               "active_levels": k["active_levels"],
+               "frozen_levels": len(k["radii"]) - k["active_levels"],
+               "radii": k["radii"], "rebuilds": k["rebuilds"],
+               "phase_log": k["phase_log"],
+               "query_levels": [q.level for q in k["queries"]],
+               "scale": [q.cert.scale for q in k["queries"]],
+               "cover_radius": [q.cert.radius for q in k["queries"]],
+               "host_syncs_per_round": _spread(k["syncs"]),
+               "boot_host_syncs": k["boot_syncs"],
+               "kernel_launches": kl, "plain_launches": p["launches"],
+               "agree": agree}
+        emit(row)
+        bad = [c for c, ok in agree.items() if not ok]
+        if bad:
+            fail(f"dynamic {name}: kernel and plain differ on {bad}")
+        if device != "cpu" and (kl["pairwise"] == 0 or kl["gmm_topb"] == 0
+                                or sum(p["launches"].values())):
+            fail(f"dynamic {name}: B3 {kl['pairwise']} and B1 "
+                 f"{kl['gmm_topb']} launches on the kernel side, "
+                 f"{p['launches']} on the plain side")
+        if key == "u_prime" and k["rebuilds"] < 2:
+            fail(f"dynamic {name}: no rebuild fired ({k['phase_log']})")
+        for c, v in kl.items():
+            launches[c] += v
+        seconds[name] = statistics.median(k["round_s"])
+        del runs, k, p
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+
+    # (w): the facade over (u)'s ops, killed at an op, resumed
+    cfg, wcfg = cfgs["u"], cfgs["w"]
+    dyn_ops = keep.pop("u_ops")
+    tmp = ROOT / "build" / "chip_smoke_dynamic_checkpoints"
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    def facade(pol, tr):
+        return repro_torch.diversify(
+            dyn_ops, k=cfg["k"], execution=repro_torch.ExecutionSpec(
+                mode="dynamic", device=device, kprime=cfg["kprime"],
+                resilience=pol, trace=tr))
+    try:
+        base, base_s, bl, _ = _traced(lambda tr: facade(None, tr))
+        t0 = time.perf_counter()
+        try:
+            facade(ResiliencePolicy(
+                on_failure="raise", checkpoint_dir=str(tmp),
+                checkpoint_every=wcfg["every"], injector=FailureInjector(
+                    fail_at=(f"update:{wcfg['kill']}",))), True)
+            fail(f"dynamic w: the injected failure at op {wcfg['kill']} "
+                 "did not stop the run")
+        except InjectedFailure:
+            pass
+        _sync()
+        killed_s = time.perf_counter() - t0
+        res, secs, kl, _ = _traced(lambda tr: facade(ResiliencePolicy(
+            checkpoint_dir=str(tmp), checkpoint_every=wcfg["every"]), tr))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rs = res.telemetry["resilience"]
+    agree = {"solution": bool(np.array_equal(res.solution, base.solution)),
+             "indices": bool(np.array_equal(res.indices, base.indices)),
+             "certificate": res.cert == base.cert,
+             "value": res.value == base.value,
+             "coreset": bool(torch.equal(res.coreset.points,
+                                         base.coreset.points)),
+             "telemetry": all(res.telemetry[f] == base.telemetry[f] for f in
+                              ("n_live", "updates", "rebuilds",
+                               "query_level", "coreset_size")),
+             "resumed_from": rs["resumed_from"]
+             == (wcfg["kill"] // wcfg["every"]) * wcfg["every"]}
+    row = {"phase": "dynamic", "call": "w_facade_kill_resume",
+           "ops": len(dyn_ops), "checkpoint_every": wcfg["every"],
+           "killed_at_op": wcfg["kill"], "uninterrupted_s": base_s,
+           "killed_run_s": killed_s, "resumed_run_s": secs,
+           "phases": {p["name"]: p["seconds"]
+                      for p in base.telemetry.phases},
+           "resilience": rs,
+           "checkpoints_written": res.telemetry.counters.get(
+               "checkpoints_written", 0),
+           "counters": {c: base.telemetry.counters.get(c, 0) for c in (
+               "inserts_absorbed", "deletes_absorbed", "level_rebuilds")},
+           "kernel_launches": bl, "resumed_launches": kl, "agree": agree}
+    emit(row)
+    bad = [c for c, ok in agree.items() if not ok]
+    if bad:
+        fail(f"dynamic w: the resumed run differs from the uninterrupted "
+             f"one on {bad}")
+    for c, v in bl.items():
+        launches[c] += v
+    seconds["w_facade"] = base_s
+    return launches, seconds, keep
+
+
+def dynamic_round(idx, script, k):
+    """A callable that applies the next round of ``script`` to ``idx`` and
+    answers its query (phase 8 profiles one such round)."""
+    todo = list(script)
+
+    def call():
+        kill, fresh = todo.pop(0)
+        idx.delete(kill)
+        idx.insert(fresh)
+        return idx.query(k).solution
+    return call
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1984,7 +2341,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse", action="store_true",
-                    help="tiny CPU run of phases 2-6, 9 and 10 with the "
+                    help="tiny CPU run of phases 2-6 and 9-11 with the "
                          "plain versions")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
@@ -2019,6 +2376,7 @@ def main(argv=None) -> int:
         phase_serving(data, "cpu", check_launches=False, runs=1, full=False,
                       seed=args.seed)
         phase_resilience(data, "cpu", full=False)
+        phase_dynamic(data, "cpu", full=False, seed=args.seed)
         emit({"phase": "rehearsal", "ok": True})
         return 0
 
@@ -2108,6 +2466,13 @@ def main(argv=None) -> int:
     FIRST.clear()
     torch.cuda.empty_cache()
 
+    # ---- 11. dynamic -------------------------------------------------------
+    y_launches, dyn_s, dyn_keep = phase_dynamic({"mxm": x}, "cuda",
+                                                seed=args.seed)
+    for k, v in y_launches.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+
     # ---- 7. times, 8. profile ---------------------------------------------
     rows = phase_times(x, args.seed)
     g_rows = phase_times_grouped(x, genres, args.seed)
@@ -2154,6 +2519,11 @@ def main(argv=None) -> int:
         execution=repro_torch.ExecutionSpec(device="cuda")).indices,
         "serving_s_fused_cosine_edge", out, serve_s["s_fused_cosine_edge"])
     del requests
+    phase_profile(dynamic_round(dyn_keep["u_index"],
+                                dyn_keep["profile_script"],
+                                dyn_keep["u_cfg"]["k"]),
+                  "dynamic_u_round", out, dyn_s["u_churn_0.05"])
+    del dyn_keep
     pick = {"gmm_topb": next(r for r in rows if r["b"] == 8 and r["p"] == 128),
             "gmm_update_select": next(r for r in rows if r["b"] == 1
                                       and r["p"] == 1),

@@ -6,18 +6,20 @@ anything of ``repro``.  The front door is
 ``repro_torch.diversify(ProblemSpec, ExecutionSpec)``; its sweeps run the
 hand-written CUDA kernels of ``repro_torch.kernels`` on the card (the
 default device) and a plain torch version on the CPU.  Ported so far: the batch,
-streaming, simulated MapReduce and serving paths, unconstrained and
-constrained (``repro_torch.constrained``), with checkpoints and resilience
-(``repro_torch.checkpoint``, ``repro_torch.distributed``); see ROADMAP.md
-for the rest.
+streaming, simulated MapReduce, serving and dynamic paths, unconstrained
+and constrained (``repro_torch.constrained``), with checkpoints and
+resilience (``repro_torch.checkpoint``, ``repro_torch.distributed``); see
+ROADMAP.md for the rest.
 """
 
 _API = ("diversify", "plan", "ProblemSpec", "ExecutionSpec", "Plan",
         "DiversityResult")
 # ``ExecutionSpec(resilience=repro_torch.ResiliencePolicy(...))`` spelling
 _RESILIENCE = ("ResiliencePolicy", "FailureInjector")
+# ``repro_torch.diversify([repro_torch.Insert(...), ...])`` spelling
+_DYNAMIC = ("DynamicIndex", "RebuildPolicy", "Insert", "Delete")
 
-__all__ = list(_API) + list(_RESILIENCE)
+__all__ = list(_API) + list(_RESILIENCE) + list(_DYNAMIC)
 
 
 def __getattr__(name):
@@ -28,4 +30,7 @@ def __getattr__(name):
     if name in _RESILIENCE:
         from repro_torch.distributed import fault_tolerance
         return getattr(fault_tolerance, name)
+    if name in _DYNAMIC:
+        from repro_torch import dynamic
+        return getattr(dynamic, name)
     raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

@@ -33,9 +33,12 @@ or dropped.  ``resilience=`` on a stream retries or drops chunks and, with
 chunks and resumes from the latest checkpoint.  A 3-D ``(requests,
 candidates, d)`` input (or ``mode="serving"``) runs the fused multi-tenant
 rerank (``serving.rerank_batched``): every fold of all requests is one B4
-sweep.  The mesh path (``mesh=`` or a sharded input) and the dynamic mode
-raise ``NotImplementedError`` from ``plan()`` naming the ROADMAP slice that
-brings them.
+sweep.  A list of ``Insert``/``Delete`` ops (or ``mode="dynamic"``, where an
+``(n, d)`` array is a one-insert stream) runs the dynamic index
+(``dynamic.DynamicIndex``): its cover maintenance is B3 tiles on the card,
+its certified query the m = 1 engine.  The mesh path (``mesh=`` or a
+sharded input) raises ``NotImplementedError`` from ``plan()`` naming the
+ROADMAP slice that brings it.
 
 >>> import numpy as np
 >>> import repro_torch
@@ -248,6 +251,8 @@ class Plan:
             if actual:
                 lines.extend(self._explain_actual())
             return "\n".join(lines)
+        if self.mode == "dynamic":
+            return "\n".join(self._explain_dynamic(actual))
         shape = (f"({self.n}, {self.d})" if self.n is not None
                  else f"stream (d={self.d if self.d is not None else '?'})")
         rows = ("?" if self.coreset_rows is None else
@@ -283,6 +288,46 @@ class Plan:
         if actual:
             lines.extend(self._explain_actual())
         return "\n".join(lines)
+
+    def _explain_dynamic(self, actual: bool):
+        """The reference's dynamic block, line for line (the ``layout``
+        line says where the cover lives)."""
+        from .core.sequential import SEQ_ALPHA
+
+        k = self.knobs
+        pol = k["rebuild"]
+        shape = (f"({self.n}, {self.d})" if self.updates == 1
+                 and self.n is not None else
+                 f"update-stream ({self.updates} ops, "
+                 f"d={self.d if self.d is not None else '?'})")
+        lines = [
+            "DiversityPlan",
+            f"  mode: dynamic ({self.reason})",
+            f"  problem: k={self.problem.k},"
+            f" measure={self.problem.measure},"
+            f" metric={self.problem.metric},"
+            f" input={shape}, constrained=no",
+            f"  index: leveled cover, {pol.levels} levels (radius"
+            f" halving), query = finest level <= {k['kprime']} centers",
+            f"  rebuild: {pol.describe()} (dirty levels re-certify"
+            " incrementally between rebuilds)",
+            f"  engine: b=1 (exact m=1 schedule on the level core-set),"
+            f" chunk={k['chunk']}, use_pallas={k['use_pallas']}",
+            f"  layout: {self.layout}",
+            f"  predicted coreset: <={self.coreset_rows} rows,"
+            f" <={_fmt_bytes(self.coreset_bytes)}"
+            if self.coreset_bytes is not None else
+            f"  predicted coreset: <={self.coreset_rows} rows",
+            f"  solver: sequential"
+            f" alpha={SEQ_ALPHA[self.problem.measure]}"
+            f" ({self.problem.measure})",
+        ]
+        if self.execution.resilience is not None:
+            lines.append(
+                f"  resilience: {self.execution.resilience.describe()}")
+        if actual:
+            lines.extend(self._explain_actual())
+        return lines
 
     def _explain_actual(self):
         tr = self.trace
@@ -369,7 +414,7 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
     device = resolve_device(ex.device)
 
     arr = _is_array(problem.points)
-    requests = None
+    requests = updates = None
     if arr and problem.points.ndim == 3:
         # (requests, candidates, d) tensor — the serving-mode input shape
         requests, n, d = (int(s) for s in problem.points.shape)
@@ -377,19 +422,31 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
         n = int(problem.points.shape[0]) if arr else None
         d = (int(problem.points.shape[1]) if arr and problem.points.ndim > 1
              else problem.dim)
+    if not arr:
+        # a materialized list of Insert/Delete ops is the dynamic-mode
+        # input; classification and d-recovery read no payload
+        from .dynamic.ops import is_update_stream, stream_dim
+        if is_update_stream(problem.points):
+            updates = len(problem.points)
+            if d is None:
+                d = stream_dim(problem.points)
     constrained, mat = _resolve_constraint(problem, streamed=not arr)
-    if ex.mesh is not None or (arr and _is_sharded(problem.points)):
+    dynamic = ex.mode == "dynamic" or (ex.mode == "auto"
+                                       and updates is not None)
+    if not dynamic and (ex.mesh is not None
+                        or (arr and _is_sharded(problem.points))):
         raise not_ported("mesh")
 
     # ---- mode ------------------------------------------------------------
     num_red = ex.num_reducers
     if ex.mode != "auto":
-        if ex.mode == "dynamic":
-            raise not_ported(ex.mode)
         mode, reason = ex.mode, "requested"
         if mode == "mapreduce" and not (num_red or 0) > 1:
             raise ValueError("mode='mapreduce' needs mesh= or "
                              "num_reducers > 1")
+    elif updates is not None:
+        mode, reason = ("dynamic",
+                        "auto: update-stream input (insert/delete ops)")
     elif not arr:
         mode, reason = "streaming", "auto: chunk-iterator input"
     elif requests is not None:
@@ -404,9 +461,19 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
             f"exceeds memory budget {ex.memory_budget_bytes} B")
     else:
         mode, reason = "batch", "auto: in-memory array"
-    if not arr and mode != "streaming":
+    if updates is not None and mode != "dynamic":
+        raise ValueError(f"an update stream (Insert/Delete ops) only "
+                         f"supports mode='dynamic', got {mode!r}")
+    if not arr and updates is None and mode != "streaming":
         raise ValueError(f"a chunk-iterator source only supports "
                          f"mode='streaming', got {mode!r}")
+    if mode == "dynamic" and updates is None:
+        if not (arr and problem.points.ndim == 2):
+            raise ValueError(
+                "mode='dynamic' needs an update stream (a list of "
+                "repro_torch.Insert/repro_torch.Delete ops) or an (n, d) "
+                "array (sugar for a one-insert stream)")
+        updates = 1                   # the single-insert sugar
     if mode == "serving" and requests is None:
         raise ValueError("mode='serving' needs a 3-D (requests, candidates, "
                          "d) array of per-request candidate embeddings")
@@ -439,7 +506,31 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
             raise ValueError("schedule= has no serving path")
         if ex.generalized or ex.smm_mode is not None:
             raise ValueError("generalized=/smm_mode= have no serving path")
-    if ex.rebuild not in ("auto", None):
+    rebuild_pol = None
+    if mode == "dynamic":
+        from .dynamic import resolve_rebuild
+        if constrained:
+            raise ValueError(
+                "mode='dynamic' is unconstrained — solve the surviving "
+                "points through a constrained batch/streaming run instead")
+        if not metric.is_metric:
+            raise ValueError(
+                f"metric {problem.metric!r} violates the triangle "
+                "inequality; the dynamic cover structure needs a true "
+                "metric")
+        if ex.b not in ("auto", 1):
+            raise ValueError("mode='dynamic' runs the exact b=1 engine on "
+                             "the level core-set; b= has no dynamic path")
+        if ex.schedule is not None:
+            raise ValueError("schedule= has no dynamic path")
+        if ex.generalized or ex.smm_mode is not None:
+            raise ValueError("generalized=/smm_mode= have no dynamic path")
+        if ex.mesh is not None or (num_red or 0) > 1:
+            raise ValueError("mesh=/num_reducers= have no dynamic path (a "
+                             "dynamic index is one long-lived "
+                             "structure on one device)")
+        rebuild_pol = resolve_rebuild(ex.rebuild)
+    elif ex.rebuild not in ("auto", None):
         raise ValueError(f"rebuild= tunes the dynamic index and has no "
                          f"{mode} path")
     if constrained and (ex.generalized or ex.three_round):
@@ -493,6 +584,10 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
     kprime = ex.kprime
     if kprime is None or (kprime == "auto" and mode == "streaming"):
         kprime = max(2 * k, 32)           # the SMM state is fixed-size
+    if kprime == "auto" and mode == "dynamic":
+        # the level-induced core-set budget: deletions erode the cover, so
+        # the dynamic default leaves more slack than the streaming state cap
+        kprime = max(2 * k, 64)
     if isinstance(kprime, (int, np.integer)) and mode == "batch":
         kprime = min(int(kprime), n)      # the batch engine clamps k' to n
     chunk = ex.chunk
@@ -505,6 +600,20 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
              "schedule": ex.schedule, "use_pallas": use_pallas,
              "tau": tau, "cliff": cliff, "sprint": ex.sprint,
              "device": device}
+
+    if mode == "dynamic":
+        kp = int(kprime)
+        knobs["rebuild"] = rebuild_pol
+        return Plan(
+            problem=problem, execution=ex, mode=mode, reason=reason,
+            constrained=False, matroid=None, variant="plain", mesh=None,
+            num_reducers=None, knobs=knobs,
+            layout=(f"leveled cover on the device ({device}), "
+                    f"{rebuild_pol.levels} levels, freeze cap "
+                    f"{max(4 * kp, 256)} centers/level"),
+            kprime_plan=f"kprime={kp} (dynamic core-set budget)",
+            coreset_rows=kp, coreset_bytes=None if d is None else kp * d * 4,
+            n=n, d=d, updates=updates)
 
     if mode == "serving":
         # stateless fused slates: no core-set, no reducers — the predicted
@@ -836,6 +945,85 @@ def _run_streaming_constrained(plan_: Plan, tr) -> DiversityResult:
         plan=plan_)
 
 
+def _run_dynamic(plan_: Plan, tr) -> DiversityResult:
+    """Fold the update stream into a ``DynamicIndex`` on the run's device
+    (one resilience unit per op, ``point="update:j"``), then answer one
+    certified query on the level-induced core-set (phases updates / query
+    / value).  With ``ResiliencePolicy(checkpoint_dir=...)`` the index
+    checkpoints every ``checkpoint_every`` ops and a killed run resumes
+    bit-identically: restore skips the already-applied prefix and replays
+    the rest (maintenance is deterministic).  A run that dropped ops
+    stamps its certificate with the op coverage ("shards" reads
+    "updates")."""
+    from .dynamic import DynamicIndex, as_update_ops
+
+    p, kb = plan_.problem, plan_.knobs
+    pol = plan_.execution.resilience
+    ops = as_update_ops(p.points)
+    dyn: Optional[DynamicIndex] = None
+    t = time.perf_counter()
+    report = mgr = None
+    ops_done = 0             # ops already applied (restored on resume)
+    if pol is not None:
+        from .distributed.fault_tolerance import ResilienceReport, run_unit
+        report = ResilienceReport(scope="update", policy=pol.describe())
+        if pol.checkpoint_dir is not None:
+            from .checkpoint import CheckpointManager
+            mgr = CheckpointManager(pol.checkpoint_dir, keep_k=2)
+            dyn, step = DynamicIndex.restore(mgr, device=kb["device"],
+                                             use_pallas=kb["use_pallas"])
+            if dyn is not None:
+                ops_done = step
+                report.resumed_from = step
+    for j, op in enumerate(ops):
+        if j < ops_done:
+            continue
+        if dyn is None:
+            dyn = DynamicIndex(dim=plan_.d, metric=p.metric,
+                               policy=kb["rebuild"],
+                               budget=int(kb["kprime"]),
+                               device=kb["device"],
+                               use_pallas=kb["use_pallas"])
+        if pol is None:
+            dyn.apply(op)
+        else:
+            run_unit(lambda: dyn.apply(op), pol, point=f"update:{j}",
+                     unit=j, report=report)
+        ops_done = j + 1
+        if mgr is not None and ops_done % pol.checkpoint_every == 0:
+            dyn.save(mgr, ops_done)
+            report.checkpoints_written += 1
+    if dyn is None or dyn.n_alive == 0:
+        raise ValueError("empty update stream")
+    t = tr.phase("updates", t)
+    q = dyn.query(p.k, budget=int(kb["kprime"]), measure=p.measure,
+                  eps=kb["eps"], chunk=kb["chunk"])
+    cert = q.cert
+    if report is not None and report.degraded:
+        # dropped updates: the index reflects the applied ops only — stamp
+        # the certificate with the op-level coverage accounting
+        failed = set(report.failed)
+        cert = dataclasses.replace(
+            cert, degraded=True,
+            surviving_shards=tuple(i for i in range(ops_done)
+                                   if i not in failed),
+            total_shards=ops_done)
+    cs = q.coreset._replace(cert=cert)
+    t = tr.phase("query", t, sync=cs.points)
+    value = _value_of(q.solution, p.measure, p.metric)
+    tr.phase("value", t)
+    if report is not None:
+        tr.annotate(resilience=report.to_dict())
+    return DiversityResult(
+        solution=to_numpy(q.solution), value=value,
+        _indices=np.asarray(q.ids), labels=None, cert=cert, coreset=cs,
+        telemetry=tr.annotate(mode="dynamic", n_live=dyn.n_alive,
+                              updates=len(ops), rebuilds=dyn.rebuilds,
+                              query_level=q.level,
+                              coreset_size=q.coreset.size),
+        plan=plan_)
+
+
 def _run_mapreduce(plan_: Plan, tr) -> DiversityResult:
     """The simulated ℓ-reducer run (one ``rounds`` phase: probe, round 1,
     solve and, for the generalized scheme, instantiation).  Generalized
@@ -925,6 +1113,8 @@ def _execute(plan_: Plan) -> DiversityResult:
     tr = obs.trace_from_spec(plan_.execution.trace)
     if plan_.mode == "serving":
         run = _run_serving    # plan() rejects constrained serving
+    elif plan_.mode == "dynamic":
+        run = _run_dynamic    # plan() rejects constrained dynamic
     elif plan_.mode == "mapreduce":
         run = (_run_mapreduce_constrained if plan_.constrained
                else _run_mapreduce)

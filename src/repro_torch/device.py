@@ -18,7 +18,6 @@ DEFAULT_DEVICE = "cuda"
 NOT_PORTED = {
     "mesh": "the MapReduce mesh path (mesh= or a device-sharded input; "
             "ROADMAP A, slice 10b: torch.distributed)",
-    "dynamic": "dynamic mode (ROADMAP A, slice 14: repro.dynamic)",
 }
 
 

@@ -23,11 +23,19 @@ def _sq(x):
     return torch.sum(x * x, dim=-1)
 
 
+def _sqrt(x):
+    """The kernels' ``sqrtf``: the correctly rounded float32 root.  Torch's
+    CPU float32 sqrt may round a result lying within a hair of half an ulp
+    the wrong way, so the CPU takes the float64 root of the float32 input
+    and rounds it once, which is the correctly rounded float32 root."""
+    return torch.sqrt(x) if x.is_cuda else torch.sqrt(x.double()).float()
+
+
 def _transform(dot, xsq, ysq, mode):
     """The kernels' epilogue on an (m, n) block of dot products."""
     if mode in ("sqeuclidean", "euclidean"):
         d2 = torch.clamp(xsq[:, None] + ysq[None, :] - 2.0 * dot, min=0.0)
-        return torch.sqrt(d2) if mode == "euclidean" else d2
+        return _sqrt(d2) if mode == "euclidean" else d2
     if mode == "dot":
         return -dot
     if mode == "cosine":

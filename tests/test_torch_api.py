@@ -166,10 +166,10 @@ def test_tensor_points_stay_on_their_device():
                                   "dynamic", "constrained", "budget",
                                   "reducers"])
 def test_unported_modes_raise_with_their_slice(kind):
-    """The mesh path (slice 10b) and the dynamic mode (slice 14) raise from
-    ``plan()`` naming their slice; serving, resilience= on a stream or a
-    constrained MapReduce run, and trace="reducers" (slices 12 and 13)
-    plan and run."""
+    """The mesh path (slice 10b) raises from ``plan()`` naming its slice;
+    serving, resilience= on a stream or a constrained MapReduce run,
+    trace="reducers" (slices 12 and 13) and the dynamic mode (slice 14, an
+    array as a one-insert stream) plan and run."""
     from repro_torch.distributed import ResiliencePolicy
 
     pts = np.random.default_rng(0).normal(size=(64, 4)).astype(np.float32)
@@ -199,15 +199,20 @@ def test_unported_modes_raise_with_their_slice(kind):
         ex["trace"] = "reducers"
     spec = repro_torch.ProblemSpec(**prob)
     exs = repro_torch.ExecutionSpec(device="cpu", **ex)
-    if kind in ("mapreduce", "dynamic"):
+    if kind == "mapreduce":
         with pytest.raises(NotImplementedError, match="ROADMAP A, slice"):
             repro_torch.plan(spec, exs)
         return
     planned = repro_torch.plan(spec, exs)
     res = planned.execute()
     want_mode = {"serving": "serving", "streaming": "streaming",
-                 "budget": "streaming"}.get(kind, "mapreduce")
+                 "budget": "streaming",
+                 "dynamic": "dynamic"}.get(kind, "mapreduce")
     assert planned.mode == want_mode and res.telemetry["mode"] == want_mode
+    if kind == "dynamic":
+        assert planned.updates == 1 and res.cert.kind == "dynamic"
+        assert res.solution.shape == (4, 4)
+        return
     if kind == "serving":
         assert res.solution.shape == (4, 4, 4)
     else:

@@ -590,3 +590,123 @@ def test_cuda_per_reducer_round1_equals_grouped(cuda_device, measure, knobs):
         if base.coreset is not None:
             assert torch.equal(got.coreset.points, base.coreset.points)
         assert launches[name] == 4 * launches["grouped"]
+
+
+# --------------------------------------------------------------------------
+# dynamic mode: cover maintenance through B3, the query through B1
+# --------------------------------------------------------------------------
+
+def _dyn_state(idx):
+    """Every ``state_dict`` array of an index, and its meta."""
+    arrays, meta = idx.state_dict()
+    return arrays, meta
+
+
+def _assert_same_index(a, b):
+    (xa, ma), (xb, mb) = _dyn_state(a), _dyn_state(b)
+    assert ma == mb
+    for name in xa:
+        assert xa[name].dtype == xb[name].dtype, name
+        assert torch.equal(torch.as_tensor(xa[name]),
+                           torch.as_tensor(xb[name])), name
+
+
+@pytest.mark.parametrize("case", ["ragged_tail", "duplicates", "cosine_5000"])
+def test_cuda_blocked_greedy_kernel_equals_plain(cuda_device, case,
+                                                monkeypatch):
+    """The blocked greedy with B3 tiles against the same greedy with the
+    plain tiles, on the card: the built levels are equal entry for entry.
+    Ragged point counts with a block-size tail, exact duplicates (every
+    point three times, so distances of 0 and exact ties), and cosine at
+    the musiXmatch width."""
+    from repro_torch.dynamic import DynamicIndex, levels
+
+    rg = np.random.default_rng(21)
+    if case == "cosine_5000":
+        pts = rg.poisson(0.05, size=(1501, 5000)).astype(np.float32)
+        pts[:, 0] += 1.0
+        metric, block = "cosine", 256
+    elif case == "duplicates":
+        base = rg.normal(size=(700, 8)).astype(np.float32) * 10
+        pts = np.concatenate([base, base[::-1], base])
+        metric, block = "euclidean", 300
+    else:
+        pts = rg.normal(size=(3001, 8)).astype(np.float32) * 10
+        metric, block = "euclidean", 1000
+    x = torch.as_tensor(pts, device=cuda_device)
+    monkeypatch.setattr(levels, "BLOCK", block)
+    idx = {}
+    for up in ("auto", False):
+        ops.reset_launches()
+        idx[up] = DynamicIndex(dim=pts.shape[1], metric=metric, budget=64,
+                               use_pallas=up)
+        idx[up].insert(x)
+        launched = dict(ops.LAUNCHES)
+        assert (launched["pairwise"] > 0) == (up == "auto"), launched
+    _assert_same_index(idx["auto"], idx[False])
+
+
+def test_cuda_dynamic_churn_kernel_equals_plain(cuda_device, monkeypatch):
+    """A churned index on the card — inserts, deletes of centers and
+    members, a rebuild — with the kernels (B3 maintenance, B1 query)
+    against the same index on plain torch: equal structure, the same
+    query ids and level every round, certificates to rtol 1e-5."""
+    from repro_torch.dynamic import DynamicIndex, RebuildPolicy, levels
+
+    rg = np.random.default_rng(22)
+    monkeypatch.setattr(levels, "BLOCK", 512)
+    idx = {up: DynamicIndex(dim=8, budget=48, use_pallas=up,
+                            policy=RebuildPolicy(max_deleted_frac=0.3))
+           for up in ("auto", False)}
+    alive = []
+    for rnd in range(8):
+        pts = torch.as_tensor(rg.normal(size=(1500 if rnd == 0 else 300, 8))
+                              .astype(np.float32) * 10, device=cuda_device)
+        for up, ix in idx.items():
+            ops.reset_launches()
+            ids = ix.insert(pts)
+            if up == "auto":
+                assert ops.LAUNCHES["pairwise"] > 0
+        alive.extend(ids.tolist())
+        kill = sorted(rg.choice(alive, size=250, replace=False).tolist())
+        alive = [i for i in alive if i not in set(kill)]
+        q = {}
+        for up, ix in idx.items():
+            ix.delete(kill)
+            ops.reset_launches()
+            q[up] = ix.query(6)
+            assert (ops.LAUNCHES["gmm_topb"] > 0) == (up == "auto")
+        np.testing.assert_array_equal(q["auto"].ids, q[False].ids)
+        assert q["auto"].level == q[False].level
+        a, b = q["auto"].cert.to_dict(), q[False].cert.to_dict()
+        for f in a:
+            if isinstance(a[f], float):
+                np.testing.assert_allclose(a[f], b[f], rtol=1e-5)
+            elif f != "radii":
+                assert a[f] == b[f], f
+        np.testing.assert_allclose(a["radii"], b["radii"], rtol=1e-5)
+        _assert_same_index(idx["auto"], idx[False])
+    assert idx["auto"].rebuilds >= 2
+
+
+def test_cuda_dynamic_save_restores_on_cpu(cuda_device, tmp_path):
+    """An index saved on the card restores on the CPU with the same arrays
+    and answers the same query (integer-lattice points: every distance is
+    exact on both devices)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.dynamic import DynamicIndex
+
+    rg = np.random.default_rng(23)
+    pts = rg.integers(-50, 51, size=(2000, 6)).astype(np.float32)
+    idx = DynamicIndex(dim=6, budget=32)
+    ids = idx.insert(torch.as_tensor(pts, device=cuda_device))
+    idx.delete(ids[::7])
+    mgr = CheckpointManager(str(tmp_path))
+    idx.save(mgr, 2)
+    back, step = DynamicIndex.restore(mgr, device="cpu")
+    assert step == 2 and back.device.type == "cpu"
+    _assert_same_index(idx, back)
+    qa, qb = idx.query(5), back.query(5)
+    np.testing.assert_array_equal(qa.ids, qb.ids)
+    assert qa.cert.radius == qb.cert.radius
+    assert qa.cert.counts == qb.cert.counts

@@ -29,7 +29,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.core.distributed, repro_torch.core.afz, "
             "repro_torch.constrained.mapreduce, repro_torch.checkpoint, "
             "repro_torch.distributed, repro_torch.obs.export, "
-            "repro_torch.serving, repro_torch.serving.engine\n"
+            "repro_torch.serving, repro_torch.serving.engine, "
+            "repro_torch.dynamic, repro_torch.dynamic.index\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -52,7 +53,10 @@ def test_sources_never_import_jax_or_repro():
                 ("distributed", "__init__.py"),
                 ("distributed", "fault_tolerance.py"),
                 ("obs", "export.py"), ("serving", "__init__.py"),
-                ("serving", "rerank.py"), ("serving", "engine.py")):
+                ("serving", "rerank.py"), ("serving", "engine.py"),
+                ("dynamic", "__init__.py"), ("dynamic", "ops.py"),
+                ("dynamic", "rebuild.py"), ("dynamic", "levels.py"),
+                ("dynamic", "index.py")):
         assert PORT.joinpath(*mod) in scanned
     hits = [str(p) for p in scanned if pat.search(p.read_text())]
     assert not hits, hits
