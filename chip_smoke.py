@@ -88,11 +88,14 @@ Phases, each printing one JSON line (or one per call):
               streaming shapes beside its
               bound and, for euclidean, ``torch.cdist``'s time (the library
               call; the port never calls it on this path), and B4 at the
-              MapReduce round-1 shapes and at the serving shape (phase 9's
+              MapReduce round-1 shapes, at the serving shape (phase 9's
               256 requests x 1,024 rows x 768 as 256 groups, bc = 1, p = 1)
-              with its merge time and tile filler, each shape first held
-              against its plain version entry for entry (its differing
-              entries, expected 0, join phase 2's).
+              and at every sweep shape of phase 12's runs (a rank's shard
+              at m = 1 and with the 16 genres, (x)'s whole input at m = 1,
+              each (bc, p) their schedules give), with its merge time and
+              tile filler, each shape first held against its plain version
+              entry for entry (its differing entries, expected 0, join
+              phase 2's).
 8. profile  — device-only torch.profiler traces of batch call (a), stream
               call (b), constrained call (e) cosine, MapReduce call (i),
               serving call (s) and one churn round of dynamic call (u):
@@ -147,17 +150,47 @@ Phases, each printing one JSON line (or one per call):
               op 7 and resumed from op 4: equal to the uninterrupted
               facade run on every field.
 
-Phases run in the order 1-6, 9, 10, 11, 7, 8 (8 also traces one churn
+12. mesh    — the MapReduce mesh path over ``torch.distributed``, each
+              call through the facade with a ``DTensor`` input placed
+              ``Shard(0)``: (x) call (i)'s problem (k = 128, default knobs)
+              with ``mesh=`` a one-rank NCCL mesh, so every collective is a
+              real NCCL call on card tensors, equal on every field to the
+              simulated run at ``num_reducers=1``; (y) four gloo ranks
+              sharing the card, spawned here (``file://`` store, a timeout
+              on the process group and on every join), each making the
+              stand-in from ``--seed`` and keeping only its shard of the
+              first 237,660 rows (59,415 x 5,000 fp32): (i') remote-edge,
+              k = 128, default knobs; (j') remote-clique (EXT), k = 32,
+              k' = 64; (k') remote-clique, ``three_round=True``, k = 16,
+              k' = 64; (n) recursive on a (2, 2) ('pod', 'data') mesh,
+              remote-edge, k = 32, k' = 64; (l') the genre labels alone,
+              k = 32.  Three runs a call, each after a barrier; every rank's
+              union, radius, certificate, picks, value and counters must
+              equal this process's simulated run at ``num_reducers=4``
+              (contiguous; for (n) the union built from the per-reducer
+              units and one masked exact GMM a pod) and its B4 launches its
+              folds.  Each call prints the slowest rank's seconds, probe,
+              round-1, all-gather and solve seconds, the gathered bytes and
+              each rank's launches by kernel.  Then B3 at a rank's EXT/GEN
+              delegate tiles (4,096 and 2,071 rows x k') and round-3 column
+              (59,415 x 1), and B2 at every sweep of (n)'s level-2 GMM over
+              each pod's 128-row union (``check_level2``) and there with
+              centers off the data (``check_pair``), against their plain
+              versions (B4 at the mesh's shapes is held in phase 7).
+
+Phases run in the order 1-6, 9, 10, 11, 12, 7, 8 (8 also traces one churn
 round of (u)).  The line before the last is the ``kernels`` summary; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure exits nonzero
-before it.  ``--rehearse`` runs phases 2-6 and 9-11 at a tiny size on the
-CPU with the plain versions (no build, no timings, no ``ok`` line) to
-check the script itself.
+before it.  ``--rehearse`` runs phases 2-6 and 9-12 at a tiny size on the
+CPU with the plain versions (no build, no timings, no ``ok`` line; phase
+12 over gloo on the CPU) to check the script itself.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1334,44 +1367,61 @@ def phase_times_grouped(x, labels, seed: int):
     return rows
 
 
-def phase_times_round1(x, sphere, genres, seed: int, errs, diffs,
-                       serving=None):
-    """B4 at the shapes of the MapReduce round 1: the contiguous reducer
-    shards of calls (i) (16 groups, cosine) and (m) (16 groups, the 2^24
-    sphere, euclidean) at the lookahead sweep (bc = 8, p = 32) and the b = 1
-    tail (bc = 1, p = 1), and call (l)'s 64 reducer x genre groups.  Before
-    timing, each case's wrapper output is held entry for entry against its
-    plain version (``compare_grouped``), on the timed inputs (min_in = inf)
-    and with min_in straddling each row's own-group distance; the counts
-    of differing entries join phase 2's B4 cases in ``diffs``.  Beside each time: the
-    per-group merge of the tile winners alone (``merge_ms``), and the
-    tile-output slots a sweep writes (m x tiles x p) against the ones that
-    hold a row of their group; the rest are -inf filler.  With ``serving``
-    (phase 9's (R, n, d) requests) B4 is also timed at the fused rerank's
-    shape: m = R request groups, bc = 1, p = 1 over all R·n rows."""
+def contiguous_labels(n, ell, device):
+    """Reducer ids of the contiguous partition of ``n`` rows over ``ell``
+    reducers (int32)."""
+    import torch
+    per = -(-n // ell)
+    return (torch.arange(n, device=device) // per).to(torch.int32)
+
+
+def round1_cases(x, sphere, genres, serving=None, mesh=()):
+    """The B4 cases of ``phase_times_round1``: (where, points, mode,
+    labels, m, bc, p).  The contiguous reducer shards of calls (i) (16
+    groups, cosine) and (m) (16 groups, the 2^24 sphere, euclidean) at the
+    lookahead sweep (bc = 8, p = 32) and the b = 1 tail (bc = 1, p = 1),
+    and call (l)'s 64 reducer x genre groups; with ``serving`` (phase 9's
+    (R, n, d) requests) the fused rerank's shape, m = R request groups,
+    bc = 1, p = 1 over all R·n rows; then ``mesh``, the mesh path's
+    sweeps (``phase_mesh``)."""
+    dev = x.device
+    cases = [("round 1 (i)", x, "cosine", contiguous_labels(x.shape[0], 16,
+                                                             dev), 16, 8, 32),
+             ("round 1 (i)", x, "cosine", contiguous_labels(x.shape[0], 16,
+                                                             dev), 16, 1, 1),
+             ("round 1 (l)", x, "cosine",
+              contiguous_labels(x.shape[0], 4, dev) * GROUPS + genres,
+              4 * GROUPS, 8, 32),
+             ("round 1 (m)", sphere, "euclidean",
+              contiguous_labels(sphere.shape[0], 16, dev), 16, 8, 32),
+             ("round 1 (m)", sphere, "euclidean",
+              contiguous_labels(sphere.shape[0], 16, dev), 16, 1, 1)]
+    if serving is not None:
+        R, rn, rd = serving.shape
+        cases.append(("serving (s)", serving.view(R * rn, rd), "cosine",
+                      contiguous_labels(R * rn, R, dev), R, 1, 1))
+    return cases + list(mesh)
+
+
+def phase_times_round1(cases, seed: int, errs, diffs, timed: bool = True):
+    """B4 at the shapes of the MapReduce round 1, simulated and on the mesh
+    (``round1_cases``).  Before timing, each case's wrapper output is held
+    entry for entry against its plain version (``compare_grouped``), on
+    the timed inputs (min_in = inf) and with min_in straddling each row's
+    own-group distance; the counts of differing entries join phase 2's B4
+    cases in ``diffs``.  Beside each time: the per-group merge of the tile
+    winners alone (``merge_ms``), and the tile-output slots a sweep writes
+    (m x tiles x p) against the ones that hold a row of their group; the
+    rest are -inf filler.  ``timed=False`` (the rehearsal) only holds the
+    cases against their plain versions."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.gmm_update import grouped_tile_rows
-    gen = torch.Generator(device=x.device).manual_seed(seed + 5)
+    gen = None
     rows = []
-
-    def contiguous(n, ell):
-        per = -(-n // ell)
-        return (torch.arange(n, device=x.device) // per).to(torch.int32)
-
-    cases = [("i", x, "cosine", contiguous(x.shape[0], 16), 16, 8, 32),
-             ("i", x, "cosine", contiguous(x.shape[0], 16), 16, 1, 1),
-             ("l", x, "cosine", contiguous(x.shape[0], 4) * GROUPS + genres,
-              4 * GROUPS, 8, 32),
-             ("m", sphere, "euclidean", contiguous(sphere.shape[0], 16), 16,
-              8, 32),
-             ("m", sphere, "euclidean", contiguous(sphere.shape[0], 16), 16,
-              1, 1)]
-    if serving is not None:
-        R, rn, rd = serving.shape
-        cases.append(("s", serving.view(R * rn, rd), "cosine",
-                      contiguous(R * rn, R), R, 1, 1))
-    for call, pts, mode, lab, m, bc, p in cases:
+    for where, pts, mode, lab, m, bc, p in cases:
+        if gen is None:
+            gen = torch.Generator(device=pts.device).manual_seed(seed + 5)
         n, d = pts.shape
         prep = ops.prepare(pts, mode)
         min_in = torch.full((n,), float("inf"), device=pts.device)
@@ -1388,8 +1438,7 @@ def phase_times_round1(x, sphere, genres, seed: int, errs, diffs,
         straddled = own * (0.5 + torch.rand((n,), generator=gen,
                                             device=pts.device))
         del own
-        at = (f"{'serving' if call == 's' else 'round 1'} ({call}) n={n} "
-              f"d={d} {mode} m={m} bc={bc} p={p}")
+        at = f"{where} n={n} d={d} {mode} m={m} bc={bc} p={p}"
         compare_grouped(kern(), r_out, lab, m, errs,
                         diffs["gmm_grouped_topb"], f"{at} min_in=inf")
         del r_out
@@ -1401,6 +1450,8 @@ def phase_times_round1(x, sphere, genres, seed: int, errs, diffs,
             lab, m, errs, diffs["gmm_grouped_topb"],
             f"{at} min_in straddled")
         del straddled
+        if not timed:
+            continue
         torch.cuda.empty_cache()
         ms, host_ms = _time_ms(kern)
         tv = torch.randn((m, tiles * p), generator=gen, device=pts.device)
@@ -1418,7 +1469,7 @@ def phase_times_round1(x, sphere, genres, seed: int, errs, diffs,
         real = int(torch.clamp(per_tile, max=p).sum())
         slots = m * tiles * p
         bms, bby = grouped_bound_ms(n, d, m, bc, p)
-        rows.append({"kernel": "gmm_grouped_topb", "call": call,
+        rows.append({"kernel": "gmm_grouped_topb", "call": where,
                      "mode": mode, "n": n, "d": d, "m": m, "bc": bc, "p": p,
                      "bn": bn, "tiles": tiles, "ms": ms, "host_ms": host_ms,
                      "merge_ms": merge_ms, "plain_ms": pms,
@@ -2328,6 +2379,552 @@ def dynamic_round(idx, script, k):
     return call
 
 
+# --------------------------------------------------------------------------
+# phase 12: the MapReduce mesh path
+# --------------------------------------------------------------------------
+
+MESH_WORLD = 4                  # ranks of call (y), sharing one card
+MESH_TIMEOUT_S = 600            # the ranks' process group and every join
+
+
+def mesh_sizes(full: bool):
+    """(n made, rows used, d) of phase 12's stand-in: the first multiple of
+    the four ranks' rows (237,662 is not divisible by 4: 237,660 rows, a
+    shard 59,415 x 5,000 fp32)."""
+    n, d = (237662, 5000) if full else (3000, 64)
+    return n, n - n % MESH_WORLD, d
+
+
+def mesh_calls(full: bool):
+    """(name, problem, knobs, mesh, labelled) of the four-rank calls; mesh
+    "data" is the 1-D mesh of the four ranks, "pod" the (2, 2) ('pod',
+    'data') one; ``full=False`` is the rehearsal's tiny size."""
+    def kk(big, small):
+        return big if full else small
+    return [
+        ("i_cosine_edge_k128", dict(k=kk(128, 8), metric="cosine"), {},
+         "data", False),
+        ("j_cosine_clique_k32_kp64",
+         dict(k=kk(32, 4), metric="cosine", measure="remote-clique"),
+         dict(kprime=kk(64, 16)), "data", False),
+        ("k_cosine_clique_three_round_k16_kp64",
+         dict(k=kk(16, 4), metric="cosine", measure="remote-clique"),
+         dict(kprime=kk(64, 16), three_round=True), "data", False),
+        ("n_cosine_edge_recursive_k32_kp64",
+         dict(k=kk(32, 4), metric="cosine"),
+         dict(kprime=kk(64, 16), recursive=True), "pod", False),
+        ("l_cosine_labels_k32", dict(k=kk(32, GROUPS), metric="cosine"), {},
+         "data", True),
+    ]
+
+
+def _digest(x) -> str:
+    """A fingerprint of a result field: the bytes, shape and dtype of every
+    tensor or array in it, and the repr of everything else (two fields
+    have one fingerprint iff they are equal entry for entry)."""
+    import dataclasses
+    import hashlib
+    import numpy as np
+    import torch
+    h = hashlib.sha256()
+
+    def walk(v):
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        if isinstance(v, np.ndarray):
+            h.update(f"{v.shape}{v.dtype}".encode())
+            h.update(np.ascontiguousarray(v).tobytes())
+        elif dataclasses.is_dataclass(v):
+            walk(dataclasses.asdict(v))
+        elif isinstance(v, dict):
+            for k in sorted(v):
+                h.update(repr(k).encode())
+                walk(v[k])
+        elif isinstance(v, (list, tuple)):
+            h.update(f"{type(v).__name__}{len(v)}".encode())
+            for e in v:
+                walk(e)
+        else:
+            h.update(repr(v).encode())
+    walk(x)
+    return h.hexdigest()
+
+
+def _mesh_fields(sol, indices, labels, value, coreset, cert, counters):
+    """The fingerprints phase 12 compares, field by field."""
+    return {"picks": _digest((sol, indices, labels)), "value": repr(value),
+            "union": _digest(coreset),
+            "radius": None if coreset is None else
+            repr(float(coreset.radius)),
+            "certificate": _digest(cert), "counters": _digest(counters)}
+
+
+def _mesh_run_summary(runs):
+    """One rank's record of one call: the first run's fingerprints and
+    launches, every run's seconds and spans; the repeats must give the
+    first run's answer."""
+    fields = []
+    for res, idx, _, _ in runs:
+        fields.append(_mesh_fields(res.solution, idx, res.labels, res.value,
+                                   res.coreset, res.cert,
+                                   dict(res.telemetry.counters)))
+    times = []
+    for res, _, secs, _ in runs:
+        tr = res.telemetry
+        gathers = _spans(tr, "mr.allgather")
+        r1 = _find_span(tr, "mr.round1")
+        times.append({
+            "seconds": secs,
+            "phases_s": sum(p["seconds"] for p in tr.phases),
+            "probe_s": _span_seconds(tr, "mr.probe"),
+            "round1_s": 0.0 if r1 is None else r1.seconds,
+            "allgather_s": sum(sp.seconds for sp in gathers),
+            "level2_s": _span_seconds(tr, "mr.level2"),
+            "gathered_bytes": sum(sp.attrs.get("bytes", 0)
+                                  for sp in gathers)})
+    r1 = _find_span(runs[0][0].telemetry, "mr.round1")
+    return {"fields": fields[0],
+            "repeats_equal": all(f == fields[0] for f in fields),
+            "times": times, "launches": runs[0][3],
+            "folds": None if r1 is None else r1.attrs["folds"],
+            "b4_launches": None if r1 is None
+            else r1.attrs["launches"]["gmm_grouped_topb"],
+            "kprime": None if r1 is None else r1.attrs["kprime"],
+            "schedule": None if r1 is None else r1.attrs["schedule"],
+            "coreset_size": runs[0][0].telemetry.extras.get("coreset_size")}
+
+
+def _mesh_rank(rank: int, world: int, store: str, out: str, seed: int,
+               full: bool):
+    """One rank of call (y) (a spawned process): gloo over a ``file://``
+    store, its shard of the stand-in made on the card from ``--seed`` (as
+    phase 3 makes the whole) and kept alone, then every call of
+    ``mesh_calls`` three times, each after a barrier, on a DTensor of the
+    shard.  Writes its record, or the exception, to ``out/rank{r}.pkl``."""
+    import datetime
+    import pickle
+    import traceback
+    sys.path.insert(0, str(SRC))
+    record = {}
+    try:
+        import torch
+        import torch.distributed as dist
+        device = "cuda" if full else "cpu"
+        if full:
+            torch.cuda.set_device(0)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group(
+            "gloo", init_method=f"file://{store}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.tensor import DTensor, Shard
+        import repro_torch
+        from repro_torch.kernels import build, ops
+        if full:
+            build.library()
+        n, rows, d = mesh_sizes(full)
+        per = rows // world
+        x = musixmatch_like(n, d, seed, device)
+        shard = x[rank * per:(rank + 1) * per].clone()
+        del x
+        labels = genre_labels(n, GROUPS, seed, device)[:rows].cpu().numpy()
+        if full:
+            torch.cuda.empty_cache()
+        record["shard_sum"] = float(shard.double().sum())
+        meshes = {"data": init_device_mesh(device, (world,),
+                                           mesh_dim_names=("data",)),
+                  "pod": init_device_mesh(device, (2, world // 2),
+                                          mesh_dim_names=("pod", "data"))}
+        for name, problem, knobs, kind, labelled in mesh_calls(full):
+            mesh = meshes[kind]
+            pts = DTensor.from_local(shard, mesh, [Shard(0)] * mesh.ndim,
+                                     run_check=False)
+            runs = []
+            for _ in range(3 if full else 1):
+                dist.barrier()
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                res = repro_torch.diversify(
+                    pts, labels=labels if labelled else None,
+                    execution=repro_torch.ExecutionSpec(
+                        mode="mapreduce", mesh=mesh, device=device,
+                        trace=True, **knobs), **problem)
+                idx = res.indices
+                if full:
+                    torch.cuda.synchronize()
+                runs.append((res, idx, time.perf_counter() - t0,
+                             dict(ops.LAUNCHES)))
+            record[name] = _mesh_run_summary(runs)
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:
+        record["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(record, f)
+
+
+def _recursive_expected(x, problem, knobs, world: int):
+    """Call (n)'s answer built in one process from the simulated run's
+    per-reducer units and one masked exact GMM a pod through the public
+    ``core.gmm.gmm`` (the reference's recursive scheme): (solution,
+    indices, value, union, certificate, counters), and each pod's union
+    with its mask and level-2 picks (for ``check_level2``)."""
+    import torch
+    from repro_torch.core.coreset import Coreset
+    from repro_torch.core.distributed import _resolve_reducer_plan, _sim_round1
+    from repro_torch.core.gmm import gmm
+    from repro_torch.core.measures import solution_value
+    from repro_torch.core.sequential import solve_on_coreset
+    from repro_torch.data.selection import _match_rows
+    from repro_torch.obs.trace import RunTrace, activate
+    k, metric = problem["k"], problem["metric"]
+    per = x.shape[0] // world
+    tr = RunTrace(enabled=True)
+    with activate(tr):
+        kp, schedule, b, cert = _resolve_reducer_plan(
+            x, k, knobs["kprime"], "auto", eps=0.1, metric=metric, chunk=0,
+            per_shard=per)
+    units = [_sim_round1(x[r * per:(r + 1) * per], 1, k, kp, metric,
+                         "plain", b, 0, schedule) for r in range(world)]
+    lvl2, radii, pods = [], [], []
+    for pod in range(2):
+        blocks = units[pod * world // 2:(pod + 1) * world // 2]
+        pod_pts = torch.cat([u[0][0] for u in blocks])
+        pod_mask = torch.cat([u[1][0] for u in blocks])
+        res = gmm(pod_pts, kp, metric=metric, mask=pod_mask)
+        lvl2.append(pod_pts[res.idx])
+        radii += [res.radius] + [u[2].max() for u in blocks]
+        pods.append((pod_pts, pod_mask, res.idx))
+    pts = torch.cat(lvl2)
+    m = pts.shape[0]
+    cs = Coreset(points=pts, valid=torch.ones((m,), dtype=torch.bool,
+                                              device=pts.device),
+                 weights=torch.ones((m,), dtype=torch.int32,
+                                    device=pts.device),
+                 radius=torch.stack(radii).max(), cert=cert)
+    sol = solve_on_coreset(cs, k, problem.get("measure", "remote-edge"),
+                           metric=metric)
+    value = solution_value(sol, problem.get("measure", "remote-edge"),
+                           metric)
+    return (sol.cpu().numpy(), _match_rows(x, sol, k), None, value, cs,
+            cert, dict(tr.counters)), pods
+
+
+NEAR_CENTER = 0.01   # rows this close to a sweep's center: the center itself
+
+
+def check_level2(pts, mask, idx, mode, errs, label):
+    """B2 at the recursive scheme's level 2: every sweep of the masked
+    exact GMM over a pod's union, its centers in pick order, the kernel
+    against its plain version on the same inputs (each sweep's min_in is
+    the kernel's previous min_out).  The max, the pick and min_out are held
+    to ``TOL`` as ``check_pair`` holds B2, except min_out at the rows within
+    ``NEAR_CENTER`` of the sweep's center (the center's own row): there the
+    cosine distance is arccos of a dot a few ulps from 1, whose slope turns
+    the last-bit difference of the kernel's fp32 dot and the plain product
+    into ~1e-3 (phase 2 pushes its centers off the data for this reason).
+    Those entries are counted and their largest difference returned."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    prep = ops.prepare(pts, mode)
+    min_in = torch.full((pts.shape[0],), float("inf"), device=pts.device)
+    near_n, near_err = 0, 0.0
+    for i, c in enumerate(idx.tolist()):
+        cen = prep.points[c:c + 1]
+        km, ka, kx = ops.gmm_update_select(prep.points, cen, min_in, mask,
+                                           mode, xsq=prep.xsq, prepared=True)
+        rm, ra, rx = ref.gmm_update_select_ref(prep.points, cen, min_in,
+                                               mask, mode, xsq=prep.xsq)
+        near = ref.sweep_dist_ref(prep.points, cen, mode,
+                                  xsq=prep.xsq)[:, 0] < NEAR_CENTER
+        far = ~near
+        near_n += int(near.sum())
+        near_err = max(near_err, _err(km[near], rm[near]))
+        masked = torch.where(mask, rm, torch.full_like(rm, float("-inf")))
+        errs["gmm_update_select"] = max(errs["gmm_update_select"],
+                                        _err(km[far], rm[far]), _err(kx, rx))
+        if not (_close(km[far], rm[far]) and _close(kx, rx)
+                and _close(ref.take(masked, ka), ref.take(masked, ra))):
+            fail(f"gmm_update_select disagrees with plain at {label}, "
+                 f"sweep {i}")
+        min_in = km
+    return {"sweeps": len(idx), "near_center_entries": near_n,
+            "near_center_max_abs_err": near_err}
+
+
+def sweep_shapes(schedule):
+    """The (bc, p) of every sweep a reducer's grouped run makes under the
+    (block, rounds) ``schedule`` (``core.gmm._schedule_select_impl``): a
+    first block of b > 1 opens with a seed sweep (bc = 1); each later
+    phase with a sweep of the previous phase's block; the rounds of a
+    block of b fold b centers at p = 4b (p = 1 at b = 1); the final fold
+    folds the last block at p = 1."""
+    out = set()
+    for i, (b, r) in enumerate(schedule):
+        p = 4 * b if b > 1 else 1
+        if i == 0 and b > 1:
+            out.add((1, p))
+        elif i > 0:
+            out.add((schedule[i - 1][0], p))
+        if r > 1:
+            out.add((b, p))
+    out.add((schedule[-1][0], 1))
+    return sorted(out)
+
+
+def _mesh_agree(got, want):
+    """Field-by-field agreement of a rank's fingerprints with the expected
+    run's."""
+    return {f: got[f] == want[f] for f in want}
+
+
+def phase_mesh(x, genres, device, seed: int, errs, diffs, full: bool = True):
+    """(x) call (i)'s problem with ``mesh=`` a one-rank NCCL mesh (gloo in
+    the rehearsal) against the simulated run at ``num_reducers=1``; (y) four
+    gloo ranks on one card, each holding only its shard, against the
+    simulated runs at ``num_reducers=4`` (contiguous) in this process, and
+    call (n) against its construction from the per-reducer units.  Then
+    the kernels at the shapes the mesh path gave them, each against its
+    plain version: B3 at a rank's EXT/GEN delegate tiles and round-3
+    columns, and B2 at every level-2 sweep of call (n) and at its pods'
+    unions with centers off the data, here (``errs``, ``diffs``); B4 at every sweep shape of the ranks' and (x)'s schedules
+    goes to ``phase_times_round1``.  Returns (launches summed over the
+    ranks' first runs and (x)'s mesh run; per-call median seconds of the
+    slowest rank; the B4 cases, ``round1_cases``'s ``mesh``)."""
+    import datetime
+    import pickle
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.core.distributed import _simulate_mr_impl
+    from repro_torch.data.selection import _match_rows
+    from repro_torch.obs.trace import RunTrace, activate
+    launches = dict.fromkeys(KERNELS, 0)
+    median_s = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    scratch = tempfile.mkdtemp(prefix="mesh_", dir=ROOT / "build")
+
+    # ---- (x): one rank over NCCL, full width ----------------------------
+    k = 128 if full else 8
+    problem = dict(k=k, metric="cosine")
+    dist.init_process_group(
+        "nccl" if full else "gloo",
+        init_method=f"file://{scratch}/store_x", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh("cuda" if full else "cpu", (1,),
+                                mesh_dim_names=("data",))
+        pts = DTensor.from_local(x, mesh, [Shard(0)], run_check=False)
+        runs = [_run_mr(pts, None, problem, dict(mesh=mesh), "auto", device)
+                for _ in range(2)]
+    finally:
+        dist.destroy_process_group()
+    res, idx, _, xl = runs[0]
+    warm = runs[1][0].telemetry            # the second run's spans
+    tr = RunTrace(enabled=True)
+    t0 = time.perf_counter()
+    with activate(tr):
+        sol, value, cs, _ = _simulate_mr_impl(
+            x, k, "remote-edge", num_reducers=1, kprime="auto",
+            metric="cosine", b="auto", eps=0.1)
+    sim_idx = _match_rows(x, sol, k)
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    got = _mesh_fields(res.solution, idx, None, res.value, res.coreset,
+                       res.cert, dict(res.telemetry.counters))
+    want = _mesh_fields(sol.cpu().numpy(), sim_idx, None, value, cs,
+                        cs.cert, dict(tr.counters))
+    gathers = _spans(warm, "mr.allgather")
+    row = {"phase": "mesh", "call": "x_nccl_world1_cosine_edge_k128",
+           "backend": "nccl" if full else "gloo", "ranks": 1,
+           "n": int(x.shape[0]), "d": int(x.shape[1]), "problem": problem,
+           "seconds": [r[2] for r in runs], "simulated_l1_seconds": sim_s,
+           "probe_s": _span_seconds(warm, "mr.probe"),
+           "round1_s": _span_seconds(warm, "mr.round1"),
+           "allgather_s": sum(sp.seconds for sp in gathers),
+           "gathered_bytes": sum(sp.attrs.get("bytes", 0) for sp in gathers),
+           "launches": xl, "agree": _mesh_agree(got, want)}
+    emit(row)
+    if not all(row["agree"].values()):
+        fail(f"mesh (x): differs from the simulated run on "
+             f"{[f for f, ok in row['agree'].items() if not ok]}")
+    if _mesh_fields(runs[1][0].solution, runs[1][1], None, runs[1][0].value,
+                    runs[1][0].coreset, runs[1][0].cert,
+                    dict(runs[1][0].telemetry.counters)) != got:
+        fail("mesh (x): a repeated run gave another answer")
+    for kname, v in xl.items():
+        launches[kname] += v
+    median_s["x"] = statistics.median(row["seconds"])
+    # where -> (m, the (bc, p) of its B4 sweeps), for phase_times_round1
+    b4_shapes = {"mesh (x)": (1, set(sweep_shapes(
+        _find_span(res.telemetry, "mr.round1").attrs["schedule"])))}
+    del runs, res, cs, sol
+    if x.is_cuda:
+        torch.cuda.empty_cache()
+
+    # ---- (y): the expected runs, one process --------------------------------
+    n, rows, d = mesh_sizes(full)
+    xs, labels = x[:rows], genres[:rows].cpu().numpy()
+    expected, sim_s = {}, {}
+    for name, problem, knobs, kind, labelled in mesh_calls(full):
+        t0 = time.perf_counter()
+        if kind == "pod":
+            (sol, sidx, slab, value, cs, cert, counters), pods = \
+                _recursive_expected(xs, problem, knobs, MESH_WORLD)
+        else:
+            sim = {k_: v for k_, v in knobs.items() if k_ != "three_round"}
+            if knobs.get("three_round"):
+                sim["generalized"] = True
+            res, sidx, _, _ = _run_mr(xs, labels if labelled else None,
+                                      problem, dict(num_reducers=MESH_WORLD,
+                                                    **sim), "auto", device)
+            sol, slab, value, cs, cert = (res.solution, res.labels,
+                                          res.value, res.coreset, res.cert)
+            counters = dict(res.telemetry.counters)
+            if knobs.get("three_round"):
+                # the simulated run charges the generalized scheme's
+                # multiplicity re-dispatch (the reference's model); the
+                # three-round mesh run makes none
+                counters["device_dispatches"] -= 1
+        sim_s[name] = time.perf_counter() - t0
+        expected[name] = _mesh_fields(sol, sidx, slab, value, cs, cert,
+                                      counters)
+    del res
+    if x.is_cuda:
+        torch.cuda.empty_cache()
+
+    # ---- (y): four gloo ranks sharing the card -------------------------------
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_mesh_rank,
+                         args=(r, MESH_WORLD, f"{scratch}/store_y", scratch,
+                               seed, full)) for r in range(MESH_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    for p in procs:
+        p.join(timeout=max(1.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+            p.join(timeout=30)
+    spawn_s = time.perf_counter() - t0
+    if hung:
+        fail(f"mesh (y): ranks {hung} did not finish in {MESH_TIMEOUT_S} s")
+    records = []
+    for r, p in enumerate(procs):
+        path = os.path.join(scratch, f"rank{r}.pkl")
+        if not os.path.exists(path):
+            fail(f"mesh (y): rank {r} exited {p.exitcode} with no record")
+        with open(path, "rb") as f:
+            records.append(pickle.load(f))
+        if "error" in records[-1] or p.exitcode != 0:
+            fail(f"mesh (y): rank {r} exited {p.exitcode}:\n"
+                 f"{records[-1].get('error', '')}")
+    want_sums = [float(xs[r * (rows // MESH_WORLD):(r + 1) * (rows // MESH_WORLD)]
+                       .double().sum()) for r in range(MESH_WORLD)]
+    if [rec["shard_sum"] for rec in records] != want_sums:
+        fail("mesh (y): a rank's shard differs from the stand-in's rows")
+    emit({"phase": "mesh", "ranks": MESH_WORLD, "backend": "gloo",
+          "device": "one card shared" if full else "cpu",
+          "n": rows, "d": d, "shard": [rows // MESH_WORLD, d],
+          "shard_gb": rows // MESH_WORLD * d * 4 / 1e9,
+          "spawn_to_join_s": spawn_s})
+    for name, problem, knobs, kind, labelled in mesh_calls(full):
+        recs = [rec[name] for rec in records]
+        slowest = [max(rec["times"][i]["seconds"] for rec in recs)
+                   for i in range(len(recs[0]["times"]))]
+
+        def worst(key):
+            return max(statistics.median(t[key] for t in rec["times"])
+                       for rec in recs)
+        solve = max(statistics.median(
+            t["phases_s"] - t["probe_s"] - t["round1_s"] - t["allgather_s"]
+            for t in rec["times"]) for rec in recs)
+        agree = {f: all(rec["fields"][f] == expected[name][f]
+                        for rec in recs) for f in expected[name]}
+        agree["repeats"] = all(rec["repeats_equal"] for rec in recs)
+        row = {"phase": "mesh", "call": name, "ranks": MESH_WORLD,
+               "mesh": "(2, 2) ('pod', 'data')" if kind == "pod"
+               else "(4,) ('data',)",
+               "problem": problem, "knobs": knobs,
+               "labels": "synthetic genres, Zipf(1), 16 groups"
+               if labelled else None,
+               "seconds_slowest_rank": _spread(slowest),
+               "simulated_l4_seconds": sim_s[name],
+               "probe_s": worst("probe_s"), "round1_s": worst("round1_s"),
+               "allgather_s": worst("allgather_s"),
+               "level2_s": worst("level2_s"), "solve_s": solve,
+               "gathered_bytes": recs[0]["times"][0]["gathered_bytes"],
+               "kprime": recs[0]["kprime"],
+               "coreset_size": recs[0]["coreset_size"],
+               "launches_by_rank": [rec["launches"] for rec in recs],
+               "folds_by_rank": [rec["folds"] for rec in recs],
+               "b4_launches_by_rank": [rec["b4_launches"] for rec in recs],
+               "agree": agree}
+        emit(row)
+        bad = [f for f, ok in agree.items() if not ok]
+        if bad:
+            fail(f"mesh {name}: the ranks differ from the simulated run "
+                 f"on {bad}")
+        if full and row["b4_launches_by_rank"] != row["folds_by_rank"]:
+            fail(f"mesh {name}: B4 launches {row['b4_launches_by_rank']} "
+                 f"!= folds {row['folds_by_rank']}")
+        for rec in recs:
+            for kname, v in rec["launches"].items():
+                launches[kname] += v
+        median_s[name] = statistics.median(slowest)
+        where = "mesh rank 0 shard" + (", genres" if labelled else "")
+        b4_shapes.setdefault(where, (GROUPS if labelled else 1, set()))[
+            1].update(sweep_shapes(recs[0]["schedule"]))
+    shutil.rmtree(scratch, ignore_errors=True)
+
+    # ---- the kernels at the mesh path's shapes, against plain ---------------
+    per = rows // MESH_WORLD
+    shard = xs[:per]
+    kp = records[0]["j_cosine_clique_k32_kp64"]["kprime"]
+    centers = shard[::per // kp][:kp]
+    ch = min(4096, per)                 # the delegate pass's row chunk
+    tiles = [(f"mesh EXT/GEN delegates {ch}x{kp}x{d} cosine", shard[:ch],
+              centers)]
+    if per % ch:
+        tiles.append((f"mesh EXT/GEN delegates {per % ch}x{kp}x{d} cosine",
+                      shard[per - per % ch:], centers))
+    tiles.append((f"mesh round 3 {per}x1x{d} cosine", shard, centers[:1]))
+    for label, a, b in tiles:
+        check_pairwise(a, b, "cosine", errs, diffs["pairwise"], label)
+    level2 = {}
+    gen = torch.Generator(device=x.device).manual_seed(seed + 12)
+    for i, (pts, mask, idx) in enumerate(pods):
+        label = (f"mesh (n) level 2, pod {i}: {pts.shape[0]}x{pts.shape[1]} "
+                 f"cosine")
+        level2[label] = check_level2(pts, mask, idx, "cosine", errs, label)
+        check_pair(pts, "cosine", 1, 1, gen, errs, f"{label}, centers off "
+                   f"the data")
+    emit({"phase": "mesh", "kernels_at_mesh_shapes": {
+        "pairwise": {label: diffs["pairwise"][label] for label, _, _ in tiles},
+        "gmm_update_select": level2,
+        "gmm_grouped_topb": {f"{w} m={m} (bc, p)": sorted(sh)
+                             for w, (m, sh) in b4_shapes.items()}}})
+    mesh_b4 = []
+    for where, (m, shapes) in b4_shapes.items():
+        pts = x if where == "mesh (x)" else shard
+        lab = (torch.zeros((pts.shape[0],), dtype=torch.int32,
+                           device=pts.device) if m == 1
+               else genres[:per].to(torch.int32))
+        mesh_b4 += [(where, pts, "cosine", lab, m, bc, p)
+                    for bc, p in sorted(shapes)]
+    return launches, median_s, mesh_b4
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2341,7 +2938,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse", action="store_true",
-                    help="tiny CPU run of phases 2-6 and 9-11 with the "
+                    help="tiny CPU run of phases 2-6 and 9-12 with the "
                          "plain versions")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
@@ -2361,9 +2958,9 @@ def main(argv=None) -> int:
     if args.rehearse:
         data = {"mxm": musixmatch_like(3000, 64, args.seed, "cpu"),
                 "sphere": unit_sphere(20000, args.seed, "cpu")}
-        phase_kernels(data["mxm"], args.seed, small_only=True,
-                      tiles=stream_tiles(data["mxm"], data["sphere"],
-                                         REHEARSAL_TILES))
+        errs, diffs = phase_kernels(
+            data["mxm"], args.seed, small_only=True,
+            tiles=stream_tiles(data["mxm"], data["sphere"], REHEARSAL_TILES))
         phase_main(data["mxm"], "cpu", check_launches=False, pairs=2)
         phase_stream(data, "cpu", check_launches=False, runs=1, full=False)
         genres = genre_labels(3000, GROUPS, args.seed, "cpu")
@@ -2377,6 +2974,9 @@ def main(argv=None) -> int:
                       seed=args.seed)
         phase_resilience(data, "cpu", full=False)
         phase_dynamic(data, "cpu", full=False, seed=args.seed)
+        _, _, mesh_b4 = phase_mesh(data["mxm"], genres, "cpu", args.seed,
+                                   errs, diffs, full=False)
+        phase_times_round1(mesh_b4, args.seed, errs, diffs, timed=False)
         emit({"phase": "rehearsal", "ok": True})
         return 0
 
@@ -2473,19 +3073,30 @@ def main(argv=None) -> int:
         launches[k] += v
     torch.cuda.empty_cache()
 
+    # ---- 12. mesh ----------------------------------------------------------
+    t0 = time.perf_counter()
+    z_launches, _, mesh_b4 = phase_mesh(x, genres, "cuda", args.seed, errs,
+                                        diffs)
+    for k, v in z_launches.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    emit({"phase": "mesh", "phase_seconds": time.perf_counter() - t0,
+          "script_seconds_so_far": time.perf_counter() - t_start})
+
     # ---- 7. times, 8. profile ---------------------------------------------
     rows = phase_times(x, args.seed)
     g_rows = phase_times_grouped(x, genres, args.seed)
     b4_cases = set(diffs["gmm_grouped_topb"])
     requests = serving.pop("serving")
-    phase_times_round1(x, sphere, genres, args.seed, errs, diffs,
-                       serving=requests)
+    phase_times_round1(round1_cases(x, sphere, genres, serving=requests,
+                                    mesh=mesh_b4), args.seed, errs, diffs)
     (out / "kernel_differing_entries.json").write_text(
         json.dumps(diffs, indent=1))
     round1 = {c: v for c, v in diffs["gmm_grouped_topb"].items()
               if c not in b4_cases}
     emit({"phase": "differing_entries", "kernel": "gmm_grouped_topb",
-          "at": "round-1 and serving shapes", "cases": len(round1),
+          "at": "round-1 (simulated and mesh) and serving shapes",
+          "cases": len(round1),
           "counts": list(round1.values())})
     far = x.shape[0] // 2
     b_rows = phase_times_pairwise(tiles + [(

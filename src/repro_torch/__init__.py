@@ -6,10 +6,11 @@ anything of ``repro``.  The front door is
 ``repro_torch.diversify(ProblemSpec, ExecutionSpec)``; its sweeps run the
 hand-written CUDA kernels of ``repro_torch.kernels`` on the card (the
 default device) and a plain torch version on the CPU.  Ported so far: the batch,
-streaming, simulated MapReduce, serving and dynamic paths, unconstrained
-and constrained (``repro_torch.constrained``), with checkpoints and
-resilience (``repro_torch.checkpoint``, ``repro_torch.distributed``); see
-ROADMAP.md for the rest.
+streaming, MapReduce (simulated, and on a ``torch.distributed`` mesh),
+serving and dynamic paths, unconstrained and constrained
+(``repro_torch.constrained``), with checkpoints and resilience
+(``repro_torch.checkpoint``, ``repro_torch.distributed``); see ROADMAP.md
+for the rest.
 """
 
 _API = ("diversify", "plan", "ProblemSpec", "ExecutionSpec", "Plan",

@@ -1,6 +1,6 @@
 """One front door: ``repro_torch.diversify(ProblemSpec, ExecutionSpec)``
-(port of ``repro.api``: batch, streaming, constrained, simulated
-MapReduce and serving slices, with resilience).
+(port of ``repro.api``: batch, streaming, constrained, MapReduce, serving
+and dynamic modes, with resilience).
 
 * ``ProblemSpec`` says WHAT to solve (points, ``k``, measure, metric);
 * ``ExecutionSpec`` says HOW: the reference's fields (so one kwargs dict
@@ -36,9 +36,11 @@ rerank (``serving.rerank_batched``): every fold of all requests is one B4
 sweep.  A list of ``Insert``/``Delete`` ops (or ``mode="dynamic"``, where an
 ``(n, d)`` array is a one-insert stream) runs the dynamic index
 (``dynamic.DynamicIndex``): its cover maintenance is B3 tiles on the card,
-its certified query the m = 1 engine.  The mesh path (``mesh=`` or a
-sharded input) raises ``NotImplementedError`` from ``plan()`` naming the
-ROADMAP slice that brings it.
+its certified query the m = 1 engine.  ``mesh=`` (a
+``torch.distributed`` ``DeviceMesh``) or a ``DTensor`` input placed
+``Shard(0)`` runs the MapReduce mesh path, called by every rank of the
+mesh: one rank a reducer, round 1 on the rank's rows, round 2 one
+all-gather (``three_round=`` and ``recursive=`` as in the reference).
 
 >>> import numpy as np
 >>> import repro_torch
@@ -58,8 +60,8 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from .device import (as_points, not_ported, resolve_device, resolve_use_pallas,
-                     to_numpy)
+from .device import (as_points, is_dtensor, resolve_device,
+                     resolve_use_pallas, to_numpy)
 
 _MODES = ("auto", "batch", "streaming", "mapreduce", "serving", "dynamic")
 
@@ -178,10 +180,11 @@ def _fmt_bytes(n: float) -> str:
     return f"{n:.1f} GiB"                            # pragma: no cover
 
 
-def _is_sharded(points) -> bool:
-    """A distributed tensor (``torch.distributed.tensor.DTensor``) carries
-    its device mesh; its MapReduce path is the mesh one."""
-    return getattr(points, "device_mesh", None) is not None
+def _mesh_axes(execution: "ExecutionSpec"):
+    """The reducer axes of a mesh run: ``data_axes``, or ``('pod', 'data')``
+    for the recursive scheme."""
+    return (("pod", "data") if execution.recursive
+            else tuple(execution.data_axes))
 
 
 def _itemsize(points) -> int:
@@ -384,6 +387,8 @@ def _resolve_constraint(problem: ProblemSpec, streamed: bool):
             raise ValueError("a constrained stream needs matroid= or "
                              "quotas= (labels arrive with the chunks)")
         from .data.selection import balanced_quotas
+        if is_dtensor(labels):
+            labels = labels.full_tensor()   # every rank of the mesh plans
         mat = PartitionMatroid(balanced_quotas(to_numpy(labels), problem.k))
     if mat.k != problem.k:
         raise ValueError(f"matroid.k={mat.k} != k={problem.k}")
@@ -394,9 +399,10 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
          ) -> Plan:
     """Compile (ProblemSpec, ExecutionSpec) into an inspectable ``Plan``.
 
-    Pure resolution — nothing executes.  Raises ``NotImplementedError`` for
-    the modes and problem kinds this port does not cover yet, and
-    ``RuntimeError`` when ``device`` names a CUDA device that is absent.
+    Pure resolution — nothing executes (a ``DTensor`` of labels alone is
+    gathered for the default quotas, by every rank of its mesh).  Raises
+    ``ValueError`` for the reference's rejected specs and ``RuntimeError``
+    when ``device`` names a CUDA device that is absent.
     """
     from .core.adaptive import auto_milestones, resolve_bars
     from .core.measures import MEASURES, NEEDS_INJECTIVE
@@ -431,19 +437,18 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
             if d is None:
                 d = stream_dim(problem.points)
     constrained, mat = _resolve_constraint(problem, streamed=not arr)
-    dynamic = ex.mode == "dynamic" or (ex.mode == "auto"
-                                       and updates is not None)
-    if not dynamic and (ex.mesh is not None
-                        or (arr and _is_sharded(problem.points))):
-        raise not_ported("mesh")
 
     # ---- mode ------------------------------------------------------------
+    mesh = ex.mesh
+    sharded = arr and is_dtensor(problem.points)
     num_red = ex.num_reducers
     if ex.mode != "auto":
         mode, reason = ex.mode, "requested"
-        if mode == "mapreduce" and not (num_red or 0) > 1:
-            raise ValueError("mode='mapreduce' needs mesh= or "
-                             "num_reducers > 1")
+        if mode == "mapreduce" and mesh is None and not (num_red or 0) > 1:
+            if not sharded:
+                raise ValueError("mode='mapreduce' needs mesh= or "
+                                 "num_reducers > 1")
+            mesh = problem.points.device_mesh
     elif updates is not None:
         mode, reason = ("dynamic",
                         "auto: update-stream input (insert/delete ops)")
@@ -451,6 +456,11 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
         mode, reason = "streaming", "auto: chunk-iterator input"
     elif requests is not None:
         mode, reason = "serving", "auto: (requests, candidates, d) tensor"
+    elif mesh is not None:
+        mode, reason = "mapreduce", "auto: mesh provided"
+    elif sharded:
+        mode, reason = "mapreduce", "auto: input array is device-sharded"
+        mesh = problem.points.device_mesh
     elif (num_red or 0) > 1:
         mode, reason = "mapreduce", f"auto: num_reducers={num_red}"
     elif (ex.memory_budget_bytes is not None
@@ -461,6 +471,13 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
             f"exceeds memory budget {ex.memory_budget_bytes} B")
     else:
         mode, reason = "batch", "auto: in-memory array"
+    if sharded and mode != "mapreduce":
+        raise ValueError(f"a DTensor input runs the mapreduce mesh path; "
+                         f"pass points.full_tensor() for a {mode} run")
+    if sharded and mesh is None:
+        mesh = problem.points.device_mesh   # its rows already lie on ranks
+    if mode != "mapreduce":
+        mesh = None
     if updates is not None and mode != "dynamic":
         raise ValueError(f"an update stream (Insert/Delete ops) only "
                          f"supports mode='dynamic', got {mode!r}")
@@ -535,14 +552,16 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
                          f"{mode} path")
     if constrained and (ex.generalized or ex.three_round):
         raise ValueError("generalized/three-round has no constrained path")
-    if ex.three_round:
+    if ex.three_round and (mode != "mapreduce" or mesh is None):
         # the simulated path's generalized scheme is the three-round
         # equivalent — spell it generalized=True there
         raise ValueError("three_round=True needs the mapreduce mesh path "
                          "(use generalized=True for the simulated path)")
-    if ex.recursive:
+    if ex.recursive and (mode != "mapreduce" or mesh is None or constrained):
         raise ValueError("recursive=True needs the unconstrained mapreduce "
                          "mesh path")
+    if ex.recursive and "pod" not in tuple(mesh.mesh_dim_names or ()):
+        raise ValueError("recursive scheme expects a 'pod' axis")
     if problem.weights is not None and (mode != "batch" or constrained):
         raise ValueError("weights= is batch-only (generalized input)")
     if problem.weights is not None \
@@ -630,16 +649,25 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
 
     # ---- k' plan + layout + footprint ------------------------------------
     m_groups = mat.m if constrained else 1
-    ell = int(num_red) if mode == "mapreduce" else 1
-    if mode == "mapreduce":
+    if mode == "mapreduce" and mesh is not None:
+        from .core.distributed import _axis_size
+        axes = _mesh_axes(ex)
+        ell = int(np.prod([_axis_size(mesh, a) for a in axes]))
+        # the reference's wording, its shard_map being torch.distributed here
+        layout = (f"mesh torch.distributed over axes {axes}, {ell} reducers"
+                  + (", 2-level recursive" if ex.recursive else ""))
+    elif mode == "mapreduce":
         # the reference's wording: its reducers are a vmap over shards, here
         # the groups of one grouped-engine run
+        ell = int(num_red)
         layout = (f"simulated mapreduce, {ell} reducers "
                   f"(vmap, partition={ex.partition})")
     elif mode == "streaming":
+        ell = 1
         layout = (f"one pass, chunk={chunk}, "
                   f"state cap {m_groups}x({kprime}+1) centers")
     else:
+        ell = 1
         layout = "single machine, one partition"
     if constrained:
         layout += f", {m_groups} matroid groups"
@@ -661,8 +689,9 @@ def plan(problem: ProblemSpec, execution: Optional[ExecutionSpec] = None
         rows_per * 4 if variant == "gen" else 0)
     return Plan(problem=problem, execution=ex, mode=mode, reason=reason,
                 constrained=constrained, matroid=mat, variant=variant,
-                mesh=None,
-                num_reducers=ell if mode == "mapreduce" else None,
+                mesh=mesh,
+                num_reducers=(ell if mode == "mapreduce" and mesh is None
+                              else None),
                 knobs=knobs, layout=layout,
                 kprime_plan=kprime_plan, coreset_rows=rows_per,
                 coreset_bytes=bytes_, n=n, d=d)
@@ -1024,13 +1053,78 @@ def _run_dynamic(plan_: Plan, tr) -> DiversityResult:
         plan=plan_)
 
 
+def _mesh_indices(plan_: Plan, sol, sol_labels=None):
+    """Row recovery of a mesh run.  A DTensor input's rows lie on the
+    ranks, so every rank matches now, together
+    (``core.distributed._mesh_match_rows``: a collective, which a lazy
+    thunk read on some ranks only would hang); a full array every rank
+    holds is matched locally on first access, as in the other modes."""
+    p, ex = plan_.problem, plan_.execution
+    if not (is_dtensor(p.points) or is_dtensor(p.labels)):
+        return _indices_of(plan_, None, sol, sol_labels=sol_labels)
+    from .core.distributed import _local_rows, _mesh_match_rows, _mesh_setup
+
+    axes = _mesh_axes(ex)
+    comm, rows, n, _ = _mesh_setup(p.points, plan_.mesh, axes,
+                                   plan_.knobs["device"])
+    row_labels = None
+    if sol_labels is not None and p.labels is not None:
+        row_labels = to_numpy(_local_rows(p.labels, plan_.mesh, comm, axes,
+                                          n))
+    return _mesh_match_rows(comm, rows, sol, p.k, row_labels=row_labels,
+                            sol_labels=sol_labels)
+
+
+def _run_mapreduce_mesh(plan_: Plan, tr) -> DiversityResult:
+    """The mesh run on this rank (every rank of the mesh runs it): the
+    two- or three-round scheme in one ``rounds`` phase, or the recursive
+    scheme's ``rounds``, ``solve`` and ``value`` phases, as in the
+    reference.  Three-round instantiation may fall back to kernel-point
+    replicas that are not input rows, so it recovers no indices."""
+    from .core.distributed import _mesh_recursive, _mr_diversity_impl
+    from .core.sequential import solve_on_coreset
+
+    p, kb, ex = plan_.problem, plan_.knobs, plan_.execution
+    knobs = dict(metric=p.metric, use_pallas=kb["use_pallas"], b=kb["b"],
+                 chunk=kb["chunk"],
+                 eps=0.1 if kb["eps"] is None else kb["eps"], tau=ex.tau,
+                 cliff=ex.cliff, device=kb["device"],
+                 resilience=ex.resilience)
+    three_round = ex.three_round or plan_.variant == "gen"
+    t = time.perf_counter()
+    if ex.recursive:
+        cs, report, _, _ = _mesh_recursive(p.points, p.k, kb["kprime"],
+                                           p.measure, plan_.mesh, **knobs)
+        t = tr.phase("rounds", t, sync=cs)
+        sol = solve_on_coreset(cs, p.k, p.measure, metric=p.metric)
+        t = tr.phase("solve", t, sync=sol)
+        value = _value_of(sol, p.measure, p.metric)
+        tr.phase("value", t)
+    else:
+        sol, value, cs, report = _mr_diversity_impl(
+            p.points, p.k, p.measure, plan_.mesh, kprime=kb["kprime"],
+            data_axes=ex.data_axes, three_round=three_round, **knobs)
+        tr.phase("rounds", t, sync=sol)
+    if report is not None:
+        tr.annotate(resilience=report.to_dict())
+    return DiversityResult(
+        solution=to_numpy(sol), value=value,
+        _indices=None if three_round else _mesh_indices(plan_, sol),
+        labels=None, cert=getattr(cs, "cert", None), coreset=cs,
+        telemetry=tr.annotate(mode="mapreduce",
+                              coreset_size=getattr(cs, "size", None)),
+        plan=plan_)
+
+
 def _run_mapreduce(plan_: Plan, tr) -> DiversityResult:
     """The simulated ℓ-reducer run (one ``rounds`` phase: probe, round 1,
-    solve and, for the generalized scheme, instantiation).  Generalized
-    instantiation may fall back to kernel-point replicas that are not input
-    rows, so it recovers no indices."""
+    solve and, for the generalized scheme, instantiation), or the mesh run.
+    Generalized instantiation may fall back to kernel-point replicas that
+    are not input rows, so it recovers no indices."""
     from .core.distributed import _simulate_mr_impl
 
+    if plan_.mesh is not None:
+        return _run_mapreduce_mesh(plan_, tr)
     p, kb, ex = plan_.problem, plan_.knobs, plan_.execution
     t = time.perf_counter()
     pts = as_points(p.points, kb["device"])     # the one move to the device
@@ -1055,26 +1149,36 @@ def _run_mapreduce(plan_: Plan, tr) -> DiversityResult:
 
 
 def _run_mapreduce_constrained(plan_: Plan, tr) -> DiversityResult:
-    """The simulated ℓ-reducer constrained run (one ``rounds`` phase)."""
-    from .constrained.mapreduce import _simulate_fair_mr_impl
+    """The simulated ℓ-reducer constrained run, or the mesh run on this
+    rank (one ``rounds`` phase)."""
+    from .constrained.mapreduce import (_mr_fair_diversity_impl,
+                                        _simulate_fair_mr_impl)
 
     p, kb, ex = plan_.problem, plan_.knobs, plan_.execution
+    knobs = dict(matroid=plan_.matroid, measure=p.measure,
+                 kprime=kb["kprime"], metric=p.metric,
+                 swap_rounds=ex.swap_rounds, b=kb["b"], chunk=kb["chunk"],
+                 eps=0.1 if kb["eps"] is None else kb["eps"], tau=ex.tau,
+                 cliff=ex.cliff, use_pallas=kb["use_pallas"],
+                 resilience=ex.resilience)
     t = time.perf_counter()
-    pts = as_points(p.points, kb["device"])     # the one move to the device
-    sol, sol_lab, value, cert, report = _simulate_fair_mr_impl(
-        pts, to_numpy(p.labels), matroid=plan_.matroid,
-        num_reducers=plan_.num_reducers, measure=p.measure,
-        kprime=kb["kprime"], metric=p.metric, partition=ex.partition,
-        seed=ex.seed, swap_rounds=ex.swap_rounds, b=kb["b"],
-        chunk=kb["chunk"], eps=0.1 if kb["eps"] is None else kb["eps"],
-        tau=ex.tau, cliff=ex.cliff, use_pallas=kb["use_pallas"],
-        resilience=ex.resilience)
+    if plan_.mesh is not None:
+        sol, sol_lab, value, cert, report = _mr_fair_diversity_impl(
+            p.points, p.labels, mesh=plan_.mesh, data_axes=ex.data_axes,
+            device=kb["device"], **knobs)
+    else:
+        pts = as_points(p.points, kb["device"])  # the one move to the device
+        sol, sol_lab, value, cert, report = _simulate_fair_mr_impl(
+            pts, to_numpy(p.labels), num_reducers=plan_.num_reducers,
+            partition=ex.partition, seed=ex.seed, **knobs)
     if report is not None:
         tr.annotate(resilience=report.to_dict())
     tr.phase("rounds", t, sync=sol)
+    indices = (_mesh_indices(plan_, sol, sol_labels=sol_lab)
+               if plan_.mesh is not None else
+               _indices_of(plan_, pts, sol, sol_labels=sol_lab))
     return DiversityResult(
-        solution=to_numpy(sol), value=value,
-        _indices=_indices_of(plan_, pts, sol, sol_labels=sol_lab),
+        solution=to_numpy(sol), value=value, _indices=indices,
         labels=np.asarray(sol_lab), cert=cert, coreset=None,
         telemetry=tr.annotate(mode="mapreduce"), plan=plan_)
 

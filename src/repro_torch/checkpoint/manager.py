@@ -18,6 +18,15 @@ here without JAX from the port's own flattening of dicts (keys sorted,
 ``['name']``), lists and tuples (``[i]``) and NamedTuples (``.field``), so a
 checkpoint written by either package restores in the other.  A leaf is a
 tensor, a numpy array or a scalar; ``None`` is an empty subtree, as in JAX.
+
+Across the ranks of a ``torch.distributed`` mesh: a tree holding
+``DTensor`` leaves is saved by every rank of the process group together.
+The leaves' meshes must span the group; each leaf placed ``Shard(0)`` or
+``Replicate`` along every mesh axis is gathered to the first rank of the
+first leaf's mesh alone, which writes, and then the ranks meet at a
+barrier.  ``restore(shardings=)`` re-shards each leaf onto a
+``DeviceMesh`` of any size (``distribute_tensor``), so a run saved at 4
+ranks resumes at 2.
 """
 from __future__ import annotations
 
@@ -30,6 +39,8 @@ from typing import Any, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..device import is_dtensor
 
 
 class CheckpointError(RuntimeError):
@@ -117,6 +128,78 @@ def _flatten(tree) -> dict:
     return {path: _host(leaf) for path, leaf in _items(tree)}
 
 
+def _sharded_writer(leaves) -> int:
+    """The global rank that writes a tree with the DTensor ``leaves``: the
+    first rank of the first leaf's mesh.  Every leaf's mesh must span the
+    whole process group (every rank saves, and the gathers and the
+    barrier run over the default group) and be placed ``Shard(0)`` or
+    ``Replicate`` along each axis."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    for path, leaf in leaves:
+        mesh = leaf.device_mesh
+        if mesh.size() != world:
+            raise ValueError(
+                f"leaf {path!r} lives on a mesh of {mesh.size()} ranks in a "
+                f"process group of {world}: a tree with DTensor leaves is "
+                f"saved by a mesh that spans the process group")
+        if not all(pl.is_replicate() or pl.is_shard(0)
+                   for pl in leaf.placements):
+            raise ValueError(
+                f"leaf {path!r} is placed {tuple(leaf.placements)}: a saved "
+                f"DTensor is Shard(0) or Replicate along each mesh axis")
+    return int(leaves[0][1].device_mesh.mesh.reshape(-1)[0])
+
+
+def _gather_to(leaf, writer: int):
+    """The full array of the DTensor ``leaf`` on rank ``writer`` (None on
+    the others), from one copy of each shard: the ranks at coordinate 0 of
+    the replicated axes send their local shard, in row-major order of the
+    sharded axes (the order ``Shard(0)`` deals the rows in)."""
+    import torch.distributed as dist
+
+    mesh, placements = leaf.device_mesh, leaf.placements
+    coord = mesh.get_coordinate()
+    copy = not any(coord[i] for i, pl in enumerate(placements)
+                   if pl.is_replicate())
+    box = [None] * dist.get_world_size() if dist.get_rank() == writer else None
+    dist.gather_object(_host(leaf.to_local()) if copy else None, box,
+                       dst=writer)
+    if box is None:
+        return None
+    sharded = [i for i, pl in enumerate(placements) if pl.is_shard(0)]
+    owners = mesh.mesh[tuple(slice(None) if i in sharded else 0
+                             for i in range(mesh.mesh.ndim))]
+    parts = [box[r] for r in owners.reshape(-1).tolist()]
+    return np.concatenate(parts) if sharded else parts[0]
+
+
+def _leaf_shardings(template, shardings) -> dict:
+    """keystr path -> ``(mesh, placements)`` of the ``shardings`` tree, read
+    along the template's structure (a template leaf's entry may be None:
+    that leaf is restored unsharded)."""
+    out = {}
+
+    def walk(t, s, path):
+        if t is None or s is None:
+            return
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], s[k], f"{path}[{k!r}]")
+        elif _is_namedtuple(t) and not isinstance(t, ShapeDtype):
+            for f in t._fields:
+                walk(getattr(t, f), getattr(s, f), f"{path}.{f}")
+        elif isinstance(t, (list, tuple)) and not isinstance(t, ShapeDtype):
+            for i, v in enumerate(t):
+                walk(v, s[i], f"{path}[{i}]")
+        else:
+            out[path] = s
+
+    walk(template, shardings, "")
+    return out
+
+
 def _torch_dtype(dtype) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
@@ -154,9 +237,16 @@ class CheckpointManager:
              blocking: bool = True):
         # copy to the host BEFORE handing to the writer thread, so the
         # caller may overwrite its device tensors at once
-        arrays = _flatten(tree)
         meta = {"step": int(step), "schema_version": SCHEMA_VERSION,
                 "extra": extra or {}}
+        sharded = [(p, leaf) for p, leaf in _items(tree) if is_dtensor(leaf)]
+        if sharded:
+            if not blocking:
+                raise ValueError("a tree with DTensor leaves is saved by "
+                                 "every rank together: blocking=True")
+            self._save_sharded(step, tree, sharded, meta)
+            return
+        arrays = _flatten(tree)
         if blocking:
             self._write(step, arrays, meta)
         else:
@@ -164,6 +254,19 @@ class CheckpointManager:
             self._thread = threading.Thread(
                 target=self._write, args=(step, arrays, meta), daemon=True)
             self._thread.start()
+
+    def _save_sharded(self, step: int, tree, sharded, meta: dict):
+        """Every rank's part of saving a tree with DTensor leaves: each
+        leaf gathered to the writer (``_sharded_writer``), which alone
+        copies the other leaves and writes; then a barrier of the group."""
+        import torch.distributed as dist
+
+        writer = _sharded_writer(sharded)
+        full = {p: _gather_to(leaf, writer) for p, leaf in sharded}
+        if dist.get_rank() == writer:
+            self._write(step, {p: full[p] if p in full else _host(leaf)
+                               for p, leaf in _items(tree)}, meta)
+        dist.barrier()
 
     def _write(self, step: int, arrays: dict, meta: dict):
         with self._lock:
@@ -217,12 +320,13 @@ class CheckpointManager:
         arrays or ``ShapeDtype`` stand-ins): every leaf comes back as a
         tensor of the template leaf's dtype, on ``device`` (default: the
         template tensor's device, the CPU for other leaves).  ``shardings``
-        has no one-card meaning: only ``None`` is accepted."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) re-shards onto a device mesh, which "
-                "is ROADMAP A, slice 10b (torch.distributed); the port "
-                "restores onto one device (device=)")
+        (a tree of the template's structure whose leaves are ``(mesh,
+        placements)`` pairs, or None) re-shards each leaf onto its
+        ``DeviceMesh`` with ``distribute_tensor``: every rank of that mesh
+        restores together, and the mesh may have another size than the one
+        that saved."""
+        spec = {} if shardings is None else _leaf_shardings(template,
+                                                            shardings)
         path = os.path.join(self.dir, f"step_{step:09d}")
         data = np.load(os.path.join(path, "arrays.npz"))
 
@@ -239,8 +343,13 @@ class CheckpointManager:
             dtype = getattr(leaf, "dtype", None)
             dtype = _torch_dtype(np.asarray(leaf).dtype if dtype is None
                                  else dtype)
-            return torch.as_tensor(np.asarray(data[key]), dtype=dtype,
-                                   device=dev)
+            out = torch.as_tensor(np.asarray(data[key]), dtype=dtype,
+                                  device=dev)
+            if spec.get(key) is not None:
+                from torch.distributed.tensor import distribute_tensor
+                mesh, placements = spec[key]
+                out = distribute_tensor(out, mesh, list(placements))
+            return out
 
         return _rebuild(template, fill)
 

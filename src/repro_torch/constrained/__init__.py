@@ -12,7 +12,8 @@ variant of the paper's problem, Ceccarello et al., arXiv:2002.03175).
 * ``solver``: feasible greedy + oracle-checked local search on the union;
 * ``streaming``: one SMM state per group;
 * ``mapreduce``: the simulated ℓ-reducer run, all reducers' groups in one
-  grouped-engine run (its mesh path is ROADMAP slice 10b).
+  grouped-engine run, and the mesh path over ``torch.distributed``, one
+  rank a reducer.
 
 The legacy drivers (``fair_diversity_maximize``,
 ``fair_streaming_diversity``) come with the legacy wrappers;
@@ -23,7 +24,8 @@ from .matroid import (LaminarMatroid, Matroid, PartitionMatroid,
                       TransversalMatroid, as_matroid)
 from .solver import (brute_force_constrained, constrained_solve,
                      feasible_greedy, local_search, solve_and_value)
-from .mapreduce import FairCoreset, simulate_fair_mr
+from .mapreduce import (FairCoreset, mr_fair_diversity, mr_grouped_coreset,
+                        simulate_fair_mr)
 from .streaming import FairStreamingCoreset
 
 __all__ = [
@@ -31,5 +33,6 @@ __all__ = [
     "constrained_solve", "feasible_greedy", "local_search",
     "brute_force_constrained", "solve_and_value", "FairStreamingCoreset",
     "Matroid", "PartitionMatroid", "TransversalMatroid", "LaminarMatroid",
-    "as_matroid", "FairCoreset", "simulate_fair_mr",
+    "as_matroid", "FairCoreset", "mr_grouped_coreset", "mr_fair_diversity",
+    "simulate_fair_mr",
 ]

@@ -1,5 +1,6 @@
-"""MapReduce matroid-constrained diversity, simulated on one device (port of
-the simulated half of ``repro.constrained.mapreduce``).
+"""MapReduce matroid-constrained diversity, simulated on one device or on a
+mesh of ``torch.distributed`` ranks (port of
+``repro.constrained.mapreduce``).
 
 The MR rounds are matroid-agnostic — they only see group labels; the
 matroid oracle (``quotas=`` sugar or ``matroid=``) enters at the final
@@ -18,8 +19,11 @@ model counters (``core.distributed._count_round1``).  ``trace="reducers"``
 and ``resilience=`` run it one reducer at a time, as
 ``core.distributed`` does, with the same result.
 
-The mesh path (``mr_grouped_coreset``, ``mr_fair_diversity``) is ROADMAP
-slice 10b and raises ``NotImplementedError``.
+The mesh path (``mr_grouped_coreset``, ``mr_fair_diversity``) runs one
+rank a reducer, as ``core.distributed``'s does: each rank builds the
+per-group core-set of its rows (the grouped engine over its m groups, B4 a
+fold on the card), round 2 gathers the per-rank blocks in the reference's
+tiled order, and the solver runs on the union on every rank.
 """
 from __future__ import annotations
 
@@ -28,10 +32,12 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.distributed import (_count_round1, _mesh_path, _reducer_units,
+from ..core.distributed import (_count_round1, _gather_round1,
+                                _mesh_unit_round, _reducer_units,
                                 _resolve_reducer_plan, _round1_schedule,
-                                _round1_span, _sim_round1_detail,
-                                _sim_round1_resilient, partition_shards)
+                                _round1_span,
+                                _sim_round1_detail, _sim_round1_resilient,
+                                partition_shards)
 from ..core.measures import NEEDS_INJECTIVE
 from ..core.metrics import get_metric
 from ..device import resolve_use_pallas, to_numpy
@@ -59,11 +65,6 @@ class FairCoreset(NamedTuple):
     @property
     def size(self) -> int:
         return int(to_numpy(self.valid).sum())
-
-
-mr_grouped_coreset = _mesh_path("mr_grouped_coreset")
-mr_fair_diversity = _mesh_path("mr_fair_diversity")
-_mr_fair_diversity_impl = _mesh_path("_mr_fair_diversity_impl")
 
 
 def _sim_round1(pts, slabels, m: int, k: int, kprime: int, metric_name: str,
@@ -199,6 +200,126 @@ def simulate_fair_mr(points, labels, quotas=None, *, matroid=None,
         ExecutionSpec(mode="mapreduce", num_reducers=num_reducers,
                       kprime=kprime, b=b, chunk=chunk, eps=eps,
                       partition=partition, seed=seed,
+                      swap_rounds=swap_rounds, tau=tau, cliff=cliff,
+                      device=device))
+    return res.solution, res.labels, res.value
+
+
+# --------------------------------------------------------------------------
+# mesh path (torch.distributed)
+# --------------------------------------------------------------------------
+
+def _mesh_grouped_round1(points, labels, m: int, k: int, kprime, measure,
+                         mesh, *, axes, metric, use_pallas, b, chunk: int,
+                         eps: float, tau, cliff, device, resilience):
+    """Rounds 1 and 2 of the constrained scheme on this rank.  Returns
+    (FairCoreset union, report, comm, rows, this rank's host labels)."""
+    metric_name = get_metric(metric).name
+    mode = "ext" if measure in NEEDS_INJECTIVE else "plain"
+    r = _mesh_unit_round(
+        points, mesh, axes,
+        lambda rows, lab, kp, b_, sched: _sim_round1(
+            rows, torch.as_tensor(lab, device=rows.device)[None], m, k, kp,
+            metric_name, mode, b_, chunk, sched, use_pallas),
+        k=k, kprime=kprime, b=b, eps=eps, metric=metric, chunk=chunk,
+        tau=tau, cliff=cliff, use_pallas=use_pallas, device=device,
+        resilience=resilience, point="round:mr.round1", labels=labels, m=m,
+        groups=m)
+    _count("device_dispatches")
+    if _counting():
+        _count_round1(r.comm.size, r.per, r.d, r.kprime, r.b, r.schedule,
+                      mode)
+    (g_pts, g_lab, g_valid), radius = _gather_round1(r.comm, r.out[:3],
+                                                     r.out[3], groups=m)
+    cs = FairCoreset(points=g_pts, labels=g_lab, valid=g_valid,
+                     radius=radius, cert=r.cert)
+    return cs, r.report, r.comm, r.rows, r.labels
+
+
+def mr_grouped_coreset(points, labels, m: Optional[int] = None,
+                       k: Optional[int] = None, kprime=32,
+                       measure: str = "remote-edge", mesh=None, *,
+                       matroid=None, data_axes=("data",),
+                       metric="euclidean", use_pallas="auto", b=1,
+                       chunk: int = 0, eps: float = 0.1, tau=None,
+                       cliff=None, device=None) -> FairCoreset:
+    """2-round MR fair core-set on a mesh, called by every rank: ``points
+    (n, d)`` and ``labels (n,)`` are DTensors placed ``Shard(0)`` over
+    ``data_axes`` or the same full arrays on every rank; returns the union,
+    the same on every rank.  ``matroid=`` derives ``m``/``k`` from an
+    oracle (the construction itself only sees group labels).
+    ``b="auto"``/``kprime="auto"`` probe the labelled input once and freeze
+    every reducer's schedule."""
+    from .matroid import derive_mk
+
+    m, k = derive_mk(matroid, m, k, "mr_grouped_coreset")
+    if mesh is None:
+        raise ValueError("mr_grouped_coreset requires a mesh")
+    return _mesh_grouped_round1(
+        points, labels, m, k, kprime, measure, mesh, axes=tuple(data_axes),
+        metric=metric, use_pallas=use_pallas, b=b, chunk=chunk, eps=eps,
+        tau=tau, cliff=cliff, device=device, resilience=None)[0]
+
+
+def _mr_fair_diversity_impl(points, labels, quotas=None,
+                            measure: str = "remote-edge", mesh=None, *,
+                            matroid=None, kprime=None, data_axes=("data",),
+                            metric="euclidean", use_pallas="auto",
+                            swap_rounds: int = 10, b=1, chunk: int = 0,
+                            eps: float = 0.1, tau=None, cliff=None,
+                            resilience=None, device=None):
+    """Execution body of the constrained mesh MR pipeline, run by every
+    rank (the ``repro_torch.diversify`` facade routes here).  Returns
+    (sol (k, d) tensor, sol_labels, value, cert, report).  A
+    ``ResiliencePolicy`` retries round 1 on all ranks together."""
+    from .matroid import as_matroid
+
+    if mesh is None:
+        raise ValueError("mr_fair_diversity requires a mesh")
+    mat = as_matroid(matroid, quotas)
+    m, k = mat.m, mat.k
+    if kprime is None:
+        kprime = max(2 * k, 32)
+    cs, report, *_ = _mesh_grouped_round1(
+        points, labels, m, k, kprime, measure, mesh, axes=tuple(data_axes),
+        metric=metric, use_pallas=use_pallas, b=b, chunk=chunk, eps=eps,
+        tau=tau, cliff=cliff, device=device, resilience=resilience)
+    cand_pts, cand_lab = cs.compact()
+    sel, value = solve_and_value(cand_pts, cand_lab, measure=measure,
+                                 matroid=mat, metric=metric,
+                                 swap_rounds=swap_rounds)
+    sol = cand_pts[torch.as_tensor(sel, device=cand_pts.device)]
+    return sol, cand_lab[sel], value, cs.cert, report
+
+
+def mr_fair_diversity(points, labels, quotas=None,
+                      measure: str = "remote-edge", mesh=None, *,
+                      matroid=None, kprime=None, data_axes=("data",),
+                      metric="euclidean", use_pallas="auto",
+                      swap_rounds: int = 10, b=1, chunk: int = 0,
+                      eps: float = 0.1, tau=None, cliff=None,
+                      device="cuda"):
+    """Full constrained pipeline on a mesh, called by every rank
+    (``quotas=`` is sugar for an exact-quota ``PartitionMatroid``; any
+    label-count matroid works).
+
+    Legacy spelling of ``repro_torch.diversify`` with a constrained
+    ``ProblemSpec`` and ``ExecutionSpec(mode="mapreduce", mesh=...)`` —
+    prefer the facade for new code.  Returns (solution_points (k, d),
+    solution_labels (k,), value), as host arrays."""
+    from ..api import ExecutionSpec, ProblemSpec, _warn_legacy, diversify
+    from .matroid import as_matroid
+
+    _warn_legacy("repro_torch.constrained.mr_fair_diversity")
+    if mesh is None:
+        raise ValueError("mr_fair_diversity requires a mesh")
+    mat = as_matroid(matroid, quotas)
+    res = diversify(
+        ProblemSpec(points=points, k=mat.k, measure=measure, metric=metric,
+                    labels=labels, matroid=mat),
+        ExecutionSpec(mode="mapreduce", mesh=mesh,
+                      data_axes=tuple(data_axes), kprime=kprime, b=b,
+                      chunk=chunk, eps=eps, use_pallas=use_pallas,
                       swap_rounds=swap_rounds, tau=tau, cliff=cliff,
                       device=device))
     return res.solution, res.labels, res.value

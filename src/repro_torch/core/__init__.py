@@ -1,8 +1,9 @@
-"""Core library of the port: the batch, streaming and simulated MapReduce
-unconstrained engines in PyTorch.
+"""Core library of the port: the batch, streaming and MapReduce (simulated
+and over a ``torch.distributed`` mesh, ``core.distributed``) unconstrained
+engines in PyTorch.
 
-The MapReduce mesh path (``distributed.mr_coreset`` and its kin) and the
-legacy ``diversity_maximize`` wrapper are later slices (see ROADMAP.md).
+The legacy ``diversity_maximize`` wrapper is a later slice (see
+ROADMAP.md).
 """
 from .adaptive import (AdaptiveGMMResult, RadiusCertificate, auto_kprime,
                        gmm_adaptive, resolve_engine_plan)

@@ -721,6 +721,12 @@ def plan_from_schedule(executed, kprime: int,
     return ((b0, head_rounds), (1, tail))
 
 
+def probe_stride(n: int, sample: int = 8192) -> int:
+    """Row stride of the probe's subsample ``points[::stride]`` of an
+    ``n``-row input (about ``sample`` rows)."""
+    return max(1, n // max(1, min(sample, n)))
+
+
 def resolve_engine_plan(points, k: int, kprime, b, *, eps: float = 0.1,
                         metric="euclidean", labels=None, m: int = 1,
                         chunk: int = 0, use_pallas="auto",
@@ -739,12 +745,26 @@ def resolve_engine_plan(points, k: int, kprime, b, *, eps: float = 0.1,
     if b != "auto" and kprime != "auto":
         return kprime, None, None
     points = as_points(points, device)
-    n = points.shape[0]
-    stride = max(1, n // max(1, min(sample, n)))
-    sub = points[::stride]
+    stride = probe_stride(points.shape[0], sample)
+    lab = (None if labels is None
+           else np.asarray(to_numpy(labels))[::stride])
+    return probe_engine_plan(points[::stride], lab, k, kprime, b, eps=eps,
+                             metric=metric, m=m, chunk=chunk,
+                             use_pallas=use_pallas, tau=tau, cliff=cliff,
+                             sprint=sprint)
+
+
+def probe_engine_plan(sub, labels, k: int, kprime, b, *, eps: float = 0.1,
+                      metric="euclidean", m: int = 1, chunk: int = 0,
+                      use_pallas="auto", tau: Optional[float] = None,
+                      cliff: Optional[float] = None, sprint="auto"):
+    """The probe of ``resolve_engine_plan`` on its subsample ``sub`` (a
+    tensor; ``labels`` its host labels or None), which the MapReduce mesh
+    path gathers from the ranks' shards.  Returns (kprime:int,
+    schedule|None, cert)."""
     sn = sub.shape[0]
     lab = (np.zeros((sn,), np.int32) if labels is None
-           else np.asarray(to_numpy(labels))[::stride].astype(np.int32))
+           else np.asarray(labels).astype(np.int32))
     mm = 1 if labels is None else m
     counts = np.bincount(lab[lab >= 0], minlength=mm)[:mm]
     starts = np.zeros((mm,), np.int64)

@@ -1,5 +1,6 @@
-"""MapReduce diversity maximization, simulated on one device (paper §5, §6.2;
-port of the simulated half of ``repro.core.distributed``).
+"""MapReduce diversity maximization, simulated on one device or on a mesh of
+``torch.distributed`` ranks (paper §5, §6.2; port of
+``repro.core.distributed``).
 
 Round structure (Thm 6):
   round 1  — every reducer runs GMM / GMM-EXT / GMM-GEN on its shard;
@@ -32,17 +33,36 @@ retried or dropped.  A reducer's picks depend only on its own rows, and
 the grouped sweep and in-block distances of a row depend only on its own
 group, so these paths return the same tensors as the one-run path.
 
-The mesh path (``mr_coreset``, ``mr_diversity``, the three-round and
-recursive schemes over ``torch.distributed``) is ROADMAP slice 10b; its
-functions raise ``NotImplementedError``.
+The mesh path (``mr_coreset``, ``_mr_diversity_impl``/``mr_diversity``,
+``mr_coreset_recursive``) runs over ``torch.distributed``: one process a
+reducer, the reducers being the ranks of a ``DeviceMesh`` over its data
+axes.  Each rank runs round 1 on its own rows as the per-reducer unit
+above (the grouped engine over one group, B4 a fold on the card) and
+round 2 is one row all-gather of the per-rank core-sets, in the
+reference's tiled order, plus a MAX reduction of the radius.  A
+``b="auto"``/``kprime="auto"`` probe gathers the strided subsample from the
+ranks' shards to the first reducer, which probes it and broadcasts its
+frozen plan, so every rank runs the same schedule.  The three-round scheme
+instantiates on the shards (each rank's first candidates a kernel point,
+merged in global row order), and the recursive scheme gathers over
+``data``, runs the level-2 exact GMM on every rank of a pod (B2 on the
+card) and gathers over ``pod``.  On a contiguous partition with
+ℓ | n the mesh union equals the simulated one at ``num_reducers=ℓ``.
+Collectives stage through pinned host memory when the group's backend is
+not NCCL (gloo ranks may keep their data on a card); a rank's failure in
+round 1 is agreed on by every rank before the all-gather (a MAX
+reduction of a failure flag), so the ranks raise, or retry under a
+``ResiliencePolicy``, together.
 """
 from __future__ import annotations
+
+import collections
+import weakref
 
 import numpy as np
 import torch
 
-from ..device import (NOT_PORTED, as_points, not_ported,
-                      resolve_use_pallas, to_numpy)
+from ..device import as_points, is_dtensor, resolve_use_pallas, to_numpy
 from ..kernels.build import LAUNCHES
 from ..kernels.ops import Prepared
 from ..obs.trace import (_block, active as _obs_active, count as _count,
@@ -56,20 +76,6 @@ from .measures import NEEDS_INJECTIVE, solution_value
 from .metrics import get_metric
 from .sequential import instantiate, solve, solve_on_coreset
 
-def _mesh_path(name: str):
-    def fn(*args, **kwargs):
-        raise not_ported("mesh", name)
-    fn.__name__ = name
-    fn.__doc__ = f"Not ported: {NOT_PORTED['mesh']}."
-    return fn
-
-
-mr_coreset = _mesh_path("mr_coreset")
-mr_diversity = _mesh_path("mr_diversity")
-mr_coreset_recursive = _mesh_path("mr_coreset_recursive")
-_mr_diversity_impl = _mesh_path("_mr_diversity_impl")
-
-
 # --------------------------------------------------------------------------
 # reducer plan + model counters
 # --------------------------------------------------------------------------
@@ -77,23 +83,30 @@ _mr_diversity_impl = _mesh_path("_mr_diversity_impl")
 def _resolve_reducer_plan(points, k: int, kprime, b, *, eps: float,
                           metric, chunk: int, per_shard: int,
                           labels=None, m: int = 1, tau=None, cliff=None,
-                          use_pallas="auto"):
+                          use_pallas="auto", comm=None):
     """Freeze ``b="auto"``/``kprime="auto"`` into static reducer inputs.
 
     All reducers share one schedule, so a cheap probe
     (``core.adaptive.resolve_engine_plan``) runs once on a subsample of the
     global input (on the card, through the sweep kernels) and its decisions
     become every reducer's static (block, rounds) schedule.  k' is clamped
-    to the shard size.  Returns (kprime:int, schedule|None, b:int, probe
-    RadiusCertificate|None)."""
+    to the shard size.  On a mesh (``comm``, the data-axes ranks) ``points``
+    and ``labels`` are this rank's rows and the first reducer probes
+    (``_probe_on_first``).  Returns (kprime:int, schedule|None, b:int,
+    probe RadiusCertificate|None)."""
     if b != "auto" and kprime != "auto":
         return kprime, None, b, None
     from .adaptive import plan_from_schedule, resolve_engine_plan
 
     with _span("mr.probe", k=k, kprime=kprime, b=b):
-        kp, schedule, cert = resolve_engine_plan(
-            points, k, kprime, b, eps=eps, metric=metric, labels=labels,
-            m=m, chunk=chunk, use_pallas=use_pallas, tau=tau, cliff=cliff)
+        kw = dict(eps=eps, metric=metric, m=m, chunk=chunk,
+                  use_pallas=use_pallas, tau=tau, cliff=cliff)
+        if comm is None:
+            kp, schedule, cert = resolve_engine_plan(
+                points, k, kprime, b, labels=labels, **kw)
+        else:
+            kp, schedule, cert = _probe_on_first(comm, points, labels, k,
+                                                 kprime, b, kw)
     kp = min(int(kp), per_shard)
     if schedule is not None:
         planned = sum(b_ * r for b_, r in schedule)
@@ -417,3 +430,567 @@ def simulate_mr(points, k: int, measure: str, *, num_reducers: int,
                       generalized=generalized, partition=partition,
                       seed=seed, tau=tau, cliff=cliff, device=device))
     return res.solution, res.value
+
+
+# --------------------------------------------------------------------------
+# mesh path (torch.distributed)
+# --------------------------------------------------------------------------
+
+# id(mesh) -> {axes: flattened group}: a process group is made by a
+# collective of every rank, so each is made once per mesh; the entry goes
+# with its mesh (a finalizer), and no mesh or group is kept alive by it
+_AXES_GROUPS = {}
+
+
+def _axis_size(mesh, name: str) -> int:
+    """Ranks along the named axis ``name`` of ``mesh`` (the reference's
+    ``mesh.shape[name]``)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if name not in names:
+        raise ValueError(f"axis {name!r} is not an axis of the mesh "
+                         f"(axes {names})")
+    return int(mesh.size(names.index(name)))
+
+
+def _axes_group(mesh, axes, dims, grid):
+    """The process group of this rank's reducers over ``axes``: the mesh's
+    own group for one axis, else one group per coordinate of the other
+    axes, made once per (mesh, axes) by every rank in the same order."""
+    import torch.distributed as dist
+
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    if id(mesh) not in _AXES_GROUPS:
+        _AXES_GROUPS[id(mesh)] = {}
+        weakref.finalize(mesh, _AXES_GROUPS.pop, id(mesh), None)
+    groups = _AXES_GROUPS[id(mesh)]
+    if tuple(axes) not in groups:
+        others = [i for i in range(grid.ndim) if i not in dims]
+        lists = grid.permute(others + list(dims)).reshape(
+            -1, int(np.prod([grid.shape[i] for i in dims]))).tolist()
+        groups[tuple(axes)], _ = dist.new_subgroups_by_enumeration(lists)
+    return groups[tuple(axes)]
+
+
+def _pinned(t):
+    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return buf.copy_(t)
+
+
+class _Comm:
+    """The reducers of one mesh run: this rank's group over the data axes
+    ``axes``, its members in the reference's tiled order (row-major mesh
+    coordinates over ``axes`` in the order given, the other axes fixed at
+    this rank's coordinates).  ``rank`` is this rank's place in that order
+    and ``size`` the number of reducers ℓ.
+
+    A collective runs on the data's device under NCCL and through pinned
+    host memory under any other backend (gloo), decided by the group's
+    backend; a collective that fails raises (the process group's timeout
+    ends a hung one).  ``nbytes`` sums the bytes the gathers returned."""
+
+    def __init__(self, mesh, axes):
+        import torch.distributed as dist
+
+        names = tuple(mesh.mesh_dim_names or ())
+        axes = tuple(axes)
+        for a in axes:
+            _axis_size(mesh, a)                      # raises on a bad axis
+        dims = [names.index(a) for a in axes]
+        coord = mesh.get_coordinate()
+        if coord is None:
+            raise ValueError("this rank is not a member of the mesh")
+        grid = mesh.mesh
+        sub = grid[tuple(slice(None) if i in dims else coord[i]
+                         for i in range(grid.ndim))]
+        kept = sorted(dims)
+        sub = sub.permute([kept.index(i) for i in dims])
+        self.order = [int(r) for r in sub.reshape(-1).tolist()]
+        self.size = len(self.order)
+        self.rank = self.order.index(dist.get_rank())
+        self.group = _axes_group(mesh, axes, dims, grid)
+        members = dist.get_process_group_ranks(self.group)
+        self._perm = [members.index(r) for r in self.order]
+        self.backend = str(dist.get_backend(self.group))
+        self.nbytes = 0
+
+    def _host(self, t) -> bool:
+        return t.is_cuda and "nccl" not in self.backend
+
+    def _send(self, t):
+        """``t`` as it goes on the wire (a bool as uint8), in pinned host
+        memory when the backend cannot take it from the card."""
+        wire = torch.uint8 if t.dtype == torch.bool else t.dtype
+        src = t.contiguous().to(wire)
+        host = self._host(src)
+        return (_pinned(src) if host else src), host
+
+    def _buffers(self, src, host):
+        return [torch.empty(src.shape, dtype=src.dtype, device=src.device,
+                            pin_memory=host) for _ in range(self.size)]
+
+    def _merge(self, outs, t):
+        out = torch.cat([outs[i] for i in self._perm])
+        self.nbytes += out.numel() * out.element_size()
+        return out.to(device=t.device, dtype=t.dtype)
+
+    def gather(self, t):
+        """Every rank's ``t`` (one shape on all ranks), concatenated along
+        dim 0 in the reducers' order."""
+        import torch.distributed as dist
+
+        src, host = self._send(t)
+        outs = self._buffers(src, host)
+        dist.all_gather(outs, src, group=self.group)
+        return self._merge(outs, t)
+
+    def gather_first(self, t):
+        """``gather`` to the first reducer alone: the concatenation there,
+        None on the other ranks."""
+        import torch.distributed as dist
+
+        src, host = self._send(t)
+        first = self.rank == 0
+        outs = self._buffers(src, host) if first else None
+        dist.gather(src, outs, dst=self.order[0], group=self.group)
+        return self._merge(outs, t) if first else None
+
+    def max(self, x):
+        """MAX over the ranks of the scalar tensor ``x``."""
+        import torch.distributed as dist
+
+        buf = x.reshape(1).clone()
+        buf = buf.cpu() if self._host(buf) else buf
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=self.group)
+        return buf.to(x.device).reshape(())
+
+    def any(self, flag: bool, device) -> bool:
+        """True on every rank when ``flag`` is true on any rank."""
+        import torch.distributed as dist
+
+        buf = torch.tensor([int(flag)], dtype=torch.int32, device=device)
+        buf = buf.cpu() if self._host(buf) else buf
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=self.group)
+        return bool(buf.item())
+
+    def broadcast(self, obj):
+        """The first reducer's ``obj`` (a picklable host value), on every
+        rank."""
+        import torch.distributed as dist
+
+        if self.size == 1:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=self.order[0], group=self.group)
+        return box[0]
+
+
+def _local_rows(x, mesh, comm: _Comm, axes, n: int):
+    """This rank's rows of ``x`` (points or labels): the local shard of a
+    DTensor placed ``Shard(0)`` over the data axes (in mesh order) and
+    replicated over the others, or block ``comm.rank`` of a full array
+    every rank holds (the reference's single-controller view)."""
+    per = n // comm.size
+    if not is_dtensor(x):
+        return x[comm.rank * per:(comm.rank + 1) * per]
+    names = tuple(mesh.mesh_dim_names or ())
+    dims = [names.index(a) for a in axes]
+    if x.device_mesh != mesh:
+        raise ValueError("the DTensor input lives on another mesh than the "
+                         "run's mesh=")
+    ok = dims == sorted(dims) and all(
+        pl.is_shard(0) if i in dims else pl.is_replicate()
+        for i, pl in enumerate(x.placements))
+    if not ok:
+        raise ValueError(
+            f"a DTensor input must be Shard(0) over the data axes {axes} "
+            f"(in mesh order) and replicated over the other axes; got "
+            f"placements {tuple(x.placements)} on axes {names}")
+    local = x.to_local()
+    if local.shape[0] != per:
+        raise ValueError(f"uneven shards: this rank holds {local.shape[0]} "
+                         f"rows, {per} expected for n={n} over "
+                         f"{comm.size} reducers")
+    return local
+
+
+def _mesh_setup(points, mesh, axes, device):
+    """(comm, rows, n, d): the reducers over ``axes`` and this rank's rows
+    as float32 on ``device``.  ``n % ℓ != 0`` raises, as in the reference
+    (the mesh path pads nothing)."""
+    comm = _Comm(mesh, axes)
+    n, d = (int(s) for s in points.shape)
+    if n % comm.size:
+        raise ValueError(f"n={n} not divisible by {comm.size} reducers")
+    return comm, as_points(_local_rows(points, mesh, comm, axes, n),
+                           device), n, d
+
+
+def _gather_probe_rows(comm: _Comm, rows, labels):
+    """The probe's strided subsample ``points[::stride]`` of the global
+    input and its labels (host ints, or None), gathered from the shards to
+    the first reducer in global row order: rank r holds the sample rows
+    r·per + i with i ≡ -r·per (mod stride).  (None, None) on the other
+    ranks."""
+    from .adaptive import probe_stride
+
+    per = rows.shape[0]
+    stride = probe_stride(per * comm.size)
+    firsts = [(-r * per) % stride for r in range(comm.size)]
+    counts = [len(range(f, per, stride)) for f in firsts]
+    width = max(counts)
+
+    def gather(x):
+        part = x[firsts[comm.rank]::stride]
+        pad = part.new_zeros((width - part.shape[0],) + tuple(part.shape[1:]))
+        blocks = comm.gather_first(torch.cat([part, pad])[None])
+        if blocks is None:
+            return None
+        return torch.cat([blocks[r, :counts[r]] for r in range(comm.size)])
+
+    lab = None
+    if labels is not None:
+        lab = gather(torch.as_tensor(np.asarray(to_numpy(labels)),
+                                     dtype=torch.int32, device=rows.device))
+        lab = None if lab is None else to_numpy(lab)
+    return gather(rows), lab
+
+
+def _probe_on_first(comm: _Comm, rows, labels, k: int, kprime, b, kw):
+    """The probe of a mesh run: the first reducer probes the gathered
+    subsample (``adaptive.probe_engine_plan``) and broadcasts its frozen
+    plan with the counters the probe added to its trace, which every other
+    rank adds to its own; so every rank runs the same schedule and carries
+    the same counters.  A probe that fails raises on every rank.  Returns
+    (kprime, schedule|None, cert)."""
+    from .adaptive import probe_engine_plan
+
+    sub, lab = _gather_probe_rows(comm, rows, labels)
+    msg = None
+    if comm.rank == 0:
+        tr = _obs_active()
+        before = collections.Counter(tr.counters if tr is not None else {})
+        try:
+            plan = probe_engine_plan(sub, lab, k, kprime, b, **kw)
+        except Exception as e:
+            comm.broadcast((None, f"{type(e).__name__}: {e}"))
+            raise
+        after = collections.Counter(tr.counters if tr is not None else {})
+        msg = (plan, dict(after - before))
+    plan, delta = comm.broadcast(msg)
+    if plan is None:
+        raise RuntimeError(f"the probe failed on the first reducer: {delta}")
+    if comm.rank != 0:
+        for name, n in delta.items():
+            _count(name, n)
+    return plan
+
+
+def _agree_round(comm: _Comm, run, policy, point: str, device):
+    """Run this rank's local share of a round (``run()``, no collective) and
+    agree with every rank on its outcome before any collective: a MAX
+    reduction of a failure flag.  Without a policy every rank raises when
+    any rank failed; under a ``ResiliencePolicy`` all ranks retry together
+    (``retry_call``; ``degrade`` is retry-then-raise, as in the reference's
+    mesh path, which has no per-reducer unit to drop).  Returns (outputs,
+    ResilienceReport or None)."""
+    from ..distributed.fault_tolerance import ResiliencePolicy, retry_call
+
+    out, report = retry_call(
+        run, policy or ResiliencePolicy(on_failure="raise"), point=point,
+        agree=lambda failed: comm.any(failed, device))
+    return out, None if policy is None else report
+
+
+def _gather_round1(comm: _Comm, blocks, radius=None, **attrs):
+    """Round 2's collective: every rank's round-1 ``blocks`` (leading dim 1)
+    gathered in the reducers' order and flattened, plus the MAX of
+    ``radius`` (when given), inside an ``mr.allgather`` span that records
+    the bytes gathered."""
+    before = comm.nbytes
+    with _span("mr.allgather", reducers=comm.size, **attrs) as sp:
+        out = tuple(comm.gather(t).flatten(0, 1) for t in blocks)
+        rad = None if radius is None else comm.max(radius.max())
+        if sp is not None:
+            sp.attrs["bytes"] = comm.nbytes - before
+    return out, rad
+
+
+class _MeshRound(collections.namedtuple(
+        "_MeshRound", "out report comm rows labels kprime b schedule cert "
+        "per d")):
+    """Round 1 of a mesh run on this rank (``_mesh_unit_round``): the
+    unit's outputs, the ResilienceReport (or None), the reducers, this
+    rank's rows and host labels (or None), and the frozen plan."""
+
+
+def _mesh_unit_round(points, mesh, axes, unit, *, k: int, kprime, b,
+                     eps: float, metric, chunk: int, tau, cliff, use_pallas,
+                     device, resilience, point: str, labels=None,
+                     m: int = 1, **span_attrs) -> _MeshRound:
+    """Round 1 of a mesh run on this rank, the part every scheme shares:
+    this rank's rows (and labels) over ``axes``, the reducer plan (the
+    first reducer's probe), then ``unit(rows, labels, kprime, b,
+    schedule)`` (the per-reducer unit, no collective) inside the
+    ``mr.round1`` span, its outcome agreed by every rank
+    (``_agree_round``, at resilience point ``point``)."""
+    comm, rows, n, d = _mesh_setup(points, mesh, axes, device)
+    lab = None
+    if labels is not None:
+        if not (is_dtensor(labels) or hasattr(labels, "shape")):
+            labels = np.asarray(labels)
+        lab = np.asarray(to_numpy(_local_rows(labels, mesh, comm, axes, n)),
+                         np.int32)
+    per = n // comm.size
+    kprime, schedule, b, cert = _resolve_reducer_plan(
+        rows, k, kprime, b, eps=eps, metric=metric, chunk=chunk,
+        per_shard=per, labels=lab, m=m, tau=tau, cliff=cliff,
+        use_pallas=use_pallas, comm=comm)
+    with _round1_span(comm.size, kprime,
+                     _round1_schedule(kprime, b, schedule), **span_attrs):
+        out, report = _agree_round(
+            comm, lambda: unit(rows, lab, kprime, b, schedule), resilience,
+            point, rows.device)
+    return _MeshRound(out, report, comm, rows, lab, kprime, b, schedule,
+                      cert, per, d)
+
+
+def _mesh_round1(points, k: int, kprime, measure: str, mesh, *, axes,
+                 metric, use_pallas, generalized: bool, b, chunk: int,
+                 eps: float, tau, cliff, device, resilience):
+    """Rounds 1 and 2 of the two-round scheme on this rank.  Returns
+    (union Coreset | GeneralizedCoreset, report, comm, rows)."""
+    mode = ("gen" if generalized else
+            "ext" if measure in NEEDS_INJECTIVE else "plain")
+    r = _mesh_unit_round(
+        points, mesh, axes,
+        lambda rows, _, kp, b_, sched: _sim_round1(
+            rows, 1, k, kp, metric, mode, b_, chunk, sched, use_pallas),
+        k=k, kprime=kprime, b=b, eps=eps, metric=metric, chunk=chunk,
+        tau=tau, cliff=cliff, use_pallas=use_pallas, device=device,
+        resilience=resilience, point="round:mr.round1")
+    if _counting():
+        _count("device_dispatches")
+        _count_round1(r.comm.size, r.per, r.d, r.kprime, r.b, r.schedule,
+                      mode)
+    (g_pts, g_aux), radius = _gather_round1(r.comm, r.out[:2], r.out[2])
+    if generalized:
+        cs = GeneralizedCoreset(points=g_pts, multiplicity=g_aux,
+                                radius=radius, cert=r.cert)
+    else:
+        cs = Coreset(points=g_pts, valid=g_aux,
+                     weights=g_aux.to(torch.int32), radius=radius,
+                     cert=r.cert)
+    return cs, r.report, r.comm, r.rows
+
+
+def mr_coreset(points, k: int, kprime, measure: str, mesh, *,
+               data_axes=("data",), metric="euclidean", use_pallas="auto",
+               generalized: bool = False, b=1, chunk: int = 0,
+               eps: float = 0.1, tau=None, cliff=None, device=None):
+    """2-round MR core-set on a mesh, called by every rank of ``mesh``.
+    ``points`` is globally (n, d): a DTensor placed ``Shard(0)`` over
+    ``data_axes``, or the same full array on every rank (each rank takes
+    its contiguous rows).  Returns the union T = ∪ T_i as a
+    Coreset/GeneralizedCoreset, the same on every rank, on ``device``
+    (default: the points' device, the card for host arrays).  ``b``/
+    ``chunk`` tune the per-reducer engine; ``b="auto"``/``kprime="auto"``
+    probe once and freeze every reducer's schedule."""
+    return _mesh_round1(points, k, kprime, measure, mesh,
+                        axes=tuple(data_axes), metric=metric,
+                        use_pallas=use_pallas, generalized=generalized, b=b,
+                        chunk=chunk, eps=eps, tau=tau, cliff=cliff,
+                        device=device, resilience=None)[0]
+
+
+def _mesh_instantiate(comm: _Comm, kpts, counts, rows, radius: float, *,
+                      metric, use_pallas):
+    """Round 3 of the generalized scheme on the mesh:
+    ``sequential.instantiate`` against the global input, whose rows lie on
+    the ranks.  Since the counts sum to k, a kernel point's first ``cnt``
+    unused rows within the radius lie among its first k global candidates,
+    hence among the ranks' first k local ones: each rank finds those (one
+    B3 column a kernel point on its shard), the ranks gather them, and
+    every rank replays the reference's loop on the merged lists in global
+    row order; the chosen rows come back with one more gather."""
+    from .sequential import _within_radius
+
+    counts = np.asarray(counts, np.int64)
+    total = int(counts.sum())
+    per, dev = rows.shape[0], rows.device
+    base = comm.rank * per
+    cand = torch.full((len(counts), total), -1, dtype=torch.int64,
+                      device=dev)
+    for j, (_, hits) in enumerate(_within_radius(rows, kpts, radius,
+                                                 metric=metric,
+                                                 use_pallas=use_pallas)):
+        first = torch.nonzero(hits).flatten()[:total]
+        cand[j, :first.shape[0]] = first + base
+    merged = to_numpy(comm.gather(cand[None]))      # (ℓ, u, total)
+    used, rows_of, kernel_of = set(), [], []
+    for j, cnt in enumerate(counts):
+        take = []
+        for r in merged[:, j].reshape(-1):
+            if len(take) == cnt:
+                break
+            if r >= 0 and int(r) not in used:
+                take.append(int(r))
+        used.update(take)
+        rows_of += take + [-1] * (int(cnt) - len(take))
+        kernel_of += [j] * int(cnt)
+    g = torch.as_tensor(rows_of, dtype=torch.int64, device=dev)
+    owner = torch.where(g >= 0, g // per, -1)
+    mine = owner == comm.rank
+    block = torch.zeros((total, rows.shape[1]), dtype=rows.dtype,
+                        device=dev)
+    block[mine] = rows[g[mine] - base]
+    got = comm.gather(block[None])                   # (ℓ, total, d)
+    picked = got[owner.clamp(min=0), torch.arange(total, device=dev)]
+    kpts = torch.as_tensor(kpts, dtype=torch.float32, device=dev)
+    fallback = kpts[torch.as_tensor(kernel_of, dtype=torch.int64,
+                                    device=dev)]
+    return torch.where((g >= 0)[:, None], picked, fallback)
+
+
+def _mesh_match_rows(comm: _Comm, rows, sol, k: int, *, row_labels=None,
+                     sol_labels=None) -> np.ndarray:
+    """``data.selection._match_rows`` against the global input whose rows
+    lie on the ranks.  Each rank sends, for every solution point, its
+    first rows in (distance, row) order — as many as there are solution
+    points, enough since fewer rows than that are ever taken — and every
+    rank replays the sequential first-argmin pick on the merged lists in
+    global row order."""
+    from ..data.selection import _row_distances
+
+    dist = _row_distances(rows, sol, row_labels=row_labels,
+                          sol_labels=sol_labels)
+    top = min(rows.shape[0], dist.shape[1])
+    vals, idx = torch.sort(dist, dim=0, stable=True)
+    gv = to_numpy(comm.gather(vals[:top]))
+    gi = to_numpy(comm.gather(idx[:top] + comm.rank * rows.shape[0]))
+    taken, picks = set(), []
+    for t in range(gv.shape[1]):
+        for o in np.argsort(gv[:, t], kind="stable"):
+            if not np.isfinite(gv[o, t]):
+                break
+            if int(gi[o, t]) not in taken:
+                taken.add(int(gi[o, t]))
+                picks.append(int(gi[o, t]))
+                break
+    return np.asarray(picks[:k], np.int64)
+
+
+def _mr_diversity_impl(points, k: int, measure: str, mesh, *, kprime=None,
+                       data_axes=("data",), metric="euclidean",
+                       use_pallas="auto", three_round: bool = False, b=1,
+                       chunk: int = 0, eps: float = 0.1, tau=None,
+                       cliff=None, resilience=None, device=None):
+    """Execution body of the mesh MR pipeline, run by every rank (the
+    ``repro_torch.diversify`` facade routes here).  Returns (sol (k, d)
+    tensor, value, cs, report), the same on every rank.  A
+    ``ResiliencePolicy`` retries round 1 on all ranks together."""
+    if kprime is None:
+        kprime = max(2 * k, 32)
+    cs, report, comm, rows = _mesh_round1(
+        points, k, kprime, measure, mesh, axes=tuple(data_axes),
+        metric=metric, use_pallas=use_pallas, generalized=three_round, b=b,
+        chunk=chunk, eps=eps, tau=tau, cliff=cliff, device=device,
+        resilience=resilience)
+    if not three_round:
+        sol = solve_on_coreset(cs, k, measure, metric=metric)
+    else:
+        pts, mult = cs.compact()
+        idx = solve(measure, pts, k, weights=mult, metric=metric)
+        uniq, counts = np.unique(idx, return_counts=True)
+        # round 3: instantiate the chosen multiset against the input
+        sol = _mesh_instantiate(
+            comm, pts[torch.as_tensor(uniq, device=pts.device)], counts,
+            rows, float(cs.radius), metric=metric, use_pallas=use_pallas)
+    return sol, solution_value(sol, measure, metric), cs, report
+
+
+def mr_diversity(points, k: int, measure: str, mesh, *, kprime=None,
+                 data_axes=("data",), metric="euclidean",
+                 use_pallas="auto", three_round: bool = False, b=1,
+                 chunk: int = 0, eps: float = 0.1, tau=None, cliff=None,
+                 device="cuda"):
+    """Full pipeline on a mesh: 2-round (Thm 6) or 3-round generalized
+    (Thm 10), called by every rank.
+
+    Legacy spelling of ``repro_torch.diversify`` with ``ExecutionSpec(
+    mode="mapreduce", mesh=...)`` — prefer the facade for new code.
+    Returns (solution_points (k, d) numpy, value)."""
+    from ..api import ExecutionSpec, ProblemSpec, _warn_legacy, diversify
+
+    _warn_legacy("repro_torch.core.distributed.mr_diversity")
+    res = diversify(
+        ProblemSpec(points=points, k=k, measure=measure, metric=metric),
+        ExecutionSpec(mode="mapreduce", mesh=mesh,
+                      data_axes=tuple(data_axes), kprime=kprime, b=b,
+                      chunk=chunk, eps=eps, use_pallas=use_pallas,
+                      three_round=three_round, tau=tau, cliff=cliff,
+                      device=device))
+    return res.solution, res.value
+
+
+def _recursive_level2(pod_pts, pod_mask, kprime: int, metric_name: str,
+                      use_pallas):
+    """Level 2 of the recursive scheme on a pod's union: exact GMM (b = 1,
+    the B2 sweep on the card) over its valid rows, uncounted as in the
+    reference (whose body runs inside ``shard_map``).  Returns (the
+    level-2 core-set (k', d), its radius)."""
+    from .gmm import _as_mask, _gmm_impl
+
+    res = _gmm_impl(_sweep_points(pod_pts, metric_name),
+                    _as_mask(pod_mask, pod_pts), 0, kprime, metric_name,
+                    resolve_use_pallas(use_pallas, pod_pts.device,
+                                       metric_name))
+    return pod_pts[res.idx], res.radius
+
+
+def _mesh_recursive(points, k: int, kprime, measure: str, mesh, *, metric,
+                    use_pallas, b, chunk: int, eps: float, tau, cliff,
+                    device, resilience):
+    """Thm 8 on this rank.  Returns (Coreset of the pods' level-2 unions,
+    report, comm, rows)."""
+    if "pod" not in tuple(mesh.mesh_dim_names or ()):
+        raise ValueError("recursive scheme expects a 'pod' axis")
+    mode = "ext" if measure in NEEDS_INJECTIVE else "plain"
+    r = _mesh_unit_round(
+        points, mesh, ("pod", "data"),
+        lambda rows, _, kp, b_, sched: _sim_round1(
+            rows, 1, k, kp, metric, mode, b_, chunk, sched, use_pallas),
+        k=k, kprime=kprime, b=b, eps=eps, metric=metric, chunk=chunk,
+        tau=tau, cliff=cliff, use_pallas=use_pallas, device=device,
+        resilience=resilience, point="round:mr.recursive")
+    within, across = _Comm(mesh, ("data",)), _Comm(mesh, ("pod",))
+    pts, mask, radius = r.out
+    # level 1: the union within the pod
+    (pod_pts, pod_mask), _ = _gather_round1(within, (pts, mask), level=1)
+    with _span("mr.level2", sync=pod_pts, kprime=r.kprime):
+        lvl2, lvl2_radius = _recursive_level2(
+            pod_pts, pod_mask, r.kprime, get_metric(metric).name, use_pallas)
+    # level 2: the union across pods
+    (g_pts,), _ = _gather_round1(across, (lvl2[None],), level=2)
+    g_rad = r.comm.max(torch.maximum(radius.max(), lvl2_radius))
+    m = g_pts.shape[0]
+    cs = Coreset(points=g_pts,
+                 valid=torch.ones((m,), dtype=torch.bool, device=g_pts.device),
+                 weights=torch.ones((m,), dtype=torch.int32,
+                                    device=g_pts.device),
+                 radius=g_rad, cert=r.cert)
+    return cs, r.report, r.comm, r.rows
+
+
+def mr_coreset_recursive(points, k: int, kprime, measure: str, mesh, *,
+                         metric="euclidean", use_pallas="auto", b=1,
+                         chunk: int = 0, eps: float = 0.1, tau=None,
+                         cliff=None, device=None):
+    """Thm 8: two-level reduction, called by every rank — per-rank core-sets
+    gathered over ``data``, re-contracted by an exact GMM on every rank of
+    a pod, then gathered over ``pod`` (requires a ('pod', 'data', ...)
+    mesh).  ``points`` as in ``mr_coreset``, sharded over both axes."""
+    return _mesh_recursive(points, k, kprime, measure, mesh, metric=metric,
+                           use_pallas=use_pallas, b=b, chunk=chunk, eps=eps,
+                           tau=tau, cliff=cliff, device=device,
+                           resilience=None)[0]

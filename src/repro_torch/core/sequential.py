@@ -150,17 +150,36 @@ def instantiate(generalized_solution_pts, generalized_solution_counts,
     device; one host read per kernel point finds its delegates.  Returns the
     (sum of counts, d) points on the pool's device."""
     pool = torch.as_tensor(pool, dtype=torch.float32)
+    used = torch.zeros((pool.shape[0],), dtype=torch.bool, device=pool.device)
+    out = []
+    for (p, hits), cnt in zip(
+            _within_radius(pool, generalized_solution_pts, radius,
+                           metric=metric, use_pallas=use_pallas),
+            np.asarray(generalized_solution_counts)):
+        take = torch.nonzero(hits & ~used).flatten()[:int(cnt)]
+        used[take] = True
+        out.append(pool.index_select(0, take))
+        out.extend([p[None]] * (int(cnt) - int(take.shape[0])))
+    return torch.cat(out) if out else pool[:0]
+
+
+def _within_radius(pool, kernel_pts, radius: float, *, metric="euclidean",
+                   use_pallas="auto"):
+    """For each kernel point in turn, (the point, the boolean mask of the
+    ``pool`` rows within ``radius``·(1 + 1e-6) of it): one column of the B3
+    distance kernel a kernel point (its plain version on the CPU or with
+    ``use_pallas=False``), on the pool's device.  A row's entry depends on
+    that row alone, so a shard of the pool sees the entries the whole pool
+    does."""
+    pool = torch.as_tensor(pool, dtype=torch.float32)
     dev = pool.device
-    pts = torch.as_tensor(generalized_solution_pts, dtype=torch.float32,
-                          device=dev)
+    pts = torch.as_tensor(kernel_pts, dtype=torch.float32, device=dev)
     met = get_metric(metric)
     kernel_metric = met.name in ("euclidean", "sqeuclidean", "cosine")
     use_pallas = resolve_use_pallas(use_pallas, dev, met.name)
     prep = kops.prepare(pool, met.name) if kernel_metric else None
     thr = torch.tensor(radius * (1 + 1e-6), dtype=torch.float32, device=dev)
-    used = torch.zeros((pool.shape[0],), dtype=torch.bool, device=dev)
-    out = []
-    for p, cnt in zip(pts, np.asarray(generalized_solution_counts)):
+    for p in pts:
         if not kernel_metric:
             d = met.point_to_set(pool, p)
         else:
@@ -169,8 +188,4 @@ def instantiate(generalized_solution_pts, generalized_solution_counts,
             kw = dict(xsq=prep.xsq, ysq=c.xsq)
             d = (kops.pairwise(*args, **kw, prepared=True) if use_pallas
                  else kops.ref.pairwise_ref(*args, **kw))[:, 0]
-        take = torch.nonzero((d <= thr) & ~used).flatten()[:int(cnt)]
-        used[take] = True
-        out.append(pool.index_select(0, take))
-        out.extend([p[None]] * (int(cnt) - int(take.shape[0])))
-    return torch.cat(out) if out else pool[:0]
+        yield p, d <= thr

@@ -48,6 +48,30 @@ def _match_rows(pts: torch.Tensor, sol, k: int, *, row_labels=None,
     own group (a constrained solution keeps its quotas).  One host read at
     the end.
     """
+    dist = _row_distances(pts, sol, row_labels=row_labels,
+                          sol_labels=sol_labels, chunk=chunk)
+    n, dev = pts.shape[0], pts.device
+    taken = torch.zeros((n,), dtype=torch.bool, device=dev)
+    picks, finite = [], []
+    for t in range(dist.shape[1]):
+        d = torch.where(taken, torch.full_like(dist[:, t], float("inf")),
+                        dist[:, t])
+        j = torch.argmin(d).reshape(1)
+        ok = torch.isfinite(d.index_select(0, j))
+        taken.index_put_((j,), ok)
+        picks.append(j)
+        finite.append(ok)
+    picks = to_numpy(torch.cat(picks))
+    finite = to_numpy(torch.cat(finite))
+    return picks[finite][:k]
+
+
+def _row_distances(pts: torch.Tensor, sol, *, row_labels=None,
+                   sol_labels=None, chunk: int = 65536) -> torch.Tensor:
+    """The (n, s) exact distances of every row of ``pts`` to every solution
+    point, on the rows' device, in row chunks; with labels, a row of
+    another group than the solution point's is at +inf.  A row's entries
+    depend on that row alone."""
     dev = pts.device
     sol = torch.as_tensor(sol, dtype=pts.dtype, device=dev).reshape(-1,
                                                                     pts.shape[1])
@@ -62,16 +86,4 @@ def _match_rows(pts: torch.Tensor, sol, k: int, *, row_labels=None,
         sl = torch.as_tensor(np.asarray(to_numpy(sol_labels)), device=dev)
         dist = torch.where(rl[:, None] == sl[None, :], dist,
                            torch.full_like(dist, float("inf")))
-    taken = torch.zeros((n,), dtype=torch.bool, device=dev)
-    picks, finite = [], []
-    for t in range(sol.shape[0]):
-        d = torch.where(taken, torch.full_like(dist[:, t], float("inf")),
-                        dist[:, t])
-        j = torch.argmin(d).reshape(1)
-        ok = torch.isfinite(d.index_select(0, j))
-        taken.index_put_((j,), ok)
-        picks.append(j)
-        finite.append(ok)
-    picks = to_numpy(torch.cat(picks))
-    finite = to_numpy(torch.cat(finite))
-    return picks[finite][:k]
+    return dist

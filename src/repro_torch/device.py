@@ -13,25 +13,14 @@ import torch
 
 DEFAULT_DEVICE = "cuda"
 
-# paths of the reference that later slices of the port bring, each with its
-# ROADMAP slice; ``plan()`` raises on them before any work
-NOT_PORTED = {
-    "mesh": "the MapReduce mesh path (mesh= or a device-sharded input; "
-            "ROADMAP A, slice 10b: torch.distributed)",
-}
-
-
-def not_ported(what: str, name: str = "") -> NotImplementedError:
-    """The error for the path ``NOT_PORTED[what]`` (reached through
-    function ``name``, if given)."""
-    text = f"{name}: {NOT_PORTED[what]}" if name else NOT_PORTED[what]
-    return NotImplementedError(
-        f"{text} is not ported to repro_torch yet; use the reference "
-        "package repro for it")
-
-
 # metrics the CUDA sweep kernels implement (``kernels.ops._metric_to_mode``)
 _KERNEL_METRICS = ("euclidean", "sqeuclidean", "dot", "cosine")
+
+
+def is_dtensor(x) -> bool:
+    """A ``torch.distributed.tensor.DTensor``: it carries its device mesh,
+    and its rows lie on the mesh's ranks."""
+    return getattr(x, "device_mesh", None) is not None
 
 
 def resolve_device(device=None, like=None) -> torch.device:

@@ -324,11 +324,15 @@ def run_unit(run: Callable[[], Any], policy: ResiliencePolicy, *,
 
 def retry_call(fn: Callable[[], Any], policy: ResiliencePolicy, *,
                point: str, report: Optional[ResilienceReport] = None,
+               agree: Optional[Callable[[bool], bool]] = None,
                ) -> Tuple[Any, ResilienceReport]:
     """Whole-unit retry wrapper for paths without per-reducer granularity
     (a mesh round is one collective dispatch — a failure
     there is retried as a round; ``degrade`` has nothing to drop to and is
-    treated as retry-then-raise)."""
+    treated as retry-then-raise).  ``agree(failed)`` turns this process's
+    outcome of an attempt into the outcome of every process running the
+    unit (a mesh's ranks: True when any failed), so that they all retry,
+    return or raise together."""
     from ..obs.trace import count as _count
 
     rep = report or ResilienceReport(scope="round",
@@ -336,20 +340,28 @@ def retry_call(fn: Callable[[], Any], policy: ResiliencePolicy, *,
     rep.units += 1
     attempt = 0
     while True:
+        out, err = None, None
         try:
             if policy.injector is not None:
                 policy.injector.maybe_fail(point)
-            return fn(), rep
+            out = fn()
         except Exception as e:
+            err = e
             if isinstance(e, InjectedFailure):
                 rep.failures_injected += 1
                 _count("failures_injected")
-            if policy.on_failure == "raise" or attempt >= policy.max_retries:
-                raise
-            time.sleep(policy.backoff(attempt))
-            attempt += 1
-            rep.retries += 1
-            _count("retries")
+        failed = err is not None if agree is None else agree(err is not None)
+        if not failed:
+            return out, rep
+        if policy.on_failure == "raise" or attempt >= policy.max_retries:
+            if err is None:
+                raise RuntimeError(f"{point}: failed on another process "
+                                   "running the unit")
+            raise err
+        time.sleep(policy.backoff(attempt))
+        attempt += 1
+        rep.retries += 1
+        _count("retries")
 
 
 def degraded_certificate(cert, *, kprime: int, radius: float,

@@ -23,6 +23,7 @@ from .constrained.mapreduce import FairCoreset
 from .core.adaptive import RadiusCertificate
 from .core.coreset import Coreset, GeneralizedCoreset
 from .core.smm import StreamingCoreset
+from .device import resolve_device
 from .device import to_numpy as _host
 
 _CERT_FIELDS = tuple(f.name for f in dataclasses.fields(RadiusCertificate))
@@ -36,19 +37,21 @@ def _cert(obj):
     return RadiusCertificate(**{f: getattr(obj, f) for f in _CERT_FIELDS})
 
 
-def from_reference(obj, device="cpu"):
+def from_reference(obj, device=None):
     """The port's counterpart of a reference object (None passes through).
 
     ``RadiusCertificate`` -> ``RadiusCertificate``; ``Coreset`` /
     ``GeneralizedCoreset`` / ``GroupedCoreset`` / ``FairCoreset`` -> the
-    port's container
-    with tensors on ``device`` (indices as int64); ``DiversityResult`` -> the port's
-    ``DiversityResult`` with its solution, value, indices, certificate and
-    core-set converted (no plan or telemetry)."""
+    port's container with tensors on ``device`` (default: the card; a
+    missing card raises — pass ``device="cpu"`` for the CPU) and indices
+    as int64; ``DiversityResult`` -> the port's ``DiversityResult`` with
+    its solution, value, indices, certificate and core-set converted (no
+    plan or telemetry)."""
     if obj is None:
         return None
     if all(hasattr(obj, f) for f in ("kprime", "radius", "scale", "ratio")):
         return _cert(obj)
+    device = resolve_device(device)
     if hasattr(obj, "multiplicity") and hasattr(obj, "points"):
         return GeneralizedCoreset(
             points=_tensor(obj.points, device, torch.float32),
@@ -87,15 +90,16 @@ def from_reference(obj, device="cpu"):
     raise TypeError(f"no port counterpart for {type(obj).__name__}")
 
 
-def stream_from_reference(arrays, meta, device="cpu",
+def stream_from_reference(arrays, meta, device=None,
                           use_pallas="auto") -> StreamingCoreset:
     """The port's ``StreamingCoreset`` resuming a reference stream from its
     ``state_dict()``: ``arrays`` (read as numpy arrays) and ``meta`` as the
-    reference wrote them.  The stream goes on where the reference's
-    stopped; fed the same chunks, both finalize to the same core-set."""
+    reference wrote them, on ``device`` (default: the card; a missing card
+    raises).  The stream goes on where the reference's stopped; fed the
+    same chunks, both finalize to the same core-set."""
     arrays = {name: np.asarray(a) for name, a in arrays.items()}
     return StreamingCoreset.from_state_dict(arrays, dict(meta),
-                                            device=device,
+                                            device=resolve_device(device),
                                             use_pallas=use_pallas)
 
 

@@ -165,22 +165,21 @@ def test_tensor_points_stay_on_their_device():
 @pytest.mark.parametrize("kind", ["streaming", "mapreduce", "serving",
                                   "dynamic", "constrained", "budget",
                                   "reducers"])
-def test_unported_modes_raise_with_their_slice(kind):
-    """The mesh path (slice 10b) raises from ``plan()`` naming its slice;
-    serving, resilience= on a stream or a constrained MapReduce run,
-    trace="reducers" (slices 12 and 13) and the dynamic mode (slice 14, an
-    array as a one-insert stream) plan and run."""
+def test_unported_modes_raise_with_their_slice(kind, tmp_path):
+    """Every mode plans and runs: the mesh path (slice 10b, ``mesh=`` a
+    one-rank gloo mesh here), serving, resilience= on a stream or a
+    constrained MapReduce run, trace="reducers" (slices 12 and 13) and the
+    dynamic mode (slice 14, an array as a one-insert stream)."""
+    import contextlib
+
     from repro_torch.distributed import ResiliencePolicy
+    from test_torch_mesh import one_rank_mesh
 
     pts = np.random.default_rng(0).normal(size=(64, 4)).astype(np.float32)
     ex, prob = {}, dict(points=pts, k=4)
     if kind in ("mapreduce", "serving", "dynamic"):
         ex["mode"] = kind
-        if kind == "mapreduce":
-            # the simulated reducers are ported (slice 10); the mesh path
-            # over several cards is slice 10b
-            ex["mesh"] = object()
-        elif kind == "serving":
+        if kind == "serving":
             prob["points"] = pts.reshape(4, 16, 4)
     elif kind in ("streaming", "budget"):
         ex["resilience"] = ResiliencePolicy()
@@ -198,13 +197,11 @@ def test_unported_modes_raise_with_their_slice(kind):
         ex["kprime"] = 8
         ex["trace"] = "reducers"
     spec = repro_torch.ProblemSpec(**prob)
-    exs = repro_torch.ExecutionSpec(device="cpu", **ex)
-    if kind == "mapreduce":
-        with pytest.raises(NotImplementedError, match="ROADMAP A, slice"):
-            repro_torch.plan(spec, exs)
-        return
-    planned = repro_torch.plan(spec, exs)
-    res = planned.execute()
+    with (one_rank_mesh(tmp_path) if kind == "mapreduce"
+          else contextlib.nullcontext()) as mesh:
+        exs = repro_torch.ExecutionSpec(device="cpu", mesh=mesh, **ex)
+        planned = repro_torch.plan(spec, exs)
+        res = planned.execute()
     want_mode = {"serving": "serving", "streaming": "streaming",
                  "budget": "streaming",
                  "dynamic": "dynamic"}.get(kind, "mapreduce")
@@ -219,6 +216,10 @@ def test_unported_modes_raise_with_their_slice(kind):
         assert res.solution.shape == (4, 4)
     if kind == "reducers":
         assert "mr_stragglers" in res.telemetry.extras
+    elif kind == "mapreduce":
+        assert planned.layout == ("mesh torch.distributed over axes "
+                                  "('data',), 1 reducers")
+        assert len(set(res.indices.tolist())) == 4
     elif kind != "serving":
         assert res.telemetry["resilience"]["units"] >= 1
     # a constrained stream plans, with resilience= on it as well
@@ -232,9 +233,9 @@ def test_unported_modes_raise_with_their_slice(kind):
 def test_from_reference_round_trip():
     pts = np.random.default_rng(3).normal(size=(800, 3)).astype(np.float32)
     want, got = _both(pts, 4, kprime=32)
-    ported = from_reference(want)
+    ported = from_reference(want, device="cpu")
     np.testing.assert_array_equal(ported.indices, got.indices)
     assert_cert_close(got.cert, ported.cert)
-    cs = from_reference(want.coreset)
+    cs = from_reference(want.coreset, device="cpu")
     np.testing.assert_allclose(cs.points.numpy(), to_numpy(got.coreset.points),
                                rtol=RTOL)

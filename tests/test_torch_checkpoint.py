@@ -5,9 +5,14 @@ other; atomic rename, keep_k, async save, the schema and template checks;
 and a ``StreamingCoreset`` saved by one package, restored by the other and
 continued equals the uninterrupted stream (bit for bit: the SMM state of
 both packages is the same arrays, and the continuation runs on the port's
-plain CPU path either way)."""
+plain CPU path either way).  Across gloo CPU ranks: a tree of DTensors
+saved at 4 ranks restores re-sharded at 2 (the reference's elastic
+test)."""
 import json
 import os
+import subprocess
+import sys
+import textwrap
 from typing import NamedTuple
 
 import jax
@@ -176,8 +181,100 @@ def test_schema_mismatch_and_missing_leaf_raise(tmp_path):
         mgr.restore(1, {"a": torch.zeros(2), "b": torch.zeros(2)})
     with pytest.raises(CheckpointError, match="unreadable"):
         mgr.read_meta(7)
-    with pytest.raises(NotImplementedError, match="slice 10b"):
-        mgr.restore(1, {"a": torch.zeros(2)}, shardings={"a": None})
+    # shardings= re-shards onto a DeviceMesh (slice 10b); a None leaf
+    # restores unsharded
+    from torch.distributed.tensor import DTensor, Replicate
+    from test_torch_mesh import one_rank_mesh
+    with one_rank_mesh(tmp_path) as mesh:
+        got = mgr.restore(1, {"a": torch.zeros(2)},
+                          shardings={"a": (mesh, [Replicate()])})
+        assert isinstance(got["a"], DTensor)
+        assert torch.equal(got["a"].to_local(), torch.zeros(2))
+    plain = mgr.restore(1, {"a": torch.zeros(2)}, shardings={"a": None})
+    assert type(plain["a"]) is torch.Tensor
+
+
+_ELASTIC = textwrap.dedent("""
+    import datetime, sys
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    from repro_torch.checkpoint import CheckpointManager
+
+    ckpt, what, store = sys.argv[1], sys.argv[2], sys.argv[3]
+    rank, world = int(sys.argv[4]), int(sys.argv[5])
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
+    mgr = CheckpointManager(ckpt, keep_k=2)
+    tree = {"w": torch.arange(64, dtype=torch.float32).reshape(8, 8),
+            "g": torch.arange(30, dtype=torch.int32).reshape(10, 3),
+            "r": torch.tensor([2.5, -1.0]), "n": np.int32(7)}
+    if what == "save":
+        grid = init_device_mesh("cpu", (2, world // 2),
+                                mesh_dim_names=("pod", "data"))
+        mgr.save(1, {"w": distribute_tensor(tree["w"], mesh, [Shard(0)]),
+                     "g": distribute_tensor(tree["g"], grid,
+                                            [Replicate(), Shard(0)]),
+                     "r": distribute_tensor(tree["r"], grid,
+                                            [Replicate(), Replicate()]),
+                     "n": tree["n"]})
+        # a mesh short of the process group is refused on its ranks,
+        # before any collective
+        sub = DeviceMesh("cpu", [0, 1], mesh_dim_names=("data",))
+        if rank < 2:
+            leaf = distribute_tensor(tree["w"], sub, [Shard(0)])
+            try:
+                mgr.save(2, {"w": leaf})
+            except ValueError as e:
+                assert "spans the process group" in str(e), e
+            else:
+                raise AssertionError("a sub-mesh save did not raise")
+        dist.barrier()
+        assert CheckpointManager(ckpt).all_steps() == [1]
+    else:
+        got = mgr.restore(1, tree, shardings={"w": (mesh, [Shard(0)]),
+                                              "g": None, "r": None,
+                                              "n": None})
+        w = got["w"]
+        assert isinstance(w, DTensor) and w.placements == (Shard(0),)
+        assert torch.equal(w.to_local(),
+                           tree["w"][rank * 8 // world:(rank + 1) * 8 // world])
+        assert torch.equal(w.full_tensor(), tree["w"])
+        for key in ("g", "r"):
+            assert torch.equal(got[key], tree[key]), key
+        assert int(got["n"]) == 7
+    dist.destroy_process_group()
+    print("OK")
+""")
+
+
+def _ranks(tmp_path, what, world):
+    from conftest import SUBPROC_ENV
+    store = tmp_path / f"store_{what}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _ELASTIC, str(tmp_path / "ckpt"), what,
+         str(store), str(r), str(world)], env=dict(SUBPROC_ENV,
+                                                   OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    for p, (so, se) in zip(procs, outs):
+        assert p.returncode == 0 and "OK" in so, se[-2000:]
+
+
+def test_elastic_restore_across_rank_counts(tmp_path):
+    """Saved by 4 gloo ranks (each DTensor, on a 1-D or a (2, 2) mesh,
+    gathered to rank 0, which writes; a mesh of 2 of the 4 ranks is
+    refused), restored re-sharded onto a 2-rank mesh with
+    ``shardings=``."""
+    _ranks(tmp_path, "save", 4)
+    assert CheckpointManager(str(tmp_path / "ckpt")).all_steps() == [1]
+    _ranks(tmp_path, "load", 2)
 
 
 def test_bfloat16_leaf_round_trips_through_float32(tmp_path):

@@ -198,17 +198,26 @@ def test_grouped_coreset_round_trips_through_interop():
     assert got.size == want.size
 
 
-def test_later_slices_and_bad_specs_raise():
+def test_later_slices_and_bad_specs_raise(tmp_path):
     pts, lab = _data(n=200)
     ex = repro_torch.ExecutionSpec
     spec = repro_torch.ProblemSpec(points=pts, k=6, labels=lab)
     # the simulated reducers are ported, with per-reducer spans and
-    # resilience= (slice 12); the mesh path is slice 10b
+    # resilience= (slice 12), and the mesh path (slice 10b): mesh= wins
+    # over num_reducers, as in the reference
     from repro_torch.distributed import ResiliencePolicy
+    from test_torch_mesh import one_rank_mesh
 
-    with pytest.raises(NotImplementedError, match="slice 10b"):
-        repro_torch.plan(spec, ex(device="cpu", num_reducers=4,
-                                  mesh=object()))
+    with one_rank_mesh(tmp_path) as mesh:
+        planned = repro_torch.plan(spec, ex(device="cpu", num_reducers=4,
+                                            mesh=mesh))
+        res = planned.execute()
+    assert planned.mode == "mapreduce" and planned.num_reducers is None
+    assert planned.layout.startswith("mesh torch.distributed over axes "
+                                     "('data',), 1 reducers")
+    np.testing.assert_array_equal(np.bincount(res.labels, minlength=3),
+                                  np.bincount(lab[res.indices], minlength=3))
+    np.testing.assert_array_equal(pts[res.indices], res.solution)
     assert repro_torch.plan(spec, ex(device="cpu", mode="mapreduce",
                                      num_reducers=4,
                                      trace="reducers")).mode == "mapreduce"

@@ -30,7 +30,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.constrained.mapreduce, repro_torch.checkpoint, "
             "repro_torch.distributed, repro_torch.obs.export, "
             "repro_torch.serving, repro_torch.serving.engine, "
-            "repro_torch.dynamic, repro_torch.dynamic.index\n"
+            "repro_torch.dynamic, repro_torch.dynamic.index, "
+            "repro_torch.launch, repro_torch.launch.mesh\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -56,7 +57,8 @@ def test_sources_never_import_jax_or_repro():
                 ("serving", "rerank.py"), ("serving", "engine.py"),
                 ("dynamic", "__init__.py"), ("dynamic", "ops.py"),
                 ("dynamic", "rebuild.py"), ("dynamic", "levels.py"),
-                ("dynamic", "index.py")):
+                ("dynamic", "index.py"), ("launch", "__init__.py"),
+                ("launch", "mesh.py")):
         assert PORT.joinpath(*mod) in scanned
     hits = [str(p) for p in scanned if pat.search(p.read_text())]
     assert not hits, hits
@@ -71,6 +73,23 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
         port_device.as_points(pts)
     with pytest.raises(RuntimeError, match="cuda"):
         repro_torch.plan(repro_torch.ProblemSpec(points=pts, k=2))
+
+
+def test_interop_defaults_to_the_card(monkeypatch):
+    """``from_reference`` and ``stream_from_reference`` resolve their device
+    as every entry point does: the card, raising without one."""
+    from repro_torch.core.coreset import Coreset
+    from repro_torch.interop import from_reference, stream_from_reference
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cs = Coreset(points=np.zeros((2, 2), np.float32),
+                 valid=np.ones(2, bool), weights=np.ones(2, np.int32),
+                 radius=np.float32(0.0))
+    with pytest.raises(RuntimeError, match="cuda"):
+        from_reference(cs)
+    with pytest.raises(RuntimeError, match="cuda"):
+        stream_from_reference({}, {"k": 2, "kprime": 4, "dim": 2})
+    assert from_reference(cs, device="cpu").points.device.type == "cpu"
 
 
 def test_stream_defaults_to_the_card(monkeypatch):

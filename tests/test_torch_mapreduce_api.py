@@ -183,23 +183,34 @@ def test_explain_text_for_auto_and_constrained_plans():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mode="mapreduce", num_reducers=4, mesh=object()), "slice 10b"),
-    (dict(num_reducers=4, mesh=object()), "slice 10b"),
+    (dict(mode="mapreduce", num_reducers=4), "mesh"),
+    (dict(num_reducers=4), "mesh"),
     (dict(mode="mapreduce", num_reducers=4, resilience="policy"), None),
     (dict(mode="mapreduce", num_reducers=4, trace="reducers"), None),
     (dict(num_reducers=4, trace="reducers"), None)])
-def test_not_ported_cases_raise_from_plan(kw, match):
-    """The mesh path (slice 10b) raises; resilience= and trace="reducers"
-    (slice 12) plan and run the per-reducer round 1, whose result equals
-    the one-run path's."""
+def test_not_ported_cases_raise_from_plan(kw, match, tmp_path):
+    """The mesh path (slice 10b) plans and runs: ``mesh=`` (a one-rank gloo
+    mesh here) wins over ``num_reducers``, as in the reference, and the
+    run answers as the reference's mesh path on one device does;
+    resilience= and trace="reducers" (slice 12) plan and run the
+    per-reducer round 1, whose result equals the one-run path's."""
     from repro_torch.distributed import ResiliencePolicy
+    from test_torch_mesh import one_rank_mesh
 
     pts = _pts(100, 3)
     spec = repro_torch.ProblemSpec(points=pts, k=3)
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            repro_torch.plan(spec, repro_torch.ExecutionSpec(device="cpu",
-                                                             **kw))
+    if match == "mesh":
+        import jax
+        with one_rank_mesh(tmp_path) as mesh:
+            got = repro_torch.diversify(spec, repro_torch.ExecutionSpec(
+                device="cpu", kprime=8, mesh=mesh, **kw))
+        want = repro.diversify(pts, k=3, execution=repro.ExecutionSpec(
+            kprime=8, mesh=jax.make_mesh((1,), ("data",)), **kw))
+        assert got.plan.mode == "mapreduce" and got.plan.mesh is not None
+        assert got.plan.num_reducers is None
+        np.testing.assert_array_equal(got.solution, want.solution)
+        np.testing.assert_array_equal(got.indices, want.indices)
+        np.testing.assert_allclose(got.value, want.value, rtol=RTOL)
         return
     if kw.get("resilience") == "policy":
         kw["resilience"] = ResiliencePolicy()
@@ -212,14 +223,58 @@ def test_not_ported_cases_raise_from_plan(kw, match):
     assert got.value == want.value and got.cert == want.cert
 
 
-def test_mesh_functions_name_their_slice():
+def test_mesh_functions_name_their_slice(tmp_path):
+    """The mesh functions of slice 10b run: on a one-rank gloo mesh each
+    gives the reference's answer on a one-device mesh."""
+    import warnings
+
+    import jax
+    import jax.numpy as jnp
+    from repro.constrained import mapreduce as rcmr
+    from repro.core import distributed as rdist
     from repro_torch.constrained import mapreduce as pcmr
     from repro_torch.core import distributed as pdist
-    for fn in (pdist.mr_coreset, pdist.mr_diversity,
-               pdist.mr_coreset_recursive, pcmr.mr_grouped_coreset,
-               pcmr.mr_fair_diversity):
-        with pytest.raises(NotImplementedError, match="slice 10b"):
-            fn(np.zeros((8, 2), np.float32), 2)
+    from test_torch_mesh import one_rank_mesh
+
+    pts = _pts(400, 3, seed=4)
+    lab = np.arange(400, dtype=np.int32) % 2
+    rmesh = jax.make_mesh((1,), ("data",))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        with one_rank_mesh(tmp_path) as mesh:
+            got = {
+                "coreset": pdist.mr_coreset(pts, 4, 16, "remote-edge", mesh,
+                                            device="cpu").points.numpy(),
+                "diversity": pdist.mr_diversity(pts, 4, "remote-clique",
+                                                mesh, kprime=16, b=1,
+                                                device="cpu")[0],
+                "grouped": pcmr.mr_grouped_coreset(
+                    pts, lab, 2, 4, 16, "remote-edge", mesh,
+                    device="cpu").points.numpy(),
+                "fair": pcmr.mr_fair_diversity(pts, lab, [2, 2], mesh=mesh,
+                                               kprime=16, b=1,
+                                               device="cpu")[0]}
+        (tmp_path / "pod").mkdir()
+        with one_rank_mesh(tmp_path / "pod", (1, 1),
+                           ("pod", "data")) as pod:
+            got["recursive"] = pdist.mr_coreset_recursive(
+                pts, 4, 16, "remote-edge", pod, device="cpu").points.numpy()
+        want = {
+            "coreset": np.asarray(rdist.mr_coreset(
+                jnp.asarray(pts), 4, 16, "remote-edge", rmesh).points),
+            "diversity": rdist.mr_diversity(pts, 4, "remote-clique", rmesh,
+                                            kprime=16, b=1)[0],
+            "grouped": np.asarray(rcmr.mr_grouped_coreset(
+                jnp.asarray(pts), jnp.asarray(lab), 2, 4, 16, "remote-edge",
+                rmesh).points),
+            "fair": rcmr.mr_fair_diversity(pts, lab, [2, 2], mesh=rmesh,
+                                           kprime=16, b=1)[0],
+            "recursive": np.asarray(rdist.mr_coreset_recursive(
+                jnp.asarray(pts), 4, 16, "remote-edge",
+                jax.make_mesh((1, 1), ("pod", "data"))).points)}
+    for name in want:
+        np.testing.assert_array_equal(got[name], np.asarray(want[name]),
+                                      err_msg=name)
 
 
 def test_plan_errors_match_reference():
@@ -257,7 +312,7 @@ def test_interop_round_trip_of_round1():
     for gen in (False, True):
         want, got = _both(_pts(seed=12), 6, "remote-clique", num_reducers=4,
                           kprime=16, b=1, generalized=gen)
-        ported = from_reference(want.coreset)
+        ported = from_reference(want.coreset, device="cpu")
         back = to_numpy(got.coreset)
         sol_p = p_solve(ported, 6, "remote-clique").numpy()
         rtype = type(want.coreset)

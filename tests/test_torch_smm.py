@@ -237,7 +237,7 @@ def test_reference_stream_resumes_in_the_port(mode):
     _feed(want, stream[:230], 1)
     arrays, meta = want.state_dict()
     got = stream_from_reference({n: np.asarray(a) for n, a in arrays.items()},
-                                meta)
+                                meta, device="cpu")
     for smm in (got, want):
         _feed(smm, stream[230:], 1)
     assert_state_equal(got, want)
@@ -257,7 +257,7 @@ def test_pre_boot_state_crosses_over():
     want.update(stream[:9])                  # still buffering the prefix
     arrays, meta = want.state_dict()
     got = stream_from_reference({n: np.asarray(a) for n, a in arrays.items()},
-                                meta)
+                                meta, device="cpu")
     assert got.state is None and got.n_seen == 9
     for smm in (got, want):
         _feed(smm, stream[9:], 1)
