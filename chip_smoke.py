@@ -92,13 +92,16 @@ Phases, each printing one JSON line (or one per call):
               256 requests x 1,024 rows x 768 as 256 groups, bc = 1, p = 1)
               and at every sweep shape of phase 12's runs (a rank's shard
               at m = 1 and with the 16 genres, (x)'s whole input at m = 1,
-              each (bc, p) their schedules give), with its merge time and
+              each (bc, p) their schedules give) and phase 13's (the
+              selection pool over 16 reducers, the reranker's fused solve
+              of 8 sessions), with its merge time and
               tile filler, each shape first held against its plain version
               entry for entry (its differing entries, expected 0, join
               phase 2's).
 8. profile  — device-only torch.profiler traces of batch call (a), stream
               call (b), constrained call (e) cosine, MapReduce call (i),
-              serving call (s) and one churn round of dynamic call (u):
+              serving call (s), one churn round of dynamic call (u) and
+              one group of phase 13's (q) (prefill, decode, rerank):
               device time by kernel, the device's busy share of that
               call's wall time and its idle gaps (full tables in the
               script's output directory).
@@ -178,12 +181,42 @@ Phases, each printing one JSON line (or one per call):
               centers off the data (``check_pair``), against their plain
               versions (B4 at the mesh's shapes is held in phase 7).
 
-Phases run in the order 1-6, 9, 10, 11, 12, 7, 8 (8 also traces one churn
-round of (u)).  The line before the last is the ``kernels`` summary; the
-last line is ``{"ok": true, "device": {...}}``.  Any failure exits nonzero
-before it.  ``--rehearse`` runs phases 2-6 and 9-12 at a tiny size on the
-CPU with the plain versions (no build, no timings, no ``ok`` line; phase
-12 over gloo on the CPU) to check the script itself.
+13. serve   — the model-backed serving path at internlm2-1.8b's full
+              width (24 layers, d_model 2,048, bf16, 1.889 B parameters),
+              random weights drawn on the card from ``--seed``: (o)
+              ``ServingEngine(batch=8, capacity=128)`` answers 32 requests
+              (64 prompt tokens, 32 new) twice, traced and not, with the
+              same tokens: init seconds, per-group prefill seconds, decode
+              ms a step beside the weight-bytes bound and the prefill's
+              operations bound, generated tokens/s; (o') prefill 63 tokens
+              and decode the 64th against the full forward, in fp32 (the
+              same weights upcast) at the reference's bound rtol = atol =
+              2e-2, in bf16 at that bound on the model cut to its first
+              layer, and in bf16 at full depth within a fixed atol of 0.4
+              (the bf16 error and the model's own bf16 floor, a row's
+              logits alone against in the batch, printed at 1, 2, 4, 8,
+              16 and 24 layers); (q) ``generate_diverse`` over the same
+              requests, one session a request, each carrying 1,024
+              candidates embedded through the model's table
+              (16-token Zipf(1) windows, d = 2,048) for
+              ``OnlineReranker(k=16, kprime=64, metric="cosine")``, with the
+              kernels and with ``use_pallas=False``: equal tokens, slates
+              and reuse, B3/B4 launched on the kernel run only; then
+              ``diverse_rerank`` (k = 8, B2) over the 32 outputs, equal
+              picks; (p) 65,536 examples x 128 Zipf(1) tokens embedded
+              through the table (a 537 MB fp32 pool) and ``select_diverse``
+              (k = 64) batch b = 1 (B2) and over 16 reducers (round 1 on
+              B4), three calls a side in turns, equal indices; B2 (and B1)
+              at the pool and B3 at the reranker's tile held against
+              plain; the serving launcher once at full width.
+
+Phases run in the order 1-6, 9, 10, 11, 12, 13, 7, 8 (8 also traces one
+churn round of (u) and one group of (q)).  The line before the last is the
+``kernels`` summary; the last line is ``{"ok": true, "device": {...}}``.
+Any failure exits nonzero before it.  ``--rehearse`` runs phases 2-6 and
+9-13 at a tiny size on the CPU with the plain versions (no build, no
+timings, no ``ok`` line; phase 12 over gloo on the CPU; phase 13 on the
+reduced config) to check the script itself.
 """
 from __future__ import annotations
 
@@ -1383,7 +1416,7 @@ def round1_cases(x, sphere, genres, serving=None, mesh=()):
     and call (l)'s 64 reducer x genre groups; with ``serving`` (phase 9's
     (R, n, d) requests) the fused rerank's shape, m = R request groups,
     bc = 1, p = 1 over all R·n rows; then ``mesh``, the mesh path's
-    sweeps (``phase_mesh``)."""
+    sweeps (``phase_mesh``), and phase 13's (``phase_serve``)."""
     dev = x.device
     cases = [("round 1 (i)", x, "cosine", contiguous_labels(x.shape[0], 16,
                                                              dev), 16, 8, 32),
@@ -2925,6 +2958,409 @@ def phase_mesh(x, genres, device, seed: int, errs, diffs, full: bool = True):
     return launches, median_s, mesh_b4
 
 
+# --------------------------------------------------------------------------
+# phase 13: the model-backed serving path
+# --------------------------------------------------------------------------
+
+BF16_FLOPS = 989e12            # H100 SXM bf16 dense on the tensor cores
+LOGITS_TOL = 2e-2              # the reference's cache-consistency bound
+# atol of the bf16 cache check at the model's full depth.  Fixed from the
+# readings of PERF.md section 6, PR 19 (H100 80GB HBM3, 700 W): the random
+# bf16 model at 24 layers parts from itself by 0.192 between a row alone
+# and in a batch of 8, and decode-from-cache parted from the full forward
+# by 0.211; the reference's 2e-2 holds in fp32 (6.3e-4) and, in bf16, at a
+# depth of one layer (the depth witness in phase 13).
+BF16_FULL_DEPTH_ATOL = 0.4
+WITNESS_DEPTHS = (1, 2, 4, 8, 16)
+
+
+def serve_sizes(full: bool):
+    """Sizes of phase 13: the model, the engine's slots and cache, the
+    requests (prompt and decode lengths), the candidate windows a request,
+    the session reranker's k and k', the selection pool (examples x tokens)
+    and its k and reducers, and the launcher's arguments."""
+    if full:
+        return {"arch": "internlm2-1.8b", "reduced": False, "batch": 8,
+                "capacity": 128, "requests": 32, "prompt": 64, "new": 32,
+                "windows": 1024, "window": 16, "k": 16, "kprime": 64,
+                "rerank_k": 8, "pool": 65536, "pool_len": 128,
+                "select_k": 64, "reducers": 16,
+                "launch": ["--arch", "internlm2-1.8b", "--requests", "8",
+                           "--new-tokens", "16", "--diverse-k", "4"]}
+    return {"arch": "internlm2-1.8b", "reduced": True, "batch": 4,
+            "capacity": 32, "requests": 8, "prompt": 8, "new": 6,
+            "windows": 64, "window": 8, "k": 4, "kprime": 16,
+            "rerank_k": 4, "pool": 2048, "pool_len": 16, "select_k": 8,
+            "reducers": 4,
+            "launch": ["--arch", "internlm2-1.8b", "--reduced", "--requests",
+                       "4", "--new-tokens", "4", "--diverse-k", "2",
+                       "--device", "cpu"]}
+
+
+def zipf_tokens(shape, vocab: int, seed: int, device):
+    """Token ids with Zipf(1) frequencies over the vocabulary (natural
+    text's law), each id's rank fixed by a seeded permutation, made on the
+    device."""
+    import math
+
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    ranks = torch.arange(1, vocab + 1, dtype=torch.float64, device=device)
+    prob = ((1.0 / ranks) / (1.0 / ranks).sum()).float()
+    ids = torch.randperm(vocab, generator=g, device=device)
+    draws = torch.multinomial(prob, math.prod(shape), replacement=True,
+                              generator=g)
+    return ids[draws].view(*shape)
+
+
+def _quiet(fn, *args, **kwargs):
+    """A legacy entry point without its DeprecationWarning on stderr."""
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        return fn(*args, **kwargs)
+
+
+def phase_serve(device, seed: int, errs, diffs, card: str = "",
+                full: bool = True, check_launches: bool = True):
+    """(o) the engine at the model's full width: random init on the device,
+    R requests through ``ServingEngine.generate`` twice (traced, then not:
+    the same tokens); (o') prefill S-1 tokens and decode the S-th against
+    the full forward, in fp32 at the reference's bound, in bf16 at the
+    reference's bound on the model cut to its first layer, and in bf16 at
+    full depth within the fixed ``BF16_FULL_DEPTH_ATOL``, the bf16 error
+    and the model's own bf16 floor printed at each depth; (q)
+    ``generate_diverse`` with the session reranker, one session a request,
+    kernel against ``use_pallas=False`` (equal tokens, slates and reuse;
+    B3/B4 launched on the kernel run only), then
+    ``diverse_rerank`` over the outputs; (p) a pool of examples embedded
+    through the model's table and ``select_diverse`` batch (B2) and over
+    reducers (round 1 on B4), three runs a side in turns with equal
+    indices; then the serving launcher once.  B2 (and B1) at the pool, B3
+    at the reranker's tile are held against plain here; the B4 shapes go
+    to phase 7.  Returns (launches, B4 cases, what phase 8 profiles)."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+    import repro_torch.models as M
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.data import embed_examples, select_diverse
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serving import (OnlineReranker, Request, ServingEngine,
+                                     diverse_rerank)
+    sz = serve_sizes(full)
+    cfg = get_config(sz["arch"], reduced=sz["reduced"])
+    R, B, new = sz["requests"], sz["batch"], sz["new"]
+    launches = dict.fromkeys(KERNELS, 0)
+    t_phase = time.perf_counter()
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def count(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    # (o) the engine
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed, device=device)
+    sync()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 19)
+    prompts = [rng.integers(1, cfg.vocab_size, size=sz["prompt"])
+               .astype(np.int32) for _ in range(R)]
+
+    def requests():
+        return [Request(prompt=p, max_new_tokens=new) for p in prompts]
+
+    engine = ServingEngine(cfg, launcher.RULES, model, batch=B,
+                           capacity=sz["capacity"])
+    first, traced_s, _, tr = _traced(lambda tr: engine.generate(requests()))
+    t0 = time.perf_counter()
+    second = engine.generate(requests())
+    sync()
+    wall = time.perf_counter() - t0
+    if not all(np.array_equal(a.out, b.out) for a, b in zip(first, second)):
+        fail("serve (o): two runs of the engine gave different tokens")
+    n_params = M.count_params(cfg)
+    prefill = [sp.seconds for sp in _spans(tr, "serving.prefill")]
+    decode = [sp.seconds * 1e3 for sp in _spans(tr, "serving.decode")]
+    emit({"phase": "serve", "call": "o_engine", "card": card,
+          "arch": cfg.arch, "params": n_params, "dtype": "bfloat16",
+          "init_seconds": init_s, "requests": R, "batch": B,
+          "capacity": sz["capacity"], "prompt_tokens": sz["prompt"],
+          "new_tokens": new, "groups": len(prefill),
+          "prefill_seconds": prefill,
+          "prefill_bound_ms": 2 * n_params * B * sz["prompt"]
+          / BF16_FLOPS * 1e3, "prefill_bound_by": "operations",
+          "decode_ms": {"median": statistics.median(decode),
+                        "min": min(decode), "max": max(decode),
+                        "steps": len(decode)},
+          "decode_bound_ms": n_params * 2 / HBM_BYTES_PER_S * 1e3,
+          "decode_bound_by": "bytes (the bf16 weights read once a step)",
+          "traced_seconds": traced_s, "untraced_seconds": wall,
+          "generated_tokens_per_s": R * new / wall,
+          "same_tokens_two_runs": True,
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+
+    # (o') cache consistency at full width.  The random model is chaotic in
+    # bf16 at this depth: one full forward of a row alone and in the batch
+    # (cuBLAS picks its kernels by the batch) part by ~0.2 in the logits.
+    # So the cache path is held at the reference's bound in fp32 (the same
+    # weights upcast) and in bf16 on the model cut to its first layer (the
+    # witness: the error grows with depth, as the floor does), and at full
+    # depth in bf16 within a fixed atol set from earlier readings.
+    toks = torch.as_tensor(np.stack(prompts[:B]), device=device)
+    S = toks.shape[1]
+    arange = torch.arange(S, dtype=torch.int32, device=device)
+
+    def last_logits(m, c):
+        full = m(toks, arange)[0][:, -1]
+        cache = M.make_cache(c, B, sz["capacity"], device=device)
+        _, cache = M.prefill_fn(m, c, None, {"tokens": toks[:, :S - 1]},
+                                cache)
+        step = M.decode_fn(m, c, None, toks[:, S - 1:],
+                           torch.tensor(S - 1, device=device), cache)[0]
+        return full, step[:, -1]
+
+    def excess(step, full, atol):
+        err = (step - full).abs()
+        return float(err.max()), bool(
+            (err <= atol + LOGITS_TOL * full.abs()).all())
+
+    def first_layers(depth):
+        # the same weights, the first ``depth`` layers (one layer a group)
+        lp = {n: torch.stack([getattr(l, n).data
+                              for l in model.layers[:depth]])[:, None]
+              for n, _ in model.layers[0].named_parameters()}
+        tree = {"embed": model.embed.data,
+                "final_norm": model.final_norm.data, "layers": lp}
+        if model.head is not None:
+            tree["head"] = model.head.data
+        c = dataclasses.replace(cfg, num_layers=depth)
+        return DecoderLM(c, tree), c
+
+    def floor_of(m, full):
+        return float((m(toks[:1], arange)[0][:, -1] - full[:1]).abs().max())
+
+    witness = []
+    for depth in [d for d in WITNESS_DEPTHS if d < cfg.num_layers]:
+        m_d, c_d = first_layers(depth)
+        full_d, step_d = last_logits(m_d, c_d)
+        err_d, ok_d = excess(step_d, full_d, LOGITS_TOL)
+        witness.append({"layers": depth, "max_abs_err": err_d,
+                        "ok_at_reference_bound": ok_d,
+                        "floor_row_alone_vs_batch": floor_of(m_d, full_d),
+                        "logits_max_abs": float(full_d.abs().max())})
+        del m_d, full_d, step_d
+    full16, step16 = last_logits(model, cfg)
+    floor = floor_of(model, full16)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    tree = model.to_tree()
+    m32 = DecoderLM(cfg32, {k: ({n: w.float() for n, w in v.items()}
+                                if isinstance(v, dict) else v.float())
+                            for k, v in tree.items()})
+    del tree
+    full32, step32 = last_logits(m32, cfg32)
+    del m32
+    tol16 = BF16_FULL_DEPTH_ATOL
+    err32, ok32 = excess(step32, full32, LOGITS_TOL)
+    err16, ok16 = excess(step16, full16, tol16)
+    ok1 = not witness or witness[0]["ok_at_reference_bound"]
+    row = {"phase": "serve", "call": "o_prime_cache_consistency",
+           "card": card, "prefill": S - 1, "decoded_position": S - 1,
+           "rows": B, "vocab": cfg.vocab_size,
+           "fp32": {"max_abs_err": err32, "rtol": LOGITS_TOL,
+                    "atol": LOGITS_TOL, "ok": ok32},
+           "bf16": {"max_abs_err": err16, "rtol": LOGITS_TOL,
+                    "atol": tol16, "ok": ok16,
+                    "floor_row_alone_vs_batch": floor,
+                    "layers": cfg.num_layers},
+           "bf16_first_layers": witness,
+           "bf16_vs_fp32_full_max_abs": float((full16 - full32).abs().max()),
+           "logits_max_abs": float(full16.abs().max())}
+    emit(row)
+    if not (ok32 and ok16 and ok1):
+        fail("serve (o'): decode from the cache disagrees with the full "
+             f"forward (fp32 {err32}, bf16 {err16} against {tol16}, bf16 "
+             f"by depth {[(w['layers'], w['max_abs_err']) for w in witness]})")
+    del full16, step16, full32, step32
+
+    # (q) serve-then-diversify
+    W = sz["windows"]
+    windows = zipf_tokens((R * W, sz["window"]), cfg.vocab_size, seed + 23,
+                          device)
+    t0 = time.perf_counter()
+    cands = embed_examples(windows, embedding=model.embed, dim=cfg.d_model)
+    sync()
+    cand_s = time.perf_counter() - t0
+    del windows
+
+    def diverse_requests(lo=0, hi=R):
+        # one session a request: without a key the engine names a request
+        # by its index in the group (the reference's keying), and every
+        # group after the first would land in the first group's sessions
+        return [Request(prompt=prompts[r], max_new_tokens=new,
+                        session=f"req-{r}",
+                        candidates=cands[r * W:(r + 1) * W])
+                for r in range(lo, hi)]
+
+    def reranker(use_pallas):
+        return OnlineReranker(k=sz["k"], dim=cfg.d_model,
+                              kprime=sz["kprime"], metric="cosine",
+                              device=device, use_pallas=use_pallas)
+
+    runs = {}
+    for up in ("auto", False):
+        eng = ServingEngine(cfg, launcher.RULES, model, batch=B,
+                            capacity=sz["capacity"], reranker=reranker(up))
+        runs[up] = _traced(lambda tr: eng.generate_diverse(
+            diverse_requests()))
+    (kout, ks, kl, ktr), (pout, ps, pl, ptr) = runs["auto"], runs[False]
+    agree = {"tokens": all(np.array_equal(a.out, b.out)
+                           for a, b in zip(kout, pout)),
+             "slates": all(np.array_equal(a.slate, b.slate)
+                           for a, b in zip(kout, pout)),
+             "slate_reused": [a.slate_reused for a in kout]
+             == [b.slate_reused for b in pout]}
+    if check_launches and (kl["pairwise"] == 0
+                           or kl["gmm_grouped_topb"] == 0):
+        fail(f"serve (q): the kernel run launched B3/B4 {kl}")
+    if any(pl.values()):
+        fail(f"serve (q): the plain run launched kernels {pl}")
+    if not all(agree.values()):
+        fail(f"serve (q): kernel and plain differ on {agree}")
+    count(kl)
+    group_s = {side: [a.seconds + b.seconds for a, b in zip(
+        _spans(t, "serving.generate"), _spans(t, "serving.rerank_group"))]
+        for side, t in (("kernel", ktr), ("plain", ptr))}
+    emit({"phase": "serve", "call": "q_generate_diverse", "card": card,
+          "requests": R, "candidates": W, "window_tokens": sz["window"],
+          "d": cfg.d_model, "k": sz["k"], "kprime": sz["kprime"],
+          "metric": "cosine", "candidate_embed_seconds": cand_s,
+          "kernel_seconds": ks, "plain_seconds": ps,
+          "rerank_group_seconds": {
+              side: [sp.seconds for sp in _spans(t, "serving.rerank_group")]
+              for side, t in (("kernel", ktr), ("plain", ptr))},
+          "group_seconds": group_s,
+          "slates_reused": sum(a.slate_reused for a in kout),
+          "launches": kl, "agree": agree})
+
+    outs = np.stack([r.out for r in kout])
+    emb_out = embed_examples(outs, embedding=model.embed, dim=cfg.d_model,
+                             device=device)
+    ops.reset_launches()
+    kidx = _quiet(diverse_rerank, emb_out, sz["rerank_k"], use_pallas="auto")
+    dl = dict(ops.LAUNCHES)
+    pidx = _quiet(diverse_rerank, emb_out, sz["rerank_k"], use_pallas=False)
+    if not np.array_equal(kidx, pidx):
+        fail(f"serve (q): diverse_rerank picks differ: {kidx} / {pidx}")
+    if check_launches and dl["gmm_update_select"] == 0:
+        fail(f"serve (q): diverse_rerank launched no B2 {dl}")
+    count(dl)
+    emit({"phase": "serve", "call": "q_diverse_rerank", "card": card,
+          "n": int(emb_out.shape[0]), "d": int(emb_out.shape[1]),
+          "k": sz["rerank_k"], "indices": kidx.tolist(), "launches": dl,
+          "agree": True})
+
+    # (p) data selection over a pool embedded through the model's table
+    N, L, K = sz["pool"], sz["pool_len"], sz["select_k"]
+    pool_toks = zipf_tokens((N, L), cfg.vocab_size, seed + 29, device)
+    t0 = time.perf_counter()
+    pool = embed_examples(pool_toks, embedding=model.embed, dim=cfg.d_model)
+    sync()
+    pool_s = time.perf_counter() - t0
+    del pool_toks
+    emit({"phase": "serve", "call": "p_embed_pool", "card": card,
+          "examples": N, "tokens": L, "d": int(pool.shape[1]),
+          "pool_gb": pool.numel() * 4 / 1e9, "seconds": pool_s,
+          "table_row_reads_gb": N * L * cfg.d_model * 2 / 1e9})
+    for name, knobs in (("p_select_batch_b1", {}),
+                        (f"p_select_mapreduce_l{sz['reducers']}",
+                         {"num_reducers": sz["reducers"]})):
+        out = _turns(lambda up, tr: _quiet(select_diverse, pool, K,
+                                           use_pallas=up, **knobs), 3)
+        first = out["auto"][0][0]
+        same = all(np.array_equal(o, first) for side in out
+                   for o, *_ in out[side])
+        if not same:
+            fail(f"serve {name}: runs or sides gave different indices")
+        pl = [r[2] for r in out[False]]
+        if any(any(l.values()) for l in pl):
+            fail(f"serve {name}: a plain run launched kernels")
+        kl = out["auto"][0][2]
+        want = "gmm_grouped_topb" if knobs else "gmm_update_select"
+        if check_launches and kl[want] == 0:
+            fail(f"serve {name}: no {want} launch {kl}")
+        count(kl)
+        emit({"phase": "serve", "call": name, "card": card, "n": N,
+              "d": int(pool.shape[1]), "k": K, **knobs,
+              "kernel_seconds": _spread([r[1] for r in out["auto"]]),
+              "plain_seconds": _spread([r[1] for r in out[False]]),
+              "launches": kl, "agree": {"indices": True}})
+
+    # the kernels at this phase's shapes, against their plain versions
+    gen = torch.Generator(device=device).manual_seed(seed + 31)
+    check_pair(pool, "euclidean", 1, 1, gen, errs,
+               f"serve (p) pool {N}x{pool.shape[1]} euclidean b=1 p=1")
+    cap = sz["kprime"] + 1
+    tile = f"serve (q) reranker tile {W}x{cap}x{cfg.d_model} cosine"
+    check_pairwise(cands[:W], cands[W:W + cap], "cosine", errs,
+                   diffs["pairwise"], tile)
+    sess = cands[:B * cap].clone()
+    serve_b4 = [(f"serve (p) round 1 l={sz['reducers']}", pool, "euclidean",
+                 contiguous_labels(N, sz["reducers"], pool.device),
+                 sz["reducers"], 1, 1),
+                (f"serve (q) fused solve of {B} sessions", sess, "cosine",
+                 contiguous_labels(B * cap, B, sess.device), B, 1, 1)]
+    emit({"phase": "serve", "call": "kernels_at_serve_shapes", "card": card,
+          "pairwise_differing_entries": diffs["pairwise"][tile],
+          "gmm_grouped_topb_cases_for_phase_7": [c[0] for c in serve_b4]})
+
+    # the launcher, once
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        done = _quiet(launcher.main, sz["launch"])
+    sync()
+    ll = dict(ops.LAUNCHES)
+    count(ll)
+    lines = buf.getvalue().splitlines()
+    if len(done) != int(sz["launch"][sz["launch"].index("--requests") + 1]) \
+            or not lines[-1].startswith("most diverse"):
+        fail(f"serve launcher: unexpected output {lines[-3:]}")
+    emit({"phase": "serve", "call": "launcher", "card": card,
+          "argv": sz["launch"], "seconds": time.perf_counter() - t0,
+          "requests_printed": sum(l.startswith("req ") for l in lines),
+          "last_line": lines[-1], "launches": ll})
+    del done
+
+    # what phase 8 profiles: one group of (q), with a fresh reranker
+    group = diverse_requests(0, B)
+    for r in group:
+        r.candidates = r.candidates.clone()
+    del cands, emb_out
+    profile = (lambda: ServingEngine(
+        cfg, launcher.RULES, model, batch=B, capacity=sz["capacity"],
+        reranker=reranker("auto")).generate_diverse(
+            [Request(prompt=r.prompt, max_new_tokens=new,
+                     session=r.session, candidates=r.candidates)
+             for r in group]))
+    emit({"phase": "serve", "phase_seconds": time.perf_counter() - t_phase,
+          "launches": launches})
+    return launches, serve_b4, {"profile": profile,
+                                "group_s": statistics.median(
+                                    group_s["kernel"])}
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2938,7 +3374,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse", action="store_true",
-                    help="tiny CPU run of phases 2-6 and 9-12 with the "
+                    help="tiny CPU run of phases 2-6 and 9-13 with the "
                          "plain versions")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
@@ -2976,7 +3412,10 @@ def main(argv=None) -> int:
         phase_dynamic(data, "cpu", full=False, seed=args.seed)
         _, _, mesh_b4 = phase_mesh(data["mxm"], genres, "cpu", args.seed,
                                    errs, diffs, full=False)
-        phase_times_round1(mesh_b4, args.seed, errs, diffs, timed=False)
+        _, serve_b4, _ = phase_serve("cpu", args.seed, errs, diffs,
+                                     full=False, check_launches=False)
+        phase_times_round1(mesh_b4 + serve_b4, args.seed, errs, diffs,
+                           timed=False)
         emit({"phase": "rehearsal", "ok": True})
         return 0
 
@@ -3083,19 +3522,31 @@ def main(argv=None) -> int:
     emit({"phase": "mesh", "phase_seconds": time.perf_counter() - t0,
           "script_seconds_so_far": time.perf_counter() - t_start})
 
+    # ---- 13. serve ---------------------------------------------------------
+    e_launches, serve_b4, serve_keep = phase_serve("cuda", args.seed, errs,
+                                                   diffs, card=card)
+    for k, v in e_launches.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    emit({"phase": "serve", "script_seconds_so_far":
+          time.perf_counter() - t_start})
+
     # ---- 7. times, 8. profile ---------------------------------------------
     rows = phase_times(x, args.seed)
     g_rows = phase_times_grouped(x, genres, args.seed)
     b4_cases = set(diffs["gmm_grouped_topb"])
     requests = serving.pop("serving")
     phase_times_round1(round1_cases(x, sphere, genres, serving=requests,
-                                    mesh=mesh_b4), args.seed, errs, diffs)
+                                    mesh=mesh_b4 + serve_b4), args.seed,
+                       errs, diffs)
+    del serve_b4
     (out / "kernel_differing_entries.json").write_text(
         json.dumps(diffs, indent=1))
     round1 = {c: v for c, v in diffs["gmm_grouped_topb"].items()
               if c not in b4_cases}
     emit({"phase": "differing_entries", "kernel": "gmm_grouped_topb",
-          "at": "round-1 (simulated and mesh) and serving shapes",
+          "at": "round-1 (simulated and mesh) and serving shapes, "
+                "phase 13's pool and fused solve",
           "cases": len(round1),
           "counts": list(round1.values())})
     far = x.shape[0] // 2
@@ -3135,6 +3586,10 @@ def main(argv=None) -> int:
                                 dyn_keep["u_cfg"]["k"]),
                   "dynamic_u_round", out, dyn_s["u_churn_0.05"])
     del dyn_keep
+    phase_profile(serve_keep["profile"], "serve_q_group", out,
+                  serve_keep["group_s"])
+    del serve_keep
+    torch.cuda.empty_cache()
     pick = {"gmm_topb": next(r for r in rows if r["b"] == 8 and r["p"] == 128),
             "gmm_update_select": next(r for r in rows if r["b"] == 1
                                       and r["p"] == 1),

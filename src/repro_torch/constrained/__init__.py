@@ -15,18 +15,19 @@ variant of the paper's problem, Ceccarello et al., arXiv:2002.03175).
   grouped-engine run, and the mesh path over ``torch.distributed``, one
   rank a reducer.
 
-The legacy drivers (``fair_diversity_maximize``,
-``fair_streaming_diversity``) come with the legacy wrappers;
-``repro_torch.diversify`` is the front door.
+The legacy drivers ``fair_diversity_maximize`` and
+``fair_streaming_diversity`` route through ``repro_torch.diversify``, the
+front door.
 """
-from .coreset import GroupedCoreset, grouped_adaptive, grouped_coreset
+from .coreset import (GroupedCoreset, fair_diversity_maximize,
+                      grouped_adaptive, grouped_coreset)
 from .matroid import (LaminarMatroid, Matroid, PartitionMatroid,
                       TransversalMatroid, as_matroid)
 from .solver import (brute_force_constrained, constrained_solve,
                      feasible_greedy, local_search, solve_and_value)
 from .mapreduce import (FairCoreset, mr_fair_diversity, mr_grouped_coreset,
                         simulate_fair_mr)
-from .streaming import FairStreamingCoreset
+from .streaming import FairStreamingCoreset, fair_streaming_diversity
 
 __all__ = [
     "GroupedCoreset", "grouped_coreset", "grouped_adaptive",
@@ -34,5 +35,5 @@ __all__ = [
     "brute_force_constrained", "solve_and_value", "FairStreamingCoreset",
     "Matroid", "PartitionMatroid", "TransversalMatroid", "LaminarMatroid",
     "as_matroid", "FairCoreset", "mr_grouped_coreset", "mr_fair_diversity",
-    "simulate_fair_mr",
+    "simulate_fair_mr", "fair_diversity_maximize", "fair_streaming_diversity",
 ]

@@ -39,7 +39,8 @@ from ..core.gmm import (_adjust_chunk, _schedule_select_impl, _sweep_points,
                         schedule_fold_sizes)
 from ..core.measures import NEEDS_INJECTIVE
 from ..core.metrics import get_metric
-from ..device import as_points, resolve_use_pallas, to_numpy
+from ..device import (as_points, resolve_device, resolve_use_pallas,
+                      to_numpy)
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 from ..obs.trace import (count as _count, counting as _counting,
@@ -337,3 +338,38 @@ def grouped_coreset(points, labels, m: Optional[int] = None,
             schedule=schedule)
     return GroupedCoreset(idx=idx, valid=valid, radius=radius,
                           group_count=counts)
+
+
+def fair_diversity_maximize(points, labels, quotas=None,
+                            measure: str = "remote-edge", *, matroid=None,
+                            kprime=None, metric="euclidean",
+                            use_pallas="auto", swap_rounds: int = 10,
+                            b=1, chunk: int = 0,
+                            eps: Optional[float] = None,
+                            tau: Optional[float] = None,
+                            cliff: Optional[float] = None, device=None):
+    """End-to-end single-machine constrained pipeline: per-group core-set →
+    feasible-greedy + oracle-checked local-search solve on the union.
+
+    Legacy spelling of ``repro_torch.diversify`` with a constrained
+    ``ProblemSpec`` — prefer the facade for new code.  ``quotas=`` is sugar
+    for an exact-quota ``PartitionMatroid``; pass ``matroid=`` for quota
+    ranges, transversal or laminar constraints.  Returns (indices (k,) into
+    ``points`` forming a feasible matroid basis, value, GroupedCoreset).
+    ``use_pallas`` defaults to ``"auto"`` (the reference's ``False`` picks
+    its XLA path); ``device``: the points' device when they are a tensor,
+    else the card.
+    """
+    from ..api import ExecutionSpec, ProblemSpec, _warn_legacy, diversify
+    from .matroid import as_matroid
+
+    _warn_legacy("repro_torch.constrained.fair_diversity_maximize")
+    mat = as_matroid(matroid, quotas)
+    res = diversify(
+        ProblemSpec(points=points, k=mat.k, measure=measure, metric=metric,
+                    labels=labels, matroid=mat),
+        ExecutionSpec(mode="batch", kprime=kprime, b=b, chunk=chunk,
+                      eps=eps, use_pallas=use_pallas,
+                      swap_rounds=swap_rounds, tau=tau, cliff=cliff,
+                      device=str(resolve_device(device, like=points))))
+    return res.indices, res.value, res.coreset

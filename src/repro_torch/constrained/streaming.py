@@ -147,3 +147,34 @@ class FairStreamingCoreset:
         return dataclasses_replace(
             worst, group_ratios=tuple(per[g].ratio if g in per else 0.0
                                       for g in range(self.m)))
+
+
+def fair_streaming_diversity(points, labels, quotas=None, *, matroid=None,
+                             measure: str = "remote-edge",
+                             kprime: Optional[int] = None, chunk: int = 4096,
+                             metric="euclidean", mode: Optional[str] = None,
+                             swap_rounds: int = 10, device=None,
+                             use_pallas="auto"):
+    """End-to-end single-pass streaming driver.
+
+    Legacy spelling of ``repro_torch.diversify`` with ``ExecutionSpec(
+    mode="streaming")`` — prefer the facade for new code.  Streams
+    ``points``/``labels`` in chunks through per-group SMM states and solves
+    on the union with the matroid oracle (``quotas=`` is sugar for an
+    exact-quota ``PartitionMatroid``).  Returns (solution_points (k, d),
+    solution_labels).  ``device``: the points' device when they are a
+    tensor, else the card.
+    """
+    from ..api import ExecutionSpec, ProblemSpec, _warn_legacy, diversify
+    from .matroid import as_matroid
+
+    _warn_legacy("repro_torch.constrained.fair_streaming_diversity")
+    mat = as_matroid(matroid, quotas)
+    res = diversify(
+        ProblemSpec(points=points, k=mat.k, measure=measure, metric=metric,
+                    labels=labels, matroid=mat),
+        ExecutionSpec(mode="streaming", kprime=kprime, chunk=chunk,
+                      smm_mode=mode, swap_rounds=swap_rounds,
+                      device=str(resolve_device(device, like=points)),
+                      use_pallas=use_pallas))
+    return res.solution, res.labels

@@ -1,14 +1,12 @@
 """Core library of the port: the batch, streaming and MapReduce (simulated
 and over a ``torch.distributed`` mesh, ``core.distributed``) unconstrained
-engines in PyTorch.
-
-The legacy ``diversity_maximize`` wrapper is a later slice (see
-ROADMAP.md).
+engines in PyTorch, with the legacy ``diversity_maximize`` wrapper over
+the facade.
 """
 from .adaptive import (AdaptiveGMMResult, RadiusCertificate, auto_kprime,
                        gmm_adaptive, resolve_engine_plan)
 from .coreset import (Coreset, GeneralizedCoreset, build_coreset,
-                      coreset_from_points)
+                      coreset_from_points, diversity_maximize)
 from .gmm import (GMMExtResult, GMMResult, ScheduleResult, effective_block,
                   gmm, gmm_batched, gmm_ext, gmm_gen, gmm_schedule,
                   schedule_sweep_counts, validate_schedule)
@@ -20,6 +18,7 @@ from .smm import SMMState, StreamingCoreset
 
 __all__ = [
     "Coreset", "GeneralizedCoreset", "build_coreset", "coreset_from_points",
+    "diversity_maximize",
     "GMMResult", "GMMExtResult", "ScheduleResult",
     "effective_block", "gmm", "gmm_batched", "gmm_ext", "gmm_gen",
     "gmm_schedule", "schedule_sweep_counts", "validate_schedule",

@@ -14,7 +14,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..device import as_points, to_numpy
+from ..device import as_points, resolve_device, to_numpy
 
 
 class Coreset(NamedTuple):
@@ -151,3 +151,37 @@ def _dense_coreset(pts, radius, cert) -> Coreset:
                                       device=pts.device),
                    radius=torch.as_tensor(radius, device=pts.device),
                    cert=cert)
+
+
+def diversity_maximize(points, k: int, measure: str, *, kprime=None,
+                       metric="euclidean", use_pallas="auto", b=1,
+                       chunk: int = 0, eps: float = 0.1, tau=None,
+                       cliff=None, device=None):
+    """End-to-end: core-set + sequential α-approx solver.
+
+    Legacy spelling of ``repro_torch.diversify`` — prefer the facade for new
+    code (this wrapper emits a ``DeprecationWarning`` and routes through
+    it).  Returns (solution_points (k, d) ndarray, value, coreset).
+    ``b="auto"`` and ``kprime="auto"`` run the radius-certified adaptive
+    engine (``eps`` sets the auto-k' target), and the core-set then carries
+    ``cs.cert``.  ``use_pallas`` defaults to ``"auto"`` (the kernels on the
+    card), where the reference's ``False`` picks its XLA path; ``device``:
+    the points' device when they are a tensor, else the card.
+
+    >>> import numpy as np
+    >>> rng = np.random.default_rng(0)
+    >>> pts = rng.normal(size=(1000, 3)).astype(np.float32)
+    >>> sol, value, cs = diversity_maximize(pts, k=5, measure="remote-edge",
+    ...                                     device="cpu")
+    >>> sol.shape
+    (5, 3)
+    """
+    from ..api import ExecutionSpec, ProblemSpec, _warn_legacy, diversify
+
+    _warn_legacy("repro_torch.core.diversity_maximize")
+    res = diversify(
+        ProblemSpec(points=points, k=k, measure=measure, metric=metric),
+        ExecutionSpec(mode="batch", kprime=kprime, b=b, chunk=chunk,
+                      eps=eps, use_pallas=use_pallas, tau=tau, cliff=cliff,
+                      device=str(resolve_device(device, like=points))))
+    return res.solution, res.value, res.coreset

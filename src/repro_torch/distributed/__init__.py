@@ -1,6 +1,7 @@
 """Resilience of the port's runs (port of ``repro.distributed``'s
 ``fault_tolerance``).  The gradient compression and pipeline helpers of the
-reference package are ROADMAP A, slice 15."""
+reference package serve its training loop: ROADMAP A, slice 16b (dense
+training)."""
 from .fault_tolerance import (FailureInjector, InjectedFailure,
                               ResiliencePolicy, ResilienceReport,
                               StragglerPolicy, SupervisorReport,

@@ -1,15 +1,18 @@
 """Carry engine state and results between the reference and the port.
 
-The system has no weights; what crosses over is the engine state and the
-results.  ``from_reference`` turns the reference's ``RadiusCertificate``,
+What crosses over is the engine state, the results and a model's
+weights.  ``from_reference`` turns the reference's ``RadiusCertificate``,
 ``Coreset``/``GeneralizedCoreset`` (of a batch or MapReduce run),
 ``GroupedCoreset`` (a constrained core-set), ``FairCoreset`` (a constrained
 MapReduce union) and ``DiversityResult`` (their arrays read as numpy arrays) into
 the port's types, and ``stream_from_reference`` the reference's
 ``StreamingCoreset.state_dict()`` into a live port stream; ``to_numpy`` goes the other way, to plain numpy arrays and dataclass fields
 (for a stream, the ``(arrays, meta)`` pair the reference's
-``StreamingCoreset.from_state_dict`` takes).  Nothing here imports the
-reference: objects are recognised by their fields.
+``StreamingCoreset.from_state_dict`` takes).  ``params_from_reference``
+and ``params_to_reference`` carry a dense model's weights between the
+reference's parameter tree of numpy arrays and the port's ``DecoderLM``.
+Nothing here imports the reference: objects are recognised by their
+fields, bf16 arrays by their dtype's name.
 """
 from __future__ import annotations
 
@@ -127,3 +130,56 @@ def to_numpy(obj):
                 "labels": obj.labels, "cert": obj.cert,
                 "coreset": to_numpy(obj.coreset)}
     return np.asarray(obj)
+
+
+# --------------------------------------------------------------------------
+# model weights
+# --------------------------------------------------------------------------
+
+def _weight_in(a, dtype, device) -> torch.Tensor:
+    a = np.array(a, order="C")              # a writable copy
+    if a.dtype.name == "bfloat16":          # ml_dtypes' type, read by its bits
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
+
+
+def _weight_out(t: torch.Tensor, dtype) -> np.ndarray:
+    t = t.detach().cpu()
+    if dtype is None or np.dtype(dtype) == np.float32:
+        return t.float().numpy()
+    dt = np.dtype(dtype)
+    if dt.name != "bfloat16":
+        raise TypeError(f"weights go out as float32 or bfloat16, not {dt}")
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(dt)
+
+
+def _map_tree(tree, fn):
+    return {k: _map_tree(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def params_from_reference(tree, cfg, device=None):
+    """The port's ``models.transformer.DecoderLM`` holding the weights of
+    the reference's parameter tree ``{"embed", "final_norm", "layers":
+    {...}, ["head"]}`` (arrays read as numpy: float32, or a dtype named
+    ``bfloat16``, read by its bits), cast to ``cfg.param_dtype`` on
+    ``device`` (default: the card; a missing card raises).  bf16 -> f32 ->
+    bf16 is exact, so a float32 copy of bf16 weights carries them
+    unchanged."""
+    from .models import _dense
+    from .models.transformer import DecoderLM
+
+    _dense(cfg)
+    dev = resolve_device(device)
+    return DecoderLM(cfg, _map_tree(
+        tree, lambda a: _weight_in(a, cfg.param_dtype, dev)))
+
+
+def params_to_reference(model, dtype=None):
+    """The reference's parameter tree of ``model``'s weights, as numpy
+    arrays: float32 (``dtype=None``, exact for bf16 weights), or the
+    bfloat16 numpy dtype the caller passes (e.g. ``jax.numpy.bfloat16``),
+    filled by its bits."""
+    return _map_tree(model.to_tree(), lambda t: _weight_out(t, dtype))

@@ -15,12 +15,13 @@ import numpy as np
 
 
 def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's TPU-pod mesh shapes ((16, 16) or (2, 16, 16)) have
-    no counterpart on a card: launchers are ROADMAP A, slice 16."""
+    """The reference's TPU-pod mesh shapes ((16, 16) or (2, 16, 16)) serve
+    its train and dry-run launchers: ROADMAP A, slices 16b and 16e."""
     raise NotImplementedError(
-        "make_production_mesh builds a TPU pod mesh; the port's launchers "
-        "are ROADMAP A, slice 16 — build a DeviceMesh with make_host_mesh "
-        "or torch.distributed.device_mesh.init_device_mesh")
+        "make_production_mesh builds a TPU pod mesh for the train and "
+        "dry-run launchers, which are ROADMAP A, slices 16b and 16e — "
+        "build a DeviceMesh with make_host_mesh or "
+        "torch.distributed.device_mesh.init_device_mesh")
 
 
 def make_host_mesh(model_axis: int = 1):

@@ -1,0 +1,96 @@
+"""Model registry (port of ``repro.models``): family dispatch for init and
+the serving entry points.
+
+* ``init_params(cfg, key, device=None)`` -> a ``transformer.DecoderLM`` on
+  the device (default the card; a missing card raises);
+* ``param_shapes(cfg)`` / ``count_params(cfg)``: ``meta`` tensors, no
+  allocation;
+* ``make_cache``, ``prefill_fn``, ``decode_fn``: the serving callables.
+
+Only the ``dense`` family is ported.  The others raise
+``NotImplementedError`` naming their ROADMAP A slice; the teacher-forced
+``loss_fn`` comes with the training slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+from . import attention, transformer
+from .common import InitBuilder, ModelConfig, ShapeBuilder, ShardingRules
+
+# family -> the ROADMAP A slice that ports it
+_LATER = {"moe": "slice 16c (repro.models.moe)",
+          "ssm": "slice 16d (repro.models.ssd)",
+          "hybrid": "slice 16d (repro.models.rglru)",
+          "encdec": "slice 16d (repro.models.encdec)",
+          "vlm": "slice 16d (repro.models.vlm)"}
+
+
+def _dense(cfg: ModelConfig) -> None:
+    if cfg.family == "dense" and cfg.num_experts == 0:
+        return
+    fam = "moe" if cfg.num_experts > 0 else cfg.family
+    if fam in _LATER:
+        raise NotImplementedError(
+            f"the {fam!r} family ({cfg.arch}) is ROADMAP A, {_LATER[fam]}; "
+            "repro_torch ports the dense family so far")
+    raise ValueError(fam)
+
+
+def init_params(cfg: ModelConfig, key: int = 0,
+                device=None) -> transformer.DecoderLM:
+    """A randomly initialized model from the int seed ``key``."""
+    _dense(cfg)
+    tree = transformer.build_params(cfg, InitBuilder(key, cfg.param_dtype,
+                                                     device=device))
+    return transformer.DecoderLM(cfg, tree)
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The reference's parameter tree as ``meta`` tensors."""
+    _dense(cfg)
+    return transformer.build_params(cfg, ShapeBuilder(cfg.param_dtype))
+
+
+def count_params(cfg: ModelConfig) -> int:
+    def leaves(t):
+        return [x for v in t.values() for x in
+                (leaves(v) if isinstance(v, dict) else [v])]
+    return int(sum(t.numel() for t in leaves(param_shapes(cfg))))
+
+
+def make_cache(cfg: ModelConfig, batch: int, capacity: int, *,
+               shapes_only: bool = False, split_local_global: bool = False, device=None):
+    """A zeroed KV cache in the config's dtype on ``device`` (default the
+    card), or ``meta`` tensors with ``shapes_only``."""
+    _dense(cfg)
+    kw = {"dtype": cfg.dtype, "device": "meta" if shapes_only else device}
+    if (split_local_global and cfg.local_global_period == 2
+            and capacity > cfg.window > 0):
+        # gemma2 long context: local layers hold window-sized ring buffers,
+        # only global layers hold full KV
+        G = cfg.num_layers // 2
+        return {"local": attention.init_kv_cache(G, batch, cfg.window, cfg,
+                                                 **kw),
+                "global": attention.init_kv_cache(G, batch, capacity, cfg,
+                                                  **kw)}
+    cap = capacity
+    if cfg.window and not cfg.local_global_period:
+        cap = min(capacity, cfg.window)
+    return attention.init_kv_cache(cfg.num_layers, batch, cap, cfg, **kw)
+
+
+def prefill_fn(params, cfg: ModelConfig, rules: ShardingRules,
+               batch: Dict[str, Any], cache):
+    _dense(cfg)
+    return transformer.prefill(params, cfg, rules, batch["tokens"], cache)
+
+
+def decode_fn(params, cfg: ModelConfig, rules: ShardingRules, tokens, pos,
+              cache):
+    _dense(cfg)
+    return transformer.decode_step(params, cfg, rules, tokens, pos, cache)
+
+
+__all__ = ["ModelConfig", "ShardingRules", "count_params", "decode_fn",
+           "init_params", "make_cache", "param_shapes", "prefill_fn"]

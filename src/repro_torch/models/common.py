@@ -1,0 +1,263 @@
+"""Shared model substrate (port of ``repro.models.common``): config, param
+builders, norms, RoPE, MLPs, and the sharding record.
+
+One structure function (``transformer.build_params``) walked by a builder:
+``InitBuilder`` draws the weights (on a device, from a ``torch.Generator``
+seeded with an int), ``ShapeBuilder`` makes ``meta`` tensors that allocate
+nothing.  The reference's logical-axis sharding has no counterpart on one
+card: ``ShardingRules`` is kept as a plain record so callers' signatures
+match, and nothing reads it.
+
+The numerics follow the reference's compiled graphs op for op: bf16
+products stay bf16, ``rms_norm`` and RoPE run in fp32 and cast back, a
+Python constant that multiplies a bf16 tensor is rounded to bf16 first (a
+weakly typed scalar in JAX), the activations run op by op in bf16, and
+``lm_head``'s product, upcast to fp32 at once in the reference, is one
+fp32 product of the bf16 operands (XLA computes it so: it drops the bf16
+rounding between an op and an fp32 upcast of its result).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Any, Optional, Sequence, Tuple
+
+import torch
+
+from ..device import resolve_device
+
+# ---------------------------------------------------------------------------
+# configuration
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    arch: str
+    family: str                      # dense | moe | ssm | hybrid | encdec | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 128
+    # --- attention flavour
+    rope_theta: float = 10000.0
+    window: int = 0                  # >0: sliding-window (local) attention
+    local_global_period: int = 0     # gemma2: alternate local/global with this period
+    logit_softcap: float = 0.0       # gemma2 final-logit softcap
+    attn_softcap: float = 0.0        # gemma2 attention-logit softcap
+    mlp_act: str = "silu"            # silu (SwiGLU) | gelu (GeGLU)
+    mlp_type: str = "glu"            # glu | plain (starcoder2-style 2-matrix)
+    tie_embeddings: bool = True
+    embed_scale: bool = False        # gemma family: x *= sqrt(d_model)
+    # --- MoE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_dense_residual: bool = False # arctic: dense MLP residual in parallel
+    moe_dense_ff: int = 0
+    capacity_factor: float = 1.25
+    # --- SSM (mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    # --- RG-LRU hybrid (recurrentgemma)
+    rnn_width: int = 0
+    rnn_block_period: int = 0        # (rec, rec, attn) period = 3
+    # --- enc-dec
+    num_decoder_layers: int = 0
+    # --- vlm
+    num_patches: int = 0
+    # --- numerics / training
+    dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.bfloat16
+    remat: str = "dots"              # none | dots | full
+    # --- sharding overrides, kept for the configs' sake: on one card every
+    # mode runs the same GQA path (``attention.attend``)
+    attn_shard: str = "heads"
+    attn_pad_to: int = 0             # padded head count for pad_heads mode
+    # sub-quadratic flag for the long_500k cell
+    supports_long_context: bool = False
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.num_heads // max(self.num_kv_heads, 1)
+
+    @property
+    def d_inner(self) -> int:        # ssm
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """logical axis -> mesh axis (or tuple of mesh axes, or None).  A plain
+    record on one card: nothing reads it."""
+    batch: Tuple[str, ...] = ("data",)
+    seq: Optional[str] = None
+    heads: Optional[str] = "model"
+    act_heads: Optional[str] = "model"
+    kv_heads: Optional[str] = "model"
+    head_dim: Optional[str] = None
+    d_model: Optional[str] = None
+    d_ff: Optional[str] = "model"
+    vocab: Optional[str] = "model"
+    experts: Optional[str] = "model"
+    state: Optional[str] = None
+    kv_seq: Optional[str] = None
+    fsdp: Optional[str] = "data"
+
+
+# ---------------------------------------------------------------------------
+# param builders
+# ---------------------------------------------------------------------------
+
+class Builder:
+    """Visitor handed to ``build_params`` implementations."""
+
+    def __call__(self, name: str, shape: Sequence[int],
+                 axes: Sequence[Optional[str]], *, scale: float = 1.0,
+                 init: str = "normal", dtype=None):
+        raise NotImplementedError
+
+
+class InitBuilder(Builder):
+    """Draws every weight from the int seed ``key`` on ``device`` (default
+    the card; a missing card raises) as the reference does: normal with
+    std = scale/sqrt(shape[0]), drawn in fp32 and cast to the param dtype;
+    norms zeros.  Torch's generator is not JAX's, so the values differ from
+    the reference's init; weights cross over through ``interop``."""
+
+    def __init__(self, key: int, param_dtype, device=None):
+        self._dtype = param_dtype
+        self._device = resolve_device(device)
+        self._gen = torch.Generator(device=self._device)
+        self._gen.manual_seed(int(key))
+
+    def __call__(self, name, shape, axes, *, scale=1.0, init="normal",
+                 dtype=None):
+        dtype = dtype or self._dtype
+        if init == "zeros":
+            return torch.zeros(tuple(shape), dtype=dtype, device=self._device)
+        if init == "ones":
+            return torch.ones(tuple(shape), dtype=dtype, device=self._device)
+        fan_in = shape[0] if len(shape) > 1 else max(shape[0], 1)
+        std = scale / math.sqrt(fan_in)
+        w = torch.randn(tuple(shape), generator=self._gen,
+                        dtype=torch.float32, device=self._device)
+        return w.mul_(std).to(dtype)
+
+
+class ShapeBuilder(Builder):
+    """``meta`` tensors of the params' shapes and dtypes (no allocation)."""
+
+    def __init__(self, param_dtype):
+        self._dtype = param_dtype
+
+    def __call__(self, name, shape, axes, *, scale=1.0, init="normal",
+                 dtype=None):
+        return torch.empty(tuple(shape), dtype=dtype or self._dtype,
+                           device="meta")
+
+
+# ---------------------------------------------------------------------------
+# numerics
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, gamma, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * (1.0 + gamma.float())
+    return out.to(dt)
+
+
+def rope_angles(positions, hd: int, theta: float):
+    """(cos, sin) of RoPE's fp32 angles for ``positions`` (S,), each
+    (S, 1, hd // 2): one computation serves every layer's q and k."""
+    half = hd // 2
+    exps = -torch.arange(0, half, dtype=torch.float32,
+                         device=positions.device) / half
+    freq = torch.pow(float(theta), exps)                       # fp32
+    ang = positions[..., None].float() * freq                  # (S, half)
+    ang = ang[..., None, :]                                    # (S, 1, half)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rope(x, positions, theta: float, angles=None):
+    """x (..., S, H, hd) rotated by ``positions`` (S,), split-half layout,
+    angles in fp32 (``angles``: their ``rope_angles``, if made already),
+    the result cast back to ``x.dtype``."""
+    half = x.shape[-1] // 2
+    cos, sin = angles if angles is not None else rope_angles(
+        positions, x.shape[-1], theta)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _silu(x):
+    # jax.nn.silu's graph, one rounding to x's dtype per op: x / (1 + e^-x)
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+@functools.lru_cache(maxsize=None)
+def in_dtype(c: float, dtype) -> float:
+    """The Python constant ``c`` rounded to ``dtype``: what JAX multiplies
+    a ``dtype`` tensor by when the reference writes ``x * c``."""
+    return float(torch.tensor(c, dtype=dtype))
+
+
+def _gelu_tanh(x):
+    # jax.nn.gelu(approximate=True)'s graph, constants and every op in x's
+    # dtype: x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))
+    inner = x + in_dtype(0.044715, x.dtype) * (x * x * x)
+    cdf = 0.5 * (1.0 + torch.tanh(in_dtype(math.sqrt(2 / math.pi),
+                                            x.dtype) * inner))
+    return x * cdf
+
+
+def _act(name: str):
+    """The activations as the reference's graphs compute them, op by op in
+    the activations' dtype (F.silu / F.gelu round once, from fp32, and part
+    from the reference by an ulp at about a third of bf16 entries)."""
+    return {"silu": _silu, "gelu": _gelu_tanh}[name]
+
+
+def glu_mlp(x, w_gate, w_up, w_down, act_name: str, rules: ShardingRules):
+    """SwiGLU / GeGLU."""
+    h = _act(act_name)(x @ w_gate) * (x @ w_up)
+    return h @ w_down
+
+
+def plain_mlp(x, w_up, w_down, act_name: str, rules: ShardingRules):
+    """Classic 2-matrix MLP (starcoder2)."""
+    return _act(act_name)(x @ w_up) @ w_down
+
+
+def softcap(x, cap: float):
+    return torch.tanh(x / cap) * cap if cap > 0 else x
+
+
+def embed_tokens(tokens, emb, rules: ShardingRules, scale: bool = False,
+                 dtype=torch.bfloat16):
+    """The table's rows, scaled for the gemma family, cast to ``dtype``:
+    bf16 as in the reference (``forward`` passes the config's dtype, bf16
+    in every published config; the reference's cast makes an fp32 config
+    fail in its layer scan, where the port runs it in fp32)."""
+    x = emb[tokens.long()]
+    if scale:
+        x = x * in_dtype(math.sqrt(emb.shape[1]), x.dtype)
+    return x.to(dtype)
+
+
+def lm_head(x, emb_or_head, cfg: ModelConfig, rules: ShardingRules):
+    """fp32 logits (..., vocab): one fp32 product of the bf16 operands."""
+    logits = x.float() @ emb_or_head.float()
+    return softcap(logits, cfg.logit_softcap)

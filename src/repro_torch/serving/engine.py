@@ -1,23 +1,197 @@
-"""The model-backed serving engine (``ServingEngine``, ``diverse_rerank``)
-of the reference's ``repro.serving.engine``: ROADMAP A, slice 16 (model zoo
-and training), which brings the models it decodes with.  Both names raise
-``NotImplementedError``; the rerank layer they sit on is
-``serving.rerank``."""
+"""Batched serving engine and diversity re-ranking (port of
+``repro.serving.engine``): present k maximally diverse results, the paper's
+motivating application.
+
+``ServingEngine`` drives prefill and greedy decode over a fixed batch of
+request slots against a KV cache on the model's device (continuous
+batching lite: the requests go through in groups of ``batch``).  Diverse
+reranking plugs into that loop at two levels:
+
+* ``rerank_group`` — after a group finishes decoding, every request's
+  candidate embeddings absorb into its session's streaming core-set and
+  the slates come back from one fused multi-session solve
+  (``OnlineReranker.rerank_many``);
+* ``generate_diverse`` — ``generate`` + ``rerank_group`` a group: the
+  serve-then-diversify loop.
+
+``diverse_rerank`` is the legacy one-shot spelling (a ``DeprecationWarning``
+wrapper over ``repro_torch.diversify``).
+
+The engine keeps the reference's behaviour, including what a fix would
+change: prompts are left-padded with token 0, the pad positions count from
+0 and no mask hides them, the decode position is ``S + s`` for the group's
+longest prompt S, the greedy pick is the first maximal logit, and
+``rerank_group`` keys a request without a ``session`` by its index in the
+group (``req-{i}``), so a later group's such requests land in an earlier
+group's sessions.  One difference is decided: a cache too short for the group's prompt and decode
+steps raises ``ValueError`` (the reference's scatter drops the writes past
+its end).
+
+Spans (with an enabled ``obs.trace`` active): ``serving.generate`` a group,
+inside it ``serving.prefill`` and one ``serving.decode`` a step, each fenced
+on its result; ``serving.rerank_group`` around a group's rerank.
+"""
 from __future__ import annotations
 
-_LATER = ("repro.serving.engine ({name}) decodes with the model zoo, which "
-          "is ROADMAP A, slice 16; it is not ported to repro_torch yet — "
-          "rerank candidate embeddings with repro_torch.serving."
-          "OnlineReranker or rerank_batched")
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .. import models as M
+from ..device import resolve_device
+from ..kernels.build import LAUNCHES
+from ..models.common import ModelConfig, ShardingRules
+from ..obs.trace import launch_span as _launch_span, span as _span
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: np.ndarray          # (S,) int32
+    max_new_tokens: int = 16
+    out: Optional[np.ndarray] = None
+    # -- diverse-rerank fields (see rerank_group) --------------------------
+    session: Optional[str] = None        # session key (None = per-request)
+    candidates: Optional[np.ndarray] = None   # (n, d) candidate embeddings
+    slate: Optional[np.ndarray] = None        # (k, d) diverse slate
+    slate_reused: bool = False           # served from the cached certificate
+
+
+def _fence(span, tok: torch.Tensor) -> None:
+    """An open span times the step's execution, not its launch."""
+    if span is not None and tok.is_cuda:
+        torch.cuda.synchronize()
 
 
 class ServingEngine:
-    """Not ported: ROADMAP A, slice 16."""
+    """``params`` is the model (``models.init_params`` or
+    ``interop.params_from_reference``); the engine runs on its device.
+    ``reranker``: a ``serving.OnlineReranker`` for ``rerank_group``."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_LATER.format(name="ServingEngine"))
+    def __init__(self, cfg: ModelConfig, rules: ShardingRules, params, *,
+                 batch: int = 4, capacity: int = 256, reranker=None):
+        M._dense(cfg)
+        self.cfg, self.rules, self.params = cfg, rules, params
+        self.batch, self.capacity = batch, capacity
+        self.reranker = reranker
+        self.device = resolve_device(None, like=params.embed)
+
+    def _check_capacity(self, S: int, steps: int) -> None:
+        cfg = self.cfg
+        full = cfg.window == 0 or cfg.local_global_period > 1
+        if full and S + steps - 1 > self.capacity:
+            raise ValueError(
+                f"a cache of capacity={self.capacity} holds no "
+                f"{S} prompt + {steps - 1} decoded positions; raise capacity")
+
+    @torch.no_grad()
+    def generate(self, requests: List[Request]) -> List[Request]:
+        cfg, dev = self.cfg, self.device
+        for i in range(0, len(requests), self.batch):
+            group = requests[i:i + self.batch]
+            S = max(len(r.prompt) for r in group)
+            steps = max(r.max_new_tokens for r in group)
+            self._check_capacity(S, steps)
+            toks = np.zeros((self.batch, S), np.int32)
+            for j, r in enumerate(group):
+                toks[j, S - len(r.prompt):] = r.prompt  # left-pad
+            with _span("serving.generate", requests=len(group),
+                       prompt_len=S, steps=steps):
+                toks = torch.as_tensor(toks, device=dev)
+                cache = M.make_cache(cfg, self.batch, self.capacity,
+                                     device=dev)
+                # decode positions on the device: no host copy a step
+                positions = torch.arange(S, S + steps, dtype=torch.int32,
+                                         device=dev)
+                with _span("serving.prefill", tokens=self.batch * S) as sp:
+                    logits, cache = M.prefill_fn(self.params, cfg, self.rules,
+                                                 {"tokens": toks}, cache)
+                    tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+                    _fence(sp, tok)
+                outs = [tok]
+                for s in range(steps - 1):
+                    with _span("serving.decode", step=s) as sp:
+                        logits, cache = M.decode_fn(self.params, cfg,
+                                                    self.rules, tok,
+                                                    positions[s], cache)
+                        tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+                        _fence(sp, tok)
+                    outs.append(tok)
+                gen = torch.cat(outs, dim=1).to(torch.int32).cpu().numpy()
+            for j, r in enumerate(group):
+                r.out = gen[j, : r.max_new_tokens]
+        return requests
+
+    # -- serving-time diversity (serving.rerank) ----------------------------
+    def rerank_group(self, requests: List[Request]) -> List[Request]:
+        """Diverse-rerank one continuous-batching group: every request with
+        ``candidates`` absorbs them into its session core-set and all the
+        changed sessions solve in one fused run.  Slates land on
+        ``r.slate`` (``r.slate_reused`` marks certificate-reuse hits).
+        Needs a ``reranker=`` (``serving.OnlineReranker``)."""
+        if self.reranker is None:
+            raise ValueError("ServingEngine needs reranker= "
+                             "(repro_torch.serving.OnlineReranker) to rerank")
+        live = [(f"req-{i}" if r.session is None else r.session, r)
+                for i, r in enumerate(requests) if r.candidates is not None]
+        if not live:
+            return requests
+        with _launch_span("serving.rerank_group", LAUNCHES,
+                          requests=len(live)):
+            out = self.reranker.rerank_many({key: r.candidates
+                                             for key, r in live})
+        for key, r in live:
+            res = out[key]
+            r.slate = res.slate
+            r.slate_reused = res.reused
+        return requests
+
+    def generate_diverse(self, requests: List[Request]) -> List[Request]:
+        """``generate`` + ``rerank_group`` per continuous-batching group —
+        a decode step's worth of requests reranks as one fused call."""
+        for i in range(0, len(requests), self.batch):
+            group = requests[i:i + self.batch]
+            self.generate(group)
+            self.rerank_group(group)
+        return requests
 
 
-def diverse_rerank(*args, **kwargs):
-    """Not ported: ROADMAP A, slice 16."""
-    raise NotImplementedError(_LATER.format(name="diverse_rerank"))
+def diverse_rerank(candidate_embeddings, k: int,
+                   measure: str = "remote-edge", *, group_labels=None,
+                   quotas=None, matroid=None, b=1, chunk: int = 0,
+                   kprime=None, eps: float = 0.1, tau=None, cliff=None,
+                   device=None, use_pallas="auto") -> np.ndarray:
+    """Pick the k most diverse candidates; returns their indices.
+
+    Legacy spelling of ``repro_torch.diversify`` (whose ``DiversityResult``
+    also carries the candidate ``indices``) — prefer the facade for new
+    code.  ``quotas`` (with per-candidate ``group_labels``) makes the
+    result an exact-quota partition-matroid basis; ``matroid=`` takes any
+    ``constrained.matroid`` oracle; ``group_labels`` alone balances k across
+    the categories.  ``b``/``chunk``/``kprime``/``eps`` pass through to the
+    engine (``b="auto"`` / ``kprime="auto"``: the radius-certified adaptive
+    engine).  ``device``: where the run goes (default: the candidates'
+    device when they are a tensor, else the card); ``use_pallas`` as in
+    ``ExecutionSpec``.
+
+    >>> import numpy as np
+    >>> rng = np.random.default_rng(1)
+    >>> emb = rng.normal(size=(64, 16)).astype(np.float32)
+    >>> lab = rng.integers(0, 3, size=64)
+    >>> idx = diverse_rerank(emb, 6, group_labels=lab, quotas=[2, 2, 2],
+    ...                      device="cpu")
+    >>> np.bincount(lab[idx], minlength=3).tolist()
+    [2, 2, 2]
+    """
+    from ..api import ExecutionSpec, ProblemSpec, _warn_legacy, diversify
+
+    _warn_legacy("repro_torch.serving.diverse_rerank")
+    dev = resolve_device(device, like=candidate_embeddings)
+    res = diversify(
+        ProblemSpec(points=candidate_embeddings, k=k, measure=measure,
+                    labels=group_labels, matroid=matroid, quotas=quotas),
+        ExecutionSpec(mode="batch", kprime=kprime, b=b, chunk=chunk,
+                      eps=eps, tau=tau, cliff=cliff, device=str(dev),
+                      use_pallas=use_pallas))
+    return res.indices

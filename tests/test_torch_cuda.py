@@ -710,3 +710,86 @@ def test_cuda_dynamic_save_restores_on_cpu(cuda_device, tmp_path):
     np.testing.assert_array_equal(qa.ids, qb.ids)
     assert qa.cert.radius == qb.cert.radius
     assert qa.cert.counts == qb.cert.counts
+
+
+# -- the model-backed serving path ---------------------------------------------
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "gemma-2b",
+                                  "starcoder2-15b", "gemma2-27b"])
+def test_cuda_model_forward_matches_cpu(cuda_device, arch):
+    """A reduced model's forward (and its prefill + decode from the cache)
+    on the card against the same weights on the CPU, at the reference's
+    logits bound rtol = atol = 2e-2: cuBLAS and the CPU sum bf16 products
+    in different orders."""
+    import repro_torch.models as M
+    from repro_torch.configs import get_config
+    from repro_torch.interop import params_from_reference, params_to_reference
+
+    cfg = get_config(arch, reduced=True)
+    cpu = M.init_params(cfg, 0, device="cpu")
+    card = params_from_reference(params_to_reference(cpu), cfg,
+                                 device=cuda_device)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 20)))
+    pos = torch.arange(20, dtype=torch.int32)
+    want = cpu(toks, pos)[0]
+    got = card(toks.to(cuda_device), pos.to(cuda_device))[0]
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                               rtol=2e-2, atol=2e-2)
+    cache = M.make_cache(cfg, 2, 24, device=cuda_device)
+    _, cache = M.prefill_fn(card, cfg, None,
+                            {"tokens": toks[:, :19].to(cuda_device)}, cache)
+    step, _ = M.decode_fn(card, cfg, None, toks[:, 19:].to(cuda_device),
+                          torch.tensor(19, device=cuda_device), cache)
+    np.testing.assert_allclose(step[:, -1].cpu().numpy(),
+                               want[:, -1].numpy(), rtol=2e-2, atol=2e-2)
+
+
+def test_cuda_engine_generates_on_the_card(cuda_device):
+    """The engine runs where its model is: the tokens are the vocab's and
+    two runs give the same ones."""
+    import repro_torch.models as M
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config("internlm2-1.8b", reduced=True)
+    engine = ServingEngine(cfg, None, M.init_params(cfg, 0,
+                                                    device=cuda_device),
+                           batch=4, capacity=32)
+    assert engine.device.type == "cuda"
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n))
+               .astype(np.int32) for n in rng.integers(3, 10, size=6)]
+    a, b = ([Request(prompt=p, max_new_tokens=8) for p in prompts]
+            for _ in range(2))
+    engine.generate(a)
+    engine.generate(b)
+    for x, y in zip(a, b):
+        assert x.out.shape == (8,) and x.out.max() < cfg.vocab_size
+        np.testing.assert_array_equal(x.out, y.out)
+
+
+@pytest.mark.parametrize("dim", [32, 8])
+def test_cuda_embed_examples_matches_cpu(cuda_device, dim):
+    """Mean pooling through a bf16 table sums in the same order on both
+    devices (equal bit for bit); the projection (dim < D) is an fp32
+    product in another order on the card, held to rtol 1e-6 and 1e-6 of
+    the largest entry; the histogram sketch likewise."""
+    from repro_torch.data import embed_examples
+
+    g = torch.Generator().manual_seed(3)
+    table = torch.randn(500, 32, generator=g).bfloat16()
+    toks = torch.randint(0, 500, (3000, 16), generator=g)
+    want = embed_examples(toks, embedding=table, dim=dim, chunk=512)
+    got = embed_examples(toks, embedding=table.to(cuda_device), dim=dim,
+                         chunk=512)
+    assert got.device.type == "cuda"
+    tol = dict(rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+    if dim == 32:
+        assert torch.equal(got.cpu(), want)
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **tol)
+    sk = embed_examples(toks, dim=dim, device=cuda_device)
+    sk_cpu = embed_examples(toks, dim=dim, device="cpu")
+    np.testing.assert_allclose(sk.cpu().numpy(), sk_cpu.numpy(), rtol=1e-6,
+                               atol=1e-6 * float(sk_cpu.abs().max()))

@@ -359,14 +359,21 @@ def test_serving_counters_match_reference():
                            "rerank_batched": 2}
 
 
-def test_engine_names_wait_for_their_slice():
-    from repro_torch.serving import engine
+def test_engine_names_are_exported_and_other_families_wait():
+    """The model-backed engine is ported (its parity tests are
+    ``test_torch_serving_engine.py``); an engine over a family the port has
+    no model for raises naming that family's slice."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServingEngine, diverse_rerank
 
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        engine.diverse_rerank(None, None)
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        engine.ServingEngine()
-    assert "ServingEngine" not in repro_torch.serving.__all__
+    assert {"ServingEngine", "diverse_rerank", "Request"} <= set(
+        repro_torch.serving.__all__)
+    assert callable(diverse_rerank)
+    with pytest.raises(NotImplementedError, match="slice 16c"):
+        ServingEngine(get_config("granite-moe-1b-a400m", reduced=True),
+                      None, None)
+    with pytest.raises(NotImplementedError, match="slice 16d"):
+        ServingEngine(get_config("mamba2-130m", reduced=True), None, None)
 
 
 # -- the facade --------------------------------------------------------------
