@@ -94,14 +94,16 @@ Phases, each printing one JSON line (or one per call):
               at m = 1 and with the 16 genres, (x)'s whole input at m = 1,
               each (bc, p) their schedules give) and phase 13's (the
               selection pool over 16 reducers, the reranker's fused solve
-              of 8 sessions), with its merge time and
+              of 8 sessions) and phase 14's (the curation's round 1 over
+              16 reducers), with its merge time and
               tile filler, each shape first held against its plain version
               entry for entry (its differing entries, expected 0, join
               phase 2's).
 8. profile  — device-only torch.profiler traces of batch call (a), stream
               call (b), constrained call (e) cosine, MapReduce call (i),
-              serving call (s), one churn round of dynamic call (u) and
-              one group of phase 13's (q) (prefill, decode, rerank):
+              serving call (s), one churn round of dynamic call (u),
+              one group of phase 13's (q) (prefill, decode, rerank) and
+              one AdamW step of phase 14's (z) at full width:
               device time by kernel, the device's busy share of that
               call's wall time and its idle gaps (full tables in the
               script's output directory).
@@ -210,13 +212,42 @@ Phases, each printing one JSON line (or one per call):
               at the pool and B3 at the reranker's tile held against
               plain; the serving launcher once at full width.
 
-Phases run in the order 1-6, 9, 10, 11, 12, 13, 7, 8 (8 also traces one
-churn round of (u) and one group of (q)).  The line before the last is the
-``kernels`` summary; the last line is ``{"ok": true, "device": {...}}``.
-Any failure exits nonzero before it.  ``--rehearse`` runs phases 2-6 and
-9-13 at a tiny size on the CPU with the plain versions (no build, no
-timings, no ``ok`` line; phase 12 over gloo on the CPU; phase 13 on the
-reduced config) to check the script itself.
+14. train   — dense-model training on diversity-curated data at
+              internlm2-1.8b's full width (random weights from
+              ``--seed``, TF32 off), as ``examples/train_diverse_data.py``
+              does it: (r) 65,536 examples x 129 Zipf(1) tokens, the first
+              128 embedded through the model's table (d = 2,048), curated
+              by ``diversify(k=1024, measure="remote-edge",
+              mode="mapreduce", num_reducers=16, kprime=128)`` with the
+              kernels and with ``use_pallas=False`` (equal indices; the
+              probe on B1, round 1 one B4 launch a fold), B1 (and B2) at
+              the probe's subsample held against plain, B4 at every
+              round-1 sweep shape handed to phase 7; (z) ``make_train_step``
+              with AdamW, 12 steps at lr 3e-4 on one fixed batch of 8 x
+              128 curated tokens (the loss must fall): step, gradient and
+              update ms by CUDA events beside the step's operations bound
+              and the update's bytes bound, tokens/s, peak memory beside
+              the reckoned 30.2 GB of state; ``accum_steps=2`` against 1
+              at the reference test's bounds; (z') the float64 autograd
+              gradient against the float64 loss's central difference
+              along a random unit direction and along one in each block
+              (embedding, layer group, norm, head), the fp32 gradient
+              along the same direction and against the float64 one block
+              by block, planted faults read above their bounds; (z'')
+              the reduced config under ``TrainingSupervisor``,
+              checkpoints every 4 steps, killed at step 6 and resumed:
+              losses and final state equal to an uninterrupted run bit
+              for bit; (z''') the training launcher in its own process,
+              4 steps.
+
+Phases run in the order 1-6, 9, 10, 11, 12, 13, 14, 7, 8 (8 also traces one
+churn round of (u), one group of (q) and one training step of (z)).  The
+line before the last is the ``kernels`` summary; the last line is
+``{"ok": true, "device": {...}}``.  Any failure exits nonzero before it.
+``--rehearse`` runs phases 2-6 and 9-14 at a tiny size on the CPU with the
+plain versions (no build, no timings, no ``ok`` line; phase 12 over gloo
+on the CPU; phases 13 and 14 on the reduced config) to check the script
+itself.
 """
 from __future__ import annotations
 
@@ -2997,20 +3028,23 @@ def serve_sizes(full: bool):
                        "--device", "cpu"]}
 
 
-def zipf_tokens(shape, vocab: int, seed: int, device):
+def zipf_tokens(shape, vocab: int, seed: int, device, host: bool = False):
     """Token ids with Zipf(1) frequencies over the vocabulary (natural
     text's law), each id's rank fixed by a seeded permutation, made on the
-    device."""
+    device, or with ``host`` drawn by the host's generator (the same ids on
+    every machine: two runs of the device's draws on the same card model
+    gave pools whose sums differed) and moved to the device."""
     import math
 
     import torch
-    g = torch.Generator(device=device).manual_seed(seed)
-    ranks = torch.arange(1, vocab + 1, dtype=torch.float64, device=device)
+    at = "cpu" if host else device
+    g = torch.Generator(device=at).manual_seed(seed)
+    ranks = torch.arange(1, vocab + 1, dtype=torch.float64, device=at)
     prob = ((1.0 / ranks) / (1.0 / ranks).sum()).float()
-    ids = torch.randperm(vocab, generator=g, device=device)
+    ids = torch.randperm(vocab, generator=g, device=at)
     draws = torch.multinomial(prob, math.prod(shape), replacement=True,
                               generator=g)
-    return ids[draws].view(*shape)
+    return ids[draws].view(*shape).to(device)
 
 
 def _quiet(fn, *args, **kwargs):
@@ -3047,12 +3081,13 @@ def phase_serve(device, seed: int, errs, diffs, card: str = "",
     import torch
     import repro_torch.models as M
     from repro_torch.configs import get_config
-    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.models import transformer
     from repro_torch.data import embed_examples, select_diverse
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as launcher
     from repro_torch.serving import (OnlineReranker, Request, ServingEngine,
                                      diverse_rerank)
+    from repro_torch.tree import tree_map
     sz = serve_sizes(full)
     cfg = get_config(sz["arch"], reduced=sz["reduced"])
     R, B, new = sz["requests"], sz["batch"], sz["new"]
@@ -3120,8 +3155,12 @@ def phase_serve(device, seed: int, errs, diffs, card: str = "",
     S = toks.shape[1]
     arange = torch.arange(S, dtype=torch.int32, device=device)
 
+    def logits(m, c, t):
+        with torch.no_grad():
+            return transformer.forward(m, c, None, t, arange)[0]
+
     def last_logits(m, c):
-        full = m(toks, arange)[0][:, -1]
+        full = logits(m, c, toks)[:, -1]
         cache = M.make_cache(c, B, sz["capacity"], device=device)
         _, cache = M.prefill_fn(m, c, None, {"tokens": toks[:, :S - 1]},
                                 cache)
@@ -3136,18 +3175,12 @@ def phase_serve(device, seed: int, errs, diffs, card: str = "",
 
     def first_layers(depth):
         # the same weights, the first ``depth`` layers (one layer a group)
-        lp = {n: torch.stack([getattr(l, n).data
-                              for l in model.layers[:depth]])[:, None]
-              for n, _ in model.layers[0].named_parameters()}
-        tree = {"embed": model.embed.data,
-                "final_norm": model.final_norm.data, "layers": lp}
-        if model.head is not None:
-            tree["head"] = model.head.data
-        c = dataclasses.replace(cfg, num_layers=depth)
-        return DecoderLM(c, tree), c
+        tree = dict(model, layers={n: w[:depth]
+                                   for n, w in model["layers"].items()})
+        return tree, dataclasses.replace(cfg, num_layers=depth)
 
-    def floor_of(m, full):
-        return float((m(toks[:1], arange)[0][:, -1] - full[:1]).abs().max())
+    def floor_of(m, c, full):
+        return float((logits(m, c, toks[:1])[:, -1] - full[:1]).abs().max())
 
     witness = []
     for depth in [d for d in WITNESS_DEPTHS if d < cfg.num_layers]:
@@ -3156,18 +3189,14 @@ def phase_serve(device, seed: int, errs, diffs, card: str = "",
         err_d, ok_d = excess(step_d, full_d, LOGITS_TOL)
         witness.append({"layers": depth, "max_abs_err": err_d,
                         "ok_at_reference_bound": ok_d,
-                        "floor_row_alone_vs_batch": floor_of(m_d, full_d),
+                        "floor_row_alone_vs_batch": floor_of(m_d, c_d, full_d),
                         "logits_max_abs": float(full_d.abs().max())})
         del m_d, full_d, step_d
     full16, step16 = last_logits(model, cfg)
-    floor = floor_of(model, full16)
+    floor = floor_of(model, cfg, full16)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
                                 param_dtype=torch.float32)
-    tree = model.to_tree()
-    m32 = DecoderLM(cfg32, {k: ({n: w.float() for n, w in v.items()}
-                                if isinstance(v, dict) else v.float())
-                            for k, v in tree.items()})
-    del tree
+    m32 = tree_map(lambda w: w.float(), model)
     full32, step32 = last_logits(m32, cfg32)
     del m32
     tol16 = BF16_FULL_DEPTH_ATOL
@@ -3198,7 +3227,7 @@ def phase_serve(device, seed: int, errs, diffs, card: str = "",
     windows = zipf_tokens((R * W, sz["window"]), cfg.vocab_size, seed + 23,
                           device)
     t0 = time.perf_counter()
-    cands = embed_examples(windows, embedding=model.embed, dim=cfg.d_model)
+    cands = embed_examples(windows, embedding=model["embed"], dim=cfg.d_model)
     sync()
     cand_s = time.perf_counter() - t0
     del windows
@@ -3254,7 +3283,7 @@ def phase_serve(device, seed: int, errs, diffs, card: str = "",
           "launches": kl, "agree": agree})
 
     outs = np.stack([r.out for r in kout])
-    emb_out = embed_examples(outs, embedding=model.embed, dim=cfg.d_model,
+    emb_out = embed_examples(outs, embedding=model["embed"], dim=cfg.d_model,
                              device=device)
     ops.reset_launches()
     kidx = _quiet(diverse_rerank, emb_out, sz["rerank_k"], use_pallas="auto")
@@ -3274,7 +3303,7 @@ def phase_serve(device, seed: int, errs, diffs, card: str = "",
     N, L, K = sz["pool"], sz["pool_len"], sz["select_k"]
     pool_toks = zipf_tokens((N, L), cfg.vocab_size, seed + 29, device)
     t0 = time.perf_counter()
-    pool = embed_examples(pool_toks, embedding=model.embed, dim=cfg.d_model)
+    pool = embed_examples(pool_toks, embedding=model["embed"], dim=cfg.d_model)
     sync()
     pool_s = time.perf_counter() - t0
     del pool_toks
@@ -3343,22 +3372,696 @@ def phase_serve(device, seed: int, errs, diffs, card: str = "",
           "last_line": lines[-1], "launches": ll})
     del done
 
-    # what phase 8 profiles: one group of (q), with a fresh reranker
+    # what phase 8 profiles: one group of (q), with a fresh reranker and
+    # the model drawn again from the seed (the phases between hold none)
     group = diverse_requests(0, B)
     for r in group:
         r.candidates = r.candidates.clone()
-    del cands, emb_out
-    profile = (lambda: ServingEngine(
-        cfg, launcher.RULES, model, batch=B, capacity=sz["capacity"],
-        reranker=reranker("auto")).generate_diverse(
-            [Request(prompt=r.prompt, max_new_tokens=new,
-                     session=r.session, candidates=r.candidates)
-             for r in group]))
+    del cands, emb_out, model, engine
+
+    def profile():
+        again = M.init_params(cfg, seed, device=device)
+        return lambda: ServingEngine(
+            cfg, launcher.RULES, again, batch=B, capacity=sz["capacity"],
+            reranker=reranker("auto")).generate_diverse(
+                [Request(prompt=r.prompt, max_new_tokens=new,
+                         session=r.session, candidates=r.candidates)
+                 for r in group])
     emit({"phase": "serve", "phase_seconds": time.perf_counter() - t_phase,
           "launches": launches})
     return launches, serve_b4, {"profile": profile,
                                 "group_s": statistics.median(
                                     group_s["kernel"])}
+
+
+# --------------------------------------------------------------------------
+# phase 14: dense-model training on diversity-curated data
+# --------------------------------------------------------------------------
+
+TRAIN_LR = 3e-4                # (z): constant lr of the 12 steps
+# (z): accumulation against one batch at the reference test's bounds (rtol
+# 2e-2, atol 2e-3).  Adam's first step moves every entry by +-lr whatever
+# its gradient's size, so an entry whose bf16 gradient changes sign with
+# the micro-batching parts by 2 lr (and a bf16 rounding): the reference
+# test's lr 1e-3 puts that at the atol itself; 5e-4 keeps it inside
+ACCUM_LR = 5e-4
+# (z): so the params cannot witness the accumulation; the gradients the
+# step hands its optimizer do.  accum_steps=2 against one batch, the
+# largest per-leaf relative Frobenius error, fp32 (the weights upcast) and
+# bf16 (as trained), each within its limit; the control, a step that drops
+# the second micro-batch, must read above it.  The limits sit between the
+# sound readings (fp32 5.5e-3, bf16 2.2e-2) and the control's (0.84) of
+# the training slice's card runs (PERF.md section 6)
+ACCUM_GRAD_RTOL = {"fp32": 5e-2, "bf16": 0.2}
+ADAMW_BYTES_PER_PARAM = 28     # grad bf16 2 + master, mu, nu read 12 and
+                               # written 12 + param bf16 written 2
+# (z'): the float64 model (the weights upcast) is the witness's reference.
+# Its autograd gradient is held to the central difference of its loss at
+# step FD_EPS along a random unit direction d of the whole tree and along
+# one random unit direction in each block (the embedding, each layer group,
+# the final norm, the head), the error over the spread of <grad, d> across
+# random unit directions, |grad| / sqrt(params) of the tree or the block (a
+# quotient by <grad, d> itself, a draw near 0 at random, does not measure
+# the gradient), within FD64_RTOL (the training slice's card runs read
+# 4.9e-7-1.1e-5).  The fp32 gradient is held to the float64 one block by
+# block, the relative Frobenius error rho within GRAD32_RTOL (read 3.6e-3
+# -8.4e-3, the largest at the embedding), and to the same central
+# difference along d within FD_RTOL.  One random direction reads a gradient
+# error e as |z| |e| / |grad| (z a standard normal): for the fp32 rounding
+# that is |z| rho, read 5.5e-4-1.7e-2 (|z| up to 3.5) over the batches the
+# card runs drew, so FD_RTOL is GRAD32_RTOL, ~6 times the largest rho; and
+# it cannot tell a fault of ~1 % of the gradient's norm, such as layer
+# group 0's part doubled, from fp32's own error (the embedding holds
+# 99.99 % of the norm), so the planted faults are read block by block
+# (PERF.md section 6).  At
+# full width the fp32 loss's own central difference parted from <grad, d>
+# by 0.20-0.64 (its rounding noise against the curvature); the float64
+# one's truncation is ~9e3 eps^2 (9e-5 of <grad, d> at 1e-4)
+FD_EPS = 1e-5
+FD_RTOL = 5e-2
+FD64_RTOL = 1e-4
+GRAD32_RTOL = 5e-2
+FD_WITNESS_EPS = (1e-4, 1e-3)
+
+
+def train_sizes(full: bool):
+    """Sizes of phase 14: the model, the pool (examples x tokens), the
+    curation's k, reducers and k', the batch and steps of (z), and the
+    launcher's arguments."""
+    if full:
+        return {"arch": "internlm2-1.8b", "reduced": False, "pool": 65536,
+                "pool_len": 129, "k": 1024, "reducers": 16, "kprime": 128,
+                "batch": 8, "steps": 12, "resume_batch": 4,
+                "resume_seq": 16,
+                "launch": ["--arch", "internlm2-1.8b", "--steps", "4",
+                           "--batch", "8", "--seq", "128"]}
+    return {"arch": "internlm2-1.8b", "reduced": True, "pool": 2048,
+            "pool_len": 17, "k": 64, "reducers": 4, "kprime": 32,
+            "batch": 4, "steps": 12, "resume_batch": 4, "resume_seq": 16,
+            "launch": ["--arch", "internlm2-1.8b", "--reduced", "--device",
+                       "cpu", "--steps", "2", "--batch", "4", "--seq",
+                       "16"]}
+
+
+class _Marks:
+    """Device-time marks of one step: CUDA events on the card, the host
+    clock after a synchronize elsewhere (the rehearsal)."""
+
+    def __init__(self, device):
+        import torch
+        self.cuda = device == "cuda"
+        self._torch = torch
+
+    def mark(self):
+        if self.cuda:
+            e = self._torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+        return time.perf_counter()
+
+    def ms(self, a, b):
+        if self.cuda:
+            return a.elapsed_time(b)
+        return (b - a) * 1e3
+
+
+class _TimedUpdate:
+    """An optimizer whose ``update`` is bracketed by marks (the split of a
+    step into its gradients and its update)."""
+
+    def __init__(self, opt, marks):
+        self.opt, self.marks, self.spans = opt, marks, []
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params, lr):
+        a = self.marks.mark()
+        out = self.opt.update(grads, state, params, lr)
+        self.spans.append((a, self.marks.mark()))
+        return out
+
+
+def _tree_numel(tree):
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() for t in tree_leaves(tree))
+
+
+def train_bounds(cfg, batch: int, seq: int):
+    """(step operations bound ms, its parts, update bytes bound ms) of one
+    AdamW step of ``cfg`` on ``batch`` x ``seq`` tokens, from the code's
+    arithmetic: the layers' products in bf16 (forward 2, backward 4
+    operations a weight and token) and the attention's score and context
+    products in fp32 (both operands upcast in ``attention.attend``; every
+    (query, key) pair computed, masked or not), both x3 for the backward;
+    ``lm_head``'s fp32 product (6 T D V); the update's bytes, 28 a
+    parameter, over the memory rate."""
+    import repro_torch.models as M
+    from repro_torch.tree import tree_leaves
+    T = batch * seq
+    shapes = M.param_shapes(cfg)
+    mats = sum(t.numel() for t in tree_leaves(shapes["layers"])
+               if t.ndim > 3)
+    layers_ms = 6 * mats * T / BF16_FLOPS * 1e3
+    attn_ms = (3 * 4 * batch * cfg.num_heads * seq * seq * cfg.head_dim
+               * cfg.num_layers / FP32_FLOPS * 1e3)
+    head_ms = 6 * T * cfg.d_model * cfg.vocab_size / FP32_FLOPS * 1e3
+    n = M.count_params(cfg)
+    return (layers_ms + attn_ms + head_ms,
+            {"layer_products_bf16_ms": layers_ms,
+             "attention_fp32_ms": attn_ms, "lm_head_fp32_ms": head_ms,
+             "layer_matrix_params": mats},
+            ADAMW_BYTES_PER_PARAM * n / HBM_BYTES_PER_S * 1e3)
+
+
+class _GradProbe:
+    """An optimizer that hands the gradients a train step computes to
+    ``see`` and changes nothing."""
+
+    def __init__(self, see):
+        self.see = see
+
+    def init(self, params):
+        return ()
+
+    def update(self, grads, state, params, lr):
+        self.see(grads)
+        return params, state
+
+
+def _accum_witness(cfg, tree, batch):
+    """The gradient ``make_train_step`` with ``accum_steps=2`` hands its
+    optimizer against the one-batch gradient, and the control (a step that
+    drops the second micro-batch: the first one's gradient alone) against
+    it, by each leaf's relative Frobenius error; in fp32 on ``tree``'s
+    weights upcast and in the config's bf16.  Returns {"fp32" | "bf16":
+    {"accum": [per leaf], "control": [per leaf]}}."""
+    import dataclasses
+
+    import torch
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    first = {k: v[:v.shape[0] // 2] for k, v in batch.items()}
+    out = {}
+    for name, dt in (("fp32", torch.float32), ("bf16", cfg.dtype)):
+        c = dataclasses.replace(cfg, dtype=dt, param_dtype=dt)
+        w = tree_map(lambda t: t.to(dt), tree)
+        one, res = [], {}
+
+        def keep(g):
+            one.extend(x.detach().float().clone() for x in tree_leaves(g))
+
+        def against(key):
+            def see(g):
+                res[key] = [float(torch.linalg.vector_norm(x.float() - r)
+                                  / torch.linalg.vector_norm(r))
+                            for x, r in zip(tree_leaves(g), one)]
+            return see
+
+        for see, accum, b in ((keep, 1, batch), (against("accum"), 2, batch),
+                              (against("control"), 1, first)):
+            make_train_step(c, None, _GradProbe(see), lambda s: 0.0,
+                            accum_steps=accum)(w, (), b, 0)
+        out[name] = res
+        del w, one
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return out
+
+
+def _blocks(tree):
+    """The witness's blocks of a parameter tree, as (name, tensors): each
+    top-level leaf (embed, final_norm, head) and each layer group g (every
+    layer leaf's slice [g])."""
+    from repro_torch.tree import tree_leaves
+    out = [(k, [v]) for k, v in tree.items() if k != "layers"]
+    layers = tree_leaves(tree["layers"])
+    return out + [(f"layers[{g}]", [t[g] for t in layers])
+                  for g in range(layers[0].shape[0])]
+
+
+def _unit(shapes, seed: int, dev, dtype):
+    """A random unit direction over tensors of ``shapes`` (float64 normal
+    draws, seeded, normalized in float64, held in ``dtype``)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d = [torch.randn(s, generator=gen, dtype=torch.float64, device=dev)
+         for s in shapes]
+    norm = torch.sqrt(sum((x * x).sum() for x in d))
+    return [x.div_(norm).to(dtype) for x in d]
+
+
+def _dot(gs, ds):
+    return float(sum((g.double() * x).sum() for g, x in zip(gs, ds)))
+
+
+def _gradient_witness(cfg, tree, batch, eps_list, seed: int):
+    """The gradient witness on ``tree``'s weights.  The float64 model (the
+    weights upcast): its loss's central difference (L(w + eps d) -
+    L(w - eps d)) / (2 eps) along a random unit direction d of the whole
+    tree at each step in ``eps_list``, and along one random unit direction
+    of each block at FD_EPS; its autograd gradient's <grad, d> along each.
+    The difference is taken in float64 because the fp32 loss of the random
+    model at full width is itself noisy: fp32 rounding, amplified through
+    the layers, moves it by ~1e-3 between two nearby weights, as much as
+    eps <grad, d> at any eps where the loss is still near-linear.  Then the
+    fp32 and bf16 models' gradients: <grad, d>, and each block's relative
+    Frobenius error against the float64 gradient.  Planted faults go
+    through the block comparisons: layer group 0's part doubled (in the
+    float64 gradient against its central difference, in the fp32 gradient
+    against the float64 one), and the bf16 gradient in place of the fp32
+    one.  Returns a dict of the readings."""
+    import dataclasses
+
+    import torch
+    from repro_torch.train import make_loss
+    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.train.step import _value_and_grad
+    dev = tree_leaves(tree)[0].device
+    f64 = torch.float64
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d = tree_map(lambda t: torch.randn(t.shape, generator=gen, dtype=f64,
+                                       device=dev).float(), tree)
+    norm = torch.sqrt(sum((x.double() ** 2).sum() for x in tree_leaves(d)))
+    tree_map(lambda x: x.div_(norm), d)
+    names = [n for n, _ in _blocks(tree)]
+    n_block = {n: sum(t.numel() for t in ts) for n, ts in _blocks(tree)}
+    c = dataclasses.replace(cfg, dtype=f64, param_dtype=f64)
+    loss_fn = make_loss(c, None)
+    w = tree_map(lambda t: t.to(f64), tree)
+    _, g64 = _value_and_grad(loss_fn, w, batch)
+    gb64 = dict(_blocks(g64))
+    norm64 = {n: float(torch.sqrt(sum((x * x).sum() for x in gs)))
+              for n, gs in gb64.items()}
+    gnorm = sum(v * v for v in norm64.values()) ** 0.5
+    bdir = {n: seed + 1 + i for i, n in enumerate(names)}
+    bdot = {n: _dot(gb64[n], _unit([x.shape for x in gb64[n]], bdir[n], dev,
+                                   f64)) for n in names}
+    dots = {"float64": _dot(tree_leaves(g64), tree_leaves(d))}
+    fd, bfd = {}, {}
+    with torch.no_grad():
+        def central(ws, ds, eps):
+            vals = []
+            for step in (eps, -2 * eps):
+                for t, x in zip(ws, ds):
+                    t.add_(x, alpha=step)
+                vals.append(float(loss_fn(w, batch)))
+            for t, x in zip(ws, ds):
+                t.add_(x, alpha=eps)
+            return (vals[0] - vals[1]) / (2 * eps)
+
+        for eps in eps_list:
+            fd[eps] = central(tree_leaves(w), tree_leaves(d), eps)
+        for n, ws in _blocks(w):
+            bfd[n] = central(ws, _unit([x.shape for x in ws], bdir[n], dev,
+                                       f64), FD_EPS)
+    del w
+    bspread = {n: norm64[n] / n_block[n] ** 0.5 for n in names}
+    out = {"gnorm": gnorm, "block_norm_share": {n: norm64[n] / gnorm
+                                                for n in names},
+           "fd": fd, "block_err": {n: abs(bdot[n] - bfd[n]) / bspread[n]
+                                   for n in names},
+           "planted_block_err": {"float64_layer_0_doubled":
+                                 abs(2 * bdot["layers[0]"]
+                                     - bfd["layers[0]"])
+                                 / bspread["layers[0]"]},
+           "frob": {}}
+    for name, dt in (("fp32", torch.float32), ("bf16", cfg.dtype)):
+        c = dataclasses.replace(cfg, dtype=dt, param_dtype=dt)
+        w = tree_map(lambda t: t.to(dt), tree)
+        loss, g = _value_and_grad(make_loss(c, None), w, batch)
+        del w
+        dots[name] = _dot(tree_leaves(g), tree_leaves(d))
+
+        def frob(n, gs, scale0=1.0):
+            num = sum(float(((x.double() * scale0 - r) ** 2).sum())
+                      for x, r in zip(gs, gb64[n]))
+            return num ** 0.5 / norm64[n]
+
+        gb = dict(_blocks(g))
+        out["frob"][name] = {n: frob(n, gb[n]) for n in names}
+        if name == "fp32":
+            out["loss"] = float(loss)
+            out["planted_block_err"]["fp32_layer_0_doubled"] = frob(
+                "layers[0]", gb["layers[0]"], 2.0)
+            out["planted_dot_layer_0_doubled"] = dots["fp32"] + _dot(
+                gb["layers[0]"], dict(_blocks(d))["layers[0]"])
+        del g, gb
+    out["planted_block_err"]["bf16_gradient"] = max(
+        out["frob"]["bf16"].values())
+    out["dots"] = dots
+    return out
+
+
+def phase_train(device, seed: int, errs, diffs, card: str = "",
+                full: bool = True, check_launches: bool = True):
+    """(r) curation: a pool of Zipf(1) token sequences embedded through
+    the model's table, then the k most diverse over simulated reducers
+    (the probe on B1, round 1 on B4), with the kernels and with
+    ``use_pallas=False`` (equal indices); B1 (and B2) at the probe's
+    subsample held against plain here, B4's round-1 shapes handed to
+    phase 7.  (z) ``make_train_step`` with AdamW at the model's full width
+    on one fixed batch of curated rows: 12 steps at a constant lr (the
+    loss must fall), step, gradient and update ms by CUDA events beside
+    their bounds, tokens/s, peak memory; accumulation over 2 micro-batches
+    against one batch.  (z') the fp32 gradient witness.  (z'') a
+    supervised run of the reduced config, killed at step 6 and resumed,
+    against an uninterrupted run.  (z''') the training launcher once.
+    Returns (launches, B4 cases, what phase 8 profiles)."""
+    import numpy as np
+    import torch
+    import repro_torch.models as M
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.adaptive import probe_stride
+    from repro_torch.data import embed_examples, lm_batch
+    from repro_torch.distributed import (FailureInjector, ResiliencePolicy,
+                                         TrainingSupervisor)
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import AdamW, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    sz = train_sizes(full)
+    cfg = get_config(sz["arch"], reduced=sz["reduced"])
+    launches = dict.fromkeys(KERNELS, 0)
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def clone(tree):
+        return tree_map(lambda t: t.clone(), tree)
+
+    # (r) curation, as examples/train_diverse_data.py does it
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed, device=device)
+    sync()
+    init_s = time.perf_counter() - t0
+    N, L = sz["pool"], sz["pool_len"]
+    pool_toks = zipf_tokens((N, L), cfg.vocab_size, seed + 37, device,
+                            host=True)
+    t0 = time.perf_counter()
+    emb = embed_examples(pool_toks[:, :L - 1], embedding=params["embed"],
+                         dim=cfg.d_model)
+    sync()
+    embed_s = time.perf_counter() - t0
+    problem = {"k": sz["k"], "measure": "remote-edge"}
+    knobs = {"num_reducers": sz["reducers"], "kprime": sz["kprime"]}
+    runs = {up: _run_mr(emb, None, problem, knobs, up, device)
+            for up in ("auto", False)}
+    (kres, kidx, ks, kl), (pres, pidx, ps, pl) = runs["auto"], runs[False]
+    if not np.array_equal(kidx, pidx):
+        fail("train (r): the kernels and use_pallas=False curated "
+             "different rows")
+    if any(pl.values()):
+        fail(f"train (r): the plain run launched kernels {pl}")
+    if check_launches and (kl["gmm_topb"] == 0
+                           or kl["gmm_grouped_topb"] == 0):
+        fail(f"train (r): the curation launched no B1 or no B4 {kl}")
+    for k_, v in kl.items():
+        launches[k_] += v
+    r1 = _find_span(kres.telemetry, "mr.round1")
+    shapes = sweep_shapes(r1.attrs["schedule"])
+    if check_launches and r1.attrs["launches"]["gmm_grouped_topb"] \
+            != r1.attrs["folds"]:
+        fail(f"train (r): round 1 made {r1.attrs['launches']} launches "
+             f"for {r1.attrs['folds']} folds")
+    stride = probe_stride(N)
+    sub = emb[::stride].contiguous()
+    gen = torch.Generator(device=device).manual_seed(seed + 41)
+    for bc, p in shapes:
+        check_pair(sub, "euclidean", bc, p, gen, errs,
+                   f"train (r) probe {sub.shape[0]}x{sub.shape[1]} "
+                   f"euclidean b={bc} p={p}")
+    train_b4 = [(f"train (r) round 1 l={sz['reducers']}", emb, "euclidean",
+                 contiguous_labels(N, sz["reducers"], emb.device),
+                 sz["reducers"], bc, p) for bc, p in shapes]
+    curated = pool_toks[torch.as_tensor(kidx, device=pool_toks.device)]
+    # fingerprints of the data, to compare runs
+    prints = {"embed_table_sum": float(params["embed"].double().sum()),
+              "pool_tokens_sum": int(pool_toks.sum()),
+              "embedding_sum": float(emb.double().sum()),
+              "indices_sum": int(np.asarray(kidx).sum()),
+              "indices_head": np.asarray(kidx)[:8].tolist()}
+    del pool_toks
+    if cuda:
+        prints["multiprocessors"] = torch.cuda.get_device_properties(
+            0).multi_processor_count
+    emit({"phase": "train", "call": "r_curation", "card": card, **prints,
+          "arch": cfg.arch, "init_seconds": init_s, "pool": N,
+          "tokens": L, "d": int(emb.shape[1]),
+          "pool_gb": emb.numel() * 4 / 1e9, "embed_seconds": embed_s,
+          **problem, **knobs, "kernel_seconds": ks, "plain_seconds": ps,
+          "probe_seconds": _span_seconds(kres.telemetry, "mr.probe"),
+          "round1_seconds": r1.seconds, "schedule": r1.attrs["schedule"],
+          "round1_sweeps": r1.attrs["folds"],
+          "round1_launches": r1.attrs["launches"],
+          "probe_rows": int(sub.shape[0]), "sweep_shapes": shapes,
+          "curated": int(len(kidx)), "launches": kl,
+          "agree": {"indices": True},
+          "held_against_plain": {"gmm_topb_probe": len(shapes),
+                                 "gmm_grouped_topb_round1_for_phase_7":
+                                     len(train_b4)}})
+    del kres, pres, runs, sub
+
+    # (z) training at the model's width on one fixed batch of curated rows
+    B = sz["batch"]
+    rows = curated[torch.randperm(curated.shape[0], generator=torch.Generator(
+        ).manual_seed(seed + 43))[:B].to(curated.device)]
+    batch = {"tokens": rows[:, :-1].contiguous(),
+             "labels": rows[:, 1:].contiguous()}
+    S = batch["tokens"].shape[1]
+    p0 = clone(params)
+    marks = _Marks(device)
+    opt = _TimedUpdate(AdamW(), marks)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9 if cuda else None
+    state = opt.init(params)
+    step = make_train_step(cfg, launcher.RULES, opt, lambda s: TRAIN_LR)
+    losses, step_ms, grad_ms, upd_ms = [], [], [], []
+    for i in range(sz["steps"]):
+        a = marks.mark()
+        params, state, m = step(params, state, batch, i)
+        b = marks.mark()
+        sync()
+        u0, u1 = opt.spans[-1]
+        step_ms.append(marks.ms(a, b))
+        grad_ms.append(marks.ms(a, u0))
+        upd_ms.append(marks.ms(u0, u1))
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    if not losses[-1] < losses[0]:
+        fail(f"train (z): the loss did not fall: {losses}")
+    n_params = M.count_params(cfg)
+    ops_ms, ops_parts, upd_bound = train_bounds(cfg, B, S)
+    state_gb = n_params * (2 + 2 + 12) / 1e9
+
+    def spread(v):
+        return {"median": statistics.median(v), "min": min(v), "max": max(v)}
+    emit({"phase": "train", "call": "z_train_steps", "card": card,
+          "arch": cfg.arch, "params": n_params, "dtype": "bfloat16",
+          "remat": cfg.remat, "optimizer": "AdamW(b1=0.9, b2=0.95, "
+          "eps=1e-8, weight_decay=0.1)", "lr": TRAIN_LR, "batch": B,
+          "seq": S, "steps": sz["steps"], "losses": losses,
+          "batch_tokens_sum": int(batch["tokens"].sum()),
+          "step_ms": spread(step_ms), "grad_ms": spread(grad_ms),
+          "update_ms": spread(upd_ms),
+          "step_bound_ms": ops_ms, "step_bound_by": "operations",
+          "step_bound_parts": ops_parts,
+          "update_bound_ms": upd_bound, "update_bound_by": "bytes",
+          "tokens_per_s": B * S / (statistics.median(step_ms) / 1e3),
+          "max_memory_allocated_gb": peak,
+          "allocated_before_state_gb": held,
+          "reckoned_state_gb": state_gb,
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+    del state, params, opt, m
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # accumulation over 2 micro-batches against one batch, from p0 (the
+    # reference's tests/test_train.py case: AdamW without decay)
+    opt0 = AdamW(weight_decay=0.0)
+    out = {}
+    for accum in (1, 2):
+        fn = make_train_step(cfg, launcher.RULES, opt0, lambda s: ACCUM_LR,
+                             accum_steps=accum)
+        st = opt0.init(p0)
+        p, st, m = fn(clone(p0), st, batch, 0)
+        out[accum] = (p, float(m["loss"]))
+        del st, m
+        if cuda:
+            torch.cuda.empty_cache()
+    (p1, l1), (p2, l2) = out[1], out[2]
+    worst, outside, nonfinite, flipped = 0.0, 0, 0, 0
+    for a, b in zip(tree_leaves(p1), tree_leaves(p2)):
+        a, b = a.float(), b.float()
+        diff = (a - b).abs()
+        nonfinite += int((~torch.isfinite(a)).sum() + (~torch.isfinite(b))
+                         .sum())
+        outside += int((~(diff <= 2e-3 + 2e-2 * b.abs())).sum())
+        flipped += int((diff > ACCUM_LR).sum())
+        worst = max(worst, float(torch.nan_to_num(diff, nan=0.0).max()))
+    ok = abs(l1 - l2) <= 1e-3 * abs(l1) and outside == 0
+    del out, p1, p2
+    emit({"phase": "train", "call": "z_accumulation", "card": card,
+          "loss_accum_1": l1, "loss_accum_2": l2,
+          "loss_rel_diff": abs(l1 - l2) / abs(l1),
+          "params_max_abs_diff": worst, "params_outside_bound": outside,
+          "params_not_finite": nonfinite, "lr": ACCUM_LR,
+          "params_apart_by_over_lr": flipped,
+          "params": _tree_numel(p0),
+          "bound": {"loss_rel": 1e-3, "params_rtol": 2e-2,
+                    "params_atol": 2e-3}, "ok": ok})
+    if not ok:
+        fail("train (z): accum_steps=2 parts from accum_steps=1 beyond "
+             "the reference's bounds")
+    wit = _accum_witness(cfg, p0, batch)
+    read = {name: {"accum_max": max(r["accum"]),
+                   "accum_median": statistics.median(r["accum"]),
+                   "control_min": min(r["control"]),
+                   "control_max": max(r["control"]),
+                   "limit": ACCUM_GRAD_RTOL[name]} for name, r in wit.items()}
+    ok = all(r["accum_max"] <= r["limit"] < r["control_max"]
+             for r in read.values())
+    emit({"phase": "train", "call": "z_accumulation_gradients",
+          "card": card, "leaves": len(wit["fp32"]["accum"]),
+          "measure": "per-leaf relative Frobenius error against the "
+                     "one-batch gradient", "control": "the first "
+          "micro-batch's gradient alone", "readings": read, "ok": ok})
+    if not ok:
+        fail(f"train (z): the accumulated gradients part from the one-batch "
+             f"ones beyond their limit, or the control does not: {read}")
+
+    # (z') the gradient witness on the same weights, upcast
+    eps = FD_EPS
+    eps_list = sorted(set(FD_WITNESS_EPS) | {eps})
+    t0 = time.perf_counter()
+    wit = _gradient_witness(cfg, p0, batch, eps_list, seed + 47)
+    wit_s = time.perf_counter() - t0
+    dots, fd, gnorm = wit["dots"], wit["fd"], wit["gnorm"]
+    spread = gnorm / _tree_numel(p0) ** 0.5
+    err = {name: {str(e): abs(dot - v) / spread for e, v in fd.items()}
+           for name, dot in dots.items()}
+    block64 = max(wit["block_err"].values())
+    frob32 = max(wit["frob"]["fp32"].values())
+    planted = wit["planted_block_err"]
+    planted_bound = {"float64_layer_0_doubled": FD64_RTOL,
+                     "fp32_layer_0_doubled": GRAD32_RTOL,
+                     "bf16_gradient": GRAD32_RTOL}
+    ok = (err["fp32"][str(eps)] <= FD_RTOL
+          and err["float64"][str(eps)] <= FD64_RTOL
+          and block64 <= FD64_RTOL and frob32 <= GRAD32_RTOL
+          and all(v > planted_bound[k] for k, v in planted.items()))
+    emit({"phase": "train", "call": "z_prime_gradient_witness",
+          "card": card, "seconds": wit_s, "loss_fp32": wit["loss"],
+          "grad_norm_float64": gnorm,
+          "spread_grad_norm_over_sqrt_params": spread,
+          "dot_grad_direction": dots,
+          "central_difference_float64": {str(e): v for e, v in fd.items()},
+          "err_over_spread": err,
+          "rel_err_over_dot": {name: {str(e): abs(dot - v) / abs(v)
+                                      for e, v in fd.items()}
+                               for name, dot in dots.items()},
+          "blocks": len(wit["block_err"]),
+          "block_err_over_spread_float64": {
+              "max": block64, "median": statistics.median(
+                  wit["block_err"].values())},
+          "block_rel_frobenius_against_float64": {
+              name: {"max": max(r.values()),
+                     "median": statistics.median(r.values()),
+                     "argmax": max(r, key=r.get)}
+              for name, r in wit["frob"].items()},
+          "block_norm_share": wit["block_norm_share"],
+          "eps": eps, "bound": {"fp32": FD_RTOL, "float64": FD64_RTOL,
+                                "fp32_block_frobenius": GRAD32_RTOL},
+          "planted": planted, "planted_bound": planted_bound,
+          "planted_dot_layer_0_doubled_err_over_spread":
+              abs(wit["planted_dot_layer_0_doubled"] - fd[eps]) / spread,
+          "ok": ok})
+    if not ok:
+        fail(f"train (z'): the gradients part from the central difference "
+             f"or from the float64 gradient, or a planted fault reads "
+             f"inside its bound: {err} float64 blocks {block64} fp32 "
+             f"blocks {frob32} planted {planted}")
+    del wit
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (z'') a supervised run of the reduced config, killed and resumed
+    rcfg = get_config(sz["arch"], reduced=True)
+    tree0 = M.init_params(rcfg, seed, device=device)
+    ropt = AdamW()
+    rstep = make_train_step(rcfg, launcher.RULES, ropt, lambda s: 1e-3)
+
+    def step_fn(st, bt, i):
+        p, o, mm = rstep(st[0], st[1], bt, i)
+        return (p, o), mm
+
+    def batch_fn(i):
+        return lm_batch(rcfg, seed=seed + 53, step=i,
+                        batch=sz["resume_batch"], seq=sz["resume_seq"],
+                        device=device)
+
+    root = ROOT / "build" / "train_resume"
+    shutil.rmtree(root, ignore_errors=True)
+    sup = {}
+    t0 = time.perf_counter()
+    for name, inj in (("clean", None),
+                      ("killed", FailureInjector(fail_at=(6,)))):
+        s_ = TrainingSupervisor(CheckpointManager(str(root / name)),
+                                policy=ResiliencePolicy(
+                                    checkpoint_every=4, injector=inj))
+        final = s_.run((clone(tree0), ropt.init(tree0)), step_fn, 12,
+                       batch_fn)
+        sup[name] = (final, s_.report)
+    resume_s = time.perf_counter() - t0
+    (cf, cr), (kf, kr) = sup["clean"], sup["killed"]
+    same = [bool(torch.equal(a, b)) for a, b in zip(
+        tree_leaves(cf[0]) + [x for f in cf[1] for x in tree_leaves(f)],
+        tree_leaves(kf[0]) + [x for f in kf[1] for x in tree_leaves(f)])]
+    agree = {"losses": kr.losses == cr.losses[:6] + cr.losses[4:],
+             "final_state": all(same), "resumes": kr.resumes == 1,
+             "final_step": kr.final_step == cr.final_step == 12}
+    emit({"phase": "train", "call": "z_double_prime_resume", "card": card,
+          "arch": rcfg.arch, "steps": 12, "checkpoint_every": 4,
+          "killed_at": 6, "seconds": resume_s,
+          "losses_clean": cr.losses, "losses_killed": kr.losses,
+          "leaves_equal": f"{sum(same)}/{len(same)}", "agree": agree})
+    shutil.rmtree(root, ignore_errors=True)
+    if not all(agree.values()):
+        fail(f"train (z''): the resumed run parts from the uninterrupted "
+             f"one {agree}")
+    del sup, cf, kf, tree0
+
+    # (z''') the launcher once, in its own process (what a user runs)
+    if cuda:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *sz["launch"]],
+        capture_output=True, text=True, timeout=600, cwd=str(ROOT),
+        env=dict(os.environ, PYTHONPATH=str(SRC)))
+    lines = proc.stdout.splitlines()
+    emit({"phase": "train", "call": "z_triple_prime_launcher", "card": card,
+          "argv": sz["launch"], "exit": proc.returncode,
+          "seconds": time.perf_counter() - t0, "stdout": lines[-4:]})
+    if proc.returncode != 0 or not lines or not lines[-1].startswith("step"):
+        fail(f"train launcher: exit {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+
+    # what phase 8 profiles: one step at the model's width, from p0
+    def profile():
+        st = AdamW().init(p0)
+        fn = make_train_step(cfg, launcher.RULES, AdamW(),
+                             lambda s: TRAIN_LR)
+        return lambda: fn(p0, st, batch, 0)
+    emit({"phase": "train", "phase_seconds": time.perf_counter() - t_phase,
+          "launches": launches})
+    return launches, train_b4, {"profile": profile,
+                                "step_s": statistics.median(step_ms) / 1e3}
 
 
 def nvidia_smi() -> str:
@@ -3374,7 +4077,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse", action="store_true",
-                    help="tiny CPU run of phases 2-6 and 9-13 with the "
+                    help="tiny CPU run of phases 2-6 and 9-14 with the "
                          "plain versions")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
@@ -3414,8 +4117,10 @@ def main(argv=None) -> int:
                                    errs, diffs, full=False)
         _, serve_b4, _ = phase_serve("cpu", args.seed, errs, diffs,
                                      full=False, check_launches=False)
-        phase_times_round1(mesh_b4 + serve_b4, args.seed, errs, diffs,
-                           timed=False)
+        _, train_b4, _ = phase_train("cpu", args.seed, errs, diffs,
+                                     full=False, check_launches=False)
+        phase_times_round1(mesh_b4 + serve_b4 + train_b4, args.seed, errs,
+                           diffs, timed=False)
         emit({"phase": "rehearsal", "ok": True})
         return 0
 
@@ -3531,22 +4236,31 @@ def main(argv=None) -> int:
     emit({"phase": "serve", "script_seconds_so_far":
           time.perf_counter() - t_start})
 
+    # ---- 14. train ---------------------------------------------------------
+    t_launches, train_b4, train_keep = phase_train("cuda", args.seed, errs,
+                                                   diffs, card=card)
+    for k, v in t_launches.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "script_seconds_so_far":
+          time.perf_counter() - t_start})
+
     # ---- 7. times, 8. profile ---------------------------------------------
     rows = phase_times(x, args.seed)
     g_rows = phase_times_grouped(x, genres, args.seed)
     b4_cases = set(diffs["gmm_grouped_topb"])
     requests = serving.pop("serving")
     phase_times_round1(round1_cases(x, sphere, genres, serving=requests,
-                                    mesh=mesh_b4 + serve_b4), args.seed,
-                       errs, diffs)
-    del serve_b4
+                                    mesh=mesh_b4 + serve_b4 + train_b4),
+                       args.seed, errs, diffs)
+    del serve_b4, train_b4
     (out / "kernel_differing_entries.json").write_text(
         json.dumps(diffs, indent=1))
     round1 = {c: v for c, v in diffs["gmm_grouped_topb"].items()
               if c not in b4_cases}
     emit({"phase": "differing_entries", "kernel": "gmm_grouped_topb",
           "at": "round-1 (simulated and mesh) and serving shapes, "
-                "phase 13's pool and fused solve",
+                "phase 13's pool and fused solve, phase 14's curation",
           "cases": len(round1),
           "counts": list(round1.values())})
     far = x.shape[0] // 2
@@ -3586,9 +4300,13 @@ def main(argv=None) -> int:
                                 dyn_keep["u_cfg"]["k"]),
                   "dynamic_u_round", out, dyn_s["u_churn_0.05"])
     del dyn_keep
-    phase_profile(serve_keep["profile"], "serve_q_group", out,
+    phase_profile(serve_keep["profile"](), "serve_q_group", out,
                   serve_keep["group_s"])
     del serve_keep
+    torch.cuda.empty_cache()
+    phase_profile(train_keep["profile"](), "train_z_step", out,
+                  train_keep["step_s"])
+    del train_keep
     torch.cuda.empty_cache()
     pick = {"gmm_topb": next(r for r in rows if r["b"] == 8 and r["p"] == 128),
             "gmm_update_select": next(r for r in rows if r["b"] == 1

@@ -393,6 +393,12 @@ class SupervisorReport:
     losses: List[float] = dataclasses.field(default_factory=list)
 
 
+def _copy(tree):
+    """``tree`` with every tensor leaf cloned."""
+    return _rebuild(tree, lambda _, leaf: leaf.clone()
+                    if isinstance(leaf, torch.Tensor) else leaf)
+
+
 class TrainingSupervisor:
     """Fault-tolerant training loop driver, configured by the same
     ``ResiliencePolicy`` as the diversify paths (``checkpoint_every`` counts
@@ -420,9 +426,8 @@ class TrainingSupervisor:
         (snapshotted before the first step), never a partially-updated one.
         """
         # pristine entry state: a copy, since a step may update tensors in
-        # place
-        state0 = _rebuild(state, lambda _, leaf: leaf.clone()
-                          if isinstance(leaf, torch.Tensor) else leaf)
+        # place (so a replay starts from a copy of it too)
+        state0 = _copy(state)
         start = 0
         latest = self.ckpt.latest_step()
         if latest is not None:
@@ -460,7 +465,7 @@ class TrainingSupervisor:
                 else:
                     # no checkpoint yet: replay from the pristine entry
                     # state — NOT the partially-updated live state
-                    state = state0
+                    state = _copy(state0)
                     step = 0
         self.ckpt.wait()
         self.report.final_step = step

@@ -10,7 +10,9 @@ the port's types, and ``stream_from_reference`` the reference's
 (for a stream, the ``(arrays, meta)`` pair the reference's
 ``StreamingCoreset.from_state_dict`` takes).  ``params_from_reference``
 and ``params_to_reference`` carry a dense model's weights between the
-reference's parameter tree of numpy arrays and the port's ``DecoderLM``.
+reference's parameter tree of numpy arrays and the port's tree of
+tensors; ``opt_state_from_reference`` and
+``opt_state_to_reference`` carry an ``AdamWState`` or ``AdafactorState``.
 Nothing here imports the reference: objects are recognised by their
 fields, bf16 arrays by their dtype's name.
 """
@@ -28,6 +30,7 @@ from .core.coreset import Coreset, GeneralizedCoreset
 from .core.smm import StreamingCoreset
 from .device import resolve_device
 from .device import to_numpy as _host
+from .tree import tree_map
 
 _CERT_FIELDS = tuple(f.name for f in dataclasses.fields(RadiusCertificate))
 
@@ -155,31 +158,54 @@ def _weight_out(t: torch.Tensor, dtype) -> np.ndarray:
     return t.to(torch.bfloat16).view(torch.int16).numpy().view(dt)
 
 
-def _map_tree(tree, fn):
-    return {k: _map_tree(v, fn) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
-
-
 def params_from_reference(tree, cfg, device=None):
-    """The port's ``models.transformer.DecoderLM`` holding the weights of
-    the reference's parameter tree ``{"embed", "final_norm", "layers":
-    {...}, ["head"]}`` (arrays read as numpy: float32, or a dtype named
-    ``bfloat16``, read by its bits), cast to ``cfg.param_dtype`` on
+    """The port's parameter tree (``models.init_params``'s) holding the
+    weights of the reference's parameter tree ``{"embed", "final_norm",
+    "layers": {...}, ["head"]}`` (arrays read as numpy: float32, or a dtype
+    named ``bfloat16``, read by its bits), cast to ``cfg.param_dtype`` on
     ``device`` (default: the card; a missing card raises).  bf16 -> f32 ->
     bf16 is exact, so a float32 copy of bf16 weights carries them
     unchanged."""
     from .models import _dense
-    from .models.transformer import DecoderLM
 
     _dense(cfg)
     dev = resolve_device(device)
-    return DecoderLM(cfg, _map_tree(
-        tree, lambda a: _weight_in(a, cfg.param_dtype, dev)))
+    return tree_map(lambda a: _weight_in(a, cfg.param_dtype, dev), tree)
 
 
-def params_to_reference(model, dtype=None):
-    """The reference's parameter tree of ``model``'s weights, as numpy
+def params_to_reference(params, dtype=None):
+    """The reference's parameter tree of the port's ``params``, as numpy
     arrays: float32 (``dtype=None``, exact for bf16 weights), or the
     bfloat16 numpy dtype the caller passes (e.g. ``jax.numpy.bfloat16``),
     filled by its bits."""
-    return _map_tree(model.to_tree(), lambda t: _weight_out(t, dtype))
+    return tree_map(lambda t: _weight_out(t, dtype), params)
+
+
+# --------------------------------------------------------------------------
+# optimizer state
+# --------------------------------------------------------------------------
+
+def _opt_state_type(obj):
+    from .train import AdafactorState, AdamWState
+    for cls in (AdamWState, AdafactorState):
+        if all(hasattr(obj, f) for f in cls._fields):
+            return cls
+    raise TypeError(f"not an AdamW or Adafactor state: {type(obj).__name__}")
+
+
+def opt_state_from_reference(state, device=None):
+    """The port's ``AdamWState`` / ``AdafactorState`` of the reference's
+    (recognised by its fields; arrays read as numpy), on ``device``
+    (default: the card; a missing card raises).  The state is fp32 with an
+    int32 step, carried unchanged."""
+    cls = _opt_state_type(state)
+    dev = resolve_device(device)
+    return cls(*(tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev),
+                          getattr(state, f)) for f in cls._fields))
+
+
+def opt_state_to_reference(state):
+    """``state`` (the port's optimizer state) with numpy leaves, in the
+    same NamedTuple: the reference's ``update`` reads it by its fields."""
+    cls = _opt_state_type(state)
+    return cls(*(tree_map(_host, getattr(state, f)) for f in cls._fields))

@@ -16,11 +16,11 @@ import numpy as np
 
 def make_production_mesh(*, multi_pod: bool = False):
     """The reference's TPU-pod mesh shapes ((16, 16) or (2, 16, 16)) serve
-    its train and dry-run launchers: ROADMAP A, slices 16b and 16e."""
+    its sharded train and dry-run launchers: ROADMAP A, slice 16e."""
     raise NotImplementedError(
-        "make_production_mesh builds a TPU pod mesh for the train and "
-        "dry-run launchers, which are ROADMAP A, slices 16b and 16e — "
-        "build a DeviceMesh with make_host_mesh or "
+        "make_production_mesh builds a TPU pod mesh for the sharded train "
+        "and dry-run launchers, which are ROADMAP A, slice 16e — build a "
+        "DeviceMesh with make_host_mesh or "
         "torch.distributed.device_mesh.init_device_mesh")
 
 

@@ -14,14 +14,9 @@ import numpy as np
 
 from .. import models as M
 from ..configs import get_config
+from . import RULES
 from ..data import embed_examples
-from ..models.common import ShardingRules
 from ..serving import Request, ServingEngine, diverse_rerank
-
-RULES = ShardingRules(batch=(), heads=None, kv_heads=None, d_ff=None,
-                      vocab=None, experts=None, fsdp=None, head_dim=None,
-                      state=None, act_heads=None)
-
 
 def main(argv=None):
     ap = argparse.ArgumentParser()

@@ -1,20 +1,25 @@
 """Model registry (port of ``repro.models``): family dispatch for init and
 the serving entry points.
 
-* ``init_params(cfg, key, device=None)`` -> a ``transformer.DecoderLM`` on
-  the device (default the card; a missing card raises);
+* ``init_params(cfg, key, device=None)`` -> the reference's parameter
+  tree of tensors on the device (default the card; a missing card
+  raises), the model for serving and training alike;
 * ``param_shapes(cfg)`` / ``count_params(cfg)``: ``meta`` tensors, no
-  allocation;
+  allocation; ``active_param_ratio(cfg)``;
+* ``loss_fn(params, cfg, rules, batch)``: the teacher-forced
+  cross-entropy, differentiable in ``params``;
 * ``make_cache``, ``prefill_fn``, ``decode_fn``: the serving callables.
 
 Only the ``dense`` family is ported.  The others raise
-``NotImplementedError`` naming their ROADMAP A slice; the teacher-forced
-``loss_fn`` comes with the training slice.
+``NotImplementedError`` naming their ROADMAP A slice.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
+import torch
+
+from ..tree import tree_leaves
 from . import attention, transformer
 from .common import InitBuilder, ModelConfig, ShapeBuilder, ShardingRules
 
@@ -38,12 +43,11 @@ def _dense(cfg: ModelConfig) -> None:
 
 
 def init_params(cfg: ModelConfig, key: int = 0,
-                device=None) -> transformer.DecoderLM:
+                device=None) -> Dict[str, Any]:
     """A randomly initialized model from the int seed ``key``."""
     _dense(cfg)
-    tree = transformer.build_params(cfg, InitBuilder(key, cfg.param_dtype,
+    return transformer.build_params(cfg, InitBuilder(key, cfg.param_dtype,
                                                      device=device))
-    return transformer.DecoderLM(cfg, tree)
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
@@ -53,10 +57,43 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def count_params(cfg: ModelConfig) -> int:
-    def leaves(t):
-        return [x for v in t.values() for x in
-                (leaves(v) if isinstance(v, dict) else [v])]
-    return int(sum(t.numel() for t in leaves(param_shapes(cfg))))
+    return int(sum(t.numel() for t in tree_leaves(param_shapes(cfg))))
+
+
+def active_param_ratio(cfg: ModelConfig) -> float:
+    """active / total params (the reference's MoE top-k accounting); 1.0
+    for a dense model."""
+    if cfg.num_experts:
+        _dense(cfg)          # raises, naming slice 16c (the MoE family)
+    return 1.0
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def _xent(logits, labels, mask=None):
+    """logits (B, S, V) fp32, labels (B, S) int.  Mean cross-entropy over
+    the valid tokens: fp32 ``logsumexp`` minus the gold logit."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(params, cfg: ModelConfig, rules: ShardingRules,
+            batch: Dict[str, Any]):
+    """Teacher-forced cross-entropy of ``batch["tokens"]`` (B, S) against
+    ``batch["labels"]`` (B, S), a 0-dim fp32 tensor."""
+    _dense(cfg)
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    logits, _ = transformer.forward(params, cfg, rules, tokens, positions)
+    return _xent(logits, batch["labels"])
 
 
 def make_cache(cfg: ModelConfig, batch: int, capacity: int, *,
@@ -92,5 +129,6 @@ def decode_fn(params, cfg: ModelConfig, rules: ShardingRules, tokens, pos,
     return transformer.decode_step(params, cfg, rules, tokens, pos, cache)
 
 
-__all__ = ["ModelConfig", "ShardingRules", "count_params", "decode_fn",
-           "init_params", "make_cache", "param_shapes", "prefill_fn"]
+__all__ = ["ModelConfig", "ShardingRules", "active_param_ratio",
+           "count_params", "decode_fn", "init_params", "loss_fn",
+           "make_cache", "param_shapes", "prefill_fn"]

@@ -23,7 +23,8 @@ from typing import NamedTuple
 import torch
 
 from ..device import resolve_device
-from .common import ModelConfig, ShardingRules, in_dtype, rope, softcap
+from .common import (ModelConfig, ShardingRules, in_dtype, rope, softcap,
+                     wide)
 
 _MASKED = -1e30
 
@@ -58,13 +59,13 @@ def attend(q, k, v, q_pos, kv_pos, cfg: ModelConfig, rules: ShardingRules,
     qpk = H // KV
     scale = in_dtype(hd ** -0.5, q.dtype)
     qc = _pick_chunk(Sq, q_chunk)
-    kf, vf = k.float(), v.float()
+    kf, vf = wide(k), wide(v)
     live = kv_pos[None, :] >= 0
     out = []
     for c0 in range(0, Sq, qc):
         qb = q[:, c0:c0 + qc].reshape(B, qc, KV, qpk, hd)
         pb = q_pos[c0:c0 + qc]
-        scores = torch.einsum("bqkgh,bskh->bkgqs", (qb * scale).float(), kf)
+        scores = torch.einsum("bqkgh,bskh->bkgqs", wide(qb * scale), kf)
         scores = softcap(scores, cfg.attn_softcap)
         mask = live
         if is_causal:
@@ -73,7 +74,7 @@ def attend(q, k, v, q_pos, kv_pos, cfg: ModelConfig, rules: ShardingRules,
             mask = mask & (kv_pos[None, :] > pb[:, None] - window)
         scores = torch.where(mask, scores, _MASKED)
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
-        ctx = torch.einsum("bkgqs,bskh->bqkgh", probs.float(), vf)
+        ctx = torch.einsum("bkgqs,bskh->bqkgh", wide(probs), vf)
         out.append(ctx.reshape(B, qc, H, hd).to(q.dtype))
     return out[0] if len(out) == 1 else torch.cat(out, dim=1)
 

@@ -170,11 +170,18 @@ class ShapeBuilder(Builder):
 # numerics
 # ---------------------------------------------------------------------------
 
+def wide(x):
+    """``x`` where the reference upcasts to fp32: fp32, or float64 kept
+    as it is (a float64 config runs in float64 throughout, which the
+    full-width gradient witness of ``chip_smoke.py`` evaluates)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def rms_norm(x, gamma, eps: float = 1e-6):
     dt = x.dtype
-    x = x.float()
+    x = wide(x)
     var = torch.mean(x * x, dim=-1, keepdim=True)
-    out = x * torch.rsqrt(var + eps) * (1.0 + gamma.float())
+    out = x * torch.rsqrt(var + eps) * (1.0 + wide(gamma))
     return out.to(dt)
 
 
@@ -202,9 +209,27 @@ def rope(x, positions, theta: float, angles=None):
     return out.to(x.dtype)
 
 
+class _Logistic(torch.autograd.Function):
+    """``jax.nn.sigmoid`` (``lax.logistic``) as the reference computes it:
+    forward 1 / (1 + e^-x), one rounding to x's dtype per op; backward
+    lax.logistic's rule g (s (1 - s)), finite where e^-x overflows (the
+    chain rule through the ops gives 0 * inf there, a NaN)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        s, = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
 def _silu(x):
-    # jax.nn.silu's graph, one rounding to x's dtype per op: x / (1 + e^-x)
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    # jax.nn.silu's graph: x * sigmoid(x)
+    return x * _Logistic.apply(x)
 
 
 @functools.lru_cache(maxsize=None)
@@ -250,14 +275,62 @@ def embed_tokens(tokens, emb, rules: ShardingRules, scale: bool = False,
     """The table's rows, scaled for the gemma family, cast to ``dtype``:
     bf16 as in the reference (``forward`` passes the config's dtype, bf16
     in every published config; the reference's cast makes an fp32 config
-    fail in its layer scan, where the port runs it in fp32)."""
-    x = emb[tokens.long()]
+    fail in its layer scan, where the port runs it in fp32).  A lookup
+    through ``F.embedding``, whose backward on the card sums each row's
+    gradients in a fixed (sorted) order, so a training step repeats bit
+    for bit."""
+    x = torch.nn.functional.embedding(tokens.long(), emb)
     if scale:
         x = x * in_dtype(math.sqrt(emb.shape[1]), x.dtype)
     return x.to(dtype)
 
 
 def lm_head(x, emb_or_head, cfg: ModelConfig, rules: ShardingRules):
-    """fp32 logits (..., vocab): one fp32 product of the bf16 operands."""
-    logits = x.float() @ emb_or_head.float()
+    """fp32 logits (..., vocab): one fp32 product of the bf16 operands
+    (float64 in a float64 config)."""
+    logits = wide(x) @ wide(emb_or_head)
     return softcap(logits, cfg.logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# rematerialization
+# ---------------------------------------------------------------------------
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Save the matrix products without batch dimensions (the projections
+    and MLP products: ``mm``, or ``bmm`` over a batch of one, which is what
+    ``einsum`` makes of them); recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if op is aten.mm.default or (op is aten.bmm.default
+                                 and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_policy(cfg: ModelConfig):
+    """The selective-checkpoint policy of ``cfg.remat``: None for ``none``
+    (nothing recomputed) and ``full`` (nothing saved), the product-saving
+    policy for ``dots`` (the counterpart of JAX's
+    ``dots_with_no_batch_dims_saveable``)."""
+    if cfg.remat not in ("none", "dots", "full"):
+        raise ValueError(f"remat={cfg.remat!r}: none | dots | full")
+    return _save_dots if cfg.remat == "dots" else None
+
+
+def maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` run under ``torch.utils.checkpoint`` (non-reentrant) as
+    ``cfg.remat`` asks: its activations are recomputed in the backward
+    pass, all of them (``full``) or all but the saved products (``dots``);
+    ``none`` returns ``fn``."""
+    policy = remat_policy(cfg)
+    if cfg.remat == "none":
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    def run(*args):
+        kw = {} if policy is None else {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, policy)}
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run

@@ -4,12 +4,15 @@
 ``build_params`` walks the reference's parameter structure with a
 ``Builder``: the layer weights stacked ``(G, P, ...)`` — ``G`` groups of
 ``P`` sublayers (P = 2 for gemma2's local/global alternation, else 1) —
-beside ``embed``, ``final_norm`` and an untied ``head``.  ``DecoderLM``
-holds the same tensors as an ``nn.Module``: layer ``l = g * P + p`` is the
-slice ``[g, p]`` of every stacked weight, in the reference's layouts
-(``wq`` (D, H, hd), ``wo`` (H, hd, D), ``w_gate`` (D, F), ...), so carrying
-weights across is slicing.  The layers run in a Python loop; caches are
-updated in place.
+beside ``embed``, ``final_norm`` and an untied ``head``, in the
+reference's layouts (``wq`` (D, H, hd), ``wo`` (H, hd, D), ``w_gate``
+(D, F), ...).  That tree of tensors is the model, for serving and
+training alike.  ``forward`` splits each stacked leaf into its layers
+with one ``unbind``, whose backward stacks the layers' gradients into one
+``(G, P, ...)`` gradient (indexing a layer out of the leaf would make a
+full-size zero gradient a layer).  The layers run in a Python loop, a
+group of ``P`` under ``cfg.remat``'s checkpointing when gradients are on;
+caches are updated in place.
 
 A residual sum is rounded to bf16 for the residual stream, but the norm
 that reads it next takes the fp32 sum: the reference's compiled layer
@@ -22,14 +25,15 @@ the stream is bf16.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import types
+from typing import Any, Dict
 
 import torch
-from torch import nn
 
 from . import attention as attn
 from .common import (Builder, ModelConfig, ShardingRules, embed_tokens,
-                     glu_mlp, lm_head, plain_mlp, rms_norm, rope_angles)
+                     glu_mlp, lm_head, maybe_remat, plain_mlp, rms_norm,
+                     rope_angles, wide)
 
 _MOE_LATER = ("the MoE family (num_experts > 0, repro.models.moe) is "
               "ROADMAP A, slice 16c; it is not ported to repro_torch yet")
@@ -86,64 +90,12 @@ def _layer_window(cfg: ModelConfig, p: int) -> int:
     return cfg.window
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    # serving holds the weights fixed; the training slice turns grads on
-    return nn.Parameter(t, requires_grad=False)
-
-
-class DecoderLayer(nn.Module):
-    """One sublayer's weights (the reference's ``[g, p]`` slice) and its
-    attention window."""
-
-    def __init__(self, weights: Dict[str, torch.Tensor], window: int):
-        super().__init__()
-        for name, w in weights.items():
-            self.register_parameter(name, _frozen(w))
-        self.window = int(window)
-
-
-class DecoderLM(nn.Module):
-    """The dense decoder LM: ``embed`` (V, D), ``final_norm`` (D,),
-    ``head`` (D, V) when untied, and ``layers``, an ``nn.ModuleList`` of
-    ``DecoderLayer``s."""
-
-    def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]):
-        super().__init__()
-        if cfg.num_experts > 0:
-            raise NotImplementedError(_MOE_LATER)
-        self.cfg = cfg
-        G, P = _group_shape(cfg)
-        self.embed = _frozen(tree["embed"])
-        self.final_norm = _frozen(tree["final_norm"])
-        self.head = _frozen(tree["head"]) if "head" in tree else None
-        lp = tree["layers"]
-        self.layers = nn.ModuleList(
-            DecoderLayer({name: w[g, p] for name, w in lp.items()},
-                         _layer_window(cfg, p))
-            for g in range(G) for p in range(P))
-
-    def to_tree(self) -> Dict[str, Any]:
-        """The weights in the reference's tree layout (layers restacked)."""
-        G, P = _group_shape(self.cfg)
-        names = [n for n, _ in self.layers[0].named_parameters()]
-        lp = {n: torch.stack([getattr(l, n) for l in self.layers])
-              .reshape(G, P, *getattr(self.layers[0], n).shape)
-              for n in names}
-        tree = {"embed": self.embed.data, "final_norm": self.final_norm.data,
-                "layers": {n: t.data for n, t in lp.items()}}
-        if self.head is not None:
-            tree["head"] = self.head.data
-        return tree
-
-    def forward(self, tokens, positions, cache=None):
-        return forward(self, self.cfg, None, tokens, positions, cache=cache)
-
-
-def _sublayer(x, x_hi, layer: DecoderLayer, cfg: ModelConfig,
+def _sublayer(x, x_hi, layer, cfg: ModelConfig,
               rules: ShardingRules, q_pos, cache_row, layer_window: int,
               angles=None):
-    """One transformer sublayer; returns the bf16 stream and its fp32 sum
-    before the rounding.  ``x_hi``: the fp32 sum behind ``x`` when the
+    """One transformer sublayer (``layer``: its weights by name and its
+    attention window); returns the bf16 stream and its fp32 sum before the
+    rounding.  ``x_hi``: the fp32 sum behind ``x`` when the
     previous sublayer is in the same group, else None.  cache_row: None
     (no cache) or the (k (B, C, KV, hd), v, slot_pos (C,)) views of this
     layer's cache rows, written in place."""
@@ -165,7 +117,7 @@ def _sublayer(x, x_hi, layer: DecoderLayer, cfg: ModelConfig,
         else:
             ctx = attn.attend(q, ck, cv, q_pos, cpos, cfg, rules,
                               window=layer_window)
-    s1 = x.float() + attn.out_project(ctx, layer.wo, rules).float()
+    s1 = wide(x) + wide(attn.out_project(ctx, layer.wo, rules))
     x = s1.to(dt)
     h2 = rms_norm(s1, layer.ln2).to(dt)
     if cfg.mlp_type == "plain":
@@ -173,7 +125,7 @@ def _sublayer(x, x_hi, layer: DecoderLayer, cfg: ModelConfig,
     else:
         y = glu_mlp(h2, layer.w_gate, layer.w_up, layer.w_down, cfg.mlp_act,
                     rules)
-    s2 = x.float() + y.float()
+    s2 = wide(x) + wide(y)
     return s2.to(dt), s2
 
 
@@ -188,25 +140,49 @@ def _cache_row(cache, l: int, P: int, window: int):
     return c.k[i], c.v[i], c.slot_pos[i]
 
 
-@torch.no_grad()
-def forward(params: DecoderLM, cfg: ModelConfig, rules: ShardingRules,
-            tokens, positions, cache=None):
-    """tokens (B, S) int; positions (S,) absolute.  Returns (logits (B, S, V) fp32, cache | None); a cache is
-    updated in place and returned."""
+def _weights(params, cfg: ModelConfig):
+    """(embed, final_norm, head or None, layers) of the parameter tree;
+    the layers are views made by one ``unbind`` of each stacked leaf."""
+    G, P = _group_shape(cfg)
+    cols = {n: w.reshape(G * P, *w.shape[2:]).unbind(0)
+            for n, w in params["layers"].items()}
+    layers = [types.SimpleNamespace(window=_layer_window(cfg, l % P),
+                                    **{n: c[l] for n, c in cols.items()})
+              for l in range(G * P)]
+    return params["embed"], params["final_norm"], params.get("head"), layers
+
+
+def forward(params, cfg: ModelConfig, rules: ShardingRules, tokens,
+            positions, cache=None):
+    """tokens (B, S) int; positions (S,) absolute; ``params`` the
+    reference's parameter tree of tensors (autograd reaches its leaves).
+    Returns (logits (B, S, V) fp32, cache | None); a cache is updated in
+    place and returned."""
     if cfg.num_experts > 0:
         raise NotImplementedError(_MOE_LATER)
     _, P = _group_shape(cfg)
-    x = embed_tokens(tokens, params.embed, rules, scale=cfg.embed_scale,
+    embed, final_norm, head, layers = _weights(params, cfg)
+    x = embed_tokens(tokens, embed, rules, scale=cfg.embed_scale,
                      dtype=cfg.dtype)
-    x_hi = None
     angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-    for l, layer in enumerate(params.layers):
-        row = None if cache is None else _cache_row(cache, l, P,
-                                                    layer.window)
-        x, x_hi = _sublayer(x, x_hi if l % P else None, layer, cfg, rules,
-                            positions, row, layer.window, angles)
-    x = rms_norm(x, params.final_norm)
-    head = params.embed.T if cfg.tie_embeddings else params.head
+
+    def group(x, l0, *ws):
+        # one scan group of the reference: P sublayers, the fp32 residual
+        # sum passed between them
+        x_hi = None
+        for p, layer in enumerate(ws):
+            l = l0 + p
+            row = None if cache is None else _cache_row(cache, l, P,
+                                                        layer.window)
+            x, x_hi = _sublayer(x, x_hi, layer, cfg, rules, positions, row,
+                                layer.window, angles)
+        return x
+
+    body = maybe_remat(group, cfg) if torch.is_grad_enabled() else group
+    for l0 in range(0, len(layers), P):
+        x = body(x, l0, *layers[l0:l0 + P])
+    x = rms_norm(x, final_norm)
+    head = embed.T if cfg.tie_embeddings else head
     return lm_head(x, head, cfg, rules), cache
 
 
@@ -214,14 +190,16 @@ def forward(params: DecoderLM, cfg: ModelConfig, rules: ShardingRules,
 # serving entry points
 # ---------------------------------------------------------------------------
 
-def prefill(params: DecoderLM, cfg: ModelConfig, rules: ShardingRules,
+@torch.no_grad()
+def prefill(params, cfg: ModelConfig, rules: ShardingRules,
             tokens, cache):
     S = tokens.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     return forward(params, cfg, rules, tokens, positions, cache=cache)
 
 
-def decode_step(params: DecoderLM, cfg: ModelConfig, rules: ShardingRules,
+@torch.no_grad()
+def decode_step(params, cfg: ModelConfig, rules: ShardingRules,
                 tokens, pos, cache):
     """tokens (B, 1); pos — the absolute position of the new token (an int,
     or a tensor on the tokens' device, which keeps the step free of host

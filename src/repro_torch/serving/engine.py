@@ -75,7 +75,7 @@ class ServingEngine:
         self.cfg, self.rules, self.params = cfg, rules, params
         self.batch, self.capacity = batch, capacity
         self.reranker = reranker
-        self.device = resolve_device(None, like=params.embed)
+        self.device = resolve_device(None, like=params["embed"])
 
     def _check_capacity(self, S: int, steps: int) -> None:
         cfg = self.cfg

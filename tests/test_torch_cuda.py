@@ -724,6 +724,7 @@ def test_cuda_model_forward_matches_cpu(cuda_device, arch):
     import repro_torch.models as M
     from repro_torch.configs import get_config
     from repro_torch.interop import params_from_reference, params_to_reference
+    from repro_torch.models import transformer
 
     cfg = get_config(arch, reduced=True)
     cpu = M.init_params(cfg, 0, device="cpu")
@@ -732,8 +733,10 @@ def test_cuda_model_forward_matches_cpu(cuda_device, arch):
     toks = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 20)))
     pos = torch.arange(20, dtype=torch.int32)
-    want = cpu(toks, pos)[0]
-    got = card(toks.to(cuda_device), pos.to(cuda_device))[0]
+    with torch.no_grad():
+        want = transformer.forward(cpu, cfg, None, toks, pos)[0]
+        got = transformer.forward(card, cfg, None, toks.to(cuda_device),
+                                  pos.to(cuda_device))[0]
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                rtol=2e-2, atol=2e-2)
     cache = M.make_cache(cfg, 2, 24, device=cuda_device)
@@ -793,3 +796,145 @@ def test_cuda_embed_examples_matches_cpu(cuda_device, dim):
     sk_cpu = embed_examples(toks, dim=dim, device="cpu")
     np.testing.assert_allclose(sk.cpu().numpy(), sk_cpu.numpy(), rtol=1e-6,
                                atol=1e-6 * float(sk_cpu.abs().max()))
+
+
+# -- dense-model training -------------------------------------------------------
+
+def _train_pair(device, lr=1e-4, steps=1):
+    """``steps`` AdamW steps of the reduced internlm2 on ``device`` from the
+    seed-0 weights; (losses, grad norms, params)."""
+    import repro_torch.models as M
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.interop import params_from_reference, params_to_reference
+    from repro_torch.train import AdamW, make_train_step
+
+    cfg = get_config("internlm2-1.8b", reduced=True)
+    tree = params_from_reference(params_to_reference(
+        M.init_params(cfg, 0, device="cpu")), cfg, device=device)
+    opt = AdamW()
+    state = opt.init(tree)
+    step = make_train_step(cfg, None, opt, lambda s: lr)
+    losses, norms = [], []
+    for i in range(steps):
+        batch = lm_batch(cfg, seed=7, step=i, batch=4, seq=16, device=device)
+        tree, state, m = step(tree, state, batch, i)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return losses, norms, tree
+
+
+class _GradProbe:
+    """An optimizer that keeps a float64 host copy of the gradients a train
+    step hands it, leaf by leaf, and changes nothing."""
+
+    grads = None
+
+    def init(self, params):
+        return ()
+
+    def update(self, grads, state, params, lr):
+        from repro_torch.tree import tree_leaves
+        self.grads = [g.detach().double().cpu() for g in tree_leaves(grads)]
+        return params, state
+
+
+def _step_grads(device, dtype, rows=4):
+    """(loss, gradients) of one ``make_train_step`` of the reduced internlm2
+    on ``device``, from the seed-0 weights cast to ``dtype``, on the first
+    ``rows`` rows of the batch."""
+    import dataclasses
+
+    import repro_torch.models as M
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.interop import params_from_reference, params_to_reference
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_map
+
+    base = get_config("internlm2-1.8b", reduced=True)
+    cfg = dataclasses.replace(base, dtype=dtype, param_dtype=dtype)
+    tree = tree_map(lambda t: t.to(dtype), params_from_reference(
+        params_to_reference(M.init_params(base, 0, device="cpu")), base,
+        device=device))
+    batch = lm_batch(base, seed=7, step=0, batch=4, seq=16, device=device)
+    probe = _GradProbe()
+    step = make_train_step(cfg, None, probe, lambda s: 1e-4)
+    _, _, m = step(tree, (), {k: v[:rows] for k, v in batch.items()}, 0)
+    return float(m["loss"]), probe.grads
+
+
+def _fro(a, b):
+    return max(float((x - y).norm() / y.norm()) for x, y in zip(a, b))
+
+
+def test_cuda_train_step_matches_cpu(cuda_device):
+    """The gradients one reduced train step hands its optimizer, on the
+    card against the CPU (TF32 off), by the largest per-leaf relative
+    Frobenius error: fp32 within 1e-3 (the fp32 gradient parts from the
+    float64 one by 3e-5 on the CPU), bf16 within 0.15 (the bound of the
+    bf16 gradient parity with the reference, tests/test_torch_train.py:
+    the random model is chaotic in bf16).  A step that drops half the
+    batch reads 0.78-1.24 on the CPU and must read above the bound here
+    too.  The loss to rtol 2e-3 (the forward's logits agree to the
+    reference's 2e-2, the loss is their mean over 64 tokens)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    for dtype, bound in ((torch.float32, 1e-3), (torch.bfloat16, 0.15)):
+        (cl, cg), (gl, gg) = (_step_grads("cpu", dtype),
+                              _step_grads(cuda_device, dtype))
+        assert gl == pytest.approx(cl, rel=2e-3), dtype
+        err = _fro(gg, cg)
+        half = _fro(_step_grads(cuda_device, dtype, rows=2)[1], cg)
+        print(f"{dtype}: card against CPU {err:.3e}, half batch {half:.3e}"
+              f" (bound {bound:g})")
+        assert err <= bound, (dtype, err)
+        assert half > bound, (dtype, half)
+
+
+def test_cuda_train_steps_repeat_bit_for_bit(cuda_device):
+    """Three steps twice from the same state give the same params and
+    losses: no backward of the step adds with atomics (the embedding's is
+    ``F.embedding``'s), so a resumed run can equal an uninterrupted one."""
+    from repro_torch.tree import tree_leaves
+    a, b = _train_pair(cuda_device, 1e-3, 3), _train_pair(cuda_device, 1e-3,
+                                                           3)
+    assert a[0] == b[0] and a[1] == b[1]
+    for x, y in zip(tree_leaves(a[2]), tree_leaves(b[2])):
+        assert torch.equal(x, y)
+
+
+def test_cuda_fp32_gradient_against_a_central_difference(cuda_device):
+    """The fp32 gradient of the reduced model on the card against a central
+    difference of its fp32 loss along a random unit direction, step 1e-3:
+    relative error at most 2e-2 (as on the CPU, tests/test_torch_train.py)."""
+    import dataclasses
+
+    import repro_torch.models as M
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.train import make_loss
+    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.train.step import _value_and_grad
+
+    cfg = get_config("internlm2-1.8b", reduced=True)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    w = tree_map(lambda t: t.float(),
+                 M.init_params(cfg, 0, device=cuda_device))
+    batch = lm_batch(cfg, seed=1, step=0, batch=4, seq=16,
+                     device=cuda_device)
+    loss_fn = make_loss(cfg32, None)
+    _, grads = _value_and_grad(loss_fn, w, batch)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    d = tree_map(lambda t: torch.randn(t.shape, generator=gen,
+                                       device=cuda_device), w)
+    norm = torch.sqrt(sum((x * x).sum() for x in tree_leaves(d)))
+    d = tree_map(lambda x: x / norm, d)
+    dot = float(sum((g * x).sum() for g, x in zip(tree_leaves(grads),
+                                                  tree_leaves(d))))
+    eps = 1e-3
+    with torch.no_grad():
+        lp = float(loss_fn(tree_map(lambda t, x: t + eps * x, w, d), batch))
+        lm = float(loss_fn(tree_map(lambda t, x: t - eps * x, w, d), batch))
+    rel = abs((lp - lm) / (2 * eps) - dot) / abs(dot)
+    assert rel <= 2e-2, rel

@@ -31,7 +31,11 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.distributed, repro_torch.obs.export, "
             "repro_torch.serving, repro_torch.serving.engine, "
             "repro_torch.dynamic, repro_torch.dynamic.index, "
-            "repro_torch.launch, repro_torch.launch.mesh\n"
+            "repro_torch.launch, repro_torch.launch.mesh, "
+            "repro_torch.train, repro_torch.train.optimizer, "
+            "repro_torch.train.step, repro_torch.distributed.compression, "
+            "repro_torch.distributed.pipeline, repro_torch.launch.train, "
+            "repro_torch.models, repro_torch.tree\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -58,7 +62,12 @@ def test_sources_never_import_jax_or_repro():
                 ("dynamic", "__init__.py"), ("dynamic", "ops.py"),
                 ("dynamic", "rebuild.py"), ("dynamic", "levels.py"),
                 ("dynamic", "index.py"), ("launch", "__init__.py"),
-                ("launch", "mesh.py")):
+                ("launch", "mesh.py"), ("launch", "train.py"),
+                ("train", "__init__.py"), ("train", "optimizer.py"),
+                ("train", "step.py"), ("distributed", "compression.py"),
+                ("distributed", "pipeline.py"), ("models", "__init__.py"),
+                ("models", "common.py"), ("models", "transformer.py"),
+                ("tree.py",)):
         assert PORT.joinpath(*mod) in scanned
     hits = [str(p) for p in scanned if pat.search(p.read_text())]
     assert not hits, hits
