@@ -12,7 +12,14 @@ Phases, each printing one JSON line (or one per call):
 2. kernels  — every CUDA kernel held against its plain torch version on the
               card: modes {sqeuclidean, euclidean, dot, cosine}.  The sweeps
               (B1, B2) at small ragged shapes and the main shape, b in
-              {1, 8}, p in {1, 32, 128, 256}; the distance tile (B3) at
+              {1, 8, 9, 33}, p in {1, 32, 128, 256}, and at the edges of
+              the sweep's plan (``gmm_topb.edge_cases``: n in {1, 15, 17, a
+              tile and one row, 8,196}, d in {1, 3, 5,000, 5,001}, b in
+              {1, 8, 9, 32, 33}, p in {1, 32, 128, 4,096}; rows N(0, 1/d)),
+              equal rows on both sides of every slab border, a fully masked
+              tile, every row masked, and a base 4 bytes off 16; each B1/B2
+              top-p must also be the stable top-p of the kernel's own
+              min_out, value and index; the distance tile (B3) at
               small ragged shapes and the four streaming tile shapes below,
               where a one-column call must equal its tile's column and a
               tail of the rows the tile's rows, bit for bit; the grouped
@@ -27,10 +34,12 @@ Phases, each printing one JSON line (or one per call):
               a float64 sum within float64 rounding of an fp32 rounding
               boundary, one ulp off).
 3. main     — ``repro_torch.diversify`` at the paper's musiXmatch shape
-              (237,662 songs x 5,000 words, cosine), synthesized on the card
-              from ``--seed``: (a) cosine with default knobs, (b) euclidean
-              defaults, (c) ``kprime=64, b=1`` cosine (the gmm_update_select
-              path), each with ``use_pallas="auto"`` (the kernels) and
+              (237,662 songs x 5,000 words, cosine), its words drawn by the
+              host's generator from ``--seed`` (the same rows on every
+              machine; its fingerprint printed) and scattered into the
+              dense array on the card: (a) cosine with default knobs, (b)
+              euclidean defaults, (c) ``kprime=64, b=1`` cosine (the
+              gmm_update_select path), each with ``use_pallas="auto"`` (the kernels) and
               ``use_pallas=False`` (plain torch); radius, ratio and value
               agree to rtol 1e-4, meets_target and the executed schedule are
               equal, and the kernel launch counters moved on the kernel runs
@@ -38,7 +47,7 @@ Phases, each printing one JSON line (or one per call):
               ten times per side in turns kernel, plain, plain, kernel, ...
               (median and spread of the seconds) and must repeat exactly.
 4. stream   — ``repro_torch.diversify`` on streaming problems, data made
-              on the card from ``--seed``: (a) the musiXmatch shape, cosine,
+              from ``--seed``: (a) the musiXmatch shape, cosine,
               remote-edge, k = 128, default knobs (k' = 256, chunk 4,096);
               (b) the same with k' = 1,024; (c) remote-clique (SMM-EXT),
               k = 32, k' = 128; (d) 2^24 points on the unit sphere in 3-D
@@ -51,7 +60,7 @@ Phases, each printing one JSON line (or one per call):
               and on the value to rtol 1e-4.
 5. constrained — ``repro_torch.diversify`` on constrained problems at the
               musiXmatch shape, with synthetic "genre" labels over 16 groups
-              with Zipf(1) shares made on the card from ``--seed`` (the
+              with Zipf(1) shares drawn by the host from ``--seed`` (the
               follow-up paper's genre partition; its label file is not in
               the repo): (e) remote-edge, k = 32, labels alone (2 per
               group), default knobs, cosine and euclidean; (f) the same
@@ -98,7 +107,13 @@ Phases, each printing one JSON line (or one per call):
               16 reducers), with its merge time and
               tile filler, each shape first held against its plain version
               entry for entry (its differing entries, expected 0, join
-              phase 2's).
+              phase 2's); and B1/B2 at every (b, p) the probe of (i) and of
+              (m) swept in their first kernel run (8,196 x 5,000 cosine,
+              8,192 x 3), at phase 14's probe (8,192 x 2,048 euclidean, b in
+              {1, 8}, p in {1, 32}) and B2 at phase 13's ``select_diverse``
+              pool (65,536 x 2,048), each first held against plain: the
+              kernel's device ms a launch (profiler), the wrapper's and the
+              plain version's ms, the bound and the blocks of the grid.
 8. profile  — device-only torch.profiler traces of batch call (a), stream
               call (b), constrained call (e) cosine, MapReduce call (i),
               serving call (s), one churn round of dynamic call (u),
@@ -150,7 +165,10 @@ Phases, each printing one JSON line (or one per call):
               depth, rebuilds, B3 and B1 launches, host syncs per round
               and an ``agree`` dict: the two sides' level arrays, liveness,
               covers and frozen flags equal entry for entry, the same query
-              ids and levels, certificate floats within rtol 1e-5.  (w)
+              levels, the same query ids but where the two sides part at a
+              tie (the two picks' fields over the earlier picks within 3e-5
+              of each other in float64; printed with the gap), certificate
+              floats within rtol 1e-5.  (w)
               the facade over (u)'s 21 ops, checkpointed every 4, killed at
               op 7 and resumed from op 4: equal to the uninterrupted
               facade run on every field.
@@ -247,11 +265,15 @@ line before the last is the ``kernels`` summary; the last line is
 ``--rehearse`` runs phases 2-6 and 9-14 at a tiny size on the CPU with the
 plain versions (no build, no timings, no ``ok`` line; phase 12 over gloo
 on the CPU; phases 13 and 14 on the reduced config) to check the script
-itself.
+itself.  ``--probe-only RUNS`` builds, makes the musiXmatch stand-in and
+runs call (i) RUNS times on the kernels, printing each run's ``mr.probe``
+and call seconds and B1 launches, and stops (no ``ok`` line): two
+checkouts run in turns on one card compare the probe end to end.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import shutil
@@ -304,27 +326,55 @@ def fail(msg: str) -> None:
 # data
 # --------------------------------------------------------------------------
 
+def _zipf_draws(rng, m: int, size: int):
+    """``size`` draws from Zipf(1) rank frequencies over ``m`` items, by the
+    inverse of the distribution function on ``rng.random`` (a numpy
+    Generator's uniform doubles, the same on every machine and numpy
+    release)."""
+    import numpy as np
+    ranks = np.arange(1, m + 1, dtype=np.float64)
+    cdf = np.cumsum(1.0 / ranks)
+    cdf /= cdf[-1]
+    return np.minimum(np.searchsorted(cdf, rng.random(size), side="right"),
+                      m - 1)
+
+
 def musixmatch_like(n: int, d: int, seed: int, device):
     """Bag-of-words counts shaped like the paper's musiXmatch set: each row
     draws 50-150 words with Zipf(1) rank frequencies over the d words and
     counts them (repeats of frequent words become counts > 1).  Dense
     Gaussian data would be useless here: in 5,000-d its angles all sit near
-    pi/2 and the run would be made of near-ties."""
+    pi/2 and the run would be made of near-ties.  The words are drawn by
+    the host's generator (numpy, from ``seed``), so every machine makes the
+    same rows (two runs of the card's ``torch.multinomial`` on one card
+    model drew different ids from one seed), and scattered into the dense
+    tensor on ``device``."""
+    import numpy as np
     import torch
-    g = torch.Generator(device=device).manual_seed(seed)
-    ranks = torch.arange(1, d + 1, dtype=torch.float64, device=device)
-    wprob = (1.0 / ranks) / (1.0 / ranks).sum()
-    draws = torch.randint(50, 151, (n,), generator=g, device=device)
-    dmax = 150
-    words = torch.multinomial(wprob.float(), n * dmax, replacement=True,
-                              generator=g).view(n, dmax)
-    keep = torch.arange(dmax, device=device)[None, :] < draws[:, None]
-    rows = torch.arange(n, device=device)[:, None].expand(n, dmax)
+    rng = np.random.default_rng(seed)
+    draws = rng.integers(50, 151, size=n)
+    words = _zipf_draws(rng, d, int(draws.sum())).astype(np.int32)
+    rows = np.repeat(np.arange(n, dtype=np.int32), draws)
+    flat = (torch.as_tensor(rows).to(device).long() * d
+            + torch.as_tensor(words).to(device).long())
     x = torch.zeros((n, d), dtype=torch.float32, device=device)
-    x.index_put_((rows[keep], words[keep]),
-                 torch.ones((), device=device).expand(int(keep.sum())),
-                 accumulate=True)
+    x.view(-1).index_add_(0, flat, torch.ones((), device=device).expand(
+        flat.shape[0]))
     return x
+
+
+def mxm_fingerprint(x) -> dict:
+    """A few sums that tell two draws of the musiXmatch stand-in apart (the
+    counts are small integers, so every sum is exact in float64)."""
+    import torch
+    n, d = x.shape
+    rows = x.sum(dim=1, dtype=torch.float64)
+    cols = x.sum(dim=0, dtype=torch.float64)
+    return {"words": float(rows.sum()),
+            "row_weighted": float((rows * torch.arange(
+                n, dtype=torch.float64, device=x.device)).sum()),
+            "word_weighted": float((cols * torch.arange(
+                d, dtype=torch.float64, device=x.device)).sum())}
 
 
 def unit_sphere(n: int, seed: int, device):
@@ -353,11 +403,18 @@ def _err(a, b) -> float:
     return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
-def check_pair(x, mode, b, p, gen, errs, label):
+def check_pair(x, mode, b, p, gen, errs, label, masked=None,
+               ties=False):
     """One (shape, mode, b, p) case: CUDA kernel vs plain on the same
     prepared inputs.  Centers are data rows pushed off the data (so no
     distance sits at the cancellation-prone zero), min_in straddles the
-    field so both branches of the running min run."""
+    field so both branches of the running min run, ~15 % of the rows are
+    masked, and the rows ``masked`` = (start, stop) all are.  With
+    ``ties`` min_in is +inf and no row is masked but those, so equal rows
+    give equal field values.  Besides the values, the kernel's top-p must
+    be the stable top-p of its own masked min_out, value and index alike:
+    no arithmetic lies between the two, so ties and their order are held
+    exactly."""
     import torch
     from repro_torch.kernels import ops, ref
     n, d = x.shape
@@ -371,6 +428,12 @@ def check_pair(x, mode, b, p, gen, errs, label):
     scale = scale.min(dim=1).values
     min_in = scale * (0.5 + torch.rand((n,), generator=gen, device=dev))
     mask = torch.rand((n,), generator=gen, device=dev) > 0.15
+    if ties:
+        min_in = torch.full((n,), float("inf"), device=dev)
+        mask = torch.ones((n,), dtype=torch.bool, device=dev)
+    if masked is not None:
+        mask[masked[0]:masked[1]] = False
+    neg = torch.full((n,), float("-inf"), device=dev)
     # B2: gmm_update_select (p = 1 by construction)
     if p == 1:
         km, ka, kx = ops.gmm_update_select(prep.points, cen_k, min_in, mask,
@@ -378,26 +441,95 @@ def check_pair(x, mode, b, p, gen, errs, label):
                                            prepared=True)
         rm, ra, rx = ref.gmm_update_select_ref(prep.points, cen_k, min_in,
                                                mask, mode, xsq=prep.xsq)
-        masked = torch.where(mask, rm, torch.full_like(rm, float("-inf")))
-        ok = (_close(km, rm) and _close(kx, rx)
-              and _close(ref.take(masked, ka), ref.take(masked, ra)))
+        masked_f = torch.where(mask, rm, neg)
+        own = torch.where(mask, km, neg)
+        ok = {"min_out": _close(km, rm), "max": _close(kx, rx),
+              "argmax_value": _close(ref.take(masked_f, ka),
+                                     ref.take(masked_f, ra)),
+              "own_argmax": int(ka) == int(torch.argmax(own))
+              and bool(kx == ref.take(own, ka))}
         errs["gmm_update_select"] = max(errs["gmm_update_select"],
                                         _err(km, rm), _err(kx, rx))
-        if not ok:
-            fail(f"gmm_update_select disagrees with plain at {label}")
+        if not all(ok.values()):
+            fail(f"gmm_update_select disagrees with plain at {label}: {ok}, "
+                 f"min_out err {_err(km, rm)}, max {float(kx)} vs "
+                 f"{float(rx)}")
     # B1: gmm_topb
     km, kv, ki = ops.gmm_topb(prep.points, cen_k, min_in, mask, metric, p=p,
                               xsq=prep.xsq, prepared=True)
     rm, rv, ri = ref.gmm_topb_ref(prep.points, cen_k, min_in, mask, mode, p,
                                   xsq=prep.xsq)
-    masked = torch.where(mask, rm, torch.full_like(rm, float("-inf")))
+    masked_f = torch.where(mask, rm, neg)
+    sv, si = ref.topk_stable(torch.where(mask, km, neg), p)
     # index sets are compared through the values they select (exact ties)
-    ok = (_close(km, rm) and _close(kv, rv)
-          and _close(torch.sort(masked[ki]).values,
-                     torch.sort(masked[ri]).values))
+    ok = {"min_out": _close(km, rm), "values": _close(kv, rv),
+          "selected": _close(torch.sort(masked_f[ki]).values,
+                             torch.sort(masked_f[ri]).values),
+          "own_top_p": torch.equal(kv, sv) and torch.equal(ki, si)}
     errs["gmm_topb"] = max(errs["gmm_topb"], _err(km, rm), _err(kv, rv))
-    if not ok:
-        fail(f"gmm_topb disagrees with plain at {label}")
+    if not all(ok.values()):
+        fail(f"gmm_topb disagrees with plain at {label}: {ok}, min_out err "
+             f"{_err(km, rm)}, values err {_err(kv, rv)}")
+
+
+def check_sweep_edges(dev, gen, errs, small: bool) -> int:
+    """B1 and B2 at the edges of the sweep's plan (``edge_cases``: one
+    row, a slab less or more one row, a tile and one row, 8,196 rows; d in
+    {1, 3, 5,000, 5,001}; b in {1, 8, 9, 32, 33}; p in {1, 32, 128,
+    4,096}), then equal rows on both sides of every slab border (ties that
+    cross slabs and tiles), a fully masked tile, a sweep with every row
+    masked, and points whose base lies 4 bytes off 16 (``x[1:]`` of a
+    d = 5,001 array, and a d = 5,000 view one float into its storage).
+    Returns the number of cases; ``small`` is the rehearsal's size."""
+    import torch
+    from repro_torch.kernels.gmm_topb import edge_cases, sweep_plan
+    if small:
+        cases = edge_cases(n=300, ds=(1, 3, 17), ps=(1, 32, 128))
+    else:
+        cases = edge_cases()
+    big = max(n for n, *_ in cases)
+    # rows N(0, 1/d): a dot product's size does not grow with d (at
+    # d = 5,000 with N(0, 1) rows any two fp32 summation orders, torch's
+    # own product among them, differ by ~1e-4 at near-zero dot products)
+    base = {d: torch.randn((big, d), generator=gen, device=dev) / d ** 0.5
+            for d in sorted({d for _, d, _, _ in cases})}
+    count = 0
+    for mode in MODES:
+        for n, d, b, p in cases:
+            check_pair(base[d][:n], mode, b, p, gen, errs,
+                       f"edge n={n} d={d} {mode} b={b} p={p}")
+            count += 1
+    d = 17 if small else 64
+    for b, p in ((1, 1), (8, 32), (8, 128), (33, 32)):
+        plan = sweep_plan(2 ** 13, p)
+        n = 2 * plan.bn + plan.rows + 1
+        x = torch.randn((n, d), generator=gen, device=dev)
+        for r in range(plan.rows, n, plan.rows):
+            x[r] = x[r - 1]
+        for mode in MODES:
+            check_pair(x, mode, b, p, gen, errs,
+                       f"ties across slabs n={n} d={d} {mode} b={b} p={p}",
+                       ties=True)
+            check_pair(x, mode, b, p, gen, errs,
+                       f"masked tile n={n} d={d} {mode} b={b} p={p}",
+                       masked=(plan.bn, 2 * plan.bn))
+            check_pair(x[:plan.rows + 1], mode, b, min(p, plan.rows + 1),
+                       gen, errs, f"all masked n={plan.rows + 1} {mode} "
+                       f"b={b}", masked=(0, plan.rows + 1))
+            count += 3
+    n = 300 if small else 8196
+    off = (torch.randn((n, 5001), generator=gen, device=dev)
+           / 5001 ** 0.5)[1:]
+    flat = (torch.randn((n * 5000 + 1,), generator=gen, device=dev)
+            / 5000 ** 0.5)[1:]
+    for x in (off, flat.view(n, 5000)):
+        for mode in MODES:
+            for b, p in ((1, 1), (8, 32), (33, 128)):
+                check_pair(x, mode, b, p, gen, errs,
+                           f"misaligned base n={x.shape[0]} d={x.shape[1]} "
+                           f"{mode} b={b} p={p}")
+                count += 1
+    return count
 
 
 def check_pairwise(x, y, mode, errs, diffs, label):
@@ -539,9 +671,10 @@ def phase_kernels(big, seed: int, small_only: bool, tiles=(), out=None):
                             check_pair(x, mode, b, p, gen, errs,
                                        f"n={n} d={d} {mode} b={b} p={p}")
                             cases += 1
+    cases += check_sweep_edges(dev, gen, errs, small_only)
     if not small_only:
         for mode in MODES:
-            for b in (1, 8):
+            for b in (1, 8, 9, 33):
                 for p in (1, 32, 128, 256):
                     check_pair(big, mode, b, p, gen, errs,
                                f"main shape {mode} b={b} p={p}")
@@ -874,12 +1007,22 @@ def genre_labels(n: int, m: int, seed: int, device):
     """Synthetic "genre" labels: m groups with Zipf(1) shares (the smallest
     of 16 holds ~1.8 % of the rows).  The follow-up paper
     (arXiv:2002.03175) runs musiXmatch under a genre partition matroid;
-    its label file is not in the repo, so the labels are made here."""
+    its label file is not in the repo, so the labels are made here, by the
+    host's generator (numpy, from ``seed``; the same on every machine)."""
+    import numpy as np
     import torch
-    g = torch.Generator(device=device).manual_seed(seed + 3)
-    w = 1.0 / torch.arange(1, m + 1, dtype=torch.float64, device=device)
-    return torch.multinomial((w / w.sum()).float(), n, replacement=True,
-                             generator=g).to(torch.int32)
+    rng = np.random.default_rng(seed + 3)
+    return torch.as_tensor(_zipf_draws(rng, m, n).astype(np.int32)).to(
+        device)
+
+
+def labels_fingerprint(labels) -> dict:
+    """Rows a group and an index-weighted sum, to compare two draws."""
+    import torch
+    lab = labels.long()
+    return {"group_rows": torch.bincount(lab).tolist(),
+            "index_weighted": int((lab * torch.arange(
+                lab.shape[0], device=lab.device)).sum())}
 
 
 def constrained_calls(full: bool):
@@ -1207,6 +1350,52 @@ def _agree_mr(kres, pres, kidx, pidx):
     return agree
 
 
+class SweepRecorder:
+    """Counts the calls of the B1 and B2 wrappers (``kernels.ops.gmm_topb``
+    and ``gmm_update_select``) by (wrapper, metric, n, d, b, p) while it is
+    entered.  The engine calls them through the ``ops`` module, so wrapping
+    the module's functions sees every sweep of a run."""
+
+    def __init__(self):
+        import collections
+        self.calls = collections.Counter()
+
+    def __enter__(self):
+        import inspect
+
+        import torch
+        from repro_torch.kernels import ops
+        self._saved = {"gmm_topb": ops.gmm_topb,
+                       "gmm_update_select": ops.gmm_update_select}
+        for name, fn in self._saved.items():
+            sig = inspect.signature(fn)
+
+            def wrapped(*a, _fn=fn, _sig=sig, _name=name, **kw):
+                args = _sig.bind(*a, **kw).arguments
+                pts = args["points"]
+                b = torch.atleast_2d(args["centers"]).shape[0]
+                p = 1 if _name == "gmm_update_select" else (
+                    args.get("p") or b)
+                self.calls[(_name, args["metric_name"], int(pts.shape[0]),
+                            int(pts.shape[1]), int(b), int(p))] += 1
+                return _fn(*a, **kw)
+            setattr(ops, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for name, fn in self._saved.items():
+            setattr(ops, name, fn)
+        return False
+
+    def rows(self):
+        """[[wrapper, metric, n, d, b, p, calls], ...] in sorted order."""
+        return [[*k, v] for k, v in sorted(self.calls.items())]
+
+
+SWEEPS = {}                    # B1/B2 shapes of (i)'s and (m)'s first run
+
+
 def phase_mapreduce(data, device, check_launches: bool, full: bool = True):
     """The MapReduce calls, kernel and plain runs in turns (kernel first,
     plain second, then the remaining kernel runs).  Returns (launches of
@@ -1222,10 +1411,17 @@ def phase_mapreduce(data, device, check_launches: bool, full: bool = True):
         labels = data["genres"] if kind == "mxm+genres" else None
         order = (["auto", False] * max(kruns, pruns))
         out = {"auto": [], False: []}
+        recorder = SweepRecorder()
         for use_pallas in order:
             if len(out[use_pallas]) < (kruns if use_pallas else pruns):
+                if use_pallas and not out[use_pallas]:
+                    with recorder:
+                        out[use_pallas].append(_run_mr(
+                            x, labels, problem, knobs, use_pallas, device))
+                    continue
                 out[use_pallas].append(_run_mr(x, labels, problem, knobs,
                                                use_pallas, device))
+        SWEEPS[name[0]] = recorder.rows()
         (kres, kidx, _, kl), (pres, pidx, _, _) = out["auto"][0], \
             out[False][0]
         for side in ("auto", False):
@@ -1266,6 +1462,9 @@ def phase_mapreduce(data, device, check_launches: bool, full: bool = True):
                "coreset_size": tr.extras.get("coreset_size"),
                "counters": dict(tr.counters),
                "kernel_launches": kl, "value": [kres.value, pres.value],
+               # the B1/B2 sweeps of the first kernel run:
+               # [wrapper, metric, n, d, b, p, calls]
+               "b1_b2_sweeps": SWEEPS[name[0]],
                "agree": _agree_mr(kres, pres, kidx, pidx)}
         if kres.cert is not None:
             row.update({"ratio": [kres.cert.ratio, pres.cert.ratio],
@@ -1328,21 +1527,130 @@ def _time_ms(fn, reps: int = 10):
     return statistics.median(ts), statistics.median(hs)
 
 
-def bound_ms(n, d, b, p):
-    """Least time for one cosine sweep: the larger of the bytes the function
-    must move (points and centers read once, min_in and mask read, min_out
-    written, the p (value, index) pairs written) over the memory rate and
-    its fp32 flops over the CUDA-core rate."""
-    bytes_ = n * d * 4 + 9 * n + b * d * 4 + p * 8
+def bound_ms(n, d, b, p, mode="cosine"):
+    """Least time for one sweep: the larger of the bytes the function must
+    move (points and centers read once, min_in and mask read, the squared
+    norms read in the euclidean modes, min_out written, the p (value,
+    index) pairs written) over the memory rate and its fp32 flops over the
+    CUDA-core rate."""
+    norms = 4 * n if mode in ("sqeuclidean", "euclidean") else 0
+    bytes_ = n * d * 4 + 9 * n + norms + b * d * 4 + p * 8
     flops = 2 * n * d * b
     tb, to = bytes_ / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
 
 
+def _kernel_device_ms(fn, key: str = "gmm_sweep", reps: int = 20,
+                      tries: int = 3):
+    """(device ms a launch, launches seen) of the kernels whose name holds
+    ``key`` over ``reps`` calls of ``fn``, from a torch.profiler trace
+    (CUPTI kernel records): a small sweep's CUDA-event time is the host's
+    enqueue rate, not the kernel's.  A trace that missed launches is taken
+    again, up to ``tries`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    us, count = 0.0, 0
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range for e in prof.events()
+                 if e.device_type == cuda and key in e.name]
+        us, count = sum(t.end - t.start for t in spans), len(spans)
+        if count == reps:
+            break
+    return (us / 1e3 / count if count else "not measured"), count
+
+
+def sweep_cases(x, sphere, train_b4, serve_b4):
+    """(label, points, metric, [(wrapper, b, p, launches in the run)]) of
+    the sweep shapes phase 7 times beside the main shape: (i)'s probe at
+    every (b, p) its first kernel run swept (8,196 x 5,000 cosine), (m)'s
+    probe (8,192 x 3), phase 14's probe (8,192 x 2,048 euclidean; b in
+    {1, 8}, p in {1, 32}) and B2 at phase 13's ``select_diverse`` pool
+    (65,536 x 2,048 euclidean)."""
+    from repro_torch.core.adaptive import probe_stride
+    out = []
+    for call, pts, metric in (("i", x, "cosine"),
+                              ("m", sphere, "euclidean")):
+        sub = pts[::probe_stride(pts.shape[0])]
+        shapes = [(w, b, p, c) for w, _, n, _, b, p, c
+                  in SWEEPS.get(call, []) if n == sub.shape[0]]
+        out.append((f"({call}) probe", sub, metric, shapes))
+    emb = train_b4[0][1]
+    out.append(("train (r) probe", emb[::probe_stride(emb.shape[0])],
+                "euclidean", [("gmm_topb", b, p, None) for b in (1, 8)
+                              for p in (1, 32)]))
+    out.append(("serve (p) select_diverse pool", serve_b4[0][1], "euclidean",
+                [("gmm_update_select", 1, 1, None)]))
+    return out
+
+
+def phase_times_sweeps(cases, seed: int, errs):
+    """B1/B2 at the probe-shaped sweeps and the serving pool: each shape
+    first held against its plain version (``check_pair``), then the
+    kernel's device ms a launch (profiler), the wrapper's ms (CUDA events;
+    host-bound at these sizes), the plain version's, the bound and the
+    grid the plan launches."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.gmm_topb import launch_sweep, sweep_plan
+    rows = []
+    for label, pts, metric, shapes in cases:
+        dev = pts.device
+        gen = torch.Generator(device=dev).manual_seed(seed + 5)
+        prep = ops.prepare(pts, metric)
+        n, d = prep.points.shape
+        mask = torch.ones((n,), dtype=torch.bool, device=dev)
+        min_in = torch.full((n,), float("inf"), device=dev)
+        for wrapper, b, p, launches in shapes:
+            check_pair(pts, metric, b, p, gen, errs,
+                       f"times {label} {n}x{d} {metric} b={b} p={p}")
+            cen = prep.points[torch.randint(0, n, (b,), generator=gen,
+                                            device=dev)]
+            plan = sweep_plan(n, p)
+            kernel_ms, traced = _kernel_device_ms(lambda: launch_sweep(
+                prep.points, cen, prep.xsq, min_in, mask, mode=metric, p=p,
+                bn=plan.bn))
+            if wrapper == "gmm_update_select":
+                kern = (lambda: ops.gmm_update_select(
+                    prep.points, cen, min_in, mask, metric, xsq=prep.xsq,
+                    prepared=True))
+                plain = (lambda: ref.gmm_update_select_ref(
+                    prep.points, cen, min_in, mask, metric, xsq=prep.xsq))
+            else:
+                kern = (lambda: ops.gmm_topb(
+                    prep.points, cen, min_in, mask, metric, p=p,
+                    xsq=prep.xsq, prepared=True))
+                plain = (lambda: ref.gmm_topb_ref(
+                    prep.points, cen, min_in, mask, metric, p,
+                    xsq=prep.xsq))
+            ms, host_ms = _time_ms(kern)
+            pms, _ = _time_ms(plain)
+            bms, bby = bound_ms(n, d, b, p, metric)
+            rows.append({
+                "kernel": wrapper, "at": label, "mode": metric, "n": n, "d": d, "b": b, "p": p,
+                "launches_in_run": launches, "bn": plan.bn,
+                "rows_per_block": plan.rows, "blocks": plan.blocks,
+                "kernel_ms": kernel_ms, "kernel_launches_traced": traced,
+                "ms": ms, "host_ms": host_ms, "plain_ms": pms,
+                "bound_ms": bms, "bound_by": bby,
+                "bound_share": bms / kernel_ms
+                if isinstance(kernel_ms, float) else "not measured"})
+        del prep
+    emit({"phase": "times", "at": "probe and pool sweeps", "rows": rows})
+    return rows
+
+
 def phase_times(x, seed: int):
     import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.gmm_topb import launch_sweep, tile_rows
+    from repro_torch.kernels.gmm_topb import (launch_sweep, sweep_plan,
+                                              tile_rows)
     n, d = x.shape
     gen = torch.Generator(device=x.device).manual_seed(seed + 2)
     prep = ops.prepare(x, "cosine")
@@ -1369,10 +1677,14 @@ def phase_times(x, seed: int):
                 bn=bn))
             ms, host_ms = _time_ms(kern)
             kms, _ = _time_ms(sweep_only)
+            dms, _ = _kernel_device_ms(sweep_only, reps=10)
             pms, plain_host_ms = _time_ms(plain)
+            plan = sweep_plan(n, p)
             rows.append({"kernel": "gmm_update_select" if p == 1
                          else "gmm_topb", "mode": "cosine", "n": n, "d": d,
-                         "b": b, "p": p, "bn": bn, "ms": ms,
+                         "b": b, "p": p, "bn": bn,
+                         "rows_per_block": plan.rows, "blocks": plan.blocks,
+                         "ms": ms, "kernel_ms": dms,
                          "host_ms": host_ms, "launch_only_ms": kms,
                          "plain_ms": pms, "plain_host_ms": plain_host_ms,
                          "bound_ms": bms, "bound_by": bby,
@@ -2174,11 +2486,58 @@ def _sync():
         torch.cuda.synchronize()
 
 
-def _agree_dynamic(ka, pa):
+def _field64(rows, centers, metric):
+    """Each row's distance to its nearest center, in float64 on the rows
+    as the sweeps read them (``ops.prepare``: cosine normalized in fp32)."""
+    import torch
+    from repro_torch.kernels import ops
+    x = ops.prepare(rows, metric).points.double()
+    c = ops.prepare(centers, metric).points.double()
+    if metric == "cosine":
+        d = torch.arccos(torch.clamp(x @ c.T, -1.0, 1.0))
+    elif metric == "dot":
+        d = -(x @ c.T)
+    else:
+        d = ((x[:, None, :] - c[None, :, :]) ** 2).sum(dim=-1)
+        d = torch.sqrt(d) if metric == "euclidean" else d
+    return d.min(dim=1).values
+
+
+def _query_partings(kq, pq, metric):
+    """[round, pick, kernel id, plain id, gap] for each round whose query
+    picks part between the kernel side (``kq``) and the plain side: at the
+    first pick that differs, ``gap`` is the difference of the two picks'
+    fields over the picks both sides made before it, in float64 (0 at an
+    exact tie; ``inf`` where they part at the first pick or in length)."""
+    import numpy as np
+    import torch
+    out = []
+    for r, (a, b) in enumerate(zip(kq, pq)):
+        ia, ib = np.asarray(a.ids), np.asarray(b.ids)
+        if ia.shape != ib.shape:
+            out.append([r, 0, None, None, float("inf")])
+            continue
+        if np.array_equal(ia, ib):
+            continue
+        j = int(np.argmax(ia != ib))
+        gap = float("inf")
+        if j > 0:
+            f = _field64(torch.stack([a.solution[j], b.solution[j]]).cpu(),
+                         a.solution[:j].cpu(), metric)
+            gap = float(abs(f[0] - f[1]))
+        out.append([r, j, int(ia[j]), int(ib[j]), gap])
+    return out
+
+
+def _agree_dynamic(ka, pa, metric):
     """Kernel run ``ka`` against plain run ``pa`` (dicts of their final
-    state and per-round queries): the structure equal entry for entry, the
-    same query ids every round, certificate floats within rtol 1e-5 and
-    equal ints."""
+    state and per-round queries): the structure equal entry for entry,
+    certificate floats within rtol 1e-5 and equal ints, and the same query
+    ids every round but where the two sides part at a tie: the two picks'
+    fields over the picks both made before, in float64, within the
+    sweeps' parity TOL of each other (fp32 sums in another order, the
+    kernel's or cuBLAS's, may order such a pair either way; the partings
+    and their gaps are printed)."""
     import numpy as np
     (karr, kmeta), (parr, pmeta) = ka["state"], pa["state"]
     agree = {name: bool(karr[name].shape == parr[name].shape
@@ -2186,8 +2545,9 @@ def _agree_dynamic(ka, pa):
              for name in ("center", "assign", "adist", "alive", "cover",
                           "frozen", "dirty", "radii", "points")}
     agree["meta"] = kmeta == pmeta
-    agree["query_ids"] = all(np.array_equal(a.ids, b.ids) for a, b in
-                             zip(ka["queries"], pa["queries"]))
+    agree["query_ids"] = all(
+        gap <= TOL for *_, gap in _query_partings(ka["queries"],
+                                                  pa["queries"], metric))
     agree["query_level"] = [q.level for q in ka["queries"]] == \
         [q.level for q in pa["queries"]]
     ok = True
@@ -2326,7 +2686,7 @@ def phase_dynamic(data, device, full: bool = True, seed: int = 0):
             if torch.cuda.is_available():
                 torch.cuda.empty_cache()
         k, p = runs["auto"], runs[False]
-        agree = _agree_dynamic(k, p)
+        agree = _agree_dynamic(k, p, metric)
         kl = k["launches"]
         row = {"phase": "dynamic", "call": name, "metric": metric,
                **{c: v for c, v in cfg.items()},
@@ -2347,7 +2707,10 @@ def phase_dynamic(data, device, full: bool = True, seed: int = 0):
                "host_syncs_per_round": _spread(k["syncs"]),
                "boot_host_syncs": k["boot_syncs"],
                "kernel_launches": kl, "plain_launches": p["launches"],
-               "agree": agree}
+               "agree": agree,
+               # [round, pick, kernel id, plain id, float64 field gap]
+               "query_partings": _query_partings(k["queries"],
+                                                 p["queries"], metric)}
         emit(row)
         bad = [c for c, ok in agree.items() if not ok]
         if bad:
@@ -2561,7 +2924,7 @@ def _mesh_run_summary(runs):
 def _mesh_rank(rank: int, world: int, store: str, out: str, seed: int,
                full: bool):
     """One rank of call (y) (a spawned process): gloo over a ``file://``
-    store, its shard of the stand-in made on the card from ``--seed`` (as
+    store, its shard of the stand-in made from ``--seed`` (as
     phase 3 makes the whole) and kept alone, then every call of
     ``mesh_calls`` three times, each after a barrier, on a DTensor of the
     shard.  Writes its record, or the exception, to ``out/rank{r}.pkl``."""
@@ -4064,6 +4427,29 @@ def phase_train(device, seed: int, errs, diffs, card: str = "",
                                 "step_s": statistics.median(step_ms) / 1e3}
 
 
+def probe_only(seed: int, runs: int) -> int:
+    """Call (i) ``runs`` times with the kernels: its ``mr.probe`` span and
+    call seconds and its B1 launches, one JSON line a run."""
+    import torch
+    from repro_torch.kernels import build
+    card = nvidia_smi()
+    build.library()
+    x = musixmatch_like(237662, 5000, seed, "cuda")
+    torch.cuda.synchronize()
+    name, _, problem, knobs, _, _ = mapreduce_calls(True)[0]
+    for r in range(runs):
+        res, _, secs, launches = _run_mr(x, None, problem, knobs, "auto",
+                                         "cuda")
+        emit({"phase": "probe_only", "call": name, "run": r, "card": card,
+              "sweep_source_sha256": hashlib.sha256(
+                  (SRC / "repro_torch" / "kernels" / "csrc" / "gmm_sweep.cu")
+                  .read_bytes()).hexdigest()[:16],
+              "probe_s": _span_seconds(res.telemetry, "mr.probe"),
+              "call_s": secs, "b1_launches": launches["gmm_topb"],
+              "b_schedule": list(map(list, res.cert.b_schedule))})
+    return 0
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4079,6 +4465,9 @@ def main(argv=None) -> int:
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny CPU run of phases 2-6 and 9-14 with the "
                          "plain versions")
+    ap.add_argument("--probe-only", type=int, default=0, metavar="RUNS",
+                    help="run call (i) RUNS times on the card, print its "
+                         "probe seconds and stop")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -4093,6 +4482,9 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import build
+    if args.probe_only:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return probe_only(args.seed, args.probe_only)
 
     if args.rehearse:
         data = {"mxm": musixmatch_like(3000, 64, args.seed, "cpu"),
@@ -4152,7 +4544,9 @@ def main(argv=None) -> int:
           "gb": x.numel() * 4 / 1e9,
           "words_per_row": [float(nnz.min()), float(nnz.mean()),
                             float(nnz.max())],
+          "fingerprint": mxm_fingerprint(x),
           "sphere_shape": list(sphere.shape),
+          "sphere_sum": float(sphere.sum(dtype=torch.float64)),
           "sphere_gb": sphere.numel() * 4 / 1e9,
           "seconds": time.perf_counter() - t0})
     tiles = stream_tiles(x, sphere, STREAM_TILES)
@@ -4173,6 +4567,8 @@ def main(argv=None) -> int:
 
     # ---- 5. constrained path --------------------------------------------
     genres = genre_labels(x.shape[0], GROUPS, args.seed, "cuda")
+    emit({"phase": "data", "genres": GROUPS,
+          "fingerprint": labels_fingerprint(genres)})
     c_launches, constrained_s = phase_constrained(x, genres, "cuda",
                                                   check_launches=True)
     for k, v in c_launches.items():
@@ -4247,6 +4643,8 @@ def main(argv=None) -> int:
 
     # ---- 7. times, 8. profile ---------------------------------------------
     rows = phase_times(x, args.seed)
+    sweep_rows = phase_times_sweeps(sweep_cases(x, sphere, train_b4,
+                                                serve_b4), args.seed, errs)
     g_rows = phase_times_grouped(x, genres, args.seed)
     b4_cases = set(diffs["gmm_grouped_topb"])
     requests = serving.pop("serving")

@@ -67,7 +67,7 @@ def find_nvcc():
 def _bind(path: Path):
     lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.repro_gmm_sweep.argtypes = [vp] * 9 + [ci] * 7 + [vp]
+    lib.repro_gmm_sweep.argtypes = [vp] * 12 + [ci] * 8 + [vp]
     lib.repro_gmm_sweep.restype = ci
     lib.repro_pairwise.argtypes = [vp] * 5 + [ci] * 4 + [vp]
     lib.repro_pairwise.restype = ci

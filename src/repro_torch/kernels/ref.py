@@ -149,12 +149,18 @@ def merge_tiles(tile_vals, tile_idx, p: int):
 
 
 def gmm_topb_tiled_ref(points, centers, min_in, mask, mode: str = "euclidean",
-                       p: int = None, bn: int = 256, xsq=None):
+                       p: int = None, bn: int = 256, xsq=None,
+                       rows: int = None):
     """Torch emulation of the CUDA kernel's tiling: the field is cut into
     ``bn``-row tiles (the ragged last tile padded with -inf rows whose
     indices run past n), each tile keeps its local top-p, and the wrapper's
-    ``merge_tiles`` combines them.  Equal to ``gmm_topb_ref`` by
-    construction; the tests hold the two against each other."""
+    ``merge_tiles`` combines them.  With ``rows`` (dividing ``bn``) a
+    tile's top-p is built as the kernel builds it: each ``rows``-row slab
+    that holds a row below n keeps its top-min(p, rows) (its rows past n
+    entering as -inf pad rows), the tile merges its slabs' lists, and a
+    tile whose slabs hold fewer than p entries is filled with its next pad
+    rows in index order.  Equal to ``gmm_topb_ref`` by construction; the
+    tests hold the two against each other."""
     p = centers.shape[0] if p is None else p
     if bn < p:
         raise ValueError(f"tile rows bn={bn} < p={p}")
@@ -162,13 +168,35 @@ def gmm_topb_tiled_ref(points, centers, min_in, mask, mode: str = "euclidean",
     d = sweep_dist_ref(points, centers, mode, xsq=xsq).min(dim=1).values
     new_min, masked = masked_field(min_in, d, mask)
     tiles = -(-n // bn)
-    pad = tiles * bn - n
-    field = torch.cat([masked, masked.new_full((pad,), NEG_INF)])
+    field = torch.cat([masked, masked.new_full((tiles * bn - n,), NEG_INF)])
     ids = torch.arange(tiles * bn, device=points.device)
-    tv, ti = torch.sort(field.view(tiles, bn), dim=1, descending=True,
-                        stable=True)
-    ti = torch.gather(ids.view(tiles, bn), 1, ti)
-    vals, idx = merge_tiles(tv[:, :p].reshape(-1), ti[:, :p].reshape(-1), p)
+    if rows is None:
+        tv, ti = torch.sort(field.view(tiles, bn), dim=1, descending=True,
+                            stable=True)
+        ti = torch.gather(ids.view(tiles, bn), 1, ti)
+        tv, ti = tv[:, :p], ti[:, :p]
+    else:
+        if bn % rows:
+            raise ValueError(f"slab rows {rows} do not divide bn={bn}")
+        slabs, top = -(-n // rows), min(p, rows)
+        sv, si = torch.sort(field[:slabs * rows].view(slabs, rows), dim=1,
+                            descending=True, stable=True)
+        si = torch.gather(ids[:slabs * rows].view(slabs, rows), 1, si)
+        sv, si = sv[:, :top], si[:, :top]
+        per = bn // rows
+        tv = field.new_full((tiles, p), NEG_INF)
+        ti = (ids.view(tiles, bn)[:, :p]).clone()   # the pad rows' fill
+        for t in range(tiles):
+            cv = sv[t * per:(t + 1) * per].reshape(-1)
+            ci = si[t * per:(t + 1) * per].reshape(-1)
+            # slab lists in slab order: a stable sort keeps equal values
+            # in index order, as the kernel's rank merge does
+            cv, order = torch.sort(cv, descending=True, stable=True)
+            got = min(p, cv.shape[0])
+            tv[t, :got] = cv[:got]
+            ti[t, :got] = ci[order[:got]]
+            ti[t, got:] = t * bn + torch.arange(got, p, device=ti.device)
+    vals, idx = merge_tiles(tv.reshape(-1), ti.reshape(-1), p)
     return new_min, vals, torch.clamp(idx, max=n - 1)
 
 

@@ -91,29 +91,86 @@ def _case(n, d, b, seed, device):
     return [t.to(device) for t in (pts, cs, mi, mask)]
 
 
+def _sweep_inputs(n, d, b, seed, device):
+    """Centers N(0, 1/d), min_in and mask of ``_case`` for n rows."""
+    g = torch.Generator().manual_seed(seed)
+    cs = torch.randn((b, d), generator=g) / d ** 0.5
+    mi = torch.rand((n,), generator=g) * 3.7 + 0.3
+    mask = torch.rand((n,), generator=g) > 0.15
+    return [t.to(device) for t in (cs, mi, mask)]
+
+
+def _hold_sweep(x, c, m, k, mode, p):
+    """B1 at top-p and B2 against their plain versions on the same inputs,
+    one launch each; the kernel's top-p must also be the stable top-p of
+    its own masked min_out, value and index alike (no arithmetic lies
+    between them, so ties and their order are held exactly)."""
+    ops.reset_launches()
+    g_min, g_val, g_idx = ops.gmm_topb(x, c, m, k, mode, p=p)
+    u_min, u_arg, u_max = ops.gmm_update_select(x, c, m, k, mode)
+    assert ops.LAUNCHES == {"gmm_topb": 1, "gmm_update_select": 1,
+                            "pairwise": 0, "gmm_grouped_topb": 0}
+    prep = ops.prepare(x, mode)
+    cc = ops._normalize(c) if mode == "cosine" else c
+    r_min, r_val, r_idx = ref.gmm_topb_ref(prep.points, cc, m, k, mode, p,
+                                           xsq=prep.xsq)
+    torch.testing.assert_close(g_min, r_min, **TOL)
+    torch.testing.assert_close(g_val, r_val, **TOL)
+    neg = torch.full_like(r_min, -float("inf"))
+    field = torch.where(k, r_min, neg)
+    torch.testing.assert_close(torch.sort(field[g_idx]).values,
+                               torch.sort(field[r_idx]).values, **TOL)
+    own_val, own_idx = ref.topk_stable(torch.where(k, g_min, neg), p)
+    assert torch.equal(g_val, own_val) and torch.equal(g_idx, own_idx)
+    torch.testing.assert_close(u_min, r_min, **TOL)
+    torch.testing.assert_close(u_max, field.max(), **TOL)
+    torch.testing.assert_close(ref.take(field, u_arg), field.max(), **TOL)
+    own = torch.where(k, u_min, neg)
+    assert int(u_arg) == int(torch.argmax(own))
+    assert torch.equal(u_max, ref.take(own, u_arg))
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_cuda_kernels_match_plain_on_card(cuda_device, mode):
+    from repro_torch.kernels.gmm_topb import edge_cases, sweep_plan
     for (n, d), b, p in [((4097, 128), 8, 32), ((1000, 17), 3, 1),
                          ((33, 5), 1, 4), ((3000, 64), 12, 256)]:
-        x, c, m, k = _case(n, d, b, n + d, cuda_device)
-        ops.reset_launches()
-        g_min, g_val, g_idx = ops.gmm_topb(x, c, m, k, mode, p=p)
-        u_min, u_arg, u_max = ops.gmm_update_select(x, c, m, k, mode)
-        assert ops.LAUNCHES == {"gmm_topb": 1, "gmm_update_select": 1,
-                                "pairwise": 0, "gmm_grouped_topb": 0}
-        prep = ops.prepare(x, mode)
-        cc = ops._normalize(c) if mode == "cosine" else c
-        r_min, r_val, r_idx = ref.gmm_topb_ref(prep.points, cc, m, k, mode,
-                                               p, xsq=prep.xsq)
-        torch.testing.assert_close(g_min, r_min, **TOL)
-        torch.testing.assert_close(g_val, r_val, **TOL)
-        field = torch.where(k, r_min, torch.full_like(r_min, -float("inf")))
-        torch.testing.assert_close(torch.sort(field[g_idx]).values,
-                                   torch.sort(field[r_idx]).values, **TOL)
-        torch.testing.assert_close(u_min, r_min, **TOL)
-        torch.testing.assert_close(u_max, field.max(), **TOL)
-        torch.testing.assert_close(ref.take(field, u_arg), field.max(),
-                                   **TOL)
+        _hold_sweep(*_case(n, d, b, n + d, cuda_device), mode, p)
+    # the edges of the sweep's plan: one row, a slab less or more one row,
+    # a tile and one row, 8,196 rows; d in {1, 3, 5,000, 5,001}, b in
+    # {1, 8, 9, 32, 33}, p in {1, 32, 128, 4,096}.  Rows N(0, 1/d), so a
+    # dot product's size does not grow with d.
+    cases = edge_cases()
+    g = torch.Generator().manual_seed(11)
+    base = {d: (torch.randn((8196, d), generator=g) / d ** 0.5).to(
+        cuda_device) for d in (1, 3, 5000, 5001)}
+    for n, d, b, p in cases:
+        _hold_sweep(base[d][:n], *_sweep_inputs(n, d, b, n * d + b + p,
+                                                 cuda_device), mode, p)
+    # equal rows on both sides of every slab border, a fully masked tile,
+    # every row masked
+    for b, p in ((1, 1), (8, 32), (8, 128), (33, 32)):
+        plan = sweep_plan(2 ** 13, p)
+        n = 2 * plan.bn + plan.rows + 1
+        x, c, m, k = _case(n, 64, b, n + b + p, cuda_device)
+        x[plan.rows::plan.rows] = x[plan.rows - 1:n - 1:plan.rows][
+            :x[plan.rows::plan.rows].shape[0]]
+        inf = torch.full_like(m, float("inf"))
+        _hold_sweep(x, c, inf, torch.ones_like(k), mode, p)
+        k2 = k.clone()
+        k2[plan.bn:2 * plan.bn] = False
+        _hold_sweep(x, c, m, k2, mode, p)
+        _hold_sweep(x, c, m, torch.zeros_like(k), mode, p)
+    # a base 4 bytes off 16: x[1:] of a d = 5,001 array, a d = 5,000 view
+    # one float into its storage
+    off = base[5001][1:]
+    flat = (torch.randn((8196 * 5000 + 1,), generator=g) / 5000 ** 0.5).to(
+        cuda_device)[1:].view(8196, 5000)
+    assert flat.data_ptr() % 16 == 4
+    for x in (off, flat):
+        for b, p in ((1, 1), (8, 32), (33, 128)):
+            _hold_sweep(x, *_sweep_inputs(*x.shape, b, b + p, cuda_device),
+                        mode, p)
 
 
 @pytest.mark.parametrize("metric", ["euclidean", "cosine"])

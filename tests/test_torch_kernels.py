@@ -15,7 +15,8 @@ import torch
 import jax.numpy as jnp
 from repro.kernels import ops as rops
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.gmm_topb import tile_rows
+from repro_torch.kernels.gmm_topb import (SLAB_ROWS, edge_cases, sweep_plan,
+                                          tile_rows)
 
 SHAPES = [(64, 3), (100, 17), (257, 64), (512, 128), (33, 5)]
 MODES = ["sqeuclidean", "euclidean", "dot", "cosine"]
@@ -108,7 +109,12 @@ def test_masked_rows_never_selected_and_clamp():
     _, t_val, t_idx = ref.gmm_topb_tiled_ref(prep.points, args[1], args[2],
                                              args[3], "sqeuclidean", p=8,
                                              bn=8, xsq=prep.xsq)
-    for val, idx in ((g_val, g_idx), (t_val, t_idx)):
+    # slabs of 2 rows: three slabs hold 6 entries, the tile's last two come
+    # from its pad rows
+    _, s_val, s_idx = ref.gmm_topb_tiled_ref(prep.points, args[1], args[2],
+                                             args[3], "sqeuclidean", p=8,
+                                             bn=8, xsq=prep.xsq, rows=2)
+    for val, idx in ((g_val, g_idx), (t_val, t_idx), (s_val, s_idx)):
         np.testing.assert_array_equal(idx.numpy(), np.asarray(r_idx))
         np.testing.assert_allclose(val.numpy(), np.asarray(r_val), **TOL)
     assert set(g_idx.numpy()[:3]) == {0, 2, 3}
@@ -116,13 +122,24 @@ def test_masked_rows_never_selected_and_clamp():
     assert np.isneginf(g_val.numpy()[3:]).all()
 
 
-@pytest.mark.parametrize("n,bn,p", [(1000, 256, 32), (1025, 256, 64),
-                                    (300, 512, 128), (77, 256, 1),
-                                    (4097, 1024, 256)])
+def _tiling(n, bn, p, rows=None):
+    return pytest.param(n, bn, p, rows, id=f"{n}-{bn}-{p}" + (
+        "" if rows is None else f"-slab{rows}"))
+
+
+@pytest.mark.parametrize("n,bn,p,rows", [
+    _tiling(1000, 256, 32), _tiling(1025, 256, 64), _tiling(300, 512, 128),
+    _tiling(77, 256, 1), _tiling(4097, 1024, 256),
+    # the kernel's 16-row slab stage: ragged last slab (1025, 77, 4097,
+    # 2049), p above the slab (32 and up: the tile merges whole slabs), p
+    # below it (1)
+    _tiling(1000, 256, 32, 16), _tiling(1025, 256, 64, 16),
+    _tiling(300, 512, 128, 16), _tiling(77, 256, 1, 16),
+    _tiling(4097, 1024, 256, 16), _tiling(2049, 256, 32, 16)])
 @pytest.mark.parametrize("mode", MODES)
-def test_tiled_emulation_equals_whole_array(n, bn, p, mode):
-    # the CUDA kernel's split (tile-local top-p) and the wrapper's stable
-    # merge give the whole-array top-p, indices included
+def test_tiled_emulation_equals_whole_array(n, bn, p, rows, mode):
+    # the CUDA kernel's split (slab-local, then tile-local top-p) and the
+    # wrapper's stable merge give the whole-array top-p, indices included
     pts, cs, mi, mask = _case(n, 8, 4, n + bn + p)
     pts[5] = pts[9]            # an exact tie across the field
     x, c, m, k = _port(pts, cs, mi, mask)
@@ -132,10 +149,66 @@ def test_tiled_emulation_equals_whole_array(n, bn, p, mode):
                                            xsq=prep.xsq)
     t_min, t_val, t_idx = ref.gmm_topb_tiled_ref(prep.points, cc, m, k,
                                                  mode, p, bn=bn,
-                                                 xsq=prep.xsq)
+                                                 xsq=prep.xsq, rows=rows)
     assert torch.equal(w_min, t_min)
     assert torch.equal(w_val, t_val)
     assert torch.equal(w_idx, t_idx)
+
+
+@pytest.mark.parametrize("p", [1, 4, 40, 128])
+@pytest.mark.parametrize("case", ["ties", "masked_tile", "all_masked"])
+def test_slab_stage_ties_masks_and_fill(p, case):
+    # equal rows on both sides of every slab border (ties that cross slabs
+    # and tiles), a fully masked tile, every row masked: the slab stage
+    # still gives the whole-array top-p, indices included
+    bn, rows = tile_rows(p), SLAB_ROWS
+    n = 2 * bn + rows + 1
+    pts, cs, mi, mask = _case(n, 6, 5, rows + p)
+    if case == "ties":
+        pts[rows::rows] = pts[rows - 1:n - 1:rows][:len(pts[rows::rows])]
+        mi[:] = np.inf
+        mask[:] = True
+    elif case == "masked_tile":
+        mask[bn:2 * bn] = False
+    else:
+        mask[:] = False
+    x, c, m, k = _port(pts, cs, mi, mask)
+    w = ref.gmm_topb_ref(x, c, m, k, "euclidean", p)
+    t = ref.gmm_topb_tiled_ref(x, c, m, k, "euclidean", p, bn=bn, rows=rows)
+    for a, b in zip(w, t):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [1, 33, 256, 8192, 8196, 65536, 237662,
+                               2 ** 24])
+@pytest.mark.parametrize("p", [1, 4, 32, 128, 4096])
+def test_sweep_plan_fills_the_card(n, p):
+    sms = 132                  # the H100's multiprocessors
+    plan = sweep_plan(n, p)
+    assert plan.bn == tile_rows(p)
+    assert plan.rows == SLAB_ROWS and plan.bn % plan.rows == 0
+    assert plan.blocks * plan.rows >= n > (plan.blocks - 1) * plan.rows
+    if n >= 2 * sms * SLAB_ROWS:
+        assert plan.blocks >= 2 * sms
+    # the scratch the wrapper allocates: min(p, rows) (value, index) pairs
+    # a block, one ticket a tile
+    assert plan.slab == min(p, plan.rows)
+    assert plan.tiles == -(-n // plan.bn)
+    if n == 8192:
+        assert plan.blocks == 512      # the probe's subsample
+
+
+def test_edge_cases_reach_the_plan_edges():
+    cases = edge_cases()
+    assert {d for _, d, _, _ in cases} == {1, 3, 5000, 5001}
+    assert {b for _, _, b, _ in cases} == {1, 8, 9, 32, 33}
+    for b in (1, 8, 33):
+        for p in (1, 32, 128, 4096):
+            ns = {n for n, _, bb, pp in cases if (bb, pp) == (b, p)}
+            want = {n for n in (1, SLAB_ROWS - 1, SLAB_ROWS + 1,
+                                tile_rows(p) + 1, 8196) if n >= p}
+            assert ns == want
+    assert all(p <= n for n, _, _, p in cases)
 
 
 def test_tile_rows_keeps_bn_at_least_p():
