@@ -258,13 +258,45 @@ Phases, each printing one JSON line (or one per call):
               for bit; (z''') the training launcher in its own process,
               4 steps.
 
-Phases run in the order 1-6, 9, 10, 11, 12, 13, 14, 7, 8 (8 also traces one
-churn round of (u), one group of (q) and one training step of (z)).  The
-line before the last is the ``kernels`` summary; the last line is
+15. moe     — the MoE family at granite-moe-1b-a400m's full width (24
+              layers, d_model 1,024, 32 experts, top-8, expert F 512,
+              1.335 B parameters of which 428.8 M active, bf16 with an
+              fp32 router; random weights from ``--seed``, every token id
+              drawn on the host, fingerprints printed), after phase 14
+              has released its model and state: (o_moe) the engine, 32
+              requests x (64 + 32) twice, prefill seconds beside the
+              active params' operations bound, decode ms beside the whole
+              weights' bytes bound (every expert's buffer is computed),
+              tokens/s and each prefill's dropped assignments; (o'_moe)
+              decode from the cache against the full forward at 2 x 16
+              tokens (no call drops), fp32 and one-layer bf16 at 2e-2, full
+              depth printed with its floor; (moe') layer 0's MoE on the
+              card against the CPU from the same fp32 inputs at 8 x 128
+              tokens, capacity factors 1.25 and 0.5: the dispatch equal
+              entry for entry but at proven near-ties, the outputs at
+              1e-4; (r_moe) phase 14's curation through granite's table
+              (B1 probe held here, B4 round 1 to phase 7); (q_moe)
+              ``generate_diverse`` into the session reranker, kernel vs
+              plain (B3 tile held here, the fused solve to phase 7);
+              (z_moe) 12 AdamW steps on 8 x 128 curated tokens beside
+              ``train_bounds`` (the experts' share, and their padded rows)
+              and the update's bytes bound, peak memory beside the
+              reckoned state, accumulation 2 vs 1 at 2 x 16 tokens in
+              float64, fp32 and bf16 with each one's routing partings;
+              (z'_moe) the fp32 gradient against the float64 one block by
+              block under the float64 routing, with its own logits'
+              near-ties and a planted fault; arctic-480b reduced (the
+              dense residual) against the CPU and from its cache; phase
+              8's traces of one (q_moe) group and one (z_moe) step.
+
+Phases run in the order 1-6, 9, 10, 11, 12, 13, 14, 15, 7, 8 (8 also
+traces one churn round of (u) and one group of (q); phase 14's step is
+traced right after phase 14, phase 15's group and step inside phase 15).
+The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before it.
-``--rehearse`` runs phases 2-6 and 9-14 at a tiny size on the CPU with the
+``--rehearse`` runs phases 2-6 and 9-15 at a tiny size on the CPU with the
 plain versions (no build, no timings, no ``ok`` line; phase 12 over gloo
-on the CPU; phases 13 and 14 on the reduced config) to check the script
+on the CPU; phases 13-15 on the reduced configs) to check the script
 itself.  ``--probe-only RUNS`` builds, makes the musiXmatch stand-in and
 runs call (i) RUNS times on the kernels, printing each run's ``mr.probe``
 and call seconds and B1 launches, and stops (no ``ok`` line): two
@@ -3418,6 +3450,182 @@ def _quiet(fn, *args, **kwargs):
         return fn(*args, **kwargs)
 
 
+def _engine_twice(engine, requests, label: str, record=None):
+    """(o): ``engine.generate(requests())`` twice, traced (inside the
+    context ``record``, if given) then not, with the same tokens (else
+    fails).  Returns (the first run's requests, its seconds, the untraced
+    run's seconds, its trace)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    with record or contextlib.nullcontext():
+        first, traced_s, _, tr = _traced(
+            lambda tr: engine.generate(requests()))
+    t0 = time.perf_counter()
+    second = engine.generate(requests())
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not all(np.array_equal(a.out, b.out) for a, b in zip(first, second)):
+        fail(f"{label}: two runs of the engine gave different tokens")
+    return first, traced_s, wall, tr
+
+
+def _logits(m, c, toks):
+    import torch
+    from repro_torch.models import transformer
+    pos = torch.arange(toks.shape[1], dtype=torch.int32, device=toks.device)
+    with torch.no_grad():
+        return transformer.forward(m, c, None, toks, pos)[0]
+
+
+def _last_logits(m, c, toks, capacity):
+    """(the full forward's last logits, those of a prefill of S - 1 tokens
+    and a decode of the S-th from the cache)."""
+    import torch
+    import repro_torch.models as M
+    B, S = toks.shape
+    full = _logits(m, c, toks)[:, -1]
+    cache = M.make_cache(c, B, capacity, device=toks.device)
+    _, cache = M.prefill_fn(m, c, None, {"tokens": toks[:, :S - 1]}, cache)
+    step = M.decode_fn(m, c, None, toks[:, S - 1:],
+                       torch.tensor(S - 1, device=toks.device), cache)[0]
+    return full, step[:, -1]
+
+
+def _excess(step, full, atol):
+    err = (step - full).abs()
+    return float(err.max()), bool(
+        (err <= atol + LOGITS_TOL * full.abs()).all())
+
+
+def _first_layers(model, cfg, depth):
+    """The same weights, the first ``depth`` layers (one layer a group)."""
+    import dataclasses
+    tree = dict(model, layers={n: w[:depth]
+                               for n, w in model["layers"].items()})
+    return tree, dataclasses.replace(cfg, num_layers=depth)
+
+
+def _cache_consistency(model, cfg, toks, capacity, full_atol):
+    """(o'): prefill S - 1 tokens of ``toks`` and decode the S-th against
+    the full forward: in fp32 (the weights upcast) at the reference's
+    bound, in bf16 at that bound on the model cut to its first layer (and
+    at the other ``WITNESS_DEPTHS``, printed), in bf16 at full depth within
+    ``full_atol`` (None: printed, not held), each depth's error beside the
+    model's own bf16 floor (a row's logits alone against in the batch).
+    Returns (readings, ok)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.tree import tree_map
+
+    def floor_of(m, c, full):
+        return float((_logits(m, c, toks[:1])[:, -1] - full[:1]).abs().max())
+
+    witness = []
+    for depth in [d for d in WITNESS_DEPTHS if d < cfg.num_layers]:
+        m_d, c_d = _first_layers(model, cfg, depth)
+        full_d, step_d = _last_logits(m_d, c_d, toks, capacity)
+        err_d, ok_d = _excess(step_d, full_d, LOGITS_TOL)
+        witness.append({"layers": depth, "max_abs_err": err_d,
+                        "ok_at_reference_bound": ok_d,
+                        "floor_row_alone_vs_batch": floor_of(m_d, c_d, full_d),
+                        "logits_max_abs": float(full_d.abs().max())})
+        del m_d, full_d, step_d
+    full16, step16 = _last_logits(model, cfg, toks, capacity)
+    floor = floor_of(model, cfg, full16)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    m32 = tree_map(lambda w: w.float(), model)
+    full32, step32 = _last_logits(m32, cfg32, toks, capacity)
+    del m32
+    err32, ok32 = _excess(step32, full32, LOGITS_TOL)
+    err16, ok16 = _excess(step16, full16,
+                          LOGITS_TOL if full_atol is None else full_atol)
+    ok1 = not witness or witness[0]["ok_at_reference_bound"]
+    S = toks.shape[1]
+    row = {"prefill": S - 1, "decoded_position": S - 1,
+           "rows": int(toks.shape[0]), "vocab": cfg.vocab_size,
+           "fp32": {"max_abs_err": err32, "rtol": LOGITS_TOL,
+                    "atol": LOGITS_TOL, "ok": ok32},
+           "bf16": {"max_abs_err": err16, "rtol": LOGITS_TOL,
+                    "atol": full_atol, "ok": ok16 if full_atol is not None
+                    else "not held", "floor_row_alone_vs_batch": floor,
+                    "layers": cfg.num_layers},
+           "bf16_first_layers": witness,
+           "bf16_vs_fp32_full_max_abs": float((full16 - full32).abs().max()),
+           "logits_max_abs": float(full16.abs().max())}
+    return row, ok32 and ok1 and (ok16 or full_atol is None)
+
+
+def _diverse_requests(prompts, cands, W, new, lo, hi):
+    """Requests ``lo .. hi - 1``, each carrying its W candidates, one
+    session a request: without a key the engine names a request by its
+    index in the group (the reference's keying), and every group after the
+    first would land in the first group's sessions."""
+    from repro_torch.serving import Request
+    return [Request(prompt=prompts[r], max_new_tokens=new,
+                    session=f"req-{r}", candidates=cands[r * W:(r + 1) * W])
+            for r in range(lo, hi)]
+
+
+def _reranker(cfg, sz, device, use_pallas):
+    from repro_torch.serving import OnlineReranker
+    return OnlineReranker(k=sz["k"], dim=cfg.d_model, kprime=sz["kprime"],
+                          metric="cosine", device=device,
+                          use_pallas=use_pallas)
+
+
+def _diverse_runs(cfg, model, requests, sz, device, check_launches: bool,
+                  label: str):
+    """(q): ``generate_diverse`` of ``requests`` into a fresh session
+    reranker, with the kernels and with ``use_pallas=False``: equal tokens,
+    slates and reuse, B3/B4 launched on the kernel run only.  Returns (the
+    kernel run's requests, its launches, each side's seconds a group, the
+    readings)."""
+    import numpy as np
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serving import Request, ServingEngine
+
+    def fresh():
+        return [Request(prompt=r.prompt, max_new_tokens=r.max_new_tokens,
+                        session=r.session, candidates=r.candidates)
+                for r in requests]
+    runs = {}
+    for up in ("auto", False):
+        eng = ServingEngine(cfg, launcher.RULES, model, batch=sz["batch"],
+                            capacity=sz["capacity"],
+                            reranker=_reranker(cfg, sz, device, up))
+        runs[up] = _traced(lambda tr: eng.generate_diverse(fresh()))
+    (kout, ks, kl, ktr), (pout, ps, pl, ptr) = runs["auto"], runs[False]
+    agree = {"tokens": all(np.array_equal(a.out, b.out)
+                           for a, b in zip(kout, pout)),
+             "slates": all(np.array_equal(a.slate, b.slate)
+                           for a, b in zip(kout, pout)),
+             "slate_reused": [a.slate_reused for a in kout]
+             == [b.slate_reused for b in pout]}
+    if check_launches and (kl["pairwise"] == 0
+                           or kl["gmm_grouped_topb"] == 0):
+        fail(f"{label}: the kernel run launched B3/B4 {kl}")
+    if any(pl.values()):
+        fail(f"{label}: the plain run launched kernels {pl}")
+    if not all(agree.values()):
+        fail(f"{label}: kernel and plain differ on {agree}")
+    group_s = {side: [a.seconds + b.seconds for a, b in zip(
+        _spans(t, "serving.generate"), _spans(t, "serving.rerank_group"))]
+        for side, t in (("kernel", ktr), ("plain", ptr))}
+    row = {"kernel_seconds": ks, "plain_seconds": ps,
+           "rerank_group_seconds": {
+               side: [sp.seconds for sp in _spans(t, "serving.rerank_group")]
+               for side, t in (("kernel", ktr), ("plain", ptr))},
+           "group_seconds": group_s,
+           "slates_reused": sum(a.slate_reused for a in kout),
+           "launches": kl, "agree": agree}
+    return kout, kl, group_s, row
+
+
 def phase_serve(device, seed: int, errs, diffs, card: str = "",
                 full: bool = True, check_launches: bool = True):
     """(o) the engine at the model's full width: random init on the device,
@@ -3437,20 +3645,16 @@ def phase_serve(device, seed: int, errs, diffs, card: str = "",
     at the reranker's tile are held against plain here; the B4 shapes go
     to phase 7.  Returns (launches, B4 cases, what phase 8 profiles)."""
     import contextlib
-    import dataclasses
     import io
 
     import numpy as np
     import torch
     import repro_torch.models as M
     from repro_torch.configs import get_config
-    from repro_torch.models import transformer
     from repro_torch.data import embed_examples, select_diverse
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as launcher
-    from repro_torch.serving import (OnlineReranker, Request, ServingEngine,
-                                     diverse_rerank)
-    from repro_torch.tree import tree_map
+    from repro_torch.serving import Request, ServingEngine, diverse_rerank
     sz = serve_sizes(full)
     cfg = get_config(sz["arch"], reduced=sz["reduced"])
     R, B, new = sz["requests"], sz["batch"], sz["new"]
@@ -3479,13 +3683,7 @@ def phase_serve(device, seed: int, errs, diffs, card: str = "",
 
     engine = ServingEngine(cfg, launcher.RULES, model, batch=B,
                            capacity=sz["capacity"])
-    first, traced_s, _, tr = _traced(lambda tr: engine.generate(requests()))
-    t0 = time.perf_counter()
-    second = engine.generate(requests())
-    sync()
-    wall = time.perf_counter() - t0
-    if not all(np.array_equal(a.out, b.out) for a, b in zip(first, second)):
-        fail("serve (o): two runs of the engine gave different tokens")
+    first, traced_s, wall, tr = _engine_twice(engine, requests, "serve (o)")
     n_params = M.count_params(cfg)
     prefill = [sp.seconds for sp in _spans(tr, "serving.prefill")]
     decode = [sp.seconds * 1e3 for sp in _spans(tr, "serving.decode")]
@@ -3515,75 +3713,13 @@ def phase_serve(device, seed: int, errs, diffs, card: str = "",
     # witness: the error grows with depth, as the floor does), and at full
     # depth in bf16 within a fixed atol set from earlier readings.
     toks = torch.as_tensor(np.stack(prompts[:B]), device=device)
-    S = toks.shape[1]
-    arange = torch.arange(S, dtype=torch.int32, device=device)
-
-    def logits(m, c, t):
-        with torch.no_grad():
-            return transformer.forward(m, c, None, t, arange)[0]
-
-    def last_logits(m, c):
-        full = logits(m, c, toks)[:, -1]
-        cache = M.make_cache(c, B, sz["capacity"], device=device)
-        _, cache = M.prefill_fn(m, c, None, {"tokens": toks[:, :S - 1]},
-                                cache)
-        step = M.decode_fn(m, c, None, toks[:, S - 1:],
-                           torch.tensor(S - 1, device=device), cache)[0]
-        return full, step[:, -1]
-
-    def excess(step, full, atol):
-        err = (step - full).abs()
-        return float(err.max()), bool(
-            (err <= atol + LOGITS_TOL * full.abs()).all())
-
-    def first_layers(depth):
-        # the same weights, the first ``depth`` layers (one layer a group)
-        tree = dict(model, layers={n: w[:depth]
-                                   for n, w in model["layers"].items()})
-        return tree, dataclasses.replace(cfg, num_layers=depth)
-
-    def floor_of(m, c, full):
-        return float((logits(m, c, toks[:1])[:, -1] - full[:1]).abs().max())
-
-    witness = []
-    for depth in [d for d in WITNESS_DEPTHS if d < cfg.num_layers]:
-        m_d, c_d = first_layers(depth)
-        full_d, step_d = last_logits(m_d, c_d)
-        err_d, ok_d = excess(step_d, full_d, LOGITS_TOL)
-        witness.append({"layers": depth, "max_abs_err": err_d,
-                        "ok_at_reference_bound": ok_d,
-                        "floor_row_alone_vs_batch": floor_of(m_d, c_d, full_d),
-                        "logits_max_abs": float(full_d.abs().max())})
-        del m_d, full_d, step_d
-    full16, step16 = last_logits(model, cfg)
-    floor = floor_of(model, cfg, full16)
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
-                                param_dtype=torch.float32)
-    m32 = tree_map(lambda w: w.float(), model)
-    full32, step32 = last_logits(m32, cfg32)
-    del m32
-    tol16 = BF16_FULL_DEPTH_ATOL
-    err32, ok32 = excess(step32, full32, LOGITS_TOL)
-    err16, ok16 = excess(step16, full16, tol16)
-    ok1 = not witness or witness[0]["ok_at_reference_bound"]
-    row = {"phase": "serve", "call": "o_prime_cache_consistency",
-           "card": card, "prefill": S - 1, "decoded_position": S - 1,
-           "rows": B, "vocab": cfg.vocab_size,
-           "fp32": {"max_abs_err": err32, "rtol": LOGITS_TOL,
-                    "atol": LOGITS_TOL, "ok": ok32},
-           "bf16": {"max_abs_err": err16, "rtol": LOGITS_TOL,
-                    "atol": tol16, "ok": ok16,
-                    "floor_row_alone_vs_batch": floor,
-                    "layers": cfg.num_layers},
-           "bf16_first_layers": witness,
-           "bf16_vs_fp32_full_max_abs": float((full16 - full32).abs().max()),
-           "logits_max_abs": float(full16.abs().max())}
-    emit(row)
-    if not (ok32 and ok16 and ok1):
-        fail("serve (o'): decode from the cache disagrees with the full "
-             f"forward (fp32 {err32}, bf16 {err16} against {tol16}, bf16 "
-             f"by depth {[(w['layers'], w['max_abs_err']) for w in witness]})")
-    del full16, step16, full32, step32
+    row, ok = _cache_consistency(model, cfg, toks, sz["capacity"],
+                                 BF16_FULL_DEPTH_ATOL)
+    emit({"phase": "serve", "call": "o_prime_cache_consistency",
+          "card": card, **row})
+    if not ok:
+        fail(f"serve (o'): decode from the cache disagrees with the full "
+             f"forward {row}")
 
     # (q) serve-then-diversify
     W = sz["windows"]
@@ -3596,54 +3732,16 @@ def phase_serve(device, seed: int, errs, diffs, card: str = "",
     del windows
 
     def diverse_requests(lo=0, hi=R):
-        # one session a request: without a key the engine names a request
-        # by its index in the group (the reference's keying), and every
-        # group after the first would land in the first group's sessions
-        return [Request(prompt=prompts[r], max_new_tokens=new,
-                        session=f"req-{r}",
-                        candidates=cands[r * W:(r + 1) * W])
-                for r in range(lo, hi)]
+        return _diverse_requests(prompts, cands, W, new, lo, hi)
 
-    def reranker(use_pallas):
-        return OnlineReranker(k=sz["k"], dim=cfg.d_model,
-                              kprime=sz["kprime"], metric="cosine",
-                              device=device, use_pallas=use_pallas)
-
-    runs = {}
-    for up in ("auto", False):
-        eng = ServingEngine(cfg, launcher.RULES, model, batch=B,
-                            capacity=sz["capacity"], reranker=reranker(up))
-        runs[up] = _traced(lambda tr: eng.generate_diverse(
-            diverse_requests()))
-    (kout, ks, kl, ktr), (pout, ps, pl, ptr) = runs["auto"], runs[False]
-    agree = {"tokens": all(np.array_equal(a.out, b.out)
-                           for a, b in zip(kout, pout)),
-             "slates": all(np.array_equal(a.slate, b.slate)
-                           for a, b in zip(kout, pout)),
-             "slate_reused": [a.slate_reused for a in kout]
-             == [b.slate_reused for b in pout]}
-    if check_launches and (kl["pairwise"] == 0
-                           or kl["gmm_grouped_topb"] == 0):
-        fail(f"serve (q): the kernel run launched B3/B4 {kl}")
-    if any(pl.values()):
-        fail(f"serve (q): the plain run launched kernels {pl}")
-    if not all(agree.values()):
-        fail(f"serve (q): kernel and plain differ on {agree}")
+    kout, kl, group_s, row = _diverse_runs(cfg, model, diverse_requests(),
+                                           sz, device, check_launches,
+                                           "serve (q)")
     count(kl)
-    group_s = {side: [a.seconds + b.seconds for a, b in zip(
-        _spans(t, "serving.generate"), _spans(t, "serving.rerank_group"))]
-        for side, t in (("kernel", ktr), ("plain", ptr))}
     emit({"phase": "serve", "call": "q_generate_diverse", "card": card,
           "requests": R, "candidates": W, "window_tokens": sz["window"],
           "d": cfg.d_model, "k": sz["k"], "kprime": sz["kprime"],
-          "metric": "cosine", "candidate_embed_seconds": cand_s,
-          "kernel_seconds": ks, "plain_seconds": ps,
-          "rerank_group_seconds": {
-              side: [sp.seconds for sp in _spans(t, "serving.rerank_group")]
-              for side, t in (("kernel", ktr), ("plain", ptr))},
-          "group_seconds": group_s,
-          "slates_reused": sum(a.slate_reused for a in kout),
-          "launches": kl, "agree": agree})
+          "metric": "cosine", "candidate_embed_seconds": cand_s, **row})
 
     outs = np.stack([r.out for r in kout])
     emb_out = embed_examples(outs, embedding=model["embed"], dim=cfg.d_model,
@@ -3746,7 +3844,7 @@ def phase_serve(device, seed: int, errs, diffs, card: str = "",
         again = M.init_params(cfg, seed, device=device)
         return lambda: ServingEngine(
             cfg, launcher.RULES, again, batch=B, capacity=sz["capacity"],
-            reranker=reranker("auto")).generate_diverse(
+            reranker=_reranker(cfg, sz, device, "auto")).generate_diverse(
                 [Request(prompt=r.prompt, max_new_tokens=new,
                          session=r.session, candidates=r.candidates)
                  for r in group])
@@ -3776,6 +3874,15 @@ ACCUM_LR = 5e-4
 # sound readings (fp32 5.5e-3, bf16 2.2e-2) and the control's (0.84) of
 # the training slice's card runs (PERF.md section 6)
 ACCUM_GRAD_RTOL = {"fp32": 5e-2, "bf16": 0.2}
+# (z_moe): the MoE model's routing is discontinuous, and at full width the
+# random model carries fp32 rounding through 24 layers far enough that the
+# one-batch and the micro-batched forwards can route a token apart at a
+# near-tie (the first card run read fp32 6.8e-2 against 5e-2, bf16 2.4e-2).
+# So the witness there is float64 (rounding ~1e-16, nothing parts), held
+# at ACCUM_GRAD_RTOL_F64, and bf16 (as trained) at the bf16 limit; fp32 is
+# held at its limit when its routings do not part, and otherwise printed
+# with the partings, each a proven near-tie
+ACCUM_GRAD_RTOL_F64 = 1e-6
 ADAMW_BYTES_PER_PARAM = 28     # grad bf16 2 + master, mu, nu read 12 and
                                # written 12 + param bf16 written 2
 # (z'): the float64 model (the weights upcast) is the witness's reference.
@@ -3865,6 +3972,17 @@ class _TimedUpdate:
         return out
 
 
+def _as_dtype(tree, dt):
+    """``tree``'s weights in ``dt``, but for a float32 leaf (the MoE
+    router, built in float32) when ``dt`` is narrower: the model as the
+    config of that dtype builds it."""
+    import torch
+    from repro_torch.tree import tree_map
+    keep = dt in (torch.bfloat16, torch.float16)
+    return tree_map(lambda t: t if keep and t.dtype == torch.float32
+                    else t.to(dt), tree)
+
+
 def _tree_numel(tree):
     from repro_torch.tree import tree_leaves
     return sum(t.numel() for t in tree_leaves(tree))
@@ -3874,26 +3992,42 @@ def train_bounds(cfg, batch: int, seq: int):
     """(step operations bound ms, its parts, update bytes bound ms) of one
     AdamW step of ``cfg`` on ``batch`` x ``seq`` tokens, from the code's
     arithmetic: the layers' products in bf16 (forward 2, backward 4
-    operations a weight and token) and the attention's score and context
-    products in fp32 (both operands upcast in ``attention.attend``; every
-    (query, key) pair computed, masked or not), both x3 for the backward;
-    ``lm_head``'s fp32 product (6 T D V); the update's bytes, 28 a
-    parameter, over the memory rate."""
+    operations a weight and token; an expert's weights count topk / E of
+    their size, the share of the tokens each sees) and the attention's
+    score and context products in fp32 (both operands upcast in
+    ``attention.attend``; every (query, key) pair computed, masked or
+    not), both x3 for the backward; ``lm_head``'s fp32 product (6 T D V);
+    the update's bytes, 28 a parameter, over the memory rate.  For an MoE
+    model the parts also give the experts' capacity-padded rows (E C, every
+    row of which the batched products compute) against the assignments
+    (T topk), and those padded products' own time at the bf16 rate."""
     import repro_torch.models as M
-    from repro_torch.tree import tree_leaves
+    from repro_torch.models.moe import capacity
+    from repro_torch.tree import tree_items
     T = batch * seq
-    shapes = M.param_shapes(cfg)
-    mats = sum(t.numel() for t in tree_leaves(shapes["layers"])
-               if t.ndim > 3)
-    layers_ms = 6 * mats * T / BF16_FLOPS * 1e3
+    E, topk = cfg.num_experts, cfg.num_experts_per_tok
+    mats = active = 0
+    for name, t in tree_items(M.param_shapes(cfg)["layers"]):
+        if t.ndim > 3:
+            mats += t.numel()
+            expert = any(e in name for e in ("e_gate", "e_up", "e_down"))
+            active += t.numel() * (topk / E if expert else 1)
+    layers_ms = 6 * active * T / BF16_FLOPS * 1e3
     attn_ms = (3 * 4 * batch * cfg.num_heads * seq * seq * cfg.head_dim
                * cfg.num_layers / FP32_FLOPS * 1e3)
     head_ms = 6 * T * cfg.d_model * cfg.vocab_size / FP32_FLOPS * 1e3
     n = M.count_params(cfg)
-    return (layers_ms + attn_ms + head_ms,
-            {"layer_products_bf16_ms": layers_ms,
+    parts = {"layer_products_bf16_ms": layers_ms,
              "attention_fp32_ms": attn_ms, "lm_head_fp32_ms": head_ms,
-             "layer_matrix_params": mats},
+             "layer_matrix_params": mats,
+             "active_layer_matrix_params": active}
+    if E:
+        C = capacity(cfg, T)
+        parts.update({
+            "expert_rows_padded": E * C, "expert_assignments": T * topk,
+            "expert_products_padded_ms": 6 * 3 * E * C * cfg.d_model
+            * cfg.d_ff * cfg.num_layers / BF16_FLOPS * 1e3})
+    return (layers_ms + attn_ms + head_ms, parts,
             ADAMW_BYTES_PER_PARAM * n / HBM_BYTES_PER_S * 1e3)
 
 
@@ -3912,31 +4046,34 @@ class _GradProbe:
         return params, state
 
 
-def _accum_witness(cfg, tree, batch):
+def _accum_witness(cfg, tree, batch, dtypes=None):
     """The gradient ``make_train_step`` with ``accum_steps=2`` hands its
     optimizer against the one-batch gradient, and the control (a step that
     drops the second micro-batch: the first one's gradient alone) against
-    it, by each leaf's relative Frobenius error; in fp32 on ``tree``'s
-    weights upcast and in the config's bf16.  Returns {"fp32" | "bf16":
-    {"accum": [per leaf], "control": [per leaf]}}."""
+    it, by each leaf's relative Frobenius error; on ``tree``'s weights in
+    each of ``dtypes`` ((name, dtype) pairs; default fp32, the weights
+    upcast, and the config's bf16).  Returns {name: {"accum": [per leaf],
+    "control": [per leaf]}}."""
     import dataclasses
 
     import torch
     from repro_torch.train import make_train_step
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_leaves
     first = {k: v[:v.shape[0] // 2] for k, v in batch.items()}
     out = {}
-    for name, dt in (("fp32", torch.float32), ("bf16", cfg.dtype)):
+    for name, dt in dtypes or (("fp32", torch.float32), ("bf16", cfg.dtype)):
         c = dataclasses.replace(cfg, dtype=dt, param_dtype=dt)
-        w = tree_map(lambda t: t.to(dt), tree)
+        w = _as_dtype(tree, dt)
         one, res = [], {}
+        wide = torch.float64 if dt == torch.float64 else torch.float32
 
         def keep(g):
-            one.extend(x.detach().float().clone() for x in tree_leaves(g))
+            one.extend(x.detach().to(wide, copy=True)
+                       for x in tree_leaves(g))
 
         def against(key):
             def see(g):
-                res[key] = [float(torch.linalg.vector_norm(x.float() - r)
+                res[key] = [float(torch.linalg.vector_norm(x.to(wide) - r)
                                   / torch.linalg.vector_norm(r))
                             for x, r in zip(tree_leaves(g), one)]
             return see
@@ -4051,7 +4188,7 @@ def _gradient_witness(cfg, tree, batch, eps_list, seed: int):
            "frob": {}}
     for name, dt in (("fp32", torch.float32), ("bf16", cfg.dtype)):
         c = dataclasses.replace(cfg, dtype=dt, param_dtype=dt)
-        w = tree_map(lambda t: t.to(dt), tree)
+        w = _as_dtype(tree, dt)
         loss, g = _value_and_grad(make_loss(c, None), w, batch)
         del w
         dots[name] = _dot(tree_leaves(g), tree_leaves(d))
@@ -4076,6 +4213,120 @@ def _gradient_witness(cfg, tree, batch, eps_list, seed: int):
     return out
 
 
+def _adamw_steps(cfg, params, batch, steps: int, device):
+    """(z): ``steps`` AdamW steps at the constant ``TRAIN_LR`` on one
+    fixed batch, the params updated in place (their tree is released
+    after).  Returns (losses, step ms, gradient ms, update ms, peak
+    allocated GB, GB allocated before the optimizer state), each ms by
+    CUDA events on the card."""
+    import torch
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import AdamW, make_train_step
+    cuda = device == "cuda"
+    marks = _Marks(device)
+    opt = _TimedUpdate(AdamW(), marks)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9 if cuda else None
+    state = opt.init(params)
+    step = make_train_step(cfg, launcher.RULES, opt, lambda s: TRAIN_LR)
+    losses, step_ms, grad_ms, upd_ms = [], [], [], []
+    for i in range(steps):
+        a = marks.mark()
+        params, state, m = step(params, state, batch, i)
+        b = marks.mark()
+        if cuda:
+            torch.cuda.synchronize()
+        u0, u1 = opt.spans[-1]
+        step_ms.append(marks.ms(a, b))
+        grad_ms.append(marks.ms(a, u0))
+        upd_ms.append(marks.ms(u0, u1))
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    del state, opt, m
+    return losses, step_ms, grad_ms, upd_ms, peak, held
+
+
+def _curate(cfg, params, sz, seed, device, errs, check_launches: bool,
+            label: str):
+    """(r): a pool of Zipf(1) token sequences drawn on the host, embedded
+    through the model's table, then the k most diverse over simulated
+    reducers (the probe on B1, round 1 on B4), with the kernels and with
+    ``use_pallas=False`` (equal indices); B1 (and B2) at the probe's
+    subsample held against plain here.  Returns (the curated rows of
+    tokens, the kernel run's launches, B4's round-1 cases for phase 7, the
+    readings)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.adaptive import probe_stride
+    from repro_torch.data import embed_examples
+    cuda = device == "cuda"
+    N, L = sz["pool"], sz["pool_len"]
+    pool_toks = zipf_tokens((N, L), cfg.vocab_size, seed + 37, device,
+                            host=True)
+    t0 = time.perf_counter()
+    emb = embed_examples(pool_toks[:, :L - 1], embedding=params["embed"],
+                         dim=cfg.d_model)
+    if cuda:
+        torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    problem = {"k": sz["k"], "measure": "remote-edge"}
+    knobs = {"num_reducers": sz["reducers"], "kprime": sz["kprime"]}
+    runs = {up: _run_mr(emb, None, problem, knobs, up, device)
+            for up in ("auto", False)}
+    (kres, kidx, ks, kl), (pres, pidx, ps, pl) = runs["auto"], runs[False]
+    if not np.array_equal(kidx, pidx):
+        fail(f"{label}: the kernels and use_pallas=False curated "
+             "different rows")
+    if any(pl.values()):
+        fail(f"{label}: the plain run launched kernels {pl}")
+    if check_launches and (kl["gmm_topb"] == 0
+                           or kl["gmm_grouped_topb"] == 0):
+        fail(f"{label}: the curation launched no B1 or no B4 {kl}")
+    r1 = _find_span(kres.telemetry, "mr.round1")
+    shapes = sweep_shapes(r1.attrs["schedule"])
+    if check_launches and r1.attrs["launches"]["gmm_grouped_topb"] \
+            != r1.attrs["folds"]:
+        fail(f"{label}: round 1 made {r1.attrs['launches']} launches "
+             f"for {r1.attrs['folds']} folds")
+    stride = probe_stride(N)
+    sub = emb[::stride].contiguous()
+    gen = torch.Generator(device=device).manual_seed(seed + 41)
+    for bc, p in shapes:
+        check_pair(sub, "euclidean", bc, p, gen, errs,
+                   f"{label} probe {sub.shape[0]}x{sub.shape[1]} "
+                   f"euclidean b={bc} p={p}")
+    b4 = [(f"{label} round 1 l={sz['reducers']}", emb, "euclidean",
+           contiguous_labels(N, sz["reducers"], emb.device),
+           sz["reducers"], bc, p) for bc, p in shapes]
+    curated = pool_toks[torch.as_tensor(kidx, device=pool_toks.device)]
+    # fingerprints of the data, to compare runs
+    prints = {"embed_table_sum": float(params["embed"].double().sum()),
+              "pool_tokens_sum": int(pool_toks.sum()),
+              "embedding_sum": float(emb.double().sum()),
+              "indices_sum": int(np.asarray(kidx).sum()),
+              "indices_head": np.asarray(kidx)[:8].tolist()}
+    if cuda:
+        prints["multiprocessors"] = torch.cuda.get_device_properties(
+            0).multi_processor_count
+    row = {**prints, "arch": cfg.arch, "pool": N, "tokens": L,
+           "d": int(emb.shape[1]), "pool_gb": emb.numel() * 4 / 1e9,
+           "embed_seconds": embed_s, **problem, **knobs,
+           "kernel_seconds": ks, "plain_seconds": ps,
+           "probe_seconds": _span_seconds(kres.telemetry, "mr.probe"),
+           "round1_seconds": r1.seconds, "schedule": r1.attrs["schedule"],
+           "round1_sweeps": r1.attrs["folds"],
+           "round1_launches": r1.attrs["launches"],
+           "probe_rows": int(sub.shape[0]), "sweep_shapes": shapes,
+           "curated": int(len(kidx)), "launches": kl,
+           "agree": {"indices": True},
+           "held_against_plain": {"gmm_topb_probe": len(shapes),
+                                  "gmm_grouped_topb_round1_for_phase_7":
+                                      len(b4)}}
+    return curated, kl, b4, row
+
+
 def phase_train(device, seed: int, errs, diffs, card: str = "",
                 full: bool = True, check_launches: bool = True):
     """(r) curation: a pool of Zipf(1) token sequences embedded through
@@ -4091,13 +4342,11 @@ def phase_train(device, seed: int, errs, diffs, card: str = "",
     supervised run of the reduced config, killed at step 6 and resumed,
     against an uninterrupted run.  (z''') the training launcher once.
     Returns (launches, B4 cases, what phase 8 profiles)."""
-    import numpy as np
     import torch
     import repro_torch.models as M
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_config
-    from repro_torch.core.adaptive import probe_stride
-    from repro_torch.data import embed_examples, lm_batch
+    from repro_torch.data import lm_batch
     from repro_torch.distributed import (FailureInjector, ResiliencePolicy,
                                          TrainingSupervisor)
     from repro_torch.launch import train as launcher
@@ -4121,72 +4370,12 @@ def phase_train(device, seed: int, errs, diffs, card: str = "",
     params = M.init_params(cfg, seed, device=device)
     sync()
     init_s = time.perf_counter() - t0
-    N, L = sz["pool"], sz["pool_len"]
-    pool_toks = zipf_tokens((N, L), cfg.vocab_size, seed + 37, device,
-                            host=True)
-    t0 = time.perf_counter()
-    emb = embed_examples(pool_toks[:, :L - 1], embedding=params["embed"],
-                         dim=cfg.d_model)
-    sync()
-    embed_s = time.perf_counter() - t0
-    problem = {"k": sz["k"], "measure": "remote-edge"}
-    knobs = {"num_reducers": sz["reducers"], "kprime": sz["kprime"]}
-    runs = {up: _run_mr(emb, None, problem, knobs, up, device)
-            for up in ("auto", False)}
-    (kres, kidx, ks, kl), (pres, pidx, ps, pl) = runs["auto"], runs[False]
-    if not np.array_equal(kidx, pidx):
-        fail("train (r): the kernels and use_pallas=False curated "
-             "different rows")
-    if any(pl.values()):
-        fail(f"train (r): the plain run launched kernels {pl}")
-    if check_launches and (kl["gmm_topb"] == 0
-                           or kl["gmm_grouped_topb"] == 0):
-        fail(f"train (r): the curation launched no B1 or no B4 {kl}")
+    curated, kl, train_b4, row = _curate(cfg, params, sz, seed, device, errs,
+                                         check_launches, "train (r)")
     for k_, v in kl.items():
         launches[k_] += v
-    r1 = _find_span(kres.telemetry, "mr.round1")
-    shapes = sweep_shapes(r1.attrs["schedule"])
-    if check_launches and r1.attrs["launches"]["gmm_grouped_topb"] \
-            != r1.attrs["folds"]:
-        fail(f"train (r): round 1 made {r1.attrs['launches']} launches "
-             f"for {r1.attrs['folds']} folds")
-    stride = probe_stride(N)
-    sub = emb[::stride].contiguous()
-    gen = torch.Generator(device=device).manual_seed(seed + 41)
-    for bc, p in shapes:
-        check_pair(sub, "euclidean", bc, p, gen, errs,
-                   f"train (r) probe {sub.shape[0]}x{sub.shape[1]} "
-                   f"euclidean b={bc} p={p}")
-    train_b4 = [(f"train (r) round 1 l={sz['reducers']}", emb, "euclidean",
-                 contiguous_labels(N, sz["reducers"], emb.device),
-                 sz["reducers"], bc, p) for bc, p in shapes]
-    curated = pool_toks[torch.as_tensor(kidx, device=pool_toks.device)]
-    # fingerprints of the data, to compare runs
-    prints = {"embed_table_sum": float(params["embed"].double().sum()),
-              "pool_tokens_sum": int(pool_toks.sum()),
-              "embedding_sum": float(emb.double().sum()),
-              "indices_sum": int(np.asarray(kidx).sum()),
-              "indices_head": np.asarray(kidx)[:8].tolist()}
-    del pool_toks
-    if cuda:
-        prints["multiprocessors"] = torch.cuda.get_device_properties(
-            0).multi_processor_count
-    emit({"phase": "train", "call": "r_curation", "card": card, **prints,
-          "arch": cfg.arch, "init_seconds": init_s, "pool": N,
-          "tokens": L, "d": int(emb.shape[1]),
-          "pool_gb": emb.numel() * 4 / 1e9, "embed_seconds": embed_s,
-          **problem, **knobs, "kernel_seconds": ks, "plain_seconds": ps,
-          "probe_seconds": _span_seconds(kres.telemetry, "mr.probe"),
-          "round1_seconds": r1.seconds, "schedule": r1.attrs["schedule"],
-          "round1_sweeps": r1.attrs["folds"],
-          "round1_launches": r1.attrs["launches"],
-          "probe_rows": int(sub.shape[0]), "sweep_shapes": shapes,
-          "curated": int(len(kidx)), "launches": kl,
-          "agree": {"indices": True},
-          "held_against_plain": {"gmm_topb_probe": len(shapes),
-                                 "gmm_grouped_topb_round1_for_phase_7":
-                                     len(train_b4)}})
-    del kres, pres, runs, sub
+    emit({"phase": "train", "call": "r_curation", "card": card,
+          "init_seconds": init_s, **row})
 
     # (z) training at the model's width on one fixed batch of curated rows
     B = sz["batch"]
@@ -4196,26 +4385,8 @@ def phase_train(device, seed: int, errs, diffs, card: str = "",
              "labels": rows[:, 1:].contiguous()}
     S = batch["tokens"].shape[1]
     p0 = clone(params)
-    marks = _Marks(device)
-    opt = _TimedUpdate(AdamW(), marks)
-    if cuda:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated() / 1e9 if cuda else None
-    state = opt.init(params)
-    step = make_train_step(cfg, launcher.RULES, opt, lambda s: TRAIN_LR)
-    losses, step_ms, grad_ms, upd_ms = [], [], [], []
-    for i in range(sz["steps"]):
-        a = marks.mark()
-        params, state, m = step(params, state, batch, i)
-        b = marks.mark()
-        sync()
-        u0, u1 = opt.spans[-1]
-        step_ms.append(marks.ms(a, b))
-        grad_ms.append(marks.ms(a, u0))
-        upd_ms.append(marks.ms(u0, u1))
-        losses.append(float(m["loss"]))
-    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    losses, step_ms, grad_ms, upd_ms, peak, held = _adamw_steps(
+        cfg, params, batch, sz["steps"], device)
     if not losses[-1] < losses[0]:
         fail(f"train (z): the loss did not fall: {losses}")
     n_params = M.count_params(cfg)
@@ -4240,7 +4411,7 @@ def phase_train(device, seed: int, errs, diffs, card: str = "",
           "allocated_before_state_gb": held,
           "reckoned_state_gb": state_gb,
           "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
-    del state, params, opt, m
+    del params
     if cuda:
         torch.cuda.empty_cache()
 
@@ -4427,6 +4598,658 @@ def phase_train(device, seed: int, errs, diffs, card: str = "",
                                 "step_s": statistics.median(step_ms) / 1e3}
 
 
+# --------------------------------------------------------------------------
+# phase 15: the MoE family, serving and training
+# --------------------------------------------------------------------------
+
+# (moe'): one MoE layer in fp32 on the card against the CPU, outputs at
+# this rtol and an atol of it times the largest entry (cuBLAS and the
+# CPU's BLAS sum the products over D = 1,024 and F = 512 in other orders)
+MOE_LAYER_RTOL = 1e-4
+
+
+def moe_sizes(full: bool):
+    """Sizes of phase 15: the model, the engine's slots, cache and
+    requests, the drop-free consistency call (rows, tokens), the single
+    layer's tokens, the candidate windows and the session reranker's k and
+    k', the curation's pool, k, reducers and k', the training batch and
+    steps, the drop-free accumulation batch (rows, tokens), and the arctic
+    check's prompt."""
+    if full:
+        return {"arch": "granite-moe-1b-a400m", "reduced": False,
+                "batch": 8, "capacity": 128, "requests": 32, "prompt": 64,
+                "new": 32, "consistency": (2, 16), "layer_tokens": (8, 128),
+                "windows": 1024, "window": 16, "k": 16, "kprime": 64,
+                "curate": {"pool": 65536, "pool_len": 129, "k": 1024,
+                           "reducers": 16, "kprime": 128},
+                "train_batch": 8, "steps": 12, "accum": (2, 16),
+                "arctic": (2, 16)}
+    return {"arch": "granite-moe-1b-a400m", "reduced": True, "batch": 4,
+            "capacity": 32, "requests": 8, "prompt": 8, "new": 6,
+            "consistency": (2, 8), "layer_tokens": (4, 16), "windows": 64,
+            "window": 8, "k": 4, "kprime": 16,
+            "curate": {"pool": 2048, "pool_len": 17, "k": 64, "reducers": 4,
+                       "kprime": 32},
+            "train_batch": 4, "steps": 12, "accum": (2, 8),
+            "arctic": (2, 8)}
+
+
+class _Dispatches:
+    """While active, ``moe._dispatch_local`` (which the MoE layer looks up
+    at every call) is wrapped: each call's tokens, assignments and dropped
+    assignments (a device tensor, read after the run) are kept, and with
+    ``routing`` its router logits and its dispatch table.  With ``force``
+    (a list of (N, k) expert ids, one a call in order), call i routes each
+    token to the experts ``force[i]`` names: one constant, larger than the
+    spread of the call's logits, is added to those logits, so the top-k
+    picks them, and the gates, a softmax of the picked values, do not move
+    with it (nor does the logits' gradient); the logits recorded are the
+    layer's own."""
+
+    def __init__(self, routing: bool = False, force=None):
+        self.routing, self.force, self.calls = routing, force, []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self._moe, self._real = moe, moe._dispatch_local
+
+        def record(xf, logits, E_range, cfg):
+            own = logits.detach()
+            if self.force is not None:
+                top = self.force[len(self.calls)].to(logits.device)
+                big = float(own.max() - own.min()) + 1.0
+                logits = logits + torch.zeros_like(logits).scatter_(
+                    1, top, big)
+            buf, meta = self._real(xf, logits, E_range, cfg)
+            keep = meta[0]
+            call = {"tokens": xf.shape[0], "assignments": keep.numel(),
+                    "dropped": (~keep).sum()}
+            if self.routing:
+                call["logits"] = own
+                call["table"] = _dispatch_table(
+                    torch.topk(logits, cfg.num_experts_per_tok).indices,
+                    meta, cfg.num_experts)
+            self.calls.append(call)
+            return buf, meta
+        moe._dispatch_local = record
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._dispatch_local = self._real
+
+    def dropped(self, tokens=None):
+        """Dropped assignments of each call (of ``tokens`` tokens)."""
+        return [int(c["dropped"]) for c in self.calls
+                if tokens is None or c["tokens"] == tokens]
+
+
+def _routing_partings(la, lb, k: int):
+    """The tokens whose top-k expert sets differ between the router logits
+    ``la`` and ``lb`` (N, E) of the same layer, each held as a proven
+    near-tie: on both sides the gap between its k-th and (k+1)-th logit is
+    no larger than the largest logit difference between the two over the
+    tokens that agree.  Returns (the differing tokens' mask, that bound,
+    their gaps, whether every one is such a tie)."""
+    import torch
+    la, lb = la.double().cpu(), lb.double().cpu()
+    sets = [torch.topk(v, k).indices.sort(-1).values for v in (la, lb)]
+    differ = (sets[0] != sets[1]).any(-1)
+    agree = ~differ
+    bound = float((la - lb).abs()[agree].max()) if bool(agree.any()) \
+        else float("inf")
+    tops = [torch.topk(v, k + 1).values for v in (la, lb)]
+    gaps = [max(float(v[t, k - 1] - v[t, k]) for v in tops)
+            for t in differ.nonzero().flatten().tolist()]
+    return differ, bound, gaps, all(g <= bound for g in gaps)
+
+
+def _dispatch_table(top_i, meta, E: int):
+    """A layer's dispatch as an (N, E) table on the host, whatever the
+    order of a token's slots: -1 where the token does not route to the
+    expert, its row in the expert's buffer where kept, C where dropped
+    (a token holds at most one slot an expert, so its ranks do not depend
+    on its slots' order)."""
+    import torch
+    keep, _, dest_c, _, C = meta
+    N, k = top_i.shape
+    val = torch.where(keep, dest_c, C).view(N, k).long()
+    table = torch.full((N, E), -1, dtype=torch.long, device=top_i.device)
+    return table.scatter_(1, top_i.long(), val).cpu()
+
+
+def _dispatch_compared(ta, tb, la, lb, differ, k: int):
+    """(the (N, E) mask of the table entries two runs must give alike,
+    the tokens whose output they must give alike): all but a parted
+    token's and, from it on, those of the experts its parting moved in or
+    out (their ranks shift by the moved slot)."""
+    import torch
+    tops = [torch.topk(v.cpu(), k).indices for v in (la, lb)]
+    skip = torch.zeros(ta.shape, dtype=torch.bool)
+    for t in differ.nonzero().flatten().tolist():
+        moved = sorted(set(tops[0][t].tolist()) ^ set(tops[1][t].tolist()))
+        skip[t] = True
+        skip[t:, moved] = True
+    routed = (ta >= 0) | (tb >= 0)
+    return ~skip, ~(skip & routed).any(-1)
+
+
+def _accum_partings(cfg, tree, batch, dt):
+    """The routing partings between the one-batch forward of ``batch`` and
+    its two micro-batches' (rows halved, as ``make_train_step``'s
+    accumulation splits it), layer by layer, on ``tree`` in ``dt``: their
+    count, each checked as a proven near-tie (``_routing_partings``)."""
+    import dataclasses
+
+    import torch
+    import repro_torch.models as M
+    c = dataclasses.replace(cfg, dtype=dt, param_dtype=dt)
+    w = _as_dtype(tree, dt)
+    h = batch["tokens"].shape[0] // 2
+    runs = []
+    for b in (batch, {n: v[:h] for n, v in batch.items()},
+              {n: v[h:] for n, v in batch.items()}):
+        with torch.no_grad(), _Dispatches(routing=True) as rec:
+            M.loss_fn(w, c, None, b)
+        runs.append([cl["logits"] for cl in rec.calls])
+    del w
+    partings, proven, bound = 0, True, 0.0
+    for whole, a, b in zip(*runs):
+        differ, bd, _, ok = _routing_partings(whole, torch.cat([a, b]),
+                                              cfg.num_experts_per_tok)
+        partings += int(differ.sum())
+        proven &= ok
+        bound = max(bound, bd)
+    return {"near_ties": partings, "all_proven": proven,
+            "largest_bound": bound}
+
+
+def _moe_gradient_witness(cfg, tree, batch):
+    """(z'_moe): the fp32 gradient (the weights upcast) against the float64
+    one of the same weights, block by block (the embedding, each layer
+    group, the final norm), the relative Frobenius error; the bf16
+    gradient's too.  Routing is discrete: at this width the random model
+    carries fp32 rounding through the layers far enough that a free fp32
+    forward routes a quarter of the tokens apart from the float64 one (the
+    first card run), and gradients of two routings are gradients of two
+    functions.  So the fp32 and bf16 runs take the float64 run's routing
+    (``_Dispatches(force=...)``), and each layer's own fp32 logits are
+    held to the float64 ones: a token they would route apart must be a
+    proven near-tie (``_routing_partings``), counted; the free fp32
+    forward's partings are printed beside.  No central difference: a step
+    along a direction can cross a routing boundary, and the difference is
+    then not the gradient.  ``remat`` is set to none (the gradients are
+    equal bit for bit in every mode, ``tests/test_torch_moe.py``), so the
+    dispatch runs once a layer.  Planted fault: layer group 0's expert
+    gradients doubled in the fp32 gradient.  Returns a dict of the
+    readings."""
+    import dataclasses
+
+    import torch
+    import repro_torch.models as M
+    from repro_torch.train import make_loss
+    from repro_torch.train.step import _value_and_grad
+    cfg = dataclasses.replace(cfg, remat="none")
+    L, k = cfg.num_layers, cfg.num_experts_per_tok
+    layer_names = sorted(tree["layers"])
+    experts = [i for i, n in enumerate(layer_names)
+               if n in ("e_gate", "e_up", "e_down")]
+    grads, routes, force = {}, {}, None
+    for name, dt in (("float64", torch.float64), ("fp32", torch.float32),
+                     ("bf16", cfg.dtype)):
+        c = dataclasses.replace(cfg, dtype=dt, param_dtype=dt)
+        w = _as_dtype(tree, dt)
+        with _Dispatches(routing=True, force=force) as rec:
+            loss, g = _value_and_grad(make_loss(c, None), w, batch)
+        if name == "fp32":
+            with torch.no_grad(), _Dispatches(routing=True) as free:
+                M.loss_fn(w, c, None, batch)
+            routes["fp32_free"] = [cl["logits"] for cl in free.calls]
+            del free
+        del w
+        grads[name] = (float(loss), dict(_blocks(g)))
+        routes[name] = [cl["logits"] for cl in rec.calls]
+        if force is None:
+            force = [torch.topk(v, k).indices for v in routes[name]]
+            dropped = sum(rec.dropped())
+        del g, rec
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    g64 = grads["float64"][1]
+    norm64 = {n: float(torch.sqrt(sum((x.double() ** 2).sum() for x in gs)))
+              for n, gs in g64.items()}
+
+    def frob(gs, n, scale=None):
+        num = sum(float(((x.double() * (scale[i] if scale else 1.0)
+                          - r.double()) ** 2).sum())
+                  for i, (x, r) in enumerate(zip(gs, g64[n])))
+        return num ** 0.5 / norm64[n]
+    out = {"loss": {n: v[0] for n, v in grads.items()},
+           "frob": {name: {n: frob(gs, n) for n, gs in grads[name][1].items()}
+                    for name in ("fp32", "bf16")}}
+    scale = [2.0 if i in experts else 1.0 for i in range(len(layer_names))]
+    out["planted_fp32_layer_0_experts_doubled"] = frob(
+        grads["fp32"][1]["layers[0]"], "layers[0]", scale)
+    out["expert_share_of_layer_0_norm"] = float(torch.sqrt(sum(
+        (g64["layers[0]"][i].double() ** 2).sum() for i in experts))) \
+        / norm64["layers[0]"]
+    out["routing"] = {"layers": L, "routings": L * len(force[0]),
+                      "dropped_float64": dropped}
+    for name in ("fp32", "bf16", "fp32_free"):
+        per, bounds, gaps, proven = [], [], [], True
+        for mine, ref in zip(routes[name], routes["float64"]):
+            differ, bound, g, ok = _routing_partings(mine, ref, k)
+            per.append(int(differ.sum()))
+            bounds.append(bound)
+            gaps.extend(g)
+            proven &= ok
+        out["routing"][name] = {"near_ties": sum(per), "per_layer": per,
+                                "all_proven": proven,
+                                "largest_bound": max(bounds),
+                                "bound_per_layer": bounds,
+                                "largest_tie_gap": max(gaps, default=0.0)}
+    return out
+
+
+def phase_moe(device, seed: int, errs, diffs, card: str = "",
+              full: bool = True, check_launches: bool = True, out=None):
+    """Phase 15: the MoE family at granite-moe-1b-a400m's full width, every
+    token id drawn on the host (fingerprints printed).  (o_moe) the engine
+    twice, traced then not; (o'_moe) decode from the cache against the
+    full forward at a drop-free size; (moe') one MoE layer on the card
+    against the CPU; (r_moe) curation through the model's table (B1 probe,
+    B4 round 1); (q_moe) ``generate_diverse`` into the session reranker
+    (B3, B4); (z_moe) AdamW steps, their bounds, peak memory and the
+    accumulation witness at a drop-free size; (z'_moe) the gradient
+    witness; arctic-480b reduced (the dense-residual branch): a forward
+    against the CPU's and decode from the cache.  With ``out``, one (q_moe)
+    group and one (z_moe) step are profiled.  Returns (launches, B4 cases
+    for phase 7)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import repro_torch.models as M
+    from repro_torch.configs import get_config
+    from repro_torch.data import embed_examples
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import moe
+    from repro_torch.models.common import rms_norm
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.train import AdamW, make_train_step
+    from repro_torch.tree import tree_items, tree_map
+    sz = moe_sizes(full)
+    cfg = get_config(sz["arch"], reduced=sz["reduced"])
+    R, B, new, P = sz["requests"], sz["batch"], sz["new"], sz["prompt"]
+    L, k = cfg.num_layers, cfg.num_experts_per_tok
+    launches = dict.fromkeys(KERNELS, 0)
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def count(got):
+        for k_, v in got.items():
+            launches[k_] += v
+
+    def prints(t):
+        t = torch.as_tensor(t)
+        return {"shape": list(t.shape), "sum": int(t.long().sum()),
+                "head": t.reshape(-1)[:6].tolist()}
+
+    # (o_moe) the engine
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed, device=device)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = M.count_params(cfg)
+    ratio = M.active_param_ratio(cfg)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for _, t in tree_items(model))
+    rng = np.random.default_rng(seed + 59)
+    prompts = [rng.integers(1, cfg.vocab_size, size=P).astype(np.int32)
+               for _ in range(R)]
+
+    def requests():
+        return [Request(prompt=p, max_new_tokens=new) for p in prompts]
+
+    engine = ServingEngine(cfg, serve_launcher.RULES, model, batch=B,
+                           capacity=sz["capacity"])
+    rec = _Dispatches()
+    first, traced_s, wall, tr = _engine_twice(engine, requests,
+                                              "moe (o_moe)", record=rec)
+    nk = B * P * k
+    pre = rec.dropped(tokens=B * P)
+    pre = [pre[i:i + L] for i in range(0, len(pre), L)]
+    prefill = [sp.seconds for sp in _spans(tr, "serving.prefill")]
+    decode = [sp.seconds * 1e3 for sp in _spans(tr, "serving.decode")]
+    emit({"phase": "moe", "call": "o_moe_engine", "card": card,
+          "arch": cfg.arch, "params": n_params, "active_param_ratio": ratio,
+          "active_params": n_params * ratio, "dtype": "bfloat16",
+          "router_dtype": str(model["layers"]["router"].dtype),
+          "init_seconds": init_s, "requests": R, "batch": B,
+          "capacity": sz["capacity"], "prompt_tokens": P, "new_tokens": new,
+          "prompts": prints(np.stack(prompts)),
+          "groups": len(prefill), "prefill_seconds": prefill,
+          "prefill_bound_ms": 2 * n_params * ratio * B * P / BF16_FLOPS
+          * 1e3, "prefill_bound_by": "operations (active params)",
+          "decode_ms": {"median": statistics.median(decode),
+                        "min": min(decode), "max": max(decode),
+                        "steps": len(decode)},
+          "decode_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+          "decode_bound_by": "bytes (every weight read once a step: each "
+                             "expert's capacity buffer goes through the "
+                             "batched products)",
+          "weight_bytes": weight_bytes,
+          "prefill_capacity": moe.capacity(cfg, B * P),
+          "prefill_mean_load": B * P * k / cfg.num_experts,
+          "prefill_dropped": [{"dropped": sum(d), "of": L * nk,
+                               "largest_layer": max(d), "of_a_layer": nk}
+                              for d in pre],
+          "decode_dropped": sum(rec.dropped(tokens=B)),
+          "traced_seconds": traced_s, "untraced_seconds": wall,
+          "generated_tokens_per_s": R * new / wall,
+          "same_tokens_two_runs": True})
+    del rec, tr
+
+    # (o'_moe) decode from the cache against the full forward, at B x S
+    # tokens few enough that no call drops (C >= min(N, 4) topk >= N)
+    cb, cs = sz["consistency"]
+    toks = torch.as_tensor(np.stack([p[:cs] for p in prompts[:cb]]),
+                           device=device)
+    with _Dispatches() as rec:
+        row, ok = _cache_consistency(model, cfg, toks, sz["capacity"], None)
+    dropped = sum(rec.dropped())
+    emit({"phase": "moe", "call": "o_prime_moe_cache_consistency",
+          "card": card, **row, "dispatch_calls": len(rec.calls),
+          "dropped": dropped})
+    if not ok or dropped:
+        fail(f"moe (o'_moe): decode from the cache disagrees with the full "
+             f"forward, or a call dropped ({dropped}): {row}")
+    del rec
+
+    # (moe') one MoE layer, the card against the CPU, from the same fp32
+    # inputs (layer 0's weights, normed table rows of host-drawn tokens), at
+    # the config's capacity factor and at 0.5, where drops are sure
+    lb, ls = sz["layer_tokens"]
+    ltoks = zipf_tokens((lb, ls), cfg.vocab_size, seed + 61, "cpu",
+                        host=True)
+    lw = {n: model["layers"][n][0, 0].float().cpu()
+          for n in ("ln2", "router", "e_gate", "e_up", "e_down")}
+    x = rms_norm(model["embed"].cpu()[ltoks.long()].float(), lw["ln2"])
+    for cf in (cfg.capacity_factor, 0.5):
+        c32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                  param_dtype=torch.float32,
+                                  capacity_factor=cf)
+        sides = {}
+        for side, dev in (("cpu", "cpu"), ("card", device)):
+            with _Dispatches(routing=True) as rec:
+                y = moe.moe_mlp(x.to(dev), lw["router"].to(dev),
+                                *(lw[n].to(dev) for n in ("e_gate", "e_up",
+                                                          "e_down")),
+                                c32, None)
+            sides[side] = (y.cpu(), rec.calls[0])
+        (yc, cc), (yg, cg) = sides["cpu"], sides["card"]
+        differ, bound, gaps, ties_ok = _routing_partings(cc["logits"],
+                                                         cg["logits"], k)
+        same, rows = _dispatch_compared(cc["table"], cg["table"],
+                                        cc["logits"], cg["logits"], differ,
+                                        k)
+        equal = torch.equal(cc["table"][same], cg["table"][same])
+        rows = rows.view(lb, ls)
+        err = float((yg - yc).abs()[rows].max())
+        scale = float(yc.abs().max())
+        close = bool(((yg - yc).abs()[rows] <= MOE_LAYER_RTOL * scale
+                      + MOE_LAYER_RTOL * yc.abs()[rows]).all())
+        drops = int(cc["dropped"])
+        emit({"phase": "moe", "call": "moe_prime_layer_card_vs_cpu",
+              "card": card, "capacity_factor": cf, "tokens": lb * ls,
+              "d": cfg.d_model, "experts": cfg.num_experts, "topk": k,
+              "capacity": moe.capacity(c32, lb * ls),
+              "tokens_drawn": prints(ltoks),
+              "dropped": {"cpu": drops, "card": int(cg["dropped"])},
+              "of": lb * ls * k, "near_ties": int(differ.sum()),
+              "near_tie_bound": bound, "near_tie_gaps": gaps,
+              "dispatch_equal_but_ties": equal,
+              "rows_compared": int(rows.sum()), "max_abs_err": err,
+              "out_max_abs": scale, "rtol": MOE_LAYER_RTOL,
+              "atol": MOE_LAYER_RTOL * scale, "ok": close})
+        if not (ties_ok and equal and close) or (cf == 0.5 and drops == 0):
+            fail(f"moe (moe'): the layer's dispatch or output parts between "
+                 f"the card and the CPU beyond a proven near-tie, or nothing "
+                 f"dropped at capacity factor 0.5: ties {ties_ok} dispatch "
+                 f"{equal} output {err} drops {drops}")
+        del sides, cc, cg
+    del x, lw
+
+    # (r_moe) curation through granite's table
+    curated, kl, moe_b4, row = _curate(cfg, model, sz["curate"], seed + 3,
+                                       device, errs, check_launches,
+                                       "moe (r_moe)")
+    count(kl)
+    emit({"phase": "moe", "call": "r_moe_curation", "card": card, **row})
+
+    # (q_moe) serve-then-diversify, one session a request
+    W = sz["windows"]
+    windows = zipf_tokens((R * W, sz["window"]), cfg.vocab_size, seed + 67,
+                          device, host=True)
+    cands = embed_examples(windows, embedding=model["embed"],
+                           dim=cfg.d_model)
+    wprint = prints(windows.cpu())
+    del windows
+    kout, kl, group_s, row = _diverse_runs(
+        cfg, model, _diverse_requests(prompts, cands, W, new, 0, R), sz,
+        device, check_launches, "moe (q_moe)")
+    count(kl)
+    emit({"phase": "moe", "call": "q_moe_generate_diverse", "card": card,
+          "requests": R, "candidates": W, "window_tokens": sz["window"],
+          "windows": wprint, "d": cfg.d_model, "k": sz["k"],
+          "kprime": sz["kprime"], "metric": "cosine", **row})
+    cap = sz["kprime"] + 1
+    tile = f"moe (q_moe) reranker tile {W}x{cap}x{cfg.d_model} cosine"
+    check_pairwise(cands[:W], cands[W:W + cap], "cosine", errs,
+                   diffs["pairwise"], tile)
+    sess = cands[:B * cap].clone()
+    moe_b4.append((f"moe (q_moe) fused solve of {B} sessions", sess,
+                   "cosine", contiguous_labels(B * cap, B, sess.device), B,
+                   1, 1))
+    group = _diverse_requests(prompts, cands, W, new, 0, B)
+    for r in group:
+        r.candidates = r.candidates.clone()
+    del cands, kout
+
+    # (z_moe) AdamW steps at full width on one fixed batch of curated rows
+    TB = sz["train_batch"]
+    pick = torch.randperm(curated.shape[0], generator=torch.Generator(
+        ).manual_seed(seed + 71))[:TB].to(curated.device)
+    trows = curated[pick]
+    batch = {"tokens": trows[:, :-1].contiguous(),
+             "labels": trows[:, 1:].contiguous()}
+    S = batch["tokens"].shape[1]
+    p0 = tree_map(lambda t: t.clone(), model)
+    with torch.no_grad(), _Dispatches() as rec:
+        M.loss_fn(p0, cfg, None, batch)
+    batch_drops = rec.dropped()
+    del rec, engine
+    params = model
+    del model
+    before_steps = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    losses, step_ms, grad_ms, upd_ms, peak, held = _adamw_steps(
+        cfg, params, batch, sz["steps"], device)
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+    if not losses[-1] < losses[0]:
+        fail(f"moe (z_moe): the loss did not fall: {losses}")
+    ops_ms, ops_parts, upd_bound = train_bounds(cfg, TB, S)
+
+    def spread(v):
+        return {"median": statistics.median(v), "min": min(v), "max": max(v)}
+    emit({"phase": "moe", "call": "z_moe_train_steps", "card": card,
+          "arch": cfg.arch, "params": n_params, "active_params":
+          n_params * ratio, "dtype": "bfloat16", "remat": cfg.remat,
+          "optimizer": "AdamW(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)",
+          "lr": TRAIN_LR, "batch": TB, "seq": S, "steps": sz["steps"],
+          "losses": losses, "batch_tokens": prints(batch["tokens"].cpu()),
+          "batch_dropped": {"dropped": sum(batch_drops),
+                            "of": L * TB * S * k,
+                            "capacity": moe.capacity(cfg, TB * S)},
+          "step_ms": spread(step_ms), "grad_ms": spread(grad_ms),
+          "update_ms": spread(upd_ms),
+          "step_bound_ms": ops_ms, "step_bound_by": "operations",
+          "step_bound_parts": ops_parts,
+          "update_bound_ms": upd_bound, "update_bound_by": "bytes",
+          "tokens_per_s": TB * S / (statistics.median(step_ms) / 1e3),
+          "max_memory_allocated_gb": peak,
+          "allocated_before_state_gb": held,
+          "reckoned_state_gb": n_params * (2 + 2 + 12) / 1e9,
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+
+    # accumulation over 2 micro-batches against one batch, at a drop-free
+    # size: the one-batch call's N tokens and each micro-batch's both <= 32
+    ab, as_ = sz["accum"]
+    small = {n: v[:ab, :as_].contiguous() for n, v in batch.items()}
+    dts = (("float64", torch.float64), ("fp32", torch.float32),
+           ("bf16", cfg.dtype))
+    with _Dispatches() as rec:
+        wit = _accum_witness(cfg, p0, small, dts)
+    dropped = sum(rec.dropped())
+    limits = {"float64": ACCUM_GRAD_RTOL_F64, **ACCUM_GRAD_RTOL}
+    read = {name: {"accum_max": max(r["accum"]),
+                   "accum_median": statistics.median(r["accum"]),
+                   "control_min": min(r["control"]),
+                   "control_max": max(r["control"]),
+                   "limit": limits[name],
+                   "routing_partings": _accum_partings(cfg, p0, small, dt)}
+            for (name, r), (_, dt) in zip(wit.items(), dts)}
+    ok = dropped == 0 and all(
+        r["control_max"] > r["limit"] and r["routing_partings"]["all_proven"]
+        and (r["accum_max"] <= r["limit"] or name == "fp32"
+             and r["routing_partings"]["near_ties"] > 0)
+        for name, r in read.items())
+    emit({"phase": "moe", "call": "z_moe_accumulation_gradients",
+          "card": card, "rows": ab, "tokens": as_,
+          "leaves": len(wit["fp32"]["accum"]), "dispatch_calls":
+          len(rec.calls), "dropped": dropped,
+          "measure": "per-leaf relative Frobenius error against the "
+                     "one-batch gradient", "control": "the first "
+          "micro-batch's gradient alone", "readings": read, "ok": ok})
+    if not ok:
+        fail(f"moe (z_moe): the accumulated gradients part from the "
+             f"one-batch ones beyond their limit, the control does not, a "
+             f"routing parting is no near-tie, or a call dropped "
+             f"({dropped}): {read}")
+    del wit, rec
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (z'_moe) the gradient witness on the same weights, upcast, on the
+    # model cut to its first layers (held at one layer, printed at each
+    # depth up to the whole model: the random MoE model is chaotic through
+    # its gates, and the fp32 and float64 forwards part with depth)
+    t0 = time.perf_counter()
+    depths = [d for d in WITNESS_DEPTHS if d < L] + [L]
+    by_depth = []
+    for depth in depths:
+        m_d, c_d = _first_layers(p0, cfg, depth)
+        wit = _moe_gradient_witness(c_d, m_d, batch)
+        r = wit["routing"]
+        by_depth.append({
+            "layers": depth, "loss": wit["loss"],
+            "block_rel_frobenius_against_float64": {
+                name: {"max": max(v.values()),
+                       "median": statistics.median(v.values()),
+                       "argmax": max(v, key=v.get)}
+                for name, v in wit["frob"].items()},
+            "planted_fp32_layer_0_experts_doubled":
+                wit["planted_fp32_layer_0_experts_doubled"],
+            "expert_share_of_layer_0_norm":
+                wit["expert_share_of_layer_0_norm"],
+            "dropped_float64": r["dropped_float64"],
+            "routings": r["routings"],
+            "near_ties": {name: {f: r[name][f] for f in
+                                 ("near_ties", "all_proven",
+                                  "largest_bound", "largest_tie_gap")}
+                          for name in ("fp32", "fp32_free", "bf16")},
+            "fp32_near_ties_per_layer": r["fp32"]["per_layer"],
+            "fp32_bound_per_layer": r["fp32"]["bound_per_layer"]})
+        del m_d, wit
+    one = by_depth[0]
+    frob32 = one["block_rel_frobenius_against_float64"]["fp32"]["max"]
+    planted = one["planted_fp32_layer_0_experts_doubled"]
+    ok = (frob32 <= GRAD32_RTOL < planted
+          and one["near_ties"]["fp32"]["all_proven"])
+    emit({"phase": "moe", "call": "z_prime_moe_gradient_witness",
+          "card": card, "seconds": time.perf_counter() - t0,
+          "tokens": int(batch["tokens"].numel()),
+          "blocks": "embed, final_norm, each layer group",
+          "held_at_layers": one["layers"], "bound": GRAD32_RTOL,
+          "routing": "fp32 and bf16 take the float64 run's routing; the "
+                     "fp32 run's own logits' partings must be proven "
+                     "near-ties; fp32_free is a free fp32 forward's",
+          "by_depth": by_depth, "ok": ok})
+    if not ok:
+        fail(f"moe (z'_moe): at one layer the fp32 gradient parts from the "
+             f"float64 one ({frob32} against {GRAD32_RTOL}), the planted "
+             f"fault reads inside ({planted}), or a routing parting is no "
+             f"near-tie {one['near_ties']}")
+    del by_depth
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # what phase 8 would profile: one (q_moe) group and one (z_moe) step
+    if out is not None:
+        phase_profile(lambda: ServingEngine(
+            cfg, serve_launcher.RULES, p0, batch=B, capacity=sz["capacity"],
+            reranker=_reranker(cfg, sz, device, "auto")).generate_diverse(
+                [Request(prompt=r.prompt, max_new_tokens=new,
+                         session=r.session, candidates=r.candidates)
+                 for r in group]), "moe_q_group", out,
+            statistics.median(group_s["kernel"]))
+        st = AdamW().init(p0)
+        fn = make_train_step(cfg, train_launcher.RULES, AdamW(),
+                             lambda s: TRAIN_LR)
+        phase_profile(lambda: fn(p0, st, batch, 0), "moe_z_step", out,
+                      statistics.median(step_ms) / 1e3)
+        del st, fn
+    del p0, group, batch, curated
+    if cuda:
+        torch.cuda.empty_cache()
+    peak_phase = max(before_steps, torch.cuda.max_memory_allocated() / 1e9) \
+        if cuda else None
+
+    # arctic-480b reduced: the dense-residual branch on the device, its
+    # forward against the same weights' on the CPU and decode from the cache
+    acfg = get_config("arctic-480b", reduced=True)
+    am = M.init_params(acfg, seed, device=device)
+    ab, as_ = sz["arctic"]
+    atoks = zipf_tokens((ab, as_), acfg.vocab_size, seed + 73, device,
+                        host=True)
+    got = _logits(am, acfg, atoks)
+    want = _logits(tree_map(lambda t: t.cpu(), am), acfg, atoks.cpu())
+    err_cpu, ok_cpu = _excess(got.cpu(), want, LOGITS_TOL)
+    row, ok = _cache_consistency(am, acfg, atoks, as_ + 8, LOGITS_TOL)
+    emit({"phase": "moe", "call": "arctic_reduced", "card": card,
+          "arch": acfg.arch, "params": M.count_params(acfg),
+          "dense_residual_ff": acfg.moe_dense_ff,
+          "tokens": prints(atoks.cpu()),
+          "forward_vs_cpu": {"max_abs_err": err_cpu, "rtol": LOGITS_TOL,
+                             "atol": LOGITS_TOL, "ok": ok_cpu}, **row})
+    if not (ok and ok_cpu):
+        fail(f"moe arctic reduced: the forward parts from the CPU's "
+             f"({err_cpu}) or decode from the cache from the full forward "
+             f"{row}")
+    del am
+    emit({"phase": "moe", "phase_seconds": time.perf_counter() - t_phase,
+          "max_memory_allocated_gb": peak_phase, "launches": launches})
+    return launches, moe_b4
+
+
 def probe_only(seed: int, runs: int) -> int:
     """Call (i) ``runs`` times with the kernels: its ``mr.probe`` span and
     call seconds and its B1 launches, one JSON line a run."""
@@ -4463,7 +5286,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse", action="store_true",
-                    help="tiny CPU run of phases 2-6 and 9-14 with the "
+                    help="tiny CPU run of phases 2-6 and 9-15 with the "
                          "plain versions")
     ap.add_argument("--probe-only", type=int, default=0, metavar="RUNS",
                     help="run call (i) RUNS times on the card, print its "
@@ -4511,8 +5334,10 @@ def main(argv=None) -> int:
                                      full=False, check_launches=False)
         _, train_b4, _ = phase_train("cpu", args.seed, errs, diffs,
                                      full=False, check_launches=False)
-        phase_times_round1(mesh_b4 + serve_b4 + train_b4, args.seed, errs,
-                           diffs, timed=False)
+        _, moe_b4 = phase_moe("cpu", args.seed, errs, diffs, full=False,
+                              check_launches=False)
+        phase_times_round1(mesh_b4 + serve_b4 + train_b4 + moe_b4,
+                           args.seed, errs, diffs, timed=False)
         emit({"phase": "rehearsal", "ok": True})
         return 0
 
@@ -4638,8 +5463,25 @@ def main(argv=None) -> int:
     for k, v in t_launches.items():
         launches[k] += v
     torch.cuda.empty_cache()
+    # phase 8's trace of one (z) step, taken here so that phase 15 does not
+    # sit beside phase 14's model and optimizer state
+    phase_profile(train_keep["profile"](), "train_z_step", out,
+                  train_keep["step_s"])
+    del train_keep
+    torch.cuda.empty_cache()
     emit({"phase": "train", "script_seconds_so_far":
           time.perf_counter() - t_start})
+
+    # ---- 15. MoE -----------------------------------------------------------
+    t0 = time.perf_counter()
+    x_launches, moe_b4 = phase_moe("cuda", args.seed, errs, diffs, card=card,
+                                   out=out)
+    for k, v in x_launches.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    emit({"phase": "moe", "phase_seconds": time.perf_counter() - t0,
+          "script_seconds_so_far": time.perf_counter() - t_start,
+          "pr21_run_f_script_seconds": 404})
 
     # ---- 7. times, 8. profile ---------------------------------------------
     rows = phase_times(x, args.seed)
@@ -4649,16 +5491,18 @@ def main(argv=None) -> int:
     b4_cases = set(diffs["gmm_grouped_topb"])
     requests = serving.pop("serving")
     phase_times_round1(round1_cases(x, sphere, genres, serving=requests,
-                                    mesh=mesh_b4 + serve_b4 + train_b4),
+                                    mesh=mesh_b4 + serve_b4 + train_b4
+                                    + moe_b4),
                        args.seed, errs, diffs)
-    del serve_b4, train_b4
+    del serve_b4, train_b4, moe_b4
     (out / "kernel_differing_entries.json").write_text(
         json.dumps(diffs, indent=1))
     round1 = {c: v for c, v in diffs["gmm_grouped_topb"].items()
               if c not in b4_cases}
     emit({"phase": "differing_entries", "kernel": "gmm_grouped_topb",
           "at": "round-1 (simulated and mesh) and serving shapes, "
-                "phase 13's pool and fused solve, phase 14's curation",
+                "phase 13's pool and fused solve, phase 14's curation, "
+                "phase 15's curation and fused solve",
           "cases": len(round1),
           "counts": list(round1.values())})
     far = x.shape[0] // 2
@@ -4702,10 +5546,6 @@ def main(argv=None) -> int:
                   serve_keep["group_s"])
     del serve_keep
     torch.cuda.empty_cache()
-    phase_profile(train_keep["profile"](), "train_z_step", out,
-                  train_keep["step_s"])
-    del train_keep
-    torch.cuda.empty_cache()
     pick = {"gmm_topb": next(r for r in rows if r["b"] == 8 and r["p"] == 128),
             "gmm_update_select": next(r for r in rows if r["b"] == 1
                                       and r["p"] == 1),
@@ -4723,7 +5563,8 @@ def main(argv=None) -> int:
         fail("the port pulled in jax or the reference package")
     emit({"phase": "memory",
           "max_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "script_seconds": time.perf_counter() - t_start})
+          "script_seconds": time.perf_counter() - t_start,
+          "pr21_run_f_script_seconds": 404})
     print(card, flush=True)
     emit({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],

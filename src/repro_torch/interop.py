@@ -9,7 +9,7 @@ the port's types, and ``stream_from_reference`` the reference's
 ``StreamingCoreset.state_dict()`` into a live port stream; ``to_numpy`` goes the other way, to plain numpy arrays and dataclass fields
 (for a stream, the ``(arrays, meta)`` pair the reference's
 ``StreamingCoreset.from_state_dict`` takes).  ``params_from_reference``
-and ``params_to_reference`` carry a dense model's weights between the
+and ``params_to_reference`` carry a dense or MoE model's weights between the
 reference's parameter tree of numpy arrays and the port's tree of
 tensors; ``opt_state_from_reference`` and
 ``opt_state_to_reference`` carry an ``AdamWState`` or ``AdafactorState``.
@@ -162,23 +162,27 @@ def params_from_reference(tree, cfg, device=None):
     """The port's parameter tree (``models.init_params``'s) holding the
     weights of the reference's parameter tree ``{"embed", "final_norm",
     "layers": {...}, ["head"]}`` (arrays read as numpy: float32, or a dtype
-    named ``bfloat16``, read by its bits), cast to ``cfg.param_dtype`` on
+    named ``bfloat16``, read by its bits), each leaf cast to the dtype the
+    model builds it in (``cfg.param_dtype``; the MoE router float32) on
     ``device`` (default: the card; a missing card raises).  bf16 -> f32 ->
     bf16 is exact, so a float32 copy of bf16 weights carries them
     unchanged."""
-    from .models import _dense
+    from .models import _ported, param_shapes
 
-    _dense(cfg)
+    _ported(cfg)
     dev = resolve_device(device)
-    return tree_map(lambda a: _weight_in(a, cfg.param_dtype, dev), tree)
+    return tree_map(lambda a, s: _weight_in(a, s.dtype, dev), tree,
+                    param_shapes(cfg))
 
 
 def params_to_reference(params, dtype=None):
     """The reference's parameter tree of the port's ``params``, as numpy
     arrays: float32 (``dtype=None``, exact for bf16 weights), or the
     bfloat16 numpy dtype the caller passes (e.g. ``jax.numpy.bfloat16``),
-    filled by its bits."""
-    return tree_map(lambda t: _weight_out(t, dtype), params)
+    filled by its bits.  A float32 leaf (the MoE router) stays float32
+    either way, so the round trip is exact."""
+    return tree_map(lambda t: _weight_out(
+        t, None if t.dtype == torch.float32 else dtype), params)
 
 
 # --------------------------------------------------------------------------

@@ -5,6 +5,11 @@ plus diverse re-ranking, on the card unless ``--device cpu``.
         --requests 8 --new-tokens 16 --diverse-k 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
         --reduced --device cpu --diverse-k 4
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-1b-a400m --requests 8 --new-tokens 16
+
+``--arch`` takes the dense and MoE families (the others raise naming
+their ROADMAP A slice).
 """
 from __future__ import annotations
 

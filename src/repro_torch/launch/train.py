@@ -5,6 +5,11 @@
         --steps 4 --batch 8 --seq 128
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
         --reduced --device cpu --steps 20 [--ckpt-dir DIR]
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch granite-moe-1b-a400m --steps 4 --batch 8 --seq 128
+
+``--arch`` takes the dense and MoE families (the others raise naming
+their ROADMAP A slice).
 
 One process, one device: the reference's single-device path (empty
 sharding rules, ``default_optimizer``, ``default_lr``, and a

@@ -10,8 +10,9 @@ the serving entry points.
   cross-entropy, differentiable in ``params``;
 * ``make_cache``, ``prefill_fn``, ``decode_fn``: the serving callables.
 
-Only the ``dense`` family is ported.  The others raise
-``NotImplementedError`` naming their ROADMAP A slice.
+The ``dense`` and ``moe`` families are ported (one transformer,
+``transformer.build_params``).  The others raise ``NotImplementedError``
+naming their ROADMAP A slice.
 """
 from __future__ import annotations
 
@@ -19,40 +20,42 @@ from typing import Any, Dict
 
 import torch
 
-from ..tree import tree_leaves
+from ..tree import tree_items, tree_leaves
 from . import attention, transformer
 from .common import InitBuilder, ModelConfig, ShapeBuilder, ShardingRules
 
+# the families the port runs, all through ``transformer``
+_PORTED = ("dense", "moe")
 # family -> the ROADMAP A slice that ports it
-_LATER = {"moe": "slice 16c (repro.models.moe)",
-          "ssm": "slice 16d (repro.models.ssd)",
+_LATER = {"ssm": "slice 16d (repro.models.ssd)",
           "hybrid": "slice 16d (repro.models.rglru)",
           "encdec": "slice 16d (repro.models.encdec)",
           "vlm": "slice 16d (repro.models.vlm)"}
 
 
-def _dense(cfg: ModelConfig) -> None:
-    if cfg.family == "dense" and cfg.num_experts == 0:
+def _ported(cfg: ModelConfig) -> None:
+    """Raises unless ``cfg``'s family is one the port runs."""
+    fam = cfg.family
+    if fam in _PORTED:
         return
-    fam = "moe" if cfg.num_experts > 0 else cfg.family
     if fam in _LATER:
         raise NotImplementedError(
             f"the {fam!r} family ({cfg.arch}) is ROADMAP A, {_LATER[fam]}; "
-            "repro_torch ports the dense family so far")
+            "repro_torch ports the dense and moe families so far")
     raise ValueError(fam)
 
 
 def init_params(cfg: ModelConfig, key: int = 0,
                 device=None) -> Dict[str, Any]:
     """A randomly initialized model from the int seed ``key``."""
-    _dense(cfg)
+    _ported(cfg)
     return transformer.build_params(cfg, InitBuilder(key, cfg.param_dtype,
                                                      device=device))
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     """The reference's parameter tree as ``meta`` tensors."""
-    _dense(cfg)
+    _ported(cfg)
     return transformer.build_params(cfg, ShapeBuilder(cfg.param_dtype))
 
 
@@ -61,11 +64,19 @@ def count_params(cfg: ModelConfig) -> int:
 
 
 def active_param_ratio(cfg: ModelConfig) -> float:
-    """active / total params (the reference's MoE top-k accounting); 1.0
-    for a dense model."""
-    if cfg.num_experts:
-        _dense(cfg)          # raises, naming slice 16c (the MoE family)
-    return 1.0
+    """active / total params (the reference's MoE top-k accounting: an
+    expert leaf counts topk / E of its size); 1.0 for a dense model."""
+    if cfg.num_experts == 0:
+        return 1.0
+    total = active = 0
+    for name, leaf in tree_items(param_shapes(cfg)):
+        n = leaf.numel()
+        total += n
+        if any(t in name for t in ("e_gate", "e_up", "e_down")):
+            active += n * cfg.num_experts_per_tok / cfg.num_experts
+        else:
+            active += n
+    return active / total
 
 
 # ---------------------------------------------------------------------------
@@ -88,7 +99,7 @@ def loss_fn(params, cfg: ModelConfig, rules: ShardingRules,
             batch: Dict[str, Any]):
     """Teacher-forced cross-entropy of ``batch["tokens"]`` (B, S) against
     ``batch["labels"]`` (B, S), a 0-dim fp32 tensor."""
-    _dense(cfg)
+    _ported(cfg)
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)
@@ -100,7 +111,7 @@ def make_cache(cfg: ModelConfig, batch: int, capacity: int, *,
                shapes_only: bool = False, split_local_global: bool = False, device=None):
     """A zeroed KV cache in the config's dtype on ``device`` (default the
     card), or ``meta`` tensors with ``shapes_only``."""
-    _dense(cfg)
+    _ported(cfg)
     kw = {"dtype": cfg.dtype, "device": "meta" if shapes_only else device}
     if (split_local_global and cfg.local_global_period == 2
             and capacity > cfg.window > 0):
@@ -119,13 +130,13 @@ def make_cache(cfg: ModelConfig, batch: int, capacity: int, *,
 
 def prefill_fn(params, cfg: ModelConfig, rules: ShardingRules,
                batch: Dict[str, Any], cache):
-    _dense(cfg)
+    _ported(cfg)
     return transformer.prefill(params, cfg, rules, batch["tokens"], cache)
 
 
 def decode_fn(params, cfg: ModelConfig, rules: ShardingRules, tokens, pos,
               cache):
-    _dense(cfg)
+    _ported(cfg)
     return transformer.decode_step(params, cfg, rules, tokens, pos, cache)
 
 

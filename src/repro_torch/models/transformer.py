@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family (port of
+"""Decoder-only transformer LM, dense and MoE families (port of
 ``repro.models.transformer``).
 
 ``build_params`` walks the reference's parameter structure with a
@@ -21,7 +21,13 @@ group drops the bf16 rounding between an add and the fp32 upcast of
 function.  Across the reference's scan carry (a group of ``P`` sublayers)
 the stream is bf16.
 
-``num_experts > 0`` (the MoE family) is ROADMAP A, slice 16c.
+With ``num_experts > 0`` (the MoE family) a layer's MLP is
+``moe.moe_mlp`` over its fp32 ``router`` and stacked experts ``e_gate``,
+``e_up`` (E, D, F) and ``e_down`` (E, F, D); arctic's
+``moe_dense_residual`` adds a dense GLU (``r_gate``, ``r_up``,
+``r_down``) to it in bf16.  That output joins the fp32 residual sum as the
+dense MLP's does (the reference's compiled layer rounds the MoE output
+and the residual sum as it rounds the dense one's).
 """
 from __future__ import annotations
 
@@ -34,9 +40,7 @@ from . import attention as attn
 from .common import (Builder, ModelConfig, ShardingRules, embed_tokens,
                      glu_mlp, lm_head, maybe_remat, plain_mlp, rms_norm,
                      rope_angles, wide)
-
-_MOE_LATER = ("the MoE family (num_experts > 0, repro.models.moe) is "
-              "ROADMAP A, slice 16c; it is not ported to repro_torch yet")
+from .moe import moe_mlp
 
 
 def _group_shape(cfg: ModelConfig):
@@ -49,11 +53,10 @@ def _group_shape(cfg: ModelConfig):
 
 def build_params(cfg: ModelConfig, b: Builder) -> Dict[str, Any]:
     """The reference's parameter tree, built by ``b``, in its order."""
-    if cfg.num_experts > 0:
-        raise NotImplementedError(_MOE_LATER)
     G, P = _group_shape(cfg)
     D, H, KV, hd, F, V = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                           cfg.head_dim, cfg.d_ff, cfg.vocab_size)
+    E = cfg.num_experts
     lp: Dict[str, Any] = {
         "ln1": b("ln1", (G, P, D), (None, None, None), init="zeros"),
         "wq": b("wq", (G, P, D, H, hd), (None, None, "fsdp", "heads", "head_dim")),
@@ -62,7 +65,22 @@ def build_params(cfg: ModelConfig, b: Builder) -> Dict[str, Any]:
         "wo": b("wo", (G, P, H, hd, D), (None, None, "heads", "head_dim", "fsdp")),
         "ln2": b("ln2", (G, P, D), (None, None, None), init="zeros"),
     }
-    if cfg.mlp_type == "plain":
+    if E > 0:
+        lp.update({
+            "router": b("router", (G, P, D, E), (None, None, "fsdp", None),
+                        dtype=torch.float32),
+            "e_gate": b("e_gate", (G, P, E, D, F), (None, None, "experts", "fsdp", None)),
+            "e_up": b("e_up", (G, P, E, D, F), (None, None, "experts", "fsdp", None)),
+            "e_down": b("e_down", (G, P, E, F, D), (None, None, "experts", None, "fsdp")),
+        })
+        if cfg.moe_dense_residual:
+            Fd = cfg.moe_dense_ff or F
+            lp.update({
+                "r_gate": b("r_gate", (G, P, D, Fd), (None, None, "fsdp", "d_ff")),
+                "r_up": b("r_up", (G, P, D, Fd), (None, None, "fsdp", "d_ff")),
+                "r_down": b("r_down", (G, P, Fd, D), (None, None, "d_ff", "fsdp")),
+            })
+    elif cfg.mlp_type == "plain":
         lp.update({
             "w_up": b("w_up", (G, P, D, F), (None, None, "fsdp", "d_ff")),
             "w_down": b("w_down", (G, P, F, D), (None, None, "d_ff", "fsdp")),
@@ -120,7 +138,13 @@ def _sublayer(x, x_hi, layer, cfg: ModelConfig,
     s1 = wide(x) + wide(attn.out_project(ctx, layer.wo, rules))
     x = s1.to(dt)
     h2 = rms_norm(s1, layer.ln2).to(dt)
-    if cfg.mlp_type == "plain":
+    if cfg.num_experts > 0:
+        y = moe_mlp(h2, layer.router, layer.e_gate, layer.e_up,
+                    layer.e_down, cfg, rules)
+        if cfg.moe_dense_residual:
+            y = y + glu_mlp(h2, layer.r_gate, layer.r_up, layer.r_down,
+                            cfg.mlp_act, rules)
+    elif cfg.mlp_type == "plain":
         y = plain_mlp(h2, layer.w_up, layer.w_down, cfg.mlp_act, rules)
     else:
         y = glu_mlp(h2, layer.w_gate, layer.w_up, layer.w_down, cfg.mlp_act,
@@ -158,8 +182,6 @@ def forward(params, cfg: ModelConfig, rules: ShardingRules, tokens,
     reference's parameter tree of tensors (autograd reaches its leaves).
     Returns (logits (B, S, V) fp32, cache | None); a cache is updated in
     place and returned."""
-    if cfg.num_experts > 0:
-        raise NotImplementedError(_MOE_LATER)
     _, P = _group_shape(cfg)
     embed, final_norm, head, layers = _weights(params, cfg)
     x = embed_tokens(tokens, embed, rules, scale=cfg.embed_scale,

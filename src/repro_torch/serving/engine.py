@@ -71,7 +71,7 @@ class ServingEngine:
 
     def __init__(self, cfg: ModelConfig, rules: ShardingRules, params, *,
                  batch: int = 4, capacity: int = 256, reranker=None):
-        M._dense(cfg)
+        M._ported(cfg)
         self.cfg, self.rules, self.params = cfg, rules, params
         self.batch, self.capacity = batch, capacity
         self.reranker = reranker

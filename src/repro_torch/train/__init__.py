@@ -1,4 +1,4 @@
-"""Training for the dense family (port of ``repro.train``): optimizers over
+"""Training for the dense and MoE families (port of ``repro.train``): optimizers over
 the reference's parameter trees and the step factories."""
 from .optimizer import (AdafactorState, Adafactor, AdamW, AdamWState,
                         cosine_schedule, get_optimizer)

@@ -18,3 +18,13 @@ def tree_leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_items(tree, path: str = ""):
+    """(path, leaf) of every leaf of nested dicts in JAX's flattening
+    order, the path as ``jax.tree_util.keystr`` writes it
+    (``['layers']['wq']``)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_items(tree[k], f"{path}[{k!r}]")]
+    return [(path, tree)]

@@ -362,16 +362,14 @@ def test_serving_counters_match_reference():
 def test_engine_names_are_exported_and_other_families_wait():
     """The model-backed engine is ported (its parity tests are
     ``test_torch_serving_engine.py``); an engine over a family the port has
-    no model for raises naming that family's slice."""
+    no model for raises naming that family's slice; the MoE family is
+    ported (``test_torch_moe.py``)."""
     from repro_torch.configs import get_config
     from repro_torch.serving import ServingEngine, diverse_rerank
 
     assert {"ServingEngine", "diverse_rerank", "Request"} <= set(
         repro_torch.serving.__all__)
     assert callable(diverse_rerank)
-    with pytest.raises(NotImplementedError, match="slice 16c"):
-        ServingEngine(get_config("granite-moe-1b-a400m", reduced=True),
-                      None, None)
     with pytest.raises(NotImplementedError, match="slice 16d"):
         ServingEngine(get_config("mamba2-130m", reduced=True), None, None)
 

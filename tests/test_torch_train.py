@@ -28,8 +28,8 @@ layout.  Tolerances, stated per check:
   norm rtol 3e-2 (the gradients' bf16 noise).
 
 The reference's own ``tests/test_train.py`` cases are mirrored below; where
-they use mamba2 or granite-moe (families not ported yet) a dense arch
-stands in.
+they use mamba2 (a family not ported yet) a dense arch stands in.  The
+MoE family's training parity is ``test_torch_moe.py``.
 """
 import collections
 import dataclasses
@@ -158,13 +158,11 @@ def test_xent_matches_reference(masked):
 
 
 def test_other_families_raise_naming_their_slice():
-    for arch, slice_ in (("granite-moe-1b-a400m", "16c"),
-                         ("mamba2-130m", "16d")):
-        cfg = get_config(arch, reduced=True)
-        with pytest.raises(NotImplementedError, match=f"slice {slice_}"):
-            M.loss_fn({}, cfg, None, {"tokens": torch.zeros((1, 2))})
-    with pytest.raises(NotImplementedError, match="slice 16c"):
-        M.active_param_ratio(get_config("granite-moe-1b-a400m"))
+    cfg = get_config("mamba2-130m", reduced=True)
+    with pytest.raises(NotImplementedError, match="slice 16d"):
+        M.loss_fn({}, cfg, None, {"tokens": torch.zeros((1, 2))})
+    assert M.active_param_ratio(get_config("granite-moe-1b-a400m")) == \
+        RM.active_param_ratio(ref_configs.get_config("granite-moe-1b-a400m"))
     for arch in ("internlm2-1.8b", "gemma2-27b", "mamba2-130m"):
         assert M.active_param_ratio(get_config(arch)) == \
             RM.active_param_ratio(ref_configs.get_config(arch)) == 1.0
@@ -575,10 +573,11 @@ def test_grad_accumulation_equivalence():
         np.testing.assert_allclose(_np(a), _np(b), rtol=2e-2, atol=2e-3)
 
 
-def test_adafactor_factored_state_shapes():
-    # the reference's case uses granite-moe (slice 16c); gemma2's stacked
-    # (G, P, ...) leaves take its place
-    cfg = get_config("gemma2-27b", reduced=True)
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "gemma2-27b"])
+def test_adafactor_factored_state_shapes(arch):
+    # the reference's case (granite-moe's expert leaves), and gemma2's
+    # stacked (G, P, ...) leaves
+    cfg = get_config(arch, reduced=True)
     shapes = M.param_shapes(cfg)
     st = Adafactor().state_shapes(shapes)
     flat_r = dict(zip(keystr_paths(st.v_row), tree_leaves(st.v_row)))
