@@ -289,14 +289,57 @@ Phases, each printing one JSON line (or one per call):
               dense residual) against the CPU and from its cache; phase
               8's traces of one (q_moe) group and one (z_moe) step.
 
-Phases run in the order 1-6, 9, 10, 11, 12, 13, 14, 15, 7, 8 (8 also
-traces one churn round of (u) and one group of (q); phase 14's step is
-traced right after phase 14, phase 15's group and step inside phase 15).
+16. vlm     — the vlm family at phi-3-vision-4.2b's full width (32 layers,
+              d_model 3,072, 32/32 heads of 96, SwiGLU 8,192, vocab
+              32,064, 576 patches of 1,024 projected; 3.824 B parameters,
+              bf16, random weights from ``--seed``; token ids and patch
+              embeddings drawn on the host, fingerprints printed), after
+              phase 15 has released its state: (o_vlm) the engine, 16
+              requests x (64 + 32), batch 8, capacity 672 (zero patches
+              before each prompt, as the reference's engine feeds), twice:
+              prefill seconds beside its operations bound, decode ms beside
+              the bf16 weights' bytes (the KV cache's bytes beside them),
+              tokens/s; (o'_vlm) decode from the cache against
+              ``forward_train`` with non-zero patches, fp32 and one-layer
+              bf16 at 2e-2, full depth printed with its floor; (q_vlm)
+              ``generate_diverse`` into the session reranker, kernel vs
+              plain (B3 tile at d = 3,072 held here, the fused solve to
+              phase 7); (z_vlm) 6 AdamW steps on the model cut to 8 layers
+              (full width, 1.106 B parameters) over ``lm_batch``'s 8 x
+              (576 patches + 128 tokens): the text loss falls,
+              ``patch_proj``'s gradient non-zero and finite, step and
+              update ms beside ``train_bounds``, peak memory; phase 8's
+              trace of one (o_vlm) group.
+
+17. ssm     — the ssm family at mamba2-130m's full width and depth (24
+              layers, d_model 768, 24 SSM heads of 64, state 128, chunk
+              256, vocab 50,432 tied; 129.1 M parameters, bf16): (o_ssm)
+              the engine, 32 requests x (64 + 32), batch 8, twice (prefill
+              steps the recurrence over the prompt, as the reference
+              does; its and a decode step's dispatched ops printed), decode
+              ms beside the weights' and the state's bytes; (ssd') the
+              chunked scan against the step recurrence at 2 x 4,096 tokens
+              of the model's SSD shape, float64 within 1e-10 and fp32
+              within 1e-4 (relative Frobenius), the inter-chunk term
+              dropped read above the fp32 bound, both paths' ms; (o'_ssm)
+              decode from the state against the full (chunked) forward;
+              (r_ssm) 16,384 windows of 1,025 Zipf(1) tokens through the
+              table (d = 768), ``diversify(k=256, remote-edge, mapreduce,
+              16 reducers, k'=128)``, kernel vs plain (B1 probe held here,
+              B4 round 1 to phase 7); (q_ssm) as (q_vlm) at d = 768;
+              (z_ssm) 12 AdamW steps on 8 x 1,024 curated tokens (4 chunks
+              a row) beside ``train_bounds``, accumulation 2 vs 1 with its
+              control, and the gradient witness (z'_ssm) at full depth;
+              phase 8's trace of one (z_ssm) step.
+
+Phases run in the order 1-6, 9, 10, 11, 12, 13, 14, 15, 16, 17, 7, 8 (8
+also traces one churn round of (u) and one group of (q); phase 14's step
+is traced right after phase 14, phases 15-17's inside them).
 The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before it.
-``--rehearse`` runs phases 2-6 and 9-15 at a tiny size on the CPU with the
+``--rehearse`` runs phases 2-6 and 9-17 at a tiny size on the CPU with the
 plain versions (no build, no timings, no ``ok`` line; phase 12 over gloo
-on the CPU; phases 13-15 on the reduced configs) to check the script
+on the CPU; phases 13-17 on the reduced configs) to check the script
 itself.  ``--probe-only RUNS`` builds, makes the musiXmatch stand-in and
 runs call (i) RUNS times on the kernels, printing each run's ``mr.probe``
 and call seconds and B1 launches, and stops (no ``ok`` line): two
@@ -792,6 +835,10 @@ def _run(x, problem, knobs, use_pallas, device):
 def _spread(secs):
     return {"median": statistics.median(secs), "min": min(secs),
             "max": max(secs), "all": secs}
+
+
+def _spread_of(v):
+    return {"median": statistics.median(v), "min": min(v), "max": max(v)}
 
 
 def phase_main(x, device, check_launches: bool, pairs: int = 10):
@@ -3398,6 +3445,17 @@ LOGITS_TOL = 2e-2              # the reference's cache-consistency bound
 # depth of one layer (the depth witness in phase 13).
 BF16_FULL_DEPTH_ATOL = 0.4
 WITNESS_DEPTHS = (1, 2, 4, 8, 16)
+# (o'_vlm): the one-layer bf16 gate's atol is the larger of 2e-2 and one
+# bf16 ulp (2^-7) of the layer's largest logit.  The logits are bf16
+# products, and a bf16 error of the stream projects onto every logit at
+# the scale of the largest: with the patches' N(0, 1) rows in the stream
+# phi-3-vision's one-layer logits reach 4.4, and the first card run read
+# 0.0206 at a logit of 0.0053 (5e-4 over 2e-2), the same with cuBLAS's
+# reduced-precision bf16 reduction off, 0.0156 with zero patches, and the
+# full forward of S - 1 tokens equal to that of S at position S - 2
+# (PERF.md section 6, the vlm and ssm entry); the fp32 check holds the
+# function
+ONE_LAYER_ULP = 2.0 ** -7
 
 
 def serve_sizes(full: bool):
@@ -3472,25 +3530,37 @@ def _engine_twice(engine, requests, label: str, record=None):
     return first, traced_s, wall, tr
 
 
-def _logits(m, c, toks):
+def _logits(m, c, toks, pe=None):
+    """The full forward's logits of ``toks`` (a vlm model's after its
+    patch embeddings ``pe``; an ssm model's through the chunked scan)."""
     import torch
-    from repro_torch.models import transformer
-    pos = torch.arange(toks.shape[1], dtype=torch.int32, device=toks.device)
+    from repro_torch.models import ssd, transformer, vlm
     with torch.no_grad():
+        if c.family == "vlm":
+            return vlm.forward_train(m, c, None, toks, pe)[0]
+        if c.family == "ssm":
+            return ssd.forward(m, c, None, toks)[0]
+        pos = torch.arange(toks.shape[1], dtype=torch.int32,
+                           device=toks.device)
         return transformer.forward(m, c, None, toks, pos)[0]
 
 
-def _last_logits(m, c, toks, capacity):
+def _last_logits(m, c, toks, capacity, pe=None):
     """(the full forward's last logits, those of a prefill of S - 1 tokens
-    and a decode of the S-th from the cache)."""
+    (after a vlm model's patches ``pe``) and a decode of the S-th from the
+    cache)."""
     import torch
     import repro_torch.models as M
     B, S = toks.shape
-    full = _logits(m, c, toks)[:, -1]
+    P = 0 if pe is None else pe.shape[1]
+    full = _logits(m, c, toks, pe)[:, -1]
     cache = M.make_cache(c, B, capacity, device=toks.device)
-    _, cache = M.prefill_fn(m, c, None, {"tokens": toks[:, :S - 1]}, cache)
+    batch = {"tokens": toks[:, :S - 1]}
+    if pe is not None:
+        batch["patch_embeds"] = pe
+    _, cache = M.prefill_fn(m, c, None, batch, cache)
     step = M.decode_fn(m, c, None, toks[:, S - 1:],
-                       torch.tensor(S - 1, device=toks.device), cache)[0]
+                       torch.tensor(P + S - 1, device=toks.device), cache)[0]
     return full, step[:, -1]
 
 
@@ -3508,45 +3578,56 @@ def _first_layers(model, cfg, depth):
     return tree, dataclasses.replace(cfg, num_layers=depth)
 
 
-def _cache_consistency(model, cfg, toks, capacity, full_atol):
-    """(o'): prefill S - 1 tokens of ``toks`` and decode the S-th against
-    the full forward: in fp32 (the weights upcast) at the reference's
-    bound, in bf16 at that bound on the model cut to its first layer (and
-    at the other ``WITNESS_DEPTHS``, printed), in bf16 at full depth within
+def _cache_consistency(model, cfg, toks, capacity, full_atol, pe=None,
+                       ulp_atol: bool = False):
+    """(o'): prefill S - 1 tokens of ``toks`` (after a vlm model's patch
+    embeddings ``pe``) and decode the S-th against the full forward: in
+    fp32 (the weights upcast) at the reference's bound, in bf16 at that
+    bound on the model cut to its first layer (and at the other
+    ``WITNESS_DEPTHS``, printed), in bf16 at full depth within
     ``full_atol`` (None: printed, not held), each depth's error beside the
     model's own bf16 floor (a row's logits alone against in the batch).
-    Returns (readings, ok)."""
+    With ``ulp_atol`` the one-layer gate's atol is the larger of the
+    reference's and one bf16 ulp of that layer's largest logit
+    (``ONE_LAYER_ULP``).  Returns (readings, ok)."""
     import dataclasses
 
     import torch
     from repro_torch.tree import tree_map
 
     def floor_of(m, c, full):
-        return float((_logits(m, c, toks[:1])[:, -1] - full[:1]).abs().max())
+        row = _logits(m, c, toks[:1], None if pe is None else pe[:1])
+        return float((row[:, -1] - full[:1]).abs().max())
 
     witness = []
     for depth in [d for d in WITNESS_DEPTHS if d < cfg.num_layers]:
         m_d, c_d = _first_layers(model, cfg, depth)
-        full_d, step_d = _last_logits(m_d, c_d, toks, capacity)
+        full_d, step_d = _last_logits(m_d, c_d, toks, capacity, pe)
         err_d, ok_d = _excess(step_d, full_d, LOGITS_TOL)
+        ulp = ONE_LAYER_ULP * float(full_d.abs().max())
         witness.append({"layers": depth, "max_abs_err": err_d,
                         "ok_at_reference_bound": ok_d,
+                        "ok_at_one_ulp_atol": _excess(
+                            step_d, full_d, max(LOGITS_TOL, ulp))[1],
+                        "one_ulp_of_largest": ulp,
                         "floor_row_alone_vs_batch": floor_of(m_d, c_d, full_d),
                         "logits_max_abs": float(full_d.abs().max())})
         del m_d, full_d, step_d
-    full16, step16 = _last_logits(model, cfg, toks, capacity)
+    full16, step16 = _last_logits(model, cfg, toks, capacity, pe)
     floor = floor_of(model, cfg, full16)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
                                 param_dtype=torch.float32)
     m32 = tree_map(lambda w: w.float(), model)
-    full32, step32 = _last_logits(m32, cfg32, toks, capacity)
+    full32, step32 = _last_logits(m32, cfg32, toks, capacity, pe)
     del m32
     err32, ok32 = _excess(step32, full32, LOGITS_TOL)
     err16, ok16 = _excess(step16, full16,
                           LOGITS_TOL if full_atol is None else full_atol)
-    ok1 = not witness or witness[0]["ok_at_reference_bound"]
-    S = toks.shape[1]
-    row = {"prefill": S - 1, "decoded_position": S - 1,
+    ok1 = not witness or witness[0]["ok_at_one_ulp_atol" if ulp_atol
+                                    else "ok_at_reference_bound"]
+    S, P = toks.shape[1], 0 if pe is None else pe.shape[1]
+    row = {"prefill": P + S - 1, "decoded_position": P + S - 1,
+           "patches": P,
            "rows": int(toks.shape[0]), "vocab": cfg.vocab_size,
            "fp32": {"max_abs_err": err32, "rtol": LOGITS_TOL,
                     "atol": LOGITS_TOL, "ok": ok32},
@@ -3555,6 +3636,9 @@ def _cache_consistency(model, cfg, toks, capacity, full_atol):
                     else "not held", "floor_row_alone_vs_batch": floor,
                     "layers": cfg.num_layers},
            "bf16_first_layers": witness,
+           "one_layer_gate": "rtol 2e-2, atol max(2e-2, one bf16 ulp of "
+                             "the largest logit)" if ulp_atol
+                             else "rtol = atol = 2e-2",
            "bf16_vs_fp32_full_max_abs": float((full16 - full32).abs().max()),
            "logits_max_abs": float(full16.abs().max())}
     return row, ok32 and ok1 and (ok16 or full_atol is None)
@@ -3624,6 +3708,52 @@ def _diverse_runs(cfg, model, requests, sz, device, check_launches: bool,
            "slates_reused": sum(a.slate_reused for a in kout),
            "launches": kl, "agree": agree}
     return kout, kl, group_s, row
+
+
+def _prints(t):
+    """A fingerprint of drawn data: its shape, sum and first entries."""
+    import torch
+    t = torch.as_tensor(t)
+    return {"shape": list(t.shape), "sum": int(t.long().sum()),
+            "head": t.reshape(-1)[:6].tolist()}
+
+
+def _serve_diverse(cfg, model, prompts, sz, seed, device, errs, diffs,
+                   check_launches: bool, phase: str, call: str, card: str):
+    """(q) of a model phase: ``sz["windows"]`` windows of Zipf(1) tokens a
+    request, drawn on the host and embedded through the model's table, go
+    with their request through ``generate_diverse`` into a session
+    reranker, kernel against plain (``_diverse_runs``); B3 at the
+    reranker's tile is held against plain here.  Returns (the kernel run's
+    launches, the fused solve's B4 case for phase 7, one group of requests
+    for phase 8's trace, each side's seconds a group)."""
+    from repro_torch.data import embed_examples
+    R, B, W, new = len(prompts), sz["batch"], sz["windows"], sz["new"]
+    windows = zipf_tokens((R * W, sz["window"]), cfg.vocab_size, seed,
+                          device, host=True)
+    cands = embed_examples(windows, embedding=model["embed"],
+                           dim=cfg.d_model)
+    wprint = _prints(windows.cpu())
+    del windows
+    label = f"{phase} ({call})"
+    kout, kl, group_s, row = _diverse_runs(
+        cfg, model, _diverse_requests(prompts, cands, W, new, 0, R), sz,
+        device, check_launches, label)
+    emit({"phase": phase, "call": f"{call}_generate_diverse", "card": card,
+          "requests": R, "candidates": W, "window_tokens": sz["window"],
+          "windows": wprint, "d": cfg.d_model, "k": sz["k"],
+          "kprime": sz["kprime"], "metric": "cosine", **row})
+    cap = sz["kprime"] + 1
+    tile = f"{label} reranker tile {W}x{cap}x{cfg.d_model} cosine"
+    check_pairwise(cands[:W], cands[W:W + cap], "cosine", errs,
+                   diffs["pairwise"], tile)
+    sess = cands[:B * cap].clone()
+    b4 = (f"{label} fused solve of {B} sessions", sess, "cosine",
+          contiguous_labels(B * cap, B, sess.device), B, 1, 1)
+    group = _diverse_requests(prompts, cands, W, new, 0, B)
+    for r in group:
+        r.candidates = r.candidates.clone()
+    return kl, b4, group, group_s
 
 
 def phase_serve(device, seed: int, errs, diffs, card: str = "",
@@ -3990,45 +4120,71 @@ def _tree_numel(tree):
 
 def train_bounds(cfg, batch: int, seq: int):
     """(step operations bound ms, its parts, update bytes bound ms) of one
-    AdamW step of ``cfg`` on ``batch`` x ``seq`` tokens, from the code's
-    arithmetic: the layers' products in bf16 (forward 2, backward 4
-    operations a weight and token; an expert's weights count topk / E of
-    their size, the share of the tokens each sees) and the attention's
-    score and context products in fp32 (both operands upcast in
-    ``attention.attend``; every (query, key) pair computed, masked or
-    not), both x3 for the backward; ``lm_head``'s fp32 product (6 T D V);
-    the update's bytes, 28 a parameter, over the memory rate.  For an MoE
-    model the parts also give the experts' capacity-padded rows (E C, every
-    row of which the batched products compute) against the assignments
-    (T topk), and those padded products' own time at the bf16 rate."""
+    AdamW step of ``cfg`` on ``batch`` rows of ``seq`` tokens, from the
+    code's arithmetic, every product x3 for the backward (forward 2,
+    backward 4 operations a weight and token): the layers' matrix products
+    in bf16 (an expert's weights count topk / E of their size, the share
+    of the tokens each sees; a vlm model's patch projection over its
+    patches); a transformer's attention score and context products in fp32
+    (both operands upcast in ``attention.attend``; every (query, key) pair
+    computed, masked or not) over the patches and tokens; an ssm model's
+    chunked scan in fp32 (``ssd.ssd_chunked``: 2 l n + 2 h l p + 4 h p n
+    a layer and token for chunk l); ``lm_head``'s bf16 product over every
+    position (6 T D V); the update's bytes, 28 a parameter, over the
+    memory rate.  For an MoE model the parts also give the experts'
+    capacity-padded rows (E C, every row of which the batched products
+    compute) against the assignments (T topk), and those padded products'
+    own time at the bf16 rate."""
     import repro_torch.models as M
     from repro_torch.models.moe import capacity
     from repro_torch.tree import tree_items
-    T = batch * seq
+    P = cfg.num_patches if cfg.family == "vlm" else 0
+    S = P + seq
+    T = batch * S
     E, topk = cfg.num_experts, cfg.num_experts_per_tok
+    shapes = M.param_shapes(cfg)
     mats = active = 0
-    for name, t in tree_items(M.param_shapes(cfg)["layers"]):
-        if t.ndim > 3:
+    for name, t in tree_items(shapes["layers"]):
+        if t.ndim > 3 or name in ("['in_proj']", "['out_proj']"):
             mats += t.numel()
             expert = any(e in name for e in ("e_gate", "e_up", "e_down"))
             active += t.numel() * (topk / E if expert else 1)
     layers_ms = 6 * active * T / BF16_FLOPS * 1e3
-    attn_ms = (3 * 4 * batch * cfg.num_heads * seq * seq * cfg.head_dim
-               * cfg.num_layers / FP32_FLOPS * 1e3)
-    head_ms = 6 * T * cfg.d_model * cfg.vocab_size / FP32_FLOPS * 1e3
-    n = M.count_params(cfg)
-    parts = {"layer_products_bf16_ms": layers_ms,
-             "attention_fp32_ms": attn_ms, "lm_head_fp32_ms": head_ms,
-             "layer_matrix_params": mats,
-             "active_layer_matrix_params": active}
+    parts = {"layer_matrix_params": mats,
+             "active_layer_matrix_params": active,
+             "layer_products_bf16_ms": layers_ms}
+    ops_ms = layers_ms
+    if cfg.family == "ssm":
+        l = min(cfg.ssm_chunk, S)
+        while S % l:
+            l -= 1
+        h, p_, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        per = 2 * l * n + 2 * h * l * p_ + 4 * h * p_ * n
+        parts["ssd_scan_fp32_ms"] = (3 * per * T * cfg.num_layers
+                                     / FP32_FLOPS * 1e3)
+        parts["ssd_chunk"] = l
+        ops_ms += parts["ssd_scan_fp32_ms"]
+    else:
+        parts["attention_fp32_ms"] = (3 * 4 * batch * cfg.num_heads * S * S
+                                      * cfg.head_dim * cfg.num_layers
+                                      / FP32_FLOPS * 1e3)
+        ops_ms += parts["attention_fp32_ms"]
+    if P:
+        parts["patch_proj_bf16_ms"] = (6 * batch * P * shapes["patch_proj"]
+                                       .numel() / BF16_FLOPS * 1e3)
+        ops_ms += parts["patch_proj_bf16_ms"]
+    parts["lm_head_bf16_ms"] = (6 * T * cfg.d_model * cfg.vocab_size
+                                / BF16_FLOPS * 1e3)
+    ops_ms += parts["lm_head_bf16_ms"]
     if E:
         C = capacity(cfg, T)
         parts.update({
             "expert_rows_padded": E * C, "expert_assignments": T * topk,
             "expert_products_padded_ms": 6 * 3 * E * C * cfg.d_model
             * cfg.d_ff * cfg.num_layers / BF16_FLOPS * 1e3})
-    return (layers_ms + attn_ms + head_ms, parts,
-            ADAMW_BYTES_PER_PARAM * n / HBM_BYTES_PER_S * 1e3)
+    n_params = M.count_params(cfg)
+    return (ops_ms, parts,
+            ADAMW_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S * 1e3)
 
 
 class _GradProbe:
@@ -4327,6 +4483,132 @@ def _curate(cfg, params, sz, seed, device, errs, check_launches: bool,
     return curated, kl, b4, row
 
 
+def _accumulation_checks(cfg, p0, batch, phase: str, prefix: str,
+                         card: str):
+    """Accumulation over 2 micro-batches against one batch from the
+    weights ``p0`` (the reference's tests/test_train.py case: AdamW without
+    decay): the loss and the params at the reference test's bounds, then
+    the gradients handed to the optimizer (``_accum_witness``) within
+    ``ACCUM_GRAD_RTOL`` with the control above it.  Emits both readings
+    and fails on either."""
+    import torch
+    from repro_torch.train import AdamW, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    opt0 = AdamW(weight_decay=0.0)
+    out = {}
+    for accum in (1, 2):
+        fn = make_train_step(cfg, None, opt0, lambda s: ACCUM_LR,
+                             accum_steps=accum)
+        st = opt0.init(p0)
+        p, st, m = fn(tree_map(lambda t: t.clone(), p0), st, batch, 0)
+        out[accum] = (p, float(m["loss"]))
+        del st, m
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    (p1, l1), (p2, l2) = out[1], out[2]
+    worst, outside, nonfinite, flipped = 0.0, 0, 0, 0
+    for a, b in zip(tree_leaves(p1), tree_leaves(p2)):
+        a, b = a.float(), b.float()
+        diff = (a - b).abs()
+        nonfinite += int((~torch.isfinite(a)).sum() + (~torch.isfinite(b))
+                         .sum())
+        outside += int((~(diff <= 2e-3 + 2e-2 * b.abs())).sum())
+        flipped += int((diff > ACCUM_LR).sum())
+        worst = max(worst, float(torch.nan_to_num(diff, nan=0.0).max()))
+    ok = abs(l1 - l2) <= 1e-3 * abs(l1) and outside == 0
+    del out, p1, p2
+    emit({"phase": phase, "call": f"{prefix}_accumulation", "card": card,
+          "loss_accum_1": l1, "loss_accum_2": l2,
+          "loss_rel_diff": abs(l1 - l2) / abs(l1),
+          "params_max_abs_diff": worst, "params_outside_bound": outside,
+          "params_not_finite": nonfinite, "lr": ACCUM_LR,
+          "params_apart_by_over_lr": flipped,
+          "params": _tree_numel(p0),
+          "bound": {"loss_rel": 1e-3, "params_rtol": 2e-2,
+                    "params_atol": 2e-3}, "ok": ok})
+    if not ok:
+        fail(f"{phase} ({prefix}): accum_steps=2 parts from accum_steps=1 "
+             "beyond the reference's bounds")
+    wit = _accum_witness(cfg, p0, batch)
+    read = {name: {"accum_max": max(r["accum"]),
+                   "accum_median": statistics.median(r["accum"]),
+                   "control_min": min(r["control"]),
+                   "control_max": max(r["control"]),
+                   "limit": ACCUM_GRAD_RTOL[name]} for name, r in wit.items()}
+    ok = all(r["accum_max"] <= r["limit"] < r["control_max"]
+             for r in read.values())
+    emit({"phase": phase, "call": f"{prefix}_accumulation_gradients",
+          "card": card, "leaves": len(wit["fp32"]["accum"]),
+          "measure": "per-leaf relative Frobenius error against the "
+                     "one-batch gradient", "control": "the first "
+          "micro-batch's gradient alone", "readings": read, "ok": ok})
+    if not ok:
+        fail(f"{phase} ({prefix}): the accumulated gradients part from the "
+             f"one-batch ones beyond their limit, or the control does not: "
+             f"{read}")
+
+
+def _gradient_witness_checks(cfg, p0, batch, seed: int, phase: str,
+                             call: str, card: str):
+    """The gradient witness (``_gradient_witness``) on the weights ``p0``
+    and its gates: the float64 gradient against its loss's central
+    difference within ``FD64_RTOL`` (along the tree and block by block),
+    the fp32 one within ``FD_RTOL`` and ``GRAD32_RTOL`` of it, and the
+    planted faults above their bounds.  Emits the readings and fails on
+    any gate."""
+    eps = FD_EPS
+    eps_list = sorted(set(FD_WITNESS_EPS) | {eps})
+    t0 = time.perf_counter()
+    wit = _gradient_witness(cfg, p0, batch, eps_list, seed)
+    wit_s = time.perf_counter() - t0
+    dots, fd, gnorm = wit["dots"], wit["fd"], wit["gnorm"]
+    spread = gnorm / _tree_numel(p0) ** 0.5
+    err = {name: {str(e): abs(dot - v) / spread for e, v in fd.items()}
+           for name, dot in dots.items()}
+    block64 = max(wit["block_err"].values())
+    frob32 = max(wit["frob"]["fp32"].values())
+    planted = wit["planted_block_err"]
+    planted_bound = {"float64_layer_0_doubled": FD64_RTOL,
+                     "fp32_layer_0_doubled": GRAD32_RTOL,
+                     "bf16_gradient": GRAD32_RTOL}
+    ok = (err["fp32"][str(eps)] <= FD_RTOL
+          and err["float64"][str(eps)] <= FD64_RTOL
+          and block64 <= FD64_RTOL and frob32 <= GRAD32_RTOL
+          and all(v > planted_bound[k] for k, v in planted.items()))
+    emit({"phase": phase, "call": call,
+          "card": card, "seconds": wit_s, "loss_fp32": wit["loss"],
+          "grad_norm_float64": gnorm,
+          "spread_grad_norm_over_sqrt_params": spread,
+          "dot_grad_direction": dots,
+          "central_difference_float64": {str(e): v for e, v in fd.items()},
+          "err_over_spread": err,
+          "rel_err_over_dot": {name: {str(e): abs(dot - v) / abs(v)
+                                      for e, v in fd.items()}
+                               for name, dot in dots.items()},
+          "blocks": len(wit["block_err"]),
+          "block_err_over_spread_float64": {
+              "max": block64, "median": statistics.median(
+                  wit["block_err"].values())},
+          "block_rel_frobenius_against_float64": {
+              name: {"max": max(r.values()),
+                     "median": statistics.median(r.values()),
+                     "argmax": max(r, key=r.get)}
+              for name, r in wit["frob"].items()},
+          "block_norm_share": wit["block_norm_share"],
+          "eps": eps, "bound": {"fp32": FD_RTOL, "float64": FD64_RTOL,
+                                "fp32_block_frobenius": GRAD32_RTOL},
+          "planted": planted, "planted_bound": planted_bound,
+          "planted_dot_layer_0_doubled_err_over_spread":
+              abs(wit["planted_dot_layer_0_doubled"] - fd[eps]) / spread,
+          "ok": ok})
+    if not ok:
+        fail(f"{phase} ({call}): the gradients part from the central "
+             f"difference "
+             f"or from the float64 gradient, or a planted fault reads "
+             f"inside its bound: {err} float64 blocks {block64} fp32 "
+             f"blocks {frob32} planted {planted}")
+
+
 def phase_train(device, seed: int, errs, diffs, card: str = "",
                 full: bool = True, check_launches: bool = True):
     """(r) curation: a pool of Zipf(1) token sequences embedded through
@@ -4393,16 +4675,14 @@ def phase_train(device, seed: int, errs, diffs, card: str = "",
     ops_ms, ops_parts, upd_bound = train_bounds(cfg, B, S)
     state_gb = n_params * (2 + 2 + 12) / 1e9
 
-    def spread(v):
-        return {"median": statistics.median(v), "min": min(v), "max": max(v)}
     emit({"phase": "train", "call": "z_train_steps", "card": card,
           "arch": cfg.arch, "params": n_params, "dtype": "bfloat16",
           "remat": cfg.remat, "optimizer": "AdamW(b1=0.9, b2=0.95, "
           "eps=1e-8, weight_decay=0.1)", "lr": TRAIN_LR, "batch": B,
           "seq": S, "steps": sz["steps"], "losses": losses,
           "batch_tokens_sum": int(batch["tokens"].sum()),
-          "step_ms": spread(step_ms), "grad_ms": spread(grad_ms),
-          "update_ms": spread(upd_ms),
+          "step_ms": _spread_of(step_ms), "grad_ms": _spread_of(grad_ms),
+          "update_ms": _spread_of(upd_ms),
           "step_bound_ms": ops_ms, "step_bound_by": "operations",
           "step_bound_parts": ops_parts,
           "update_bound_ms": upd_bound, "update_bound_by": "bytes",
@@ -4415,112 +4695,10 @@ def phase_train(device, seed: int, errs, diffs, card: str = "",
     if cuda:
         torch.cuda.empty_cache()
 
-    # accumulation over 2 micro-batches against one batch, from p0 (the
-    # reference's tests/test_train.py case: AdamW without decay)
-    opt0 = AdamW(weight_decay=0.0)
-    out = {}
-    for accum in (1, 2):
-        fn = make_train_step(cfg, launcher.RULES, opt0, lambda s: ACCUM_LR,
-                             accum_steps=accum)
-        st = opt0.init(p0)
-        p, st, m = fn(clone(p0), st, batch, 0)
-        out[accum] = (p, float(m["loss"]))
-        del st, m
-        if cuda:
-            torch.cuda.empty_cache()
-    (p1, l1), (p2, l2) = out[1], out[2]
-    worst, outside, nonfinite, flipped = 0.0, 0, 0, 0
-    for a, b in zip(tree_leaves(p1), tree_leaves(p2)):
-        a, b = a.float(), b.float()
-        diff = (a - b).abs()
-        nonfinite += int((~torch.isfinite(a)).sum() + (~torch.isfinite(b))
-                         .sum())
-        outside += int((~(diff <= 2e-3 + 2e-2 * b.abs())).sum())
-        flipped += int((diff > ACCUM_LR).sum())
-        worst = max(worst, float(torch.nan_to_num(diff, nan=0.0).max()))
-    ok = abs(l1 - l2) <= 1e-3 * abs(l1) and outside == 0
-    del out, p1, p2
-    emit({"phase": "train", "call": "z_accumulation", "card": card,
-          "loss_accum_1": l1, "loss_accum_2": l2,
-          "loss_rel_diff": abs(l1 - l2) / abs(l1),
-          "params_max_abs_diff": worst, "params_outside_bound": outside,
-          "params_not_finite": nonfinite, "lr": ACCUM_LR,
-          "params_apart_by_over_lr": flipped,
-          "params": _tree_numel(p0),
-          "bound": {"loss_rel": 1e-3, "params_rtol": 2e-2,
-                    "params_atol": 2e-3}, "ok": ok})
-    if not ok:
-        fail("train (z): accum_steps=2 parts from accum_steps=1 beyond "
-             "the reference's bounds")
-    wit = _accum_witness(cfg, p0, batch)
-    read = {name: {"accum_max": max(r["accum"]),
-                   "accum_median": statistics.median(r["accum"]),
-                   "control_min": min(r["control"]),
-                   "control_max": max(r["control"]),
-                   "limit": ACCUM_GRAD_RTOL[name]} for name, r in wit.items()}
-    ok = all(r["accum_max"] <= r["limit"] < r["control_max"]
-             for r in read.values())
-    emit({"phase": "train", "call": "z_accumulation_gradients",
-          "card": card, "leaves": len(wit["fp32"]["accum"]),
-          "measure": "per-leaf relative Frobenius error against the "
-                     "one-batch gradient", "control": "the first "
-          "micro-batch's gradient alone", "readings": read, "ok": ok})
-    if not ok:
-        fail(f"train (z): the accumulated gradients part from the one-batch "
-             f"ones beyond their limit, or the control does not: {read}")
-
+    _accumulation_checks(cfg, p0, batch, "train", "z", card)
     # (z') the gradient witness on the same weights, upcast
-    eps = FD_EPS
-    eps_list = sorted(set(FD_WITNESS_EPS) | {eps})
-    t0 = time.perf_counter()
-    wit = _gradient_witness(cfg, p0, batch, eps_list, seed + 47)
-    wit_s = time.perf_counter() - t0
-    dots, fd, gnorm = wit["dots"], wit["fd"], wit["gnorm"]
-    spread = gnorm / _tree_numel(p0) ** 0.5
-    err = {name: {str(e): abs(dot - v) / spread for e, v in fd.items()}
-           for name, dot in dots.items()}
-    block64 = max(wit["block_err"].values())
-    frob32 = max(wit["frob"]["fp32"].values())
-    planted = wit["planted_block_err"]
-    planted_bound = {"float64_layer_0_doubled": FD64_RTOL,
-                     "fp32_layer_0_doubled": GRAD32_RTOL,
-                     "bf16_gradient": GRAD32_RTOL}
-    ok = (err["fp32"][str(eps)] <= FD_RTOL
-          and err["float64"][str(eps)] <= FD64_RTOL
-          and block64 <= FD64_RTOL and frob32 <= GRAD32_RTOL
-          and all(v > planted_bound[k] for k, v in planted.items()))
-    emit({"phase": "train", "call": "z_prime_gradient_witness",
-          "card": card, "seconds": wit_s, "loss_fp32": wit["loss"],
-          "grad_norm_float64": gnorm,
-          "spread_grad_norm_over_sqrt_params": spread,
-          "dot_grad_direction": dots,
-          "central_difference_float64": {str(e): v for e, v in fd.items()},
-          "err_over_spread": err,
-          "rel_err_over_dot": {name: {str(e): abs(dot - v) / abs(v)
-                                      for e, v in fd.items()}
-                               for name, dot in dots.items()},
-          "blocks": len(wit["block_err"]),
-          "block_err_over_spread_float64": {
-              "max": block64, "median": statistics.median(
-                  wit["block_err"].values())},
-          "block_rel_frobenius_against_float64": {
-              name: {"max": max(r.values()),
-                     "median": statistics.median(r.values()),
-                     "argmax": max(r, key=r.get)}
-              for name, r in wit["frob"].items()},
-          "block_norm_share": wit["block_norm_share"],
-          "eps": eps, "bound": {"fp32": FD_RTOL, "float64": FD64_RTOL,
-                                "fp32_block_frobenius": GRAD32_RTOL},
-          "planted": planted, "planted_bound": planted_bound,
-          "planted_dot_layer_0_doubled_err_over_spread":
-              abs(wit["planted_dot_layer_0_doubled"] - fd[eps]) / spread,
-          "ok": ok})
-    if not ok:
-        fail(f"train (z'): the gradients part from the central difference "
-             f"or from the float64 gradient, or a planted fault reads "
-             f"inside its bound: {err} float64 blocks {block64} fp32 "
-             f"blocks {frob32} planted {planted}")
-    del wit
+    _gradient_witness_checks(cfg, p0, batch, seed + 47, "train",
+                             "z_prime_gradient_witness", card)
     if cuda:
         torch.cuda.empty_cache()
 
@@ -4871,7 +5049,6 @@ def phase_moe(device, seed: int, errs, diffs, card: str = "",
     import torch
     import repro_torch.models as M
     from repro_torch.configs import get_config
-    from repro_torch.data import embed_examples
     from repro_torch.launch import serve as serve_launcher
     from repro_torch.launch import train as train_launcher
     from repro_torch.models import moe
@@ -4894,11 +5071,6 @@ def phase_moe(device, seed: int, errs, diffs, card: str = "",
     def count(got):
         for k_, v in got.items():
             launches[k_] += v
-
-    def prints(t):
-        t = torch.as_tensor(t)
-        return {"shape": list(t.shape), "sum": int(t.long().sum()),
-                "head": t.reshape(-1)[:6].tolist()}
 
     # (o_moe) the engine
     if cuda:
@@ -4934,7 +5106,7 @@ def phase_moe(device, seed: int, errs, diffs, card: str = "",
           "router_dtype": str(model["layers"]["router"].dtype),
           "init_seconds": init_s, "requests": R, "batch": B,
           "capacity": sz["capacity"], "prompt_tokens": P, "new_tokens": new,
-          "prompts": prints(np.stack(prompts)),
+          "prompts": _prints(np.stack(prompts)),
           "groups": len(prefill), "prefill_seconds": prefill,
           "prefill_bound_ms": 2 * n_params * ratio * B * P / BF16_FLOPS
           * 1e3, "prefill_bound_by": "operations (active params)",
@@ -5011,7 +5183,7 @@ def phase_moe(device, seed: int, errs, diffs, card: str = "",
               "card": card, "capacity_factor": cf, "tokens": lb * ls,
               "d": cfg.d_model, "experts": cfg.num_experts, "topk": k,
               "capacity": moe.capacity(c32, lb * ls),
-              "tokens_drawn": prints(ltoks),
+              "tokens_drawn": _prints(ltoks),
               "dropped": {"cpu": drops, "card": int(cg["dropped"])},
               "of": lb * ls * k, "near_ties": int(differ.sum()),
               "near_tie_bound": bound, "near_tie_gaps": gaps,
@@ -5035,33 +5207,11 @@ def phase_moe(device, seed: int, errs, diffs, card: str = "",
     emit({"phase": "moe", "call": "r_moe_curation", "card": card, **row})
 
     # (q_moe) serve-then-diversify, one session a request
-    W = sz["windows"]
-    windows = zipf_tokens((R * W, sz["window"]), cfg.vocab_size, seed + 67,
-                          device, host=True)
-    cands = embed_examples(windows, embedding=model["embed"],
-                           dim=cfg.d_model)
-    wprint = prints(windows.cpu())
-    del windows
-    kout, kl, group_s, row = _diverse_runs(
-        cfg, model, _diverse_requests(prompts, cands, W, new, 0, R), sz,
-        device, check_launches, "moe (q_moe)")
+    kl, b4, group, group_s = _serve_diverse(
+        cfg, model, prompts, sz, seed + 67, device, errs, diffs,
+        check_launches, "moe", "q_moe", card)
     count(kl)
-    emit({"phase": "moe", "call": "q_moe_generate_diverse", "card": card,
-          "requests": R, "candidates": W, "window_tokens": sz["window"],
-          "windows": wprint, "d": cfg.d_model, "k": sz["k"],
-          "kprime": sz["kprime"], "metric": "cosine", **row})
-    cap = sz["kprime"] + 1
-    tile = f"moe (q_moe) reranker tile {W}x{cap}x{cfg.d_model} cosine"
-    check_pairwise(cands[:W], cands[W:W + cap], "cosine", errs,
-                   diffs["pairwise"], tile)
-    sess = cands[:B * cap].clone()
-    moe_b4.append((f"moe (q_moe) fused solve of {B} sessions", sess,
-                   "cosine", contiguous_labels(B * cap, B, sess.device), B,
-                   1, 1))
-    group = _diverse_requests(prompts, cands, W, new, 0, B)
-    for r in group:
-        r.candidates = r.candidates.clone()
-    del cands, kout
+    moe_b4.append(b4)
 
     # (z_moe) AdamW steps at full width on one fixed batch of curated rows
     TB = sz["train_batch"]
@@ -5088,19 +5238,17 @@ def phase_moe(device, seed: int, errs, diffs, card: str = "",
         fail(f"moe (z_moe): the loss did not fall: {losses}")
     ops_ms, ops_parts, upd_bound = train_bounds(cfg, TB, S)
 
-    def spread(v):
-        return {"median": statistics.median(v), "min": min(v), "max": max(v)}
     emit({"phase": "moe", "call": "z_moe_train_steps", "card": card,
           "arch": cfg.arch, "params": n_params, "active_params":
           n_params * ratio, "dtype": "bfloat16", "remat": cfg.remat,
           "optimizer": "AdamW(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)",
           "lr": TRAIN_LR, "batch": TB, "seq": S, "steps": sz["steps"],
-          "losses": losses, "batch_tokens": prints(batch["tokens"].cpu()),
+          "losses": losses, "batch_tokens": _prints(batch["tokens"].cpu()),
           "batch_dropped": {"dropped": sum(batch_drops),
                             "of": L * TB * S * k,
                             "capacity": moe.capacity(cfg, TB * S)},
-          "step_ms": spread(step_ms), "grad_ms": spread(grad_ms),
-          "update_ms": spread(upd_ms),
+          "step_ms": _spread_of(step_ms), "grad_ms": _spread_of(grad_ms),
+          "update_ms": _spread_of(upd_ms),
           "step_bound_ms": ops_ms, "step_bound_by": "operations",
           "step_bound_parts": ops_parts,
           "update_bound_ms": upd_bound, "update_bound_by": "bytes",
@@ -5237,7 +5385,7 @@ def phase_moe(device, seed: int, errs, diffs, card: str = "",
     emit({"phase": "moe", "call": "arctic_reduced", "card": card,
           "arch": acfg.arch, "params": M.count_params(acfg),
           "dense_residual_ff": acfg.moe_dense_ff,
-          "tokens": prints(atoks.cpu()),
+          "tokens": _prints(atoks.cpu()),
           "forward_vs_cpu": {"max_abs_err": err_cpu, "rtol": LOGITS_TOL,
                              "atol": LOGITS_TOL, "ok": ok_cpu}, **row})
     if not (ok and ok_cpu):
@@ -5248,6 +5396,526 @@ def phase_moe(device, seed: int, errs, diffs, card: str = "",
     emit({"phase": "moe", "phase_seconds": time.perf_counter() - t_phase,
           "max_memory_allocated_gb": peak_phase, "launches": launches})
     return launches, moe_b4
+
+
+# --------------------------------------------------------------------------
+# phase 16: the vlm family (phi-3-vision-4.2b)
+# --------------------------------------------------------------------------
+
+def vlm_sizes(full: bool):
+    """Sizes of phase 16: the model, the engine's slots and cache (the
+    patches, the prompt and the decoded tokens), the requests, the
+    candidate windows and the session reranker's k and k', and (z_vlm)'s
+    depth, batch (rows x text tokens) and steps."""
+    if full:
+        return {"arch": "phi-3-vision-4.2b", "reduced": False, "batch": 8,
+                "capacity": 576 + 64 + 32, "requests": 16, "prompt": 64,
+                "new": 32, "windows": 1024, "window": 16, "k": 16,
+                "kprime": 64, "train_layers": 8, "train_batch": 8,
+                "train_seq": 128, "steps": 6}
+    return {"arch": "phi-3-vision-4.2b", "reduced": True, "batch": 4,
+            "capacity": 8 + 8 + 6, "requests": 8, "prompt": 8, "new": 6,
+            "windows": 64, "window": 8, "k": 4, "kprime": 16,
+            "train_layers": 1, "train_batch": 4, "train_seq": 16,
+            "steps": 6}
+
+
+def phase_vlm(device, seed: int, errs, diffs, card: str = "",
+              full: bool = True, check_launches: bool = True, out=None):
+    """Phase 16: the vlm family at phi-3-vision-4.2b's full width (random
+    bf16 weights from ``seed``; token ids and patch embeddings drawn on the
+    host, fingerprints printed).  (o_vlm) the engine twice, traced then
+    not (zero patch embeddings before each prompt, as the reference's
+    engine feeds); (o'_vlm) decode from the cache against
+    ``forward_train`` with non-zero patches, fp32 and one-layer bf16 held
+    at 2e-2; (q_vlm) ``generate_diverse`` into the session reranker (B3,
+    B4 at d = 3,072); (z_vlm) AdamW steps on the model cut to
+    ``train_layers`` (full width) over ``lm_batch``'s patches and tokens.
+    With ``out``, one (o_vlm) group is profiled.  Returns (launches, B4
+    cases for phase 7)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import repro_torch.models as M
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.models.vlm import D_VISION
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_items, tree_map
+    sz = vlm_sizes(full)
+    cfg = get_config(sz["arch"], reduced=sz["reduced"])
+    R, B, new, S = sz["requests"], sz["batch"], sz["new"], sz["prompt"]
+    P, L = cfg.num_patches, cfg.num_layers
+    launches = dict.fromkeys(KERNELS, 0)
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    # (o_vlm) the engine
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed, device=device)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = M.count_params(cfg)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for _, t in tree_items(model))
+    layer_params = sum(t.numel() for _, t in tree_items(model["layers"])
+                       if t.ndim > 3)
+    rng = np.random.default_rng(seed + 79)
+    prompts = [rng.integers(1, cfg.vocab_size, size=S).astype(np.int32)
+               for _ in range(R)]
+
+    def requests():
+        return [Request(prompt=p, max_new_tokens=new) for p in prompts]
+
+    engine = ServingEngine(cfg, serve_launcher.RULES, model, batch=B,
+                           capacity=sz["capacity"])
+    first, traced_s, wall, tr = _engine_twice(engine, requests,
+                                              "vlm (o_vlm)")
+    prefill = [sp.seconds for sp in _spans(tr, "serving.prefill")]
+    decode = [sp.seconds * 1e3 for sp in _spans(tr, "serving.decode")]
+    group_s = [sp.seconds for sp in _spans(tr, "serving.generate")]
+    pos = B * (P + S)
+    pre_parts = {
+        "layer_products_bf16_ms": 2 * layer_params * pos / BF16_FLOPS * 1e3,
+        "patch_proj_bf16_ms": 2 * B * P * D_VISION * cfg.d_model
+        / BF16_FLOPS * 1e3,
+        "attention_fp32_ms": 4 * B * cfg.num_heads * (P + S) ** 2
+        * cfg.head_dim * L / FP32_FLOPS * 1e3,
+        "lm_head_bf16_ms": 2 * pos * cfg.d_model * cfg.vocab_size
+        / BF16_FLOPS * 1e3}
+    kv_bytes = 2 * L * B * sz["capacity"] * cfg.num_kv_heads \
+        * cfg.head_dim * 2
+    emit({"phase": "vlm", "call": "o_vlm_engine", "card": card,
+          "arch": cfg.arch, "params": n_params, "dtype": "bfloat16",
+          "init_seconds": init_s, "requests": R, "batch": B,
+          "capacity": sz["capacity"], "patches": P, "prompt_tokens": S,
+          "new_tokens": new, "prompts": _prints(np.stack(prompts)),
+          "groups": len(prefill), "prefill_seconds": prefill,
+          "prefill_positions": pos,
+          "prefill_bound_ms": sum(pre_parts.values()),
+          "prefill_bound_parts": pre_parts,
+          "prefill_bound_by": "operations",
+          "decode_ms": {**_spread_of(decode), "steps": len(decode)},
+          "decode_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+          "decode_bound_by": "bytes (the bf16 weights read once a step)",
+          "weight_bytes": weight_bytes, "kv_cache_bytes": kv_bytes,
+          "kv_cache_read_ms": kv_bytes / HBM_BYTES_PER_S * 1e3,
+          "traced_seconds": traced_s, "untraced_seconds": wall,
+          "generated_tokens_per_s": R * new / wall,
+          "same_tokens_two_runs": True})
+    del tr
+
+    # (o'_vlm) decode from the cache against forward_train, non-zero
+    # patches drawn on the host
+    toks = torch.as_tensor(np.stack(prompts[:B]), device=device)
+    pe_np = np.random.default_rng(seed + 83).normal(
+        size=(B, P, D_VISION)).astype(np.float32)
+    pe = torch.as_tensor(pe_np, device=device)
+    row, ok = _cache_consistency(model, cfg, toks, sz["capacity"], None,
+                                 pe=pe, ulp_atol=True)
+    emit({"phase": "vlm", "call": "o_prime_vlm_cache_consistency",
+          "card": card, "patch_embeds_sum": float(pe_np.astype(
+              np.float64).sum()), **row})
+    if not ok:
+        fail(f"vlm (o'_vlm): decode from the cache disagrees with the full "
+             f"forward in fp32 or at one layer in bf16: {row}")
+    del pe, toks
+
+    # (q_vlm) serve-then-diversify, one session a request
+    kl, b4, group, q_s = _serve_diverse(
+        cfg, model, prompts, sz, seed + 87, device, errs, diffs,
+        check_launches, "vlm", "q_vlm", card)
+    for k_, v in kl.items():
+        launches[k_] += v
+    del group
+
+    # what phase 8 would profile: one (o_vlm) group, prefill and decode
+    if out is not None:
+        phase_profile(lambda: engine.generate(requests()[:B]), "vlm_o_group",
+                      out, statistics.median(group_s))
+
+    # (z_vlm) AdamW steps at full width, the depth cut: the first layers'
+    # weights copied, the whole model released
+    TL, TB, TS = sz["train_layers"], sz["train_batch"], sz["train_seq"]
+    tree = tree_map(lambda t: t.clone(), dict(
+        model, layers={n: w[:TL] for n, w in model["layers"].items()}))
+    del model, engine
+    if cuda:
+        torch.cuda.empty_cache()
+    c_t = dataclasses.replace(cfg, num_layers=TL)
+    batch = lm_batch(c_t, seed=seed + 89, step=0, batch=TB, seq=TS,
+                     device=device)
+    seen = {}
+
+    def keep(g):
+        seen["patch_proj"] = g["patch_proj"].float()
+    make_train_step(c_t, None, _GradProbe(keep), lambda s: 0.0)(
+        tree, (), batch, 0)
+    gp = seen.pop("patch_proj")
+    gp_norm, gp_finite = float(gp.norm()), bool(torch.isfinite(gp).all())
+    del gp
+    n_t = M.count_params(c_t)
+    # _adamw_steps resets the peak: keep the phase's until then
+    before_steps = torch.cuda.max_memory_allocated() / 1e9 if cuda \
+        else None
+    losses, step_ms, grad_ms, upd_ms, peak, held = _adamw_steps(
+        c_t, tree, batch, sz["steps"], device)
+    del tree
+    if cuda:
+        torch.cuda.empty_cache()
+    ops_ms, ops_parts, upd_bound = train_bounds(c_t, TB, TS)
+    ok = losses[-1] < losses[0] and gp_finite and gp_norm > 0
+    emit({"phase": "vlm", "call": "z_vlm_train_steps", "card": card,
+          "arch": cfg.arch, "layers": TL, "cut_from_layers": L,
+          "params": n_t, "dtype": "bfloat16", "remat": cfg.remat,
+          "optimizer": "AdamW(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)",
+          "lr": TRAIN_LR, "batch": TB, "patches": P, "text_tokens": TS,
+          "steps": sz["steps"], "losses_text_positions": losses,
+          "batch_tokens": _prints(batch["tokens"].cpu()),
+          "patch_embeds_sum": float(batch["patch_embeds"].double().sum()),
+          "patch_proj_grad_norm": gp_norm,
+          "patch_proj_grad_finite": gp_finite,
+          "step_ms": _spread_of(step_ms), "grad_ms": _spread_of(grad_ms),
+          "update_ms": _spread_of(upd_ms),
+          "step_bound_ms": ops_ms, "step_bound_by": "operations",
+          "step_bound_parts": ops_parts,
+          "update_bound_ms": upd_bound, "update_bound_by": "bytes",
+          "tokens_per_s": TB * (P + TS) / (statistics.median(step_ms)
+                                           / 1e3),
+          "max_memory_allocated_gb": peak,
+          "allocated_before_state_gb": held,
+          "reckoned_state_gb": n_t * (2 + 2 + 12) / 1e9, "ok": ok})
+    if not ok:
+        fail(f"vlm (z_vlm): the text loss did not fall {losses}, or "
+             f"patch_proj's gradient is zero or not finite ({gp_norm})")
+    del batch
+    emit({"phase": "vlm", "phase_seconds": time.perf_counter() - t_phase,
+          "max_memory_allocated_gb": max(
+              before_steps, torch.cuda.max_memory_allocated() / 1e9)
+          if cuda else None, "launches": launches})
+    return launches, [b4]
+
+
+# --------------------------------------------------------------------------
+# phase 17: the ssm family (mamba2-130m)
+# --------------------------------------------------------------------------
+
+# (ssd'): the chunked scan against the step recurrence from the same
+# inputs, relative Frobenius error of y and of the final state: float64
+# within SSD_F64_FRO, fp32 within SSD_F32_FRO; a planted fault (the
+# inter-chunk term dropped: each chunk scanned alone) must read above the
+# fp32 bound
+SSD_F64_FRO = 1e-10
+SSD_F32_FRO = 1e-4
+
+
+def ssm_sizes(full: bool):
+    """Sizes of phase 17: the model, the engine's slots and capacity (an
+    ssm model's state does not grow; the engine does not read it), the
+    requests, the
+    candidate windows and the session reranker's k and k', (ssd')'s batch
+    and sequence, the curation's pool, k, reducers and k', and (z_ssm)'s
+    batch and steps."""
+    if full:
+        return {"arch": "mamba2-130m", "reduced": False, "batch": 8,
+                "capacity": 64 + 32, "requests": 32, "prompt": 64,
+                "new": 32, "windows": 1024,
+                "window": 16, "k": 16, "kprime": 64, "scan": (2, 4096),
+                "curate": {"pool": 16384, "pool_len": 1025, "k": 256,
+                           "reducers": 16, "kprime": 128},
+                "train_batch": 8, "steps": 12}
+    return {"arch": "mamba2-130m", "reduced": True, "batch": 4,
+            "capacity": 8 + 6, "requests": 8, "prompt": 8, "new": 6,
+            "windows": 64,
+            "window": 8, "k": 4, "kprime": 16, "scan": (2, 96),
+            "curate": {"pool": 2048, "pool_len": 65, "k": 32, "reducers": 4,
+                       "kprime": 16},
+            "train_batch": 4, "steps": 12}
+
+
+class _DispatchCount:
+    """While active, counts the aten operations dispatched (each one device
+    kernel launch or more on the card)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class Mode(TorchDispatchMode):
+            count = 0
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                Mode.count += 1
+                return func(*args, **(kwargs or {}))
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        self.ops = type(self._mode).count
+
+
+def _scan_witness(cfg, b: int, s: int, seed: int, device):
+    """(ssd'): ``ssd_chunked`` against ``_ssd_recurrent`` at the model's
+    SSD shape (heads, head dim, state, chunk) on b x s tokens drawn on the
+    host: dt log-uniform in [1e-3, 1e-1] and A uniform in [1, 16] a head
+    (Mamba-2's init ranges; dtA = -dt A), x N(0, 1) scaled by dt, B and C
+    N(0, 1).  Returns the readings."""
+    import numpy as np
+    import torch
+    from repro_torch.models import ssd
+    h, p, n, chunk = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                      cfg.ssm_chunk)
+    rng = np.random.default_rng(seed)
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), size=(b, s, h)))
+    A = rng.uniform(1.0, 16.0, size=h)
+    host = {"x": rng.normal(size=(b, s, h, p)) * dt[..., None],
+            "dtA": -dt * A, "B": rng.normal(size=(b, s, n)),
+            "C": rng.normal(size=(b, s, n))}
+    prints = {k: float(v.sum()) for k, v in host.items()}
+    marks = _Marks(device)
+
+    def fro(a, r):
+        return float(torch.linalg.vector_norm((a - r).double())
+                     / torch.linalg.vector_norm(r.double()))
+
+    out = {"b": b, "s": s, "heads": h, "head_dim": p, "state": n,
+           "chunk": chunk, "inputs_sum": prints}
+    for name, dt_ in (("float64", torch.float64), ("fp32", torch.float32)):
+        ins = [torch.as_tensor(host[k], dtype=dt_, device=device)
+               for k in ("x", "dtA", "B", "C")]
+        zero = torch.zeros((b, h, p, n), dtype=dt_, device=device)
+        ms = {}
+        for path, fn in (("chunked", lambda: ssd.ssd_chunked(*ins, chunk)),
+                         ("recurrence",
+                          lambda: ssd._ssd_recurrent(*ins, zero))):
+            fn()
+            a = marks.mark()
+            got = fn()
+            z = marks.mark()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            ms[path] = marks.ms(a, z)
+            if path == "chunked":
+                (yc, fc) = got
+            else:
+                (yr, fr) = got
+        row = {"y_rel_frobenius": fro(yc, yr),
+               "final_state_rel_frobenius": fro(fc, fr), "ms": ms}
+        if name == "fp32":
+            l = min(chunk, s)
+            while s % l:
+                l -= 1
+            alone = torch.cat([ssd.ssd_chunked(*(t[:, i:i + l] for t in ins),
+                                               chunk)[0]
+                               for i in range(0, s, l)], dim=1)
+            row["planted_inter_chunk_dropped_rel_frobenius"] = fro(alone, yr)
+            row["inter_chunk_share"] = fro(alone, yc)
+            del alone
+        out[name] = row
+        del ins, yc, fc, yr, fr
+    return out
+
+
+def phase_ssm(device, seed: int, errs, diffs, card: str = "",
+              full: bool = True, check_launches: bool = True, out=None):
+    """Phase 17: the ssm family at mamba2-130m's full width and depth
+    (random bf16 weights from ``seed``; every token id drawn on the host,
+    fingerprints printed).  (o_ssm) the engine twice (prefill steps the
+    recurrence over the prompt, as the reference does), with the prefill's
+    and a decode step's dispatched ops; (ssd') the chunked scan against
+    the recurrence at the model's SSD shape; (o'_ssm) decode from the
+    state against the full (chunked) forward; (r_ssm) curation through
+    mamba2's table (B1 probe, B4 round 1); (q_ssm) ``generate_diverse``
+    into the session reranker (B3, B4 at d = 768); (z_ssm) AdamW steps on
+    curated rows, accumulation and the gradient witness.  With ``out``,
+    one (z_ssm) step is profiled.  Returns (launches, B4 cases for phase
+    7)."""
+    import numpy as np
+    import torch
+    import repro_torch.models as M
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.train import AdamW, make_train_step
+    from repro_torch.tree import tree_items, tree_map
+    sz = ssm_sizes(full)
+    cfg = get_config(sz["arch"], reduced=sz["reduced"])
+    R, B, new, S = sz["requests"], sz["batch"], sz["new"], sz["prompt"]
+    L = cfg.num_layers
+    launches = dict.fromkeys(KERNELS, 0)
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def count(got):
+        for k_, v in got.items():
+            launches[k_] += v
+
+    # (o_ssm) the engine
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed, device=device)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = M.count_params(cfg)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for _, t in tree_items(model))
+    rng = np.random.default_rng(seed + 91)
+    prompts = [rng.integers(1, cfg.vocab_size, size=S).astype(np.int32)
+               for _ in range(R)]
+
+    def requests():
+        return [Request(prompt=p, max_new_tokens=new) for p in prompts]
+
+    engine = ServingEngine(cfg, serve_launcher.RULES, model, batch=B,
+                           capacity=sz["capacity"])
+    first, traced_s, wall, tr = _engine_twice(engine, requests,
+                                              "ssm (o_ssm)")
+    prefill = [sp.seconds for sp in _spans(tr, "serving.prefill")]
+    decode = [sp.seconds * 1e3 for sp in _spans(tr, "serving.decode")]
+    del tr
+    toks = torch.as_tensor(np.stack(prompts[:B]), device=device)
+    cache = M.make_cache(cfg, B, 0, device=device)
+    with _DispatchCount() as pre_ops:
+        _, cache = M.prefill_fn(model, cfg, None, {"tokens": toks}, cache)
+    with _DispatchCount() as dec_ops:
+        M.decode_fn(model, cfg, None, toks[:, :1], S, cache)
+    state_bytes = 2 * cache.state.numel() * cache.state.element_size()
+    del cache
+    emit({"phase": "ssm", "call": "o_ssm_engine", "card": card,
+          "arch": cfg.arch, "params": n_params, "dtype": "bfloat16",
+          "init_seconds": init_s, "requests": R, "batch": B,
+          "prompt_tokens": S, "new_tokens": new,
+          "prompts": _prints(np.stack(prompts)), "groups": len(prefill),
+          "prefill_seconds": prefill,
+          "prefill_ops_dispatched": pre_ops.ops,
+          "prefill_path": "the step recurrence over the prompt's tokens "
+                          "(host-paced)",
+          "decode_ms": {**_spread_of(decode), "steps": len(decode)},
+          "decode_ops_dispatched": dec_ops.ops,
+          "decode_bound_ms": (weight_bytes + state_bytes)
+          / HBM_BYTES_PER_S * 1e3,
+          "decode_bound_by": "bytes (the bf16 weights read once, the fp32 "
+                             "state read and written)",
+          "weight_bytes": weight_bytes, "state_bytes_read_and_written":
+          state_bytes, "traced_seconds": traced_s,
+          "untraced_seconds": wall, "generated_tokens_per_s": R * new / wall,
+          "same_tokens_two_runs": True})
+
+    # (ssd') the chunked scan against the recurrence at the model's shape
+    sb, ss = sz["scan"]
+    row = _scan_witness(cfg, sb, ss, seed + 97, device)
+    f64, f32 = row["float64"], row["fp32"]
+    planted = f32["planted_inter_chunk_dropped_rel_frobenius"]
+    ok = (max(f64["y_rel_frobenius"], f64["final_state_rel_frobenius"])
+          <= SSD_F64_FRO
+          and max(f32["y_rel_frobenius"], f32["final_state_rel_frobenius"])
+          <= SSD_F32_FRO < planted)
+    emit({"phase": "ssm", "call": "ssd_prime_chunked_vs_recurrence",
+          "card": card, **row, "bound": {"float64": SSD_F64_FRO,
+                                         "fp32": SSD_F32_FRO},
+          "ok": ok})
+    if not ok:
+        fail(f"ssm (ssd'): the chunked scan and the recurrence part beyond "
+             f"their bounds, or the planted fault reads inside: {row}")
+
+    # (o'_ssm) decode from the state against the full (chunked) forward
+    row, ok = _cache_consistency(model, cfg, toks, 0, None)
+    emit({"phase": "ssm", "call": "o_prime_ssm_cache_consistency",
+          "card": card, **row})
+    if not ok:
+        fail(f"ssm (o'_ssm): decode from the state disagrees with the full "
+             f"forward in fp32 or at one layer in bf16: {row}")
+    del toks
+
+    # (r_ssm) curation through mamba2's table
+    curated, kl, ssm_b4, row = _curate(cfg, model, sz["curate"], seed + 101,
+                                       device, errs, check_launches,
+                                       "ssm (r_ssm)")
+    count(kl)
+    emit({"phase": "ssm", "call": "r_ssm_curation", "card": card, **row})
+
+    # (q_ssm) serve-then-diversify, one session a request
+    kl, b4, group, _ = _serve_diverse(
+        cfg, model, prompts, sz, seed + 107, device, errs, diffs,
+        check_launches, "ssm", "q_ssm", card)
+    count(kl)
+    ssm_b4.append(b4)
+    del group, engine
+
+    # (z_ssm) AdamW steps at full width and depth on curated rows
+    TB = sz["train_batch"]
+    pick = torch.randperm(curated.shape[0], generator=torch.Generator(
+        ).manual_seed(seed + 109))[:TB].to(curated.device)
+    trows = curated[pick]
+    batch = {"tokens": trows[:, :-1].contiguous(),
+             "labels": trows[:, 1:].contiguous()}
+    TS = batch["tokens"].shape[1]
+    p0 = tree_map(lambda t: t.clone(), model)
+    # _adamw_steps resets the peak: keep the phase's until then
+    before_steps = torch.cuda.max_memory_allocated() / 1e9 if cuda \
+        else None
+    losses, step_ms, grad_ms, upd_ms, peak, held = _adamw_steps(
+        cfg, model, batch, sz["steps"], device)
+    del model
+    if cuda:
+        torch.cuda.empty_cache()
+    ops_ms, ops_parts, upd_bound = train_bounds(cfg, TB, TS)
+    emit({"phase": "ssm", "call": "z_ssm_train_steps", "card": card,
+          "arch": cfg.arch, "params": n_params, "dtype": "bfloat16",
+          "remat": cfg.remat, "optimizer": "AdamW(b1=0.9, b2=0.95, "
+          "eps=1e-8, weight_decay=0.1)", "lr": TRAIN_LR, "batch": TB,
+          "seq": TS, "chunks_a_row": TS // ops_parts["ssd_chunk"],
+          "steps": sz["steps"], "losses": losses,
+          "batch_tokens": _prints(batch["tokens"].cpu()),
+          "step_ms": _spread_of(step_ms), "grad_ms": _spread_of(grad_ms),
+          "update_ms": _spread_of(upd_ms),
+          "step_bound_ms": ops_ms, "step_bound_by": "operations",
+          "step_bound_parts": ops_parts,
+          "update_bound_ms": upd_bound, "update_bound_by": "bytes",
+          "tokens_per_s": TB * TS / (statistics.median(step_ms) / 1e3),
+          "max_memory_allocated_gb": peak,
+          "allocated_before_state_gb": held,
+          "reckoned_state_gb": n_params * (2 + 2 + 12) / 1e9,
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+    if not losses[-1] < losses[0]:
+        fail(f"ssm (z_ssm): the loss did not fall: {losses}")
+    _accumulation_checks(cfg, p0, batch, "ssm", "z_ssm", card)
+
+    # (z'_ssm) the gradient witness on the same weights, upcast, at the
+    # model's full depth
+    _gradient_witness_checks(cfg, p0, batch, seed + 103, "ssm",
+                             "z_prime_ssm_gradient_witness", card)
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # what phase 8 would profile: one (z_ssm) step
+    if out is not None:
+        st = AdamW().init(p0)
+        fn = make_train_step(cfg, None, AdamW(), lambda s: TRAIN_LR)
+        phase_profile(lambda: fn(p0, st, batch, 0), "ssm_z_step", out,
+                      statistics.median(step_ms) / 1e3)
+        del st, fn
+    del p0, batch, curated
+    emit({"phase": "ssm", "phase_seconds": time.perf_counter() - t_phase,
+          "max_memory_allocated_gb": max(
+              before_steps, torch.cuda.max_memory_allocated() / 1e9)
+          if cuda else None, "launches": launches})
+    return launches, ssm_b4
 
 
 def probe_only(seed: int, runs: int) -> int:
@@ -5286,7 +5954,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse", action="store_true",
-                    help="tiny CPU run of phases 2-6 and 9-15 with the "
+                    help="tiny CPU run of phases 2-6 and 9-17 with the "
                          "plain versions")
     ap.add_argument("--probe-only", type=int, default=0, metavar="RUNS",
                     help="run call (i) RUNS times on the card, print its "
@@ -5336,8 +6004,15 @@ def main(argv=None) -> int:
                                      full=False, check_launches=False)
         _, moe_b4 = phase_moe("cpu", args.seed, errs, diffs, full=False,
                               check_launches=False)
-        phase_times_round1(mesh_b4 + serve_b4 + train_b4 + moe_b4,
-                           args.seed, errs, diffs, timed=False)
+        t0 = time.perf_counter()
+        _, vlm_b4 = phase_vlm("cpu", args.seed, errs, diffs, full=False,
+                              check_launches=False)
+        _, ssm_b4 = phase_ssm("cpu", args.seed, errs, diffs, full=False,
+                              check_launches=False)
+        emit({"phase": "rehearsal", "phases_16_17_seconds":
+              time.perf_counter() - t0})
+        phase_times_round1(mesh_b4 + serve_b4 + train_b4 + moe_b4 + vlm_b4
+                           + ssm_b4, args.seed, errs, diffs, timed=False)
         emit({"phase": "rehearsal", "ok": True})
         return 0
 
@@ -5480,8 +6155,25 @@ def main(argv=None) -> int:
         launches[k] += v
     torch.cuda.empty_cache()
     emit({"phase": "moe", "phase_seconds": time.perf_counter() - t0,
-          "script_seconds_so_far": time.perf_counter() - t_start,
-          "pr21_run_f_script_seconds": 404})
+          "script_seconds_so_far": time.perf_counter() - t_start})
+
+    # ---- 16. vlm, 17. ssm ----------------------------------------------------
+    t0 = time.perf_counter()
+    v_launches, vlm_b4 = phase_vlm("cuda", args.seed, errs, diffs,
+                                   card=card, out=out)
+    for k, v in v_launches.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    emit({"phase": "vlm", "phase_seconds": time.perf_counter() - t0,
+          "script_seconds_so_far": time.perf_counter() - t_start})
+    t0 = time.perf_counter()
+    s_launches, ssm_b4 = phase_ssm("cuda", args.seed, errs, diffs, card=card,
+                                   out=out)
+    for k, v in s_launches.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    emit({"phase": "ssm", "phase_seconds": time.perf_counter() - t0,
+          "script_seconds_so_far": time.perf_counter() - t_start})
 
     # ---- 7. times, 8. profile ---------------------------------------------
     rows = phase_times(x, args.seed)
@@ -5492,9 +6184,9 @@ def main(argv=None) -> int:
     requests = serving.pop("serving")
     phase_times_round1(round1_cases(x, sphere, genres, serving=requests,
                                     mesh=mesh_b4 + serve_b4 + train_b4
-                                    + moe_b4),
+                                    + moe_b4 + vlm_b4 + ssm_b4),
                        args.seed, errs, diffs)
-    del serve_b4, train_b4, moe_b4
+    del serve_b4, train_b4, moe_b4, vlm_b4, ssm_b4
     (out / "kernel_differing_entries.json").write_text(
         json.dumps(diffs, indent=1))
     round1 = {c: v for c, v in diffs["gmm_grouped_topb"].items()
@@ -5502,7 +6194,8 @@ def main(argv=None) -> int:
     emit({"phase": "differing_entries", "kernel": "gmm_grouped_topb",
           "at": "round-1 (simulated and mesh) and serving shapes, "
                 "phase 13's pool and fused solve, phase 14's curation, "
-                "phase 15's curation and fused solve",
+                "phase 15's curation and fused solve, phase 16's fused "
+                "solve, phase 17's curation and fused solve",
           "cases": len(round1),
           "counts": list(round1.values())})
     far = x.shape[0] // 2
@@ -5564,7 +6257,7 @@ def main(argv=None) -> int:
     emit({"phase": "memory",
           "max_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
           "script_seconds": time.perf_counter() - t_start,
-          "pr21_run_f_script_seconds": 404})
+          "moe_slice_run_f_script_seconds": 486})
     print(card, flush=True)
     emit({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],

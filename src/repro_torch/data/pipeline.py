@@ -17,8 +17,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.common import ModelConfig
-
-D_VISION = 1024  # CLIP ViT-L/14 output width (the reference's models.vlm)
+from ..models.vlm import D_VISION
 
 
 def _on(a: np.ndarray, device, dtype=None) -> torch.Tensor:

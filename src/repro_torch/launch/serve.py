@@ -7,9 +7,14 @@ plus diverse re-ranking, on the card unless ``--device cpu``.
         --reduced --device cpu --diverse-k 4
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch granite-moe-1b-a400m --requests 8 --new-tokens 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch phi-3-vision-4.2b --requests 8 --new-tokens 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+        --reduced --device cpu --diverse-k 4
 
-``--arch`` takes the dense and MoE families (the others raise naming
-their ROADMAP A slice).
+``--arch`` takes the dense, MoE, vlm (zero patch embeddings before each
+prompt, as the reference's engine feeds) and ssm families; the hybrid and
+encdec families raise naming their ROADMAP A slice.
 """
 from __future__ import annotations
 
@@ -35,8 +40,10 @@ def main(argv=None):
 
     cfg = get_config(args.arch, reduced=args.reduced)
     params = M.init_params(cfg, 0, device=args.device)
+    # a vlm model's cache also holds its patches (num_patches is 0 for the
+    # other families)
     engine = ServingEngine(cfg, RULES, params, batch=4,
-                           capacity=args.new_tokens + 32)
+                           capacity=cfg.num_patches + args.new_tokens + 32)
     rng = np.random.default_rng(0)
     reqs = [Request(prompt=rng.integers(1, cfg.vocab_size, size=8)
                     .astype(np.int32), max_new_tokens=args.new_tokens)

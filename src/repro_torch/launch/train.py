@@ -7,9 +7,14 @@
         --reduced --device cpu --steps 20 [--ckpt-dir DIR]
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch granite-moe-1b-a400m --steps 4 --batch 8 --seq 128
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
+        --steps 4 --batch 8 --seq 1024
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch phi-3-vision-4.2b --reduced --device cpu --steps 4
 
-``--arch`` takes the dense and MoE families (the others raise naming
-their ROADMAP A slice).
+``--arch`` takes the dense, MoE, vlm (``lm_batch`` draws its patch
+embeddings; the loss reads the text positions) and ssm families; the
+hybrid and encdec families raise naming their ROADMAP A slice.
 
 One process, one device: the reference's single-device path (empty
 sharding rules, ``default_optimizer``, ``default_lr``, and a

@@ -10,9 +10,11 @@ the serving entry points.
   cross-entropy, differentiable in ``params``;
 * ``make_cache``, ``prefill_fn``, ``decode_fn``: the serving callables.
 
-The ``dense`` and ``moe`` families are ported (one transformer,
-``transformer.build_params``).  The others raise ``NotImplementedError``
-naming their ROADMAP A slice.
+The ``dense`` and ``moe`` families (one transformer,
+``transformer.build_params``), ``vlm`` (the transformer behind projected
+patch embeddings, ``vlm``) and ``ssm`` (mamba2, ``ssd``) are ported.
+``hybrid`` and ``encdec`` raise ``NotImplementedError`` naming their
+ROADMAP A slice.
 """
 from __future__ import annotations
 
@@ -21,27 +23,30 @@ from typing import Any, Dict
 import torch
 
 from ..tree import tree_items, tree_leaves
-from . import attention, transformer
+from . import attention, ssd, transformer, vlm
 from .common import InitBuilder, ModelConfig, ShapeBuilder, ShardingRules
 
-# the families the port runs, all through ``transformer``
-_PORTED = ("dense", "moe")
+# the families the port runs, by their parameter builders
+_BUILDERS = {
+    "dense": transformer.build_params,
+    "moe": transformer.build_params,
+    "vlm": vlm.build_params,
+    "ssm": ssd.build_params,
+}
 # family -> the ROADMAP A slice that ports it
-_LATER = {"ssm": "slice 16d (repro.models.ssd)",
-          "hybrid": "slice 16d (repro.models.rglru)",
-          "encdec": "slice 16d (repro.models.encdec)",
-          "vlm": "slice 16d (repro.models.vlm)"}
+_LATER = {"hybrid": "slice 16d-ii (repro.models.rglru)",
+          "encdec": "slice 16d-ii (repro.models.encdec)"}
 
 
 def _ported(cfg: ModelConfig) -> None:
     """Raises unless ``cfg``'s family is one the port runs."""
     fam = cfg.family
-    if fam in _PORTED:
+    if fam in _BUILDERS:
         return
     if fam in _LATER:
         raise NotImplementedError(
             f"the {fam!r} family ({cfg.arch}) is ROADMAP A, {_LATER[fam]}; "
-            "repro_torch ports the dense and moe families so far")
+            f"repro_torch ports the {', '.join(_BUILDERS)} families so far")
     raise ValueError(fam)
 
 
@@ -49,14 +54,14 @@ def init_params(cfg: ModelConfig, key: int = 0,
                 device=None) -> Dict[str, Any]:
     """A randomly initialized model from the int seed ``key``."""
     _ported(cfg)
-    return transformer.build_params(cfg, InitBuilder(key, cfg.param_dtype,
-                                                     device=device))
+    return _BUILDERS[cfg.family](cfg, InitBuilder(key, cfg.param_dtype,
+                                                  device=device))
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     """The reference's parameter tree as ``meta`` tensors."""
     _ported(cfg)
-    return transformer.build_params(cfg, ShapeBuilder(cfg.param_dtype))
+    return _BUILDERS[cfg.family](cfg, ShapeBuilder(cfg.param_dtype))
 
 
 def count_params(cfg: ModelConfig) -> int:
@@ -98,20 +103,33 @@ def _xent(logits, labels, mask=None):
 def loss_fn(params, cfg: ModelConfig, rules: ShardingRules,
             batch: Dict[str, Any]):
     """Teacher-forced cross-entropy of ``batch["tokens"]`` (B, S) against
-    ``batch["labels"]`` (B, S), a 0-dim fp32 tensor."""
+    ``batch["labels"]`` (B, S), a 0-dim fp32 tensor (vlm: the logits of
+    the text positions only, after ``batch["patch_embeds"]``' P)."""
     _ported(cfg)
     tokens = batch["tokens"]
+    if cfg.family == "vlm":
+        logits, _ = vlm.forward_train(params, cfg, rules, tokens,
+                                      batch["patch_embeds"])
+        # patches carry no labels
+        P = batch["patch_embeds"].shape[1]
+        return _xent(logits[:, P:], batch["labels"])
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)
-    logits, _ = transformer.forward(params, cfg, rules, tokens, positions)
+    fwd = ssd.forward if cfg.family == "ssm" else transformer.forward
+    logits, _ = fwd(params, cfg, rules, tokens, positions)
     return _xent(logits, batch["labels"])
 
 
 def make_cache(cfg: ModelConfig, batch: int, capacity: int, *,
                shapes_only: bool = False, split_local_global: bool = False, device=None):
-    """A zeroed KV cache in the config's dtype on ``device`` (default the
-    card), or ``meta`` tensors with ``shapes_only``."""
+    """A zeroed cache on ``device`` (default the card), or ``meta``
+    tensors with ``shapes_only``: the KV cache in the config's dtype (an
+    ssm model's ``ssd.SSMCache``, whose state does not grow, ignores
+    ``capacity``)."""
     _ported(cfg)
+    if cfg.family == "ssm":
+        return ssd.init_cache(cfg, batch,
+                              device="meta" if shapes_only else device)
     kw = {"dtype": cfg.dtype, "device": "meta" if shapes_only else device}
     if (split_local_global and cfg.local_global_period == 2
             and capacity > cfg.window > 0):
@@ -130,13 +148,28 @@ def make_cache(cfg: ModelConfig, batch: int, capacity: int, *,
 
 def prefill_fn(params, cfg: ModelConfig, rules: ShardingRules,
                batch: Dict[str, Any], cache):
+    """``batch["tokens"]`` (and a vlm's ``batch["patch_embeds"]``, before
+    them) written into ``cache``; an ssm model steps its recurrence over
+    the prompt, as the reference does."""
     _ported(cfg)
+    if cfg.family == "vlm":
+        return vlm.prefill(params, cfg, rules, batch["tokens"],
+                           batch["patch_embeds"], cache)
+    if cfg.family == "ssm":
+        with torch.no_grad():
+            return ssd.forward(params, cfg, rules, batch["tokens"],
+                               cache=cache)
     return transformer.prefill(params, cfg, rules, batch["tokens"], cache)
 
 
 def decode_fn(params, cfg: ModelConfig, rules: ShardingRules, tokens, pos,
               cache):
+    """One step of ``tokens`` (B, 1) at position ``pos`` (an ssm model's
+    recurrence does not read it)."""
     _ported(cfg)
+    if cfg.family == "ssm":
+        with torch.no_grad():
+            return ssd.forward(params, cfg, rules, tokens, cache=cache)
     return transformer.decode_step(params, cfg, rules, tokens, pos, cache)
 
 

@@ -177,15 +177,21 @@ def _weights(params, cfg: ModelConfig):
 
 
 def forward(params, cfg: ModelConfig, rules: ShardingRules, tokens,
-            positions, cache=None):
-    """tokens (B, S) int; positions (S,) absolute; ``params`` the
-    reference's parameter tree of tensors (autograd reaches its leaves).
+            positions, cache=None, inputs_embeds=None):
+    """tokens (B, S) int (ignored where ``inputs_embeds`` is given);
+    positions (S,) absolute; ``params`` the reference's parameter tree of
+    tensors (autograd reaches its leaves).  ``inputs_embeds`` (B, S, D):
+    the stream starts from it, cast to the config's dtype (no table
+    lookup, no embed scale), as the vlm family feeds its patches.
     Returns (logits (B, S, V) fp32, cache | None); a cache is updated in
     place and returned."""
     _, P = _group_shape(cfg)
     embed, final_norm, head, layers = _weights(params, cfg)
-    x = embed_tokens(tokens, embed, rules, scale=cfg.embed_scale,
-                     dtype=cfg.dtype)
+    if inputs_embeds is not None:
+        x = inputs_embeds.to(cfg.dtype)
+    else:
+        x = embed_tokens(tokens, embed, rules, scale=cfg.embed_scale,
+                         dtype=cfg.dtype)
     angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
     def group(x, l0, *ws):
@@ -214,10 +220,13 @@ def forward(params, cfg: ModelConfig, rules: ShardingRules, tokens,
 
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, rules: ShardingRules,
-            tokens, cache):
-    S = tokens.shape[1]
+            tokens, cache, inputs_embeds=None):
+    """The prompt's S positions (``inputs_embeds``' S where given) written
+    into ``cache`` from position 0."""
+    S = (tokens if inputs_embeds is None else inputs_embeds).shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    return forward(params, cfg, rules, tokens, positions, cache=cache)
+    return forward(params, cfg, rules, tokens, positions, cache=cache,
+                   inputs_embeds=inputs_embeds)
 
 
 @torch.no_grad()

@@ -20,12 +20,15 @@ wrapper over ``repro_torch.diversify``).
 The engine keeps the reference's behaviour, including what a fix would
 change: prompts are left-padded with token 0, the pad positions count from
 0 and no mask hides them, the decode position is ``S + s`` for the group's
-longest prompt S, the greedy pick is the first maximal logit, and
+longest prompt S (``P + S + s`` for a vlm model, whose prefill feeds P
+zero patch embeddings before the prompt), the greedy pick is the first
+maximal logit, and
 ``rerank_group`` keys a request without a ``session`` by its index in the
 group (``req-{i}``), so a later group's such requests land in an earlier
-group's sessions.  One difference is decided: a cache too short for the group's prompt and decode
-steps raises ``ValueError`` (the reference's scatter drops the writes past
-its end).
+group's sessions.  One difference is decided: a KV cache too short for the
+group's patches, prompt and decode steps raises ``ValueError`` (the
+reference's scatter drops the writes past its end); an ssm model's state
+does not grow, and its capacity is not read.
 
 Spans (with an enabled ``obs.trace`` active): ``serving.generate`` a group,
 inside it ``serving.prefill`` and one ``serving.decode`` a step, each fenced
@@ -43,6 +46,7 @@ from .. import models as M
 from ..device import resolve_device
 from ..kernels.build import LAUNCHES
 from ..models.common import ModelConfig, ShardingRules
+from ..models.vlm import D_VISION
 from ..obs.trace import launch_span as _launch_span, span as _span
 
 
@@ -77,13 +81,22 @@ class ServingEngine:
         self.reranker = reranker
         self.device = resolve_device(None, like=params["embed"])
 
+    def _prefix(self) -> int:
+        """Positions before the prompt: a vlm model's patches."""
+        return self.cfg.num_patches if self.cfg.family == "vlm" else 0
+
     def _check_capacity(self, S: int, steps: int) -> None:
         cfg = self.cfg
+        if cfg.family == "ssm":
+            return
         full = cfg.window == 0 or cfg.local_global_period > 1
-        if full and S + steps - 1 > self.capacity:
+        P = self._prefix()
+        if full and P + S + steps - 1 > self.capacity:
             raise ValueError(
                 f"a cache of capacity={self.capacity} holds no "
-                f"{S} prompt + {steps - 1} decoded positions; raise capacity")
+                + (f"{P} patch + " if P else "")
+                + f"{S} prompt + {steps - 1} decoded positions; raise "
+                "capacity")
 
     @torch.no_grad()
     def generate(self, requests: List[Request]) -> List[Request]:
@@ -98,15 +111,20 @@ class ServingEngine:
                 toks[j, S - len(r.prompt):] = r.prompt  # left-pad
             with _span("serving.generate", requests=len(group),
                        prompt_len=S, steps=steps):
-                toks = torch.as_tensor(toks, device=dev)
+                batch = {"tokens": torch.as_tensor(toks, device=dev)}
+                if cfg.family == "vlm":
+                    batch["patch_embeds"] = torch.zeros(
+                        (self.batch, cfg.num_patches, D_VISION),
+                        dtype=torch.float32, device=dev)
                 cache = M.make_cache(cfg, self.batch, self.capacity,
                                      device=dev)
                 # decode positions on the device: no host copy a step
-                positions = torch.arange(S, S + steps, dtype=torch.int32,
+                S0 = S + self._prefix()
+                positions = torch.arange(S0, S0 + steps, dtype=torch.int32,
                                          device=dev)
-                with _span("serving.prefill", tokens=self.batch * S) as sp:
+                with _span("serving.prefill", tokens=self.batch * S0) as sp:
                     logits, cache = M.prefill_fn(self.params, cfg, self.rules,
-                                                 {"tokens": toks}, cache)
+                                                 batch, cache)
                     tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
                     _fence(sp, tok)
                 outs = [tok]

@@ -1075,3 +1075,82 @@ def test_cuda_moe_layer_with_drops_matches_cpu(cuda_device):
     np.testing.assert_allclose(got[0, rows].numpy(), want[0, rows].numpy(),
                                rtol=1e-4,
                                atol=1e-4 * float(want.abs().max()))
+
+
+# -- the vlm and ssm families ---------------------------------------------------
+
+@pytest.mark.parametrize("s", [96, 50])
+def test_cuda_ssd_scan_and_recurrence_match_cpu(cuda_device, s):
+    """``ssd_chunked`` and the step recurrence on the card against the CPU
+    from the same fp32 inputs (3 chunks of 32, or 2 of 25), y and the final
+    state within rtol 1e-5 and an atol of 1e-5 of the largest entry
+    (cuBLAS and the CPU sum the chunk products in other orders); on the
+    card the two paths agree in float64 within 1e-10 (relative
+    Frobenius)."""
+    from repro_torch.models import ssd
+
+    rng = np.random.default_rng(s)
+    ins = [rng.normal(size=(2, s, 3, 8)), -rng.uniform(0.01, 0.6, (2, s, 3)),
+           rng.normal(size=(2, s, 16)) / 2, rng.normal(size=(2, s, 16)) / 2]
+    cpu = [torch.as_tensor(a, dtype=torch.float32) for a in ins]
+    card = [t.to(cuda_device) for t in cpu]
+    zero = torch.zeros((2, 3, 8, 16))
+    for fn in (lambda t, z: ssd.ssd_chunked(*t, 32),
+               lambda t, z: ssd._ssd_recurrent(*t, z)):
+        want = fn(cpu, zero)
+        got = fn(card, zero.to(cuda_device))
+        for g, w in zip(got, want):
+            assert g.device == card[0].device
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(),
+                                       rtol=1e-5,
+                                       atol=1e-5 * float(w.abs().max()))
+    wide = [t.double() for t in card]
+    y, final = ssd.ssd_chunked(*wide, 32)
+    y_r, final_r = ssd._ssd_recurrent(*wide, zero.double().to(cuda_device))
+    for a, b in ((y, y_r), (final, final_r)):
+        assert float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b)) <= 1e-10
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "mamba2-130m"])
+def test_cuda_vlm_and_ssm_forward_match_cpu(cuda_device, arch):
+    """A reduced vlm (patch embeddings before the tokens) or ssm model's
+    forward on the card against the same weights on the CPU, and its
+    prefill + decode from the cache against the card's full forward, at
+    the reference's logits bound rtol = atol = 2e-2."""
+    import repro_torch.models as M
+    from repro_torch.configs import get_config
+    from repro_torch.interop import params_from_reference, params_to_reference
+
+    cfg = get_config(arch, reduced=True)
+    cpu = M.init_params(cfg, 0, device="cpu")
+    card = params_from_reference(params_to_reference(cpu), cfg,
+                                 device=cuda_device)
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 20)))
+    batch = {"tokens": toks, "labels": toks}
+    P = cfg.num_patches
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.as_tensor(
+            rng.normal(size=(2, P, 1024)), dtype=torch.float32)
+    on_card = {k: v.to(cuda_device) for k, v in batch.items()}
+
+    def logits(model, b):
+        from repro_torch.models import ssd, vlm
+        with torch.no_grad():
+            if cfg.family == "vlm":
+                return vlm.forward_train(model, cfg, None, b["tokens"],
+                                         b["patch_embeds"])[0]
+            return ssd.forward(model, cfg, None, b["tokens"])[0]
+
+    want, got = logits(cpu, batch), logits(card, on_card)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                               rtol=2e-2, atol=2e-2)
+    cache = M.make_cache(cfg, 2, P + 24, device=cuda_device)
+    pre = dict(on_card, tokens=on_card["tokens"][:, :19])
+    _, cache = M.prefill_fn(card, cfg, None, pre, cache)
+    step, _ = M.decode_fn(card, cfg, None, on_card["tokens"][:, 19:],
+                          torch.tensor(P + 19, device=cuda_device), cache)
+    np.testing.assert_allclose(step[:, -1].cpu().numpy(),
+                               got[:, -1].cpu().numpy(), rtol=2e-2,
+                               atol=2e-2)

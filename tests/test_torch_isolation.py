@@ -35,7 +35,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.train, repro_torch.train.optimizer, "
             "repro_torch.train.step, repro_torch.distributed.compression, "
             "repro_torch.distributed.pipeline, repro_torch.launch.train, "
-            "repro_torch.models, repro_torch.models.moe, repro_torch.tree\n"
+            "repro_torch.models, repro_torch.models.moe, "
+            "repro_torch.models.vlm, repro_torch.models.ssd, "
+            "repro_torch.tree\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -67,7 +69,8 @@ def test_sources_never_import_jax_or_repro():
                 ("train", "step.py"), ("distributed", "compression.py"),
                 ("distributed", "pipeline.py"), ("models", "__init__.py"),
                 ("models", "common.py"), ("models", "transformer.py"),
-                ("models", "moe.py"), ("tree.py",)):
+                ("models", "moe.py"), ("models", "vlm.py"),
+                ("models", "ssd.py"), ("tree.py",)):
         assert PORT.joinpath(*mod) in scanned
     hits = [str(p) for p in scanned if pat.search(p.read_text())]
     assert not hits, hits

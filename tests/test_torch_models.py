@@ -31,8 +31,7 @@ from repro_torch.models import attention, transformer
 
 DENSE = ["gemma-2b", "internlm2-1.8b", "starcoder2-15b", "gemma2-27b"]
 MOE = ["granite-moe-1b-a400m", "arctic-480b"]
-OTHER = {"mamba2-130m": "16d", "recurrentgemma-9b": "16d",
-         "seamless-m4t-large-v2": "16d", "phi-3-vision-4.2b": "16d"}
+OTHER = {"recurrentgemma-9b": "16d", "seamless-m4t-large-v2": "16d"}
 REF_RULES = RefRules(batch=(), heads=None, kv_heads=None, d_ff=None,
                      vocab=None, experts=None, fsdp=None, head_dim=None,
                      state=None)

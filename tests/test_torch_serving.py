@@ -371,7 +371,8 @@ def test_engine_names_are_exported_and_other_families_wait():
         repro_torch.serving.__all__)
     assert callable(diverse_rerank)
     with pytest.raises(NotImplementedError, match="slice 16d"):
-        ServingEngine(get_config("mamba2-130m", reduced=True), None, None)
+        ServingEngine(get_config("recurrentgemma-9b", reduced=True), None,
+                      None)
 
 
 # -- the facade --------------------------------------------------------------

@@ -27,9 +27,10 @@ layout.  Tolerances, stated per check:
   gradients differ in sign part by ~2 lr a step), the step-0 gradient
   norm rtol 3e-2 (the gradients' bf16 noise).
 
-The reference's own ``tests/test_train.py`` cases are mirrored below; where
-they use mamba2 (a family not ported yet) a dense arch stands in.  The
-MoE family's training parity is ``test_torch_moe.py``.
+The reference's own ``tests/test_train.py`` cases are mirrored below
+(``test_adafactor_trains`` on mamba2, as the reference's, and on a dense
+arch).  The MoE family's training parity is ``test_torch_moe.py``, the
+ssm and vlm families' ``test_torch_ssd.py`` and ``test_torch_vlm.py``.
 """
 import collections
 import dataclasses
@@ -158,7 +159,7 @@ def test_xent_matches_reference(masked):
 
 
 def test_other_families_raise_naming_their_slice():
-    cfg = get_config("mamba2-130m", reduced=True)
+    cfg = get_config("recurrentgemma-9b", reduced=True)
     with pytest.raises(NotImplementedError, match="slice 16d"):
         M.loss_fn({}, cfg, None, {"tokens": torch.zeros((1, 2))})
     assert M.active_param_ratio(get_config("granite-moe-1b-a400m")) == \
@@ -592,9 +593,11 @@ def test_adafactor_factored_state_shapes(arch):
     assert v_elems < 0.2 * p_elems
 
 
-def test_adafactor_trains():
-    # the reference's case uses mamba2 (slice 16d); a dense arch stands in
-    cfg = get_config("internlm2-1.8b", reduced=True)
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-130m"])
+def test_adafactor_trains(arch):
+    # the reference's case is mamba2's; the dense arch that stood in for it
+    # before the ssm family was ported stays beside it
+    cfg = get_config(arch, reduced=True)
     params = M.init_params(cfg, 2, device="cpu")
     opt = Adafactor(beta1=None)
     state = opt.init(params)
