@@ -204,7 +204,7 @@ Phases, each printing one JSON line (or one per call):
 13. serve   — the model-backed serving path at internlm2-1.8b's full
               width (24 layers, d_model 2,048, bf16, 1.889 B parameters),
               random weights drawn on the card from ``--seed``: (o)
-              ``ServingEngine(batch=8, capacity=128)`` answers 32 requests
+              ``ServingEngine(batch=8, capacity=128)`` answers 16 requests
               (64 prompt tokens, 32 new) twice, traced and not, with the
               same tokens: init seconds, per-group prefill seconds, decode
               ms a step beside the weight-bytes bound and the prefill's
@@ -263,7 +263,7 @@ Phases, each printing one JSON line (or one per call):
               1.335 B parameters of which 428.8 M active, bf16 with an
               fp32 router; random weights from ``--seed``, every token id
               drawn on the host, fingerprints printed), after phase 14
-              has released its model and state: (o_moe) the engine, 32
+              has released its model and state: (o_moe) the engine, 16
               requests x (64 + 32) twice, prefill seconds beside the
               active params' operations bound, decode ms beside the whole
               weights' bytes bound (every expert's buffer is computed),
@@ -314,7 +314,7 @@ Phases, each printing one JSON line (or one per call):
 17. ssm     — the ssm family at mamba2-130m's full width and depth (24
               layers, d_model 768, 24 SSM heads of 64, state 128, chunk
               256, vocab 50,432 tied; 129.1 M parameters, bf16): (o_ssm)
-              the engine, 32 requests x (64 + 32), batch 8, twice (prefill
+              the engine, 16 requests x (64 + 32), batch 8, twice (prefill
               steps the recurrence over the prompt, as the reference
               does; its and a decode step's dispatched ops printed), decode
               ms beside the weights' and the state's bytes; (ssd') the
@@ -331,15 +331,51 @@ Phases, each printing one JSON line (or one per call):
               a row) beside ``train_bounds``, accumulation 2 vs 1 with its
               control, and the gradient witness (z'_ssm) at full depth;
               phase 8's trace of one (z_ssm) step.
+18. hybrid  — the hybrid family at recurrentgemma-9b's full width and
+              depth (38 layers: 2 leading RG-LRU layers and 12 groups of
+              local MQA attention and two RG-LRU layers, d_model 4,096,
+              window 2,048, vocab 256,000 tied; 9.40 B parameters, bf16):
+              (o_rg) the engine, 16 requests x (64 + 32), batch 8, twice,
+              then 2 x (2,040 + 16) so that decode wraps the 2,048-slot
+              rolling buffer, prefill beside its operations and decode
+              beside its bytes; (o'_rg) decode from the cache against the
+              full forward at 2 x 2,056 tokens, fp32 and bf16 held at 2e-2
+              on the model cut to 4 layers, full-depth bf16 printed beside
+              its floor; (scan') ``rglru._lru_scan`` against a float64
+              loop at (8, 4,096, 4,096), float64 within 1e-10 and fp32
+              within 1e-5 (relative Frobenius), h0's term dropped read
+              above the fp32 bound, both paths' ms; (r_rg) 16,384 windows
+              of 1,025 Zipf(1) tokens through the table (d = 4,096),
+              curated as (r_ssm); (q_rg) as (q_vlm) at d = 4,096 on one
+              group of 8 requests; (z_rg) 6 AdamW steps on the model cut
+              to 4 layers (1 leading layer and 1 group) over 8 x 512
+              curated tokens beside
+              ``train_bounds``, accumulation 2 vs 1 with its control, the
+              gradient witness (z'_rg) on that cut over 2 rows; phase 8's
+              traces of one (o_rg) group and one (z_rg) step.
+19. encdec  — the encdec family at seamless-m4t-large-v2's full width and
+              depth (24 + 24 layers, d_model 1,024, 16 heads of 64, vocab
+              256,256 tied; 1.77 B parameters, bf16): (o_s2t) the engine
+              with 256 zero frames a row (the reference engine's frames),
+              16 requests x (64 + 32), batch 8, twice; (o'_s2t) decode
+              from the cache against ``forward_train`` on host-drawn
+              frames, fp32 at full depth and bf16 at one encoder and one
+              decoder layer at 2e-2; (q_s2t) as (q_vlm) at d = 1,024 on
+              one group of 8 requests; (z_s2t) 6 AdamW steps over
+              ``lm_batch``'s 8 x (512 frames + 512 tokens), accumulation,
+              and the gradient witness (z'_s2t)
+              on the model cut to 4 + 4 layers over 2 rows of 128 frames
+              and tokens (the encoder's blocks included); phase 8's trace
+              of one (z_s2t) step.
 
-Phases run in the order 1-6, 9, 10, 11, 12, 13, 14, 15, 16, 17, 7, 8 (8
-also traces one churn round of (u) and one group of (q); phase 14's step
-is traced right after phase 14, phases 15-17's inside them).
+Phases run in the order 1-6, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19,
+7, 8 (8 also traces one churn round of (u) and one group of (q); phase
+14's step is traced right after phase 14, phases 15-19's inside them).
 The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before it.
-``--rehearse`` runs phases 2-6 and 9-17 at a tiny size on the CPU with the
+``--rehearse`` runs phases 2-6 and 9-19 at a tiny size on the CPU with the
 plain versions (no build, no timings, no ``ok`` line; phase 12 over gloo
-on the CPU; phases 13-17 on the reduced configs) to check the script
+on the CPU; phases 13-19 on the reduced configs) to check the script
 itself.  ``--probe-only RUNS`` builds, makes the musiXmatch stand-in and
 runs call (i) RUNS times on the kernels, printing each run's ``mr.probe``
 and call seconds and B1 launches, and stops (no ``ok`` line): two
@@ -2528,8 +2564,8 @@ def dynamic_calls(full: bool):
                                 kprime=64),
                 "v": dict(window=65536, step=4096, rounds=8, k=32),
                 "w": dict(every=4, kill=7), "profile_rounds": 2}
-    return {"u": dict(n0=4096, d=8, frac=0.05, rounds=3, k=8, kprime=64),
-            "u_prime": dict(n0=4096, d=8, frac=0.25, rounds=6, k=8,
+    return {"u": dict(n0=2048, d=8, frac=0.05, rounds=3, k=8, kprime=64),
+            "u_prime": dict(n0=2048, d=8, frac=0.25, rounds=6, k=8,
                             kprime=64),
             "v": dict(window=512, step=64, rounds=3, k=8),
             "w": dict(every=2, kill=3), "profile_rounds": 0}
@@ -3465,7 +3501,7 @@ def serve_sizes(full: bool):
     and its k and reducers, and the launcher's arguments."""
     if full:
         return {"arch": "internlm2-1.8b", "reduced": False, "batch": 8,
-                "capacity": 128, "requests": 32, "prompt": 64, "new": 32,
+                "capacity": 128, "requests": 16, "prompt": 64, "new": 32,
                 "windows": 1024, "window": 16, "k": 16, "kprime": 64,
                 "rerank_k": 8, "pool": 65536, "pool_len": 128,
                 "select_k": 64, "reducers": 16,
@@ -3532,32 +3568,41 @@ def _engine_twice(engine, requests, label: str, record=None):
 
 def _logits(m, c, toks, pe=None):
     """The full forward's logits of ``toks`` (a vlm model's after its
-    patch embeddings ``pe``; an ssm model's through the chunked scan)."""
+    patch embeddings ``pe``; an ssm model's through the chunked scan; an
+    encdec model's ``forward_train`` from the frames ``pe``)."""
     import torch
-    from repro_torch.models import ssd, transformer, vlm
+    from repro_torch.models import encdec, rglru, ssd, transformer, vlm
     with torch.no_grad():
         if c.family == "vlm":
             return vlm.forward_train(m, c, None, toks, pe)[0]
         if c.family == "ssm":
             return ssd.forward(m, c, None, toks)[0]
+        if c.family == "encdec":
+            return encdec.forward_train(m, c, None, pe, toks)[0]
         pos = torch.arange(toks.shape[1], dtype=torch.int32,
                            device=toks.device)
-        return transformer.forward(m, c, None, toks, pos)[0]
+        fwd = rglru.forward if c.family == "hybrid" else transformer.forward
+        return fwd(m, c, None, toks, pos)[0]
 
 
 def _last_logits(m, c, toks, capacity, pe=None):
     """(the full forward's last logits, those of a prefill of S - 1 tokens
-    (after a vlm model's patches ``pe``) and a decode of the S-th from the
-    cache)."""
+    (after a vlm model's patches ``pe``, or encoding an encdec model's
+    frames ``pe``) and a decode of the S-th from the cache)."""
     import torch
     import repro_torch.models as M
     B, S = toks.shape
-    P = 0 if pe is None else pe.shape[1]
+    P = pe.shape[1] if c.family == "vlm" else 0
     full = _logits(m, c, toks, pe)[:, -1]
-    cache = M.make_cache(c, B, capacity, device=toks.device)
-    batch = {"tokens": toks[:, :S - 1]}
-    if pe is not None:
-        batch["patch_embeds"] = pe
+    if c.family == "encdec":
+        cache = M.make_cache(c, B, capacity, t_enc=pe.shape[1],
+                             device=toks.device)
+        batch = {"frames": pe, "dec_tokens": toks[:, :S - 1]}
+    else:
+        cache = M.make_cache(c, B, capacity, device=toks.device)
+        batch = {"tokens": toks[:, :S - 1]}
+        if pe is not None:
+            batch["patch_embeds"] = pe
     _, cache = M.prefill_fn(m, c, None, batch, cache)
     step = M.decode_fn(m, c, None, toks[:, S - 1:],
                        torch.tensor(P + S - 1, device=toks.device), cache)[0]
@@ -3571,15 +3616,34 @@ def _excess(step, full, atol):
 
 
 def _first_layers(model, cfg, depth):
-    """The same weights, the first ``depth`` layers (one layer a group)."""
+    """The same weights, the model cut to ``depth`` layers: the first
+    ``depth`` layers (one layer a group); a hybrid model's layout at
+    ``depth`` (its first leading layers and groups); an encdec model's
+    first ``depth`` encoder and decoder layers."""
     import dataclasses
+    if cfg.family == "encdec":
+        tree = dict(model, **{k: {n: w[:depth] for n, w in model[k].items()}
+                              for k in ("encoder", "decoder")})
+        return tree, dataclasses.replace(cfg, num_layers=depth,
+                                         num_decoder_layers=depth)
+    c = dataclasses.replace(cfg, num_layers=depth)
+    if cfg.family == "hybrid":
+        from repro_torch.models.rglru import _layout
+        lead, G = _layout(c)
+        tree = {k: v for k, v in model.items() if k != "lead"}
+        tree["groups"] = {g: {n: w[:G] for n, w in d.items()}
+                          for g, d in model["groups"].items()}
+        if lead:
+            tree["lead"] = {n: w[:lead] for n, w in model["lead"].items()}
+        return tree, c
     tree = dict(model, layers={n: w[:depth]
                                for n, w in model["layers"].items()})
-    return tree, dataclasses.replace(cfg, num_layers=depth)
+    return tree, c
 
 
 def _cache_consistency(model, cfg, toks, capacity, full_atol, pe=None,
-                       ulp_atol: bool = False):
+                       ulp_atol: bool = False, gate_depth: int = 1,
+                       fp32_depth=None):
     """(o'): prefill S - 1 tokens of ``toks`` (after a vlm model's patch
     embeddings ``pe``) and decode the S-th against the full forward: in
     fp32 (the weights upcast) at the reference's bound, in bf16 at that
@@ -3589,7 +3653,9 @@ def _cache_consistency(model, cfg, toks, capacity, full_atol, pe=None,
     model's own bf16 floor (a row's logits alone against in the batch).
     With ``ulp_atol`` the one-layer gate's atol is the larger of the
     reference's and one bf16 ulp of that layer's largest logit
-    (``ONE_LAYER_ULP``).  Returns (readings, ok)."""
+    (``ONE_LAYER_ULP``).  ``gate_depth``: the cut the bf16 gate holds
+    (default one layer); ``fp32_depth``: the cut the fp32 check runs on
+    (default the full depth).  Returns (readings, ok)."""
     import dataclasses
 
     import torch
@@ -3600,7 +3666,9 @@ def _cache_consistency(model, cfg, toks, capacity, full_atol, pe=None,
         return float((row[:, -1] - full[:1]).abs().max())
 
     witness = []
-    for depth in [d for d in WITNESS_DEPTHS if d < cfg.num_layers]:
+    depths = sorted({d for d in WITNESS_DEPTHS if d < cfg.num_layers}
+                    | ({gate_depth} if gate_depth < cfg.num_layers else set()))
+    for depth in depths:
         m_d, c_d = _first_layers(model, cfg, depth)
         full_d, step_d = _last_logits(m_d, c_d, toks, capacity, pe)
         err_d, ok_d = _excess(step_d, full_d, LOGITS_TOL)
@@ -3615,22 +3683,26 @@ def _cache_consistency(model, cfg, toks, capacity, full_atol, pe=None,
         del m_d, full_d, step_d
     full16, step16 = _last_logits(model, cfg, toks, capacity, pe)
     floor = floor_of(model, cfg, full16)
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+    m32, cfg32 = (model, cfg) if fp32_depth is None else _first_layers(
+        model, cfg, fp32_depth)
+    cfg32 = dataclasses.replace(cfg32, dtype=torch.float32,
                                 param_dtype=torch.float32)
-    m32 = tree_map(lambda w: w.float(), model)
+    m32 = tree_map(lambda w: w.float(), m32)
     full32, step32 = _last_logits(m32, cfg32, toks, capacity, pe)
     del m32
     err32, ok32 = _excess(step32, full32, LOGITS_TOL)
     err16, ok16 = _excess(step16, full16,
                           LOGITS_TOL if full_atol is None else full_atol)
-    ok1 = not witness or witness[0]["ok_at_one_ulp_atol" if ulp_atol
-                                    else "ok_at_reference_bound"]
-    S, P = toks.shape[1], 0 if pe is None else pe.shape[1]
+    gate = [w for w in witness if w["layers"] == gate_depth]
+    ok1 = not gate or gate[0]["ok_at_one_ulp_atol" if ulp_atol
+                              else "ok_at_reference_bound"]
+    S, P = toks.shape[1], pe.shape[1] if cfg.family == "vlm" else 0
     row = {"prefill": P + S - 1, "decoded_position": P + S - 1,
            "patches": P,
            "rows": int(toks.shape[0]), "vocab": cfg.vocab_size,
            "fp32": {"max_abs_err": err32, "rtol": LOGITS_TOL,
-                    "atol": LOGITS_TOL, "ok": ok32},
+                    "atol": LOGITS_TOL, "ok": ok32,
+                    "layers": cfg32.num_layers},
            "bf16": {"max_abs_err": err16, "rtol": LOGITS_TOL,
                     "atol": full_atol, "ok": ok16 if full_atol is not None
                     else "not held", "floor_row_alone_vs_batch": floor,
@@ -3639,7 +3711,9 @@ def _cache_consistency(model, cfg, toks, capacity, full_atol, pe=None,
            "one_layer_gate": "rtol 2e-2, atol max(2e-2, one bf16 ulp of "
                              "the largest logit)" if ulp_atol
                              else "rtol = atol = 2e-2",
-           "bf16_vs_fp32_full_max_abs": float((full16 - full32).abs().max()),
+           "gate_layers": gate_depth,
+           "bf16_vs_fp32_full_max_abs": None if fp32_depth is not None
+           else float((full16 - full32).abs().max()),
            "logits_max_abs": float(full16.abs().max())}
     return row, ok32 and ok1 and (ok16 or full_atol is None)
 
@@ -3681,6 +3755,7 @@ def _diverse_runs(cfg, model, requests, sz, device, check_launches: bool,
     for up in ("auto", False):
         eng = ServingEngine(cfg, launcher.RULES, model, batch=sz["batch"],
                             capacity=sz["capacity"],
+                            t_enc=sz.get("t_enc", 0),
                             reranker=_reranker(cfg, sz, device, up))
         runs[up] = _traced(lambda tr: eng.generate_diverse(fresh()))
     (kout, ks, kl, ktr), (pout, ps, pl, ptr) = runs["auto"], runs[False]
@@ -4118,7 +4193,7 @@ def _tree_numel(tree):
     return sum(t.numel() for t in tree_leaves(tree))
 
 
-def train_bounds(cfg, batch: int, seq: int):
+def train_bounds(cfg, batch: int, seq: int, t_enc: int = 0):
     """(step operations bound ms, its parts, update bytes bound ms) of one
     AdamW step of ``cfg`` on ``batch`` rows of ``seq`` tokens, from the
     code's arithmetic, every product x3 for the backward (forward 2,
@@ -4134,10 +4209,13 @@ def train_bounds(cfg, batch: int, seq: int):
     memory rate.  For an MoE model the parts also give the experts'
     capacity-padded rows (E C, every row of which the batched products
     compute) against the assignments (T topk), and those padded products'
-    own time at the bf16 rate."""
+    own time at the bf16 rate.  The hybrid and encdec families:
+    ``_family_train_bounds`` (an encdec model's ``t_enc`` frames)."""
     import repro_torch.models as M
     from repro_torch.models.moe import capacity
     from repro_torch.tree import tree_items
+    if cfg.family in ("hybrid", "encdec"):
+        return _family_train_bounds(cfg, batch, seq, t_enc)
     P = cfg.num_patches if cfg.family == "vlm" else 0
     S = P + seq
     T = batch * S
@@ -4185,6 +4263,69 @@ def train_bounds(cfg, batch: int, seq: int):
     n_params = M.count_params(cfg)
     return (ops_ms, parts,
             ADAMW_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S * 1e3)
+
+
+def _family_train_bounds(cfg, batch: int, seq: int, t_enc: int = 0):
+    """``train_bounds`` of the hybrid and encdec families, counted by
+    family (neither has a ``layers`` subtree): every matrix leaf 6 x its
+    params x the positions it sees (an encdec model's encoder and cross
+    K/V projections the frames, the rest the tokens; the hybrid's conv,
+    gains and norms are elementwise); the attention products in fp32 over
+    every (query, key) pair the code computes (the hybrid's local
+    attention over the whole sequence a chunk, the window masked, once an
+    attention layer; encdec's encoder self T_enc², decoder self S² and
+    cross S T_enc); ``lm_head`` over the tokens; the hybrid's RG-LRU scan
+    is elementwise, so its bytes are printed beside the rest (a and b
+    read, h written, fp32, forward and backward x3) and its time at the
+    memory rate; the update's bytes, 28 a parameter."""
+    import repro_torch.models as M
+    from repro_torch.tree import tree_items
+    shapes = M.param_shapes(cfg)
+    T = batch * seq
+    H, hd = cfg.num_heads, cfg.head_dim
+    parts = {}
+    if cfg.family == "hybrid":
+        from repro_torch.models.rglru import _layout
+        lead, G = _layout(cfg)
+        sub = {k: v for k, v in shapes.items() if k in ("lead", "groups")}
+        mats = sum(t.numel() for n, t in tree_items(sub)
+                   if t.ndim > 2 and "conv_w" not in n)
+        parts["layer_matrix_params"] = mats
+        parts["layer_products_bf16_ms"] = 6 * mats * T / BF16_FLOPS * 1e3
+        parts["attention_fp32_ms"] = (3 * 4 * batch * H * seq * seq * hd * G
+                                      / FP32_FLOPS * 1e3)
+        parts["attention_layers"] = G
+        n_rec, R = lead + 2 * G, cfg.rnn_width or cfg.d_model
+        parts["rg_lru_scan_bytes"] = 3 * 12 * T * R * n_rec
+        parts["rg_lru_scan_bytes_ms"] = (parts["rg_lru_scan_bytes"]
+                                         / HBM_BYTES_PER_S * 1e3)
+        ops_ms = (parts["layer_products_bf16_ms"]
+                  + parts["attention_fp32_ms"])
+    else:
+        Tf = batch * t_enc
+        enc = sum(t.numel() for _, t in tree_items(shapes["encoder"])
+                  if t.ndim > 2)
+        cross = sum(shapes["decoder"][k].numel() for k in ("xk", "xv"))
+        dec = sum(t.numel() for _, t in tree_items(shapes["decoder"])
+                  if t.ndim > 2) - cross
+        parts.update({"encoder_matrix_params": enc,
+                      "decoder_matrix_params": dec,
+                      "cross_kv_matrix_params": cross,
+                      "layer_products_bf16_ms": 6 * (enc * Tf + cross * Tf
+                                                     + dec * T)
+                      / BF16_FLOPS * 1e3})
+        Le, Ld = cfg.num_layers, cfg.num_decoder_layers or cfg.num_layers
+        parts["attention_fp32_ms"] = (
+            3 * 4 * batch * H * hd * (Le * t_enc * t_enc + Ld * (
+                seq * seq + seq * t_enc)) / FP32_FLOPS * 1e3)
+        ops_ms = (parts["layer_products_bf16_ms"]
+                  + parts["attention_fp32_ms"])
+    parts["lm_head_bf16_ms"] = (6 * T * cfg.d_model * cfg.vocab_size
+                                / BF16_FLOPS * 1e3)
+    ops_ms += parts["lm_head_bf16_ms"]
+    return (ops_ms, parts,
+            ADAMW_BYTES_PER_PARAM * M.count_params(cfg) / HBM_BYTES_PER_S
+            * 1e3)
 
 
 class _GradProbe:
@@ -4247,13 +4388,25 @@ def _accum_witness(cfg, tree, batch, dtypes=None):
 
 def _blocks(tree):
     """The witness's blocks of a parameter tree, as (name, tensors): each
-    top-level leaf (embed, final_norm, head) and each layer group g (every
-    layer leaf's slice [g])."""
+    top-level leaf (embed, final_norm, head) and each layer group i of a
+    stacked subtree (``layers``; a hybrid model's ``groups`` and ``lead``;
+    an encdec model's ``encoder`` and ``decoder``): every leaf's slice
+    [i]."""
     from repro_torch.tree import tree_leaves
-    out = [(k, [v]) for k, v in tree.items() if k != "layers"]
-    layers = tree_leaves(tree["layers"])
-    return out + [(f"layers[{g}]", [t[g] for t in layers])
-                  for g in range(layers[0].shape[0])]
+    out = [(k, [v]) for k, v in tree.items() if not isinstance(v, dict)]
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            leaves = tree_leaves(v)
+            out += [(f"{k}[{g}]", [t[g] for t in leaves])
+                    for g in range(leaves[0].shape[0])]
+    return out
+
+
+def _layer0(names):
+    """The block of the first layer group (``layers[0]``, or the first
+    stacked subtree's)."""
+    return "layers[0]" if "layers[0]" in names else next(
+        n for n in names if n.endswith("[0]"))
 
 
 def _unit(shapes, seed: int, dev, dtype):
@@ -4271,12 +4424,14 @@ def _dot(gs, ds):
     return float(sum((g.double() * x).sum() for g, x in zip(gs, ds)))
 
 
-def _gradient_witness(cfg, tree, batch, eps_list, seed: int):
+def _gradient_witness(cfg, tree, batch, eps_list, seed: int,
+                      block_eps=FD_EPS):
     """The gradient witness on ``tree``'s weights.  The float64 model (the
     weights upcast): its loss's central difference (L(w + eps d) -
     L(w - eps d)) / (2 eps) along a random unit direction d of the whole
     tree at each step in ``eps_list``, and along one random unit direction
-    of each block at FD_EPS; its autograd gradient's <grad, d> along each.
+    of each block at ``block_eps`` (a step, or a function of the block's
+    share of the gradient's norm giving it); its autograd gradient's <grad, d> along each.
     The difference is taken in float64 because the fp32 loss of the random
     model at full width is itself noisy: fp32 rounding, amplified through
     the layers, moves it by ~1e-3 between two nearby weights, as much as
@@ -4301,6 +4456,7 @@ def _gradient_witness(cfg, tree, batch, eps_list, seed: int):
     norm = torch.sqrt(sum((x.double() ** 2).sum() for x in tree_leaves(d)))
     tree_map(lambda x: x.div_(norm), d)
     names = [n for n, _ in _blocks(tree)]
+    l0 = _layer0(names)
     n_block = {n: sum(t.numel() for t in ts) for n, ts in _blocks(tree)}
     c = dataclasses.replace(cfg, dtype=f64, param_dtype=f64)
     loss_fn = make_loss(c, None)
@@ -4314,7 +4470,7 @@ def _gradient_witness(cfg, tree, batch, eps_list, seed: int):
     bdot = {n: _dot(gb64[n], _unit([x.shape for x in gb64[n]], bdir[n], dev,
                                    f64)) for n in names}
     dots = {"float64": _dot(tree_leaves(g64), tree_leaves(d))}
-    fd, bfd = {}, {}
+    fd, bfd, beps = {}, {}, {}
     with torch.no_grad():
         def central(ws, ds, eps):
             vals = []
@@ -4329,18 +4485,19 @@ def _gradient_witness(cfg, tree, batch, eps_list, seed: int):
         for eps in eps_list:
             fd[eps] = central(tree_leaves(w), tree_leaves(d), eps)
         for n, ws in _blocks(w):
+            beps[n] = block_eps(norm64[n] / gnorm) if callable(block_eps) \
+                else block_eps
             bfd[n] = central(ws, _unit([x.shape for x in ws], bdir[n], dev,
-                                       f64), FD_EPS)
+                                       f64), beps[n])
     del w
     bspread = {n: norm64[n] / n_block[n] ** 0.5 for n in names}
     out = {"gnorm": gnorm, "block_norm_share": {n: norm64[n] / gnorm
                                                 for n in names},
            "fd": fd, "block_err": {n: abs(bdot[n] - bfd[n]) / bspread[n]
                                    for n in names},
+           "planted_block": l0, "block_eps": beps,
            "planted_block_err": {"float64_layer_0_doubled":
-                                 abs(2 * bdot["layers[0]"]
-                                     - bfd["layers[0]"])
-                                 / bspread["layers[0]"]},
+                                 abs(2 * bdot[l0] - bfd[l0]) / bspread[l0]},
            "frob": {}}
     for name, dt in (("fp32", torch.float32), ("bf16", cfg.dtype)):
         c = dataclasses.replace(cfg, dtype=dt, param_dtype=dt)
@@ -4359,9 +4516,9 @@ def _gradient_witness(cfg, tree, batch, eps_list, seed: int):
         if name == "fp32":
             out["loss"] = float(loss)
             out["planted_block_err"]["fp32_layer_0_doubled"] = frob(
-                "layers[0]", gb["layers[0]"], 2.0)
+                l0, gb[l0], 2.0)
             out["planted_dot_layer_0_doubled"] = dots["fp32"] + _dot(
-                gb["layers[0]"], dict(_blocks(d))["layers[0]"])
+                gb[l0], dict(_blocks(d))[l0])
         del g, gb
     out["planted_block_err"]["bf16_gradient"] = max(
         out["frob"]["bf16"].values())
@@ -4549,17 +4706,18 @@ def _accumulation_checks(cfg, p0, batch, phase: str, prefix: str,
 
 
 def _gradient_witness_checks(cfg, p0, batch, seed: int, phase: str,
-                             call: str, card: str):
+                             call: str, card: str, block_eps=FD_EPS):
     """The gradient witness (``_gradient_witness``) on the weights ``p0``
     and its gates: the float64 gradient against its loss's central
-    difference within ``FD64_RTOL`` (along the tree and block by block),
-    the fp32 one within ``FD_RTOL`` and ``GRAD32_RTOL`` of it, and the
-    planted faults above their bounds.  Emits the readings and fails on
-    any gate."""
+    difference within ``FD64_RTOL`` (along the tree and block by block,
+    a block at ``block_eps``), the fp32 one within ``FD_RTOL`` and
+    ``GRAD32_RTOL`` of it, and the planted faults above their bounds.
+    Emits the readings and fails on any gate."""
     eps = FD_EPS
     eps_list = sorted(set(FD_WITNESS_EPS) | {eps})
     t0 = time.perf_counter()
-    wit = _gradient_witness(cfg, p0, batch, eps_list, seed)
+    wit = _gradient_witness(cfg, p0, batch, eps_list, seed,
+                            block_eps=block_eps)
     wit_s = time.perf_counter() - t0
     dots, fd, gnorm = wit["dots"], wit["fd"], wit["gnorm"]
     spread = gnorm / _tree_numel(p0) ** 0.5
@@ -4588,13 +4746,17 @@ def _gradient_witness_checks(cfg, p0, batch, seed: int, phase: str,
           "blocks": len(wit["block_err"]),
           "block_err_over_spread_float64": {
               "max": block64, "median": statistics.median(
-                  wit["block_err"].values())},
+                  wit["block_err"].values()),
+              "argmax": max(wit["block_err"], key=wit["block_err"].get)},
           "block_rel_frobenius_against_float64": {
               name: {"max": max(r.values()),
                      "median": statistics.median(r.values()),
                      "argmax": max(r, key=r.get)}
               for name, r in wit["frob"].items()},
           "block_norm_share": wit["block_norm_share"],
+          "block_eps": wit["block_eps"]
+          if len(wit["block_eps"]) <= 8 else sorted(set(
+              wit["block_eps"].values())),
           "eps": eps, "bound": {"fp32": FD_RTOL, "float64": FD64_RTOL,
                                 "fp32_block_frobenius": GRAD32_RTOL},
           "planted": planted, "planted_bound": planted_bound,
@@ -4795,7 +4957,7 @@ def moe_sizes(full: bool):
     check's prompt."""
     if full:
         return {"arch": "granite-moe-1b-a400m", "reduced": False,
-                "batch": 8, "capacity": 128, "requests": 32, "prompt": 64,
+                "batch": 8, "capacity": 128, "requests": 16, "prompt": 64,
                 "new": 32, "consistency": (2, 16), "layer_tokens": (8, 128),
                 "windows": 1024, "window": 16, "k": 16, "kprime": 64,
                 "curate": {"pool": 65536, "pool_len": 129, "k": 1024,
@@ -5627,7 +5789,7 @@ def ssm_sizes(full: bool):
     batch and steps."""
     if full:
         return {"arch": "mamba2-130m", "reduced": False, "batch": 8,
-                "capacity": 64 + 32, "requests": 32, "prompt": 64,
+                "capacity": 64 + 32, "requests": 16, "prompt": 64,
                 "new": 32, "windows": 1024,
                 "window": 16, "k": 16, "kprime": 64, "scan": (2, 4096),
                 "curate": {"pool": 16384, "pool_len": 1025, "k": 256,
@@ -5918,6 +6080,613 @@ def phase_ssm(device, seed: int, errs, diffs, card: str = "",
     return launches, ssm_b4
 
 
+# --------------------------------------------------------------------------
+# phase 18: the hybrid family (recurrentgemma-9b)
+# --------------------------------------------------------------------------
+
+# (scan'): ``rglru._lru_scan`` (the associative scan of the RG-LRU
+# combine, h0 folded in) against a float64 sequential loop from the same
+# inputs, relative Frobenius error: float64 within LRU_F64_FRO, fp32
+# within LRU_F32_FRO; a planted fault (h0's term dropped) must read above
+# the fp32 bound
+LRU_F64_FRO = 1e-10
+LRU_F32_FRO = 1e-5
+# (z'_rg): a block's central difference steps FD_EPS over the block's
+# share of the gradient's norm, at most 1e-4.  The float64 loss (12.46)
+# resolves one ulp, 1.8e-15: on the random model group 0 holds 5.3e-5 of
+# the norm, and at FD_EPS its difference resolves 2.3e-4 of its spread (a
+# few thousand ulps; over FD64_RTOL), 4.3e-6 at 1e-4, while the embedding
+# (99.999 % of it) curves too hard for 1e-4 (2.2e-3) and reads 2.2e-5 at
+# FD_EPS (PERF.md section 6, PR 24)
+def _share_scaled_eps(share: float) -> float:
+    return min(FD_EPS / max(share, 1e-30), 1e-4)
+
+
+def hybrid_sizes(full: bool):
+    """Sizes of phase 18: the model, the engine's slots and capacity (the
+    local attention's buffer holds min(capacity, window) slots), the
+    requests, the wrap group (rows, prompt, new tokens: decode wraps the
+    2,048-slot buffer), (o'_rg)'s rows and tokens, the candidate windows
+    and the session reranker's k and k', (scan')'s (B, S, R), the
+    curation's pool, k, reducers and k', and (z_rg)'s depth, batch, tokens,
+    steps and the witness's rows."""
+    if full:
+        return {"arch": "recurrentgemma-9b", "reduced": False, "batch": 8,
+                "capacity": 64 + 32, "requests": 16, "prompt": 64,
+                "new": 32, "wrap": (2, 2040, 16), "check": (2, 2056),
+                "gate_layers": 4, "windows": 1024, "window": 16, "k": 16,
+                "kprime": 64, "scan": (8, 4096, 4096),
+                "curate": {"pool": 16384, "pool_len": 1025, "k": 256,
+                           "reducers": 16, "kprime": 128},
+                "train_layers": 4, "train_batch": 8, "train_seq": 512,
+                "steps": 6, "witness_rows": 2}
+    return {"arch": "recurrentgemma-9b", "reduced": True, "batch": 4,
+            "capacity": 8 + 6, "requests": 8, "prompt": 8, "new": 6,
+            "wrap": (2, 20, 6), "check": (2, 24), "gate_layers": 4,
+            "windows": 64, "window": 8, "k": 4, "kprime": 16,
+            "scan": (2, 64, 16),
+            "curate": {"pool": 2048, "pool_len": 65, "k": 32, "reducers": 4,
+                       "kprime": 16},
+            "train_layers": 4, "train_batch": 4, "train_seq": 32,
+            "steps": 6, "witness_rows": 2}
+
+
+def _lru_scan_witness(b: int, s: int, r: int, seed: int, device):
+    """(scan'): ``rglru._lru_scan`` against the sequential recurrence h_t
+    = a_t h_{t-1} + b_t in float64 from h0, on inputs made from host draws
+    (fp32 normals g, x, h0 and lam): a = exp(-8 softplus(lam) sigmoid(g))
+    and b = sqrt(max(1 - a², 1e-6)) x as the RG-LRU makes them (lam
+    N(1, 0.25), g N(0, 4)), rounded to fp32, so both paths read the same
+    values.  Returns the readings."""
+    import numpy as np
+    import torch
+    from repro_torch.models import rglru
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((b, s, r), dtype=np.float32) * 2
+    x = rng.standard_normal((b, s, r), dtype=np.float32)
+    h0 = rng.standard_normal((b, r), dtype=np.float32)
+    lam = 1 + rng.standard_normal(r, dtype=np.float32) / 2
+    prints = {"g": float(g.sum(dtype=np.float64)),
+              "x": float(x.sum(dtype=np.float64)),
+              "h0": float(h0.sum(dtype=np.float64)),
+              "lam": float(lam.sum(dtype=np.float64))}
+    f64 = torch.float64
+    gd = torch.as_tensor(g, device=device).to(f64)
+    del g
+    a = torch.exp(-8 * torch.nn.functional.softplus(torch.as_tensor(
+        lam, device=device).to(f64)) * torch.sigmoid(gd)).float()
+    del gd
+    bt = (torch.sqrt(torch.clamp(1 - a.double() ** 2, min=1e-6))
+          * torch.as_tensor(x, device=device).to(f64)).float()
+    del x
+    h0 = torch.as_tensor(h0, device=device)
+    marks = _Marks(device)
+
+    def timed(fn):
+        fn()
+        t0 = marks.mark()
+        got = fn()
+        t1 = marks.mark()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return got, marks.ms(t0, t1)
+
+    def loop():
+        h, out = h0.double(), torch.empty((b, s, r), dtype=f64,
+                                          device=device)
+        a64, b64 = a.double(), bt.double()
+        for t in range(s):
+            h = a64[:, t] * h + b64[:, t]
+            out[:, t] = h
+        return out
+
+    def fro(u, v):
+        return float(torch.linalg.vector_norm((u - v).double())
+                     / torch.linalg.vector_norm(v.double()))
+
+    want, loop_ms = timed(loop)
+    out = {"b": b, "s": s, "r": r, "inputs_sum": prints,
+           "a_above_0.999_share": float((a > 0.999).double().mean()),
+           "loop_float64_ms": loop_ms}
+    for name, dt in (("float64", f64), ("fp32", torch.float32)):
+        ad, bd, hd = a.to(dt), bt.to(dt), h0.to(dt)
+        got, ms = timed(lambda: rglru._lru_scan(ad, bd, hd))
+        out[name] = {"rel_frobenius": fro(got, want), "ms": ms}
+        if name == "fp32":
+            out[name]["planted_h0_dropped_rel_frobenius"] = fro(
+                rglru._lru_scan(ad, bd, None), want)
+        del ad, bd, hd, got
+    del want, a, bt
+    return out
+
+
+def _engine_readings(tr):
+    """(prefill seconds, decode ms a step, group seconds) of a trace."""
+    return ([sp.seconds for sp in _spans(tr, "serving.prefill")],
+            [sp.seconds * 1e3 for sp in _spans(tr, "serving.decode")],
+            [sp.seconds for sp in _spans(tr, "serving.generate")])
+
+
+def _matrix_params(tree, skip=("conv_w",)):
+    """Params of a tree's matrix leaves (ndim > 2 in a stacked subtree)."""
+    from repro_torch.tree import tree_items
+    return sum(t.numel() for n, t in tree_items(tree)
+               if t.ndim > 2 and not any(k in n for k in skip))
+
+
+def phase_hybrid(device, seed: int, errs, diffs, card: str = "",
+                 full: bool = True, check_launches: bool = True, out=None):
+    """Phase 18: the hybrid family at recurrentgemma-9b's full width and
+    depth (random bf16 weights from ``seed``; every token id drawn on the
+    host, fingerprints printed).  (o_rg) the engine twice, traced then
+    not, then a group of long prompts whose decode wraps the local
+    attention's rolling buffer; (o'_rg) decode from the cache against the
+    full forward across the wrap, fp32 and bf16 held at the 4-layer cut;
+    (scan') the associative scan against a float64 loop; (r_rg) curation
+    through the model's table (B1 probe, B4 round 1 at d = 4,096);
+    (q_rg) ``generate_diverse`` into the session reranker (B3, B4); (z_rg)
+    AdamW steps on the model cut to ``train_layers`` at full width over
+    curated rows, accumulation and the gradient witness.  With ``out``,
+    one (o_rg) group and one (z_rg) step are profiled.  Returns
+    (launches, B4 cases for phase 7)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import repro_torch.models as M
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.models.rglru import _layout
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.train import AdamW, make_train_step
+    from repro_torch.tree import tree_items, tree_map
+    sz = hybrid_sizes(full)
+    cfg = get_config(sz["arch"], reduced=sz["reduced"])
+    R, B, new, S = sz["requests"], sz["batch"], sz["new"], sz["prompt"]
+    lead, G = _layout(cfg)
+    launches = dict.fromkeys(KERNELS, 0)
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def count(got):
+        for k_, v in got.items():
+            launches[k_] += v
+
+    # (o_rg) the engine
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed, device=device)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = M.count_params(cfg)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for _, t in tree_items(model))
+    mats = _matrix_params({k: model[k] for k in ("lead", "groups")
+                           if k in model})
+    rng = np.random.default_rng(seed + 113)
+    prompts = [rng.integers(1, cfg.vocab_size, size=S).astype(np.int32)
+               for _ in range(R)]
+
+    def requests():
+        return [Request(prompt=p, max_new_tokens=new) for p in prompts]
+
+    def prefill_parts(rows, n):
+        return {"layer_products_bf16_ms": 2 * mats * rows * n
+                / BF16_FLOPS * 1e3,
+                "attention_fp32_ms": 4 * rows * cfg.num_heads * n * n
+                * cfg.head_dim * G / FP32_FLOPS * 1e3,
+                "lm_head_bf16_ms": 2 * rows * n * cfg.d_model
+                * cfg.vocab_size / BF16_FLOPS * 1e3,
+                "rg_lru_scan_bytes_ms": 12 * rows * n * cfg.rnn_width
+                * (lead + 2 * G) / HBM_BYTES_PER_S * 1e3}
+
+    def decode_bound(cache):
+        kv = sum(t.numel() * t.element_size() for t in cache.kv[:2])
+        st = 2 * cache.state.numel() * cache.state.element_size() \
+            + 2 * cache.conv.numel() * cache.conv.element_size()
+        return {"decode_bound_ms": (weight_bytes + kv + st)
+                / HBM_BYTES_PER_S * 1e3,
+                "decode_bound_by": "bytes (the bf16 weights and the KV "
+                                   "buffer read once, the fp32 state and "
+                                   "conv rows read and written)",
+                "kv_buffer_bytes": kv, "state_conv_bytes_rw": st}
+
+    engine = ServingEngine(cfg, serve_launcher.RULES, model, batch=B,
+                           capacity=sz["capacity"])
+    first, traced_s, wall, tr = _engine_twice(engine, requests,
+                                              "hybrid (o_rg)")
+    prefill, decode, group_s = _engine_readings(tr)
+    del tr
+    pre_parts = prefill_parts(B, S)
+    emit({"phase": "hybrid", "call": "o_rg_engine", "card": card,
+          "arch": cfg.arch, "params": n_params, "dtype": "bfloat16",
+          "layout": {"leading_recurrent": lead, "groups": G},
+          "init_seconds": init_s, "requests": R, "batch": B,
+          "capacity": sz["capacity"], "prompt_tokens": S,
+          "new_tokens": new, "prompts": _prints(np.stack(prompts)),
+          "groups": len(prefill), "prefill_seconds": prefill,
+          "prefill_bound_ms": sum(v for k_, v in pre_parts.items()
+                                  if "bytes" not in k_),
+          "prefill_bound_parts": pre_parts,
+          "prefill_bound_by": "operations",
+          "decode_ms": {**_spread_of(decode), "steps": len(decode)},
+          **decode_bound(M.make_cache(cfg, B, sz["capacity"],
+                                      shapes_only=True)),
+          "weight_bytes": weight_bytes, "traced_seconds": traced_s,
+          "untraced_seconds": wall, "generated_tokens_per_s": R * new / wall,
+          "same_tokens_two_runs": True})
+    # what phase 8 would profile: one (o_rg) group, prefill and decode
+    if out is not None:
+        phase_profile(lambda: engine.generate(requests()[:B]),
+                      "hybrid_o_group", out, statistics.median(group_s))
+    del engine
+
+    # the wrap group: long prompts, decode past the window's slots
+    wr, wp, wn = sz["wrap"]
+    wtoks = zipf_tokens((wr, wp), cfg.vocab_size, seed + 127, device,
+                        host=True).cpu().numpy().astype(np.int32)
+    weng = ServingEngine(cfg, serve_launcher.RULES, model, batch=wr,
+                         capacity=wp + wn)
+    wout, w_s, _, wtr = _traced(lambda tr: weng.generate(
+        [Request(prompt=p, max_new_tokens=wn) for p in wtoks]))
+    wpre, wdec, _ = _engine_readings(wtr)
+    del wtr
+    wcache = M.make_cache(cfg, wr, wp + wn, shapes_only=True)
+    wparts = prefill_parts(wr, wp)
+    emit({"phase": "hybrid", "call": "o_rg_window_wrap", "card": card,
+          "rows": wr, "prompt_tokens": wp, "new_tokens": wn,
+          "window": cfg.window, "buffer_slots": int(wcache.kv.k.shape[2]),
+          "last_position": wp + wn - 2, "prompts": _prints(wtoks),
+          "prefill_seconds": wpre,
+          "prefill_bound_ms": sum(v for k_, v in wparts.items()
+                                  if "bytes" not in k_),
+          "prefill_bound_parts": wparts,
+          "decode_ms": {**_spread_of(wdec), "steps": len(wdec)},
+          **decode_bound(wcache), "seconds": w_s,
+          "tokens_head": wout[0].out[:8].tolist()})
+    del weng, wout
+
+    # (o'_rg) decode from the cache against the full forward, across the
+    # window's wrap: fp32 and bf16 held at the cut, bf16 at full depth
+    # printed beside its floor
+    cr, cs = sz["check"]
+    ctoks = zipf_tokens((cr, cs), cfg.vocab_size, seed + 131, device,
+                        host=True)
+    row, ok = _cache_consistency(model, cfg, ctoks, cs, None,
+                                 gate_depth=sz["gate_layers"],
+                                 fp32_depth=sz["gate_layers"])
+    emit({"phase": "hybrid", "call": "o_prime_rg_cache_consistency",
+          "card": card, "window": cfg.window, "tokens": _prints(ctoks.cpu()),
+          **row})
+    if not ok:
+        fail(f"hybrid (o'_rg): decode from the cache disagrees with the "
+             f"full forward in fp32 or bf16 at {sz['gate_layers']} layers: "
+             f"{row}")
+    del ctoks
+
+    # (scan') the associative scan against the float64 loop
+    row = _lru_scan_witness(*sz["scan"], seed + 137, device)
+    planted = row["fp32"]["planted_h0_dropped_rel_frobenius"]
+    ok = (row["float64"]["rel_frobenius"] <= LRU_F64_FRO
+          and row["fp32"]["rel_frobenius"] <= LRU_F32_FRO < planted)
+    emit({"phase": "hybrid", "call": "scan_prime_associative_vs_loop",
+          "card": card, **row, "bound": {"float64": LRU_F64_FRO,
+                                         "fp32": LRU_F32_FRO}, "ok": ok})
+    if not ok:
+        fail(f"hybrid (scan'): the associative scan parts from the float64 "
+             f"loop beyond its bounds, or the planted fault reads inside: "
+             f"{row}")
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (r_rg) curation through recurrentgemma's table
+    curated, kl, hyb_b4, row = _curate(cfg, model, sz["curate"], seed + 139,
+                                       device, errs, check_launches,
+                                       "hybrid (r_rg)")
+    count(kl)
+    emit({"phase": "hybrid", "call": "r_rg_curation", "card": card, **row})
+
+    # (q_rg) serve-then-diversify, one session a request
+    kl, b4, group, _ = _serve_diverse(
+        cfg, model, prompts[:B], sz, seed + 149, device, errs, diffs,
+        check_launches, "hybrid", "q_rg", card)
+    count(kl)
+    hyb_b4.append(b4)
+    del group
+
+    # (z_rg) AdamW steps at full width, the depth cut: the cut's weights
+    # copied, the whole model released
+    TL, TB, TS = sz["train_layers"], sz["train_batch"], sz["train_seq"]
+    tree, c_t = _first_layers(model, cfg, TL)
+    tree = tree_map(lambda t: t.clone(), tree)
+    del model
+    if cuda:
+        torch.cuda.empty_cache()
+    pick = torch.randperm(curated.shape[0], generator=torch.Generator(
+        ).manual_seed(seed + 151))[:TB].to(curated.device)
+    trows = curated[pick]
+    batch = {"tokens": trows[:, :TS].contiguous(),
+             "labels": trows[:, 1:TS + 1].contiguous()}
+    p0 = tree_map(lambda t: t.clone(), tree)
+    n_t = M.count_params(c_t)
+    before_steps = torch.cuda.max_memory_allocated() / 1e9 if cuda \
+        else None
+    losses, step_ms, grad_ms, upd_ms, peak, held = _adamw_steps(
+        c_t, tree, batch, sz["steps"], device)
+    del tree
+    if cuda:
+        torch.cuda.empty_cache()
+    ops_ms, ops_parts, upd_bound = train_bounds(c_t, TB, TS)
+    emit({"phase": "hybrid", "call": "z_rg_train_steps", "card": card,
+          "arch": cfg.arch, "layers": TL, "cut_from_layers": cfg.num_layers,
+          "layout": dict(zip(("leading_recurrent", "groups"),
+                             _layout(c_t))),
+          "params": n_t, "dtype": "bfloat16", "remat": cfg.remat,
+          "optimizer": "AdamW(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)",
+          "lr": TRAIN_LR, "batch": TB, "seq": TS, "steps": sz["steps"],
+          "losses": losses, "batch_tokens": _prints(batch["tokens"].cpu()),
+          "step_ms": _spread_of(step_ms), "grad_ms": _spread_of(grad_ms),
+          "update_ms": _spread_of(upd_ms),
+          "step_bound_ms": ops_ms, "step_bound_by": "operations",
+          "step_bound_parts": ops_parts,
+          "update_bound_ms": upd_bound, "update_bound_by": "bytes",
+          "tokens_per_s": TB * TS / (statistics.median(step_ms) / 1e3),
+          "max_memory_allocated_gb": peak,
+          "allocated_before_state_gb": held,
+          "reckoned_state_gb": n_t * (2 + 2 + 12) / 1e9})
+    if not losses[-1] < losses[0]:
+        fail(f"hybrid (z_rg): the loss did not fall: {losses}")
+    _accumulation_checks(c_t, p0, batch, "hybrid", "z_rg", card)
+
+    # (z'_rg) the gradient witness on the same cut over the first rows
+    # (float64 activations of every row would add ~3x the logits' 8 GB)
+    wrows = sz["witness_rows"]
+    _gradient_witness_checks(c_t, p0, {k: v[:wrows] for k, v in
+                                       batch.items()}, seed + 157, "hybrid",
+                             "z_prime_rg_gradient_witness", card,
+                             block_eps=_share_scaled_eps)
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # what phase 8 would profile: one (z_rg) step
+    if out is not None:
+        st = AdamW().init(p0)
+        fn = make_train_step(c_t, None, AdamW(), lambda s_: TRAIN_LR)
+        phase_profile(lambda: fn(p0, st, batch, 0), "hybrid_z_step", out,
+                      statistics.median(step_ms) / 1e3)
+        del st, fn
+    del p0, batch, curated
+    emit({"phase": "hybrid", "phase_seconds": time.perf_counter() - t_phase,
+          "max_memory_allocated_gb": max(
+              before_steps, torch.cuda.max_memory_allocated() / 1e9)
+          if cuda else None, "launches": launches})
+    return launches, hyb_b4
+
+
+# --------------------------------------------------------------------------
+# phase 19: the encdec family (seamless-m4t-large-v2)
+# --------------------------------------------------------------------------
+
+def encdec_sizes(full: bool):
+    """Sizes of phase 19: the model, the engine's slots, capacity and
+    frames, the requests, (o'_s2t)'s rows, tokens and frames, the
+    candidate windows and the session reranker's k and k', (z_s2t)'s
+    batch, tokens, frames and steps, and the witness's cut (layers,
+    rows, tokens and frames)."""
+    if full:
+        return {"arch": "seamless-m4t-large-v2", "reduced": False,
+                "batch": 8, "capacity": 64 + 32, "t_enc": 256,
+                "requests": 16, "prompt": 64, "new": 32,
+                "check": (2, 96, 256), "windows": 1024, "window": 16,
+                "k": 16, "kprime": 64, "train_batch": 8, "train_seq": 512,
+                "train_frames": 512, "steps": 6,
+                "witness": {"layers": 4, "rows": 2, "seq": 128}}
+    return {"arch": "seamless-m4t-large-v2", "reduced": True, "batch": 4,
+            "capacity": 8 + 6, "t_enc": 10, "requests": 8, "prompt": 8,
+            "new": 6, "check": (2, 12, 10), "windows": 64, "window": 8,
+            "k": 4, "kprime": 16, "train_batch": 4, "train_seq": 16,
+            "train_frames": 16, "steps": 6,
+            "witness": {"layers": 1, "rows": 2, "seq": 8}}
+
+
+def phase_encdec(device, seed: int, errs, diffs, card: str = "",
+                 full: bool = True, check_launches: bool = True, out=None):
+    """Phase 19: the encdec family at seamless-m4t-large-v2's full width
+    and depth (random bf16 weights from ``seed``; token ids and frame
+    embeddings drawn on the host, fingerprints printed).  (o_s2t) the
+    engine twice, traced then not (``t_enc`` zero frames a row, as the
+    reference's engine feeds); (o'_s2t) decode from the cache against
+    ``forward_train`` on host-drawn frames, fp32 at full depth and bf16 at
+    one encoder and one decoder layer held at 2e-2; (q_s2t)
+    ``generate_diverse`` into the session reranker (B3, B4 at d = 1,024);
+    (z_s2t) AdamW steps over ``lm_batch``'s frames and tokens,
+    accumulation, and the gradient witness on a cut (the encoder's blocks
+    included).  With ``out``, one (z_s2t) step is profiled.  Returns
+    (launches, B4 cases for phase 7)."""
+    import numpy as np
+    import torch
+    import repro_torch.models as M
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.train import AdamW, make_train_step
+    from repro_torch.tree import tree_items, tree_map
+    sz = encdec_sizes(full)
+    cfg = get_config(sz["arch"], reduced=sz["reduced"])
+    R, B, new, S, TE = (sz["requests"], sz["batch"], sz["new"], sz["prompt"],
+                        sz["t_enc"])
+    Le, Ld = cfg.num_layers, cfg.num_decoder_layers
+    H, hd = cfg.num_heads, cfg.head_dim
+    launches = dict.fromkeys(KERNELS, 0)
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def count(got):
+        for k_, v in got.items():
+            launches[k_] += v
+
+    # (o_s2t) the engine
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed, device=device)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = M.count_params(cfg)
+    enc = _matrix_params(model["encoder"])
+    cross = sum(model["decoder"][k].numel() for k in ("xk", "xv"))
+    dec = _matrix_params(model["decoder"]) - cross
+    nbytes = {k: sum(t.numel() * t.element_size() for _, t in tree_items(v))
+              for k, v in (("decoder", model["decoder"]),
+                           ("embed", model["embed"]))}
+    rng = np.random.default_rng(seed + 163)
+    prompts = [rng.integers(1, cfg.vocab_size, size=S).astype(np.int32)
+               for _ in range(R)]
+
+    def requests():
+        return [Request(prompt=p, max_new_tokens=new) for p in prompts]
+
+    engine = ServingEngine(cfg, serve_launcher.RULES, model, batch=B,
+                           capacity=sz["capacity"], t_enc=TE)
+    first, traced_s, wall, tr = _engine_twice(engine, requests,
+                                              "encdec (o_s2t)")
+    prefill, decode, _ = _engine_readings(tr)
+    del tr, engine
+    pre_parts = {
+        "encoder_products_bf16_ms": 2 * (enc + cross) * B * TE
+        / BF16_FLOPS * 1e3,
+        "decoder_products_bf16_ms": 2 * dec * B * S / BF16_FLOPS * 1e3,
+        "attention_fp32_ms": 4 * B * H * hd * (Le * TE * TE + Ld * (
+            S * sz["capacity"] + S * TE)) / FP32_FLOPS * 1e3,
+        "lm_head_bf16_ms": 2 * B * S * cfg.d_model * cfg.vocab_size
+        / BF16_FLOPS * 1e3}
+    cache = M.make_cache(cfg, B, sz["capacity"], t_enc=TE, shapes_only=True)
+    cross_bytes = 2 * cache.cross_k.numel() * cache.cross_k.element_size()
+    self_bytes = 2 * cache.self_kv.k.numel() * cache.self_kv.k.element_size()
+    emit({"phase": "encdec", "call": "o_s2t_engine", "card": card,
+          "arch": cfg.arch, "params": n_params, "dtype": "bfloat16",
+          "init_seconds": init_s, "requests": R, "batch": B,
+          "capacity": sz["capacity"], "t_enc": TE,
+          "frames": "zeros (the engine's, as the reference's engine feeds)",
+          "prompt_tokens": S, "new_tokens": new,
+          "prompts": _prints(np.stack(prompts)), "groups": len(prefill),
+          "prefill_seconds": prefill,
+          "prefill_bound_ms": sum(pre_parts.values()),
+          "prefill_bound_parts": pre_parts,
+          "prefill_bound_by": "operations",
+          "decode_ms": {**_spread_of(decode), "steps": len(decode)},
+          "decode_bound_ms": (nbytes["decoder"] + nbytes["embed"]
+                              + cross_bytes + self_bytes)
+          / HBM_BYTES_PER_S * 1e3,
+          "decode_bound_by": "bytes (the decoder's weights and the tied "
+                             "embedding, the cross K/V and the "
+                             "self-attention cache read once a step)",
+          "decoder_and_embed_bytes": nbytes["decoder"] + nbytes["embed"],
+          "cross_kv_bytes": cross_bytes, "self_kv_bytes": self_bytes,
+          "traced_seconds": traced_s, "untraced_seconds": wall,
+          "generated_tokens_per_s": R * new / wall,
+          "same_tokens_two_runs": True})
+    del cache
+
+    # (o'_s2t) decode from the cache against forward_train, host-drawn
+    # frames
+    cr, cs, ct = sz["check"]
+    ctoks = zipf_tokens((cr, cs), cfg.vocab_size, seed + 167, device,
+                        host=True)
+    fr_np = np.random.default_rng(seed + 173).standard_normal(
+        (cr, ct, cfg.d_model), dtype=np.float32)
+    frames = torch.as_tensor(fr_np, device=device)
+    row, ok = _cache_consistency(model, cfg, ctoks, cs, None, pe=frames)
+    emit({"phase": "encdec", "call": "o_prime_s2t_cache_consistency",
+          "card": card, "frames": ct,
+          "frames_sum": float(fr_np.sum(dtype=np.float64)),
+          "tokens": _prints(ctoks.cpu()), **row})
+    if not ok:
+        fail(f"encdec (o'_s2t): decode from the cache disagrees with "
+             f"forward_train in fp32 or at one layer in bf16: {row}")
+    del ctoks, frames
+
+    # (q_s2t) serve-then-diversify, one session a request
+    kl, b4, group, _ = _serve_diverse(
+        cfg, model, prompts[:B], sz, seed + 179, device, errs, diffs,
+        check_launches, "encdec", "q_s2t", card)
+    count(kl)
+    del group
+
+    # (z_s2t) AdamW steps at full width and depth over lm_batch's frames
+    # and tokens
+    TB, TS, TF = sz["train_batch"], sz["train_seq"], sz["train_frames"]
+    batch = lm_batch(cfg, seed=seed + 181, step=0, batch=TB, seq=TS,
+                     t_enc=TF, device=device)
+    p0 = tree_map(lambda t: t.clone(), model)
+    before_steps = torch.cuda.max_memory_allocated() / 1e9 if cuda \
+        else None
+    losses, step_ms, grad_ms, upd_ms, peak, held = _adamw_steps(
+        cfg, model, batch, sz["steps"], device)
+    del model
+    if cuda:
+        torch.cuda.empty_cache()
+    ops_ms, ops_parts, upd_bound = train_bounds(cfg, TB, TS, t_enc=TF)
+    emit({"phase": "encdec", "call": "z_s2t_train_steps", "card": card,
+          "arch": cfg.arch, "params": n_params, "dtype": "bfloat16",
+          "remat": cfg.remat, "optimizer": "AdamW(b1=0.9, b2=0.95, "
+          "eps=1e-8, weight_decay=0.1)", "lr": TRAIN_LR, "batch": TB,
+          "seq": TS, "frames": TF, "steps": sz["steps"], "losses": losses,
+          "batch_tokens": _prints(batch["dec_tokens"].cpu()),
+          "frames_sum": float(batch["frames"].double().sum()),
+          "step_ms": _spread_of(step_ms), "grad_ms": _spread_of(grad_ms),
+          "update_ms": _spread_of(upd_ms),
+          "step_bound_ms": ops_ms, "step_bound_by": "operations",
+          "step_bound_parts": ops_parts,
+          "update_bound_ms": upd_bound, "update_bound_by": "bytes",
+          "tokens_per_s": TB * (TS + TF) / (statistics.median(step_ms)
+                                            / 1e3),
+          "max_memory_allocated_gb": peak,
+          "allocated_before_state_gb": held,
+          "reckoned_state_gb": n_params * (2 + 2 + 12) / 1e9})
+    if not losses[-1] < losses[0]:
+        fail(f"encdec (z_s2t): the loss did not fall: {losses}")
+    _accumulation_checks(cfg, p0, batch, "encdec", "z_s2t", card)
+
+    # (z'_s2t) the gradient witness on a cut (encoder and decoder layers,
+    # the first rows, frames and tokens): its blocks include the
+    # encoder's, whose gradient arrives through the cross-attention only
+    w = sz["witness"]
+    wtree, wcfg = _first_layers(p0, cfg, w["layers"])
+    wbatch = {"frames": batch["frames"][:w["rows"], :w["seq"]],
+              "dec_tokens": batch["dec_tokens"][:w["rows"], :w["seq"]],
+              "labels": batch["labels"][:w["rows"], :w["seq"]]}
+    _gradient_witness_checks(wcfg, wtree, wbatch, seed + 191, "encdec",
+                             "z_prime_s2t_gradient_witness", card)
+    del wtree, wbatch
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # what phase 8 would profile: one (z_s2t) step
+    if out is not None:
+        st = AdamW().init(p0)
+        fn = make_train_step(cfg, None, AdamW(), lambda s_: TRAIN_LR)
+        phase_profile(lambda: fn(p0, st, batch, 0), "encdec_z_step", out,
+                      statistics.median(step_ms) / 1e3)
+        del st, fn
+    del p0, batch
+    emit({"phase": "encdec", "phase_seconds": time.perf_counter() - t_phase,
+          "max_memory_allocated_gb": max(
+              before_steps, torch.cuda.max_memory_allocated() / 1e9)
+          if cuda else None, "launches": launches})
+    return launches, [b4]
+
+
 def probe_only(seed: int, runs: int) -> int:
     """Call (i) ``runs`` times with the kernels: its ``mr.probe`` span and
     call seconds and its B1 launches, one JSON line a run."""
@@ -5954,7 +6723,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse", action="store_true",
-                    help="tiny CPU run of phases 2-6 and 9-17 with the "
+                    help="tiny CPU run of phases 2-6 and 9-19 with the "
                          "plain versions")
     ap.add_argument("--probe-only", type=int, default=0, metavar="RUNS",
                     help="run call (i) RUNS times on the card, print its "
@@ -6011,8 +6780,16 @@ def main(argv=None) -> int:
                               check_launches=False)
         emit({"phase": "rehearsal", "phases_16_17_seconds":
               time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        _, hyb_b4 = phase_hybrid("cpu", args.seed, errs, diffs, full=False,
+                                 check_launches=False)
+        _, enc_b4 = phase_encdec("cpu", args.seed, errs, diffs, full=False,
+                                 check_launches=False)
+        emit({"phase": "rehearsal", "phases_18_19_seconds":
+              time.perf_counter() - t0})
         phase_times_round1(mesh_b4 + serve_b4 + train_b4 + moe_b4 + vlm_b4
-                           + ssm_b4, args.seed, errs, diffs, timed=False)
+                           + ssm_b4 + hyb_b4 + enc_b4, args.seed, errs,
+                           diffs, timed=False)
         emit({"phase": "rehearsal", "ok": True})
         return 0
 
@@ -6175,6 +6952,24 @@ def main(argv=None) -> int:
     emit({"phase": "ssm", "phase_seconds": time.perf_counter() - t0,
           "script_seconds_so_far": time.perf_counter() - t_start})
 
+    # ---- 18. hybrid, 19. encdec ----------------------------------------------
+    t0 = time.perf_counter()
+    h_launches, hyb_b4 = phase_hybrid("cuda", args.seed, errs, diffs,
+                                      card=card, out=out)
+    for k, v in h_launches.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    emit({"phase": "hybrid", "phase_seconds": time.perf_counter() - t0,
+          "script_seconds_so_far": time.perf_counter() - t_start})
+    t0 = time.perf_counter()
+    d_launches, enc_b4 = phase_encdec("cuda", args.seed, errs, diffs,
+                                      card=card, out=out)
+    for k, v in d_launches.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    emit({"phase": "encdec", "phase_seconds": time.perf_counter() - t0,
+          "script_seconds_so_far": time.perf_counter() - t_start})
+
     # ---- 7. times, 8. profile ---------------------------------------------
     rows = phase_times(x, args.seed)
     sweep_rows = phase_times_sweeps(sweep_cases(x, sphere, train_b4,
@@ -6184,9 +6979,10 @@ def main(argv=None) -> int:
     requests = serving.pop("serving")
     phase_times_round1(round1_cases(x, sphere, genres, serving=requests,
                                     mesh=mesh_b4 + serve_b4 + train_b4
-                                    + moe_b4 + vlm_b4 + ssm_b4),
+                                    + moe_b4 + vlm_b4 + ssm_b4 + hyb_b4
+                                    + enc_b4),
                        args.seed, errs, diffs)
-    del serve_b4, train_b4, moe_b4, vlm_b4, ssm_b4
+    del serve_b4, train_b4, moe_b4, vlm_b4, ssm_b4, hyb_b4, enc_b4
     (out / "kernel_differing_entries.json").write_text(
         json.dumps(diffs, indent=1))
     round1 = {c: v for c, v in diffs["gmm_grouped_topb"].items()
@@ -6195,7 +6991,8 @@ def main(argv=None) -> int:
           "at": "round-1 (simulated and mesh) and serving shapes, "
                 "phase 13's pool and fused solve, phase 14's curation, "
                 "phase 15's curation and fused solve, phase 16's fused "
-                "solve, phase 17's curation and fused solve",
+                "solve, phase 17's curation and fused solve, phase 18's "
+                "curation and fused solve, phase 19's fused solve",
           "cases": len(round1),
           "counts": list(round1.values())})
     far = x.shape[0] // 2
@@ -6257,7 +7054,7 @@ def main(argv=None) -> int:
     emit({"phase": "memory",
           "max_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
           "script_seconds": time.perf_counter() - t_start,
-          "moe_slice_run_f_script_seconds": 486})
+          "vlm_ssm_slice_run_f_script_seconds": 640.0})
     print(card, flush=True)
     emit({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],

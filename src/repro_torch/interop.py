@@ -160,9 +160,12 @@ def _weight_out(t: torch.Tensor, dtype) -> np.ndarray:
 
 def params_from_reference(tree, cfg, device=None):
     """The port's parameter tree (``models.init_params``'s) holding the
-    weights of the reference's parameter tree ``{"embed", "final_norm",
-    "layers": {...}, ["head"]}`` (arrays read as numpy: float32, or a dtype
-    named ``bfloat16``, read by its bits), each leaf cast to the dtype the
+    weights of the reference's parameter tree of any family (``{"embed",
+    "final_norm", "layers": {...}, ["head"]}``, the hybrid's ``"lead"`` and
+    ``"groups": {"attn", "rec_a", "rec_b"}``, the encoder-decoder's
+    ``"encoder"``, ``"decoder"`` and ``"enc_norm"``; arrays read as numpy:
+    float32, or a dtype named ``bfloat16``, read by its bits), each leaf
+    cast to the dtype the
     model builds it in (``cfg.param_dtype``; the MoE router float32) on
     ``device`` (default: the card; a missing card raises).  bf16 -> f32 ->
     bf16 is exact, so a float32 copy of bf16 weights carries them

@@ -11,10 +11,15 @@ plus diverse re-ranking, on the card unless ``--device cpu``.
         --arch phi-3-vision-4.2b --requests 8 --new-tokens 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
         --reduced --device cpu --diverse-k 4
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b --requests 8 --new-tokens 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-large-v2 --reduced --device cpu
 
-``--arch`` takes the dense, MoE, vlm (zero patch embeddings before each
-prompt, as the reference's engine feeds) and ssm families; the hybrid and
-encdec families raise naming their ROADMAP A slice.
+``--arch`` takes every family: a vlm model gets zero patch embeddings
+before each prompt, as the reference's engine feeds; an encdec model is
+served through the engine's ``t_enc=0`` path, as the reference's launcher
+builds its engine (no frames: the cross-attention adds nothing).
 """
 from __future__ import annotations
 

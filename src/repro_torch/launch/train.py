@@ -11,10 +11,13 @@
         --steps 4 --batch 8 --seq 1024
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch phi-3-vision-4.2b --reduced --device cpu --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch seamless-m4t-large-v2 --steps 4 --batch 8 --seq 128
 
-``--arch`` takes the dense, MoE, vlm (``lm_batch`` draws its patch
-embeddings; the loss reads the text positions) and ssm families; the
-hybrid and encdec families raise naming their ROADMAP A slice.
+``--arch`` takes every family (a vlm model's ``lm_batch`` draws its patch
+embeddings and the loss reads the text positions; an encdec model's draws
+``--seq // 2`` frames beside the decoder's tokens, as the reference's
+launcher asks).
 
 One process, one device: the reference's single-device path (empty
 sharding rules, ``default_optimizer``, ``default_lr``, and a

@@ -10,11 +10,11 @@ the serving entry points.
   cross-entropy, differentiable in ``params``;
 * ``make_cache``, ``prefill_fn``, ``decode_fn``: the serving callables.
 
-The ``dense`` and ``moe`` families (one transformer,
-``transformer.build_params``), ``vlm`` (the transformer behind projected
-patch embeddings, ``vlm``) and ``ssm`` (mamba2, ``ssd``) are ported.
-``hybrid`` and ``encdec`` raise ``NotImplementedError`` naming their
-ROADMAP A slice.
+Every family of the reference is ported: ``dense`` and ``moe`` (one
+transformer, ``transformer.build_params``), ``vlm`` (the transformer
+behind projected patch embeddings, ``vlm``), ``ssm`` (mamba2, ``ssd``),
+``hybrid`` (recurrentgemma, ``rglru``) and ``encdec`` (seamless,
+``encdec``).  An unknown family raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from typing import Any, Dict
 import torch
 
 from ..tree import tree_items, tree_leaves
-from . import attention, ssd, transformer, vlm
+from . import attention, encdec, rglru, ssd, transformer, vlm
 from .common import InitBuilder, ModelConfig, ShapeBuilder, ShardingRules
 
 # the families the port runs, by their parameter builders
@@ -32,22 +32,16 @@ _BUILDERS = {
     "moe": transformer.build_params,
     "vlm": vlm.build_params,
     "ssm": ssd.build_params,
+    "hybrid": rglru.build_params,
+    "encdec": encdec.build_params,
 }
-# family -> the ROADMAP A slice that ports it
-_LATER = {"hybrid": "slice 16d-ii (repro.models.rglru)",
-          "encdec": "slice 16d-ii (repro.models.encdec)"}
 
 
 def _ported(cfg: ModelConfig) -> None:
-    """Raises unless ``cfg``'s family is one the port runs."""
-    fam = cfg.family
-    if fam in _BUILDERS:
-        return
-    if fam in _LATER:
-        raise NotImplementedError(
-            f"the {fam!r} family ({cfg.arch}) is ROADMAP A, {_LATER[fam]}; "
-            f"repro_torch ports the {', '.join(_BUILDERS)} families so far")
-    raise ValueError(fam)
+    """Raises ``ValueError`` unless ``cfg``'s family is one the port
+    runs."""
+    if cfg.family not in _BUILDERS:
+        raise ValueError(cfg.family)
 
 
 def init_params(cfg: ModelConfig, key: int = 0,
@@ -104,8 +98,13 @@ def loss_fn(params, cfg: ModelConfig, rules: ShardingRules,
             batch: Dict[str, Any]):
     """Teacher-forced cross-entropy of ``batch["tokens"]`` (B, S) against
     ``batch["labels"]`` (B, S), a 0-dim fp32 tensor (vlm: the logits of
-    the text positions only, after ``batch["patch_embeds"]``' P)."""
+    the text positions only, after ``batch["patch_embeds"]``' P; encdec:
+    ``batch["frames"]`` encoded, ``batch["dec_tokens"]`` decoded)."""
     _ported(cfg)
+    if cfg.family == "encdec":
+        logits, _ = encdec.forward_train(params, cfg, rules, batch["frames"],
+                                         batch["dec_tokens"])
+        return _xent(logits, batch["labels"])
     tokens = batch["tokens"]
     if cfg.family == "vlm":
         logits, _ = vlm.forward_train(params, cfg, rules, tokens,
@@ -115,22 +114,30 @@ def loss_fn(params, cfg: ModelConfig, rules: ShardingRules,
         return _xent(logits[:, P:], batch["labels"])
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)
-    fwd = ssd.forward if cfg.family == "ssm" else transformer.forward
+    fwd = {"ssm": ssd.forward, "hybrid": rglru.forward}.get(
+        cfg.family, transformer.forward)
     logits, _ = fwd(params, cfg, rules, tokens, positions)
     return _xent(logits, batch["labels"])
 
 
 def make_cache(cfg: ModelConfig, batch: int, capacity: int, *,
-               shapes_only: bool = False, split_local_global: bool = False, device=None):
+               shapes_only: bool = False, t_enc: int = 0,
+               split_local_global: bool = False, device=None):
     """A zeroed cache on ``device`` (default the card), or ``meta``
     tensors with ``shapes_only``: the KV cache in the config's dtype (an
     ssm model's ``ssd.SSMCache``, whose state does not grow, ignores
-    ``capacity``)."""
+    ``capacity``; a hybrid model's ``rglru.HybridCache`` caps it at the
+    window; an encdec model's ``encdec.EncDecCache`` also holds the cross
+    K/V of ``t_enc`` frames)."""
     _ported(cfg)
+    at = "meta" if shapes_only else device
     if cfg.family == "ssm":
-        return ssd.init_cache(cfg, batch,
-                              device="meta" if shapes_only else device)
-    kw = {"dtype": cfg.dtype, "device": "meta" if shapes_only else device}
+        return ssd.init_cache(cfg, batch, device=at)
+    if cfg.family == "hybrid":
+        return rglru.init_cache(cfg, batch, capacity, device=at)
+    if cfg.family == "encdec":
+        return encdec.init_cache(cfg, batch, capacity, t_enc, device=at)
+    kw = {"dtype": cfg.dtype, "device": at}
     if (split_local_global and cfg.local_global_period == 2
             and capacity > cfg.window > 0):
         # gemma2 long context: local layers hold window-sized ring buffers,
@@ -150,8 +157,19 @@ def prefill_fn(params, cfg: ModelConfig, rules: ShardingRules,
                batch: Dict[str, Any], cache):
     """``batch["tokens"]`` (and a vlm's ``batch["patch_embeds"]``, before
     them) written into ``cache``; an ssm model steps its recurrence over
-    the prompt, as the reference does."""
+    the prompt, as the reference does; an encdec model encodes
+    ``batch["frames"]`` and prefills ``batch["dec_tokens"]``."""
     _ported(cfg)
+    if cfg.family == "encdec":
+        return encdec.prefill(params, cfg, rules, batch["frames"],
+                              batch["dec_tokens"], cache)
+    if cfg.family == "hybrid":
+        tokens = batch["tokens"]
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device)
+        with torch.no_grad():
+            return rglru.forward(params, cfg, rules, tokens, positions,
+                                 cache=cache)
     if cfg.family == "vlm":
         return vlm.prefill(params, cfg, rules, batch["tokens"],
                            batch["patch_embeds"], cache)
@@ -164,12 +182,21 @@ def prefill_fn(params, cfg: ModelConfig, rules: ShardingRules,
 
 def decode_fn(params, cfg: ModelConfig, rules: ShardingRules, tokens, pos,
               cache):
-    """One step of ``tokens`` (B, 1) at position ``pos`` (an ssm model's
-    recurrence does not read it)."""
+    """One step of ``tokens`` (B, 1) at position ``pos`` (an int, or a
+    tensor on the tokens' device; an ssm model's recurrence does not read
+    it)."""
     _ported(cfg)
     if cfg.family == "ssm":
         with torch.no_grad():
             return ssd.forward(params, cfg, rules, tokens, cache=cache)
+    if cfg.family == "hybrid":
+        positions = torch.as_tensor(pos, dtype=torch.int32,
+                                    device=tokens.device).reshape(1)
+        with torch.no_grad():
+            return rglru.forward(params, cfg, rules, tokens, positions,
+                                 cache=cache)
+    if cfg.family == "encdec":
+        return encdec.decode_step(params, cfg, rules, tokens, pos, cache)
     return transformer.decode_step(params, cfg, rules, tokens, pos, cache)
 
 

@@ -53,8 +53,11 @@ def attend(q, k, v, q_pos, kv_pos, cfg: ModelConfig, rules: ShardingRules,
     (B, KV, qpk, qc, Skv).
 
     q (B,Sq,H,hd); k,v (B,Skv,KV,hd); q_pos (Sq,), kv_pos (Skv,) absolute
-    positions (-1 marks empty cache slots)."""
+    positions (-1 marks empty cache slots).  No queries (an encoder fed
+    zero frames) give no context; no keys give a zero context."""
     B, Sq, H, hd = q.shape
+    if Sq == 0:
+        return q.new_zeros(q.shape)
     KV = k.shape[2]
     qpk = H // KV
     scale = in_dtype(hd ** -0.5, q.dtype)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import types
 from typing import Any, Optional, Sequence, Tuple
 
 import torch
@@ -228,6 +229,22 @@ class _Logistic(torch.autograd.Function):
         return g * (s * (1 - s))
 
 
+class _Softplus(torch.autograd.Function):
+    """``jax.nn.softplus``, ``logaddexp(x, 0)``: forward max(x, 0) +
+    log1p(e^-|x|); backward logaddexp's rule, g e^(x - out)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g * torch.exp(x - out)
+
+
 def _silu(x):
     # jax.nn.silu's graph: x * sigmoid(x)
     return x * _Logistic.apply(x)
@@ -291,6 +308,16 @@ def lm_head(x, emb_or_head, cfg: ModelConfig, rules: ShardingRules):
     upcast to fp32 (float64 kept in a float64 config), then the softcap."""
     logits = wide(x @ emb_or_head)
     return softcap(logits, cfg.logit_softcap)
+
+
+def unbind_layers(tree, n: int):
+    """The ``n`` layers of a dict of stacked ``(n, ...)`` weights, each a
+    namespace of views made by one ``unbind`` of each leaf, whose
+    backward stacks the layers' gradients once (indexing a layer out of
+    the leaf would make a full-size zero gradient a layer)."""
+    cols = {k: w.unbind(0) for k, w in tree.items()}
+    return [types.SimpleNamespace(**{k: c[i] for k, c in cols.items()})
+            for i in range(n)]
 
 
 # ---------------------------------------------------------------------------

@@ -57,14 +57,14 @@ sharded placements) goes with ROADMAP A, slice 16e.
 """
 from __future__ import annotations
 
-import types
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
 from ..device import resolve_device
-from .common import (Builder, ModelConfig, ShardingRules, _act,
-                     embed_tokens, lm_head, maybe_remat, rms_norm, wide)
+from .common import (Builder, ModelConfig, ShardingRules, _act, _Softplus,
+                     embed_tokens, lm_head, maybe_remat, rms_norm,
+                     unbind_layers, wide)
 
 _silu = _act("silu")
 
@@ -208,22 +208,6 @@ def _causal_conv(xBC, w, bias, prev: Optional[torch.Tensor]):
     return _silu(out + bias), full[:, -(K - 1):]
 
 
-class _Softplus(torch.autograd.Function):
-    """``jax.nn.softplus``, ``logaddexp(x, 0)``: forward max(x, 0) +
-    log1p(e^-|x|); backward logaddexp's rule, g e^(x - out)."""
-
-    @staticmethod
-    def forward(ctx, x):
-        out = torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
-        ctx.save_for_backward(x, out)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        x, out = ctx.saved_tensors
-        return g * torch.exp(x - out)
-
-
 class _Gate(torch.autograd.Function):
     """``y * silu(z)`` as the reference's compiled graph computes it: the
     bf16 product's rounding is dropped in the forward (its fp32 value goes
@@ -275,14 +259,6 @@ def _ssm_sublayer(x, lp, cfg: ModelConfig, rules: ShardingRules,
     return x + out, (None if cache_row is None else (new_state, new_conv))
 
 
-def _layers(params, cfg: ModelConfig):
-    """Each layer's weights, views made by one ``unbind`` of each stacked
-    ``(L, ...)`` leaf (its backward stacks the layers' gradients once)."""
-    cols = {n: w.unbind(0) for n, w in params["layers"].items()}
-    return [types.SimpleNamespace(**{n: c[l] for n, c in cols.items()})
-            for l in range(cfg.num_layers)]
-
-
 def forward(params, cfg: ModelConfig, rules: ShardingRules, tokens,
             positions=None, cache: Optional[SSMCache] = None,
             inputs_embeds=None):
@@ -303,7 +279,7 @@ def forward(params, cfg: ModelConfig, rules: ShardingRules, tokens,
         return _ssm_sublayer(x, lp, cfg, rules, row)
 
     body = maybe_remat(layer, cfg) if torch.is_grad_enabled() else layer
-    for l, lp in enumerate(_layers(params, cfg)):
+    for l, lp in enumerate(unbind_layers(params["layers"], cfg.num_layers)):
         row = None if cache is None else (cache.state[l], cache.conv[l])
         x, new = body(x, lp, row)
         if cache is not None:

@@ -21,14 +21,18 @@ The engine keeps the reference's behaviour, including what a fix would
 change: prompts are left-padded with token 0, the pad positions count from
 0 and no mask hides them, the decode position is ``S + s`` for the group's
 longest prompt S (``P + S + s`` for a vlm model, whose prefill feeds P
-zero patch embeddings before the prompt), the greedy pick is the first
-maximal logit, and
+zero patch embeddings before the prompt), an encdec model encodes
+``t_enc`` zero frames (fp32) and decodes the prompt, its cache made for
+``t_enc or S`` frames (with ``t_enc=0`` the encoder sees no frames and the
+cross-attention adds nothing; the reference's encoder raises there), the
+greedy pick is the first maximal logit, and
 ``rerank_group`` keys a request without a ``session`` by its index in the
 group (``req-{i}``), so a later group's such requests land in an earlier
 group's sessions.  One difference is decided: a KV cache too short for the
 group's patches, prompt and decode steps raises ``ValueError`` (the
 reference's scatter drops the writes past its end); an ssm model's state
-does not grow, and its capacity is not read.
+does not grow, and its capacity is not read; a hybrid model's local
+attention keeps a rolling buffer of its window.
 
 Spans (with an enabled ``obs.trace`` active): ``serving.generate`` a group,
 inside it ``serving.prefill`` and one ``serving.decode`` a step, each fenced
@@ -74,10 +78,11 @@ class ServingEngine:
     ``reranker``: a ``serving.OnlineReranker`` for ``rerank_group``."""
 
     def __init__(self, cfg: ModelConfig, rules: ShardingRules, params, *,
-                 batch: int = 4, capacity: int = 256, reranker=None):
+                 batch: int = 4, capacity: int = 256, t_enc: int = 0,
+                 reranker=None):
         M._ported(cfg)
         self.cfg, self.rules, self.params = cfg, rules, params
-        self.batch, self.capacity = batch, capacity
+        self.batch, self.capacity, self.t_enc = batch, capacity, t_enc
         self.reranker = reranker
         self.device = resolve_device(None, like=params["embed"])
 
@@ -112,12 +117,17 @@ class ServingEngine:
             with _span("serving.generate", requests=len(group),
                        prompt_len=S, steps=steps):
                 batch = {"tokens": torch.as_tensor(toks, device=dev)}
+                if cfg.family == "encdec":
+                    batch = {"frames": torch.zeros(
+                        (self.batch, self.t_enc, cfg.d_model),
+                        dtype=torch.float32, device=dev),
+                        "dec_tokens": batch["tokens"]}
                 if cfg.family == "vlm":
                     batch["patch_embeds"] = torch.zeros(
                         (self.batch, cfg.num_patches, D_VISION),
                         dtype=torch.float32, device=dev)
                 cache = M.make_cache(cfg, self.batch, self.capacity,
-                                     device=dev)
+                                     t_enc=self.t_enc or S, device=dev)
                 # decode positions on the device: no host copy a step
                 S0 = S + self._prefix()
                 positions = torch.arange(S0, S0 + steps, dtype=torch.int32,

@@ -1154,3 +1154,86 @@ def test_cuda_vlm_and_ssm_forward_match_cpu(cuda_device, arch):
     np.testing.assert_allclose(step[:, -1].cpu().numpy(),
                                got[:, -1].cpu().numpy(), rtol=2e-2,
                                atol=2e-2)
+
+
+# -- the hybrid and encdec families ------------------------------------------------
+
+@pytest.mark.parametrize("s", [1, 37, 64])
+def test_cuda_associative_scan_matches_cpu(cuda_device, s):
+    """The RG-LRU's scan (``rglru._lru_scan``: ``associative_scan`` of its
+    combine with h0 folded in) on the card against the CPU from the same
+    fp32 inputs, within rtol 1e-5 and an atol of 1e-5 of the largest
+    entry; on the card, in float64, within 1e-10 (relative Frobenius) of
+    the sequential loop."""
+    from repro_torch.models import rglru
+
+    rng = np.random.default_rng(s)
+    a = torch.as_tensor(rng.uniform(0.2, 1.0, (2, s, 24)),
+                        dtype=torch.float32)
+    b = torch.as_tensor(rng.normal(size=(2, s, 24)), dtype=torch.float32)
+    h0 = torch.as_tensor(rng.normal(size=(2, 24)), dtype=torch.float32)
+    want = rglru._lru_scan(a, b, h0)
+    got = rglru._lru_scan(*(t.to(cuda_device) for t in (a, b, h0)))
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    a64, b64, h = (t.double().to(cuda_device) for t in (a, b, h0))
+    loop = []
+    for t in range(s):
+        h = a64[:, t] * h + b64[:, t]
+        loop.append(h)
+    scan = rglru._lru_scan(a64, b64, h0.double().to(cuda_device))
+    loop = torch.stack(loop, dim=1)
+    assert float(torch.linalg.vector_norm(scan - loop)
+                 / torch.linalg.vector_norm(loop)) <= 1e-10
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "seamless-m4t-large-v2"])
+def test_cuda_hybrid_and_encdec_forward_match_cpu(cuda_device, arch):
+    """A reduced hybrid (cut to 4 layers, 1 leading layer and 1 group: at
+    5 the random bf16 model is chaotic, ``test_torch_rglru.py``) or encdec
+    model's forward on the card against the same weights on the CPU, and
+    its prefill + decode from the cache against the card's full forward
+    (20 tokens: the hybrid's decode wraps its 16-slot buffer; the encdec
+    model's after 10 frames), at the reference's logits bound rtol = atol
+    = 2e-2."""
+    import dataclasses
+
+    import repro_torch.models as M
+    from repro_torch.configs import get_config
+    from repro_torch.interop import params_from_reference, params_to_reference
+    from repro_torch.models import encdec, rglru
+
+    cfg = get_config(arch, reduced=True)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, num_layers=4)
+    cpu = M.init_params(cfg, 0, device="cpu")
+    card = params_from_reference(params_to_reference(cpu), cfg,
+                                 device=cuda_device)
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 20)))
+    frames = torch.as_tensor(rng.normal(size=(2, 10, cfg.d_model)),
+                             dtype=torch.float32)
+
+    def logits(model, t, f):
+        with torch.no_grad():
+            if cfg.family == "encdec":
+                return encdec.forward_train(model, cfg, None, f, t)[0]
+            pos = torch.arange(t.shape[1], dtype=torch.int32,
+                               device=t.device)
+            return rglru.forward(model, cfg, None, t, pos)[0]
+
+    want = logits(cpu, toks, frames)
+    t, f = toks.to(cuda_device), frames.to(cuda_device)
+    got = logits(card, t, f)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                               rtol=2e-2, atol=2e-2)
+    cache = M.make_cache(cfg, 2, 24, t_enc=10, device=cuda_device)
+    pre = ({"frames": f, "dec_tokens": t[:, :19]} if cfg.family == "encdec"
+           else {"tokens": t[:, :19]})
+    _, cache = M.prefill_fn(card, cfg, None, pre, cache)
+    step, _ = M.decode_fn(card, cfg, None, t[:, 19:],
+                          torch.tensor(19, device=cuda_device), cache)
+    np.testing.assert_allclose(step[:, -1].cpu().numpy(),
+                               got[:, -1].cpu().numpy(), rtol=2e-2,
+                               atol=2e-2)

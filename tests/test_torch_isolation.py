@@ -37,6 +37,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.distributed.pipeline, repro_torch.launch.train, "
             "repro_torch.models, repro_torch.models.moe, "
             "repro_torch.models.vlm, repro_torch.models.ssd, "
+            "repro_torch.models.rglru, repro_torch.models.encdec, "
             "repro_torch.tree\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
@@ -70,7 +71,8 @@ def test_sources_never_import_jax_or_repro():
                 ("distributed", "pipeline.py"), ("models", "__init__.py"),
                 ("models", "common.py"), ("models", "transformer.py"),
                 ("models", "moe.py"), ("models", "vlm.py"),
-                ("models", "ssd.py"), ("tree.py",)):
+                ("models", "ssd.py"), ("models", "rglru.py"),
+                ("models", "encdec.py"), ("tree.py",)):
         assert PORT.joinpath(*mod) in scanned
     hits = [str(p) for p in scanned if pat.search(p.read_text())]
     assert not hits, hits
@@ -171,9 +173,12 @@ def test_failed_build_raises_with_compiler_output(monkeypatch, tmp_path):
 
 
 def _smoke(*args):
+    # one torch thread a process (the rehearsal's gloo ranks inherit it):
+    # beside the other test workers, eight threads a process stretch the
+    # rehearsal several times over
     root = SRC.parent
     env = {"PATH": os.environ.get("PATH", "/usr/bin"),
-           "CUDA_VISIBLE_DEVICES": ""}
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
     return subprocess.run([sys.executable, str(root / "chip_smoke.py"),
                            *args], capture_output=True, text=True, env=env,
                           cwd=root, timeout=600)

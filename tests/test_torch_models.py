@@ -28,10 +28,10 @@ import repro_torch.configs as port_configs
 import repro_torch.models as M
 from repro_torch.interop import params_from_reference, params_to_reference
 from repro_torch.models import attention, transformer
+from repro_torch.tree import tree_items
 
 DENSE = ["gemma-2b", "internlm2-1.8b", "starcoder2-15b", "gemma2-27b"]
 MOE = ["granite-moe-1b-a400m", "arctic-480b"]
-OTHER = {"recurrentgemma-9b": "16d", "seamless-m4t-large-v2": "16d"}
 REF_RULES = RefRules(batch=(), heads=None, kv_heads=None, d_ff=None,
                      vocab=None, experts=None, fsdp=None, head_dim=None,
                      state=None)
@@ -341,13 +341,16 @@ def test_default_device_is_the_card(monkeypatch):
         "w", (4, 3), (None, None)).device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch", sorted(OTHER))
-def test_other_families_raise_naming_their_slice(arch):
-    cfg = port_configs.get_config(arch, reduced=True)
-    slice_ = f"slice {OTHER[arch]}"
-    for call in (lambda: M.init_params(cfg, 0, device="cpu"),
-                 lambda: M.param_shapes(cfg),
-                 lambda: M.make_cache(cfg, 2, 16, device="cpu"),
-                 lambda: params_from_reference({}, cfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            call()
+@pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
+def test_param_shapes_equal_reference_for_every_arch(arch):
+    """Every family's tree at full size: the paths and shapes of
+    ``param_shapes`` are the reference's, as ``meta`` tensors, and so is
+    ``count_params``."""
+    cfg, rcfg = port_configs.get_config(arch), ref_configs.get_config(arch)
+    shapes = M.param_shapes(cfg)
+    assert all(t.device.type == "meta" for _, t in _named(shapes))
+    ref = jax.tree_util.tree_flatten_with_path(RM.param_shapes(rcfg))[0]
+    assert [(n, tuple(t.shape)) for n, t in tree_items(shapes)] == [
+        (jax.tree_util.keystr(p), s.shape) for p, s in ref]
+    assert M.count_params(cfg) == RM.count_params(rcfg)
+

@@ -361,18 +361,21 @@ def test_serving_counters_match_reference():
 
 def test_engine_names_are_exported_and_other_families_wait():
     """The model-backed engine is ported (its parity tests are
-    ``test_torch_serving_engine.py``); an engine over a family the port has
-    no model for raises naming that family's slice; the MoE family is
-    ported (``test_torch_moe.py``)."""
+    ``test_torch_serving_engine.py``); every family of the reference has a
+    model in the port, and an engine over an unknown family raises
+    ``ValueError`` naming it."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.serving import ServingEngine, diverse_rerank
 
     assert {"ServingEngine", "diverse_rerank", "Request"} <= set(
         repro_torch.serving.__all__)
     assert callable(diverse_rerank)
-    with pytest.raises(NotImplementedError, match="slice 16d"):
-        ServingEngine(get_config("recurrentgemma-9b", reduced=True), None,
-                      None)
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b", reduced=True),
+                              family="no-such-family")
+    with pytest.raises(ValueError, match="no-such-family"):
+        ServingEngine(cfg, None, None)
 
 
 # -- the facade --------------------------------------------------------------
