@@ -368,15 +368,38 @@ Phases, each printing one JSON line (or one per call):
               and tokens (the encoder's blocks included); phase 8's trace
               of one (z_s2t) step.
 
-Phases run in the order 1-6, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19,
-7, 8 (8 also traces one churn round of (u) and one group of (q); phase
-14's step is traced right after phase 14, phases 15-19's inside them).
+20. sharded — the reference's sharded training step (``rules_for``'s
+              placements over a ``DeviceMesh``, ``make_train_step`` on
+              DTensor params and AdamW state, MoE expert parallelism) at
+              granite-moe-1b-a400m's full width and depth on four gloo
+              ranks sharing the card, a (2, 2) ('data', 'model') mesh, 8
+              x 128 ``lm_batch`` tokens drawn on the host: (zw_sh) the
+              sharded float64 gradient against the one-process gradient
+              of the same function (the mean of the data shards' one-device
+              gradients: a MoE layer's capacity counts the shard's own
+              tokens) on the model cut to one layer, held leaf by leaf
+              within 1e-10, the copy's backward without its all-reduce
+              over 'model' and a step without the gradient sum over
+              'data' each read above 1e-3, and the same comparison at full
+              depth in bf16 printed; (z_sh) 3 AdamW steps: each step's ms
+              on the slowest rank (CUDA events and host clock), loss and
+              grad norm (equal on every rank), the collective bytes a
+              step counted in ``distributed.sharded``, each rank's shard
+              bytes of the params and the state (equal to the whole
+              divided as the specs divide it), each rank's peak beside
+              the parent's reserved bytes (under 80 GB together); the
+              phase within 120 s.
+
+Phases run in the order 1, 20, 2-6, 9, 10, 11, 12, 13, 14, 15, 16, 17,
+18, 19, 7, 8 (8 also traces one churn round of (u) and one group of (q);
+phase 14's step is traced right after phase 14, phases 15-19's inside
+them; 20 runs first, while the parent holds nothing on the card).
 The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before it.
-``--rehearse`` runs phases 2-6 and 9-19 at a tiny size on the CPU with the
-plain versions (no build, no timings, no ``ok`` line; phase 12 over gloo
-on the CPU; phases 13-19 on the reduced configs) to check the script
-itself.  ``--probe-only RUNS`` builds, makes the musiXmatch stand-in and
+``--rehearse`` runs phases 2-6 and 9-20 at a tiny size on the CPU with the
+plain versions (no build, no timings, no ``ok`` line; phases 12 and 20
+over gloo on the CPU; phases 13-20 on the reduced configs) to check the
+script itself.  ``--probe-only RUNS`` builds, makes the musiXmatch stand-in and
 runs call (i) RUNS times on the kernels, printing each run's ``mr.probe``
 and call seconds and B1 launches, and stops (no ``ok`` line): two
 checkouts run in turns on one card compare the probe end to end.
@@ -6687,6 +6710,370 @@ def phase_encdec(device, seed: int, errs, diffs, card: str = "",
     return launches, [b4]
 
 
+# --------------------------------------------------------------------------
+# 20. sharded training: the reference's placements over a DeviceMesh
+# --------------------------------------------------------------------------
+
+SHARDED_WORLD = 4               # gloo ranks of phase 20, sharing one card
+SHARDED_TIMEOUT_S = 300         # their process group and the join
+SHARDED_WITNESS_LIMIT = 1e-10   # (zw_sh), float64, relative Frobenius
+SHARDED_PLANTED_FLOOR = 1e-3    # each planted fault reads above it
+
+
+def sharded_sizes(full: bool):
+    """Phase 20's run: granite-moe-1b-a400m at full width and depth (the
+    reduced config in the rehearsal), 8 x 128 tokens (8 x 16), a (2, 2)
+    ('data', 'model') mesh, 3 AdamW steps."""
+    return {"arch": "granite-moe-1b-a400m", "reduced": not full,
+            "batch": 8, "seq": 128 if full else 16, "steps": 3,
+            "model_axis": 2, "lr": 1e-4}
+
+
+def _sharded_grad_errs(cfg, mesh, rules, full, batch, want=None):
+    """Per leaf, the relative Frobenius distance between the sharded
+    step's gradient of ``full`` (placed by the specs) and ``want``, the
+    one-process gradient of the same function: the mean over the data
+    shards of the port's one-device gradients on each shard's rows (a
+    MoE layer's capacity counts the shard's own tokens).  Every rank
+    computes ``want`` itself and compares its own shard; the sums meet in
+    one all-reduce.  Returns (errs, want)."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch import models as M
+    from repro_torch.distributed import sharded
+    from repro_torch.launch import RULES
+    from repro_torch.launch.sharding import distribute
+    from repro_torch.models.common import set_current_mesh
+    from repro_torch.train.step import (_value_and_grad, make_loss,
+                                        sharded_value_and_grad)
+    from repro_torch.tree import tree_items, tree_map
+
+    sp = distribute(full, mesh, M.param_specs(cfg, rules))
+    _, got = sharded_value_and_grad(make_loss(cfg, rules), sp, batch, rules)
+    if want is None:
+        n_data = int(mesh.size(0))
+        per = next(iter(batch.values())).shape[0] // n_data
+        set_current_mesh(None)
+        try:
+            for j in range(n_data):
+                g = _value_and_grad(make_loss(cfg, RULES), full, {
+                    k: v[j * per:(j + 1) * per] for k, v in batch.items()})[1]
+                # fp32 sums (float64 in a float64 config)
+                want = (tree_map(lambda x: x.to(torch.promote_types(
+                    x.dtype, torch.float32)), g) if j == 0 else
+                    tree_map(lambda a, x: a.add_(x), want, g))
+                del g
+        finally:
+            set_current_mesh(mesh)
+        want = tree_map(lambda a: a.div_(n_data), want)
+    sums = []
+    names = []
+    for (k, leaf), (_, g), (_, w) in zip(tree_items(sp), tree_items(got),
+                                         tree_items(want)):
+        wl = distribute_tensor(w, mesh, list(leaf.placements),
+                               src_data_rank=None).to_local()
+        r = sharded.replicas(leaf)
+        wl = wl.double()
+        sums += [((g.double() - wl) ** 2).sum() / r, (wl ** 2).sum() / r]
+        names.append(k)
+    tot = sharded.mesh_sum(torch.stack(sums), mesh).cpu()
+    errs = {k: float((tot[2 * i] / tot[2 * i + 1]).sqrt())
+            for i, k in enumerate(names)}
+    return errs, want
+
+
+def _sharded_witness(cfg, mesh, rules, full, batch):
+    """(zw_sh): the gradient errors of the sharded step and of its two
+    planted faults (the copy's backward without its all-reduce over
+    'model'; no gradient sum over 'data')."""
+    from repro_torch.distributed import sharded
+
+    errs, want = _sharded_grad_errs(cfg, mesh, rules, full, batch)
+    out = {"errs": errs}
+    copy_bwd = sharded.CopyToGroup.backward
+    sharded.CopyToGroup.backward = staticmethod(lambda ctx, g: (g, None))
+    try:
+        out["planted_copy"] = _sharded_grad_errs(cfg, mesh, rules, full,
+                                                 batch, want)[0]
+    finally:
+        sharded.CopyToGroup.backward = copy_bwd
+    reduce = sharded.reduce_grad
+    sharded.reduce_grad = (lambda g, leaf, axes, keep=():
+                           reduce(g, leaf, (), keep))
+    try:
+        out["planted_data"] = _sharded_grad_errs(cfg, mesh, rules, full,
+                                                 batch, want)[0]
+    finally:
+        sharded.reduce_grad = reduce
+    return out
+
+
+def _spec_bytes(shapes, specs, mesh):
+    """The bytes a rank holds of the ``meta`` tree ``shapes`` split as the
+    ``PartitionSpec`` tree ``specs`` divides it over ``mesh``."""
+    from repro_torch.launch.sharding import placements
+    from repro_torch.tree import tree_items
+    total = 0
+    for (_, t), (_, spec) in zip(tree_items(shapes), tree_items(specs)):
+        n = t.numel() * t.element_size()
+        for i, pl in enumerate(placements(mesh, spec)):
+            if pl.is_shard():
+                n //= int(mesh.size(i))
+        total += n
+    return total
+
+
+def _state_items(st):
+    from repro_torch.tree import tree_items
+    return [(f"{f}{k}", v) for f in st._fields
+            for k, v in tree_items(getattr(st, f))]
+
+
+def _sharded_rank(rank: int, world: int, store: str, out: str, seed: int,
+                  full: bool):
+    """One rank of phase 20 (a spawned process): gloo over a ``file://``
+    store, the (2, 2) ('data', 'model') mesh on the card (``cuda``, the
+    tensors' device), ``rules_for(cfg, SHAPES["train_4k"], mesh)``; the
+    witness (zw_sh) on the model cut to one layer in float64, the same
+    comparison at full depth in bf16 (printed), then the steps (z_sh).
+    Writes its record, or the exception, to ``out/sharded{r}.pkl``."""
+    import dataclasses
+    import datetime
+    import pickle
+    import traceback
+    sys.path.insert(0, str(SRC))
+    record = {}
+    try:
+        import torch
+        import torch.distributed as dist
+        device = "cuda" if full else "cpu"
+        if full:
+            torch.cuda.set_device(0)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group(
+            "gloo", init_method=f"file://{store}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=SHARDED_TIMEOUT_S))
+        from repro_torch import models as M
+        from repro_torch.configs import SHAPES, get_config
+        from repro_torch.data import lm_batch
+        from repro_torch.distributed import sharded
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch.sharding import (distribute, init_state,
+                                                 rules_for)
+        from repro_torch.models.common import set_current_mesh
+        from repro_torch.train import AdamW, make_train_step
+        from repro_torch.tree import tree_items, tree_map
+        sz = sharded_sizes(full)
+        mesh = make_host_mesh(model_axis=sz["model_axis"], device=device)
+        set_current_mesh(mesh)
+        cfg = get_config(sz["arch"], reduced=sz["reduced"])
+        rules = rules_for(cfg, SHAPES["train_4k"], mesh)
+        record["rules"] = {"batch": rules.batch, "fsdp": rules.fsdp,
+                           "experts": rules.experts, "vocab": rules.vocab}
+        batch = {k: v.to(device) for k, v in lm_batch(
+            cfg, seed=seed, step=0, batch=sz["batch"], seq=sz["seq"],
+            device="cpu").items()}
+        if full:
+            torch.cuda.reset_peak_memory_stats()
+
+        # (zw_sh): one layer, float64, held
+        f64 = torch.float64
+        cfg1 = dataclasses.replace(cfg, num_layers=1, dtype=f64,
+                                   param_dtype=f64)
+        p1 = tree_map(lambda t: t.to(f64),
+                      M.init_params(cfg1, seed, device=device))
+        record["witness"] = _sharded_witness(cfg1, mesh, rules, p1, batch)
+        del p1
+
+        # the same comparison at full depth in bf16, printed only
+        full_p = M.init_params(cfg, seed, device=device)
+        record["bf16_full_depth"] = _sharded_grad_errs(
+            cfg, mesh, rules, full_p, batch)[0]
+
+        # (z_sh): the steps
+        specs = M.param_specs(cfg, rules)
+        sp = distribute(full_p, mesh, specs)
+        del full_p
+        if full:
+            torch.cuda.empty_cache()
+        opt = AdamW()
+        st = init_state(opt, sp, specs)
+        shapes = M.param_shapes(cfg)
+        record["bytes"] = {
+            "params": sum(v.to_local().numel() * v.element_size()
+                          for _, v in tree_items(sp)),
+            "state": sum(v.to_local().numel() * v.element_size()
+                         for _, v in _state_items(st)),
+            "params_by_specs": _spec_bytes(shapes, specs, mesh),
+            "state_by_specs": sum(
+                _spec_bytes(a, b, mesh) for a, b in zip(
+                    opt.state_shapes(shapes), opt.state_specs(specs))),
+            "params_whole": sum(t.numel() * t.element_size()
+                                for _, t in tree_items(shapes)),
+            "state_whole": sum(t.numel() * t.element_size()
+                               for _, t in _state_items(
+                                   opt.state_shapes(shapes)))}
+        step = make_train_step(cfg, rules, opt, lambda s: sz["lr"])
+        steps = []
+        for i in range(sz["steps"]):
+            dist.barrier()
+            sharded.reset()
+            if full:
+                torch.cuda.synchronize()
+                e0, e1 = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                e0.record()
+            t0 = time.perf_counter()
+            sp, st, m = step(sp, st, batch, i)
+            if full:
+                e1.record()
+                torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            steps.append({"step": i, "host_ms": host_ms,
+                          "event_ms": e0.elapsed_time(e1) if full else None,
+                          "loss": float(m["loss"]),
+                          "grad_norm": float(m["grad_norm"]),
+                          "collective_bytes": dict(sharded.BYTES),
+                          "collective_host_ms": {
+                              k: v * 1e3 for k, v in sharded.SECONDS.items()}})
+        record["steps"] = steps
+        record["peak_bytes"] = (torch.cuda.max_memory_allocated() if full
+                                else None)
+        record["peak_reserved"] = (torch.cuda.max_memory_reserved() if full
+                                   else None)
+        set_current_mesh(None)
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:
+        record["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(os.path.join(out, f"sharded{rank}.pkl"), "wb") as f:
+            pickle.dump(record, f)
+
+
+def phase_sharded(device: str, seed: int, card: str = "",
+                  full: bool = True):
+    """Phase 20: the reference's sharded training step on four gloo ranks
+    sharing the card (spawned as call (y)'s are), over a (2, 2) ('data',
+    'model') mesh.  (zw_sh) the sharded step's float64 gradient against
+    the one-process gradient of the same function on the model cut to
+    one layer, held within 1e-10, each planted fault above 1e-3, and the
+    same comparison at full depth in bf16, printed; (z_sh) 3 AdamW steps
+    at full width and depth: each step's ms on the slowest rank (CUDA
+    events and the host clock), loss and grad norm, the collective bytes
+    a step, each rank's shard bytes beside the whole divided as the specs
+    divide it, and each rank's peak beside the parent's bytes."""
+    import math
+    import pickle
+    import tempfile
+    import torch
+    t_phase = time.perf_counter()
+    sz = sharded_sizes(full)
+    (ROOT / "build").mkdir(exist_ok=True)
+    scratch = tempfile.mkdtemp(prefix="sharded_", dir=ROOT / "build")
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_sharded_rank,
+                         args=(r, SHARDED_WORLD, f"{scratch}/store", scratch,
+                               seed, full)) for r in range(SHARDED_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    for p in procs:
+        p.join(timeout=max(1.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+            p.join(timeout=30)
+    spawn_s = time.perf_counter() - t0
+    if hung:
+        fail(f"sharded: ranks {hung} did not finish in {SHARDED_TIMEOUT_S} s")
+    recs = []
+    for r, p in enumerate(procs):
+        path = os.path.join(scratch, f"sharded{r}.pkl")
+        if not os.path.exists(path):
+            fail(f"sharded: rank {r} exited {p.exitcode} with no record")
+        with open(path, "rb") as f:
+            recs.append(pickle.load(f))
+        if "error" in recs[-1] or p.exitcode != 0:
+            fail(f"sharded: rank {r} exited {p.exitcode}:\n"
+                 f"{recs[-1].get('error', '')}")
+    shutil.rmtree(scratch, ignore_errors=True)
+
+    w = recs[0]["witness"]
+    worst = max(w["errs"].values())
+    planted = {k: max(w[k].values()) for k in ("planted_copy",
+                                                "planted_data")}
+    emit({"phase": "sharded", "call": "zw_sh", "arch": sz["arch"],
+          "layers": 1, "dtype": "float64", "mesh": "(2, 2) ('data', "
+          "'model')", "ranks": SHARDED_WORLD, "backend": "gloo",
+          "max_rel_err": worst, "limit": SHARDED_WITNESS_LIMIT,
+          "worst_leaf": max(w["errs"], key=w["errs"].get),
+          "planted_copy_backward_without_model_all_reduce":
+              planted["planted_copy"],
+          "planted_no_data_sum": planted["planted_data"],
+          "planted_floor": SHARDED_PLANTED_FLOOR, "rules": recs[0]["rules"]})
+    if not worst <= SHARDED_WITNESS_LIMIT:
+        fail(f"sharded (zw_sh): the float64 gradient parts from the "
+             f"one-process gradient by {worst:.3e}")
+    for k, v in planted.items():
+        if not v > SHARDED_PLANTED_FLOOR:
+            fail(f"sharded (zw_sh): planted fault {k} reads {v:.3e}")
+    bf = recs[0]["bf16_full_depth"]
+    emit({"phase": "sharded", "call": "zw_sh_full_depth", "dtype": "bf16",
+          "held": False, "max_rel_err": max(bf.values()),
+          "median_rel_err": statistics.median(bf.values()),
+          "worst_leaf": max(bf, key=bf.get)})
+    for i in range(sz["steps"]):
+        rows = [rec["steps"][i] for rec in recs]
+        losses = {r["loss"] for r in rows}
+        if len(losses) != 1 or not all(map(math.isfinite, losses)):
+            fail(f"sharded (z_sh): step {i} losses {sorted(losses)}")
+        if len({r["grad_norm"] for r in rows}) != 1:
+            fail(f"sharded (z_sh): step {i}: the ranks' grad norms differ")
+        emit({"phase": "sharded", "call": "z_sh", "step": i,
+              "batch": [sz["batch"], sz["seq"]],
+              "loss": rows[0]["loss"], "grad_norm": rows[0]["grad_norm"],
+              "ms_events_slowest": (max(r["event_ms"] for r in rows)
+                                    if full else None),
+              "ms_host_slowest": max(r["host_ms"] for r in rows),
+              "collective_bytes_per_rank": [r["collective_bytes"]
+                                            for r in rows],
+              "collective_host_ms_slowest": {
+                  k: max(r["collective_host_ms"].get(k, 0.0) for r in rows)
+                  for k in rows[0]["collective_host_ms"]}})
+    for r, rec in enumerate(recs):
+        b = rec["bytes"]
+        if (b["params"], b["state"]) != (b["params_by_specs"],
+                                         b["state_by_specs"]):
+            fail(f"sharded: rank {r} holds {b['params']} + {b['state']} "
+                 f"bytes, the specs divide {b['params_by_specs']} + "
+                 f"{b['state_by_specs']}")
+    parent = (torch.cuda.memory_reserved() if full else None)
+    peaks = [rec["peak_reserved"] for rec in recs]
+    emit({"phase": "sharded", "call": "memory",
+          "shard_bytes": [{k: rec["bytes"][k] for k in ("params", "state")}
+                          for rec in recs],
+          "whole_bytes": {k: recs[0]["bytes"][f"{k}_whole"]
+                          for k in ("params", "state")},
+          "peak_allocated_per_rank": [rec["peak_bytes"] for rec in recs],
+          "peak_reserved_per_rank": peaks,
+          "parent_reserved": parent,
+          "total_gb": (sum(peaks) + parent) / 1e9 if full else None})
+    if full and sum(peaks) + parent >= 80e9:
+        fail("sharded: the ranks' and the parent's bytes pass 80 GB")
+    secs = time.perf_counter() - t_phase
+    emit({"phase": "sharded", "phase_seconds": secs,
+          "spawn_to_join_s": spawn_s, "card": card})
+    if full and secs > 120:
+        fail(f"sharded: phase 20 took {secs:.1f} s (limit 120)")
+    return secs
+
+
 def probe_only(seed: int, runs: int) -> int:
     """Call (i) ``runs`` times with the kernels: its ``mr.probe`` span and
     call seconds and its B1 launches, one JSON line a run."""
@@ -6723,7 +7110,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse", action="store_true",
-                    help="tiny CPU run of phases 2-6 and 9-19 with the "
+                    help="tiny CPU run of phases 2-6 and 9-20 with the "
                          "plain versions")
     ap.add_argument("--probe-only", type=int, default=0, metavar="RUNS",
                     help="run call (i) RUNS times on the card, print its "
@@ -6787,6 +7174,8 @@ def main(argv=None) -> int:
                                  check_launches=False)
         emit({"phase": "rehearsal", "phases_18_19_seconds":
               time.perf_counter() - t0})
+        emit({"phase": "rehearsal", "phase_20_seconds":
+              phase_sharded("cpu", args.seed, full=False)})
         phase_times_round1(mesh_b4 + serve_b4 + train_b4 + moe_b4 + vlm_b4
                            + ssm_b4 + hyb_b4 + enc_b4, args.seed, errs,
                            diffs, timed=False)
@@ -6810,6 +7199,11 @@ def main(argv=None) -> int:
                          "cudnn": torch.backends.cudnn.allow_tf32},
           "build_seconds": build.BUILD_INFO["seconds"],
           "build_cached": build.BUILD_INFO["cached"]})
+
+    # ---- 20. sharded training, while the parent holds nothing on the card
+    phase_sharded("cuda", args.seed, card=card)
+    emit({"phase": "sharded", "script_seconds_so_far":
+          time.perf_counter() - t_start})
 
     # ---- data -------------------------------------------------------------
     t0 = time.perf_counter()

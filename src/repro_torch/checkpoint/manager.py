@@ -20,13 +20,16 @@ checkpoint written by either package restores in the other.  A leaf is a
 tensor, a numpy array or a scalar; ``None`` is an empty subtree, as in JAX.
 
 Across the ranks of a ``torch.distributed`` mesh: a tree holding
-``DTensor`` leaves is saved by every rank of the process group together.
-The leaves' meshes must span the group; each leaf placed ``Shard(0)`` or
-``Replicate`` along every mesh axis is gathered to the first rank of the
-first leaf's mesh alone, which writes, and then the ranks meet at a
+``DTensor`` leaves is saved by every rank of the process group together,
+at once (``blocking=False`` too: the gather is a collective).  The
+leaves' meshes must span the group; each leaf, placed ``Shard(d)`` on any
+dim or ``Replicate`` along each mesh axis (several mesh axes may split
+one dim, in mesh order, each evenly), is gathered to the first rank of
+the first leaf's mesh alone, which writes, and then the ranks meet at a
 barrier.  ``restore(shardings=)`` re-shards each leaf onto a
 ``DeviceMesh`` of any size (``distribute_tensor``), so a run saved at 4
-ranks resumes at 2.
+ranks resumes at 2; a template leaf that is a DTensor comes back placed
+as it is, unless ``shardings`` says otherwise.
 """
 from __future__ import annotations
 
@@ -132,8 +135,8 @@ def _sharded_writer(leaves) -> int:
     """The global rank that writes a tree with the DTensor ``leaves``: the
     first rank of the first leaf's mesh.  Every leaf's mesh must span the
     whole process group (every rank saves, and the gathers and the
-    barrier run over the default group) and be placed ``Shard(0)`` or
-    ``Replicate`` along each axis."""
+    barrier run over the default group) and be placed ``Shard`` or
+    ``Replicate`` along each axis, each split dim even."""
     import torch.distributed as dist
 
     world = dist.get_world_size()
@@ -144,19 +147,52 @@ def _sharded_writer(leaves) -> int:
                 f"leaf {path!r} lives on a mesh of {mesh.size()} ranks in a "
                 f"process group of {world}: a tree with DTensor leaves is "
                 f"saved by a mesh that spans the process group")
-        if not all(pl.is_replicate() or pl.is_shard(0)
+        if not all(pl.is_replicate() or pl.is_shard()
                    for pl in leaf.placements):
             raise ValueError(
                 f"leaf {path!r} is placed {tuple(leaf.placements)}: a saved "
-                f"DTensor is Shard(0) or Replicate along each mesh axis")
+                f"DTensor is Shard or Replicate along each mesh axis")
+        for d, n in _splits(leaf).items():
+            if leaf.shape[d] % n:
+                raise ValueError(
+                    f"leaf {path!r}: dim {d} of size {leaf.shape[d]} does "
+                    f"not split evenly over {n} ranks")
     return int(leaves[0][1].device_mesh.mesh.reshape(-1)[0])
+
+
+def _splits(leaf) -> dict:
+    """tensor dim -> the number of blocks the DTensor ``leaf`` splits it
+    into."""
+    out = {}
+    for i, pl in enumerate(leaf.placements):
+        if pl.is_shard():
+            out[pl.dim] = out.get(pl.dim, 1) * int(leaf.device_mesh.size(i))
+    return out
+
+
+def _block(leaf, coord) -> tuple:
+    """The slices of the full array that the shard of the rank at mesh
+    coordinate ``coord`` holds: along each dim, its block in row-major
+    order of the mesh dims that split it (mesh order, as DTensor deals
+    nested shards)."""
+    index = [0] * leaf.ndim
+    for i, pl in enumerate(leaf.placements):
+        if pl.is_shard():
+            index[pl.dim] = (index[pl.dim] * int(leaf.device_mesh.size(i))
+                             + int(coord[i]))
+    splits = _splits(leaf)
+    out = []
+    for d, size in enumerate(leaf.shape):
+        per = size // splits.get(d, 1)
+        out.append(slice(index[d] * per, (index[d] + 1) * per))
+    return tuple(out)
 
 
 def _gather_to(leaf, writer: int):
     """The full array of the DTensor ``leaf`` on rank ``writer`` (None on
     the others), from one copy of each shard: the ranks at coordinate 0 of
-    the replicated axes send their local shard, in row-major order of the
-    sharded axes (the order ``Shard(0)`` deals the rows in)."""
+    the replicated axes send their local shard and coordinate, which the
+    writer puts in its block."""
     import torch.distributed as dist
 
     mesh, placements = leaf.device_mesh, leaf.placements
@@ -164,15 +200,15 @@ def _gather_to(leaf, writer: int):
     copy = not any(coord[i] for i, pl in enumerate(placements)
                    if pl.is_replicate())
     box = [None] * dist.get_world_size() if dist.get_rank() == writer else None
-    dist.gather_object(_host(leaf.to_local()) if copy else None, box,
-                       dst=writer)
+    dist.gather_object((list(coord), _host(leaf.to_local())) if copy
+                       else None, box, dst=writer)
     if box is None:
         return None
-    sharded = [i for i, pl in enumerate(placements) if pl.is_shard(0)]
-    owners = mesh.mesh[tuple(slice(None) if i in sharded else 0
-                             for i in range(mesh.mesh.ndim))]
-    parts = [box[r] for r in owners.reshape(-1).tolist()]
-    return np.concatenate(parts) if sharded else parts[0]
+    parts = [b for b in box if b is not None]
+    out = np.empty(tuple(leaf.shape), dtype=parts[0][1].dtype)
+    for c, part in parts:
+        out[_block(leaf, c)] = part
+    return out
 
 
 def _leaf_shardings(template, shardings) -> dict:
@@ -182,7 +218,10 @@ def _leaf_shardings(template, shardings) -> dict:
     out = {}
 
     def walk(t, s, path):
-        if t is None or s is None:
+        if t is None:
+            return
+        if s is None:
+            out.update((p, None) for p, _ in _items(t, path))
             return
         if isinstance(t, dict):
             for k in sorted(t):
@@ -241,9 +280,7 @@ class CheckpointManager:
                 "extra": extra or {}}
         sharded = [(p, leaf) for p, leaf in _items(tree) if is_dtensor(leaf)]
         if sharded:
-            if not blocking:
-                raise ValueError("a tree with DTensor leaves is saved by "
-                                 "every rank together: blocking=True")
+            self.wait()
             self._save_sharded(step, tree, sharded, meta)
             return
         arrays = _flatten(tree)
@@ -324,7 +361,9 @@ class CheckpointManager:
         placements)`` pairs, or None) re-shards each leaf onto its
         ``DeviceMesh`` with ``distribute_tensor``: every rank of that mesh
         restores together, and the mesh may have another size than the one
-        that saved."""
+        that saved; each rank reads the archive and keeps its shard.  A
+        template leaf that is a DTensor, with no ``shardings`` entry,
+        comes back placed as it is."""
         spec = {} if shardings is None else _leaf_shardings(template,
                                                             shardings)
         path = os.path.join(self.dir, f"step_{step:09d}")
@@ -345,10 +384,14 @@ class CheckpointManager:
                                  else dtype)
             out = torch.as_tensor(np.asarray(data[key]), dtype=dtype,
                                   device=dev)
-            if spec.get(key) is not None:
+            place = spec.get(key)
+            if place is None and key not in spec and is_dtensor(leaf):
+                place = (leaf.device_mesh, leaf.placements)
+            if place is not None:
                 from torch.distributed.tensor import distribute_tensor
-                mesh, placements = spec[key]
-                out = distribute_tensor(out, mesh, list(placements))
+                mesh, placements = place
+                out = distribute_tensor(out, mesh, list(placements),
+                                        src_data_rank=None)
             return out
 
         return _rebuild(template, fill)

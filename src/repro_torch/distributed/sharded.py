@@ -1,0 +1,263 @@
+"""Collectives of the sharded training step (the counterpart of what
+GSPMD inserts into the reference's sharded step).
+
+A leaf of the parameter tree is a ``DTensor`` placed by
+``launch.sharding.named``: along each mesh dimension ``Shard(d)`` or
+``Replicate()``, several mesh dimensions splitting one tensor dim in mesh
+order (major to minor, as JAX splits a dim over a tuple of axes).  The
+step computes on plain local tensors:
+
+* ``gather`` — a leaf's sharded dims all-gathered before use, except the
+  dims held over the mesh dims ``keep`` (the MoE experts over ``model``);
+* ``reduce_grad`` — the gradient of that gathered tensor summed over the
+  batch axes (the data ranks hold different rows) into this rank's
+  shard: a reduce-scatter along a dim split over batch axes only, an
+  all-reduce over the batch axes that split no dim of the leaf, and a
+  slice (no sum) along a dim split over other axes, whose ranks computed
+  the same gradient;
+* ``CopyToGroup`` / ``ReduceFromGroup`` — Megatron's conjugate pair over
+  a mesh axis: identity forward and all-reduce backward, all-reduce
+  forward and identity backward (the MoE layer's replicated inputs and
+  its combine over ``model``);
+* ``LeafMeans`` — Adafactor's row and column means and its RMS over a
+  whole leaf, summed over the ranks that split the dims they reduce.
+
+Every collective runs over the process group of its mesh axes (the mesh's
+own for one axis), through pinned host memory when the group's backend is
+not NCCL (gloo ranks may hold CUDA tensors), and adds the bytes of its
+buffer to ``BYTES`` (all-gather: its output; reduce-scatter: its input;
+all-reduce: its buffer) and its host seconds, staging included, to
+``SECONDS``.  A collective that fails raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import collections
+import time
+from typing import Sequence, Tuple
+
+import torch
+
+from ..core.distributed import _Comm, _pinned
+
+# bytes a rank put through each kind of collective since the last reset,
+# and the host seconds they took
+BYTES = collections.Counter()
+SECONDS = collections.Counter()
+
+
+def reset() -> None:
+    BYTES.clear()
+    SECONDS.clear()
+
+
+def _count(kind: str, buf, t0: float) -> None:
+    BYTES[kind] += buf.numel() * buf.element_size()
+    SECONDS[kind] += time.perf_counter() - t0
+
+
+class AxisComm(_Comm):
+    """The ranks of this rank's group over the mesh axes ``axes``, in
+    row-major order of their coordinates (the reference's order of a dim
+    split over those axes)."""
+
+    def _wire(self, t):
+        """A copy of ``t`` to reduce, in pinned host memory when the
+        backend cannot take it from the card."""
+        if self._host(t):
+            return _pinned(t.contiguous())
+        return t.contiguous().clone()
+
+    def gather(self, t):
+        t0 = time.perf_counter()
+        out = super().gather(t)
+        _count("all_gather", out, t0)
+        return out
+
+    def sum(self, t):
+        """The sum of every rank's ``t`` (one shape on all ranks)."""
+        import torch.distributed as dist
+
+        if self.size == 1:
+            return t
+        t0 = time.perf_counter()
+        buf = self._wire(t)
+        dist.all_reduce(buf, group=self.group)
+        out = buf.to(t.device)
+        _count("all_reduce", buf, t0)
+        return out
+
+    def reduce_scatter(self, t):
+        """Rank ``i``'s block ``i`` along dim 0 of the sum of every rank's
+        ``t`` (dim 0 a multiple of the group's size)."""
+        import torch.distributed as dist
+
+        if self.size == 1:
+            return t
+        if t.shape[0] % self.size:
+            raise ValueError(f"dim 0 of size {t.shape[0]} does not split "
+                             f"over {self.size} ranks")
+        t0 = time.perf_counter()
+        buf = self._wire(t)
+        blocks = list(buf.chunk(self.size))
+        members = dist.get_process_group_ranks(self.group)
+        ins = [blocks[self.order.index(r)].contiguous() for r in members]
+        out = torch.empty_like(blocks[0])
+        dist.reduce_scatter(out, ins, group=self.group)
+        out = out.to(t.device)
+        _count("reduce_scatter", buf, t0)
+        return out
+
+
+def _names(mesh) -> Tuple[str, ...]:
+    return tuple(mesh.mesh_dim_names or ())
+
+
+def split_dims(placements) -> dict:
+    """tensor dim -> the mesh dims that split it, in mesh order."""
+    out = {}
+    for i, pl in enumerate(placements):
+        if pl.is_shard():
+            out.setdefault(pl.dim, []).append(i)
+        elif not pl.is_replicate():
+            raise ValueError(f"placement {pl} is neither Shard nor "
+                             f"Replicate")
+    return out
+
+
+def _chunk(t, dim: int, mesh, mesh_dims: Sequence[int]):
+    """This rank's block of ``t`` along ``dim`` split over ``mesh_dims``
+    (row-major over their coordinates, in mesh order)."""
+    coord = mesh.get_coordinate()
+    idx, n = 0, 1
+    for i in mesh_dims:
+        size = int(mesh.size(i))
+        idx, n = idx * size + coord[i], n * size
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of size {t.shape[dim]} does not split "
+                         f"over {n} ranks")
+    per = t.shape[dim] // n
+    return t.narrow(dim, idx * per, per)
+
+
+def gather(leaf, keep: Sequence[int] = ()):
+    """The plain tensor of the DTensor ``leaf`` with every sharded dim
+    gathered, except those split over the mesh dims ``keep`` (a dim split
+    over kept and other mesh dims raises)."""
+    mesh, names = leaf.device_mesh, _names(leaf.device_mesh)
+    t = leaf.to_local()
+    for dim, mdims in split_dims(leaf.placements).items():
+        kept = [i for i in mdims if i in keep]
+        if kept:
+            if len(kept) != len(mdims):
+                raise ValueError(f"dim {dim} is split over kept and gathered "
+                                 f"mesh dims {mdims}")
+            continue
+        comm = AxisComm(mesh, [names[i] for i in mdims])
+        t = comm.gather(t.movedim(dim, 0)).movedim(0, dim)
+    return t
+
+
+def reduce_grad(g, leaf, batch_axes: Sequence[str], keep: Sequence[int] = ()):
+    """This rank's shard of the sum over the ``batch_axes`` ranks of ``g``,
+    the gradient of ``gather(leaf, keep)``."""
+    mesh, names = leaf.device_mesh, _names(leaf.device_mesh)
+    batch = {names.index(a) for a in batch_axes}
+    splits = {d: [i for i in m if i not in keep]
+              for d, m in split_dims(leaf.placements).items()}
+    splits = {d: m for d, m in splits.items() if m}
+    # a dim split over non-batch axes only: every rank along them computed
+    # the same gradient, so each takes its block
+    for d, m in splits.items():
+        if not batch.intersection(m):
+            g = _chunk(g, d, mesh, m)
+    used = set()
+    for d, m in splits.items():
+        if batch.issuperset(m):
+            comm = AxisComm(mesh, [names[i] for i in m])
+            g = comm.reduce_scatter(g.movedim(d, 0)).movedim(0, d)
+            used.update(m)
+    rest = sorted(batch - used)
+    if rest:
+        g = AxisComm(mesh, [names[i] for i in rest]).sum(g)
+    # a dim split over batch and other axes: summed above, then its block
+    for d, m in splits.items():
+        if batch.intersection(m) and not batch.issuperset(m):
+            g = _chunk(g, d, mesh, m)
+    return g
+
+
+def replicas(leaf) -> int:
+    """Ranks holding each entry of the DTensor ``leaf`` (the product of the
+    mesh dims that split none of its dims)."""
+    n = 1
+    for i, pl in enumerate(leaf.placements):
+        if pl.is_replicate():
+            n *= int(leaf.device_mesh.size(i))
+    return n
+
+
+def mesh_sum(t, mesh):
+    """The sum of ``t`` over every rank of ``mesh``."""
+    return AxisComm(mesh, _names(mesh)).sum(t)
+
+
+class CopyToGroup(torch.autograd.Function):
+    """Identity forward; all-reduce of the gradient over ``comm``'s ranks
+    backward (an input every rank of the group uses for its own part)."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.sum(g), None
+
+
+class ReduceFromGroup(torch.autograd.Function):
+    """All-reduce over ``comm``'s ranks forward (the parts summed); identity
+    backward (every rank's part has the sum's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        out = comm.sum(x)
+        return x.view_as(x) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class LeafMeans:
+    """Means over dims of a leaf placed as ``leaf`` (a DTensor), computed
+    on its local shard and summed over the ranks that split the reduced
+    dims (Adafactor's factored moments and its RMS clip)."""
+
+    def __init__(self, leaf):
+        self._mesh = leaf.device_mesh
+        self._shape = tuple(leaf.shape)
+        self._splits = split_dims(leaf.placements)
+
+    def _sum_over(self, x, pdims):
+        mdims = sorted({i for d in pdims for i in self._splits.get(d, ())})
+        if not mdims:
+            return x
+        names = _names(self._mesh)
+        return AxisComm(self._mesh, [names[i] for i in mdims]).sum(x)
+
+    def mean(self, x, dim: int, pdim: int, keepdim: bool = False):
+        """The mean of ``x`` over its dim ``dim``, which is the param's dim
+        ``pdim``."""
+        pdim %= len(self._shape)
+        s = self._sum_over(x.sum(dim=dim, keepdim=keepdim), [pdim])
+        return s / self._shape[pdim]
+
+    def mean_all(self, x):
+        """The mean of ``x``, shaped as the param's shard, over the whole
+        param."""
+        s = self._sum_over(x.sum(), range(len(self._shape)))
+        n = 1
+        for size in self._shape:
+            n *= size
+        return s / n

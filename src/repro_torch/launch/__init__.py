@@ -1,8 +1,9 @@
-"""Launchers (port of ``repro.launch``): the device mesh over the ranks of
-a ``torch.distributed`` process group (``mesh``), the serving launcher
-(``serve``) and the one-rank training launcher (``train``).  The sharding
-rules, the production mesh, the multi-rank training run and the multi-pod
-dry-run are ROADMAP A, slice 16e."""
+"""Launchers (port of ``repro.launch``): the device meshes over the ranks
+of a ``torch.distributed`` process group (``mesh``: the host mesh and the
+production mesh), the per-arch sharding decisions (``sharding``), the
+serving launcher (``serve``) and the training launcher (``train``, one
+rank or several).  The multi-pod dry-run (the reference's ``dryrun``) is
+ROADMAP A, slice 16f."""
 from ..models.common import ShardingRules
 
 # the single-device run's rules: no axis is sharded

@@ -14,34 +14,62 @@ from typing import Tuple
 import numpy as np
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's TPU-pod mesh shapes ((16, 16) or (2, 16, 16)) serve
-    its sharded train and dry-run launchers: ROADMAP A, slice 16e."""
-    raise NotImplementedError(
-        "make_production_mesh builds a TPU pod mesh for the sharded train "
-        "and dry-run launchers, which are ROADMAP A, slice 16e — build a "
-        "DeviceMesh with make_host_mesh or "
-        "torch.distributed.device_mesh.init_device_mesh")
-
-
-def make_host_mesh(model_axis: int = 1):
-    """A ``("data", "model")`` mesh over every rank of the initialized
-    default process group, ``model_axis`` ranks a model group, on the
-    device its backend's collectives use: ``cuda`` under NCCL, else the
-    CPU (gloo)."""
+def _world() -> int:
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_initialized():
-        raise RuntimeError("make_host_mesh needs an initialized default "
-                           "process group (torch.distributed."
-                           "init_process_group)")
-    n = dist.get_world_size()
+        raise RuntimeError("a mesh needs an initialized default process "
+                           "group (torch.distributed.init_process_group)")
+    return dist.get_world_size()
+
+
+def _device_type(device) -> str:
+    """``device``'s type, or the card's under NCCL and the CPU under any
+    other backend."""
+    import torch
+    import torch.distributed as dist
+
+    if device is not None:
+        return torch.device(device).type
+    return "cuda" if "nccl" in dist.get_backend() else "cpu"
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh over the ranks of the initialized
+    default process group: ``(16, 16)`` ``("data", "model")``, or
+    ``(2, 16, 16)`` ``("pod", "data", "model")`` with ``multi_pod``, on
+    the device type of its backend (as ``make_host_mesh``'s default).
+    Raises, naming the world size it needs, under a group of another
+    size."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = int(np.prod(shape))
+    if _world() != need:
+        raise ValueError(
+            f"the production mesh {shape} {axes} needs a process group of "
+            f"{need} ranks; this one has {_world()}")
+    return init_device_mesh(_device_type(None), shape,
+                            mesh_dim_names=axes)
+
+
+def make_host_mesh(model_axis: int = 1, device=None):
+    """A ``("data", "model")`` mesh over every rank of the initialized
+    default process group, ``model_axis`` ranks a model group.  Its
+    device type is ``device``'s, by default the one its backend's
+    collectives use: ``cuda`` under NCCL, else the CPU (gloo).  Gloo
+    ranks sharing one card hold CUDA tensors, so they pass
+    ``device="cuda"``: a mesh's device type is that of the tensors placed
+    on it."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = _world()
     if n % model_axis:
         raise ValueError(f"world size {n} is not a multiple of "
                          f"model_axis={model_axis}")
-    device_type = "cuda" if "nccl" in dist.get_backend() else "cpu"
-    return init_device_mesh(device_type, (n // model_axis, model_axis),
+    return init_device_mesh(_device_type(device), (n // model_axis,
+                                                   model_axis),
                             mesh_dim_names=("data", "model"))
 
 

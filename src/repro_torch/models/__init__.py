@@ -5,7 +5,9 @@ the serving entry points.
   tree of tensors on the device (default the card; a missing card
   raises), the model for serving and training alike;
 * ``param_shapes(cfg)`` / ``count_params(cfg)``: ``meta`` tensors, no
-  allocation; ``active_param_ratio(cfg)``;
+  allocation; ``active_param_ratio(cfg)``; ``param_specs(cfg, rules)``
+  and ``cache_specs(cfg, rules)``: the reference's ``PartitionSpec``
+  trees (``launch.sharding`` places them over a ``DeviceMesh``);
 * ``loss_fn(params, cfg, rules, batch)``: the teacher-forced
   cross-entropy, differentiable in ``params``;
 * ``make_cache``, ``prefill_fn``, ``decode_fn``: the serving callables.
@@ -24,7 +26,8 @@ import torch
 
 from ..tree import tree_items, tree_leaves
 from . import attention, encdec, rglru, ssd, transformer, vlm
-from .common import InitBuilder, ModelConfig, ShapeBuilder, ShardingRules
+from .common import (InitBuilder, ModelConfig, ShapeBuilder, ShardingRules,
+                     SpecBuilder)
 
 # the families the port runs, by their parameter builders
 _BUILDERS = {
@@ -56,6 +59,12 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     """The reference's parameter tree as ``meta`` tensors."""
     _ported(cfg)
     return _BUILDERS[cfg.family](cfg, ShapeBuilder(cfg.param_dtype))
+
+
+def param_specs(cfg: ModelConfig, rules: ShardingRules) -> Dict[str, Any]:
+    """The parameter tree's ``PartitionSpec``s under ``rules``."""
+    _ported(cfg)
+    return _BUILDERS[cfg.family](cfg, SpecBuilder(rules))
 
 
 def count_params(cfg: ModelConfig) -> int:
@@ -153,6 +162,19 @@ def make_cache(cfg: ModelConfig, batch: int, capacity: int, *,
     return attention.init_kv_cache(cfg.num_layers, batch, cap, cfg, **kw)
 
 
+def cache_specs(cfg: ModelConfig, rules: ShardingRules):
+    """The cache's ``PartitionSpec``s under ``rules``, in the structure of
+    ``make_cache``'s (one tree for gemma2's split local/global caches)."""
+    _ported(cfg)
+    if cfg.family == "ssm":
+        return ssd.cache_specs(rules)
+    if cfg.family == "hybrid":
+        return rglru.cache_specs(cfg, rules)
+    if cfg.family == "encdec":
+        return encdec.cache_specs(rules)
+    return attention.cache_specs(rules)
+
+
 def prefill_fn(params, cfg: ModelConfig, rules: ShardingRules,
                batch: Dict[str, Any], cache):
     """``batch["tokens"]`` (and a vlm's ``batch["patch_embeds"]``, before
@@ -201,5 +223,6 @@ def decode_fn(params, cfg: ModelConfig, rules: ShardingRules, tokens, pos,
 
 
 __all__ = ["ModelConfig", "ShardingRules", "active_param_ratio",
-           "count_params", "decode_fn", "init_params", "loss_fn",
-           "make_cache", "param_shapes", "prefill_fn"]
+           "cache_specs", "count_params", "decode_fn", "init_params",
+           "loss_fn", "make_cache", "param_shapes", "param_specs",
+           "prefill_fn"]

@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..device import resolve_device
-from .common import (ModelConfig, ShardingRules, in_dtype, rope, softcap,
+from .common import (P, ModelConfig, ShardingRules, in_dtype, rope, softcap,
                      wide)
 
 _MASKED = -1e30
@@ -111,6 +111,14 @@ def init_kv_cache(num_layers: int, batch: int, capacity: int,
         v=torch.zeros(shape, dtype=dtype, device=device),
         slot_pos=torch.full((num_layers, capacity), -1, dtype=torch.int32,
                             device=device))
+
+
+def cache_specs(rules: ShardingRules, kv_sharded: bool = True) -> KVCache:
+    """The cache's ``PartitionSpec``s under ``rules`` (``kv_sharded=False``
+    keeps the KV heads whole)."""
+    kv = rules.kv_heads if kv_sharded else None
+    spec = P(None, rules.resolve("batch"), rules.kv_seq, kv, None)
+    return KVCache(k=spec, v=spec, slot_pos=P(None, rules.kv_seq))
 
 
 def cache_shapes(num_layers: int, batch: int, capacity: int,

@@ -1,12 +1,18 @@
 """Shared model substrate (port of ``repro.models.common``): config, param
-builders, norms, RoPE, MLPs, and the sharding record.
+builders, norms, RoPE, MLPs, and the logical-axis sharding rules.
 
 One structure function (``transformer.build_params``) walked by a builder:
 ``InitBuilder`` draws the weights (on a device, from a ``torch.Generator``
 seeded with an int), ``ShapeBuilder`` makes ``meta`` tensors that allocate
-nothing.  The reference's logical-axis sharding has no counterpart on one
-card: ``ShardingRules`` is kept as a plain record so callers' signatures
-match, and nothing reads it.
+nothing, ``SpecBuilder`` gives each weight's ``PartitionSpec`` under a
+``ShardingRules`` (logical axis -> mesh axis), as the reference's does.
+The specs place *storage*: ``launch.sharding.named`` turns them into
+DTensor placements over a ``DeviceMesh``, and the sharded training step
+(``train.sharded``) gathers a weight before it computes.  Activations are
+not placed: the reference's ``shard`` (a ``with_sharding_constraint``) has
+no counterpart, and the model code computes on each rank's local tensors.
+``set_current_mesh`` / ``current_mesh`` carry the mesh the MoE layer's
+expert-parallel branch reads, as in the reference.
 
 The numerics follow the reference's compiled graphs op for op: bf16
 products stay bf16, ``rms_norm`` and RoPE run in fp32 and cast back, a
@@ -19,6 +25,7 @@ parted by 4e-3-1.3e-2).
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import functools
 import math
@@ -77,8 +84,8 @@ class ModelConfig:
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.bfloat16
     remat: str = "dots"              # none | dots | full
-    # --- sharding overrides, kept for the configs' sake: on one card every
-    # mode runs the same GQA path (``attention.attend``)
+    # --- sharding overrides (``launch.sharding.rules_for`` reads them; the
+    # compute runs the same GQA path, ``attention.attend``, in every mode)
     attn_shard: str = "heads"
     attn_pad_to: int = 0             # padded head count for pad_heads mode
     # sub-quadratic flag for the long_500k cell
@@ -97,10 +104,32 @@ class ModelConfig:
         return self.d_inner // self.ssm_head_dim
 
 
+class PartitionSpec(tuple):
+    """A tensor's placement over named mesh axes (the port of
+    ``jax.sharding.PartitionSpec``): one entry a tensor dim, each a mesh
+    axis name, a tuple of names (the dim split over those axes, major to
+    minor) or None (not split); dims past the last entry are not split.
+    As JAX does, an entry of one name is that name and an empty tuple is
+    None."""
+
+    def __new__(cls, *entries):
+        def norm(e):
+            if isinstance(e, (tuple, list)):
+                e = tuple(e)
+                return None if not e else e[0] if len(e) == 1 else e
+            return e
+        return super().__new__(cls, tuple(norm(e) for e in entries))
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardingRules:
-    """logical axis -> mesh axis (or tuple of mesh axes, or None).  A plain
-    record on one card: nothing reads it."""
+    """logical axis -> mesh axis (or tuple of mesh axes, or None)."""
     batch: Tuple[str, ...] = ("data",)
     seq: Optional[str] = None
     heads: Optional[str] = "model"
@@ -114,6 +143,29 @@ class ShardingRules:
     state: Optional[str] = None
     kv_seq: Optional[str] = None
     fsdp: Optional[str] = "data"
+
+    def resolve(self, logical: Optional[str]):
+        if logical is None:
+            return None
+        return getattr(self, logical)
+
+    def spec(self, *logicals) -> PartitionSpec:
+        return PartitionSpec(*[self.resolve(l) for l in logicals])
+
+
+_CURRENT_MESH: "contextvars.ContextVar" = contextvars.ContextVar(
+    "repro_torch_current_mesh", default=None)
+
+
+def set_current_mesh(mesh):
+    """Launcher hook: with a mesh set, the MoE layer runs its experts
+    sharded over the mesh's ``model`` axis (``moe._moe_mlp_shard_map``);
+    None is the one-device path."""
+    _CURRENT_MESH.set(mesh)
+
+
+def current_mesh():
+    return _CURRENT_MESH.get()
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +206,18 @@ class InitBuilder(Builder):
         w = torch.randn(tuple(shape), generator=self._gen,
                         dtype=torch.float32, device=self._device)
         return w.mul_(std).to(dtype)
+
+
+class SpecBuilder(Builder):
+    """Each weight's ``PartitionSpec``: its logical axes resolved by the
+    rules."""
+
+    def __init__(self, rules: ShardingRules):
+        self._rules = rules
+
+    def __call__(self, name, shape, axes, *, scale=1.0, init="normal",
+                 dtype=None):
+        return PartitionSpec(*[self._rules.resolve(a) for a in axes])
 
 
 class ShapeBuilder(Builder):
@@ -360,5 +424,16 @@ def maybe_remat(fn, cfg: ModelConfig):
     def run(*args):
         kw = {} if policy is None else {"context_fn": functools.partial(
             create_selective_checkpoint_contexts, policy)}
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        mesh = current_mesh()
+
+        def again(*a):
+            # the recompute runs in the backward pass, on the autograd
+            # engine's thread on the card, outside this context: it sees
+            # the mesh the forward saw
+            token = _CURRENT_MESH.set(mesh)
+            try:
+                return fn(*a)
+            finally:
+                _CURRENT_MESH.reset(token)
+        return checkpoint(again, *args, use_reentrant=False, **kw)
     return run

@@ -20,7 +20,8 @@ accumulation, each residual sum reaching the next norm in fp32 while the
 stream is rounded to bf16 (a layer is one step of the reference's scan,
 its carry bf16).  Each encoder and decoder layer runs under
 ``cfg.remat``.  Self-attention caches are written in place.
-``cache_specs`` (the sharded placements) goes with ROADMAP A, slice 16e.
+``cache_specs`` gives the cache's ``PartitionSpec``s under a
+``ShardingRules``, as the reference's.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch
 
 from ..device import resolve_device
 from . import attention as attn
-from .common import (Builder, ModelConfig, ShardingRules, embed_tokens,
+from .common import (P, Builder, ModelConfig, ShardingRules, embed_tokens,
                      glu_mlp, lm_head, maybe_remat, rms_norm, rope_angles,
                      unbind_layers, wide)
 
@@ -244,6 +245,17 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, t_enc: int,
         cross_v=torch.zeros(kvshape, dtype=dtype, device=device),
         enc_pos=torch.arange(t_enc, dtype=torch.int32, device=device),
         pos=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def cache_specs(rules: ShardingRules) -> EncDecCache:
+    """The cache's ``PartitionSpec``s under ``rules``."""
+    bt = rules.resolve("batch")
+    kv = rules.kv_heads
+    return EncDecCache(
+        self_kv=attn.cache_specs(rules),
+        cross_k=P(None, bt, rules.kv_seq, kv, None),
+        cross_v=P(None, bt, rules.kv_seq, kv, None),
+        enc_pos=P(None), pos=P())
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, capacity: int, t_enc: int,

@@ -33,17 +33,26 @@ configs' layer and whole forward):
   rounding), and that sum joins the residual stream as the dense MLP's
   output does.
 
-``moe_mlp`` is the single-device path.  The reference's ``shard_map``
-dispatch over a mesh's ``model`` axis (``_moe_mlp_shard_map``: one expert
-range a rank, the combine a ``psum``) is expert parallelism, ROADMAP A
-slice 16e; ``_dispatch_local``'s ``E_range`` already names the experts a
-layer holds, and the partial ranges' outputs sum to the whole layer's.
+``moe_mlp`` runs the single-device path (``_moe_mlp_gspmd``) unless a
+mesh with a ``model`` axis is current (``common.set_current_mesh``, as
+in the reference), and then expert parallelism (``_moe_mlp_shard_map``,
+the reference's ``shard_map`` body): each ``model`` rank dispatches its
+data shard's tokens to its own ``E / n_model`` experts
+(``_dispatch_local``'s ``E_range``), the capacity C counted from those
+local tokens, and the combine sums the ranks' parts.  The layer's input
+and the router pass through ``CopyToGroup`` (identity forward, gradient
+all-reduced over ``model`` backward: every rank's part depends on them)
+and the combine through ``ReduceFromGroup`` (all-reduce forward,
+identity backward), Megatron's conjugate pair, which is the transpose of
+the ``shard_map``'s replicated inputs.  The code runs on each rank's
+local tensors: the tokens are its batch shard, the experts its shard
+over ``model``.
 """
 from __future__ import annotations
 
 import torch
 
-from .common import ModelConfig, ShardingRules, _act, wide
+from .common import ModelConfig, ShardingRules, _act, current_mesh, wide
 
 
 def capacity(cfg: ModelConfig, N: int) -> int:
@@ -55,8 +64,12 @@ def capacity(cfg: ModelConfig, N: int) -> int:
 
 def moe_mlp(x, router_w, w_gate, w_up, w_down, cfg: ModelConfig,
             rules: ShardingRules):
-    """x (B, S, D) -> (B, S, D) on one device (``_moe_mlp_gspmd``).  The
-    reference's mesh branch (``_moe_mlp_shard_map``) is slice 16e."""
+    """x (B, S, D) -> (B, S, D): expert parallelism over the current
+    mesh's ``model`` axis when one is set, else the single-device path."""
+    mesh = current_mesh()
+    if mesh is not None and "model" in (mesh.mesh_dim_names or ()):
+        return _moe_mlp_shard_map(x, router_w, w_gate, w_up, w_down, cfg,
+                                  rules, mesh)
     return _moe_mlp_gspmd(x, router_w, w_gate, w_up, w_down, cfg, rules)
 
 
@@ -110,6 +123,36 @@ def _expert_ffn(buf, w_gate, w_up, w_down, cfg: ModelConfig):
     act = _act(cfg.mlp_act)
     h = act(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
     return torch.bmm(h, w_down)
+
+
+def _moe_mlp_shard_map(x, router_w, w_gate, w_up, w_down, cfg: ModelConfig,
+                       rules: ShardingRules, mesh):
+    """x (B_loc, S, D) -> (B_loc, S, D) on this rank of ``mesh``: its
+    tokens through its experts ``e0 .. e0 + e_loc - 1`` (``e0`` its
+    ``model`` coordinate times ``e_loc = E / n_model``), the ranks' parts
+    summed over ``model``.  ``w_*`` hold this rank's ``e_loc`` experts."""
+    from ..distributed.sharded import AxisComm, CopyToGroup, ReduceFromGroup
+
+    B, S, D = x.shape
+    E, topk = cfg.num_experts, cfg.num_experts_per_tok
+    comm = AxisComm(mesh, ("model",))
+    if E % comm.size:
+        raise ValueError(f"{E} experts do not split over {comm.size} "
+                         f"model ranks")
+    e_loc = E // comm.size
+    e0 = comm.rank * e_loc
+    if w_gate.shape[0] != e_loc:
+        raise ValueError(f"the experts' leading dim is {w_gate.shape[0]}, "
+                         f"this rank's {e_loc} of {E} expected")
+    N = B * S
+    xf = CopyToGroup.apply(x.reshape(N, D), comm)
+    xw = wide(xf)
+    rw = CopyToGroup.apply(router_w, comm)
+    logits = xw @ rw.to(xw.dtype)                               # (N, E)
+    buf, meta = _dispatch_local(xf, logits, (e0, e_loc), cfg)
+    y = _expert_ffn(buf, w_gate, w_up, w_down, cfg)
+    out = _combine_local(y, meta, N, topk, D)
+    return ReduceFromGroup.apply(out, comm).reshape(B, S, D)
 
 
 def _moe_mlp_gspmd(x, router_w, w_gate, w_up, w_down, cfg: ModelConfig,

@@ -45,8 +45,8 @@ forward and backward), bf16 where the reference's arrays are bf16:
   is bf16 (the reference's scan carry).
 
 Each group runs under ``cfg.remat`` (the reference's ``maybe_remat`` over
-its scan body); the leading layers run outside it.  ``cache_specs`` (the
-sharded placements) goes with ROADMAP A, slice 16e.
+its scan body); the leading layers run outside it.  ``cache_specs``
+gives the cache's ``PartitionSpec``s under a ``ShardingRules``.
 """
 from __future__ import annotations
 
@@ -56,7 +56,7 @@ import torch
 
 from ..device import resolve_device
 from . import attention as attn
-from .common import (Builder, ModelConfig, ShardingRules, _Logistic,
+from .common import (P, Builder, ModelConfig, ShardingRules, _Logistic,
                      _Softplus, _gelu_tanh, embed_tokens, glu_mlp, lm_head,
                      maybe_remat, rms_norm, rope_angles, unbind_layers, wide)
 
@@ -358,6 +358,16 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
                           dtype=wide(torch.empty((), dtype=cfg.dtype)).dtype),
         conv=torch.zeros((n_rec, batch, 3, R), dtype=dtype, device=device),
         pos=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def cache_specs(cfg: ModelConfig, rules: ShardingRules) -> HybridCache:
+    """The cache's ``PartitionSpec``s under ``rules``."""
+    bt = rules.resolve("batch")
+    return HybridCache(
+        kv=attn.cache_specs(rules),
+        state=P(None, bt, rules.resolve("d_ff")),
+        conv=P(None, bt, None, rules.resolve("d_ff")),
+        pos=P())
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, capacity: int,

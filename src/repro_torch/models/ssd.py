@@ -52,8 +52,8 @@ carries ``xBC``'s dtype, so an fp32 config's is fp32 after one call), the
 state in the working dtype.  Caches are written in place.
 
 Each layer is rematerialized alone under ``cfg.remat`` (the reference's
-``maybe_remat`` over its single-layer scan body).  ``cache_specs`` (the
-sharded placements) goes with ROADMAP A, slice 16e.
+``maybe_remat`` over its single-layer scan body).  ``cache_specs`` gives
+the cache's ``PartitionSpec``s under a ``ShardingRules``.
 """
 from __future__ import annotations
 
@@ -62,7 +62,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from ..device import resolve_device
-from .common import (Builder, ModelConfig, ShardingRules, _act, _Softplus,
+from .common import (P, Builder, ModelConfig, ShardingRules, _act, _Softplus,
                      embed_tokens, lm_head, maybe_remat, rms_norm,
                      unbind_layers, wide)
 
@@ -307,6 +307,14 @@ def init_cache(cfg: ModelConfig, batch: int, dtype=None,
         conv=torch.zeros((L, batch, cfg.ssm_conv - 1, _conv_dim(cfg)),
                          dtype=cfg.dtype, device=device),
         pos=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def cache_specs(rules: ShardingRules) -> SSMCache:
+    """The cache's ``PartitionSpec``s under ``rules``."""
+    return SSMCache(
+        state=P(None, rules.resolve("batch"), None, None, rules.state),
+        conv=P(None, rules.resolve("batch"), None, None),
+        pos=P())
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, dtype=None) -> SSMCache:

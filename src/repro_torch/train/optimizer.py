@@ -15,8 +15,16 @@ from them, are the reference's.  ``update`` computes the reference's
 arithmetic op for op in fp32 and writes the new values into the state's
 and the params' tensors in place (the buffers a jitted step would donate),
 returning them; the gradients are read only.  ``state_shapes`` gives
-``meta`` tensors.  ``state_specs`` (the sharded launcher's
-``PartitionSpec``s) is ROADMAP A, slice 16e.
+``meta`` tensors, ``state_specs`` the state's ``PartitionSpec``s from the
+params' (each moment placed like its param; Adafactor's factored moments
+drop the reduced dim's entry).
+
+Sharded, the update runs on each rank's local shards (the state built by
+``init`` on the params' shards is the shard of the state ``state_specs``
+places): AdamW is elementwise; Adafactor's row and column means and its
+RMS over a leaf are sums over the ranks that split the reduced dims,
+given by ``update(..., means=)`` (a tree of
+``distributed.sharded.LeafMeans`` of the params' structure).
 """
 from __future__ import annotations
 
@@ -26,11 +34,8 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from ..models.common import P
 from ..tree import tree_leaves, tree_map
-
-_SPECS_LATER = ("state_specs gives PartitionSpecs for the reference's "
-                "sharded (GSPMD) launcher; sharded training is ROADMAP A, "
-                "slice 16e")
 
 
 def _device(tree):
@@ -91,11 +96,14 @@ class AdamW:
                           mu=tree_map(f32, param_shapes),
                           nu=tree_map(f32, param_shapes))
 
-    def state_specs(self, param_specs):
-        raise NotImplementedError(_SPECS_LATER)
+    def state_specs(self, param_specs) -> AdamWState:
+        return AdamWState(step=P(), master=param_specs, mu=param_specs,
+                          nu=param_specs)
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params, lr):
+    def update(self, grads, state: AdamWState, params, lr, means=None):
+        """``means`` is accepted for the sharded step's sake: AdamW's update
+        is elementwise, so a shard updates alone."""
         step = state.step + 1
         t = step.to(torch.float32)
         c1 = 1.0 - self.b1 ** t
@@ -160,28 +168,52 @@ class Adafactor:
         return AdafactorState(_meta((), torch.int32), *self._parts(
             param_shapes, lambda shape, p: _meta(shape)))
 
-    def state_specs(self, param_specs):
-        raise NotImplementedError(_SPECS_LATER)
+    def state_specs(self, param_specs) -> AdafactorState:
+        def vrow(s):
+            return P(*s[:-1]) if len(s) >= 2 else P(None)
+
+        def vcol(s):
+            return P(*(tuple(s[:-2]) + (s[-1],))) if len(s) >= 2 else P(None)
+
+        def vfull(s):
+            return P(None) if len(s) >= 2 else P(*s)
+
+        def mu(s):
+            return P(*s) if self.beta1 is not None else P(None)
+
+        return AdafactorState(step=P(), v_row=tree_map(vrow, param_specs),
+                              v_col=tree_map(vcol, param_specs),
+                              v_full=tree_map(vfull, param_specs),
+                              mu=tree_map(mu, param_specs))
 
     @torch.no_grad()
-    def update(self, grads, state: AdafactorState, params, lr):
+    def update(self, grads, state: AdafactorState, params, lr, means=None):
+        """``means``: None (the whole leaf is here) or a tree of
+        ``LeafMeans`` (the leaf's means sum over the ranks that split
+        it)."""
         step = state.step + 1
         t = step.to(torch.float32)
         rho = 1.0 - t ** (-self.decay)
 
-        def upd(g, vr, vc, vf, m, p):
+        def upd(g, vr, vc, vf, m, p, red=None):
+            if red is None:
+                mean = lambda x, dim, pdim, keepdim=False: x.mean(
+                    dim=dim, keepdim=keepdim)
+                mean_all = torch.mean
+            else:
+                mean, mean_all = red.mean, red.mean_all
             g = g.to(torch.float32)
             g2 = g * g + self.eps
             if g.ndim >= 2:
-                vr.mul_(rho).add_((1 - rho) * g2.mean(dim=-1))
-                vc.mul_(rho).add_((1 - rho) * g2.mean(dim=-2))
-                r = vr / torch.clamp(vr.mean(dim=-1, keepdim=True),
+                vr.mul_(rho).add_((1 - rho) * mean(g2, -1, -1))
+                vc.mul_(rho).add_((1 - rho) * mean(g2, -2, -2))
+                r = vr / torch.clamp(mean(vr, -1, -2, keepdim=True),
                                      min=self.eps)
                 u = g / torch.sqrt(r[..., :, None] * vc[..., None, :])
             else:
                 vf.mul_(rho).add_((1 - rho) * g2)
                 u = g / torch.sqrt(vf)
-            rms = torch.sqrt(torch.mean(u * u))
+            rms = torch.sqrt(mean_all(u * u))
             u = u / torch.clamp(rms / self.clip_threshold, min=1.0)
             if self.beta1 is not None:
                 m.mul_(self.beta1).add_((1 - self.beta1) * u)
@@ -189,8 +221,9 @@ class Adafactor:
             w32 = p.to(torch.float32)
             p.copy_(w32 - lr * (u + self.weight_decay * w32))
 
+        rest = () if means is None else (means,)
         tree_map(upd, grads, state.v_row, state.v_col, state.v_full,
-                 state.mu, params)
+                 state.mu, params, *rest)
         return params, AdafactorState(step=step, v_row=state.v_row,
                                       v_col=state.v_col,
                                       v_full=state.v_full, mu=state.mu)

@@ -9,6 +9,19 @@ compression (the cast the data-parallel path puts on the wire).  The
 optimizer writes the new values into the params' and the state's tensors
 (see ``optimizer``).  ``metrics`` holds 0-dim tensors, so a step makes no
 host read.
+
+When the params are DTensors (placed by ``launch.sharding.named`` over a
+``DeviceMesh``, the state likewise by ``optimizer.state_specs``), the step
+is the reference's sharded step, run on each rank's local tensors
+(``_sharded_step``): every leaf gathered whole at the start (the MoE
+experts kept split over ``model``), the loss of this rank's rows of the
+batch (its block over the rules' batch axes), the gradients summed over
+the batch axes into each leaf's shard (``distributed.sharded``), and the
+optimizer on the shards.  Every data shard holds the same number of
+tokens, so the loss, the mean of the shards' token means, is the global
+token mean; ``grad_norm`` is global.  The mesh comes from the leaves'
+placements; a MoE model reads it through ``common.current_mesh()``, which
+the caller sets (``set_current_mesh``), as the reference's launcher does.
 """
 from __future__ import annotations
 
@@ -17,8 +30,9 @@ from typing import Callable, Optional
 import torch
 
 from .. import models as M
-from ..models.common import ModelConfig, ShardingRules
-from ..tree import tree_leaves, tree_map
+from ..device import is_dtensor
+from ..models.common import ModelConfig, ShardingRules, current_mesh
+from ..tree import tree_items, tree_leaves, tree_map
 from .optimizer import cosine_schedule, get_optimizer
 
 
@@ -46,6 +60,10 @@ def make_train_step(cfg: ModelConfig, rules: ShardingRules, optimizer,
     loss_fn = make_loss(cfg, rules)
 
     def train_step(params, opt_state, batch, step):
+        if any(map(is_dtensor, tree_leaves(params))):
+            return _sharded_step(cfg, rules, optimizer, lr_fn, accum_steps,
+                                 compress_grads, loss_fn, params, opt_state,
+                                 batch, step)
         if accum_steps == 1:
             loss, grads = _value_and_grad(loss_fn, params, batch)
         else:
@@ -75,6 +93,138 @@ def make_train_step(cfg: ModelConfig, rules: ShardingRules, optimizer,
         return params, opt_state, {"loss": loss, "lr": lr, "grad_norm": gnorm}
 
     return train_step
+
+
+# the MoE experts' leaves: their dim ndim - 3 (E) stays split over
+# ``model`` in the sharded step
+_EXPERT_LEAVES = ("e_gate", "e_up", "e_down")
+
+
+def _kept(path: str, leaf):
+    """The mesh dims of ``leaf`` that the sharded step keeps split: those
+    of an expert leaf's expert dim."""
+    if not path.endswith(tuple(f"[{n!r}]" for n in _EXPERT_LEAVES)):
+        return ()
+    edim = leaf.ndim - 3
+    return tuple(i for i, pl in enumerate(leaf.placements)
+                 if pl.is_shard(edim))
+
+
+def _batch_axes(rules: ShardingRules):
+    bt = rules.resolve("batch")
+    return () if bt is None else (bt,) if isinstance(bt, str) else tuple(bt)
+
+
+def _local_rows(x, comm):
+    """This rank's rows of a batch leaf: a DTensor's local shard, or block
+    ``comm.rank`` of a tensor every rank holds whole."""
+    if is_dtensor(x):
+        return x.to_local()
+    if comm is None:
+        return x
+    if x.shape[0] % comm.size:
+        raise ValueError(f"batch {x.shape[0]} does not split over "
+                         f"{comm.size} data shards")
+    per = x.shape[0] // comm.size
+    return x[comm.rank * per:(comm.rank + 1) * per]
+
+
+def sharded_value_and_grad(loss_fn, params, batch, rules: ShardingRules,
+                           accum_steps: int = 1):
+    """(global loss, gradient shards) of the sharded step: ``params`` a
+    tree of DTensors on one mesh, ``batch`` whole on every rank or placed
+    over the batch axes.  The gradient shards are plain tensors shaped as
+    the params' local shards."""
+    from ..distributed.sharded import AxisComm, gather, reduce_grad
+
+    items = tree_items(params)
+    mesh = items[0][1].device_mesh
+    for path, leaf in items:
+        if not is_dtensor(leaf) or leaf.device_mesh != mesh:
+            raise ValueError(f"leaf {path!r} is not a DTensor on the params' "
+                             f"mesh: every leaf of a sharded step is")
+    keep = {path: _kept(path, leaf) for path, leaf in items}
+    if any(keep.values()) and current_mesh() != mesh:
+        raise ValueError("the experts are split over the mesh: call "
+                         "models.common.set_current_mesh(mesh) before the "
+                         "step, as the reference's launcher does")
+    axes = _batch_axes(rules)
+    comm = AxisComm(mesh, axes) if axes else None
+    n_data = comm.size if comm is not None else 1
+    xs = {path: gather(leaf, keep[path]).detach().requires_grad_()
+          for path, leaf in items}
+    tree = _unflatten(params, xs)
+    local = {k: _local_rows(v, comm) for k, v in batch.items()}
+    rows = next(iter(local.values())).shape[0]
+    if rows % accum_steps:
+        raise ValueError(f"batch shard {rows} is not a multiple of "
+                         f"accum_steps={accum_steps}")
+    mb = rows // accum_steps
+    acc, loss = None, 0.0
+    for i in range(accum_steps):
+        micro = {k: v[i * mb:(i + 1) * mb] for k, v in local.items()}
+        l = loss_fn(tree, micro)
+        g = torch.autograd.grad(l, list(xs.values()))
+        loss = loss + l.detach()
+        if accum_steps == 1:
+            acc = list(g)
+        elif acc is None:
+            acc = [x.to(torch.float32) for x in g]
+        else:
+            for a, x in zip(acc, g):
+                a.add_(x)
+        del g
+    if accum_steps > 1:
+        acc = [a.div_(accum_steps) for a in acc]
+        loss = loss / accum_steps
+    grads = {path: reduce_grad(g, leaf, axes, keep[path]).div_(n_data)
+             for (path, leaf), g in zip(items, acc)}
+    if comm is not None:
+        loss = comm.sum(loss.reshape(1)).reshape(()) / n_data
+    return loss, _unflatten(params, grads)
+
+
+def _unflatten(tree, by_path, path: str = ""):
+    """``tree``'s nested dicts with the leaf at each path from
+    ``by_path``."""
+    if isinstance(tree, dict):
+        return {k: _unflatten(v, by_path, f"{path}[{k!r}]")
+                for k, v in tree.items()}
+    return by_path[path]
+
+
+def _sharded_step(cfg, rules, optimizer, lr_fn, accum_steps, compress_grads,
+                  loss_fn, params, opt_state, batch, step):
+    """The sharded train step (see the module's docstring)."""
+    from torch.distributed.tensor import DTensor
+    from ..distributed.sharded import LeafMeans, mesh_sum, replicas
+
+    loss, grads = sharded_value_and_grad(loss_fn, params, batch, rules,
+                                         accum_steps)
+    if compress_grads == "bf16":
+        grads = tree_map(lambda g: g.to(torch.bfloat16).to(torch.float32),
+                         grads)
+    mesh = tree_leaves(params)[0].device_mesh
+    sq = torch.stack([torch.sum(torch.square(g.to(torch.float32)))
+                      / replicas(p) for p, g in zip(tree_leaves(params),
+                                                    tree_leaves(grads))])
+    gnorm = torch.sqrt(mesh_sum(sq.sum().reshape(1), mesh).reshape(()))
+    lr = torch.as_tensor(lr_fn(step), dtype=torch.float32)
+
+    def local(tree):
+        return tree_map(lambda t: t.to_local() if is_dtensor(t) else t, tree)
+
+    def wrap(new, old):
+        return tree_map(lambda n, o: DTensor.from_local(
+            n, o.device_mesh, o.placements, run_check=False, shape=o.shape,
+            stride=o.stride()) if is_dtensor(o) else n, new, old)
+
+    state_local = type(opt_state)(*(local(f) for f in opt_state))
+    _, new_state = optimizer.update(grads, state_local, local(params), lr,
+                                    means=tree_map(LeafMeans, params))
+    new_state = type(opt_state)(*(wrap(n, o)
+                                  for n, o in zip(new_state, opt_state)))
+    return params, new_state, {"loss": loss, "lr": lr, "grad_norm": gnorm}
 
 
 def make_prefill_step(cfg: ModelConfig, rules: ShardingRules):

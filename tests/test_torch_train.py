@@ -65,7 +65,7 @@ from repro_torch.train import (Adafactor, AdamW, cosine_schedule,
                                default_lr, default_optimizer,
                                get_optimizer, make_decode_step, make_loss,
                                make_prefill_step, make_train_step)
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_items, tree_leaves, tree_map
 from repro_torch.train.step import _value_and_grad
 
 DENSE = ["gemma-2b", "internlm2-1.8b", "starcoder2-15b", "gemma2-27b"]
@@ -429,8 +429,18 @@ def test_state_shapes_and_specs():
             assert got.device.type == "meta"
             assert tuple(got.shape) == want.shape
             assert str(got.dtype).split(".")[-1] == str(want.dtype)
-        with pytest.raises(NotImplementedError, match="slice 16e"):
-            opt.state_specs({})
+        # the state's specs from the params' (default rules: fsdp over
+        # 'data', heads and experts over 'model'), path for path
+        specs = opt.state_specs(M.param_specs(cfg, M.ShardingRules()))
+        rspecs = ropt.state_specs(RM.param_specs(rcfg, RefRules()))
+        rflat = jax.tree_util.tree_flatten_with_path(
+            rspecs, is_leaf=lambda x: isinstance(
+                x, jax.sharding.PartitionSpec))[0]
+        got = [(f".{f}{k}", v) for f in specs._fields
+               for k, v in tree_items(getattr(specs, f))]
+        assert [k for k, _ in got] == [jax.tree_util.keystr(p)
+                                       for p, _ in rflat]
+        assert [tuple(v) for _, v in got] == [tuple(v) for _, v in rflat]
     assert isinstance(get_optimizer("adamw"), AdamW)
     assert isinstance(get_optimizer("adafactor"), Adafactor)
     with pytest.raises(KeyError):
@@ -780,13 +790,35 @@ def test_launcher_trains_on_the_cpu(capsys, tmp_path):
         "step_000000002", "step_000000004"]
 
 
-def test_launcher_refuses_several_ranks(monkeypatch):
-    import torch.distributed as dist
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
-    with pytest.raises(NotImplementedError, match="slice 16e"):
-        launcher.main(["--arch", "internlm2-1.8b", "--reduced", "--device",
-                       "cpu", "--steps", "1"])
+def test_launcher_sharded_setup_steps_as_one_rank(tmp_path):
+    """The multi-rank launcher's setup (``make_host_mesh``, ``rules_for``,
+    the params and state placed as DTensors) on a one-rank gloo group:
+    its sharded step is the one-rank path's, bit for bit."""
+    from test_torch_mesh import one_rank_mesh
+    from repro_torch.models.common import set_current_mesh
+    cfg = get_config("granite-moe-1b-a400m", reduced=True)
+    opt = AdamW()
+    batch = lm_batch(cfg, seed=17, step=0, batch=4, seq=8, device="cpu")
+    p1 = M.init_params(cfg, 0, device="cpu")
+    s1 = opt.init(p1)
+    want = make_train_step(cfg, launcher.RULES, opt, lambda s: 1e-3)(
+        p1, s1, batch, 0)
+    with one_rank_mesh(tmp_path):
+        try:
+            mesh, rules, (sp, st) = launcher._sharded(cfg, opt, "cpu")
+            assert tuple(mesh.mesh_dim_names) == ("data", "model")
+            assert rules.fsdp == "data" and rules.experts == "model"
+            got = make_train_step(cfg, rules, opt, lambda s: 1e-3)(
+                sp, st, batch, 0)
+        finally:
+            set_current_mesh(None)
+        for k in ("loss", "grad_norm"):
+            assert torch.equal(got[2][k], want[2][k]), k
+        for a, b in zip(tree_leaves(got[0]), tree_leaves(want[0])):
+            assert a.to_local().shape == b.shape
+            assert torch.equal(a.to_local(), b)
+        for a, b in zip(_leaves(got[1]), _leaves(want[1])):
+            assert torch.equal(a.to_local(), b)
 
 
 def test_launcher_defaults_to_the_card(monkeypatch):
