@@ -389,17 +389,36 @@ Phases, each printing one JSON line (or one per call):
               divided as the specs divide it), each rank's peak beside
               the parent's reserved bytes (under 80 GB together); the
               phase within 120 s.
+21. dryrun  — the dry run (``launch.dryrun``: a cell's sharded step traced
+              on ``meta`` tensors over a fake process group) in a spawned
+              process: (dr_sh) phase 20's cell, whose collective bytes of
+              a step must equal every rank's per-step ``sharded.BYTES``
+              of phase 20 in this run, and its shard bytes of the params
+              and the state each rank's, to the byte (the trace's peak
+              estimate printed beside the ranks' measured peaks); (dr_pod)
+              arctic-480b x train_4k on (2, 16, 16) at 512 ranks,
+              recurrentgemma-9b x long_500k and gemma-2b x decode_32k on
+              (16, 16), a JSON line each with its trace seconds; then
+              (dr_paper) one rank of the paper cell at its real size, a
+              4,194,304 x 64 fp32 shard drawn on the host: exact GMM(2,048)
+              through B2 (2,048 sweeps) and b = 8 through B1 (257 sweeps),
+              kernel and plain in turns, picks equal up to a proven
+              near-tie (float64 distances to the earlier picks within
+              1e-5) and the radius within 1e-4, seconds beside the bytes
+              bound of the sweeps, launches equal to the sweeps, the
+              peak memory; the phase within 90 s.
 
-Phases run in the order 1, 20, 2-6, 9, 10, 11, 12, 13, 14, 15, 16, 17,
-18, 19, 7, 8 (8 also traces one churn round of (u) and one group of (q);
-phase 14's step is traced right after phase 14, phases 15-19's inside
-them; 20 runs first, while the parent holds nothing on the card).
+Phases run in the order 1, 20, 21, 2-6, 9, 10, 11, 12, 13, 14, 15, 16,
+17, 18, 19, 7, 8 (8 also traces one churn round of (u) and one group of
+(q); phase 14's step is traced right after phase 14, phases 15-19's
+inside them; 20 runs first, while the parent holds nothing on the card,
+and 21 next, held to 20's readings).
 The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before it.
-``--rehearse`` runs phases 2-6 and 9-20 at a tiny size on the CPU with the
+``--rehearse`` runs phases 2-6 and 9-21 at a tiny size on the CPU with the
 plain versions (no build, no timings, no ``ok`` line; phases 12 and 20
-over gloo on the CPU; phases 13-20 on the reduced configs) to check the
-script itself.  ``--probe-only RUNS`` builds, makes the musiXmatch stand-in and
+over gloo on the CPU; phases 13-21 on the reduced configs, phase 21's
+paper shard at 4,096 rows) to check the script itself.  ``--probe-only RUNS`` builds, makes the musiXmatch stand-in and
 runs call (i) RUNS times on the kernels, printing each run's ``mr.probe``
 and call seconds and B1 launches, and stops (no ``ok`` line): two
 checkouts run in turns on one card compare the probe end to end.
@@ -1794,16 +1813,17 @@ def phase_times(x, seed: int):
     prep = ops.prepare(x, "cosine")
     mask = torch.ones((n,), dtype=torch.bool, device=x.device)
     min_in = torch.full((n,), float("inf"), device=x.device)
-    rows = []
+    rows, kerns = [], []
     for b in (1, 8):
         cen = prep.points[torch.randint(0, n, (b,), generator=gen,
                                         device=x.device)]
         for p in (1, 128):
             bn = tile_rows(p)
             bms, bby = bound_ms(n, d, b, p)
-            kern = (lambda: ops.gmm_update_select(
+            # cen and p bound now: the second pass below calls it again
+            kern = (lambda cen=cen: ops.gmm_update_select(
                 prep.points, cen, min_in, mask, "cosine", prepared=True)) \
-                if p == 1 else (lambda: ops.gmm_topb(
+                if p == 1 else (lambda cen=cen, p=p: ops.gmm_topb(
                     prep.points, cen, min_in, mask, "cosine", p=p,
                     prepared=True))
             plain = (lambda: ref.gmm_update_select_ref(
@@ -1827,6 +1847,12 @@ def phase_times(x, seed: int):
                          "plain_ms": pms, "plain_host_ms": plain_host_ms,
                          "bound_ms": bms, "bound_by": bby,
                          "GBps": (n * d * 4 + 9 * n) / (ms * 1e-3) / 1e9})
+            kerns.append(kern)
+    # each call timed again after all of them: the phase's first window
+    # follows the model phases, and its call ms alone has parted from the
+    # kernel's device ms (PERF.md section 6)
+    for row, kern in zip(rows, kerns):
+        row["ms_second_pass"] = _time_ms(kern)[0]
     emit({"phase": "times", "rows": rows})
     return rows
 
@@ -3952,7 +3978,7 @@ def phase_serve(device, seed: int, errs, diffs, card: str = "",
     # (q) serve-then-diversify
     W = sz["windows"]
     windows = zipf_tokens((R * W, sz["window"]), cfg.vocab_size, seed + 23,
-                          device)
+                          device, host=True)
     t0 = time.perf_counter()
     cands = embed_examples(windows, embedding=model["embed"], dim=cfg.d_model)
     sync()
@@ -3990,7 +4016,8 @@ def phase_serve(device, seed: int, errs, diffs, card: str = "",
 
     # (p) data selection over a pool embedded through the model's table
     N, L, K = sz["pool"], sz["pool_len"], sz["select_k"]
-    pool_toks = zipf_tokens((N, L), cfg.vocab_size, seed + 29, device)
+    pool_toks = zipf_tokens((N, L), cfg.vocab_size, seed + 29, device,
+                            host=True)
     t0 = time.perf_counter()
     pool = embed_examples(pool_toks, embedding=model["embed"], dim=cfg.d_model)
     sync()
@@ -7071,7 +7098,280 @@ def phase_sharded(device: str, seed: int, card: str = "",
           "spawn_to_join_s": spawn_s, "card": card})
     if full and secs > 120:
         fail(f"sharded: phase 20 took {secs:.1f} s (limit 120)")
-    return secs
+    # what phase 21's dry run of this cell must reckon
+    readings = {"collective_bytes": [[s["collective_bytes"]
+                                      for s in rec["steps"]]
+                                     for rec in recs],
+                "shard_bytes": [{k: rec["bytes"][k] for k in ("params",
+                                                               "state")}
+                                for rec in recs],
+                "peak_allocated": [rec["peak_bytes"] for rec in recs]}
+    return secs, readings
+
+
+# --------------------------------------------------------------------------
+# 21. the dry run: each cell's sharded step traced on meta tensors
+# --------------------------------------------------------------------------
+
+DRYRUN_TIMEOUT_S = 240          # the dry runs' process
+# (dr_pod): (arch, shape, multi_pod) traced or placed on the production mesh
+DRYRUN_POD_CELLS = (("arctic-480b", "train_4k", True),
+                    ("recurrentgemma-9b", "long_500k", False),
+                    ("gemma-2b", "decode_32k", False))
+PAPER_TIE_RTOL = 1e-5           # a proven near-tie: float64 distances
+
+
+def paper_sizes(full: bool):
+    """(dr_paper): one rank's shard of the paper cell on (16, 16), 2^30 /
+    256 = 4,194,304 x 64 fp32 (4,096 rows in the rehearsal), k' = 2,048,
+    exact GMM (B2) and b = 8 (B1), kernel and plain in turns."""
+    return {"rows": 4194304 if full else 4096, "dim": 64, "kprime": 2048,
+            "b": (0, 8), "order": ("auto", False, False, "auto") if full
+            else ("auto", False)}
+
+
+def _dryrun_child(out: str, full: bool):
+    """Phase 21's dry runs, in a spawned process of their own, so that its
+    fake process group never meets phase 20's gloo ranks: (dr_sh) phase
+    20's cell (``sharded_sizes``: the mesh, the config, the batch) and,
+    at full size, (dr_pod) the ``DRYRUN_POD_CELLS`` on their production
+    meshes.  Writes its record, or the exception, to ``out/dryrun.pkl``."""
+    import pickle
+    import traceback
+    sys.path.insert(0, str(SRC))
+    record = {}
+    try:
+        import torch
+        torch.set_num_threads(1)
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch.configs import get_config
+        from repro_torch.configs.shapes import ShapeCell
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.mesh import make_production_mesh
+        sz = sharded_sizes(full)
+        cfg = get_config(sz["arch"], reduced=sz["reduced"])
+        model = sz["model_axis"]
+        with dryrun.fake_group(SHARDED_WORLD):
+            mesh = init_device_mesh("cpu", (SHARDED_WORLD // model, model),
+                                    mesh_dim_names=("data", "model"))
+            trace, meta = dryrun.lower_config(
+                cfg, ShapeCell("train", "train", sz["seq"], sz["batch"]),
+                mesh)
+        record["dr_sh"] = {**dryrun.analyze(trace), **meta}
+        record["dr_pod"] = []
+        for arch, shape, multi_pod in (DRYRUN_POD_CELLS if full else ()):
+            with dryrun.fake_group(512 if multi_pod else 256):
+                trace, meta = dryrun.lower_cell(
+                    arch, shape, make_production_mesh(multi_pod=multi_pod))
+            record["dr_pod"].append({**dryrun.analyze(trace), **meta,
+                                     "multi_pod": multi_pod,
+                                     "torch": torch.__version__})
+    except Exception:
+        record["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(os.path.join(out, "dryrun.pkl"), "wb") as f:
+            pickle.dump(record, f)
+
+
+def _paper_run(shard, kprime: int, b: int, use_pallas):
+    """One GMM run of the paper cell's round 1 on ``shard``: exact GMM
+    (b = 0) or ``gmm_batched`` with ``b`` centers a sweep.  Returns
+    (picks on the host, radius, seconds, launches)."""
+    import torch
+    from repro_torch.core.gmm import gmm, gmm_batched
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    if b:
+        idx, radius, _ = gmm_batched(shard, kprime, b=b, metric="euclidean",
+                                     use_pallas=use_pallas)
+    else:
+        res = gmm(shard, kprime, metric="euclidean", use_pallas=use_pallas)
+        idx, radius = res.idx, res.radius
+    idx, radius = idx.cpu().numpy(), float(radius)
+    if shard.is_cuda:
+        torch.cuda.synchronize()
+    return idx, radius, time.perf_counter() - t0, dict(ops.LAUNCHES)
+
+
+def _first_parting(shard_np, a, b):
+    """The first pick where the index arrays ``a`` and ``b`` part, with
+    the float64 distances of both picks to the picks before it (a proven
+    near-tie when they agree within ``PAPER_TIE_RTOL``), or None."""
+    import numpy as np
+    differ = np.flatnonzero(a != b)
+    if not len(differ):
+        return None
+    i = int(differ[0])
+    prefix = shard_np[a[:i]].astype(np.float64)
+    dist = [float(np.sqrt(((prefix - shard_np[j].astype(np.float64)) ** 2)
+                          .sum(axis=1).min())) for j in (a[i], b[i])]
+    return {"at": i, "float64_distances": dist,
+            "proven_near_tie": abs(dist[0] - dist[1])
+            <= PAPER_TIE_RTOL * max(dist)}
+
+
+def phase_dryrun(device: str, seed: int, sharded: dict, card: str = "",
+                 full: bool = True):
+    """Phase 21: (dr_sh) the dry run of phase 20's cell in a spawned
+    process: its collective bytes of a step must equal every rank's
+    per-step ``sharded.BYTES`` that phase 20 read in this run, and its
+    shard bytes each rank's, to the byte (its peak estimate printed
+    beside the ranks' measured peaks); (dr_pod) at full size, the
+    ``DRYRUN_POD_CELLS`` on the card machine's torch, a JSON line each
+    with its trace seconds; (dr_paper) one rank of the paper cell at its
+    real size, exact GMM through B2 and b = 8 through B1, kernel and plain
+    in turns, picks equal up to a proven near-tie and the radius within
+    rtol ``RTOL_E2E``, seconds beside the bytes bound of its sweeps.
+    Returns the kernel runs' launches and the sweeps' largest errors
+    against plain."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.launch.dryrun import KINDS as names, sweep_bytes
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    scratch = tempfile.mkdtemp(prefix="dryrun_", dir=ROOT / "build")
+    ctx = torch.multiprocessing.get_context("spawn")
+    proc = ctx.Process(target=_dryrun_child, args=(scratch, full))
+    proc.start()
+    proc.join(timeout=DRYRUN_TIMEOUT_S)
+    if proc.is_alive():
+        proc.terminate()
+        proc.join(timeout=30)
+        fail(f"dryrun: the dry runs did not finish in {DRYRUN_TIMEOUT_S} s")
+    path = os.path.join(scratch, "dryrun.pkl")
+    if not os.path.exists(path):
+        fail(f"dryrun: the dry runs exited {proc.exitcode} with no record")
+    with open(path, "rb") as f:
+        rec = pickle.load(f)
+    shutil.rmtree(scratch, ignore_errors=True)
+    if "error" in rec or proc.exitcode != 0:
+        fail(f"dryrun: exited {proc.exitcode}:\n{rec.get('error', '')}")
+
+    # (dr_sh): the trace against phase 20's ranks, to the byte
+    dr = rec["dr_sh"]
+    want = {k: v for k, v in dr["collective_bytes_per_device"].items() if v}
+    differ = [(r, i, got) for r, steps in enumerate(sharded["collective_bytes"])
+              for i, got in enumerate(
+                  {names[k]: v for k, v in step.items()} for step in steps)
+              if got != want]
+    shard_want = {"params": dr["argument_bytes_by_tree"]["params"],
+                  "state": dr["argument_bytes_by_tree"]["opt_state"]}
+    shard_differ = [r for r, got in enumerate(sharded["shard_bytes"])
+                    if got != shard_want]
+    emit({"phase": "dryrun", "call": "dr_sh", "arch": dr["arch"],
+          "mesh": "(2, 2) ('data', 'model')", "chips": dr["chips"],
+          "collective_bytes_per_device": dr["collective_bytes_per_device"],
+          "phase_20_per_rank_step_0": [
+              {names[k]: v for k, v in steps[0].items()}
+              for steps in sharded["collective_bytes"]],
+          "steps_compared": sum(map(len, sharded["collective_bytes"])),
+          "equal": not differ,
+          "shard_bytes": shard_want,
+          "phase_20_shard_bytes": sharded["shard_bytes"],
+          "shard_bytes_equal": not shard_differ,
+          "flops_per_device": dr["flops_per_device"],
+          "argument_bytes": dr["argument_bytes"],
+          "peak_bytes_estimate": dr["peak_bytes"],
+          "phase_20_peak_allocated_per_rank": sharded["peak_allocated"],
+          "trace_s": dr["trace_s"]})
+    if differ:
+        fail(f"dryrun (dr_sh): the trace reckons {want}, phase 20's ranks "
+             f"counted otherwise: {differ[:3]}")
+    if shard_differ:
+        fail(f"dryrun (dr_sh): shard bytes {shard_want}, phase 20's ranks "
+             f"{[sharded['shard_bytes'][r] for r in shard_differ]}")
+
+    # (dr_pod): the production meshes on this machine's torch
+    for info in rec["dr_pod"]:
+        emit({"phase": "dryrun", "call": "dr_pod", **{
+            k: info[k] for k in (
+                "arch", "shape", "multi_pod", "chips", "valid", "invalid",
+                "flops_per_device", "collective_bytes_per_device",
+                "collective_total", "argument_bytes",
+                "argument_bytes_by_tree", "peak_bytes", "null_reason",
+                "params", "active_ratio", "trace_s", "torch")}})
+        traced = info["shape"].startswith("train")
+        if not info["valid"] or traced != (info["flops_per_device"]
+                                           is not None):
+            fail(f"dryrun (dr_pod): {info['arch']} x {info['shape']}: "
+                 f"valid {info['valid']}, {info['null_reason']}")
+
+    # (dr_paper): one rank of the paper cell, kernel and plain in turns
+    sz = paper_sizes(full)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 211)
+    shard_np = rng.standard_normal((sz["rows"], sz["dim"]), dtype=np.float32)
+    shard = torch.from_numpy(shard_np).to(device)
+    if shard.is_cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    emit({"phase": "data", "paper_shard": list(shard.shape),
+          "gb": shard.numel() * 4 / 1e9, "seed": seed + 211,
+          "fingerprint": {"sum": float(shard_np.sum(dtype=np.float64)),
+                          "sha256_first_rows": hashlib.sha256(
+                              shard_np[:64].tobytes()).hexdigest()[:16]},
+          "seconds": time.perf_counter() - t0})
+    launches = dict.fromkeys(KERNELS, 0)
+    for b in sz["b"]:
+        wrapper = "gmm_topb" if b else "gmm_update_select"
+        runs = {"auto": [], False: []}
+        for use_pallas in sz["order"]:
+            runs[use_pallas].append(_paper_run(shard, sz["kprime"], b,
+                                               use_pallas))
+        (kidx, kr, _, kl), (pidx, pr, _, _) = runs["auto"][0], runs[False][0]
+        for side in runs.values():
+            if any(not np.array_equal(i, side[0][0]) or r != side[0][1]
+                   for i, r, _, _ in side[1:]):
+                fail(f"dryrun (dr_paper) b={b}: a repeated run gave another "
+                     f"answer")
+        sweeps = sz["kprime"] if not b else sz["kprime"] // b + 1
+        parting = _first_parting(shard_np, kidx, pidx)
+        bound_s = sweeps * sweep_bytes(sz["rows"], sz["dim"]) / HBM_BYTES_PER_S
+        emit({"phase": "dryrun", "call": "dr_paper", "b": b or 1,
+              "rows": sz["rows"], "dim": sz["dim"], "kprime": sz["kprime"],
+              "kernel": wrapper, "sweeps": sweeps,
+              "kernel_launches": kl[wrapper],
+              "kernel_seconds": _spread([r[2] for r in runs["auto"]]),
+              "plain_seconds": _spread([r[2] for r in runs[False]]),
+              "bound_s": bound_s, "bound_by": "bytes",
+              "sweep_bytes": sweep_bytes(sz["rows"], sz["dim"]),
+              "radius": [kr, pr], "identical_picks": int(
+                  len(np.intersect1d(kidx, pidx))),
+              "first_parting": parting,
+              "max_memory_allocated_gb": (torch.cuda.max_memory_allocated()
+                                          / 1e9 if shard.is_cuda else None),
+              "card": card})
+        if parting is not None and not parting["proven_near_tie"]:
+            fail(f"dryrun (dr_paper) b={b}: kernel and plain part at pick "
+                 f"{parting['at']}, not at a near-tie: {parting}")
+        if not np.isclose(kr, pr, rtol=RTOL_E2E, atol=0.0):
+            fail(f"dryrun (dr_paper) b={b}: radius kernel {kr} vs plain {pr}")
+        if any(any(r[3].values()) for r in runs[False]):
+            fail(f"dryrun (dr_paper) b={b}: a kernel launched on a plain run")
+        if shard.is_cuda and kl[wrapper] != sweeps:
+            fail(f"dryrun (dr_paper) b={b}: {kl[wrapper]} {wrapper} "
+                 f"launches, {sweeps} sweeps")
+        launches[wrapper] += kl[wrapper]
+    errs = dict.fromkeys(KERNELS, 0.0)
+    if shard.is_cuda:
+        # the runs' main sweeps at this shape, as phase 7 times the probes:
+        # held against plain, the kernel's device ms a launch, the call's
+        # and the plain version's ms, the bound
+        phase_times_sweeps([("(dr_paper) shard", shard, "euclidean",
+                             [("gmm_update_select", 1, 1, sz["kprime"]),
+                              ("gmm_topb", 8, 32, sz["kprime"] // 8 - 1)])],
+                           seed, errs)
+    del shard
+    secs = time.perf_counter() - t_phase
+    emit({"phase": "dryrun", "phase_seconds": secs, "card": card})
+    if full and secs > 90:
+        fail(f"dryrun: phase 21 took {secs:.1f} s (limit 90)")
+    return launches, errs
 
 
 def probe_only(seed: int, runs: int) -> int:
@@ -7110,7 +7410,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse", action="store_true",
-                    help="tiny CPU run of phases 2-6 and 9-20 with the "
+                    help="tiny CPU run of phases 2-6 and 9-21 with the "
                          "plain versions")
     ap.add_argument("--probe-only", type=int, default=0, metavar="RUNS",
                     help="run call (i) RUNS times on the card, print its "
@@ -7174,8 +7474,12 @@ def main(argv=None) -> int:
                                  check_launches=False)
         emit({"phase": "rehearsal", "phases_18_19_seconds":
               time.perf_counter() - t0})
-        emit({"phase": "rehearsal", "phase_20_seconds":
-              phase_sharded("cpu", args.seed, full=False)})
+        secs, sharded = phase_sharded("cpu", args.seed, full=False)
+        emit({"phase": "rehearsal", "phase_20_seconds": secs})
+        t0 = time.perf_counter()
+        phase_dryrun("cpu", args.seed, sharded, full=False)
+        emit({"phase": "rehearsal", "phase_21_seconds":
+              time.perf_counter() - t0})
         phase_times_round1(mesh_b4 + serve_b4 + train_b4 + moe_b4 + vlm_b4
                            + ssm_b4 + hyb_b4 + enc_b4, args.seed, errs,
                            diffs, timed=False)
@@ -7201,8 +7505,15 @@ def main(argv=None) -> int:
           "build_cached": build.BUILD_INFO["cached"]})
 
     # ---- 20. sharded training, while the parent holds nothing on the card
-    phase_sharded("cuda", args.seed, card=card)
+    _, sharded = phase_sharded("cuda", args.seed, card=card)
     emit({"phase": "sharded", "script_seconds_so_far":
+          time.perf_counter() - t_start})
+
+    # ---- 21. the dry run, held to phase 20's readings ------------------------
+    dry_launches, dry_errs = phase_dryrun("cuda", args.seed, sharded,
+                                          card=card)
+    torch.cuda.empty_cache()
+    emit({"phase": "dryrun", "script_seconds_so_far":
           time.perf_counter() - t_start})
 
     # ---- data -------------------------------------------------------------
@@ -7225,10 +7536,14 @@ def main(argv=None) -> int:
     # ---- 2. kernels vs plain ---------------------------------------------
     errs, diffs = phase_kernels(x, args.seed, small_only=False, tiles=tiles,
                                 out=out)
+    for k, v in dry_errs.items():
+        errs[k] = max(errs[k], v)
     torch.cuda.empty_cache()
 
     # ---- 3. batch path, 4. streaming path -------------------------------
     launches, main_s = phase_main(x, "cuda", check_launches=True)
+    for k, v in dry_launches.items():
+        launches[k] += v
     torch.cuda.empty_cache()
     s_launches, stream_s = phase_stream({"mxm": x, "sphere": sphere},
                                         "cuda", check_launches=True)
@@ -7453,6 +7768,10 @@ def main(argv=None) -> int:
     emit({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],
          "max_abs_err": errs[name], "ms": pick[name]["ms"],
+         # B1/B2: the profiler's device ms a launch beside the call's ms,
+         # and the call timed again after the phase's other windows
+         "kernel_ms": pick[name].get("kernel_ms"),
+         "ms_second_pass": pick[name].get("ms_second_pass"),
          "plain_ms": pick[name]["plain_ms"],
          "bound_ms": pick[name]["bound_ms"],
          "bound_by": pick[name]["bound_by"],

@@ -86,6 +86,16 @@ class AxisComm(_Comm):
         _count("all_reduce", buf, t0)
         return out
 
+    def max(self, x):
+        """MAX over the ranks of the scalar tensor ``x`` (counted as an
+        all-reduce)."""
+        if self.size == 1:
+            return x
+        t0 = time.perf_counter()
+        out = super().max(x)
+        _count("all_reduce", out, t0)
+        return out
+
     def reduce_scatter(self, t):
         """Rank ``i``'s block ``i`` along dim 0 of the sum of every rank's
         ``t`` (dim 0 a multiple of the group's size)."""

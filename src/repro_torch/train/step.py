@@ -4,7 +4,8 @@
 opt_state, metrics)`` over the reference's parameter tree: the gradients
 come from autograd (``torch.autograd.grad``, never ``.grad``), with
 optional micro-batch accumulation (the micro-batches' gradients summed
-into fp32 zeros, as the reference's scan does) and optional bf16 gradient
+into fp32 zeros, as the reference's scan does; float64 ones in a float64
+config) and optional bf16 gradient
 compression (the cast the data-parallel path puts on the wire).  The
 optimizer writes the new values into the params' and the state's tensors
 (see ``optimizer``).  ``metrics`` holds 0-dim tensors, so a step makes no
@@ -52,6 +53,13 @@ def _value_and_grad(loss_fn, params, batch):
     return loss.detach(), tree_map(lambda x: grads[id(x)], xs)
 
 
+def _acc_dtype(x):
+    """The micro-batch accumulator's dtype: fp32, as the reference's
+    zeros, or float64 for a float64 leaf (a float64 config runs in
+    float64 throughout)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def make_train_step(cfg: ModelConfig, rules: ShardingRules, optimizer,
                     lr_fn: Callable, accum_steps: int = 1,
                     compress_grads: Optional[str] = None):
@@ -73,7 +81,7 @@ def make_train_step(cfg: ModelConfig, rules: ShardingRules, optimizer,
                                  f"accum_steps={accum_steps}")
             mb = B // accum_steps
             grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+                p.shape, dtype=_acc_dtype(p), device=p.device), params)
             loss = 0.0
             for i in range(accum_steps):
                 micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
@@ -134,7 +142,14 @@ def sharded_value_and_grad(loss_fn, params, batch, rules: ShardingRules,
     """(global loss, gradient shards) of the sharded step: ``params`` a
     tree of DTensors on one mesh, ``batch`` whole on every rank or placed
     over the batch axes.  The gradient shards are plain tensors shaped as
-    the params' local shards."""
+    the params' local shards.
+
+    With ``accum_steps = a`` each of the ``n`` data shards cuts its rows
+    into ``a`` micro-batches, so shard j's micro-batch i holds the global
+    rows of block j·a + i (blocks of B/(a·n) rows).  The reference
+    reshapes the global batch, so its micro-batch i on shard j holds block
+    i·n + j: the same blocks, each a MoE layer's own capacity group, summed
+    in another order."""
     from ..distributed.sharded import AxisComm, gather, reduce_grad
 
     items = tree_items(params)
@@ -169,7 +184,7 @@ def sharded_value_and_grad(loss_fn, params, batch, rules: ShardingRules,
         if accum_steps == 1:
             acc = list(g)
         elif acc is None:
-            acc = [x.to(torch.float32) for x in g]
+            acc = [x.to(_acc_dtype(x)) for x in g]
         else:
             for a, x in zip(acc, g):
                 a.add_(x)

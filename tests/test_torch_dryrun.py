@@ -1,0 +1,350 @@
+"""The dry run (``repro_torch.launch.dryrun``) against the reference's
+``repro.launch.dryrun`` pieces.
+
+* Placements: for every arch × applicable shape × both production meshes
+  (66 cells), every leaf's local shape and each tree's per-rank bytes
+  (params, optimizer state, batch, cache) equal the reference's
+  ``NamedSharding(AbstractMesh(...), spec).shard_shape(shape)`` under the
+  reference's own ``rules_for`` and specs.  Both sides read a shape-only
+  mesh: no devices, no ranks (the reference's ``rules_for`` reads
+  ``len(mesh.devices)`` on decode cells, so its stand-in has a devices
+  array).  A mesh on which some dims do not divide is reported invalid on
+  exactly the leaves where the reference's ``shard_shape`` raises.
+* Traces: one subprocess, started once for the module with
+  ``OMP_NUM_THREADS=1`` (so no xdist worker keeps a default process
+  group), runs reduced granite-moe, internlm2 and mamba2 train steps on a
+  (2, 2) fake mesh, granite-moe's full-width ``train_4k`` cell on
+  (16, 16), the paper cell on (16, 16) (exact GMM) and (2, 16, 16)
+  (b = 8), an invalid cell, a failing call and a call under a real
+  group; a second subprocess runs the command line.
+"""
+import json
+import pickle
+import subprocess
+import sys
+import textwrap
+import time
+import types
+
+from conftest import SUBPROC_ENV
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import ARCH_IDS, SHAPES, applicable, get_config
+from repro_torch.launch import dryrun
+
+TIMEOUT = 300
+REDUCED = ("granite-moe-1b-a400m", "internlm2-1.8b", "mamba2-130m")
+MESHES = {False: ((16, 16), ("data", "model")),
+          True: ((2, 16, 16), ("pod", "data", "model"))}
+CELLS = [(arch, shape, mp) for mp in (False, True) for arch in ARCH_IDS
+         for shape, cell in SHAPES.items()
+         if applicable(get_config(arch), cell)]
+# the reference's JSON keys (``compile_s`` becomes ``trace_s``)
+REFERENCE_KEYS = {"flops_per_device", "bytes_per_device",
+                  "collective_bytes_per_device", "collective_total",
+                  "xla_flops_single_visit", "xla_bytes_single_visit",
+                  "collective_single_visit", "argument_bytes",
+                  "output_bytes", "temp_bytes", "peak_bytes", "arch",
+                  "shape", "chips", "params", "active_ratio", "trace_s"}
+
+_TRACES = textwrap.dedent("""
+    import os, pickle, sys
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.common import current_mesh
+
+    OUT = sys.argv[1]
+    rec = {"imported_without_group": not dist.is_initialized()}
+
+    def after():
+        return {"group": dist.is_initialized(),
+                "mesh": current_mesh() is not None}
+
+    def record(trace, meta):
+        info = dryrun.analyze(trace)
+        info.update(meta)
+        return info
+
+    def small_mesh(shape):
+        return init_device_mesh("cpu", shape,
+                                mesh_dim_names=("data", "model"))
+
+    cell = ShapeCell("train", "train", 32, 8)
+    for arch in @REDUCED@:
+        with dryrun.fake_group(4):
+            rec[arch] = record(*dryrun.lower_config(
+                get_config(arch, reduced=True), cell, small_mesh((2, 2))))
+        rec[arch]["after"] = after()
+    with dryrun.fake_group(256):
+        rec["full"] = record(*dryrun.lower_cell(
+            "granite-moe-1b-a400m", "train_4k", make_production_mesh()))
+    rec["full"]["after"] = after()
+    with dryrun.fake_group(256):
+        rec["paper"] = record(*dryrun.lower_paper_cell(
+            make_production_mesh()))
+    with dryrun.fake_group(512):
+        rec["paper_mp"] = record(*dryrun.lower_paper_cell(
+            make_production_mesh(multi_pod=True), batch_b=8))
+    with dryrun.fake_group(6):
+        rec["invalid"] = record(*dryrun.lower_cell(
+            "gemma-2b", "train_4k", small_mesh((2, 3))))
+    try:
+        with dryrun.fake_group(4):
+            dryrun.lower_config(get_config("granite-moe-1b-a400m",
+                                           reduced=True), cell,
+                                small_mesh((2, 2)), shard_map_moe=False)
+        rec["gathered_experts"] = None
+    except NotImplementedError as e:
+        rec["gathered_experts"] = str(e)
+    rec["after_failure"] = after()
+    dist.init_process_group("gloo", init_method="file://" + OUT + "/store",
+                            rank=0, world_size=1)
+    try:
+        with dryrun.fake_group(4):
+            rec["real_group"] = None
+    except RuntimeError as e:
+        rec["real_group"] = str(e)
+    dist.destroy_process_group()
+    with open(os.path.join(OUT, "traces.pkl"), "wb") as f:
+        pickle.dump(rec, f)
+""").replace("@REDUCED@", repr(REDUCED))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def traced(tmp_path_factory):
+    """Start the trace subprocess and the command line once, at the
+    module's first test; ``wait(who)`` returns their results."""
+    out = tmp_path_factory.mktemp("dryrun")
+    env = dict(SUBPROC_ENV, OMP_NUM_THREADS="1")
+    procs = {
+        "traces": subprocess.Popen(
+            [sys.executable, "-c", _TRACES, str(out)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+        "cli": subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "gemma-2b", "--shape", "train_4k", "--out",
+             str(out / "gemma-2b_train_4k.json")], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
+    deadline = time.monotonic() + TIMEOUT
+    done = {}
+
+    def wait(who):
+        if who not in done:
+            p = procs[who]
+            so, se = p.communicate(timeout=max(1.0, deadline
+                                               - time.monotonic()))
+            assert p.returncode == 0, f"{who} exited {p.returncode}:\n{se}"
+            done[who] = so
+        if who == "traces":
+            with open(out / "traces.pkl", "rb") as f:
+                return pickle.load(f)
+        with open(out / "gemma-2b_train_4k.json") as f:
+            return json.load(f), done[who]
+
+    try:
+        yield wait
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+# ---------------------------------------------------------------------------
+# placements against the reference (in process, shape-only meshes)
+# ---------------------------------------------------------------------------
+
+def _port_mesh(sizes, names):
+    return types.SimpleNamespace(mesh_dim_names=names, shape=sizes)
+
+
+def _reference_placed(arch, shape, sizes, names):
+    """name -> (path -> local shape or None where ``shard_shape`` raises,
+    bytes) of the reference's params, optimizer state, batch and cache
+    under its own rules and specs on the mesh shape ``sizes``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AbstractMesh, NamedSharding
+    from jax.sharding import PartitionSpec as JP
+
+    import repro.models as RM
+    from repro.configs import SHAPES as RSHAPES, get_config as rget
+    from repro.launch.sharding import batch_struct, cache_struct, rules_for
+    from repro.train import default_optimizer
+
+    cfg, cell = rget(arch), RSHAPES[shape]
+    stand_in = types.SimpleNamespace(axis_names=names,
+                                     shape=dict(zip(names, sizes)),
+                                     devices=np.empty(sizes))
+    rules = rules_for(cfg, cell, stand_in)
+    pshapes, pspecs = RM.param_shapes(cfg), RM.param_specs(cfg, rules)
+    trees = {"params": (pshapes, pspecs)}
+    if cell.kind == "train":
+        opt = default_optimizer(cfg)
+        trees["opt_state"] = (opt.state_shapes(pshapes),
+                              opt.state_specs(pspecs))
+        trees["batch"] = batch_struct(cfg, cell, rules)
+    else:
+        if cell.kind == "prefill":
+            trees["batch"] = batch_struct(cfg, cell, rules)
+        else:
+            bt = rules.resolve("batch")
+            trees["batch"] = ({"tokens": jax.ShapeDtypeStruct(
+                (cell.global_batch, 1), jnp.int32)},
+                {"tokens": JP(bt, None)})
+        trees["cache"] = cache_struct(cfg, cell, rules)
+    mesh = AbstractMesh(tuple(sizes), tuple(names))
+    out = {}
+    for name, (shapes, specs) in trees.items():
+        is_spec = lambda x: isinstance(x, JP)
+        flat_specs = jax.tree_util.tree_flatten_with_path(
+            specs, is_leaf=is_spec)[0]
+        flat_shapes = jax.tree_util.tree_leaves(shapes)
+        assert len(flat_specs) == len(flat_shapes), name
+        local, nbytes = {}, 0
+        for (path, spec), sds in zip(flat_specs, flat_shapes):
+            key = jax.tree_util.keystr(path)
+            try:
+                shp = NamedSharding(mesh, spec).shard_shape(tuple(sds.shape))
+            except ValueError:
+                local[key] = None
+                continue
+            local[key] = tuple(shp)
+            nbytes += int(np.prod(shp, dtype=np.int64)) * np.dtype(
+                sds.dtype).itemsize
+        out[name] = (local, nbytes)
+    return out
+
+
+@pytest.mark.parametrize("arch,shape,multi_pod", CELLS,
+                         ids=[f"{a}-{s}-{'2x16x16' if m else '16x16'}"
+                              for a, s, m in CELLS])
+def test_placements_equal_the_references(arch, shape, multi_pod):
+    sizes, names = MESHES[multi_pod]
+    got = dryrun.place_cell(get_config(arch), SHAPES[shape],
+                            _port_mesh(sizes, names))
+    assert got["invalid"] == [], got["invalid"]
+    want = _reference_placed(arch, shape, sizes, names)
+    assert sorted(got["trees"]) == sorted(want)
+    for name, (local, nbytes) in want.items():
+        tree = got["trees"][name]
+        assert tree["local"] == local, name
+        assert tree["bytes"] == nbytes, name
+    assert got["argument_bytes"] == sum(b for _, b in want.values())
+
+
+def test_cells_are_the_references_66():
+    assert len(CELLS) == 66
+
+
+def test_invalid_placement_is_the_references():
+    """On a (2, 3) mesh gemma-2b's train cell has dims that do not split
+    over 3 ranks: the port reports exactly the leaves on which the
+    reference's ``shard_shape`` raises."""
+    sizes, names = (2, 3), ("data", "model")
+    got = dryrun.place_cell(get_config("gemma-2b"), SHAPES["train_4k"],
+                            _port_mesh(sizes, names))
+    want = _reference_placed("gemma-2b", "train_4k", sizes, names)
+    bad = {f"{name}{path}" for name, (local, _) in want.items()
+           for path, shp in local.items() if shp is None}
+    assert bad and {path for path, _, _ in got["invalid"]} == bad
+    for path, d, why in got["invalid"]:
+        assert "does not split over 3 ranks" in why, (path, d, why)
+
+
+def test_paper_body_refuses_bf16_points():
+    with pytest.raises(NotImplementedError, match="ROADMAP B"):
+        dryrun.paper_body(torch.zeros((8, 4), dtype=torch.bfloat16), None, 2)
+
+
+# ---------------------------------------------------------------------------
+# the traces
+# ---------------------------------------------------------------------------
+
+def _check_traced(info):
+    assert REFERENCE_KEYS <= set(info), REFERENCE_KEYS - set(info)
+    assert info["valid"] and info["null_reason"] is None
+    assert np.isfinite(info["flops_per_device"])
+    assert info["flops_per_device"] > 0
+    coll = info["collective_bytes_per_device"]
+    for kind in ("all-gather", "reduce-scatter", "all-reduce"):
+        assert coll[kind] > 0, (kind, coll)
+    assert coll["all-to-all"] == coll["collective-permute"] == 0
+    assert info["collective_total"] == sum(coll.values())
+    assert info["argument_bytes"] == sum(
+        info["argument_bytes_by_tree"].values()) > 0
+    assert info["peak_bytes"] > info["argument_bytes"]
+    for key in dryrun._XLA_ONLY:
+        assert info[key] is None, key
+    assert info["after"] == {"group": False, "mesh": False}
+
+
+@pytest.mark.parametrize("arch", REDUCED)
+def test_reduced_trace_on_a_fake_2x2_mesh(traced, arch):
+    info = traced("traces")[arch]
+    _check_traced(info)
+    assert info["chips"] == 4
+
+
+def test_full_width_train_cell_on_16x16(traced):
+    info = traced("traces")["full"]
+    _check_traced(info)
+    assert (info["arch"], info["shape"], info["chips"]) == (
+        "granite-moe-1b-a400m", "train_4k", 256)
+    placed = dryrun.place_cell(get_config("granite-moe-1b-a400m"),
+                               SHAPES["train_4k"],
+                               _port_mesh(*MESHES[False]))
+    assert info["argument_bytes"] == placed["argument_bytes"]
+
+
+@pytest.mark.parametrize("which,rows,chips,sweeps", [
+    ("paper", 4194304, 256, 2048), ("paper_mp", 2097152, 512, 257)])
+def test_paper_cell(traced, which, rows, chips, sweeps):
+    info = traced("traces")[which]
+    assert info["chips"] == chips and info["shard_rows"] == rows
+    assert info["shard_bytes"] == rows * 64 * 4 == info["argument_bytes"]
+    assert info["collective_bytes_per_device"]["all-gather"] == (
+        chips * 2048 * 64 * 4)
+    assert info["collective_bytes_per_device"]["all-reduce"] == 4
+    assert info["sweeps"] == sweeps
+    assert info["sweep_bytes"] == rows * 64 * 4 + 2 * rows * 4
+    assert info["sweeps_bytes"] == sweeps * info["sweep_bytes"]
+    assert info["flops_per_device"] > 0
+
+
+def test_invalid_cell_is_reported_not_raised(traced):
+    info = traced("traces")["invalid"]
+    assert not info["valid"] and info["invalid"]
+    assert info["flops_per_device"] is None
+    assert info["null_reason"] == "invalid placement"
+
+
+def test_gathered_experts_raise_naming_the_roadmap(traced):
+    got = traced("traces")
+    assert "ROADMAP B" in got["gathered_experts"]
+    assert got["after_failure"] == {"group": False, "mesh": False}
+
+
+def test_fake_group_refuses_a_real_group_and_cleans_up(traced):
+    got = traced("traces")
+    assert got["imported_without_group"]
+    assert "already initialized" in got["real_group"]
+
+
+def test_command_line_writes_the_cell(traced):
+    info, stdout = traced("cli")
+    assert "== gemma-2b × train_4k (16x16) ==" in stdout
+    assert (info["arch"], info["shape"], info["multi_pod"]) == (
+        "gemma-2b", "train_4k", False)
+    assert REFERENCE_KEYS <= set(info)
+    assert info["valid"] and info["flops_per_device"] > 0
+    assert info["torch"] == torch.__version__

@@ -33,6 +33,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
             "repro_torch.dynamic, repro_torch.dynamic.index, "
             "repro_torch.launch, repro_torch.launch.mesh, "
             "repro_torch.launch.sharding, repro_torch.distributed.sharded, "
+            "repro_torch.launch.dryrun, "
             "repro_torch.train, repro_torch.train.optimizer, "
             "repro_torch.train.step, repro_torch.distributed.compression, "
             "repro_torch.distributed.pipeline, repro_torch.launch.train, "
@@ -67,7 +68,8 @@ def test_sources_never_import_jax_or_repro():
                 ("dynamic", "rebuild.py"), ("dynamic", "levels.py"),
                 ("dynamic", "index.py"), ("launch", "__init__.py"),
                 ("launch", "mesh.py"), ("launch", "sharding.py"),
-                ("launch", "train.py"), ("distributed", "sharded.py"),
+                ("launch", "train.py"), ("launch", "dryrun.py"),
+                ("distributed", "sharded.py"),
                 ("train", "__init__.py"), ("train", "optimizer.py"),
                 ("train", "step.py"), ("distributed", "compression.py"),
                 ("distributed", "pipeline.py"), ("models", "__init__.py"),

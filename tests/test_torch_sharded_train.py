@@ -13,7 +13,11 @@ each step compiled once); and the training launcher on four ranks.  All
 read the same seeded numpy params (N(0, 0.05), norms zero) and batches
 (8 x 32 tokens, 2 steps, lr 1e-3).  Cases: granite-moe reduced on a
 (2, 2) ``("data", "model")`` mesh with AdamW and with
-Adafactor(beta1=0.9), internlm2 reduced on (2, 2) and (4, 1) with AdamW.
+Adafactor(beta1=0.9), internlm2 reduced on (2, 2) and (4, 1) with AdamW,
+and granite-moe with AdamW, ``accum_steps=2`` on both sides and capacity
+factor 0.5, at which every MoE dispatch drops assignments (printed).  A
+sixth process runs the dry run (``launch.dryrun``) of the granite AdamW
+case on ``meta`` tensors over a fake group of four.
 
 Held:
 
@@ -29,7 +33,8 @@ Held:
   and the step-0 gradient leaf by leaf within 1e-10; the one-rank side
   takes the mean of the gradients of each data shard's rows (a MoE
   layer's capacity counts the shard's own tokens, as the reference's
-  ``shard_map`` body does).  The optimizers keep an fp32 state, so the
+  ``shard_map`` body does), with accumulation of each block the
+  reference's micro-batches give a data shard.  The optimizers keep an fp32 state, so the
   updated params agree to fp32 roundings (8 fp32 ulps of the leaf's
   largest entry);
 * the planted faults read above 1e-3: the MoE copy's backward without
@@ -40,6 +45,8 @@ Held:
 * a state saved on the four ranks restores on two and on one, leaf for
   leaf; the launcher run on four ranks and resumed at step 2 ends in the
   state of the uninterrupted run, bit for bit;
+* the dry run's collective bytes of a step and shard bytes equal each
+  rank's, to the byte;
 * the reference's fault: under ``jax.make_mesh``'s default (Explicit)
   axes its granite-moe step raises ``ShardingTypeError``.
 """
@@ -62,12 +69,20 @@ WORLD = 4
 SPAWN_TIMEOUT = 600
 STEPS = 2
 LR = 1e-3
-CASES = {"granite_adamw_2x2": ("granite-moe-1b-a400m", (2, 2), "adamw"),
+# name: (arch, mesh shape, optimizer, accum_steps, capacity factor or None
+# for the config's own)
+CASES = {"granite_adamw_2x2": ("granite-moe-1b-a400m", (2, 2), "adamw", 1,
+                               None),
          "granite_adafactor_2x2": ("granite-moe-1b-a400m", (2, 2),
-                                   "adafactor"),
-         "internlm2_adamw_2x2": ("internlm2-1.8b", (2, 2), "adamw"),
-         "internlm2_adamw_4x1": ("internlm2-1.8b", (4, 1), "adamw")}
-ARCHS = sorted({a for a, _, _ in CASES.values()})
+                                   "adafactor", 1, None),
+         "internlm2_adamw_2x2": ("internlm2-1.8b", (2, 2), "adamw", 1, None),
+         "internlm2_adamw_4x1": ("internlm2-1.8b", (4, 1), "adamw", 1, None),
+         # micro-batches of capacity-bound MoE layers: every data shard's
+         # micro-batch of 2 x 32 tokens sends 128 assignments to 4 experts
+         # of capacity 16, so the layers drop
+         "granite_adamw_2x2_accum2": ("granite-moe-1b-a400m", (2, 2),
+                                      "adamw", 2, 0.5)}
+ARCHS = sorted({c[0] for c in CASES.values()})
 
 _COMMON = textwrap.dedent("""
     import os, pickle, re, sys
@@ -116,6 +131,7 @@ _RANK = _COMMON + textwrap.dedent("""
     from repro_torch.launch import RULES
     from repro_torch.launch.sharding import (distribute, init_state, named,
                                              rules_for)
+    from repro_torch.models import moe
     from repro_torch.models.common import P, set_current_mesh
     from repro_torch.train import Adafactor, AdamW, make_train_step
     from repro_torch.train.step import (_value_and_grad, make_loss,
@@ -127,8 +143,10 @@ _RANK = _COMMON + textwrap.dedent("""
     def make_opt(name):
         return AdamW() if name == "adamw" else Adafactor(beta1=0.9)
 
-    def configs(arch):
+    def configs(arch, cf):
         cfg = get_config(arch, reduced=True)
+        if cf is not None:
+            cfg = dataclasses.replace(cfg, capacity_factor=cf)
         return {"bf16": cfg, "f64": dataclasses.replace(
             cfg, dtype=F64, param_dtype=F64)}
 
@@ -156,9 +174,11 @@ _RANK = _COMMON + textwrap.dedent("""
                 out[d] //= sizes[a]
         return out
 
-    def one_rank(arch, cfg, opt, n_data):
-        # the port's one-device step on the mean of the data shards'
-        # gradients, in float64
+    def one_rank(arch, cfg, opt, n_data, accum):
+        # the port's one-device step on the mean of the gradients of the
+        # reference's blocks, in float64: micro-batch m holds the global
+        # rows m B/a .. (m + 1) B/a (the reference reshapes the batch), and
+        # data shard j of it the j-th of their n_data blocks
         set_current_mesh(None)
         p = params(arch, cfg)
         st = opt.init(p)
@@ -166,12 +186,14 @@ _RANK = _COMMON + textwrap.dedent("""
         losses, g0 = [], None
         for i in range(STEPS):
             b = tbatch(arch, i)
-            per = b["tokens"].shape[0] // n_data
-            parts = [_value_and_grad(loss_fn, p, {k: v[j * per:(j + 1) * per]
-                                                  for k, v in b.items()})
-                     for j in range(n_data)]
-            losses.append(float(sum(l for l, _ in parts) / n_data))
-            grads = tree_map(lambda *gs: sum(gs) / n_data,
+            per = b["tokens"].shape[0] // (accum * n_data)
+            parts = [_value_and_grad(loss_fn, p, {
+                k: v[(m * n_data + j) * per:(m * n_data + j + 1) * per]
+                for k, v in b.items()})
+                for m in range(accum) for j in range(n_data)]
+            n = len(parts)
+            losses.append(float(sum(l for l, _ in parts) / n))
+            grads = tree_map(lambda *gs: sum(gs) / n,
                              *[g for _, g in parts])
             if i == 0:
                 g0 = {k: v.numpy() for k, v in tree_items(grads)}
@@ -179,21 +201,36 @@ _RANK = _COMMON + textwrap.dedent("""
         return {"losses": losses, "grads0": g0,
                 "params": {k: v.numpy() for k, v in tree_items(p)}}
 
-    def sharded_grads(arch, cfg, rules, mesh):
+    def sharded_grads(arch, cfg, rules, mesh, accum=1):
         sp = distribute(params(arch, cfg), mesh, M.param_specs(cfg, rules))
         _, g = sharded_value_and_grad(make_loss(cfg, rules), sp,
-                                      tbatch(arch, 0), rules)
+                                      tbatch(arch, 0), rules, accum)
         return {k: sharded.gather(DTensor.from_local(
             gl, v.device_mesh, v.placements, run_check=False, shape=v.shape,
             stride=v.stride())).numpy()
             for (k, v), (_, gl) in zip(tree_items(sp), tree_items(g))}
 
-    def run_case(name, arch, shape, optname):
+    DROPS = []
+
+    def counted(fn):
+        # the MoE dispatch, recording the assignments it drops a call
+        def dispatch(xf, logits, E_range, cfg):
+            buf, meta = fn(xf, logits, E_range, cfg)
+            e0, e_loc = E_range
+            top = torch.topk(logits, cfg.num_experts_per_tok, dim=-1)[1] - e0
+            local = int(((top >= 0) & (top < e_loc)).sum())
+            DROPS.append(local - int(meta[0].sum()))
+            return buf, meta
+        return dispatch
+
+    moe._dispatch_local = counted(moe._dispatch_local)
+
+    def run_case(name, arch, shape, optname, accum, cf):
         mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data",
                                                               "model"))
         set_current_mesh(mesh)
         rec = {}
-        for dt, cfg in configs(arch).items():
+        for dt, cfg in configs(arch, cf).items():
             rules = rules_for(cfg, SHAPES["train_4k"], mesh)
             opt = make_opt(optname)
             specs = M.param_specs(cfg, rules)
@@ -218,9 +255,14 @@ _RANK = _COMMON + textwrap.dedent("""
                             bad.append((k, list(v.to_local().shape)))
                 rec["bad_local_shapes"] = bad
                 rec["n_leaves"] = len(tree_items(sp)) + len(state_items(st))
+                rec["local_bytes"] = {
+                    k: sum(v.to_local().numel() * v.element_size()
+                           for v in leaves) for k, leaves in (
+                        ("params", [v for _, v in tree_items(sp)]),
+                        ("opt_state", list(state_items(st).values())))}
             if dt == "f64":
-                rec["grads0"] = sharded_grads(arch, cfg, rules, mesh)
-                if arch.startswith("granite"):
+                rec["grads0"] = sharded_grads(arch, cfg, rules, mesh, accum)
+                if arch.startswith("granite") and accum == 1:
                     copy_bwd = sharded.CopyToGroup.backward
                     sharded.CopyToGroup.backward = staticmethod(
                         lambda ctx, g: (g, None))
@@ -238,15 +280,23 @@ _RANK = _COMMON + textwrap.dedent("""
                                                           mesh)
                     finally:
                         sharded.reduce_grad = reduce
-            step = make_train_step(cfg, rules, opt, lambda s: LR)
+            step = make_train_step(cfg, rules, opt, lambda s: LR,
+                                   accum_steps=accum)
             ms = []
             for i in range(STEPS):
+                sharded.reset()
+                del DROPS[:]
                 sp, st, m = step(sp, st, tbatch(arch, i), i)
                 ms.append((float(m["loss"]), float(m["grad_norm"])))
+                if i == 0:
+                    # this rank's collective bytes and drops a call in
+                    # step 0
+                    rec[f"{dt}_bytes"] = dict(sharded.BYTES)
+                    rec[f"{dt}_drops"] = list(DROPS)
             rec[dt] = {"metrics": ms, "params": whole(sp)}
             if dt == "f64" and RANK == 0:
                 rec["one_rank"] = one_rank(arch, cfg, make_opt(optname),
-                                           shape[0])
+                                           shape[0], accum)
                 set_current_mesh(mesh)
             if dt == "bf16" and name == "granite_adamw_2x2":
                 rec["ckpt"] = checkpoint(cfg, rules, opt, sp, st)
@@ -299,9 +349,9 @@ _RANK = _COMMON + textwrap.dedent("""
     STEPS, LR = @STEPS@, @LR@
     record = {"tuple_order": tuple_order()}
     dump(f"rank{RANK}", record)
-    for name, (arch, shape, optname) in CASES.items():
+    for name, (arch, shape, optname, accum, cf) in CASES.items():
         try:
-            record[name] = run_case(name, arch, shape, optname)
+            record[name] = run_case(name, arch, shape, optname, accum, cf)
         except Exception:
             record[name] = {"error": traceback.format_exc()}
             raise
@@ -333,26 +383,30 @@ _REFERENCE = _COMMON + textwrap.dedent("""
         return jax.tree.map(lambda a, s: jnp.asarray(a, s.dtype), arrays,
                             shapes)
 
-    def jitted(cfg, opt, mesh):
+    def jitted(cfg, opt, mesh, accum):
         cell = ShapeCell("train", "train", 32, 8)
         if mesh is None:
             set_current_mesh(None)
-            return (jax.jit(make_train_step(cfg, ONE, opt, lambda s: LR)),
+            return (jax.jit(make_train_step(cfg, ONE, opt, lambda s: LR,
+                                            accum_steps=accum)),
                     lambda t: t, lambda t: t, lambda b: b)
         set_current_mesh(mesh)
         rules = rules_for(cfg, cell, mesh)
         ps = named(mesh, M.param_specs(cfg, rules))
         ss = named(mesh, opt.state_specs(M.param_specs(cfg, rules)))
         bs = named(mesh, batch_struct(cfg, cell, rules)[1])
-        fn = jax.jit(make_train_step(cfg, rules, opt, lambda s: LR),
+        fn = jax.jit(make_train_step(cfg, rules, opt, lambda s: LR,
+                                     accum_steps=accum),
                      in_shardings=(ps, ss, bs, NamedSharding(mesh, P())),
                      out_shardings=(ps, ss, None))
         put = lambda sh: (lambda t: jax.device_put(t, sh))
         return fn, put(ps), put(ss), put(bs)
 
-    def run(arch, opt, mesh):
+    def run(arch, opt, mesh, accum=1, cf=None):
         cfg = get_config(arch, reduced=True)
-        fn, pp, ps, pb = jitted(cfg, opt, mesh)
+        if cf is not None:
+            cfg = dataclasses.replace(cfg, capacity_factor=cf)
+        fn, pp, ps, pb = jitted(cfg, opt, mesh, accum)
         p = pp(params(arch, cfg))
         st = ps(opt.init(p))
         ms = []
@@ -374,12 +428,12 @@ _REFERENCE = _COMMON + textwrap.dedent("""
              for d in mesh.devices.flat}
     record = {"tuple_order": {where[sh.device]: np.asarray(sh.data).tolist()
                               for sh in placed.addressable_shards}}
-    for name, (arch, shape, optname) in CASES.items():
+    for name, (arch, shape, optname, accum, cf) in CASES.items():
         opt = AdamW() if optname == "adamw" else Adafactor(beta1=0.9)
         mesh = jax.make_mesh(shape, ("data", "model"),
                              axis_types=(AxisType.Auto,) * 2)
-        record[name] = {"sharded": run(arch, opt, mesh),
-                        "one": run(arch, opt, None)}
+        record[name] = {"sharded": run(arch, opt, mesh, accum, cf),
+                        "one": run(arch, opt, None, accum, cf)}
     # jax.make_mesh's default axes (Explicit): the reference's step raises
     try:
         run("granite-moe-1b-a400m", AdamW(), jax.make_mesh(
@@ -389,6 +443,27 @@ _REFERENCE = _COMMON + textwrap.dedent("""
         record["explicit"] = {"raised": type(e).__name__,
                               "message": str(e)[:400]}
     dump("reference", record)
+""")
+
+
+_DRYRUN = _COMMON + textwrap.dedent("""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import dryrun
+
+    torch.set_num_threads(1)
+    # the granite case's step on meta tensors over a fake group of four
+    with dryrun.fake_group(4):
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data",
+                                                              "model"))
+        trace, _ = dryrun.lower_config(
+            get_config("granite-moe-1b-a400m", reduced=True),
+            ShapeCell("train", "train", 32, 8), mesh)
+    info = dryrun.analyze(trace)
+    dump("dryrun", {k: info[k] for k in ("collective_bytes_per_device",
+                                         "argument_bytes_by_tree")})
 """)
 
 
@@ -476,13 +551,16 @@ def runs(tmp_path_factory):
         [sys.executable, "-c", _script(_REFERENCE), str(out)],
         env=dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=4"),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    dry = subprocess.Popen(
+        [sys.executable, "-c", _script(_DRYRUN), str(out)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     # the launcher: uninterrupted to step 4 (checkpoints at 2 and 4), then
     # again from its step-2 checkpoint alone
     whole, resumed = out / "launch_whole", out / "launch_resumed"
     first = _finish(_launcher(whole, env), deadline)
     shutil.copytree(whole / "step_000000002", resumed / "step_000000002")
     second = _finish(_launcher(resumed, env), deadline)
-    _finish(ranks + [ref], deadline)
+    _finish(ranks + [ref, dry], deadline)
 
     def load(who):
         with open(out / f"{who}.pkl", "rb") as f:
@@ -604,3 +682,37 @@ def test_reference_explicit_axes_fault(runs):
     vocab-sharded table); the cases above build an Auto-axes mesh."""
     got = runs("reference")["explicit"]
     assert got["raised"] == "ShardingTypeError", got
+
+
+def test_accumulated_moe_step_drops(runs):
+    """The accumulation case's MoE layers drop assignments in every call
+    of step 0 on every rank (both dtypes), so the case holds the
+    micro-batches' capacity: two micro-batches a step, one dispatch a
+    layer each."""
+    layers = 2
+    for rank in range(WORLD):
+        rec = runs(f"rank{rank}")["granite_adamw_2x2_accum2"]
+        for dt in ("bf16", "f64"):
+            drops = rec[f"{dt}_drops"]
+            print(f"rank {rank} {dt}: dropped assignments a dispatch {drops}")
+            assert len(drops) == 2 * layers, (rank, dt, drops)
+            assert min(drops) > 0, (rank, dt, drops)
+
+
+def test_dry_run_reckons_the_ranks_bytes(runs):
+    """The dry run of the granite AdamW case (``launch.dryrun`` on ``meta``
+    tensors over a fake group of four) reckons, to the byte, the
+    collective bytes each gloo rank's ``sharded.BYTES`` counted in step 0
+    and each rank's shard bytes of the params and the optimizer state."""
+    dry = runs("dryrun")
+    names = {"all_gather": "all-gather", "all_reduce": "all-reduce",
+             "reduce_scatter": "reduce-scatter"}
+    want = {k: v for k, v in dry["collective_bytes_per_device"].items() if v}
+    assert set(want) == set(names.values()), want
+    for rank in range(WORLD):
+        rec = runs(f"rank{rank}")["granite_adamw_2x2"]
+        got = {names[k]: v for k, v in rec["bf16_bytes"].items()}
+        assert got == want, (rank, got, want)
+        assert rec["local_bytes"] == {
+            k: dry["argument_bytes_by_tree"][k]
+            for k in ("params", "opt_state")}, rank
