@@ -381,7 +381,7 @@ Phases, each printing one JSON line (or one per call):
               within 1e-10, the copy's backward without its all-reduce
               over 'model' and a step without the gradient sum over
               'data' each read above 1e-3, and the same comparison at full
-              depth in bf16 printed; (z_sh) 3 AdamW steps: each step's ms
+              depth in bf16 printed; (z_sh) 2 AdamW steps: each step's ms
               on the slowest rank (CUDA events and host clock), loss and
               grad norm (equal on every rank), the collective bytes a
               step counted in ``distributed.sharded``, each rank's shard
@@ -395,10 +395,14 @@ Phases, each printing one JSON line (or one per call):
               a step must equal every rank's per-step ``sharded.BYTES``
               of phase 20 in this run, and its shard bytes of the params
               and the state each rank's, to the byte (the trace's peak
-              estimate printed beside the ranks' measured peaks); (dr_pod)
+              estimate printed beside the ranks' measured peaks); (dr_sv)
+              phase 22's (d_sh) and (cp_sh) decode cells, whose bytes a
+              step and cache shard bytes must equal every decode step's
+              and every rank's of phase 22, to the byte; (dr_pod)
               arctic-480b x train_4k on (2, 16, 16) at 512 ranks,
               recurrentgemma-9b x long_500k and gemma-2b x decode_32k on
-              (16, 16), a JSON line each with its trace seconds; then
+              (16, 16), each traced (FLOPs, collective bytes), a JSON
+              line each with its trace seconds; then
               (dr_paper) one rank of the paper cell at its real size, a
               4,194,304 x 64 fp32 shard drawn on the host: exact GMM(2,048)
               through B2 (2,048 sweeps) and b = 8 through B1 (257 sweeps),
@@ -408,17 +412,46 @@ Phases, each printing one JSON line (or one per call):
               bound of the sweeps, launches equal to the sweeps, the
               peak memory; the phase within 90 s.
 
-Phases run in the order 1, 20, 21, 2-6, 9, 10, 11, 12, 13, 14, 15, 16,
-17, 18, 19, 7, 8 (8 also traces one churn round of (u) and one group of
-(q); phase 14's step is traced right after phase 14, phases 15-19's
-inside them; 20 runs first, while the parent holds nothing on the card,
-and 21 next, held to 20's readings).
+22. sharded_serve — the reference's sharded prefill and decode steps
+              (``make_prefill_step``/``make_decode_step`` on DTensor
+              params and caches; the cache moved from the prefill rules
+              to the decode rules by ``launch.sharding.move``) on phase
+              20's four gloo ranks and (2, 2) mesh: (w_sh) granite-moe
+              cut to one layer in float64, split-KV (8 x 96 tokens into
+              128 slots) and context-parallel (2 x 96 into 128) decode,
+              4 steps, logits and caches against the one-process steps of
+              the same function within 1e-10, the combine without its
+              all-reduces and the decode write at every rank's local slot
+              each read above 1e-3; at full width and depth in bf16,
+              (p_sh) the prefill of 8 x 3,072 host-drawn tokens into
+              4,096 slots under the prefill rules (fsdp over 'data') and
+              (d_sh) 16 split-KV decode steps (kv_seq 'model', weights
+              resident), (cp_sh) 2 x 12,288 into 16,384 slots and 16
+              context-parallel steps (kv_seq 'data', the batch on every
+              rank); (s_sh) mamba2-130m at full width and depth, the
+              state over 'model', 8 x 1,024 then 16 steps, with a float64
+              witness at full depth (8 x 32, 4 steps).  For each run:
+              each step's ms on the slowest rank (CUDA events and host
+              clock), the collective bytes by kind and their host ms,
+              each rank's cache shard bytes against the whole divided as
+              the specs divide it (held), the tokens against the
+              one-process ones (bf16, printed, not held: the model is
+              chaotic), each rank's peak beside the parent's (under 80 GB
+              together); the phase within 150 s.
+
+Phases run in the order 1, 20, 22, 21, 2-6, 9, 10, 11, 12, 13, 14, 15,
+16, 17, 18, 19, 7, 8 (8 also traces one churn round of (u) and one group
+of (q); phase 14's step is traced right after phase 14, phases 15-19's
+inside them; 20 and 22 run first, while the parent holds nothing on the
+card, and 21 next, held to their readings; 21's dry runs need no card
+and start in a process of their own before the build, beside 20 and 22).
 The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before it.
-``--rehearse`` runs phases 2-6 and 9-21 at a tiny size on the CPU with the
-plain versions (no build, no timings, no ``ok`` line; phases 12 and 20
-over gloo on the CPU; phases 13-21 on the reduced configs, phase 21's
-paper shard at 4,096 rows) to check the script itself.  ``--probe-only RUNS`` builds, makes the musiXmatch stand-in and
+``--rehearse`` runs phases 2-6 and 9-22 at a tiny size on the CPU with the
+plain versions (no build, no timings, no ``ok`` line; phases 12, 20 and
+22 over gloo on the CPU; phases 13-22 on the reduced configs, phase 22's
+granite-moe under ``pad_heads``, phase 21's paper shard at 4,096 rows)
+to check the script itself.  ``--probe-only RUNS`` builds, makes the musiXmatch stand-in and
 runs call (i) RUNS times on the kernels, printing each run's ``mr.probe``
 and call seconds and B1 launches, and stops (no ``ok`` line): two
 checkouts run in turns on one card compare the probe end to end.
@@ -6750,9 +6783,9 @@ SHARDED_PLANTED_FLOOR = 1e-3    # each planted fault reads above it
 def sharded_sizes(full: bool):
     """Phase 20's run: granite-moe-1b-a400m at full width and depth (the
     reduced config in the rehearsal), 8 x 128 tokens (8 x 16), a (2, 2)
-    ('data', 'model') mesh, 3 AdamW steps."""
+    ('data', 'model') mesh, 2 AdamW steps."""
     return {"arch": "granite-moe-1b-a400m", "reduced": not full,
-            "batch": 8, "seq": 128 if full else 16, "steps": 3,
+            "batch": 8, "seq": 128 if full else 16, "steps": 2,
             "model_axis": 2, "lr": 1e-4}
 
 
@@ -6838,10 +6871,9 @@ def _sharded_witness(cfg, mesh, rules, full, batch):
 def _spec_bytes(shapes, specs, mesh):
     """The bytes a rank holds of the ``meta`` tree ``shapes`` split as the
     ``PartitionSpec`` tree ``specs`` divides it over ``mesh``."""
-    from repro_torch.launch.sharding import placements
-    from repro_torch.tree import tree_items
+    from repro_torch.launch.sharding import placements, spec_walk
     total = 0
-    for (_, t), (_, spec) in zip(tree_items(shapes), tree_items(specs)):
+    for _, spec, t in spec_walk(specs, shapes):
         n = t.numel() * t.element_size()
         for i, pl in enumerate(placements(mesh, spec)):
             if pl.is_shard():
@@ -6988,7 +7020,7 @@ def phase_sharded(device: str, seed: int, card: str = "",
     'model') mesh.  (zw_sh) the sharded step's float64 gradient against
     the one-process gradient of the same function on the model cut to
     one layer, held within 1e-10, each planted fault above 1e-3, and the
-    same comparison at full depth in bf16, printed; (z_sh) 3 AdamW steps
+    same comparison at full depth in bf16, printed; (z_sh) 2 AdamW steps
     at full width and depth: each step's ms on the slowest rank (CUDA
     events and the host clock), loss and grad norm, the collective bytes
     a step, each rank's shard bytes beside the whole divided as the specs
@@ -7110,6 +7142,630 @@ def phase_sharded(device: str, seed: int, card: str = "",
 
 
 # --------------------------------------------------------------------------
+# 22. sharded serving: the prefill and decode steps on DTensor caches
+# --------------------------------------------------------------------------
+
+SERVE_PHASE_LIMIT_S = 150       # phase 22 on the card
+SERVE_WITNESS_LIMIT = 1e-10     # (w_sh), float64, relative to the largest
+
+
+def sharded_serve_sizes(full: bool):
+    """Phase 22's runs on the (2, 2) ('data', 'model') mesh: granite-moe-
+    1b-a400m at full width and depth (the reduced config under
+    ``pad_heads`` in the rehearsal), (p_sh) and (d_sh) as (batch, prompt
+    tokens, slots) then decode steps, (cp_sh) likewise, (w_sh) the same
+    two layouts on the model cut to one layer in float64; (s_sh)
+    mamba2-130m's (batch, prompt tokens), its witness's at full depth."""
+    if full:
+        return {"arch": "granite-moe-1b-a400m", "reduced": False,
+                "d": (8, 3072, 4096), "cp": (2, 12288, 16384), "steps": 16,
+                "w_d": (8, 96, 128), "w_cp": (2, 96, 128), "w_steps": 2,
+                "ssm": "mamba2-130m", "s": (8, 1024), "s_w": (8, 16),
+                "compare_steps": 1, "model_axis": 2}
+    return {"arch": "granite-moe-1b-a400m", "reduced": True,
+            "d": (8, 24, 32), "cp": (2, 48, 64), "steps": 3,
+            "w_d": (8, 24, 32), "w_cp": (2, 48, 64), "w_steps": 2,
+            "ssm": "mamba2-130m", "s": (8, 16), "s_w": (8, 8),
+            "compare_steps": 2, "model_axis": 2}
+
+
+def _serve_cfg(arch: str, reduced: bool):
+    """The arch's config; the reduced one under the published
+    ``pad_heads`` (4 heads: no padding on the 2-wide model axis)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch, reduced=reduced)
+    if reduced and cfg.family != "ssm":
+        cfg = dataclasses.replace(cfg, attn_shard="pad_heads", attn_pad_to=4)
+    return cfg
+
+
+def _serve_rules(cfg, mesh, B: int, C: int):
+    """(prefill rules, decode rules, prefill cache specs, decode cache
+    shapes and specs) of the (B, C) cells."""
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch.sharding import cache_struct, rules_for
+    cp = ShapeCell("prefill", "prefill", C, B)
+    cd = ShapeCell("decode", "decode", C, B)
+    rp, rd = rules_for(cfg, cp, mesh), rules_for(cfg, cd, mesh)
+    _, specs_p = cache_struct(cfg, cp, rp)
+    shapes, specs_d = cache_struct(cfg, cd, rd)
+    return rp, rd, specs_p, shapes, specs_d
+
+
+def _serve_inputs(cfg, seed: int, B: int, S: int, steps: int, device):
+    """Host-drawn prompt tokens (B, S) and decode tokens (B, 1) a step."""
+    from repro_torch.data import lm_batch
+    toks = lm_batch(cfg, seed=seed, step=0, batch=B, seq=S + steps,
+                    device="cpu")["tokens"]
+    return (toks[:, :S].to(device),
+            [toks[:, S + i:S + i + 1].to(device) for i in range(steps)])
+
+
+def _local_cache_bytes(cache):
+    from repro_torch.tree import cache_items
+    return sum(l.to_local().numel() * l.element_size()
+               for _, l in cache_items(cache))
+
+
+def _sharded_logits(cfg, mesh, full, prompt, dec, C: int):
+    """The sharded prefill, the cache and params moved to the decode
+    rules, and decode fed ``dec``, through ``train.step.sharded_serve``:
+    (each step's last-position logits, the final cache whole), on the
+    host in float64."""
+    from repro_torch import models as M
+    from repro_torch.distributed import sharded
+    from repro_torch.launch.sharding import distribute, move
+    from repro_torch.train.step import sharded_serve
+    from repro_torch.tree import cache_items
+    B, S = prompt.shape
+    rp, rd, specs_p, _, specs_d = _serve_rules(cfg, mesh, B, C)
+    cache = distribute(M.make_cache(cfg, B, C, device=prompt.device,
+                                    split_local_global=True), mesh, specs_p)
+    sp = distribute(full, mesh, M.param_specs(cfg, rp))
+
+    def rows(logits, rules):
+        bt = rules.resolve("batch")
+        last = logits[:, -1].double()
+        if not bt:
+            return last.cpu()
+        return sharded.AxisComm(mesh, (bt,) if isinstance(bt, str)
+                                else bt).gather(last).cpu()
+    logits, cache = sharded_serve(
+        cfg, rp, lambda p, b, c: M.prefill_fn(p, cfg, rp, b, c), sp,
+        {"tokens": prompt}, cache)
+    out = [rows(logits, rp)]
+    cache = move(cache, mesh, specs_d)
+    sp = move(sp, mesh, M.param_specs(cfg, rd))
+    for i, t in enumerate(dec):
+        logits, cache = sharded_serve(
+            cfg, rd, lambda p, b, c: M.decode_fn(p, cfg, rd, b["tokens"],
+                                                 S + i, c),
+            sp, {"tokens": t}, cache)
+        out.append(rows(logits, rd))
+    return out, {path: sharded.gather(l).double().cpu()
+                 for path, l in cache_items(cache)}
+
+
+def _one_process_logits(cfg, mesh, full, prompt, dec, C: int):
+    """The one-process steps of the same function: each data shard's rows
+    of the prefill rules alone (a MoE layer's capacity counts the
+    shard's tokens), its cache decoded on (a decode call never drops),
+    the shards' logits and caches concatenated."""
+    import torch
+    from repro_torch import models as M
+    from repro_torch.launch import RULES
+    from repro_torch.models.common import current_mesh, set_current_mesh
+    from repro_torch.tree import cache_items
+    B, S = prompt.shape
+    rp = _serve_rules(cfg, mesh, B, C)[0]
+    n = int(mesh.size(0)) if rp.resolve("batch") else 1
+    per = B // n
+    saved = current_mesh()
+    set_current_mesh(None)
+    try:
+        parts = []
+        for j in range(n):
+            rows = slice(j * per, (j + 1) * per)
+            cache = M.make_cache(cfg, per, C, device=prompt.device,
+                                 split_local_global=True)
+            logits, cache = M.prefill_fn(full, cfg, RULES,
+                                         {"tokens": prompt[rows]}, cache)
+            ls = [logits[:, -1].double().cpu()]
+            for i, t in enumerate(dec):
+                logits, cache = M.decode_fn(full, cfg, RULES, t[rows], S + i,
+                                            cache)
+                ls.append(logits[:, -1].double().cpu())
+            parts.append((ls, dict(cache_items(cache))))
+    finally:
+        set_current_mesh(saved)
+    logits = [torch.cat([p[0][i] for p in parts]) for i in range(len(dec) + 1)]
+    caches = {}
+    for path, leaf in parts[0][1].items():
+        if path.endswith(("slot_pos", "pos")):
+            caches[path] = leaf.double().cpu()
+        else:
+            caches[path] = torch.cat([p[1][path] for p in parts],
+                                     dim=1).double().cpu()
+    return logits, caches
+
+
+def _rel_err(a, b) -> float:
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+
+
+def _serve_witness(cfg, mesh, sizes, steps: int, seed: int, device,
+                   faults: bool):
+    """(w_sh)/(s_sh) witness: for each (B, S, C) layout of ``sizes``, the
+    sharded steps' logits and caches against the one-process steps' (the
+    float64 ``cfg``), the largest relative error a step and a leaf; with
+    ``faults``, the context-parallel layout again with the combine
+    without its all-reduces and with the decode write at every rank's
+    local slot."""
+    from repro_torch import models as M
+    from repro_torch.distributed import sharded
+    from repro_torch.models import attention
+    from repro_torch.tree import tree_map
+    import torch
+    full = tree_map(lambda t: t.to(torch.float64),
+                    M.init_params(cfg, seed, device=device))
+    out = {}
+    for name, (B, S, C) in sizes.items():
+        prompt, dec = _serve_inputs(cfg, seed + 1, B, S, steps, device)
+        want = _one_process_logits(cfg, mesh, full, prompt, dec, C)
+
+        def errs(got):
+            return {"logits": max(_rel_err(a, b) for a, b in zip(got[0],
+                                                                  want[0])),
+                    "cache": max(_rel_err(got[1][k], v)
+                                 for k, v in want[1].items()
+                                 if v.is_floating_point())}
+        got = _sharded_logits(cfg, mesh, full, prompt, dec, C)
+        out[name] = dict(errs(got), tokens_equal=all(
+            bool((a.argmax(-1) == b.argmax(-1)).all())
+            for a, b in zip(got[0], want[0])))
+        if faults and name == "context_parallel":
+            # each fault over the prefill and one decode step, against the
+            # one-process steps as far
+            dec = dec[:1]
+            want = _one_process_logits(cfg, mesh, full, prompt, dec, C)
+            combine = sharded.softmax_combine
+            sharded.softmax_combine = lambda m, l, o, comm: o / l[..., None]
+            try:
+                out["planted_combine_without_all_reduce"] = errs(
+                    _sharded_logits(cfg, mesh, full, prompt, dec, C))
+            finally:
+                sharded.softmax_combine = combine
+            write = attention.cache_write
+
+            def everywhere(lk, lv, lp, k, v, pos, window, shard=None):
+                if shard is None or shard.seq is None or pos.shape[0] != 1:
+                    return write(lk, lv, lp, k, v, pos, window, shard)
+                return write(lk, lv, lp, k, v, pos, lk.shape[1],
+                             shard._replace(seq=None))
+            attention.cache_write = everywhere
+            try:
+                out["planted_write_on_every_rank"] = errs(
+                    _sharded_logits(cfg, mesh, full, prompt, dec, C))
+            finally:
+                attention.cache_write = write
+    return out
+
+
+def _serve_steps(cfg, mesh, full, B: int, S: int, C: int, steps: int,
+                 seed: int, device, timed: bool):
+    """(p_sh)/(d_sh)/(cp_sh)/(s_sh): the prefill of B x S host-drawn tokens
+    into C slots under the prefill rules, the cache and params moved to
+    the decode rules, then ``steps`` decode steps fed their own tokens,
+    through ``make_prefill_step`` and ``make_decode_step``: each step's
+    ms (CUDA events, host clock), collective bytes and host ms; the
+    cache shard bytes beside the specs' division; the tokens and the
+    prefill's last-position logits (recorded by wrapping
+    ``models.prefill_fn``, gathered outside the timed calls)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import models as M
+    from repro_torch.distributed import sharded
+    from repro_torch.launch.sharding import distribute, move
+    from repro_torch.models.common import P
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+    from repro_torch.tree import cache_items
+
+    rp, rd, specs_p, shapes, specs_d = _serve_rules(cfg, mesh, B, C)
+    prompt, _ = _serve_inputs(cfg, seed, B, S, 0, device)
+    cache = distribute(M.make_cache(cfg, B, C, device=device,
+                                    split_local_global=True), mesh, specs_p)
+    sp = distribute(full, mesh, M.param_specs(cfg, rp))
+    if timed:
+        torch.cuda.empty_cache()
+
+    def timed_call(fn):
+        dist.barrier()
+        sharded.reset()
+        if timed:
+            torch.cuda.synchronize()
+            e0, e1 = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            e0.record()
+        t0 = time.perf_counter()
+        res = fn()
+        if timed:
+            e1.record()
+            torch.cuda.synchronize()
+        return res, {"host_ms": (time.perf_counter() - t0) * 1e3,
+                     "event_ms": e0.elapsed_time(e1) if timed else None,
+                     "collective_bytes": dict(sharded.BYTES),
+                     "collective_host_ms": {k: v * 1e3 for k, v in
+                                            sharded.SECONDS.items()}}
+    rec = {"rules": {"prefill": (rp.batch, rp.kv_seq, rp.fsdp),
+                     "decode": (rd.batch, rd.kv_seq, rd.fsdp)}}
+    with _recorded_prefill() as seen:
+        (tok, cache), rec["prefill"] = timed_call(
+            lambda: make_prefill_step(cfg, rp)(sp, {"tokens": prompt},
+                                               cache))
+    pb = rp.resolve("batch")
+    last = seen.pop()
+    if pb:
+        last = sharded.AxisComm(mesh, (pb,) if isinstance(pb, str)
+                                else pb).gather(last)
+    rec["prefill_last"] = last.cpu()
+    bt = rd.resolve("batch")
+
+    def moved():
+        return (move(cache, mesh, specs_d),
+                move(sp, mesh, M.param_specs(cfg, rd)),
+                move({"t": tok}, mesh, {"t": P(bt)})["t"])
+    (cache, sp, tok), rec["move"] = timed_call(moved)
+    rec["cache_bytes"] = _local_cache_bytes(cache)
+    rec["cache_bytes_by_specs"] = _spec_bytes(shapes, specs_d, mesh)
+    rec["cache_bytes_whole"] = sum(t.numel() * t.element_size()
+                                   for _, t in cache_items(shapes))
+    step = make_decode_step(cfg, rd)
+    toks = [sharded.gather(tok).cpu()]
+    rec["steps"] = []
+    for i in range(steps):
+        (tok, cache), row = timed_call(
+            lambda: step(sp, tok[:, None], S + i, cache))
+        rec["steps"].append(row)
+        toks.append(sharded.gather(tok).cpu())
+    rec["tokens"] = torch.stack(toks, dim=1)
+    return rec
+
+
+class _recorded_prefill:
+    """Within: each ``models.prefill_fn`` call's last-position logits
+    (fp32) appended to the list the block gets."""
+
+    def __enter__(self):
+        from repro_torch import models as M
+        self.seen, self.real = [], M.prefill_fn
+
+        def recording(*args):
+            logits, cache = self.real(*args)
+            self.seen.append(logits[:, -1].float())
+            return logits, cache
+        M.prefill_fn = recording
+        return self.seen
+
+    def __exit__(self, *exc):
+        from repro_torch import models as M
+        M.prefill_fn = self.real
+
+
+def _one_process_tokens(cfg, mesh, full, B: int, S: int, C: int,
+                        steps: int, seed: int, device):
+    """The one-process steps of the same function on (p_sh)'s prompt: each
+    data shard's rows of the prefill rules alone (a MoE layer's capacity
+    counts the shard's tokens), then ``steps`` decode steps fed their
+    own tokens.  Returns (tokens (B, steps + 1), the prefill's
+    last-position logits) on the host."""
+    import torch
+    from repro_torch import models as M
+    from repro_torch.launch import RULES
+    from repro_torch.models.common import current_mesh, set_current_mesh
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+    rp = _serve_rules(cfg, mesh, B, C)[0]
+    prompt, _ = _serve_inputs(cfg, seed, B, S, 0, device)
+    n = int(mesh.size(0)) if rp.resolve("batch") else 1
+    per, saved = B // n, current_mesh()
+    set_current_mesh(None)
+    try:
+        toks = []
+        with _recorded_prefill() as seen:
+            for j in range(n):
+                c = M.make_cache(cfg, per, C, device=device,
+                                 split_local_global=True)
+                t, c = make_prefill_step(cfg, RULES)(
+                    full, {"tokens": prompt[j * per:(j + 1) * per]}, c)
+                ts = [t.cpu()]
+                for i in range(steps):
+                    t, c = make_decode_step(cfg, RULES)(full, t[:, None],
+                                                        S + i, c)
+                    ts.append(t.cpu())
+                toks.append(torch.stack(ts, dim=1))
+                del c
+    finally:
+        set_current_mesh(saved)
+    return torch.cat(toks), torch.cat(seen).cpu()
+
+
+def _serve_rank(rank: int, world: int, store: str, out: str, seed: int,
+                full: bool):
+    """One rank of phase 22 (a spawned process): gloo over a ``file://``
+    store, the (2, 2) ('data', 'model') mesh on the card; (w_sh) the
+    float64 witness on granite-moe cut to one layer, (p_sh)/(d_sh) and
+    (cp_sh) at full depth in bf16, (s_sh) mamba2-130m with its float64
+    witness at full depth.  Writes its record, or the exception, to
+    ``out/serve{r}.pkl``."""
+    import dataclasses
+    import datetime
+    import pickle
+    import traceback
+    sys.path.insert(0, str(SRC))
+    record = {}
+    try:
+        import torch
+        import torch.distributed as dist
+        device = "cuda" if full else "cpu"
+        if full:
+            torch.cuda.set_device(0)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group(
+            "gloo", init_method=f"file://{store}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=SHARDED_TIMEOUT_S))
+        from repro_torch import models as M
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.models.common import set_current_mesh
+        sz = sharded_serve_sizes(full)
+        mesh = make_host_mesh(model_axis=sz["model_axis"], device=device)
+        set_current_mesh(mesh)
+        if full:
+            torch.cuda.reset_peak_memory_stats()
+        f64 = torch.float64
+        cfg = _serve_cfg(sz["arch"], not full)
+
+        # (w_sh): one layer, float64, held
+        t0 = time.perf_counter()
+        cfg1 = dataclasses.replace(cfg, num_layers=1, dtype=f64,
+                                   param_dtype=f64)
+        record["witness"] = _serve_witness(
+            cfg1, mesh, {"split_kv": sz["w_d"],
+                         "context_parallel": sz["w_cp"]},
+            sz["w_steps"], seed, device, faults=True)
+        record["witness_s"] = time.perf_counter() - t0
+
+        # (p_sh), (d_sh), (cp_sh): full depth, bf16
+        params = M.init_params(cfg, seed, device=device)
+        runs = (("d_sh", sz["d"]), ("cp_sh", sz["cp"]))
+        for name, (B, S, C) in runs:
+            t0 = time.perf_counter()
+            record[name] = _serve_steps(cfg, mesh, params, B, S, C,
+                                        sz["steps"], seed, device, full)
+            record[name]["seconds"] = time.perf_counter() - t0
+        # the one-process tokens of the same function, printed: run r on
+        # rank r, together
+        t0 = time.perf_counter()
+        if rank < len(runs):
+            name, (B, S, C) = runs[rank]
+            record[name]["one_process_tokens"], want = _one_process_tokens(
+                cfg, mesh, params, B, S, C, sz["compare_steps"], seed,
+                device)
+            last = record[name]["prefill_last"]
+            record[name]["prefill_logits_rel_err"] = float(
+                (last - want).abs().max() / want.abs().max())
+        dist.barrier()
+        record["compare_s"] = time.perf_counter() - t0
+        del params
+        if full:
+            torch.cuda.empty_cache()
+
+        # (s_sh): mamba2, the state over 'model'
+        t0 = time.perf_counter()
+        scfg = _serve_cfg(sz["ssm"], not full)
+        B, S = sz["s_w"]
+        record["s_witness"] = _serve_witness(
+            dataclasses.replace(scfg, dtype=f64, param_dtype=f64), mesh,
+            {"batch_split": (B, S, S + sz["w_steps"])}, sz["w_steps"], seed,
+            device, faults=False)
+        record["s_witness_s"] = time.perf_counter() - t0
+        if full:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = M.init_params(scfg, seed, device=device)
+        B, S = sz["s"]
+        record["s_sh"] = _serve_steps(scfg, mesh, params, B, S,
+                                      S + sz["steps"], sz["steps"], seed,
+                                      device, full)
+        record["s_sh"]["seconds"] = time.perf_counter() - t0
+        del params
+        record["peak_bytes"] = (torch.cuda.max_memory_allocated() if full
+                                else None)
+        record["peak_reserved"] = (torch.cuda.max_memory_reserved() if full
+                                   else None)
+        set_current_mesh(None)
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:
+        record["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(os.path.join(out, f"serve{rank}.pkl"), "wb") as f:
+            pickle.dump(record, f)
+
+
+def _step_rows(recs, key: str):
+    """Each step of run ``key`` on the slowest rank: ms (events, host),
+    each rank's collective bytes, the slowest rank's collective host ms
+    by kind."""
+    out = []
+    for i in range(len(recs[0][key]["steps"])):
+        rows = [rec[key]["steps"][i] for rec in recs]
+        out.append({
+            "step": i,
+            "ms_events_slowest": (max(r["event_ms"] for r in rows)
+                                  if rows[0]["event_ms"] is not None
+                                  else None),
+            "ms_host_slowest": max(r["host_ms"] for r in rows),
+            "collective_bytes_per_rank": [r["collective_bytes"]
+                                          for r in rows],
+            "collective_host_ms_slowest": {
+                k: max(r["collective_host_ms"].get(k, 0.0) for r in rows)
+                for k in rows[0]["collective_host_ms"]}})
+    return out
+
+
+def phase_sharded_serve(device: str, seed: int, card: str = "",
+                        full: bool = True):
+    """Phase 22: the sharded prefill and decode steps on four gloo ranks
+    sharing the card over a (2, 2) ('data', 'model') mesh.  (w_sh) the
+    float64 witness on granite-moe cut to one layer (split-KV and
+    context-parallel decode against the one-process steps within 1e-10,
+    the two planted faults above 1e-3); (p_sh) the prefill of 8 x 3,072
+    tokens into 4,096 slots under the prefill rules and (d_sh) 16
+    split-KV decode steps after the cache is moved to the decode rules;
+    (cp_sh) 2 x 12,288 into 16,384 slots, 16 context-parallel steps; each
+    step's ms on the slowest rank, its collective bytes and host ms, each
+    rank's cache shard bytes against the specs' division, the tokens
+    against the one-process ones (printed); (s_sh) mamba2-130m with the
+    state over 'model', 8 x 1,024 then 16 steps, and its float64 witness
+    at full depth.  Returns (seconds, the per-step readings phase 21's
+    dry run must reckon)."""
+    import pickle
+    import tempfile
+    import torch
+    t_phase = time.perf_counter()
+    sz = sharded_serve_sizes(full)
+    (ROOT / "build").mkdir(exist_ok=True)
+    scratch = tempfile.mkdtemp(prefix="serve_", dir=ROOT / "build")
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_serve_rank,
+                         args=(r, SHARDED_WORLD, f"{scratch}/store", scratch,
+                               seed, full)) for r in range(SHARDED_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    for p in procs:
+        p.join(timeout=max(1.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+            p.join(timeout=30)
+    spawn_s = time.perf_counter() - t0
+    if hung:
+        fail(f"sharded_serve: ranks {hung} did not finish in "
+             f"{SHARDED_TIMEOUT_S} s")
+    recs = []
+    for r, p in enumerate(procs):
+        path = os.path.join(scratch, f"serve{r}.pkl")
+        if not os.path.exists(path):
+            fail(f"sharded_serve: rank {r} exited {p.exitcode} with no "
+                 f"record")
+        with open(path, "rb") as f:
+            recs.append(pickle.load(f))
+        if "error" in recs[-1] or p.exitcode != 0:
+            fail(f"sharded_serve: rank {r} exited {p.exitcode}:\n"
+                 f"{recs[-1].get('error', '')}")
+    shutil.rmtree(scratch, ignore_errors=True)
+
+    for key, arch, wit in (("witness", sz["arch"], "w_sh"),
+                           ("s_witness", sz["ssm"], "s_sh_witness")):
+        w = recs[0][key]
+        layouts = {k: v for k, v in w.items() if not k.startswith("planted")}
+        worst = max(max(v["logits"], v["cache"]) for v in layouts.values())
+        planted = {k: max(v["logits"], v["cache"]) for k, v in w.items()
+                   if k.startswith("planted")}
+        emit({"phase": "sharded_serve", "call": wit, "arch": arch,
+              "layers": 1 if key == "witness" else "all",
+              "dtype": "float64", "mesh": "(2, 2) ('data', 'model')",
+              "ranks": SHARDED_WORLD, "backend": "gloo",
+              "layouts": layouts, "max_rel_err": worst,
+              "limit": SERVE_WITNESS_LIMIT, **planted,
+              "planted_floor": SHARDED_PLANTED_FLOOR})
+        if not worst <= SERVE_WITNESS_LIMIT:
+            fail(f"sharded_serve ({wit}): the float64 steps part from the "
+                 f"one-process steps by {worst:.3e}")
+        if not all(v["tokens_equal"] for v in layouts.values()):
+            fail(f"sharded_serve ({wit}): float64 tokens differ")
+        for k, v in planted.items():
+            if not v > SHARDED_PLANTED_FLOOR:
+                fail(f"sharded_serve ({wit}): planted fault {k} reads "
+                     f"{v:.3e}")
+    readings = {}
+    for key, arch, (B, S, C) in (
+            ("d_sh", sz["arch"], sz["d"]), ("cp_sh", sz["arch"], sz["cp"]),
+            ("s_sh", sz["ssm"], sz["s"] + (sz["s"][1] + sz["steps"],))):
+        r0 = recs[0][key]
+        toks = {tuple(map(tuple, rec[key]["tokens"].tolist()))
+                for rec in recs}
+        if len(toks) != 1:
+            fail(f"sharded_serve ({key}): the ranks' tokens differ")
+        # (d_sh)'s prefill is (p_sh)
+        emit({"phase": "sharded_serve",
+              "call": "p_sh" if key == "d_sh" else key, "arch": arch,
+              "batch": B, "prompt": S, "slots": C, "rules": r0["rules"],
+              "prefill": {"ms_events_slowest": (
+                  max(rec[key]["prefill"]["event_ms"] for rec in recs)
+                  if full else None),
+                  "ms_host_slowest": max(rec[key]["prefill"]["host_ms"]
+                                         for rec in recs),
+                  "collective_bytes": r0["prefill"]["collective_bytes"],
+                  "collective_host_ms": r0["prefill"]["collective_host_ms"]},
+              "move": {"ms_host_slowest": max(rec[key]["move"]["host_ms"]
+                                              for rec in recs),
+                       "collective_bytes": r0["move"]["collective_bytes"]},
+              "seconds_slowest": max(rec[key]["seconds"] for rec in recs),
+              "card": card})
+        for row in _step_rows(recs, key):
+            emit({"phase": "sharded_serve", "call": key, **row})
+        shard = [rec[key]["cache_bytes"] for rec in recs]
+        emit({"phase": "sharded_serve", "call": key,
+              "cache_shard_bytes_per_rank": shard,
+              "cache_bytes_by_specs": r0["cache_bytes_by_specs"],
+              "cache_bytes_whole": r0["cache_bytes_whole"]})
+        if any(b != r0["cache_bytes_by_specs"] for b in shard):
+            fail(f"sharded_serve ({key}): cache shard bytes {shard}, the "
+                 f"specs divide {r0['cache_bytes_by_specs']}")
+        one = [rec[key] for rec in recs if "one_process_tokens" in rec[key]]
+        if one:
+            want = one[0]["one_process_tokens"]
+            got = r0["tokens"][:, :want.shape[1]]
+            emit({"phase": "sharded_serve", "call": key, "held": False,
+                  "dtype": "bf16", "tokens_equal_one_process":
+                      int((got == want).sum()), "tokens": got.numel(),
+                  "first_parting_step": (int((got != want).any(0).nonzero()
+                                             [0]) if bool((got != want).any())
+                                         else None),
+                  "prefill_logits_rel_err": one[0]["prefill_logits_rel_err"]})
+        readings[key] = {"collective_bytes": [[s["collective_bytes"]
+                                               for s in rec[key]["steps"]]
+                                              for rec in recs],
+                         "cache_bytes": shard, "batch": B, "slots": C}
+    parent = (torch.cuda.memory_reserved() if full else None)
+    peaks = [rec["peak_reserved"] for rec in recs]
+    emit({"phase": "sharded_serve", "call": "memory",
+          "peak_allocated_per_rank": [rec["peak_bytes"] for rec in recs],
+          "peak_reserved_per_rank": peaks, "parent_reserved": parent,
+          "total_gb": (sum(peaks) + parent) / 1e9 if full else None})
+    if full and sum(peaks) + parent >= 80e9:
+        fail("sharded_serve: the ranks' and the parent's bytes pass 80 GB")
+    secs = time.perf_counter() - t_phase
+    emit({"phase": "sharded_serve", "phase_seconds": secs,
+          "spawn_to_join_s": spawn_s,
+          "witness_s_slowest": max(rec["witness_s"] for rec in recs),
+          "s_witness_s_slowest": max(rec["s_witness_s"] for rec in recs),
+          "one_process_s_slowest": max(rec["compare_s"] for rec in recs),
+          "card": card})
+    if full and secs > SERVE_PHASE_LIMIT_S:
+        fail(f"sharded_serve: phase 22 took {secs:.1f} s (limit "
+             f"{SERVE_PHASE_LIMIT_S})")
+    return secs, readings
+
+
+# --------------------------------------------------------------------------
 # 21. the dry run: each cell's sharded step traced on meta tensors
 # --------------------------------------------------------------------------
 
@@ -7158,6 +7814,19 @@ def _dryrun_child(out: str, full: bool):
                 cfg, ShapeCell("train", "train", sz["seq"], sz["batch"]),
                 mesh)
         record["dr_sh"] = {**dryrun.analyze(trace), **meta}
+        # (dr_sv): phase 22's decode cells, (d_sh) and (cp_sh)
+        ssz = sharded_serve_sizes(full)
+        scfg = _serve_cfg(ssz["arch"], ssz["reduced"])
+        record["dr_sv"] = {}
+        for key, size in (("d_sh", "d"), ("cp_sh", "cp")):
+            B, _, C = ssz[size]
+            with dryrun.fake_group(SHARDED_WORLD):
+                mesh = init_device_mesh(
+                    "cpu", (SHARDED_WORLD // model, model),
+                    mesh_dim_names=("data", "model"))
+                trace, meta = dryrun.lower_config(
+                    scfg, ShapeCell("decode", "decode", C, B), mesh)
+            record["dr_sv"][key] = {**dryrun.analyze(trace), **meta}
         record["dr_pod"] = []
         for arch, shape, multi_pod in (DRYRUN_POD_CELLS if full else ()):
             with dryrun.fake_group(512 if multi_pod else 256):
@@ -7212,33 +7881,48 @@ def _first_parting(shard_np, a, b):
             <= PAPER_TIE_RTOL * max(dist)}
 
 
-def phase_dryrun(device: str, seed: int, sharded: dict, card: str = "",
-                 full: bool = True):
+def start_dryruns(full: bool):
+    """Phase 21's dry runs (``_dryrun_child``) started at once in a spawned
+    process of their own: they need no card, so they run on the CPU
+    beside phases 20 and 22 (one thread), and ``phase_dryrun`` joins
+    them.  Returns (the process, its directory, its start time)."""
+    import tempfile
+    import torch
+    (ROOT / "build").mkdir(exist_ok=True)
+    scratch = tempfile.mkdtemp(prefix="dryrun_", dir=ROOT / "build")
+    proc = torch.multiprocessing.get_context("spawn").Process(
+        target=_dryrun_child, args=(scratch, full), daemon=True)
+    proc.start()
+    return proc, scratch, time.monotonic()
+
+
+def phase_dryrun(device: str, seed: int, sharded: dict, serve: dict,
+                 dry, card: str = "", full: bool = True):
     """Phase 21: (dr_sh) the dry run of phase 20's cell in a spawned
     process: its collective bytes of a step must equal every rank's
     per-step ``sharded.BYTES`` that phase 20 read in this run, and its
     shard bytes each rank's, to the byte (its peak estimate printed
-    beside the ranks' measured peaks); (dr_pod) at full size, the
+    beside the ranks' measured peaks); (dr_sv) the dry runs of phase
+    22's (d_sh) and (cp_sh) decode cells, held likewise to every decode
+    step of phase 22 and each rank's cache shard bytes; (dr_pod) at full
+    size, the
     ``DRYRUN_POD_CELLS`` on the card machine's torch, a JSON line each
     with its trace seconds; (dr_paper) one rank of the paper cell at its
     real size, exact GMM through B2 and b = 8 through B1, kernel and plain
     in turns, picks equal up to a proven near-tie and the radius within
     rtol ``RTOL_E2E``, seconds beside the bytes bound of its sweeps.
-    Returns the kernel runs' launches and the sweeps' largest errors
-    against plain."""
+    ``dry`` is ``start_dryruns``'s process, joined here.  Returns the
+    kernel runs' launches and the sweeps' largest errors against plain."""
     import pickle
-    import tempfile
 
     import numpy as np
     import torch
     from repro_torch.launch.dryrun import KINDS as names, sweep_bytes
     t_phase = time.perf_counter()
-    (ROOT / "build").mkdir(exist_ok=True)
-    scratch = tempfile.mkdtemp(prefix="dryrun_", dir=ROOT / "build")
-    ctx = torch.multiprocessing.get_context("spawn")
-    proc = ctx.Process(target=_dryrun_child, args=(scratch, full))
-    proc.start()
-    proc.join(timeout=DRYRUN_TIMEOUT_S)
+    proc, scratch, started = dry
+    proc.join(timeout=max(1.0, started + DRYRUN_TIMEOUT_S - time.monotonic()))
+    emit({"phase": "dryrun", "dry_runs_joined_after_s":
+          time.monotonic() - started})
     if proc.is_alive():
         proc.terminate()
         proc.join(timeout=30)
@@ -7286,6 +7970,37 @@ def phase_dryrun(device: str, seed: int, sharded: dict, card: str = "",
         fail(f"dryrun (dr_sh): shard bytes {shard_want}, phase 20's ranks "
              f"{[sharded['shard_bytes'][r] for r in shard_differ]}")
 
+    # (dr_sv): phase 22's decode cells against its ranks, to the byte
+    for key, dr in rec["dr_sv"].items():
+        want = {k: v for k, v in dr["collective_bytes_per_device"].items()
+                if v}
+        got = serve[key]
+        differ = [(r, i, step) for r, steps in enumerate(
+            got["collective_bytes"]) for i, step in enumerate(
+            {names[k]: v for k, v in st.items()} for st in steps)
+            if step != want]
+        cache_want = dr["argument_bytes_by_tree"]["cache"]
+        emit({"phase": "dryrun", "call": "dr_sv", "cell": key,
+              "arch": dr["arch"], "batch": got["batch"],
+              "slots": got["slots"], "rules": {
+                  k: dr["rules"][k] for k in ("batch", "kv_seq", "fsdp")},
+              "collective_bytes_per_device": dr["collective_bytes_per_device"],
+              "phase_22_per_rank_step_0": [
+                  {names[k]: v for k, v in steps[0].items()}
+                  for steps in got["collective_bytes"]],
+              "steps_compared": sum(map(len, got["collective_bytes"])),
+              "equal": not differ, "cache_shard_bytes": cache_want,
+              "phase_22_cache_shard_bytes": got["cache_bytes"],
+              "flops_per_device": dr["flops_per_device"],
+              "peak_bytes_estimate": dr["peak_bytes"],
+              "trace_s": dr["trace_s"]})
+        if differ:
+            fail(f"dryrun (dr_sv) {key}: the trace reckons {want}, phase "
+                 f"22's ranks counted otherwise: {differ[:3]}")
+        if any(b != cache_want for b in got["cache_bytes"]):
+            fail(f"dryrun (dr_sv) {key}: cache shard bytes {cache_want}, "
+                 f"phase 22's ranks {got['cache_bytes']}")
+
     # (dr_pod): the production meshes on this machine's torch
     for info in rec["dr_pod"]:
         emit({"phase": "dryrun", "call": "dr_pod", **{
@@ -7295,9 +8010,8 @@ def phase_dryrun(device: str, seed: int, sharded: dict, card: str = "",
                 "collective_total", "argument_bytes",
                 "argument_bytes_by_tree", "peak_bytes", "null_reason",
                 "params", "active_ratio", "trace_s", "torch")}})
-        traced = info["shape"].startswith("train")
-        if not info["valid"] or traced != (info["flops_per_device"]
-                                           is not None):
+        if not info["valid"] or info["null_reason"] is not None or (
+                info["flops_per_device"] is None):
             fail(f"dryrun (dr_pod): {info['arch']} x {info['shape']}: "
                  f"valid {info['valid']}, {info['null_reason']}")
 
@@ -7410,7 +8124,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse", action="store_true",
-                    help="tiny CPU run of phases 2-6 and 9-21 with the "
+                    help="tiny CPU run of phases 2-6 and 9-22 with the "
                          "plain versions")
     ap.add_argument("--probe-only", type=int, default=0, metavar="RUNS",
                     help="run call (i) RUNS times on the card, print its "
@@ -7474,10 +8188,13 @@ def main(argv=None) -> int:
                                  check_launches=False)
         emit({"phase": "rehearsal", "phases_18_19_seconds":
               time.perf_counter() - t0})
+        dry = start_dryruns(full=False)
         secs, sharded = phase_sharded("cpu", args.seed, full=False)
         emit({"phase": "rehearsal", "phase_20_seconds": secs})
+        secs, serve = phase_sharded_serve("cpu", args.seed, full=False)
+        emit({"phase": "rehearsal", "phase_22_seconds": secs})
         t0 = time.perf_counter()
-        phase_dryrun("cpu", args.seed, sharded, full=False)
+        phase_dryrun("cpu", args.seed, sharded, serve, dry, full=False)
         emit({"phase": "rehearsal", "phase_21_seconds":
               time.perf_counter() - t0})
         phase_times_round1(mesh_b4 + serve_b4 + train_b4 + moe_b4 + vlm_b4
@@ -7490,6 +8207,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi()
+    dry = start_dryruns(full=True)      # phase 21's, on the CPU meanwhile
     build.library()
     out = ROOT / "chiprun_out"      # long reports: ptxas, profile
     out.mkdir(parents=True, exist_ok=True)
@@ -7509,9 +8227,14 @@ def main(argv=None) -> int:
     emit({"phase": "sharded", "script_seconds_so_far":
           time.perf_counter() - t_start})
 
-    # ---- 21. the dry run, held to phase 20's readings ------------------------
-    dry_launches, dry_errs = phase_dryrun("cuda", args.seed, sharded,
-                                          card=card)
+    # ---- 22. sharded serving, while the parent still holds nothing ---------
+    _, serve = phase_sharded_serve("cuda", args.seed, card=card)
+    emit({"phase": "sharded_serve", "script_seconds_so_far":
+          time.perf_counter() - t_start})
+
+    # ---- 21. the dry run, held to phases 20's and 22's readings -------------
+    dry_launches, dry_errs = phase_dryrun("cuda", args.seed, sharded, serve,
+                                          dry, card=card)
     torch.cuda.empty_cache()
     emit({"phase": "dryrun", "script_seconds_so_far":
           time.perf_counter() - t_start})

@@ -530,9 +530,12 @@ class _Comm:
                             pin_memory=host) for _ in range(self.size)]
 
     def _merge(self, outs, t):
-        out = torch.cat([outs[i] for i in self._perm])
+        # each block to t's device, then one concatenation there (not on
+        # the host, where it costs a pass over the gathered bytes)
+        out = torch.cat([outs[i].to(t.device) for i in self._perm]).to(
+            t.dtype)
         self.nbytes += out.numel() * out.element_size()
-        return out.to(device=t.device, dtype=t.dtype)
+        return out
 
     def gather(self, t):
         """Every rank's ``t`` (one shape on all ranks), concatenated along

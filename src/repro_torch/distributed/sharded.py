@@ -1,5 +1,5 @@
-"""Collectives of the sharded training step (the counterpart of what
-GSPMD inserts into the reference's sharded step).
+"""Collectives of the sharded train and serve steps (the counterpart of
+what GSPMD inserts into the reference's sharded steps).
 
 A leaf of the parameter tree is a ``DTensor`` placed by
 ``launch.sharding.named``: along each mesh dimension ``Shard(d)`` or
@@ -20,7 +20,10 @@ step computes on plain local tensors:
   forward and identity backward (the MoE layer's replicated inputs and
   its combine over ``model``);
 * ``LeafMeans`` — Adafactor's row and column means and its RMS over a
-  whole leaf, summed over the ranks that split the dims they reduce.
+  whole leaf, summed over the ranks that split the dims they reduce;
+* ``softmax_combine`` — the sharded serve steps' attention over a cache
+  whose slots are split over a mesh axis: each rank's partial softmax
+  sums, their max and their rescaled sums all-reduced.
 
 Every collective runs over the process group of its mesh axes (the mesh's
 own for one axis), through pinned host memory when the group's backend is
@@ -86,14 +89,18 @@ class AxisComm(_Comm):
         _count("all_reduce", buf, t0)
         return out
 
-    def max(self, x):
-        """MAX over the ranks of the scalar tensor ``x`` (counted as an
-        all-reduce)."""
+    def max(self, t):
+        """The elementwise MAX of every rank's ``t`` (one shape on all
+        ranks; counted as an all-reduce)."""
+        import torch.distributed as dist
+
         if self.size == 1:
-            return x
+            return t
         t0 = time.perf_counter()
-        out = super().max(x)
-        _count("all_reduce", out, t0)
+        buf = self._wire(t.reshape(-1))
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=self.group)
+        out = buf.to(t.device).reshape(t.shape)
+        _count("all_reduce", buf, t0)
         return out
 
     def reduce_scatter(self, t):
@@ -116,6 +123,24 @@ class AxisComm(_Comm):
         out = out.to(t.device)
         _count("reduce_scatter", buf, t0)
         return out
+
+
+def softmax_combine(m, l, o, comm):
+    """Attention over slots split over ``comm``'s ranks (flash-decoding's
+    combine, forward only): from this rank's row max ``m`` (...), ``l =
+    Σ exp(s − m)`` (...) and ``o = Σ exp(s − m)·v`` (..., hd) over its
+    own slots, the max of ``m`` over the ranks (an all-reduce), each
+    rank's partials rescaled by ``exp(m − M)``, ``l`` and ``o`` summed
+    (one all-reduce of both), and ``o / l``.  A rank with no live slot
+    passes ``l = 0`` and ``o = 0`` (its ``m`` the mask's fill), which the
+    rescale keeps at 0; a row with no live slot on any rank gives a zero
+    context, not a NaN."""
+    big = comm.max(m)
+    scale = torch.exp(m - big)
+    lo = comm.sum(torch.cat([(l * scale)[..., None],
+                             o * scale[..., None]], dim=-1))
+    l, o = lo[..., 0], lo[..., 1:]
+    return o / torch.where(l > 0, l, torch.ones_like(l))[..., None]
 
 
 def _names(mesh) -> Tuple[str, ...]:

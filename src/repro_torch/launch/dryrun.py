@@ -1,7 +1,8 @@
 """Multi-pod dry run (port of ``repro.launch.dryrun``): every (arch × shape
-× mesh) cell placed on the production meshes, its sharded train step
-traced on ``meta`` tensors, and the paper's own workload, a 2-round
-MapReduce GMM core-set of 2^30 x 64 points, traced on one rank's shard.
+× mesh) cell placed on the production meshes, its sharded train,
+prefill or decode step traced on ``meta`` tensors, and the paper's own
+workload, a 2-round MapReduce GMM core-set of 2^30 x 64 points, traced
+on one rank's shard.
 
 Usage::
 
@@ -14,35 +15,45 @@ It needs no card and no ranks.  ``fake_group`` opens a default process
 group of the ``fake`` backend (``torch.testing._internal.distributed.
 fake_pg``: every collective returns at once, with its output's shape) of
 256 ranks, or 512 with ``--multi-pod``, in this one process, as rank 0;
-``launch.mesh.make_production_mesh`` builds the mesh over it.  A train
-cell's params are ``distribute``d as ``meta`` tensors (no memory), its
-optimizer state built by ``init_state`` and its batch placed by
-``batch_struct``'s specs; one call of ``train.make_train_step``'s step
-then runs unchanged under ``FlopCounterMode``, every collective of
-``distributed.sharded`` counted in ``sharded.BYTES`` with the bytes it
-would move on rank 0.  The reference lowers and compiles the same cells
-with XLA; the numbers here are the port's own, reckoned by its code on
-``meta`` tensors: no time, rate or memory of a device.
+``launch.mesh.make_production_mesh`` builds the mesh over it.  A cell's
+params are ``distribute``d as ``meta`` tensors (no memory); a train
+cell's optimizer state is built by ``init_state`` and its batch placed
+by ``batch_struct``'s specs, and one call of ``train.make_train_step``'s
+step runs unchanged under ``FlopCounterMode``; a prefill cell's batch
+and cache (``cache_struct``, gemma2's local/global split cache) are
+placed likewise and ``train.make_prefill_step``'s step runs, and a
+decode cell's step (``make_decode_step``) takes its ``(B, 1)`` tokens
+placed ``P(batch, None)``, the position ``seq_len - 1`` and the cache
+under the decode rules (batch-split, split-KV or context-parallel).
+Every collective of ``distributed.sharded`` is counted in
+``sharded.BYTES`` with the bytes it would move on rank 0.  The reference
+lowers and compiles the same cells with XLA; the numbers here are the
+port's own, reckoned by its code on ``meta`` tensors: no time, rate or
+memory of a device.  The port's decode step gathers the params split
+over ``model`` (and over ``data`` where ``fsdp`` stays) on every step,
+where the reference computes on them in place (no tensor-parallel
+compute, ROADMAP C): its all-gather bytes a step are reported as the
+port counts them.  ``--no-shard-map-moe`` traces a MoE arch with its
+experts gathered on every rank (no current mesh), as the reference's
+flag runs its GSPMD dispatch.
 
-Prefill and decode cells are placed, not traced: the port has no sharded
-serve step (ROADMAP A, 16g), so their FLOPs and collective bytes are
-``null``; their rules, specs, local shapes and per-rank bytes of the
-params, the batch and the cache are reported.  A cell where a dim does
-not split evenly over its axes is reported invalid (each leaf's path,
-dim and reason) and not traced.
+A cell where a dim does not split evenly over its axes is reported
+invalid (each leaf's path, dim and reason) and not traced.
 
 ``analyze`` returns the reference's JSON keys where they have a
 counterpart:
 
 * ``flops_per_device``: the products ``FlopCounterMode`` counts on rank
-  0 (forward, backward and recompute).  The port computes a data shard's
-  whole dense part on every ``model`` rank (no tensor-parallel compute,
-  ROADMAP B "Sharded training"), so these are not the reference's
-  partitioned FLOPs (ROADMAP C, Decided differences);
+  0 (forward, backward and recompute of a train step; the forward of a
+  serve step).  The port computes a data shard's whole dense part on
+  every ``model`` rank (no tensor-parallel compute, ROADMAP B "Sharded
+  training"), so these are not the reference's partitioned FLOPs
+  (ROADMAP C, Decided differences);
 * ``collective_bytes_per_device``: ``all-gather`` (its output),
-  ``reduce-scatter`` (its input) and ``all-reduce`` (its buffer) of one
-  step on rank 0, ``all-to-all`` and ``collective-permute`` 0 (the port
-  makes neither), and ``collective_total``;
+  ``reduce-scatter`` (its input) and ``all-reduce`` (its buffer; a
+  decode step's split-softmax combine is two all-reduces a layer) of
+  one step on rank 0, ``all-to-all`` and ``collective-permute`` 0 (the
+  port makes neither), and ``collective_total``;
 * ``argument_bytes``: rank 0's local params, optimizer state, batch and
   cache;
 * ``params``, ``active_ratio``, ``chips``, ``arch``, ``shape``,
@@ -79,7 +90,8 @@ from ..configs import ARCH_IDS, SHAPES, applicable, get_config
 from ..configs.shapes import ShapeCell
 from ..models.common import ModelConfig, P, set_current_mesh
 from .mesh import make_production_mesh, num_chips
-from .sharding import batch_struct, cache_struct, placements, rules_for
+from .sharding import (batch_struct, cache_struct, placements, rules_for,
+                       spec_walk)
 
 _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                 "collective-permute")
@@ -89,12 +101,6 @@ KINDS = {"all_gather": "all-gather", "all_reduce": "all-reduce",
 _XLA_ONLY = ("bytes_per_device", "xla_flops_single_visit",
              "xla_bytes_single_visit", "collective_single_visit",
              "output_bytes", "temp_bytes")
-NO_SERVE_STEP = "no sharded serve step (ROADMAP A, 16g)"
-NO_GATHERED_EXPERTS = (
-    "the sharded step keeps the MoE experts split over 'model'; the "
-    "reference's GSPMD-inferred dispatch with the experts gathered "
-    "(--no-shard-map-moe) has no counterpart (ROADMAP B, 'Sharded "
-    "training')")
 NO_BF16_POINTS = ("bf16 point storage is a later opt-in of the kernels "
                   "(ROADMAP B, 'Configurations the port does not run yet': "
                   "TF32 and bf16 legs); the card keeps fp32")
@@ -135,22 +141,6 @@ def fake_group(world: int):
 # placements
 # ---------------------------------------------------------------------------
 
-def _walk(spec_tree, tree, path: str = ""):
-    """(path, spec, leaf) over the ``PartitionSpec`` leaves of
-    ``spec_tree`` (nested dicts in sorted key order and NamedTuples), the
-    path as ``jax.tree_util.keystr`` writes it."""
-    if isinstance(spec_tree, P):
-        return [(path, spec_tree, tree)]
-    if isinstance(spec_tree, dict):
-        return [x for k in sorted(spec_tree)
-                for x in _walk(spec_tree[k], tree[k], f"{path}[{k!r}]")]
-    if isinstance(spec_tree, tuple) and hasattr(spec_tree, "_fields"):
-        return [x for f in spec_tree._fields
-                for x in _walk(getattr(spec_tree, f), getattr(tree, f),
-                               f"{path}.{f}")]
-    raise TypeError(f"not a spec tree node: {type(spec_tree).__name__}")
-
-
 def _splits(spec, mesh) -> list:
     """Ranks splitting each dim of a leaf placed by ``spec`` on ``mesh``."""
     pl = placements(mesh, spec)
@@ -166,7 +156,7 @@ def place_tree(shapes, specs, mesh) -> Dict[str, Any]:
     rank's bytes, ``invalid`` [(path, dim, reason)] of the dims that do
     not split evenly."""
     local, invalid, nbytes = {}, [], 0
-    for path, spec, t in _walk(specs, shapes):
+    for path, spec, t in spec_walk(specs, shapes):
         n = _splits(spec, mesh)
         shape = []
         for d, (size, k) in enumerate(zip(t.shape, n)):
@@ -310,14 +300,38 @@ def _trace_train(cfg, mesh, placed, accum_steps: int):
     return float(flops.get_total_flops()), _collectives(), peak.peak
 
 
+def _trace_serve(cfg, cell: ShapeCell, mesh, placed):
+    """One sharded prefill or decode step of the cell ``placed``
+    (``place_cell``) on ``meta`` tensors: (FLOPs, collective bytes by
+    kind, peak estimate)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from ..distributed import sharded
+    from ..train import make_decode_step, make_prefill_step
+    from ..tree import cache_items, tree_leaves
+    from .sharding import distribute
+
+    rules, structs = placed["rules"], placed["structs"]
+    params, batch, cache = (distribute(structs[k][0], mesh, structs[k][1])
+                            for k in ("params", "batch", "cache"))
+    args = [t.to_local() for t in tree_leaves(params) + tree_leaves(batch)
+            + [x for _, x in cache_items(cache)]]
+    sharded.reset()
+    with FlopCounterMode(display=False) as flops, _PeakMeter(args) as peak:
+        if cell.kind == "prefill":
+            make_prefill_step(cfg, rules)(params, batch, cache)
+        else:
+            make_decode_step(cfg, rules)(params, batch["tokens"],
+                                         cell.seq_len - 1, cache)
+    return float(flops.get_total_flops()), _collectives(), peak.peak
+
+
 def lower_config(cfg: ModelConfig, cell: ShapeCell, mesh, *,
                  shard_map_moe: bool = True, accum_steps: int = 1):
     """Place one cell of ``cfg`` and ``cell`` on ``mesh`` (a ``DeviceMesh``
-    over the open fake group) and trace its train step.  Returns
-    (CellTrace, meta): an invalid placement is reported, not traced; a
-    serve cell is placed only."""
-    if not shard_map_moe and cfg.family == "moe":
-        raise NotImplementedError(NO_GATHERED_EXPERTS)
+    over the open fake group) and trace its train, prefill or decode
+    step (with ``shard_map_moe=False`` the MoE experts gathered on every
+    rank).  Returns (CellTrace, meta): an invalid placement is reported,
+    not traced."""
     meta = {"arch": cfg.arch, "shape": cell.name, "chips": num_chips(mesh),
             "params": M.count_params(cfg),
             "active_ratio": M.active_param_ratio(cfg)}
@@ -326,13 +340,13 @@ def lower_config(cfg: ModelConfig, cell: ShapeCell, mesh, *,
     trace = CellTrace(placed)
     if placed["invalid"]:
         trace.null_reason = "invalid placement"
-    elif cell.kind != "train":
-        trace.null_reason = NO_SERVE_STEP
     else:
         set_current_mesh(mesh if shard_map_moe else None)
         try:
-            trace.flops, trace.collective, peak = _trace_train(
-                cfg, mesh, placed, accum_steps)
+            trace.flops, trace.collective, peak = (
+                _trace_train(cfg, mesh, placed, accum_steps)
+                if cell.kind == "train" else
+                _trace_serve(cfg, cell, mesh, placed))
         finally:
             set_current_mesh(None)
         trace.peak_bytes = placed["argument_bytes"] + peak
@@ -518,7 +532,7 @@ def main(argv=None):
     ap.add_argument("--accum", type=int, default=1,
                     help="micro-batch gradient-accumulation steps")
     ap.add_argument("--no-shard-map-moe", action="store_true",
-                    help="the MoE experts gathered (raises: no counterpart)")
+                    help="the MoE experts gathered on every rank")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)

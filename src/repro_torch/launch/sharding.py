@@ -4,10 +4,12 @@
 ``rules_for`` picks the ``ShardingRules``; ``batch_struct`` and
 ``cache_struct`` give the inputs' and the caches' shapes (``meta``
 tensors) and ``PartitionSpec``s for every shape cell; ``named`` turns a
-tree of specs into DTensor placements over a ``DeviceMesh`` and
-``distribute`` places a tree of tensors by them.  A mesh is read through
-``mesh_dim_names`` and ``shape`` alone (a ``DeviceMesh``, or any object
-with those attributes).
+tree of specs into DTensor placements over a ``DeviceMesh``,
+``distribute`` places a tree of tensors by them and ``move`` re-places a
+tree of DTensors from one spec tree to another (a serving loop prefills
+under the prefill cell's rules and decodes under the decode cell's).  A
+mesh is read through ``mesh_dim_names`` and ``shape`` alone (a
+``DeviceMesh``, or any object with those attributes).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 from .. import models as M
 from ..configs.shapes import ShapeCell
 from ..models.common import ModelConfig, P, ShardingRules
-from ..tree import tree_leaves, tree_map
+from ..tree import cache_build, tree_leaves, tree_map
 from .mesh import data_axes
 
 
@@ -144,6 +146,22 @@ def _map(fn, spec_tree, *trees):
     raise TypeError(f"not a spec tree node: {type(spec_tree).__name__}")
 
 
+def spec_walk(spec_tree, tree, path: str = ""):
+    """(path, spec, leaf) over the ``PartitionSpec`` leaves of
+    ``spec_tree`` (nested dicts in sorted key order and NamedTuples), the
+    path as ``jax.tree_util.keystr`` writes it."""
+    if isinstance(spec_tree, P):
+        return [(path, spec_tree, tree)]
+    if isinstance(spec_tree, dict):
+        return [x for k in sorted(spec_tree)
+                for x in spec_walk(spec_tree[k], tree[k], f"{path}[{k!r}]")]
+    if isinstance(spec_tree, tuple) and hasattr(spec_tree, "_fields"):
+        return [x for f in spec_tree._fields
+                for x in spec_walk(getattr(spec_tree, f), getattr(tree, f),
+                                   f"{path}.{f}")]
+    raise TypeError(f"not a spec tree node: {type(spec_tree).__name__}")
+
+
 def placements(mesh, spec) -> tuple:
     """The DTensor placements of ``spec`` over ``mesh``: along each mesh
     dim ``Shard(d)`` for the tensor dim ``d`` whose entry names it, else
@@ -185,19 +203,63 @@ def distribute(tree, mesh, spec_tree):
     """``tree``'s tensors as DTensors on ``mesh`` placed by ``spec_tree``,
     each rank keeping a copy of its shard of its own full tensor (every
     rank holds the same values; no collective).  A dim that does not
-    split evenly over its axes raises."""
+    split evenly over its axes raises, naming the leaf."""
     from torch.distributed.tensor import distribute_tensor
 
-    def place(spec, t):
+    for path, spec, t in spec_walk(spec_tree, tree):
         pl = placements(mesh, spec)
         for d in range(len(spec)):
             n = int(np.prod([int(mesh.shape[i]) for i, p in enumerate(pl)
                              if p.is_shard(d)]))
             if t.shape[d] % n:
-                raise ValueError(f"dim {d} of size {t.shape[d]} does not "
-                                 f"split over {n} ranks ({spec})")
-        return distribute_tensor(t, mesh, list(pl), src_data_rank=None)
-    return _map(place, spec_tree, tree)
+                raise ValueError(f"{path}: dim {d} of size {t.shape[d]} "
+                                 f"does not split over {n} ranks ({spec})")
+    return _map(lambda spec, t: distribute_tensor(
+        t, mesh, list(placements(mesh, spec)), src_data_rank=None),
+        spec_tree, tree)
+
+
+def move(tree, mesh, spec_tree):
+    """``tree``'s DTensors (on ``mesh``) re-placed by ``spec_tree``: a
+    leaf placed so already is kept; otherwise each dim whose old split the
+    new one does not extend (its old mesh dims not a prefix of its new
+    ones) is all-gathered over its old mesh dims, then each dim is cut to
+    this rank's block of its new split.  The gathers are
+    ``distributed.sharded``'s (through pinned host memory under gloo with
+    CUDA tensors), counted in ``sharded.BYTES``; the result owns its
+    storage.  A dim that does not split evenly raises, naming the leaf."""
+    from torch.distributed.tensor import DTensor
+    from ..distributed.sharded import AxisComm, _chunk, split_dims
+
+    names = tuple(mesh.mesh_dim_names)
+    out = {}
+    for path, spec, leaf in spec_walk(spec_tree, tree):
+        if getattr(leaf, "device_mesh", None) != mesh:
+            raise ValueError(f"{path}: not a DTensor on the mesh")
+        new_pl = placements(mesh, spec)
+        if tuple(leaf.placements) == new_pl:
+            out[path] = leaf
+            continue
+        old, new = split_dims(leaf.placements), split_dims(new_pl)
+        t = src = leaf.to_local()
+        for d, m in old.items():
+            if new.get(d, [])[:len(m)] != m:
+                comm = AxisComm(mesh, [names[i] for i in m])
+                t = comm.gather(t.movedim(d, 0)).movedim(0, d)
+                old[d] = []
+        for d, m in new.items():
+            extra = m[len(old.get(d, [])):]
+            if extra:
+                try:
+                    t = _chunk(t, d, mesh, extra)
+                except ValueError as e:
+                    raise ValueError(f"{path}: {e} ({spec})") from None
+        t = t.contiguous()
+        if t.untyped_storage().data_ptr() == src.untyped_storage().data_ptr():
+            t = t.clone()
+        out[path] = DTensor.from_local(t, mesh, list(new_pl), run_check=False,
+                                       shape=leaf.shape, stride=leaf.stride())
+    return cache_build(spec_tree, out)
 
 
 def init_state(optimizer, params, param_specs):

@@ -15,10 +15,30 @@ this GQA path.  The reference's ``pad_heads`` branch pads the query heads
 and repeats K/V per head, then slices the padding off, which is the same
 function.  No ``scaled_dot_product_attention``: it has no logit softcap
 and masks by another arithmetic.
+
+Under the sharded serve steps (``train.step``) a cache is this rank's
+shard of one placed over a mesh by ``cache_specs``, and the step sets a
+``CacheShard`` (``local_cache``) that ``cache_shard()`` returns:
+
+* slots split over ``rules.kv_seq`` (split-KV and context-parallel
+  decode): ``cache_write`` writes a position only on the rank that holds
+  its global slot (``pos``, or ``pos % C`` for a rolling buffer of ``C``
+  slots in all, less the rank's offset), and ``attend`` over the local
+  slots takes each rank's partial softmax sums and combines them
+  (``distributed.sharded.softmax_combine``); the masks read the local
+  ``slot_pos``, which holds absolute positions;
+* KV heads split over ``rules.kv_heads`` (``attn_shard="heads"``): a
+  rank writes its own heads, attends with the query heads of its KV
+  heads, and the contexts are all-gathered over the heads' ranks.
+
+Without a ``CacheShard`` (one device, or nothing of the cache split
+beyond the batch) the code path is the one-device one.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import contextlib
+import contextvars
+from typing import Any, NamedTuple
 
 import torch
 
@@ -47,17 +67,96 @@ def _pick_chunk(sq: int, want: int) -> int:
     return qc
 
 
+class CacheShard(NamedTuple):
+    """This rank's part of a cache placed over a mesh: ``seq``, the ranks
+    that split its slots (``rules.kv_seq``), and ``heads``, those that
+    split its KV heads (``rules.kv_heads``), each a
+    ``distributed.sharded.AxisComm`` or None."""
+    seq: Any = None
+    heads: Any = None
+
+
+_SHARD: "contextvars.ContextVar" = contextvars.ContextVar(
+    "repro_torch_cache_shard", default=None)
+
+
+def shard_of(mesh, rules: ShardingRules):
+    """The ``CacheShard`` of a cache placed by ``cache_specs(rules)`` on
+    ``mesh``, or None when it splits nothing but the batch."""
+    from ..distributed.sharded import AxisComm
+
+    def comm(entry):
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        if not axes:
+            return None
+        c = AxisComm(mesh, axes)
+        return c if c.size > 1 else None
+    shard = CacheShard(seq=comm(rules.kv_seq), heads=comm(rules.kv_heads))
+    return shard if shard.seq is not None or shard.heads is not None \
+        else None
+
+
+@contextlib.contextmanager
+def local_cache(shard):
+    """Within: the caches the model code gets are this rank's shards as
+    ``shard`` (a ``CacheShard`` or None) describes."""
+    token = _SHARD.set(shard)
+    try:
+        yield
+    finally:
+        _SHARD.reset(token)
+
+
+def cache_shard():
+    """The ``CacheShard`` the sharded serve step set, or None."""
+    return _SHARD.get()
+
+
+def local_slots(t, shard, seq_dim: int, heads_dim: int):
+    """This rank's block of the whole K/V ``t``: along ``seq_dim`` over
+    ``shard.seq``'s ranks, along ``heads_dim`` over ``shard.heads``'."""
+    if shard is None:
+        return t
+    for dim, comm in ((seq_dim, shard.seq), (heads_dim, shard.heads)):
+        if comm is not None:
+            per = t.shape[dim] // comm.size
+            t = t.narrow(dim, comm.rank * per, per)
+    return t
+
+
+def local_positions(n: int, shard, device):
+    """The positions of this rank's ``n`` slots of an ``arange`` split
+    over ``shard.seq``'s ranks (an encoder's frames)."""
+    off = 0 if shard is None or shard.seq is None else shard.seq.rank * n
+    return torch.arange(off, off + n, dtype=torch.int32, device=device)
+
+
 def attend(q, k, v, q_pos, kv_pos, cfg: ModelConfig, rules: ShardingRules,
-           *, window: int = 0, is_causal: bool = True, q_chunk: int = 512):
+           *, window: int = 0, is_causal: bool = True, q_chunk: int = 512,
+           shard=None):
     """Core attention, query-chunked so the live score block is
     (B, KV, qpk, qc, Skv).
 
     q (B,Sq,H,hd); k,v (B,Skv,KV,hd); q_pos (Sq,), kv_pos (Skv,) absolute
     positions (-1 marks empty cache slots).  No queries (an encoder fed
-    zero frames) give no context; no keys give a zero context."""
+    zero frames) give no context; no keys give a zero context.  With a
+    ``CacheShard`` ``shard``, k, v and kv_pos are this rank's shard of a
+    cache (see the module's docstring) and q is whole."""
     B, Sq, H, hd = q.shape
     if Sq == 0:
         return q.new_zeros(q.shape)
+    if shard is not None and shard.heads is not None:
+        heads = shard.heads
+        g = H // (k.shape[2] * heads.size)
+        h0 = heads.rank * k.shape[2] * g
+        ctx = attend(q[:, :, h0:h0 + k.shape[2] * g], k, v, q_pos, kv_pos,
+                     cfg, rules, window=window, is_causal=is_causal,
+                     q_chunk=q_chunk, shard=shard._replace(heads=None))
+        return heads.gather(ctx.movedim(2, 0)).movedim(0, 2)
+    seq = None if shard is None else shard.seq
+    if seq is not None:
+        from ..distributed.sharded import softmax_combine
     KV = k.shape[2]
     qpk = H // KV
     scale = in_dtype(hd ** -0.5, q.dtype)
@@ -76,8 +175,16 @@ def attend(q, k, v, q_pos, kv_pos, cfg: ModelConfig, rules: ShardingRules,
         if window > 0:
             mask = mask & (kv_pos[None, :] > pb[:, None] - window)
         scores = torch.where(mask, scores, _MASKED)
-        probs = torch.softmax(scores, dim=-1).to(v.dtype)
-        ctx = torch.einsum("bkgqs,bskh->bqkgh", wide(probs), vf)
+        if seq is None:
+            probs = torch.softmax(scores, dim=-1).to(v.dtype)
+            ctx = torch.einsum("bkgqs,bskh->bqkgh", wide(probs), vf)
+        else:
+            # this rank's slots: partial sums, combined over the ranks
+            m = scores.amax(dim=-1)
+            p = torch.where(mask, torch.exp(scores - m[..., None]), 0.0)
+            o = torch.einsum("bkgqs,bskh->bkgqh", wide(p.to(v.dtype)), vf)
+            ctx = softmax_combine(m, p.sum(dim=-1), o, seq).permute(
+                0, 3, 1, 2, 4)
         out.append(ctx.reshape(B, qc, H, hd).to(q.dtype))
     return out[0] if len(out) == 1 else torch.cat(out, dim=1)
 
@@ -129,22 +236,47 @@ def cache_shapes(num_layers: int, batch: int, capacity: int,
 
 
 def cache_write(layer_k, layer_v, layer_pos, k_new, v_new, positions,
-                window: int):
+                window: int, shard=None):
     """Write S_new entries at their (possibly wrapped) slots of ONE layer,
     in place: k/v (B, C, KV, hd), slot_pos (C,).  Returns them.
 
     Rolling buffers (window > 0): if more entries than the capacity arrive
     at once (windowed prefill), only the last C survive — they are sliced
-    before the write so slot indices never repeat."""
+    before the write so slot indices never repeat.  With a ``CacheShard``
+    ``shard`` the layer is this rank's shard: its own KV heads of the
+    whole ``k_new``/``v_new`` are written, and of the positions those
+    whose global slot it holds (a one-token write keeps the slot's old
+    entry on the other ranks, with no host read)."""
+    seq, heads = (None, None) if shard is None else (shard.seq, shard.heads)
+    if heads is not None:
+        h0 = heads.rank * layer_k.shape[2]
+        k_new = k_new[:, :, h0:h0 + layer_k.shape[2]]
+        v_new = v_new[:, :, h0:h0 + layer_k.shape[2]]
     C = layer_k.shape[1]
+    whole = C if seq is None else C * seq.size
     S = k_new.shape[1]
     if window > 0:
-        if S > C:
-            k_new, v_new = k_new[:, -C:], v_new[:, -C:]
-            positions = positions[-C:]
-        slots = positions.long() % C
+        if S > whole:
+            k_new, v_new = k_new[:, -whole:], v_new[:, -whole:]
+            positions = positions[-whole:]
+        slots = positions.long() % whole
     else:
         slots = positions.long()
+    if seq is not None:
+        slots = slots - seq.rank * C
+        held = (slots >= 0) & (slots < C)
+        if slots.shape[0] == 1:
+            slots = slots.clamp(0, C - 1)
+            k_new = torch.where(held[:, None, None], k_new.to(layer_k.dtype),
+                                layer_k[:, slots])
+            v_new = torch.where(held[:, None, None], v_new.to(layer_v.dtype),
+                                layer_v[:, slots])
+            positions = torch.where(held, positions.to(torch.int32),
+                                    layer_pos[slots])
+        else:
+            keep = held.nonzero()[:, 0]
+            k_new, v_new = k_new[:, keep], v_new[:, keep]
+            positions, slots = positions[keep], slots[keep]
     layer_k[:, slots] = k_new.to(layer_k.dtype)
     layer_v[:, slots] = v_new.to(layer_v.dtype)
     layer_pos[slots] = positions.to(torch.int32)

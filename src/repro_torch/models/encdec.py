@@ -21,7 +21,11 @@ stream is rounded to bf16 (a layer is one step of the reference's scan,
 its carry bf16).  Each encoder and decoder layer runs under
 ``cfg.remat``.  Self-attention caches are written in place.
 ``cache_specs`` gives the cache's ``PartitionSpec``s under a
-``ShardingRules``, as the reference's.
+``ShardingRules``, as the reference's.  Under the sharded serve steps
+(``attention.cache_shard``) the cache's cross K/V are this rank's block
+over ``kv_seq`` and ``kv_heads`` (prefill stores that block of the whole
+cross K/V), and the cross-attention reads the positions of its own
+frames; ``enc_pos`` stays whole.
 """
 from __future__ import annotations
 
@@ -138,8 +142,12 @@ def _decode_stack(params, cfg: ModelConfig, rules: ShardingRules, x,
     written in place, its cross K/V read).  Returns (x, the cache with
     ``pos`` advanced by S, or None)."""
     use_cache = cache is not None
-    T_enc = enc_out.shape[1] if enc_out is not None else cache.cross_k.shape[2]
-    enc_pos = _positions(T_enc, x.device)
+    shard = attn.cache_shard() if use_cache else None
+    if enc_out is not None:
+        enc_pos = _positions(enc_out.shape[1], x.device)
+    else:
+        enc_pos = attn.local_positions(cache.cross_k.shape[2], shard,
+                                       x.device)
     angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
     def layer(x, l, lp):
@@ -149,8 +157,9 @@ def _decode_stack(params, cfg: ModelConfig, rules: ShardingRules, x,
         if use_cache:
             kv = cache.self_kv
             ck, cv, cpos = attn.cache_write(kv.k[l], kv.v[l], kv.slot_pos[l],
-                                            k, v, positions, 0)
-            ctx = attn.attend(q, ck, cv, positions, cpos, cfg, rules)
+                                            k, v, positions, 0, shard)
+            ctx = attn.attend(q, ck, cv, positions, cpos, cfg, rules,
+                              shard=shard)
         else:
             ctx = attn.attend(q, k, v, positions, positions, cfg, rules)
         x, s = _residual(x, attn.out_project(ctx, lp.wo, rules))
@@ -162,7 +171,7 @@ def _decode_stack(params, cfg: ModelConfig, rules: ShardingRules, x,
         else:
             xk, xv = _cross_kv(enc_out, lp.xk, lp.xv)
         ctxx = attn.attend(qx, xk, xv, positions, enc_pos, cfg, rules,
-                           is_causal=False)
+                           is_causal=False, shard=shard)
         x, s = _residual(x, attn.out_project(ctxx, lp.xo, rules))
         return _mlp(x, s, lp, cfg, rules)
 
@@ -205,9 +214,11 @@ def prefill(params, cfg: ModelConfig, rules: ShardingRules, frames,
     dec = params["decoder"]
     kvs = [_cross_kv(enc_out, wk, wv)
            for wk, wv in zip(dec["xk"].unbind(0), dec["xv"].unbind(0))]
-    cache = cache._replace(
-        cross_k=torch.stack([k for k, _ in kvs]).to(cache.cross_k.dtype),
-        cross_v=torch.stack([v for _, v in kvs]).to(cache.cross_v.dtype))
+    shard = attn.cache_shard()
+    cache = cache._replace(**{
+        name: attn.local_slots(torch.stack([t[i] for t in kvs]), shard, 2,
+                               3).to(getattr(cache, name).dtype)
+        for i, name in enumerate(("cross_k", "cross_v"))})
     del kvs
     positions = _positions(dec_tokens.shape[1], dec_tokens.device)
     x = _embed(params, cfg, rules, dec_tokens)

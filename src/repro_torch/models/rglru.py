@@ -268,8 +268,9 @@ def _attn_sublayer(x, lp, cfg: ModelConfig, rules: ShardingRules, positions,
         ctx = attn.attend(q, k, v, positions, positions, cfg, rules,
                           window=cfg.window)
     else:
+        shard = attn.cache_shard()
         ck, cv, cpos = attn.cache_write(*cache_row, k, v, positions,
-                                        cfg.window)
+                                        cfg.window, shard)
         if positions.shape[0] > 1:
             # prefill-from-scratch: the rolling buffer only retains the last
             # W entries, but early queries need their own in-window keys —
@@ -278,7 +279,7 @@ def _attn_sublayer(x, lp, cfg: ModelConfig, rules: ShardingRules, positions,
                               window=cfg.window)
         else:
             ctx = attn.attend(q, ck, cv, positions, cpos, cfg, rules,
-                              window=cfg.window)
+                              window=cfg.window, shard=shard)
     s1 = wide(x) + wide(attn.out_project(ctx, lp.wo, rules))
     x = s1.to(dt)
     h2 = rms_norm(s1, lp.ln2).to(dt)

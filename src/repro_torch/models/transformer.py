@@ -116,7 +116,8 @@ def _sublayer(x, x_hi, layer, cfg: ModelConfig,
     rounding.  ``x_hi``: the fp32 sum behind ``x`` when the
     previous sublayer is in the same group, else None.  cache_row: None
     (no cache) or the (k (B, C, KV, hd), v, slot_pos (C,)) views of this
-    layer's cache rows, written in place."""
+    layer's cache rows, written in place (this rank's shard of them under
+    the sharded serve steps: ``attention.cache_shard``)."""
     dt = x.dtype
     h = rms_norm(x if x_hi is None else x_hi, layer.ln1).to(dt)
     q, k, v = attn.qkv_project(h, layer.wq, layer.wk, layer.wv, cfg, rules,
@@ -125,8 +126,9 @@ def _sublayer(x, x_hi, layer, cfg: ModelConfig,
         ctx = attn.attend(q, k, v, q_pos, q_pos, cfg, rules,
                           window=layer_window)
     else:
+        shard = attn.cache_shard()
         ck, cv, cpos = attn.cache_write(*cache_row, k, v, q_pos,
-                                        layer_window)
+                                        layer_window, shard)
         if q_pos.shape[0] > 1:
             # prefill-from-scratch: attend over the fresh K/V (exact even
             # when a rolling window buffer retains fewer than S entries)
@@ -134,7 +136,7 @@ def _sublayer(x, x_hi, layer, cfg: ModelConfig,
                               window=layer_window)
         else:
             ctx = attn.attend(q, ck, cv, q_pos, cpos, cfg, rules,
-                              window=layer_window)
+                              window=layer_window, shard=shard)
     s1 = wide(x) + wide(attn.out_project(ctx, layer.wo, rules))
     x = s1.to(dt)
     h2 = rms_norm(s1, layer.ln2).to(dt)

@@ -22,7 +22,30 @@ optimizer on the shards.  Every data shard holds the same number of
 tokens, so the loss, the mean of the shards' token means, is the global
 token mean; ``grad_norm`` is global.  The mesh comes from the leaves'
 placements; a MoE model reads it through ``common.current_mesh()``, which
-the caller sets (``set_current_mesh``), as the reference's launcher does.
+the caller sets (``set_current_mesh``), as the reference's launcher does;
+with no current mesh the experts are gathered too (the reference's
+``--no-shard-map-moe``: its MoE layer runs the one-device dispatch), and
+their gradients are sliced back to the shards.
+
+``make_prefill_step`` and ``make_decode_step`` return ``(next tokens,
+cache)``.  When the params are DTensors, the cache's leaves are too
+(placed by ``launch.sharding`` from ``models.cache_specs`` under the
+same rules; a cache placed otherwise raises: ``launch.sharding.move``
+re-places it), and the step is the reference's sharded serve step on
+each rank's local tensors (``sharded_serve``): the params gathered as
+the train step gathers them, this rank's rows of the tokens (and
+patches, frames), and the one-device function on the local cache inside
+``attention.local_cache``, which computes on the cache's slots and KV
+heads where they lie (split-KV and context-parallel decode, ``kv_seq``;
+head-split caches, ``kv_heads``).  The cache leaves split over other
+mesh axes, an SSM's ``state`` (over ``model``) and a hybrid model's
+``state`` and ``conv`` rows (over ``d_ff``), are gathered whole for the
+step and their shards written back; every other leaf is written in
+place.  The tokens come back as this rank's rows of a DTensor placed
+``P(batch)``, which the next decode step takes as they are (``[:, None]``
+of them; the prefill's, placed by the prefill rules, move with the cache
+to the decode rules).  Serving needs no gradient: the serve steps run
+under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -33,7 +56,8 @@ import torch
 from .. import models as M
 from ..device import is_dtensor
 from ..models.common import ModelConfig, ShardingRules, current_mesh
-from ..tree import tree_items, tree_leaves, tree_map
+from ..tree import (cache_build, cache_items, tree_items, tree_leaves,
+                    tree_map)
 from .optimizer import cosine_schedule, get_optimizer
 
 
@@ -110,8 +134,10 @@ _EXPERT_LEAVES = ("e_gate", "e_up", "e_down")
 
 def _kept(path: str, leaf):
     """The mesh dims of ``leaf`` that the sharded step keeps split: those
-    of an expert leaf's expert dim."""
-    if not path.endswith(tuple(f"[{n!r}]" for n in _EXPERT_LEAVES)):
+    of an expert leaf's expert dim, while a mesh is current (else every
+    dim is gathered)."""
+    if current_mesh() is None or not path.endswith(
+            tuple(f"[{n!r}]" for n in _EXPERT_LEAVES)):
         return ()
     edim = leaf.ndim - 3
     return tuple(i for i, pl in enumerate(leaf.placements)
@@ -137,6 +163,26 @@ def _local_rows(x, comm):
     return x[comm.rank * per:(comm.rank + 1) * per]
 
 
+def _mesh_of(items):
+    """The mesh of the DTensor leaves ``items`` (path, leaf); a leaf that
+    is not a DTensor on it raises."""
+    mesh = items[0][1].device_mesh if is_dtensor(items[0][1]) else None
+    for path, leaf in items:
+        if not is_dtensor(leaf) or leaf.device_mesh != mesh:
+            raise ValueError(f"leaf {path!r} is not a DTensor on the params' "
+                             f"mesh: every leaf of a sharded step is")
+    return mesh
+
+
+def _keep(items, mesh):
+    """path -> the mesh dims each param leaf keeps split (``_kept``); a
+    current mesh other than the params' raises."""
+    if current_mesh() is not None and current_mesh() != mesh:
+        raise ValueError("the current mesh (models.common.set_current_mesh) "
+                         "is not the params' mesh")
+    return {path: _kept(path, leaf) for path, leaf in items}
+
+
 def sharded_value_and_grad(loss_fn, params, batch, rules: ShardingRules,
                            accum_steps: int = 1):
     """(global loss, gradient shards) of the sharded step: ``params`` a
@@ -153,16 +199,8 @@ def sharded_value_and_grad(loss_fn, params, batch, rules: ShardingRules,
     from ..distributed.sharded import AxisComm, gather, reduce_grad
 
     items = tree_items(params)
-    mesh = items[0][1].device_mesh
-    for path, leaf in items:
-        if not is_dtensor(leaf) or leaf.device_mesh != mesh:
-            raise ValueError(f"leaf {path!r} is not a DTensor on the params' "
-                             f"mesh: every leaf of a sharded step is")
-    keep = {path: _kept(path, leaf) for path, leaf in items}
-    if any(keep.values()) and current_mesh() != mesh:
-        raise ValueError("the experts are split over the mesh: call "
-                         "models.common.set_current_mesh(mesh) before the "
-                         "step, as the reference's launcher does")
+    mesh = _mesh_of(items)
+    keep = _keep(items, mesh)
     axes = _batch_axes(rules)
     comm = AxisComm(mesh, axes) if axes else None
     n_data = comm.size if comm is not None else 1
@@ -242,8 +280,123 @@ def _sharded_step(cfg, rules, optimizer, lr_fn, accum_steps, compress_grads,
     return params, new_state, {"loss": loss, "lr": lr, "grad_norm": gnorm}
 
 
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+# the cache leaves the attention code computes on where they lie (slots
+# over ``kv_seq``, KV heads over ``kv_heads``); any other leaf split
+# beyond the batch is gathered for the step
+_ATTENTION_LEAVES = ("k", "v", "slot_pos", "cross_k", "cross_v")
+
+
+def _serve_rows(name, x, comm, bdims):
+    """This rank's rows of the serve input ``x``: the local shard of a
+    DTensor split along dim 0 over the batch axes alone (a DTensor placed
+    otherwise raises: ``launch.sharding.move`` re-places it), or block
+    ``comm.rank`` of a tensor every rank holds whole.  Rows that do not
+    split evenly raise, naming ``name``."""
+    from ..distributed.sharded import split_dims
+
+    if is_dtensor(x):
+        if split_dims(x.placements) != ({0: sorted(bdims)} if bdims else {}):
+            raise ValueError(f"{name} is placed {tuple(x.placements)}, not "
+                             f"over the rules' batch axes alone: re-place it "
+                             f"(launch.sharding.move)")
+        return x.to_local()
+    if comm is None:
+        return x
+    if x.shape[0] % comm.size:
+        raise ValueError(f"{name}: batch {x.shape[0]} does not split over "
+                         f"{comm.size} data shards")
+    per = x.shape[0] // comm.size
+    return x[comm.rank * per:(comm.rank + 1) * per]
+
+
+def sharded_serve(cfg: ModelConfig, rules: ShardingRules, serve_fn, params,
+                  inputs, cache):
+    """(this rank's rows of the logits, ``cache``) of ``serve_fn(params,
+    inputs, cache)`` (a one-device prefill or decode) run as the sharded
+    serve step (see the module's docstring): ``params`` and ``cache``
+    trees of DTensors on one mesh, the cache placed by
+    ``models.cache_specs(cfg, rules)``, ``inputs`` a dict of tensors whole
+    on every rank or DTensors placed over the rules' batch axes.  The cache's leaves are
+    written in place and keep their placements."""
+    from ..distributed.sharded import AxisComm, _chunk, gather, split_dims
+    from ..launch.sharding import placements
+    from ..models.attention import local_cache, shard_of
+
+    items = tree_items(params)
+    mesh = _mesh_of(items)
+    keep = _keep(items, mesh)
+    axes = _batch_axes(rules)
+    comm = AxisComm(mesh, axes) if axes else None
+    names = tuple(mesh.mesh_dim_names)
+    bdims = {names.index(a) for a in axes}
+    specs = M.cache_specs(cfg, rules)
+    citems = cache_items(cache)
+    sitems = cache_items({k: specs for k in cache}
+                         if isinstance(cache, dict) else specs)
+    whole = set()                    # leaves gathered beyond the batch
+    local = {}
+    for (path, leaf), (_, spec) in zip(citems, sitems):
+        if not is_dtensor(leaf) or leaf.device_mesh != mesh:
+            raise ValueError(f"cache leaf {path!r} is not a DTensor on the "
+                             f"params' mesh: every leaf of a sharded step is")
+        if tuple(leaf.placements) != placements(mesh, spec):
+            raise ValueError(
+                f"cache leaf {path!r} is placed {tuple(leaf.placements)}, "
+                f"the rules place it {spec}: re-place the cache "
+                f"(launch.sharding.move)")
+        beyond = [d for d, m in split_dims(leaf.placements).items()
+                  if not bdims.issuperset(m)]
+        if beyond and path.rsplit(".", 1)[-1] not in _ATTENTION_LEAVES:
+            whole.add(path)
+            local[path] = gather(leaf, tuple(sorted(bdims)))
+        else:
+            local[path] = leaf.to_local()
+    with torch.no_grad():
+        ps = _unflatten(params, {path: gather(leaf, keep[path])
+                                 for path, leaf in items})
+        rows = {k: _serve_rows(k, v, comm, bdims) for k, v in inputs.items()}
+        with local_cache(shard_of(mesh, rules)):
+            logits, out = serve_fn(ps, rows, cache_build(cache, local))
+        for (path, leaf), (_, new) in zip(citems, cache_items(out)):
+            if new is local[path] and path not in whole:
+                continue                 # written in place
+            if path in whole:
+                for d, m in split_dims(leaf.placements).items():
+                    if not bdims.issuperset(m):
+                        new = _chunk(new, d, mesh, m)
+            leaf.to_local().copy_(new)
+    return logits, cache
+
+
+def _next_tokens(logits, rules: ShardingRules, params):
+    """The argmax of the last position's logits (this rank's rows) as a
+    DTensor placed ``P(batch)`` on the params' mesh."""
+    from torch.distributed.tensor import DTensor
+    from ..launch.sharding import placements
+    from ..models.common import P
+
+    tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+    mesh = tree_leaves(params)[0].device_mesh
+    pl = placements(mesh, P(rules.resolve("batch")))
+    n = 1
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            n *= int(mesh.size(i))
+    return DTensor.from_local(tok, mesh, list(pl), run_check=False,
+                              shape=(tok.shape[0] * n,), stride=(1,))
+
+
 def make_prefill_step(cfg: ModelConfig, rules: ShardingRules):
     def prefill_step(params, batch, cache):
+        if any(map(is_dtensor, tree_leaves(params))):
+            logits, cache = sharded_serve(
+                cfg, rules, lambda p, b, c: M.prefill_fn(p, cfg, rules, b, c),
+                params, batch, cache)
+            return _next_tokens(logits, rules, params), cache
         logits, cache = M.prefill_fn(params, cfg, rules, batch, cache)
         # next-token for the serving loop
         return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32), cache
@@ -252,6 +405,13 @@ def make_prefill_step(cfg: ModelConfig, rules: ShardingRules):
 
 def make_decode_step(cfg: ModelConfig, rules: ShardingRules):
     def decode_step(params, tokens, pos, cache):
+        if any(map(is_dtensor, tree_leaves(params))):
+            pos = pos.to_local() if is_dtensor(pos) else pos
+            logits, cache = sharded_serve(
+                cfg, rules, lambda p, b, c: M.decode_fn(
+                    p, cfg, rules, b["tokens"], pos, c),
+                params, {"tokens": tokens}, cache)
+            return _next_tokens(logits, rules, params), cache
         logits, cache = M.decode_fn(params, cfg, rules, tokens, pos, cache)
         return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32), cache
     return decode_step

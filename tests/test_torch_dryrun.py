@@ -13,10 +13,15 @@
 * Traces: one subprocess, started once for the module with
   ``OMP_NUM_THREADS=1`` (so no xdist worker keeps a default process
   group), runs reduced granite-moe, internlm2 and mamba2 train steps on a
-  (2, 2) fake mesh, granite-moe's full-width ``train_4k`` cell on
-  (16, 16), the paper cell on (16, 16) (exact GMM) and (2, 16, 16)
-  (b = 8), an invalid cell, a failing call and a call under a real
-  group; a second subprocess runs the command line.
+  (2, 2) fake mesh, reduced internlm2 serve steps there (a batch-split
+  prefill, a split-KV decode under ``pad_heads`` and a context-parallel
+  decode), granite-moe's full-width ``train_4k`` cell on (16, 16),
+  gemma-2b's full-width ``decode_32k`` cell on (16, 16), the paper cell
+  on (16, 16) (exact GMM) and (2, 16, 16) (b = 8), an invalid cell,
+  granite-moe with its experts gathered (``shard_map_moe=False``) and a
+  call under a real group; a second subprocess runs the command line.
+  ``tests/test_torch_sharded_serve.py`` holds the serve traces' bytes to
+  its gloo ranks'.
 """
 import json
 import pickle
@@ -51,7 +56,7 @@ REFERENCE_KEYS = {"flops_per_device", "bytes_per_device",
                   "shape", "chips", "params", "active_ratio", "trace_s"}
 
 _TRACES = textwrap.dedent("""
-    import os, pickle, sys
+    import dataclasses, os, pickle, sys
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
@@ -84,6 +89,22 @@ _TRACES = textwrap.dedent("""
             rec[arch] = record(*dryrun.lower_config(
                 get_config(arch, reduced=True), cell, small_mesh((2, 2))))
         rec[arch]["after"] = after()
+    internlm2 = get_config("internlm2-1.8b", reduced=True)
+    for name, cfg, serve in (
+            ("prefill", internlm2, ShapeCell("prefill", "prefill", 32, 8)),
+            ("split_kv", dataclasses.replace(
+                internlm2, attn_shard="pad_heads", attn_pad_to=4),
+             ShapeCell("decode", "decode", 32, 8)),
+            ("context_parallel", internlm2,
+             ShapeCell("decode", "decode", 32, 2))):
+        with dryrun.fake_group(4):
+            rec[name] = record(*dryrun.lower_config(cfg, serve,
+                                                    small_mesh((2, 2))))
+        rec[name]["after"] = after()
+    with dryrun.fake_group(256):
+        rec["full_decode"] = record(*dryrun.lower_cell(
+            "gemma-2b", "decode_32k", make_production_mesh()))
+    rec["full_decode"]["after"] = after()
     with dryrun.fake_group(256):
         rec["full"] = record(*dryrun.lower_cell(
             "granite-moe-1b-a400m", "train_4k", make_production_mesh()))
@@ -97,15 +118,11 @@ _TRACES = textwrap.dedent("""
     with dryrun.fake_group(6):
         rec["invalid"] = record(*dryrun.lower_cell(
             "gemma-2b", "train_4k", small_mesh((2, 3))))
-    try:
-        with dryrun.fake_group(4):
-            dryrun.lower_config(get_config("granite-moe-1b-a400m",
-                                           reduced=True), cell,
-                                small_mesh((2, 2)), shard_map_moe=False)
-        rec["gathered_experts"] = None
-    except NotImplementedError as e:
-        rec["gathered_experts"] = str(e)
-    rec["after_failure"] = after()
+    with dryrun.fake_group(4):
+        rec["gathered_experts"] = record(*dryrun.lower_config(
+            get_config("granite-moe-1b-a400m", reduced=True), cell,
+            small_mesh((2, 2)), shard_map_moe=False))
+    rec["gathered_experts"]["after"] = after()
     dist.init_process_group("gloo", init_method="file://" + OUT + "/store",
                             rank=0, world_size=1)
     try:
@@ -295,6 +312,45 @@ def test_reduced_trace_on_a_fake_2x2_mesh(traced, arch):
     assert info["chips"] == 4
 
 
+def _check_serve(info):
+    assert REFERENCE_KEYS <= set(info), REFERENCE_KEYS - set(info)
+    assert info["valid"] and info["null_reason"] is None
+    assert np.isfinite(info["flops_per_device"])
+    assert info["flops_per_device"] > 0
+    coll = info["collective_bytes_per_device"]
+    assert coll["all-gather"] > 0 and coll["reduce-scatter"] == 0, coll
+    assert coll["all-to-all"] == coll["collective-permute"] == 0
+    assert info["collective_total"] == sum(coll.values())
+    assert set(info["argument_bytes_by_tree"]) == {"params", "batch",
+                                                   "cache"}
+    assert info["peak_bytes"] > info["argument_bytes"]
+    assert info["after"] == {"group": False, "mesh": False}
+
+
+@pytest.mark.parametrize("cell,combine", [
+    ("prefill", False), ("split_kv", True), ("context_parallel", True)])
+def test_reduced_serve_trace_on_a_fake_2x2_mesh(traced, cell, combine):
+    """A serve cell traces its sharded step: the params gathered, and a
+    decode over a cache split over ``kv_seq`` all-reduces its softmax
+    partials (max, then the sums)."""
+    info = traced("traces")[cell]
+    _check_serve(info)
+    assert (info["collective_bytes_per_device"]["all-reduce"] > 0) == combine
+    assert info["rules"]["kv_seq"] == {"prefill": None, "split_kv": "model",
+                                       "context_parallel": "data"}[cell]
+
+
+def test_full_width_decode_cell_on_16x16(traced):
+    info = traced("traces")["full_decode"]
+    _check_serve(info)
+    assert (info["arch"], info["shape"], info["chips"]) == (
+        "gemma-2b", "decode_32k", 256)
+    assert info["rules"]["kv_seq"] == "model"
+    placed = dryrun.place_cell(get_config("gemma-2b"), SHAPES["decode_32k"],
+                               _port_mesh(*MESHES[False]))
+    assert info["argument_bytes"] == placed["argument_bytes"]
+
+
 def test_full_width_train_cell_on_16x16(traced):
     info = traced("traces")["full"]
     _check_traced(info)
@@ -329,9 +385,18 @@ def test_invalid_cell_is_reported_not_raised(traced):
 
 
 def test_gathered_experts_raise_naming_the_roadmap(traced):
+    """``shard_map_moe=False`` (the reference's ``--no-shard-map-moe``)
+    once raised, naming ROADMAP B; the sharded step now gathers the
+    experts on every rank when no mesh is current, so the cell traces:
+    the experts' all-gather adds to the shard_map step's, and the MoE pair
+    over ``model`` no longer all-reduces."""
     got = traced("traces")
-    assert "ROADMAP B" in got["gathered_experts"]
-    assert got["after_failure"] == {"group": False, "mesh": False}
+    info = got["gathered_experts"]
+    _check_traced(info)
+    kept = got["granite-moe-1b-a400m"]["collective_bytes_per_device"]
+    coll = info["collective_bytes_per_device"]
+    assert coll["all-gather"] > kept["all-gather"], (coll, kept)
+    assert coll["all-reduce"] < kept["all-reduce"], (coll, kept)
 
 
 def test_fake_group_refuses_a_real_group_and_cleans_up(traced):
