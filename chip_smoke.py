@@ -205,7 +205,7 @@ Phases, each printing one JSON line (or one per call):
               width (24 layers, d_model 2,048, bf16, 1.889 B parameters),
               random weights drawn on the card from ``--seed``: (o)
               ``ServingEngine(batch=8, capacity=128)`` answers 16 requests
-              (64 prompt tokens, 32 new) twice, traced and not, with the
+              (64 prompt tokens, 16 new) twice, traced and not, with the
               same tokens: init seconds, per-group prefill seconds, decode
               ms a step beside the weight-bytes bound and the prefill's
               operations bound, generated tokens/s; (o') prefill 63 tokens
@@ -241,7 +241,7 @@ Phases, each printing one JSON line (or one per call):
               probe on B1, round 1 one B4 launch a fold), B1 (and B2) at
               the probe's subsample held against plain, B4 at every
               round-1 sweep shape handed to phase 7; (z) ``make_train_step``
-              with AdamW, 12 steps at lr 3e-4 on one fixed batch of 8 x
+              with AdamW, 6 steps at lr 3e-4 on one fixed batch of 8 x
               128 curated tokens (the loss must fall): step, gradient and
               update ms by CUDA events beside the step's operations bound
               and the update's bytes bound, tokens/s, peak memory beside
@@ -264,7 +264,7 @@ Phases, each printing one JSON line (or one per call):
               fp32 router; random weights from ``--seed``, every token id
               drawn on the host, fingerprints printed), after phase 14
               has released its model and state: (o_moe) the engine, 16
-              requests x (64 + 32) twice, prefill seconds beside the
+              requests x (64 + 16) twice, prefill seconds beside the
               active params' operations bound, decode ms beside the whole
               weights' bytes bound (every expert's buffer is computed),
               tokens/s and each prefill's dropped assignments; (o'_moe)
@@ -278,7 +278,7 @@ Phases, each printing one JSON line (or one per call):
               (B1 probe held here, B4 round 1 to phase 7); (q_moe)
               ``generate_diverse`` into the session reranker, kernel vs
               plain (B3 tile held here, the fused solve to phase 7);
-              (z_moe) 12 AdamW steps on 8 x 128 curated tokens beside
+              (z_moe) 6 AdamW steps on 8 x 128 curated tokens beside
               ``train_bounds`` (the experts' share, and their padded rows)
               and the update's bytes bound, peak memory beside the
               reckoned state, accumulation 2 vs 1 at 2 x 16 tokens in
@@ -295,7 +295,7 @@ Phases, each printing one JSON line (or one per call):
               bf16, random weights from ``--seed``; token ids and patch
               embeddings drawn on the host, fingerprints printed), after
               phase 15 has released its state: (o_vlm) the engine, 16
-              requests x (64 + 32), batch 8, capacity 672 (zero patches
+              requests x (64 + 16), batch 8, capacity 672 (zero patches
               before each prompt, as the reference's engine feeds), twice:
               prefill seconds beside its operations bound, decode ms beside
               the bf16 weights' bytes (the KV cache's bytes beside them),
@@ -314,7 +314,7 @@ Phases, each printing one JSON line (or one per call):
 17. ssm     — the ssm family at mamba2-130m's full width and depth (24
               layers, d_model 768, 24 SSM heads of 64, state 128, chunk
               256, vocab 50,432 tied; 129.1 M parameters, bf16): (o_ssm)
-              the engine, 16 requests x (64 + 32), batch 8, twice (prefill
+              the engine, 16 requests x (64 + 16), batch 8, twice (prefill
               steps the recurrence over the prompt, as the reference
               does; its and a decode step's dispatched ops printed), decode
               ms beside the weights' and the state's bytes; (ssd') the
@@ -327,7 +327,7 @@ Phases, each printing one JSON line (or one per call):
               table (d = 768), ``diversify(k=256, remote-edge, mapreduce,
               16 reducers, k'=128)``, kernel vs plain (B1 probe held here,
               B4 round 1 to phase 7); (q_ssm) as (q_vlm) at d = 768;
-              (z_ssm) 12 AdamW steps on 8 x 1,024 curated tokens (4 chunks
+              (z_ssm) 6 AdamW steps on 8 x 1,024 curated tokens (4 chunks
               a row) beside ``train_bounds``, accumulation 2 vs 1 with its
               control, and the gradient witness (z'_ssm) at full depth;
               phase 8's trace of one (z_ssm) step.
@@ -335,7 +335,7 @@ Phases, each printing one JSON line (or one per call):
               depth (38 layers: 2 leading RG-LRU layers and 12 groups of
               local MQA attention and two RG-LRU layers, d_model 4,096,
               window 2,048, vocab 256,000 tied; 9.40 B parameters, bf16):
-              (o_rg) the engine, 16 requests x (64 + 32), batch 8, twice,
+              (o_rg) the engine, 16 requests x (64 + 16), batch 8, twice,
               then 2 x (2,040 + 16) so that decode wraps the 2,048-slot
               rolling buffer, prefill beside its operations and decode
               beside its bytes; (o'_rg) decode from the cache against the
@@ -357,7 +357,7 @@ Phases, each printing one JSON line (or one per call):
               depth (24 + 24 layers, d_model 1,024, 16 heads of 64, vocab
               256,256 tied; 1.77 B parameters, bf16): (o_s2t) the engine
               with 256 zero frames a row (the reference engine's frames),
-              16 requests x (64 + 32), batch 8, twice; (o'_s2t) decode
+              16 requests x (64 + 16), batch 8, twice; (o'_s2t) decode
               from the cache against ``forward_train`` on host-drawn
               frames, fp32 at full depth and bf16 at one encoder and one
               decoder layer at 2e-2; (q_s2t) as (q_vlm) at d = 1,024 on
@@ -425,11 +425,11 @@ Phases, each printing one JSON line (or one per call):
               each read above 1e-3; at full width and depth in bf16,
               (p_sh) the prefill of 8 x 3,072 host-drawn tokens into
               4,096 slots under the prefill rules (fsdp over 'data') and
-              (d_sh) 16 split-KV decode steps (kv_seq 'model', weights
-              resident), (cp_sh) 2 x 12,288 into 16,384 slots and 16
+              (d_sh) 8 split-KV decode steps (kv_seq 'model', weights
+              resident), (cp_sh) 2 x 12,288 into 16,384 slots and 8
               context-parallel steps (kv_seq 'data', the batch on every
               rank); (s_sh) mamba2-130m at full width and depth, the
-              state over 'model', 8 x 1,024 then 16 steps, with a float64
+              state over 'model', 8 x 1,024 then 8 steps, with a float64
               witness at full depth (8 x 32, 4 steps).  For each run:
               each step's ms on the slowest rank (CUDA events and host
               clock), the collective bytes by kind and their host ms,
@@ -438,18 +438,41 @@ Phases, each printing one JSON line (or one per call):
               one-process ones (bf16, printed, not held: the model is
               chaotic), each rank's peak beside the parent's (under 80 GB
               together); the phase within 150 s.
+23. pipeline — ``distributed.pipeline_apply`` trained through, on four
+              gloo ranks sharing the card over a (4, 1) ('pod', 'model')
+              mesh, one stage a rank: internlm2-1.8b's decoder layers as
+              the stage function (built from ``transformer._sublayer`` as
+              ``transformer.forward`` builds its groups), each rank's
+              stage a DTensor row sharded over 'pod', the embedding and
+              ``lm_head`` outside the pipeline on every rank.  (w_pp) one
+              layer a stage in float64 on 4 x 128 tokens, num_micro 4:
+              every leaf's gradient and the layers' input's against one
+              process's autograd through the same four layers
+              unpipelined on the same micro-batches within 1e-10; the
+              broadcast's backward summing instead of averaging and the
+              backward's ring sending to the wrong neighbour each read
+              above 1e-3; the whole batch's gradient in one pass printed
+              beside it.  (t_pp) bf16 at full depth, 6 layers a stage,
+              8 x 512 host-drawn tokens, num_micro 4, two forward and
+              backward passes: each pass's ms on the slowest rank (CUDA
+              events and host clock), the ring's, the broadcasts' and
+              the reduce's bytes and host ms a rank, each rank's peak,
+              beside rank 0's unpipelined pass of the same 24 layers and
+              tokens and the bound (the layers' products and fp32
+              attention x3, the head on every rank; the GPipe bubble
+              stated).
 
-Phases run in the order 1, 20, 22, 21, 2-6, 9, 10, 11, 12, 13, 14, 15,
-16, 17, 18, 19, 7, 8 (8 also traces one churn round of (u) and one group
-of (q); phase 14's step is traced right after phase 14, phases 15-19's
-inside them; 20 and 22 run first, while the parent holds nothing on the
-card, and 21 next, held to their readings; 21's dry runs need no card
+Phases run in the order 1, 20, 22, 23, 21, 2-6, 9, 10, 11, 12, 13, 14,
+15, 16, 17, 18, 19, 7, 8 (8 also traces one churn round of (u) and one
+group of (q); phase 14's step is traced right after phase 14, phases
+15-19's inside them; 20, 22 and 23 run first, while the parent holds
+nothing on the card, and 21 next, held to 20's and 22's readings; 21's dry runs need no card
 and start in a process of their own before the build, beside 20 and 22).
 The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before it.
-``--rehearse`` runs phases 2-6 and 9-22 at a tiny size on the CPU with the
-plain versions (no build, no timings, no ``ok`` line; phases 12, 20 and
-22 over gloo on the CPU; phases 13-22 on the reduced configs, phase 22's
+``--rehearse`` runs phases 2-6 and 9-23 at a tiny size on the CPU with the
+plain versions (no build, no timings, no ``ok`` line; phases 12, 20, 22
+and 23 over gloo on the CPU; phases 13-23 on the reduced configs, phase 22's
 granite-moe under ``pad_heads``, phase 21's paper shard at 4,096 rows)
 to check the script itself.  ``--probe-only RUNS`` builds, makes the musiXmatch stand-in and
 runs call (i) RUNS times on the kernels, printing each run's ``mr.probe``
@@ -3583,7 +3606,7 @@ def serve_sizes(full: bool):
     and its k and reducers, and the launcher's arguments."""
     if full:
         return {"arch": "internlm2-1.8b", "reduced": False, "batch": 8,
-                "capacity": 128, "requests": 16, "prompt": 64, "new": 32,
+                "capacity": 128, "requests": 16, "prompt": 64, "new": 16,
                 "windows": 1024, "window": 16, "k": 16, "kprime": 64,
                 "rerank_k": 8, "pool": 65536, "pool_len": 128,
                 "select_k": 64, "reducers": 16,
@@ -4147,7 +4170,7 @@ def phase_serve(device, seed: int, errs, diffs, card: str = "",
 # phase 14: dense-model training on diversity-curated data
 # --------------------------------------------------------------------------
 
-TRAIN_LR = 3e-4                # (z): constant lr of the 12 steps
+TRAIN_LR = 3e-4                # (z): constant lr of the steps
 # (z): accumulation against one batch at the reference test's bounds (rtol
 # 2e-2, atol 2e-3).  Adam's first step moves every entry by +-lr whatever
 # its gradient's size, so an entry whose bf16 gradient changes sign with
@@ -4209,7 +4232,7 @@ def train_sizes(full: bool):
     if full:
         return {"arch": "internlm2-1.8b", "reduced": False, "pool": 65536,
                 "pool_len": 129, "k": 1024, "reducers": 16, "kprime": 128,
-                "batch": 8, "steps": 12, "resume_batch": 4,
+                "batch": 8, "steps": 6, "resume_batch": 4,
                 "resume_seq": 16,
                 "launch": ["--arch", "internlm2-1.8b", "--steps", "4",
                            "--batch", "8", "--seq", "128"]}
@@ -4862,7 +4885,7 @@ def phase_train(device, seed: int, errs, diffs, card: str = "",
     ``use_pallas=False`` (equal indices); B1 (and B2) at the probe's
     subsample held against plain here, B4's round-1 shapes handed to
     phase 7.  (z) ``make_train_step`` with AdamW at the model's full width
-    on one fixed batch of curated rows: 12 steps at a constant lr (the
+    on one fixed batch of curated rows: 6 steps at a constant lr (the
     loss must fall), step, gradient and update ms by CUDA events beside
     their bounds, tokens/s, peak memory; accumulation over 2 micro-batches
     against one batch.  (z') the fp32 gradient witness.  (z'') a
@@ -5041,11 +5064,11 @@ def moe_sizes(full: bool):
     if full:
         return {"arch": "granite-moe-1b-a400m", "reduced": False,
                 "batch": 8, "capacity": 128, "requests": 16, "prompt": 64,
-                "new": 32, "consistency": (2, 16), "layer_tokens": (8, 128),
+                "new": 16, "consistency": (2, 16), "layer_tokens": (8, 128),
                 "windows": 1024, "window": 16, "k": 16, "kprime": 64,
                 "curate": {"pool": 65536, "pool_len": 129, "k": 1024,
                            "reducers": 16, "kprime": 128},
-                "train_batch": 8, "steps": 12, "accum": (2, 16),
+                "train_batch": 8, "steps": 6, "accum": (2, 16),
                 "arctic": (2, 16)}
     return {"arch": "granite-moe-1b-a400m", "reduced": True, "batch": 4,
             "capacity": 32, "requests": 8, "prompt": 8, "new": 6,
@@ -5655,7 +5678,7 @@ def vlm_sizes(full: bool):
     if full:
         return {"arch": "phi-3-vision-4.2b", "reduced": False, "batch": 8,
                 "capacity": 576 + 64 + 32, "requests": 16, "prompt": 64,
-                "new": 32, "windows": 1024, "window": 16, "k": 16,
+                "new": 16, "windows": 1024, "window": 16, "k": 16,
                 "kprime": 64, "train_layers": 8, "train_batch": 8,
                 "train_seq": 128, "steps": 6}
     return {"arch": "phi-3-vision-4.2b", "reduced": True, "batch": 4,
@@ -5873,11 +5896,11 @@ def ssm_sizes(full: bool):
     if full:
         return {"arch": "mamba2-130m", "reduced": False, "batch": 8,
                 "capacity": 64 + 32, "requests": 16, "prompt": 64,
-                "new": 32, "windows": 1024,
+                "new": 16, "windows": 1024,
                 "window": 16, "k": 16, "kprime": 64, "scan": (2, 4096),
                 "curate": {"pool": 16384, "pool_len": 1025, "k": 256,
                            "reducers": 16, "kprime": 128},
-                "train_batch": 8, "steps": 12}
+                "train_batch": 8, "steps": 6}
     return {"arch": "mamba2-130m", "reduced": True, "batch": 4,
             "capacity": 8 + 6, "requests": 8, "prompt": 8, "new": 6,
             "windows": 64,
@@ -6196,7 +6219,7 @@ def hybrid_sizes(full: bool):
     if full:
         return {"arch": "recurrentgemma-9b", "reduced": False, "batch": 8,
                 "capacity": 64 + 32, "requests": 16, "prompt": 64,
-                "new": 32, "wrap": (2, 2040, 16), "check": (2, 2056),
+                "new": 16, "wrap": (2, 2040, 16), "check": (2, 2056),
                 "gate_layers": 4, "windows": 1024, "window": 16, "k": 16,
                 "kprime": 64, "scan": (8, 4096, 4096),
                 "curate": {"pool": 16384, "pool_len": 1025, "k": 256,
@@ -6564,7 +6587,7 @@ def encdec_sizes(full: bool):
     if full:
         return {"arch": "seamless-m4t-large-v2", "reduced": False,
                 "batch": 8, "capacity": 64 + 32, "t_enc": 256,
-                "requests": 16, "prompt": 64, "new": 32,
+                "requests": 16, "prompt": 64, "new": 16,
                 "check": (2, 96, 256), "windows": 1024, "window": 16,
                 "k": 16, "kprime": 64, "train_batch": 8, "train_seq": 512,
                 "train_frames": 512, "steps": 6,
@@ -7158,7 +7181,7 @@ def sharded_serve_sizes(full: bool):
     mamba2-130m's (batch, prompt tokens), its witness's at full depth."""
     if full:
         return {"arch": "granite-moe-1b-a400m", "reduced": False,
-                "d": (8, 3072, 4096), "cp": (2, 12288, 16384), "steps": 16,
+                "d": (8, 3072, 4096), "cp": (2, 12288, 16384), "steps": 8,
                 "w_d": (8, 96, 128), "w_cp": (2, 96, 128), "w_steps": 2,
                 "ssm": "mamba2-130m", "s": (8, 1024), "s_w": (8, 16),
                 "compare_steps": 1, "model_axis": 2}
@@ -7623,13 +7646,13 @@ def phase_sharded_serve(device: str, seed: int, card: str = "",
     float64 witness on granite-moe cut to one layer (split-KV and
     context-parallel decode against the one-process steps within 1e-10,
     the two planted faults above 1e-3); (p_sh) the prefill of 8 x 3,072
-    tokens into 4,096 slots under the prefill rules and (d_sh) 16
+    tokens into 4,096 slots under the prefill rules and (d_sh) 8
     split-KV decode steps after the cache is moved to the decode rules;
-    (cp_sh) 2 x 12,288 into 16,384 slots, 16 context-parallel steps; each
+    (cp_sh) 2 x 12,288 into 16,384 slots, 8 context-parallel steps; each
     step's ms on the slowest rank, its collective bytes and host ms, each
     rank's cache shard bytes against the specs' division, the tokens
     against the one-process ones (printed); (s_sh) mamba2-130m with the
-    state over 'model', 8 x 1,024 then 16 steps, and its float64 witness
+    state over 'model', 8 x 1,024 then 8 steps, and its float64 witness
     at full depth.  Returns (seconds, the per-step readings phase 21's
     dry run must reckon)."""
     import pickle
@@ -7763,6 +7786,474 @@ def phase_sharded_serve(device: str, seed: int, card: str = "",
         fail(f"sharded_serve: phase 22 took {secs:.1f} s (limit "
              f"{SERVE_PHASE_LIMIT_S})")
     return secs, readings
+
+
+# --------------------------------------------------------------------------
+# 23. the pipeline: internlm2-1.8b's layers as four stages, differentiated
+# --------------------------------------------------------------------------
+
+PIPE_WORLD = 4                  # gloo ranks of phase 23, one stage each
+PIPE_TIMEOUT_S = 300            # their process group and the join
+PIPE_WITNESS_LIMIT = 1e-10      # (w_pp), float64, relative Frobenius
+PIPE_PLANTED_FLOOR = 1e-3       # each planted fault reads above it
+
+
+def pipeline_sizes(full: bool):
+    """Phase 23's run: internlm2-1.8b at full width and depth (the reduced
+    config at 4 layers in the rehearsal), 8 x 512 host-drawn tokens (8 x
+    16), num_micro 4 over a (4, 1) ('pod', 'model') mesh, 2 forward and
+    backward passes; (w_pp) one layer a stage in float64 on 4 x 128
+    tokens (4 x 8)."""
+    return {"arch": "internlm2-1.8b", "batch": 8, "seq": 512 if full else 16,
+            "num_micro": 4, "steps": 2, "w_batch": 4,
+            "w_seq": 128 if full else 8}
+
+
+def _pipe_cfg(full: bool):
+    """internlm2-1.8b, or its reduced config at 4 layers (one a stage)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(pipeline_sizes(full)["arch"], reduced=not full)
+    return cfg if full else dataclasses.replace(cfg, num_layers=PIPE_WORLD)
+
+
+def _pipe_stage(cfg, rules, positions):
+    """The stage function: a stage's rows of the stacked layer leaves,
+    each (G / S, P, ...), run as ``transformer.forward`` runs its groups
+    (P sublayers, the fp32 residual sum passed between them, under
+    ``maybe_remat`` when gradients are on)."""
+    import types
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import maybe_remat, rope_angles
+    angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+
+    def group(x, *ws):
+        x_hi = None
+        for layer in ws:
+            x, x_hi = T._sublayer(x, x_hi, layer, cfg, rules, positions,
+                                  None, layer.window, angles)
+        return x
+
+    def stage(params, x):
+        G, P = next(iter(params.values())).shape[:2]
+        cols = {n: w.reshape(G * P, *w.shape[2:]).unbind(0)
+                for n, w in params.items()}
+        layers = [types.SimpleNamespace(window=T._layer_window(cfg, l % P),
+                                        **{n: c[l] for n, c in cols.items()})
+                  for l in range(G * P)]
+        body = maybe_remat(group, cfg) if torch.is_grad_enabled() else group
+        for l0 in range(0, G * P, P):
+            x = body(x, *layers[l0:l0 + P])
+        return x
+    return stage
+
+
+def _positions(batch):
+    """A batch's token positions (S,)."""
+    import torch
+    S = batch["tokens"].shape[1]
+    return torch.arange(S, dtype=torch.int32, device=batch["tokens"].device)
+
+
+def _pipe_loss(cfg, rules, outer, layers_fn, batch):
+    """The model's loss with its layers run by ``layers_fn``: the
+    embedding, the final norm and ``lm_head`` on this rank, as
+    ``transformer.forward`` runs them.  Returns (loss, the layers' input,
+    its gradient retained)."""
+    from repro_torch import models as M
+    from repro_torch.models.common import embed_tokens, lm_head, rms_norm
+    x = embed_tokens(batch["tokens"], outer["embed"], rules,
+                     scale=cfg.embed_scale, dtype=cfg.dtype)
+    x.retain_grad()
+    y = rms_norm(layers_fn(x), outer["final_norm"])
+    head = outer["embed"].T if cfg.tie_embeddings else outer["head"]
+    return M._xent(lm_head(y, head, cfg, rules), batch["labels"]), x
+
+
+def _stage_leaves(layers, mesh, S: int, sid: int):
+    """Each stacked layer leaf (G, P, ...) cut into S stages of G / S
+    layers, this rank's stage as a DTensor sharded over 'pod' (local
+    (1, G / S, P, ...)), a leaf of the graph."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    out = {}
+    for n, w in layers.items():
+        local = w.detach().reshape(S, w.shape[0] // S, *w.shape[1:])[
+            sid:sid + 1].clone()
+        out[n] = DTensor.from_local(local, mesh, [Shard(0), Replicate()],
+                                    run_check=False).requires_grad_()
+    return out
+
+
+def _frob(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / max(float(b.norm()), 1e-300))
+
+
+def _pipe_grad_errs(cfg, rules, mesh, outer, sp, batch, nm: int, want):
+    """Per leaf (this rank's stage rows of each layer leaf, the embedding,
+    the final norm, the head) and for the layers' input ``x``, the
+    relative Frobenius distance between the gradient through
+    ``pipeline_apply`` and ``want``'s; and the losses' relative
+    distance."""
+    from repro_torch.distributed import pipeline_apply
+    stage = _pipe_stage(cfg, rules, _positions(batch))
+    loss, x = _pipe_loss(cfg, rules, outer, lambda x: pipeline_apply(
+        stage, sp, x, mesh, axis="pod", num_micro=nm), batch)
+    loss.backward()
+    errs = {f"layers.{k}": _frob(v.grad.to_local()[0], want["layers"][k])
+            for k, v in sp.items()}
+    errs.update({k: _frob(v.grad, want[k]) for k, v in outer.items()})
+    errs["x"] = _frob(x.grad, want["x"])
+    errs["loss"] = (abs(float(loss.detach()) - want["loss"])
+                    / abs(want["loss"]))
+    for v in list(sp.values()) + list(outer.values()):
+        v.grad = None
+    return errs
+
+
+def _pipe_witness(cfg, rules, mesh, params, batch, nm: int):
+    """(w_pp): the float64 gradients through the pipeline against one
+    process's autograd through the same layers unpipelined, run on the
+    same micro-batches one after another (each rank computes it and
+    compares its own stage), then the two planted faults (the broadcast's
+    backward summing the output cotangents instead of averaging them; the
+    backward's ring sending each cotangent to the next stage instead of
+    the previous).  Printed beside them: how far that unpipelined
+    gradient lies from the one of the whole batch in one pass (the
+    model's own sensitivity to the split, not the pipeline's)."""
+    import torch
+    from repro_torch import models as M
+    from repro_torch.distributed import pipeline as P
+    S, sid = mesh.size(0), mesh.get_local_rank("pod")
+    layers = {k: v.requires_grad_() for k, v in params["layers"].items()}
+    outer = {k: v.requires_grad_() for k, v in params.items()
+             if k != "layers"}
+    stage = _pipe_stage(cfg, rules, _positions(batch))
+
+    def unpipelined(split: int):
+        for v in list(layers.values()) + list(outer.values()):
+            v.grad = None
+        loss, x = _pipe_loss(cfg, rules, outer, lambda x: torch.cat(
+            [stage(layers, xm) for xm in x.chunk(split)]), batch)
+        loss.backward()
+        return {"loss": float(loss.detach()), "x": x.grad,
+                "layers": {k: v.grad.reshape(S, v.shape[0] // S,
+                                             *v.shape[1:])[sid].clone()
+                           for k, v in layers.items()},
+                **{k: v.grad for k, v in outer.items()}}
+    whole = unpipelined(1)
+    whole = {"x": whole["x"], **{f"layers.{k}": v
+                                 for k, v in whole["layers"].items()}}
+    want = unpipelined(nm)
+    for v in list(layers.values()) + list(outer.values()):
+        v.grad = None
+    with torch.no_grad():
+        model_loss = float(M.loss_fn(params, cfg, rules, batch))
+    out = {"split": {k: _frob(v, want["x"] if k == "x" else
+                              want["layers"][k[len("layers."):]])
+                     for k, v in whole.items()},
+           "loss_vs_model": abs(want["loss"] - model_loss) / abs(model_loss)}
+    del whole
+    sp = _stage_leaves(layers, mesh, S, sid)
+    del layers, params["layers"]
+    out["errs"] = _pipe_grad_errs(cfg, rules, mesh, outer, sp, batch, nm,
+                                  want)
+    reduce = P._output_cotangent
+    P._output_cotangent = (lambda g, group, S, root: (
+        lambda r: None if r is None else r * S)(reduce(g, group, S, root)))
+    try:
+        out["planted_sum"] = _pipe_grad_errs(cfg, rules, mesh, outer, sp,
+                                             batch, nm, want)
+    finally:
+        P._output_cotangent = reduce
+    shift = P._ring_shift
+    P._ring_shift = (lambda y, group, sid, S, step=1:
+                     shift(y, group, sid, S, 1))
+    try:
+        out["planted_neighbour"] = _pipe_grad_errs(cfg, rules, mesh, outer,
+                                                   sp, batch, nm, want)
+    finally:
+        P._ring_shift = shift
+    return out
+
+
+def _timed(full: bool, fn):
+    """``fn()``'s result, its host ms and its CUDA-event ms (None on the
+    CPU)."""
+    import torch
+    if full:
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        e0.record()
+    t0 = time.perf_counter()
+    res = fn()
+    if full:
+        e1.record()
+        torch.cuda.synchronize()
+    return (res, (time.perf_counter() - t0) * 1e3,
+            e0.elapsed_time(e1) if full else None)
+
+
+def _pipe_rank(rank: int, world: int, store: str, out: str, seed: int,
+               full: bool):
+    """One rank of phase 23 (a spawned process): gloo over a ``file://``
+    store, the (4, 1) ('pod', 'model') mesh on the card, this rank one
+    stage; (w_pp) the float64 witness at one layer a stage, (t_pp) the
+    bf16 forward and backward at full depth, then rank 0's one-process
+    forward and backward of the same layers and tokens.  Writes its
+    record, or the exception, to ``out/pipe{r}.pkl``."""
+    import dataclasses
+    import datetime
+    import pickle
+    import traceback
+    sys.path.insert(0, str(SRC))
+    record = {}
+    try:
+        import torch
+        import torch.distributed as dist
+        device = "cuda" if full else "cpu"
+        if full:
+            torch.cuda.set_device(0)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group(
+            "gloo", init_method=f"file://{store}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=PIPE_TIMEOUT_S))
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch import models as M
+        from repro_torch.data import lm_batch
+        from repro_torch.distributed import pipeline_apply, sharded
+        from repro_torch.launch import RULES
+        from repro_torch.tree import tree_map
+        sz = pipeline_sizes(full)
+        mesh = init_device_mesh(device, (world, 1),
+                                mesh_dim_names=("pod", "model"))
+        sid = mesh.get_local_rank("pod")
+        cfg = _pipe_cfg(full)
+        nm = sz["num_micro"]
+
+        # (w_pp): one layer a stage, float64, held
+        t0 = time.perf_counter()
+        f64 = torch.float64
+        cfg1 = dataclasses.replace(cfg, num_layers=world, dtype=f64,
+                                   param_dtype=f64)
+        batch = {k: v.to(device) for k, v in lm_batch(
+            cfg1, seed=seed, step=0, batch=sz["w_batch"], seq=sz["w_seq"],
+            device="cpu").items()}
+        p1 = tree_map(lambda t: t.to(f64),
+                      M.init_params(cfg1, seed, device=device))
+        record["witness"] = _pipe_witness(cfg1, RULES, mesh, p1, batch, nm)
+        del p1
+        record["witness_s"] = time.perf_counter() - t0
+        if full:
+            torch.cuda.empty_cache()
+
+        # (t_pp): full depth, bf16, this rank's stage
+        params = M.init_params(cfg, seed, device=device)
+        sp = _stage_leaves(params.pop("layers"), mesh, world, sid)
+        outer = {k: v.requires_grad_() for k, v in params.items()}
+        del params
+        batch = {k: v.to(device) for k, v in lm_batch(
+            cfg, seed=seed, step=0, batch=sz["batch"], seq=sz["seq"],
+            device="cpu").items()}
+        stage = _pipe_stage(cfg, RULES, _positions(batch))
+        if full:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+        def step():
+            loss, _ = _pipe_loss(cfg, RULES, outer, lambda x: pipeline_apply(
+                stage, sp, x, mesh, axis="pod", num_micro=nm), batch)
+            loss.backward()
+            return float(loss.detach())
+        steps = []
+        for i in range(sz["steps"]):
+            for v in list(sp.values()) + list(outer.values()):
+                v.grad = None
+            dist.barrier()
+            sharded.reset()
+            loss, host_ms, event_ms = _timed(full, step)
+            steps.append({"step": i, "host_ms": host_ms,
+                          "event_ms": event_ms, "loss": loss,
+                          "transfer_bytes": dict(sharded.BYTES),
+                          "transfer_host_ms": {
+                              k: v * 1e3 for k, v in sharded.SECONDS.items()}})
+        record["steps"] = steps
+        record["stage_bytes"] = sum(v.to_local().numel() * v.element_size()
+                                    for v in sp.values())
+        record["peak_bytes"] = (torch.cuda.max_memory_allocated() if full
+                                else None)
+        record["peak_reserved"] = (torch.cuda.max_memory_reserved() if full
+                                   else None)
+        del sp, outer
+        if full:
+            torch.cuda.empty_cache()
+
+        # rank 0: one process's forward and backward of the same layers
+        dist.barrier()
+        if rank == 0:
+            if full:
+                torch.cuda.reset_peak_memory_stats()
+            params = M.init_params(cfg, seed, device=device)
+            leaves = tree_map(lambda v: v.requires_grad_(), params)
+            layers = leaves.pop("layers")
+
+            def one():
+                loss, _ = _pipe_loss(cfg, RULES, leaves,
+                                     lambda x: stage(layers, x), batch)
+                loss.backward()
+                return float(loss.detach())
+            runs = []
+            for i in range(sz["steps"]):
+                for v in list(layers.values()) + list(leaves.values()):
+                    v.grad = None
+                loss, host_ms, event_ms = _timed(full, one)
+                runs.append({"step": i, "host_ms": host_ms,
+                             "event_ms": event_ms, "loss": loss})
+            record["one_process"] = {
+                "runs": runs, "peak_bytes": (torch.cuda.max_memory_allocated()
+                                             if full else None)}
+            del params, leaves, layers
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:
+        record["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(os.path.join(out, f"pipe{rank}.pkl"), "wb") as f:
+            pickle.dump(record, f)
+
+
+def phase_pipeline(device: str, seed: int, card: str = "",
+                   full: bool = True):
+    """Phase 23: ``distributed.pipeline_apply`` trained through, on four
+    gloo ranks sharing the card over a (4, 1) ('pod', 'model') mesh, one
+    stage a rank: internlm2-1.8b's decoder layers as the stage function
+    (6 layers a stage), the embedding and ``lm_head`` outside the pipeline
+    on every rank.  (w_pp) one layer a stage in float64: every leaf's
+    gradient and the layers' input's against one process's autograd
+    through the same four layers unpipelined, on the same micro-batches,
+    within 1e-10, the two planted faults above 1e-3 (the whole batch's
+    gradient in one pass printed beside it); (t_pp) bf16 at full depth, 8 x 512 tokens,
+    num_micro 4: each pass's ms on the slowest rank, the ring's and the
+    broadcasts' bytes and host ms, each rank's peak, beside one process's
+    unpipelined pass and the bound.  Returns the phase's seconds."""
+    import pickle
+    import tempfile
+    import torch
+    t_phase = time.perf_counter()
+    sz = pipeline_sizes(full)
+    (ROOT / "build").mkdir(exist_ok=True)
+    scratch = tempfile.mkdtemp(prefix="pipe_", dir=ROOT / "build")
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_pipe_rank,
+                         args=(r, PIPE_WORLD, f"{scratch}/store", scratch,
+                               seed, full)) for r in range(PIPE_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PIPE_TIMEOUT_S
+    for p in procs:
+        p.join(timeout=max(1.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+            p.join(timeout=30)
+    spawn_s = time.perf_counter() - t0
+    if hung:
+        fail(f"pipeline: ranks {hung} did not finish in {PIPE_TIMEOUT_S} s")
+    recs = []
+    for r, p in enumerate(procs):
+        path = os.path.join(scratch, f"pipe{r}.pkl")
+        if not os.path.exists(path):
+            fail(f"pipeline: rank {r} exited {p.exitcode} with no record")
+        with open(path, "rb") as f:
+            recs.append(pickle.load(f))
+        if "error" in recs[-1] or p.exitcode != 0:
+            fail(f"pipeline: rank {r} exited {p.exitcode}:\n"
+                 f"{recs[-1].get('error', '')}")
+    shutil.rmtree(scratch, ignore_errors=True)
+
+    def worst(key):
+        return {k: max(rec["witness"][key][k] for rec in recs)
+                for k in recs[0]["witness"][key]}
+    errs = worst("errs")
+    planted = {k: max(worst(k).values())
+               for k in ("planted_sum", "planted_neighbour")}
+    max_err = max(errs.values())
+    emit({"phase": "pipeline", "call": "w_pp", "arch": sz["arch"],
+          "layers": PIPE_WORLD, "layers_a_stage": 1, "dtype": "float64",
+          "mesh": "(4, 1) ('pod', 'model')", "ranks": PIPE_WORLD,
+          "backend": "gloo", "tokens": [sz["w_batch"], sz["w_seq"]],
+          "num_micro": sz["num_micro"], "rel_err": errs,
+          "max_rel_err": max_err, "limit": PIPE_WITNESS_LIMIT,
+          "loss_vs_model": max(rec["witness"]["loss_vs_model"]
+                               for rec in recs),
+          # printed: the unpipelined gradient of the micro-batches against
+          # the whole batch's in one pass
+          "split_vs_whole_batch": max(max(rec["witness"]["split"].values())
+                                      for rec in recs), **planted,
+          "planted_floor": PIPE_PLANTED_FLOOR})
+    if not max_err <= PIPE_WITNESS_LIMIT:
+        fail(f"pipeline (w_pp): the float64 gradients part from the "
+             f"unpipelined ones by {max_err:.3e}")
+    for k, v in planted.items():
+        if not v > PIPE_PLANTED_FLOOR:
+            fail(f"pipeline (w_pp): planted fault {k} reads {v:.3e}")
+
+    cfg = _pipe_cfg(full)
+    ops_ms, parts, _ = train_bounds(cfg, sz["batch"], sz["seq"])
+    layers_ms = parts["layer_products_bf16_ms"] + parts["attention_fp32_ms"]
+    S, nm = PIPE_WORLD, sz["num_micro"]
+    for i in range(sz["steps"]):
+        rows = [rec["steps"][i] for rec in recs]
+        emit({"phase": "pipeline", "call": "t_pp", "step": i,
+              "arch": sz["arch"], "layers": cfg.num_layers,
+              "layers_a_stage": cfg.num_layers // S, "dtype": "bf16",
+              "tokens": [sz["batch"], sz["seq"]], "num_micro": nm,
+              "ms_events_slowest": (max(r["event_ms"] for r in rows)
+                                    if full else None),
+              "ms_host_slowest": max(r["host_ms"] for r in rows),
+              "losses_equal": len({r["loss"] for r in rows}) == 1,
+              "loss": rows[0]["loss"],
+              "transfer_bytes_per_rank": [r["transfer_bytes"] for r in rows],
+              "transfer_host_ms_slowest": {
+                  k: max(r["transfer_host_ms"].get(k, 0.0) for r in rows)
+                  for k in rows[0]["transfer_host_ms"]}, "card": card})
+    one = recs[0]["one_process"]
+    for run in one["runs"]:
+        emit({"phase": "pipeline", "call": "t_pp_one_process", **run,
+              "card": card})
+    emit({"phase": "pipeline", "call": "t_pp", "memory": True,
+          "stage_bytes_per_rank": [rec["stage_bytes"] for rec in recs],
+          "peak_allocated_per_rank": [rec["peak_bytes"] for rec in recs],
+          "peak_reserved_per_rank": [rec["peak_reserved"] for rec in recs],
+          "one_process_peak_allocated": one["peak_bytes"]})
+    emit({"phase": "pipeline", "call": "t_pp", "bound": True,
+          # every product x3 for the backward; the card shared by the four
+          # ranks, each running the head: their sum is the card's work
+          "layers_bound_ms": layers_ms,
+          "layer_products_bf16_ms": parts["layer_products_bf16_ms"],
+          "attention_fp32_ms": parts["attention_fp32_ms"],
+          "lm_head_bf16_ms": parts["lm_head_bf16_ms"],
+          "shared_card_bound_ms": layers_ms
+          + S * parts["lm_head_bf16_ms"],
+          "one_process_bound_ms": ops_ms,
+          # a card a stage: num_micro + S - 1 slots of one micro-batch's
+          # stage each, the bubble (S - 1) / (num_micro + S - 1)
+          "card_a_stage_bound_ms": layers_ms * (nm + S - 1) / (nm * S)
+          + parts["lm_head_bf16_ms"],
+          "bubble": (S - 1) / (nm + S - 1)})
+    secs = time.perf_counter() - t_phase
+    emit({"phase": "pipeline", "phase_seconds": secs,
+          "spawn_to_join_s": spawn_s,
+          "witness_s_slowest": max(rec["witness_s"] for rec in recs),
+          "card": card})
+    return secs
 
 
 # --------------------------------------------------------------------------
@@ -8124,7 +8615,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rehearse", action="store_true",
-                    help="tiny CPU run of phases 2-6 and 9-22 with the "
+                    help="tiny CPU run of phases 2-6 and 9-23 with the "
                          "plain versions")
     ap.add_argument("--probe-only", type=int, default=0, metavar="RUNS",
                     help="run call (i) RUNS times on the card, print its "
@@ -8193,6 +8684,8 @@ def main(argv=None) -> int:
         emit({"phase": "rehearsal", "phase_20_seconds": secs})
         secs, serve = phase_sharded_serve("cpu", args.seed, full=False)
         emit({"phase": "rehearsal", "phase_22_seconds": secs})
+        secs = phase_pipeline("cpu", args.seed, full=False)
+        emit({"phase": "rehearsal", "phase_23_seconds": secs})
         t0 = time.perf_counter()
         phase_dryrun("cpu", args.seed, sharded, serve, dry, full=False)
         emit({"phase": "rehearsal", "phase_21_seconds":
@@ -8230,6 +8723,11 @@ def main(argv=None) -> int:
     # ---- 22. sharded serving, while the parent still holds nothing ---------
     _, serve = phase_sharded_serve("cuda", args.seed, card=card)
     emit({"phase": "sharded_serve", "script_seconds_so_far":
+          time.perf_counter() - t_start})
+
+    # ---- 23. the pipeline's backward, while the parent still holds nothing
+    phase_pipeline("cuda", args.seed, card=card)
+    emit({"phase": "pipeline", "script_seconds_so_far":
           time.perf_counter() - t_start})
 
     # ---- 21. the dry run, held to phases 20's and 22's readings -------------

@@ -116,6 +116,15 @@ def gmm_update_select(points, centers, min_in, mask, metric_name: str,
                                      xsq=xsq)
 
 
+def gmm_update(points, center, min_in, metric_name: str):
+    """Running-min only (port of ``repro.kernels.ops.gmm_update``, the
+    compat wrapper of the lax GMM path): ``gmm_update_select`` with every
+    row masked in, its ``min_out`` (n,)."""
+    mask = torch.ones((points.shape[0],), dtype=torch.bool,
+                      device=points.device)
+    return gmm_update_select(points, center, min_in, mask, metric_name)[0]
+
+
 def gmm_topb(points, centers, min_in, mask, metric_name: str,
              p: int = None, bn: int = None, *, xsq=None,
              prepared: bool = False):

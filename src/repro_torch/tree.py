@@ -56,3 +56,16 @@ def cache_build(tree, by_path, path: str = ""):
                                         f"{path}.{f}")
                             for f in tree._fields))
     return by_path[path]
+
+
+def tree_unflatten(tree, leaves):
+    """``tree``'s structure (nested dicts) holding ``leaves``, given in
+    ``tree_leaves`` order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        return next(it)
+    return build(tree)

@@ -24,6 +24,14 @@ What is held:
   weights whole or as a DTensor sharded over 'pod', against the
   sequential stack within 1e-5 (``tests/test_pipeline.py``), the same
   output on every rank;
+* its gradient: the ranks' loss ``sum(out * gy)`` differentiated through
+  ``pipeline_apply`` in each of those cases at num_micro 4 and 8, against
+  the reference's ``jax.grad`` through its ``pipeline_apply`` on
+  Auto-axes meshes of the same shapes (the subprocess above) within 1e-5
+  of the largest entry in fp32, and against torch autograd through the
+  unpipelined stack within 1e-12 in float64; the replicated gradients
+  (``x``'s, a plain stack's) equal on every rank of the axis, a DTensor
+  leaf's local gradient its stage's row; a one-rank axis in float64;
 * the reference's error-feedback quadratic (``tests/test_checkpoint_ft.py``)
   through ``psum_int8_ef`` on the ranks.
 """
@@ -44,6 +52,9 @@ from repro_torch.distributed import dequantize_int8, quantize_int8
 WORLD = 4
 SPAWN_TIMEOUT = 300
 BF16_ULP = 2.0 ** -7
+# (case, num_micro) of the pipeline's gradient
+PIPE_CASES = [(case, nm) for case in ("4x1", "2x2", "2x2_dtensor")
+              for nm in (4, 8)]
 
 _RANK = textwrap.dedent("""
     import datetime, os, pickle, sys, traceback
@@ -61,6 +72,7 @@ _RANK = textwrap.dedent("""
     from repro_torch.distributed import (init_error_feedback,
                                          pipeline_apply, psum_bf16,
                                          psum_int8_ef)
+    PIPE_CASES = @PIPE_CASES@
 
     data = dict(np.load(os.path.join(OUT, "inputs.npz")))
     G = torch.as_tensor(data["g"])
@@ -95,6 +107,42 @@ _RANK = textwrap.dedent("""
                                             axis="pod", num_micro=8).numpy()
         return out
 
+    def pipeline_grad():
+        # the loss sum(out * gy) through the schedule: the gradients of the
+        # stage weights and of x, each case at num_micro 4 and 8
+        out = {}
+        for dt in (torch.float32, torch.float64):
+            Ws = torch.as_tensor(data["Ws"]).to(dt)
+            x0 = torch.as_tensor(data["x"]).to(dt)
+            gy = torch.as_tensor(data["gy"]).to(dt)
+            for case, nm in PIPE_CASES:
+                mesh = MESH41 if case == "4x1" else MESH22
+                S = 4 if case == "4x1" else 2
+                sid = mesh.get_local_rank("pod")
+                if case == "2x2_dtensor":
+                    w = DTensor.from_local(Ws[sid:sid + 1].clone(), mesh,
+                                           [Shard(0), Replicate()],
+                                           run_check=False)
+                else:
+                    w = Ws[:S].clone()
+                w.requires_grad_()
+                x = x0.clone().requires_grad_()
+                y = pipeline_apply(stage, w, x, mesh, axis="pod",
+                                   num_micro=nm)
+                (y * gy).sum().backward()
+                gw = w.grad.to_local() if case == "2x2_dtensor" else w.grad
+                out[f"{case}/{nm}/{str(dt)[6:]}"] = {
+                    "out": y.detach().numpy(), "x": x.grad.numpy(),
+                    "w": gw.numpy(), "sid": sid}
+        # one stage: over the (4, 1) mesh's 'model' dim, no transfer
+        w = Ws[:1].clone().requires_grad_()
+        x = x0.clone().requires_grad_()
+        y = pipeline_apply(stage, w, x, MESH41, axis="model", num_micro=4)
+        (y * gy).sum().backward()
+        out["one_stage"] = {"out": y.detach().numpy(), "x": x.grad.numpy(),
+                            "w": w.grad.numpy()}
+        return out
+
     def ef_quadratic():
         w = torch.tensor([5.0, -3.0, 2.0])
         target = torch.tensor([1.0, 1.0, 1.0])
@@ -106,7 +154,7 @@ _RANK = textwrap.dedent("""
 
     failed = []
     for name, fn in (("compression", compression), ("pipeline", pipeline),
-                     ("ef", ef_quadratic)):
+                     ("pipeline_grad", pipeline_grad), ("ef", ef_quadratic)):
         try:
             out = fn()
         except Exception as e:
@@ -116,7 +164,7 @@ _RANK = textwrap.dedent("""
             pickle.dump(out, f)
     dist.destroy_process_group()
     print("failed:", failed)
-""")
+""").replace("@PIPE_CASES@", repr(PIPE_CASES))
 
 _REFERENCE = textwrap.dedent("""
     import os, pickle, sys
@@ -143,6 +191,42 @@ _REFERENCE = textwrap.dedent("""
     with open(os.path.join(OUT, "compression.reference.pkl"), "wb") as f:
         pickle.dump({"bf16": np.asarray(out16), "int8": np.asarray(out8),
                      "resid": np.asarray(new_e)}, f)
+
+    # jax.grad of sum(out * gy) through the pipeline on Auto-axes meshes
+    # (under the default Explicit axes the reference's gradient raises),
+    # and through the sequential stack
+    from concurrent.futures import ThreadPoolExecutor
+    from jax.sharding import AxisType
+    from repro.distributed import pipeline_apply
+    data = np.load(os.path.join(OUT, "inputs.npz"))
+    Ws, x, gy = (jnp.asarray(data[k]) for k in ("Ws", "x", "gy"))
+
+    def stage(W, xb):
+        return jnp.tanh(xb @ W)
+
+    def sequential(W, xx):
+        for s in range(W.shape[0]):
+            xx = stage(W[s], xx)
+        return jnp.sum(xx * gy)
+
+    jobs = {}
+    for shape, names in (((4, 1), ("pod", "model")), ((2, 2), ("pod", "data"))):
+        mesh = jax.make_mesh(shape, names, axis_types=(AxisType.Auto,) * 2)
+        W, key = Ws[:shape[0]], f"{shape[0]}x{shape[1]}"
+        for nm in (4, 8):
+            loss = (lambda W, xx, nm=nm, mesh=mesh: jnp.sum(pipeline_apply(
+                stage, W, xx, mesh, axis="pod", num_micro=nm) * gy))
+            jobs[f"{key}/{nm}"] = (loss, W)
+        jobs[f"{key}/sequential"] = (sequential, W)
+
+    def grad(job):
+        gw, gx = jax.grad(job[0], argnums=(0, 1))(job[1], x)
+        return {"w": np.asarray(gw), "x": np.asarray(gx)}
+    # each gradient compiles a program of its own: compile them together
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        grads = dict(zip(jobs, ex.map(grad, jobs.values())))
+    with open(os.path.join(OUT, "pipeline_grad.reference.pkl"), "wb") as f:
+        pickle.dump(grads, f)
 """)
 
 
@@ -156,7 +240,8 @@ def ranks_run(tmp_path_factory):
              g=rng.normal(size=(WORLD, 256)).astype(np.float32),
              Ws=(rng.normal(size=(4, 32, 32)) / np.sqrt(32))
              .astype(np.float32),
-             x=rng.normal(size=(16, 32)).astype(np.float32))
+             x=rng.normal(size=(16, 32)).astype(np.float32),
+             gy=rng.normal(size=(16, 32)).astype(np.float32))
     env = dict(SUBPROC_ENV, OMP_NUM_THREADS="1")
     store = out / "store"
     procs = [subprocess.Popen(
@@ -239,6 +324,77 @@ def test_pipeline_matches_sequential(ranks_run, case):
         assert got.shape == tuple(ref.shape)
         assert float(np.abs(got - ref.numpy()).max()) < 1e-5
         np.testing.assert_array_equal(got, outs[0])
+
+
+def _pipe_grads(ranks_run, case, nm, dt):
+    return [ranks_run("pipeline_grad", f"rank{r}")[f"{case}/{nm}/{dt}"]
+            for r in range(WORLD)]
+
+
+@pytest.mark.parametrize("case,nm", PIPE_CASES)
+def test_pipeline_gradient_matches_the_reference(ranks_run, case, nm):
+    """fp32: each rank's gradients within 1e-5 (of the largest entry) of
+    the reference's jax.grad through its pipeline on an Auto-axes mesh of
+    the same shape; the replicated ones equal on every rank."""
+    want = ranks_run("pipeline_grad", "reference")
+    mesh = "4x1" if case == "4x1" else "2x2"
+    ref = want[f"{mesh}/{nm}"]
+    seq = want[f"{mesh}/sequential"]
+    for k in ("w", "x"):
+        scale = max(1.0, float(np.abs(seq[k]).max()))
+        assert float(np.abs(ref[k] - seq[k]).max()) <= 1e-5 * scale
+    got = _pipe_grads(ranks_run, case, nm, "float32")
+    for g in got:
+        w_ref = ref["w"][g["sid"]:g["sid"] + 1] if case == "2x2_dtensor" \
+            else ref["w"]
+        assert g["w"].shape == w_ref.shape and g["x"].shape == ref["x"].shape
+        for k, r in (("w", w_ref), ("x", ref["x"])):
+            scale = max(1.0, float(np.abs(r).max()))
+            assert float(np.abs(g[k] - r).max()) <= 1e-5 * scale, k
+        np.testing.assert_array_equal(g["x"], got[0]["x"])
+        same = [h for h in got if h["sid"] == g["sid"]]
+        np.testing.assert_array_equal(g["w"], same[0]["w"])
+        if case != "2x2_dtensor":
+            np.testing.assert_array_equal(g["w"], got[0]["w"])
+
+
+@pytest.mark.parametrize("case,nm", PIPE_CASES)
+def test_pipeline_gradient_float64_matches_autograd(ranks_run, case, nm):
+    """float64: each rank's output and gradients within 1e-12 of torch
+    autograd through the unpipelined stack."""
+    S = 4 if case == "4x1" else 2
+    inp = ranks_run.inputs
+    W = torch.as_tensor(inp["Ws"][:S]).double().requires_grad_()
+    x = torch.as_tensor(inp["x"]).double().requires_grad_()
+    y = x
+    for s in range(S):
+        y = torch.tanh(y @ W[s])
+    (y * torch.as_tensor(inp["gy"]).double()).sum().backward()
+    got = _pipe_grads(ranks_run, case, nm, "float64")
+    for g in got:
+        w_ref = W.grad[g["sid"]:g["sid"] + 1] if case == "2x2_dtensor" \
+            else W.grad
+        assert g["w"].dtype == np.float64
+        for k, r in (("out", y), ("w", w_ref), ("x", x.grad)):
+            err = float(np.abs(g[k] - r.detach().numpy()).max())
+            assert err <= 1e-12, (k, err)
+        np.testing.assert_array_equal(g["x"], got[0]["x"])
+
+
+def test_pipeline_gradient_of_one_stage(ranks_run):
+    """A one-rank axis runs the stage on each micro-batch in turn, no
+    transfer; float64 against autograd within 1e-12."""
+    inp = ranks_run.inputs
+    W = torch.as_tensor(inp["Ws"][:1]).double().requires_grad_()
+    x = torch.as_tensor(inp["x"]).double().requires_grad_()
+    y = torch.tanh(x @ W[0])
+    (y * torch.as_tensor(inp["gy"]).double()).sum().backward()
+    for r in range(WORLD):
+        got = ranks_run("pipeline_grad", f"rank{r}")["one_stage"]
+        for k, want in (("out", y), ("w", W.grad), ("x", x.grad)):
+            assert got[k].shape == tuple(want.shape)
+            assert float(np.abs(got[k] - want.detach().numpy()).max()) \
+                <= 1e-12, k
 
 
 @pytest.mark.parametrize("rank", range(WORLD))
