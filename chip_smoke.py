@@ -379,9 +379,13 @@ Phases, each printing one JSON line (or one per call):
               gradients: a MoE layer's capacity counts the shard's own
               tokens) on the model cut to one layer, held leaf by leaf
               within 1e-10, the copy's backward without its all-reduce
-              over 'model' and a step without the gradient sum over
-              'data' each read above 1e-3, and the same comparison at full
-              depth in bf16 printed; (z_sh) 2 AdamW steps: each step's ms
+              over 'model', a step without the gradient sum over 'data'
+              and the vocab-parallel loss without its all-reduces of the
+              max and the sums each read above 1e-3, and the same
+              comparison at full depth in bf16 printed; the step computes
+              tensor-parallel over 'model' (the vocab split: the
+              embedding's lookup, the logits, the loss; the experts
+              expert-parallel); (z_sh) 2 AdamW steps: each step's ms
               on the slowest rank (CUDA events and host clock), loss and
               grad norm (equal on every rank), the collective bytes a
               step counted in ``distributed.sharded``, each rank's shard
@@ -396,8 +400,9 @@ Phases, each printing one JSON line (or one per call):
               of phase 20 in this run, and its shard bytes of the params
               and the state each rank's, to the byte (the trace's peak
               estimate printed beside the ranks' measured peaks); (dr_sv)
-              phase 22's (d_sh) and (cp_sh) decode cells, whose bytes a
-              step and cache shard bytes must equal every decode step's
+              phase 22's (d_sh), (cp_sh) and (d_tp) decode cells, whose
+              bytes a step and cache shard bytes must equal every decode
+              step's
               and every rank's of phase 22, to the byte; (dr_pod)
               arctic-480b x train_4k on (2, 16, 16) at 512 ranks,
               recurrentgemma-9b x long_500k and gemma-2b x decode_32k on
@@ -426,18 +431,28 @@ Phases, each printing one JSON line (or one per call):
               (p_sh) the prefill of 8 x 3,072 host-drawn tokens into
               4,096 slots under the prefill rules (fsdp over 'data') and
               (d_sh) 8 split-KV decode steps (kv_seq 'model', weights
-              resident), (cp_sh) 2 x 12,288 into 16,384 slots and 8
+              resident, the vocab split: 0 B all-gathered a step, held),
+              (cp_sh) 2 x 12,288 into 16,384 slots and 4
               context-parallel steps (kv_seq 'data', the batch on every
-              rank); (s_sh) mamba2-130m at full width and depth, the
-              state over 'model', 8 x 1,024 then 8 steps, with a float64
-              witness at full depth (8 x 32, 4 steps).  For each run:
-              each step's ms on the slowest rank (CUDA events and host
-              clock), the collective bytes by kind and their host ms,
-              each rank's cache shard bytes against the whole divided as
-              the specs divide it (held), the tokens against the
+              rank; 8 before the tensor-parallel slice); (s_sh)
+              mamba2-130m at full width and depth, the state over
+              'model', 8 x 1,024 then 8 steps, with a float64 witness at
+              full depth (8 x 16, 2 steps); (d_tp) internlm2-1.8b at full
+              width and depth under its published ``pad_heads`` (the
+              attention whole on each rank, the MLPs and the vocab
+              tensor-parallel), 8 x 1,024 host-drawn tokens into 2,048
+              slots, then 8 split-KV decode steps (fsdp None: 0 B
+              all-gathered a step, held), its float64 witness (w_tp) on
+              the model cut to one layer (8 x 96 into 128, 2 steps)
+              within 1e-10 and the MLP's row product without its
+              all-reduce above 1e-3.  For each run: each step's ms on
+              the slowest rank (CUDA events and host clock), the
+              collective bytes by kind and their host ms, each rank's
+              cache and param shard bytes against the whole divided as
+              the specs divide them (held), the tokens against the
               one-process ones (bf16, printed, not held: the model is
               chaotic), each rank's peak beside the parent's (under 80 GB
-              together); the phase within 150 s.
+              together); the phase within 210 s.
 23. pipeline — ``distributed.pipeline_apply`` trained through, on four
               gloo ranks sharing the card over a (4, 1) ('pod', 'model')
               mesh, one stage a rank: internlm2-1.8b's decoder layers as
@@ -6865,14 +6880,39 @@ def _sharded_grad_errs(cfg, mesh, rules, full, batch, want=None):
     return errs, want
 
 
+class _LocalOnly:
+    """A stand-in for the 'model' ranks' ``AxisComm`` whose max and sum
+    stop at this rank (the planted fault of the vocab-parallel loss)."""
+
+    def __init__(self, comm):
+        self.rank, self.size = comm.rank, comm.size
+
+    def max(self, t):
+        return t
+
+    def sum(self, t):
+        return t
+
+
 def _sharded_witness(cfg, mesh, rules, full, batch):
-    """(zw_sh): the gradient errors of the sharded step and of its two
+    """(zw_sh): the gradient errors of the sharded step and of its three
     planted faults (the copy's backward without its all-reduce over
-    'model'; no gradient sum over 'data')."""
+    'model'; no gradient sum over 'data'; the vocab-parallel loss
+    without its all-reduces of the max and the sums)."""
+    from repro_torch import models as M
     from repro_torch.distributed import sharded
+    from repro_torch.models import common
 
     errs, want = _sharded_grad_errs(cfg, mesh, rules, full, batch)
     out = {"errs": errs}
+    nll = M.vocab_nll
+    M.vocab_nll = lambda logits, labels: common._VocabNLL.apply(
+        logits, labels, _LocalOnly(common.tp_comm("vocab")))
+    try:
+        out["planted_xent"] = _sharded_grad_errs(cfg, mesh, rules, full,
+                                                 batch, want)[0]
+    finally:
+        M.vocab_nll = nll
     copy_bwd = sharded.CopyToGroup.backward
     sharded.CopyToGroup.backward = staticmethod(lambda ctx, g: (g, None))
     try:
@@ -7089,7 +7129,8 @@ def phase_sharded(device: str, seed: int, card: str = "",
     w = recs[0]["witness"]
     worst = max(w["errs"].values())
     planted = {k: max(w[k].values()) for k in ("planted_copy",
-                                                "planted_data")}
+                                                "planted_data",
+                                                "planted_xent")}
     emit({"phase": "sharded", "call": "zw_sh", "arch": sz["arch"],
           "layers": 1, "dtype": "float64", "mesh": "(2, 2) ('data', "
           "'model')", "ranks": SHARDED_WORLD, "backend": "gloo",
@@ -7098,6 +7139,8 @@ def phase_sharded(device: str, seed: int, card: str = "",
           "planted_copy_backward_without_model_all_reduce":
               planted["planted_copy"],
           "planted_no_data_sum": planted["planted_data"],
+          "planted_xent_without_max_and_sum_all_reduce":
+              planted["planted_xent"],
           "planted_floor": SHARDED_PLANTED_FLOOR, "rules": recs[0]["rules"]})
     if not worst <= SHARDED_WITNESS_LIMIT:
         fail(f"sharded (zw_sh): the float64 gradient parts from the "
@@ -7168,7 +7211,7 @@ def phase_sharded(device: str, seed: int, card: str = "",
 # 22. sharded serving: the prefill and decode steps on DTensor caches
 # --------------------------------------------------------------------------
 
-SERVE_PHASE_LIMIT_S = 150       # phase 22 on the card
+SERVE_PHASE_LIMIT_S = 210       # phase 22 on the card
 SERVE_WITNESS_LIMIT = 1e-10     # (w_sh), float64, relative to the largest
 
 
@@ -7176,20 +7219,26 @@ def sharded_serve_sizes(full: bool):
     """Phase 22's runs on the (2, 2) ('data', 'model') mesh: granite-moe-
     1b-a400m at full width and depth (the reduced config under
     ``pad_heads`` in the rehearsal), (p_sh) and (d_sh) as (batch, prompt
-    tokens, slots) then decode steps, (cp_sh) likewise, (w_sh) the same
-    two layouts on the model cut to one layer in float64; (s_sh)
-    mamba2-130m's (batch, prompt tokens), its witness's at full depth."""
+    tokens, slots) then ``steps`` decode steps, (cp_sh) likewise with
+    ``cp_steps``, (w_sh) the same two layouts on the model cut to one
+    layer in float64; (s_sh) mamba2-130m's (batch, prompt tokens), its
+    witness's at full depth; (d_tp) internlm2-1.8b's (batch, prompt
+    tokens, slots) then ``steps`` split-KV decode steps, its witness
+    (w_tp) on the model cut to one layer."""
     if full:
         return {"arch": "granite-moe-1b-a400m", "reduced": False,
                 "d": (8, 3072, 4096), "cp": (2, 12288, 16384), "steps": 8,
-                "w_d": (8, 96, 128), "w_cp": (2, 96, 128), "w_steps": 2,
-                "ssm": "mamba2-130m", "s": (8, 1024), "s_w": (8, 16),
+                "cp_steps": 4, "w_d": (8, 96, 128), "w_cp": (2, 96, 128),
+                "w_steps": 2, "ssm": "mamba2-130m", "s": (8, 1024),
+                "s_w": (8, 16), "tp_arch": "internlm2-1.8b",
+                "tp": (8, 1024, 2048), "w_tp": (8, 96, 128),
                 "compare_steps": 1, "model_axis": 2}
     return {"arch": "granite-moe-1b-a400m", "reduced": True,
-            "d": (8, 24, 32), "cp": (2, 48, 64), "steps": 3,
+            "d": (8, 24, 32), "cp": (2, 48, 64), "steps": 3, "cp_steps": 3,
             "w_d": (8, 24, 32), "w_cp": (2, 48, 64), "w_steps": 2,
             "ssm": "mamba2-130m", "s": (8, 16), "s_w": (8, 8),
-            "compare_steps": 2, "model_axis": 2}
+            "tp_arch": "internlm2-1.8b", "tp": (8, 24, 32),
+            "w_tp": (8, 24, 32), "compare_steps": 2, "model_axis": 2}
 
 
 def _serve_cfg(arch: str, reduced: bool):
@@ -7248,12 +7297,7 @@ def _sharded_logits(cfg, mesh, full, prompt, dec, C: int):
     sp = distribute(full, mesh, M.param_specs(cfg, rp))
 
     def rows(logits, rules):
-        bt = rules.resolve("batch")
-        last = logits[:, -1].double()
-        if not bt:
-            return last.cpu()
-        return sharded.AxisComm(mesh, (bt,) if isinstance(bt, str)
-                                else bt).gather(last).cpu()
+        return _whole_rows(logits[:, -1].double(), cfg, mesh, rules).cpu()
     logits, cache = sharded_serve(
         cfg, rp, lambda p, b, c: M.prefill_fn(p, cfg, rp, b, c), sp,
         {"tokens": prompt}, cache)
@@ -7268,6 +7312,21 @@ def _sharded_logits(cfg, mesh, full, prompt, dec, C: int):
         out.append(rows(logits, rd))
     return out, {path: sharded.gather(l).double().cpu()
                  for path, l in cache_items(cache)}
+
+
+def _whole_rows(last, cfg, mesh, rules):
+    """``last`` (this rank's rows of last-position logits, its vocab
+    columns under a tensor-parallel vocab) with the 'model' ranks'
+    columns and the data ranks' rows gathered."""
+    from repro_torch.distributed import sharded
+    if last.shape[-1] < cfg.vocab_size:
+        last = sharded.AxisComm(mesh, ("model",)).gather(
+            last.movedim(-1, 0).contiguous()).movedim(0, -1)
+    bt = rules.resolve("batch")
+    if not bt:
+        return last
+    return sharded.AxisComm(mesh, (bt,) if isinstance(bt, str)
+                            else bt).gather(last)
 
 
 def _one_process_logits(cfg, mesh, full, prompt, dec, C: int):
@@ -7318,16 +7377,18 @@ def _rel_err(a, b) -> float:
 
 
 def _serve_witness(cfg, mesh, sizes, steps: int, seed: int, device,
-                   faults: bool):
-    """(w_sh)/(s_sh) witness: for each (B, S, C) layout of ``sizes``, the
-    sharded steps' logits and caches against the one-process steps' (the
-    float64 ``cfg``), the largest relative error a step and a leaf; with
-    ``faults``, the context-parallel layout again with the combine
-    without its all-reduces and with the decode write at every rank's
-    local slot."""
+                   faults=()):
+    """(w_sh)/(s_sh)/(w_tp) witness: for each (B, S, C) layout of
+    ``sizes``, the sharded steps' logits and caches against the
+    one-process steps' (the float64 ``cfg``), the largest relative error
+    a step and a leaf; then the planted ``faults``, each over the prefill
+    and one decode step: ``"combine"`` and ``"write"`` on the
+    context-parallel layout (the combine without its all-reduces, the
+    decode write at every rank's local slot), ``"row"`` on the split-KV
+    layout (the MLP's row product without its all-reduce over 'model')."""
     from repro_torch import models as M
     from repro_torch.distributed import sharded
-    from repro_torch.models import attention
+    from repro_torch.models import attention, common
     from repro_torch.tree import tree_map
     import torch
     full = tree_map(lambda t: t.to(torch.float64),
@@ -7347,7 +7408,18 @@ def _serve_witness(cfg, mesh, sizes, steps: int, seed: int, device,
         out[name] = dict(errs(got), tokens_equal=all(
             bool((a.argmax(-1) == b.argmax(-1)).all())
             for a, b in zip(got[0], want[0])))
-        if faults and name == "context_parallel":
+        if "row" in faults and name == "split_kv":
+            dec = dec[:1]
+            want = _one_process_logits(cfg, mesh, full, prompt, dec, C)
+            tp_sum = common.tp_sum
+            common.tp_sum = lambda y, part: (y if part == "mlp"
+                                             else tp_sum(y, part))
+            try:
+                out["planted_row_without_all_reduce"] = errs(
+                    _sharded_logits(cfg, mesh, full, prompt, dec, C))
+            finally:
+                common.tp_sum = tp_sum
+        if "combine" in faults and name == "context_parallel":
             # each fault over the prefill and one decode step, against the
             # one-process steps as far
             dec = dec[:1]
@@ -7392,7 +7464,7 @@ def _serve_steps(cfg, mesh, full, B: int, S: int, C: int, steps: int,
     from repro_torch.launch.sharding import distribute, move
     from repro_torch.models.common import P
     from repro_torch.train.step import make_decode_step, make_prefill_step
-    from repro_torch.tree import cache_items
+    from repro_torch.tree import cache_items, tree_items
 
     rp, rd, specs_p, shapes, specs_d = _serve_rules(cfg, mesh, B, C)
     prompt, _ = _serve_inputs(cfg, seed, B, S, 0, device)
@@ -7426,12 +7498,7 @@ def _serve_steps(cfg, mesh, full, B: int, S: int, C: int, steps: int,
         (tok, cache), rec["prefill"] = timed_call(
             lambda: make_prefill_step(cfg, rp)(sp, {"tokens": prompt},
                                                cache))
-    pb = rp.resolve("batch")
-    last = seen.pop()
-    if pb:
-        last = sharded.AxisComm(mesh, (pb,) if isinstance(pb, str)
-                                else pb).gather(last)
-    rec["prefill_last"] = last.cpu()
+    rec["prefill_last"] = _whole_rows(seen.pop(), cfg, mesh, rp).cpu()
     bt = rd.resolve("batch")
 
     def moved():
@@ -7441,6 +7508,10 @@ def _serve_steps(cfg, mesh, full, B: int, S: int, C: int, steps: int,
     (cache, sp, tok), rec["move"] = timed_call(moved)
     rec["cache_bytes"] = _local_cache_bytes(cache)
     rec["cache_bytes_by_specs"] = _spec_bytes(shapes, specs_d, mesh)
+    rec["param_bytes"] = sum(v.to_local().numel() * v.element_size()
+                             for _, v in tree_items(sp))
+    rec["param_bytes_by_specs"] = _spec_bytes(
+        M.param_shapes(cfg), M.param_specs(cfg, rd), mesh)
     rec["cache_bytes_whole"] = sum(t.numel() * t.element_size()
                                    for _, t in cache_items(shapes))
     step = make_decode_step(cfg, rd)
@@ -7556,22 +7627,23 @@ def _serve_rank(rank: int, world: int, store: str, out: str, seed: int,
         record["witness"] = _serve_witness(
             cfg1, mesh, {"split_kv": sz["w_d"],
                          "context_parallel": sz["w_cp"]},
-            sz["w_steps"], seed, device, faults=True)
+            sz["w_steps"], seed, device, faults=("combine", "write"))
         record["witness_s"] = time.perf_counter() - t0
 
         # (p_sh), (d_sh), (cp_sh): full depth, bf16
         params = M.init_params(cfg, seed, device=device)
-        runs = (("d_sh", sz["d"]), ("cp_sh", sz["cp"]))
-        for name, (B, S, C) in runs:
+        runs = (("d_sh", sz["d"], sz["steps"]),
+                ("cp_sh", sz["cp"], sz["cp_steps"]))
+        for name, (B, S, C), steps in runs:
             t0 = time.perf_counter()
-            record[name] = _serve_steps(cfg, mesh, params, B, S, C,
-                                        sz["steps"], seed, device, full)
+            record[name] = _serve_steps(cfg, mesh, params, B, S, C, steps,
+                                        seed, device, full)
             record[name]["seconds"] = time.perf_counter() - t0
         # the one-process tokens of the same function, printed: run r on
         # rank r, together
         t0 = time.perf_counter()
         if rank < len(runs):
-            name, (B, S, C) = runs[rank]
+            name, (B, S, C), _ = runs[rank]
             record[name]["one_process_tokens"], want = _one_process_tokens(
                 cfg, mesh, params, B, S, C, sz["compare_steps"], seed,
                 device)
@@ -7591,7 +7663,7 @@ def _serve_rank(rank: int, world: int, store: str, out: str, seed: int,
         record["s_witness"] = _serve_witness(
             dataclasses.replace(scfg, dtype=f64, param_dtype=f64), mesh,
             {"batch_split": (B, S, S + sz["w_steps"])}, sz["w_steps"], seed,
-            device, faults=False)
+            device)
         record["s_witness_s"] = time.perf_counter() - t0
         if full:
             torch.cuda.empty_cache()
@@ -7603,10 +7675,49 @@ def _serve_rank(rank: int, world: int, store: str, out: str, seed: int,
                                       device, full)
         record["s_sh"]["seconds"] = time.perf_counter() - t0
         del params
-        record["peak_bytes"] = (torch.cuda.max_memory_allocated() if full
-                                else None)
-        record["peak_reserved"] = (torch.cuda.max_memory_reserved() if full
-                                   else None)
+        if full:
+            torch.cuda.empty_cache()
+
+        # (w_tp), (d_tp): internlm2-1.8b, its MLPs and vocab over 'model'
+        t0 = time.perf_counter()
+        tcfg = _serve_cfg(sz["tp_arch"], not full)
+        record["tp_witness"] = _serve_witness(
+            dataclasses.replace(tcfg, num_layers=1, dtype=f64,
+                                param_dtype=f64), mesh,
+            {"split_kv": sz["w_tp"]}, sz["w_steps"], seed, device,
+            faults=("row",))
+        record["tp_witness_s"] = time.perf_counter() - t0
+        before = (0, 0)
+        if full:
+            torch.cuda.empty_cache()
+            before = (torch.cuda.max_memory_allocated(),
+                      torch.cuda.max_memory_reserved())
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = M.init_params(tcfg, seed, device=device)
+        B, S, C = sz["tp"]
+        record["d_tp"] = _serve_steps(tcfg, mesh, params, B, S, C,
+                                      sz["steps"], seed, device, full)
+        record["d_tp"]["seconds"] = time.perf_counter() - t0
+        record["d_tp"]["peak_allocated"] = (
+            torch.cuda.max_memory_allocated() if full else None)
+        t0 = time.perf_counter()
+        if rank == 0:
+            record["d_tp"]["one_process_tokens"], want = \
+                _one_process_tokens(tcfg, mesh, params, B, S, C,
+                                    sz["compare_steps"], seed, device)
+            last = record["d_tp"]["prefill_last"]
+            record["d_tp"]["prefill_logits_rel_err"] = float(
+                (last - want).abs().max() / want.abs().max())
+        dist.barrier()
+        record["tp_compare_s"] = time.perf_counter() - t0
+        del params
+        record["peak_bytes"] = (max(before[0],
+                                    torch.cuda.max_memory_allocated())
+                                if full else None)
+        record["peak_reserved"] = (max(before[1],
+                                       torch.cuda.max_memory_reserved())
+                                   if full else None)
         set_current_mesh(None)
         dist.barrier()
         dist.destroy_process_group()
@@ -7648,12 +7759,16 @@ def phase_sharded_serve(device: str, seed: int, card: str = "",
     the two planted faults above 1e-3); (p_sh) the prefill of 8 x 3,072
     tokens into 4,096 slots under the prefill rules and (d_sh) 8
     split-KV decode steps after the cache is moved to the decode rules;
-    (cp_sh) 2 x 12,288 into 16,384 slots, 8 context-parallel steps; each
+    (cp_sh) 2 x 12,288 into 16,384 slots, 4 context-parallel steps; each
     step's ms on the slowest rank, its collective bytes and host ms, each
-    rank's cache shard bytes against the specs' division, the tokens
-    against the one-process ones (printed); (s_sh) mamba2-130m with the
-    state over 'model', 8 x 1,024 then 8 steps, and its float64 witness
-    at full depth.  Returns (seconds, the per-step readings phase 21's
+    rank's cache and param shard bytes against the specs' division, the
+    tokens against the one-process ones (printed); (s_sh) mamba2-130m
+    with the state over 'model', 8 x 1,024 then 8 steps, and its float64
+    witness at full depth; (w_tp) and (d_tp): internlm2-1.8b, its MLPs
+    and vocab tensor-parallel, the float64 witness on one layer with the
+    row product's planted fault, then 8 x 1,024 into 2,048 slots and 8
+    split-KV steps.  A decode step of (d_sh) or (d_tp) that all-gathers
+    fails the phase.  Returns (seconds, the per-step readings phase 21's
     dry run must reckon)."""
     import pickle
     import tempfile
@@ -7695,7 +7810,8 @@ def phase_sharded_serve(device: str, seed: int, card: str = "",
     shutil.rmtree(scratch, ignore_errors=True)
 
     for key, arch, wit in (("witness", sz["arch"], "w_sh"),
-                           ("s_witness", sz["ssm"], "s_sh_witness")):
+                           ("s_witness", sz["ssm"], "s_sh_witness"),
+                           ("tp_witness", sz["tp_arch"], "w_tp")):
         w = recs[0][key]
         layouts = {k: v for k, v in w.items() if not k.startswith("planted")}
         worst = max(max(v["logits"], v["cache"]) for v in layouts.values())
@@ -7720,7 +7836,8 @@ def phase_sharded_serve(device: str, seed: int, card: str = "",
     readings = {}
     for key, arch, (B, S, C) in (
             ("d_sh", sz["arch"], sz["d"]), ("cp_sh", sz["arch"], sz["cp"]),
-            ("s_sh", sz["ssm"], sz["s"] + (sz["s"][1] + sz["steps"],))):
+            ("s_sh", sz["ssm"], sz["s"] + (sz["s"][1] + sz["steps"],)),
+            ("d_tp", sz["tp_arch"], sz["tp"])):
         r0 = recs[0][key]
         toks = {tuple(map(tuple, rec[key]["tokens"].tolist()))
                 for rec in recs}
@@ -7744,14 +7861,28 @@ def phase_sharded_serve(device: str, seed: int, card: str = "",
               "card": card})
         for row in _step_rows(recs, key):
             emit({"phase": "sharded_serve", "call": key, **row})
+            gathered = [b.get("all_gather", 0)
+                        for b in row["collective_bytes_per_rank"]]
+            if key in ("d_sh", "d_tp") and any(gathered):
+                fail(f"sharded_serve ({key}): decode step {row['step']} "
+                     f"all-gathers {gathered} B a rank, not 0: a "
+                     f"'model'-split leaf was gathered")
         shard = [rec[key]["cache_bytes"] for rec in recs]
+        pshard = [rec[key]["param_bytes"] for rec in recs]
         emit({"phase": "sharded_serve", "call": key,
               "cache_shard_bytes_per_rank": shard,
               "cache_bytes_by_specs": r0["cache_bytes_by_specs"],
-              "cache_bytes_whole": r0["cache_bytes_whole"]})
+              "cache_bytes_whole": r0["cache_bytes_whole"],
+              "param_shard_bytes_per_rank": pshard,
+              "param_bytes_by_specs": r0["param_bytes_by_specs"],
+              "peak_allocated_per_rank": [rec[key].get("peak_allocated")
+                                          for rec in recs]})
         if any(b != r0["cache_bytes_by_specs"] for b in shard):
             fail(f"sharded_serve ({key}): cache shard bytes {shard}, the "
                  f"specs divide {r0['cache_bytes_by_specs']}")
+        if any(b != r0["param_bytes_by_specs"] for b in pshard):
+            fail(f"sharded_serve ({key}): param shard bytes {pshard}, the "
+                 f"specs divide {r0['param_bytes_by_specs']}")
         one = [rec[key] for rec in recs if "one_process_tokens" in rec[key]]
         if one:
             want = one[0]["one_process_tokens"]
@@ -7780,7 +7911,11 @@ def phase_sharded_serve(device: str, seed: int, card: str = "",
           "spawn_to_join_s": spawn_s,
           "witness_s_slowest": max(rec["witness_s"] for rec in recs),
           "s_witness_s_slowest": max(rec["s_witness_s"] for rec in recs),
+          "tp_witness_s_slowest": max(rec["tp_witness_s"] for rec in recs),
+          "d_tp_s_slowest": max(rec["d_tp"]["seconds"] for rec in recs),
           "one_process_s_slowest": max(rec["compare_s"] for rec in recs),
+          "tp_one_process_s_slowest": max(rec["tp_compare_s"]
+                                          for rec in recs),
           "card": card})
     if full and secs > SERVE_PHASE_LIMIT_S:
         fail(f"sharded_serve: phase 22 took {secs:.1f} s (limit "
@@ -8308,15 +8443,17 @@ def _dryrun_child(out: str, full: bool):
         # (dr_sv): phase 22's decode cells, (d_sh) and (cp_sh)
         ssz = sharded_serve_sizes(full)
         scfg = _serve_cfg(ssz["arch"], ssz["reduced"])
+        tcfg = _serve_cfg(ssz["tp_arch"], ssz["reduced"])
         record["dr_sv"] = {}
-        for key, size in (("d_sh", "d"), ("cp_sh", "cp")):
+        for key, size, c in (("d_sh", "d", scfg), ("cp_sh", "cp", scfg),
+                             ("d_tp", "tp", tcfg)):
             B, _, C = ssz[size]
             with dryrun.fake_group(SHARDED_WORLD):
                 mesh = init_device_mesh(
                     "cpu", (SHARDED_WORLD // model, model),
                     mesh_dim_names=("data", "model"))
                 trace, meta = dryrun.lower_config(
-                    scfg, ShapeCell("decode", "decode", C, B), mesh)
+                    c, ShapeCell("decode", "decode", C, B), mesh)
             record["dr_sv"][key] = {**dryrun.analyze(trace), **meta}
         record["dr_pod"] = []
         for arch, shape, multi_pod in (DRYRUN_POD_CELLS if full else ()):

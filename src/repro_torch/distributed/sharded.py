@@ -8,17 +8,22 @@ order (major to minor, as JAX splits a dim over a tuple of axes).  The
 step computes on plain local tensors:
 
 * ``gather`` — a leaf's sharded dims all-gathered before use, except the
-  dims held over the mesh dims ``keep`` (the MoE experts over ``model``);
+  dims held over the mesh dims ``keep`` (the MoE experts over ``model``,
+  and the tensor-parallel leaves' ``d_ff``, vocab and heads dims);
 * ``reduce_grad`` — the gradient of that gathered tensor summed over the
   batch axes (the data ranks hold different rows) into this rank's
   shard: a reduce-scatter along a dim split over batch axes only, an
   all-reduce over the batch axes that split no dim of the leaf, and a
   slice (no sum) along a dim split over other axes, whose ranks computed
-  the same gradient;
+  the same gradient (a kept dim is this rank's own: its gradient is
+  summed over the batch axes alone);
 * ``CopyToGroup`` / ``ReduceFromGroup`` — Megatron's conjugate pair over
   a mesh axis: identity forward and all-reduce backward, all-reduce
   forward and identity backward (the MoE layer's replicated inputs and
-  its combine over ``model``);
+  its combine over ``model``; the tensor-parallel products of
+  ``models.common``), each sum taken in fp32 (float64 kept) and rounded
+  once to the operand's dtype, as the reference's compiled all-reduces
+  are promoted;
 * ``LeafMeans`` — Adafactor's row and column means and its RMS over a
   whole leaf, summed over the ranks that split the dims they reduce;
 * ``softmax_combine`` — the sharded serve steps' attention over a cache
@@ -236,6 +241,15 @@ def mesh_sum(t, mesh):
     return AxisComm(mesh, _names(mesh)).sum(t)
 
 
+def _promoted_sum(t, comm):
+    """The sum of every rank's ``t`` over ``comm``, taken in fp32 (float64
+    kept) and rounded once to ``t``'s dtype."""
+    if comm.size == 1:
+        return t
+    wide = t if t.dtype == torch.float64 else t.float()
+    return comm.sum(wide).to(t.dtype)
+
+
 class CopyToGroup(torch.autograd.Function):
     """Identity forward; all-reduce of the gradient over ``comm``'s ranks
     backward (an input every rank of the group uses for its own part)."""
@@ -247,7 +261,7 @@ class CopyToGroup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.comm.sum(g), None
+        return _promoted_sum(g, ctx.comm), None
 
 
 class ReduceFromGroup(torch.autograd.Function):
@@ -256,7 +270,7 @@ class ReduceFromGroup(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, comm):
-        out = comm.sum(x)
+        out = _promoted_sum(x, comm)
         return x.view_as(x) if out is x else out
 
     @staticmethod

@@ -29,11 +29,13 @@ Every collective of ``distributed.sharded`` is counted in
 ``sharded.BYTES`` with the bytes it would move on rank 0.  The reference
 lowers and compiles the same cells with XLA; the numbers here are the
 port's own, reckoned by its code on ``meta`` tensors: no time, rate or
-memory of a device.  The port's decode step gathers the params split
-over ``model`` (and over ``data`` where ``fsdp`` stays) on every step,
-where the reference computes on them in place (no tensor-parallel
-compute, ROADMAP C): its all-gather bytes a step are reported as the
-port counts them.  ``--no-shard-map-moe`` traces a MoE arch with its
+memory of a device.  The port's steps compute tensor-parallel over
+``model`` (the MLPs, the vocab, the heads under ``attn_shard="heads"``;
+``train.step``), so a decode step where ``fsdp`` is dropped gathers no
+weight; the attention under ``pad_heads``/``head_dim``, a hybrid's
+recurrent block and an SSM's projections are still gathered, and the
+``fsdp`` halves where the rules keep them.  ``--no-shard-map-moe``
+traces a MoE arch with its
 experts gathered on every rank (no current mesh), as the reference's
 flag runs its GSPMD dispatch.
 
@@ -45,15 +47,15 @@ counterpart:
 
 * ``flops_per_device``: the products ``FlopCounterMode`` counts on rank
   0 (forward, backward and recompute of a train step; the forward of a
-  serve step).  The port computes a data shard's whole dense part on
-  every ``model`` rank (no tensor-parallel compute, ROADMAP B "Sharded
-  training"), so these are not the reference's partitioned FLOPs
-  (ROADMAP C, Decided differences);
+  serve step): the tensor-parallel parts' products over this rank's
+  columns and rows, the rest whole (ROADMAP C, Decided differences);
 * ``collective_bytes_per_device``: ``all-gather`` (its output),
   ``reduce-scatter`` (its input) and ``all-reduce`` (its buffer; a
   decode step's split-softmax combine is two all-reduces a layer) of
-  one step on rank 0, ``all-to-all`` and ``collective-permute`` 0 (the
-  port makes neither), and ``collective_total``;
+  one step on rank 0 (the tensor-parallel sums and the vocab-parallel
+  loss's among the all-reduces), ``all-to-all`` and
+  ``collective-permute`` 0 (the port makes neither), and
+  ``collective_total``;
 * ``argument_bytes``: rank 0's local params, optimizer state, batch and
   cache;
 * ``params``, ``active_ratio``, ``chips``, ``arch``, ``shape``,

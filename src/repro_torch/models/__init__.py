@@ -27,7 +27,7 @@ import torch
 from ..tree import tree_items, tree_leaves
 from . import attention, encdec, rglru, ssd, transformer, vlm
 from .common import (InitBuilder, ModelConfig, ShapeBuilder, ShardingRules,
-                     SpecBuilder)
+                     SpecBuilder, vocab_nll)
 
 # the families the port runs, by their parameter builders
 _BUILDERS = {
@@ -93,10 +93,10 @@ def active_param_ratio(cfg: ModelConfig) -> float:
 
 def _xent(logits, labels, mask=None):
     """logits (B, S, V) fp32, labels (B, S) int.  Mean cross-entropy over
-    the valid tokens: fp32 ``logsumexp`` minus the gold logit."""
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
+    the valid tokens: fp32 ``logsumexp`` minus the gold logit (under a
+    tensor-parallel vocab, ``common.vocab_nll`` over this rank's columns
+    of the logits and the other ranks')."""
+    nll = vocab_nll(logits, labels)
     if mask is None:
         return nll.mean()
     mask = mask.to(nll.dtype)

@@ -10,29 +10,31 @@ The score and context products accumulate in fp32 (both operands upcast,
 as the reference's ``preferred_element_type=float32``), the softmax runs in
 fp32 and its probabilities are cast to the values' dtype.
 
-On one card there is no tensor parallelism: every ``attn_shard`` mode runs
-this GQA path.  The reference's ``pad_heads`` branch pads the query heads
-and repeats K/V per head, then slices the padding off, which is the same
-function.  No ``scaled_dot_product_attention``: it has no logit softcap
-and masks by another arithmetic.
+Every ``attn_shard`` mode runs this GQA path.  The reference's
+``pad_heads`` branch pads the query heads and repeats K/V per head, then
+slices the padding off, which is the same function.  Under a
+``common.TensorParallel`` with ``heads`` (the sharded steps, where the
+rules split the param heads over ``model`` and both H and KV divide it)
+the weights are this rank's heads: ``qkv_project`` takes its input
+through ``CopyToGroup``, ``attend`` runs on the local query and KV heads
+(a rank's query heads are those of its KV heads), and ``out_project``
+sums the ranks' parts of the product.  No
+``scaled_dot_product_attention``: it has no logit softcap and masks by
+another arithmetic.
 
 Under the sharded serve steps (``train.step``) a cache is this rank's
-shard of one placed over a mesh by ``cache_specs``, and the step sets a
-``CacheShard`` (``local_cache``) that ``cache_shard()`` returns:
-
-* slots split over ``rules.kv_seq`` (split-KV and context-parallel
-  decode): ``cache_write`` writes a position only on the rank that holds
-  its global slot (``pos``, or ``pos % C`` for a rolling buffer of ``C``
-  slots in all, less the rank's offset), and ``attend`` over the local
-  slots takes each rank's partial softmax sums and combines them
-  (``distributed.sharded.softmax_combine``); the masks read the local
-  ``slot_pos``, which holds absolute positions;
-* KV heads split over ``rules.kv_heads`` (``attn_shard="heads"``): a
-  rank writes its own heads, attends with the query heads of its KV
-  heads, and the contexts are all-gathered over the heads' ranks.
-
-Without a ``CacheShard`` (one device, or nothing of the cache split
-beyond the batch) the code path is the one-device one.
+shard of one placed over a mesh by ``cache_specs``.  Its KV heads split
+over ``rules.kv_heads`` are the local heads of the tensor-parallel
+attention above.  Its slots split over ``rules.kv_seq`` (split-KV and
+context-parallel decode): the step sets a ``CacheShard``
+(``local_cache``) that ``cache_shard()`` returns; ``cache_write`` writes
+a position only on the rank that holds its global slot (``pos``, or
+``pos % C`` for a rolling buffer of ``C`` slots in all, less the rank's
+offset), and ``attend`` over the local slots takes each rank's partial
+softmax sums and combines them (``distributed.sharded.softmax_combine``);
+the masks read the local ``slot_pos``, which holds absolute positions.
+Without a ``CacheShard`` (one device, or no slots split) the code path
+is the one-device one.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ import torch
 
 from ..device import resolve_device
 from .common import (P, ModelConfig, ShardingRules, in_dtype, rope, softcap,
-                     wide)
+                     tp_copy, tp_sum, wide)
 
 _MASKED = -1e30
 
@@ -52,7 +54,9 @@ _MASKED = -1e30
 def qkv_project(x, wq, wk, wv, cfg: ModelConfig, rules: ShardingRules,
                 positions, angles=None):
     """x (B,S,D) -> q (B,S,H,hd), k/v (B,S,KV,hd), RoPE applied
-    (``angles``: ``common.rope_angles`` of ``positions``, if made)."""
+    (``angles``: ``common.rope_angles`` of ``positions``, if made); this
+    rank's heads under a tensor-parallel ``heads``."""
+    x = tp_copy(x, "heads")
     q = torch.einsum("bsd,dhk->bshk", x, wq)
     k = torch.einsum("bsd,dhk->bshk", x, wk)
     v = torch.einsum("bsd,dhk->bshk", x, wv)
@@ -69,11 +73,9 @@ def _pick_chunk(sq: int, want: int) -> int:
 
 class CacheShard(NamedTuple):
     """This rank's part of a cache placed over a mesh: ``seq``, the ranks
-    that split its slots (``rules.kv_seq``), and ``heads``, those that
-    split its KV heads (``rules.kv_heads``), each a
-    ``distributed.sharded.AxisComm`` or None."""
-    seq: Any = None
-    heads: Any = None
+    that split its slots (``rules.kv_seq``), a
+    ``distributed.sharded.AxisComm``."""
+    seq: Any
 
 
 _SHARD: "contextvars.ContextVar" = contextvars.ContextVar(
@@ -82,19 +84,16 @@ _SHARD: "contextvars.ContextVar" = contextvars.ContextVar(
 
 def shard_of(mesh, rules: ShardingRules):
     """The ``CacheShard`` of a cache placed by ``cache_specs(rules)`` on
-    ``mesh``, or None when it splits nothing but the batch."""
+    ``mesh``, or None when its slots are not split."""
     from ..distributed.sharded import AxisComm
 
-    def comm(entry):
-        axes = () if entry is None else (
-            (entry,) if isinstance(entry, str) else tuple(entry))
-        if not axes:
-            return None
-        c = AxisComm(mesh, axes)
-        return c if c.size > 1 else None
-    shard = CacheShard(seq=comm(rules.kv_seq), heads=comm(rules.kv_heads))
-    return shard if shard.seq is not None or shard.heads is not None \
-        else None
+    entry = rules.kv_seq
+    axes = () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+    if not axes:
+        return None
+    comm = AxisComm(mesh, axes)
+    return CacheShard(seq=comm) if comm.size > 1 else None
 
 
 @contextlib.contextmanager
@@ -113,16 +112,13 @@ def cache_shard():
     return _SHARD.get()
 
 
-def local_slots(t, shard, seq_dim: int, heads_dim: int):
-    """This rank's block of the whole K/V ``t``: along ``seq_dim`` over
-    ``shard.seq``'s ranks, along ``heads_dim`` over ``shard.heads``'."""
+def local_slots(t, shard, seq_dim: int):
+    """This rank's block of the K/V ``t`` along ``seq_dim`` over
+    ``shard.seq``'s ranks."""
     if shard is None:
         return t
-    for dim, comm in ((seq_dim, shard.seq), (heads_dim, shard.heads)):
-        if comm is not None:
-            per = t.shape[dim] // comm.size
-            t = t.narrow(dim, comm.rank * per, per)
-    return t
+    per = t.shape[seq_dim] // shard.seq.size
+    return t.narrow(seq_dim, shard.seq.rank * per, per)
 
 
 def local_positions(n: int, shard, device):
@@ -141,19 +137,11 @@ def attend(q, k, v, q_pos, kv_pos, cfg: ModelConfig, rules: ShardingRules,
     q (B,Sq,H,hd); k,v (B,Skv,KV,hd); q_pos (Sq,), kv_pos (Skv,) absolute
     positions (-1 marks empty cache slots).  No queries (an encoder fed
     zero frames) give no context; no keys give a zero context.  With a
-    ``CacheShard`` ``shard``, k, v and kv_pos are this rank's shard of a
-    cache (see the module's docstring) and q is whole."""
+    ``CacheShard`` ``shard``, k, v and kv_pos are this rank's slots of a
+    cache (see the module's docstring)."""
     B, Sq, H, hd = q.shape
     if Sq == 0:
         return q.new_zeros(q.shape)
-    if shard is not None and shard.heads is not None:
-        heads = shard.heads
-        g = H // (k.shape[2] * heads.size)
-        h0 = heads.rank * k.shape[2] * g
-        ctx = attend(q[:, :, h0:h0 + k.shape[2] * g], k, v, q_pos, kv_pos,
-                     cfg, rules, window=window, is_causal=is_causal,
-                     q_chunk=q_chunk, shard=shard._replace(heads=None))
-        return heads.gather(ctx.movedim(2, 0)).movedim(0, 2)
     seq = None if shard is None else shard.seq
     if seq is not None:
         from ..distributed.sharded import softmax_combine
@@ -190,7 +178,9 @@ def attend(q, k, v, q_pos, kv_pos, cfg: ModelConfig, rules: ShardingRules,
 
 
 def out_project(ctx, wo, rules: ShardingRules):
-    return torch.einsum("bshk,hkd->bsd", ctx, wo)
+    """The context's heads through ``wo``, the ranks' parts summed under a
+    tensor-parallel ``heads``."""
+    return tp_sum(torch.einsum("bshk,hkd->bsd", ctx, wo), "heads")
 
 
 # ---------------------------------------------------------------------------
@@ -243,15 +233,10 @@ def cache_write(layer_k, layer_v, layer_pos, k_new, v_new, positions,
     Rolling buffers (window > 0): if more entries than the capacity arrive
     at once (windowed prefill), only the last C survive — they are sliced
     before the write so slot indices never repeat.  With a ``CacheShard``
-    ``shard`` the layer is this rank's shard: its own KV heads of the
-    whole ``k_new``/``v_new`` are written, and of the positions those
-    whose global slot it holds (a one-token write keeps the slot's old
-    entry on the other ranks, with no host read)."""
-    seq, heads = (None, None) if shard is None else (shard.seq, shard.heads)
-    if heads is not None:
-        h0 = heads.rank * layer_k.shape[2]
-        k_new = k_new[:, :, h0:h0 + layer_k.shape[2]]
-        v_new = v_new[:, :, h0:h0 + layer_k.shape[2]]
+    ``shard`` the layer holds this rank's slots: of the positions it
+    writes those whose global slot it holds (a one-token write keeps the
+    slot's old entry on the other ranks, with no host read)."""
+    seq = None if shard is None else shard.seq
     C = layer_k.shape[1]
     whole = C if seq is None else C * seq.size
     S = k_new.shape[1]

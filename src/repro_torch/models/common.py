@@ -7,12 +7,37 @@ seeded with an int), ``ShapeBuilder`` makes ``meta`` tensors that allocate
 nothing, ``SpecBuilder`` gives each weight's ``PartitionSpec`` under a
 ``ShardingRules`` (logical axis -> mesh axis), as the reference's does.
 The specs place *storage*: ``launch.sharding.named`` turns them into
-DTensor placements over a ``DeviceMesh``, and the sharded training step
-(``train.sharded``) gathers a weight before it computes.  Activations are
-not placed: the reference's ``shard`` (a ``with_sharding_constraint``) has
-no counterpart, and the model code computes on each rank's local tensors.
+DTensor placements over a ``DeviceMesh``, and the sharded steps
+(``train.step``) gather a weight's other split dims before they compute.
 ``set_current_mesh`` / ``current_mesh`` carry the mesh the MoE layer's
 expert-parallel branch reads, as in the reference.
+
+Tensor parallelism over ``model`` (the counterpart of the reference's
+``shard`` constraints, under which GSPMD partitions the products): the
+sharded steps set a ``TensorParallel`` (``tensor_parallel``) when the
+params' mesh has a ``model`` axis of more than one rank, naming the parts
+whose leaves they keep split over it, and the code below computes on
+this rank's columns and rows, Megatron's way (``CopyToGroup`` on an input
+every rank uses, ``ReduceFromGroup`` on the partial sums):
+
+* ``mlp``: ``glu_mlp`` / ``plain_mlp`` over this rank's ``d_ff`` columns
+  of ``w_gate``/``w_up`` and rows of ``w_down``;
+* ``vocab``: ``embed_tokens`` looks up the ids in this rank's rows of the
+  table (the others zero) and sums over the ranks; ``lm_head`` gives this
+  rank's vocab columns of the logits; ``vocab_nll`` is the cross-entropy
+  over the split vocab and ``vocab_argmax`` the first global index of the
+  row's maximum;
+* ``heads``: ``attention`` projects, attends and caches this rank's
+  heads, and ``out_project`` sums the ranks' parts.
+
+The reference's compiled sharded step (XLA on the CPU, a (2, 2) mesh of
+Auto axes, ``lowered.compile().as_text()``) promotes these all-reduces to
+fp32 (``clone_promoted``): each rank's product is rounded to bf16, the
+parts are summed in fp32 and the sum rounded to bf16 once; the
+embedding's sum and the gradients' sums over ``model`` likewise.  The
+pair sums so (``wide``, then the operand's dtype), but for the head
+input's gradient (``_VocabHead``); a float64 config stays float64.  With no ``TensorParallel`` set (one device, a ``model`` axis of
+one rank, no ``model`` axis) every function runs the one-device code.
 
 The numerics follow the reference's compiled graphs op for op: bf16
 products stay bf16, ``rms_norm`` and RoPE run in fp32 and cast back, a
@@ -25,12 +50,13 @@ parted by 4e-3-1.3e-2).
 """
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import dataclasses
 import functools
 import math
 import types
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -166,6 +192,58 @@ def set_current_mesh(mesh):
 
 def current_mesh():
     return _CURRENT_MESH.get()
+
+
+class TensorParallel(NamedTuple):
+    """The ``model`` ranks the sharded step computes over (``comm``, a
+    ``distributed.sharded.AxisComm``) and the parts whose leaves it keeps
+    split over them."""
+    comm: Any
+    mlp: bool = False
+    vocab: bool = False
+    heads: bool = False
+
+
+_TP: "contextvars.ContextVar" = contextvars.ContextVar(
+    "repro_torch_tensor_parallel", default=None)
+
+
+@contextlib.contextmanager
+def tensor_parallel(tp: Optional[TensorParallel]):
+    """Within: the model code computes ``tp``'s parts tensor-parallel
+    (None: the one-device code)."""
+    token = _TP.set(tp)
+    try:
+        yield
+    finally:
+        _TP.reset(token)
+
+
+def tp_comm(part: str):
+    """The ``model`` ranks' ``AxisComm`` when ``part`` (``"mlp"``,
+    ``"vocab"`` or ``"heads"``) is computed tensor-parallel, else None."""
+    tp = _TP.get()
+    return tp.comm if tp is not None and getattr(tp, part) else None
+
+
+def tp_copy(x, part: str):
+    """``x``, an input each rank uses for its own part of ``part``: its
+    gradient summed over the ranks (``CopyToGroup``)."""
+    comm = tp_comm(part)
+    if comm is None:
+        return x
+    from ..distributed.sharded import CopyToGroup
+    return CopyToGroup.apply(x, comm)
+
+
+def tp_sum(y, part: str):
+    """``y``, this rank's part of a sum over the ranks of ``part``, summed
+    (``ReduceFromGroup``)."""
+    comm = tp_comm(part)
+    if comm is None:
+        return y
+    from ..distributed.sharded import ReduceFromGroup
+    return ReduceFromGroup.apply(y, comm)
 
 
 # ---------------------------------------------------------------------------
@@ -338,14 +416,17 @@ def _act(name: str):
 
 
 def glu_mlp(x, w_gate, w_up, w_down, act_name: str, rules: ShardingRules):
-    """SwiGLU / GeGLU."""
+    """SwiGLU / GeGLU (column -> row split over ``model`` under a
+    ``TensorParallel``)."""
+    x = tp_copy(x, "mlp")
     h = _act(act_name)(x @ w_gate) * (x @ w_up)
-    return h @ w_down
+    return tp_sum(h @ w_down, "mlp")
 
 
 def plain_mlp(x, w_up, w_down, act_name: str, rules: ShardingRules):
     """Classic 2-matrix MLP (starcoder2)."""
-    return _act(act_name)(x @ w_up) @ w_down
+    x = tp_copy(x, "mlp")
+    return tp_sum(_act(act_name)(x @ w_up) @ w_down, "mlp")
 
 
 def softcap(x, cap: float):
@@ -360,8 +441,18 @@ def embed_tokens(tokens, emb, rules: ShardingRules, scale: bool = False,
     fail in its layer scan, where the port runs it in fp32).  A lookup
     through ``F.embedding``, whose backward on the card sums each row's
     gradients in a fixed (sorted) order, so a training step repeats bit
-    for bit."""
-    x = torch.nn.functional.embedding(tokens.long(), emb)
+    for bit.  Under a ``TensorParallel`` vocab ``emb`` is this rank's
+    rows: the ids outside them look up zeros, and the ranks' rows are
+    summed (exact: one of them is not zero)."""
+    comm = tp_comm("vocab")
+    ids = tokens.long()
+    if comm is not None:
+        ids = ids - comm.rank * emb.shape[0]
+        inside = (ids >= 0) & (ids < emb.shape[0])
+        ids = torch.where(inside, ids, 0)
+    x = torch.nn.functional.embedding(ids, emb)
+    if comm is not None:
+        x = tp_sum(torch.where(inside[..., None], x, 0), "vocab")
     if scale:
         x = x * in_dtype(math.sqrt(emb.shape[1]), x.dtype)
     return x.to(dtype)
@@ -369,9 +460,99 @@ def embed_tokens(tokens, emb, rules: ShardingRules, scale: bool = False,
 
 def lm_head(x, emb_or_head, cfg: ModelConfig, rules: ShardingRules):
     """fp32 logits (..., vocab): the product in the operands' dtype,
-    upcast to fp32 (float64 kept in a float64 config), then the softcap."""
-    logits = wide(x @ emb_or_head)
+    upcast to fp32 (float64 kept in a float64 config), then the softcap.
+    Under a ``TensorParallel`` vocab, this rank's vocab columns
+    (``_VocabHead``)."""
+    comm = tp_comm("vocab")
+    if comm is None:
+        logits = wide(x @ emb_or_head)
+    else:
+        logits = wide(_VocabHead.apply(x, emb_or_head, comm))
     return softcap(logits, cfg.logit_softcap)
+
+
+class _VocabHead(torch.autograd.Function):
+    """``x @ w``, ``w`` this rank's vocab columns of the head, ``x`` an
+    input every rank of ``comm`` uses (``CopyToGroup``'s place).  The
+    backward sums the ranks' parts of ``x``'s gradient from fp32 (float64
+    kept) and rounds once, as the one-device product's fp32 accumulation
+    rounds it: rounding each rank's part first (the reference's compiled
+    step does, its all-reduce promoted) moved the signs of gradients near
+    0 (a tenth to a half of a percent of the leaf's largest) against the
+    reference's own partition in the norms of reduced granite-moe."""
+
+    @staticmethod
+    def forward(ctx, x, w, comm):
+        ctx.save_for_backward(x, w)
+        ctx.comm = comm
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = ctx.comm.sum(wide(g) @ wide(w).T).to(x.dtype)
+        gw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return gx, gw, None
+
+
+class _VocabNLL(torch.autograd.Function):
+    """-log softmax(logits)[label] over a vocab split over ``comm``'s
+    ranks, ``logits`` (..., V / n) this rank's columns: the max and the
+    sums of exponentials all-reduced, the gold logit picked where it lies
+    and summed with them; backward softmax minus one-hot on the local
+    columns."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, comm):
+        V = logits.shape[-1]
+        m = comm.max(logits.amax(dim=-1))
+        e = torch.exp(logits - m[..., None])
+        ids = labels.long() - comm.rank * V
+        inside = (ids >= 0) & (ids < V)
+        ids = torch.where(inside, ids, 0)
+        gold = torch.gather(logits, -1, ids[..., None])[..., 0]
+        sg = comm.sum(torch.stack([e.sum(dim=-1),
+                                   torch.where(inside, gold, 0)], dim=-1))
+        lse = m + torch.log(sg[..., 0])
+        ctx.save_for_backward(logits, lse, ids, inside)
+        return lse - sg[..., 1]
+
+    @staticmethod
+    def backward(ctx, g):
+        # logsumexp's gradient as torch computes it, exp(x - lse)
+        logits, lse, ids, inside = ctx.saved_tensors
+        grad = torch.exp(logits - lse[..., None])
+        grad.scatter_add_(-1, ids[..., None],
+                          -inside[..., None].to(grad.dtype))
+        return grad * g[..., None], None, None
+
+
+def vocab_nll(logits, labels):
+    """The per-token -log softmax of the gold label: ``logsumexp`` minus
+    the gold logit, over this rank's vocab columns and the others' under a
+    ``TensorParallel`` vocab."""
+    comm = tp_comm("vocab")
+    if comm is not None:
+        return _VocabNLL.apply(logits, labels, comm)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return lse - gold
+
+
+def vocab_argmax(logits, comm=None):
+    """The argmax over the last dim of ``logits`` as int32, ``logits`` this
+    rank's columns of a vocab split over ``comm``'s ranks (None: whole):
+    the ranks' maxima all-reduced, then the least global index at which a
+    rank holds that maximum, ``torch.argmax``'s first index on the whole
+    row."""
+    if comm is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    V = logits.shape[-1]
+    local = logits.amax(dim=-1)
+    top = comm.max(local)
+    idx = torch.argmax(logits, dim=-1) + comm.rank * V
+    idx = torch.where(local == top, idx, torch.iinfo(torch.int64).max)
+    return (-comm.max(-idx)).to(torch.int32)
 
 
 def unbind_layers(tree, n: int):
@@ -424,16 +605,17 @@ def maybe_remat(fn, cfg: ModelConfig):
     def run(*args):
         kw = {} if policy is None else {"context_fn": functools.partial(
             create_selective_checkpoint_contexts, policy)}
-        mesh = current_mesh()
+        mesh, tp = current_mesh(), _TP.get()
 
         def again(*a):
             # the recompute runs in the backward pass, on the autograd
             # engine's thread on the card, outside this context: it sees
-            # the mesh the forward saw
-            token = _CURRENT_MESH.set(mesh)
+            # the mesh and the tensor parallelism the forward saw
+            token, tp_token = _CURRENT_MESH.set(mesh), _TP.set(tp)
             try:
                 return fn(*a)
             finally:
+                _TP.reset(tp_token)
                 _CURRENT_MESH.reset(token)
         return checkpoint(again, *args, use_reentrant=False, **kw)
     return run

@@ -37,7 +37,7 @@ from ..device import resolve_device
 from . import attention as attn
 from .common import (P, Builder, ModelConfig, ShardingRules, embed_tokens,
                      glu_mlp, lm_head, maybe_remat, rms_norm, rope_angles,
-                     unbind_layers, wide)
+                     tp_copy, unbind_layers, wide)
 
 
 class EncDecCache(NamedTuple):
@@ -145,6 +145,8 @@ def _decode_stack(params, cfg: ModelConfig, rules: ShardingRules, x,
     shard = attn.cache_shard() if use_cache else None
     if enc_out is not None:
         enc_pos = _positions(enc_out.shape[1], x.device)
+        # every layer's cross K/V of this rank's heads read it
+        enc_out = tp_copy(enc_out, "heads")
     else:
         enc_pos = attn.local_positions(cache.cross_k.shape[2], shard,
                                        x.device)
@@ -164,7 +166,7 @@ def _decode_stack(params, cfg: ModelConfig, rules: ShardingRules, x,
             ctx = attn.attend(q, k, v, positions, positions, cfg, rules)
         x, s = _residual(x, attn.out_project(ctx, lp.wo, rules))
 
-        hx = rms_norm(s, lp.lnx).to(x.dtype)
+        hx = tp_copy(rms_norm(s, lp.lnx).to(x.dtype), "heads")
         qx = torch.einsum("bsd,dhk->bshk", hx, lp.xq)
         if use_cache:
             xk, xv = cache.cross_k[l], cache.cross_v[l]
@@ -216,8 +218,8 @@ def prefill(params, cfg: ModelConfig, rules: ShardingRules, frames,
            for wk, wv in zip(dec["xk"].unbind(0), dec["xv"].unbind(0))]
     shard = attn.cache_shard()
     cache = cache._replace(**{
-        name: attn.local_slots(torch.stack([t[i] for t in kvs]), shard, 2,
-                               3).to(getattr(cache, name).dtype)
+        name: attn.local_slots(torch.stack([t[i] for t in kvs]), shard,
+                               2).to(getattr(cache, name).dtype)
         for i, name in enumerate(("cross_k", "cross_v"))})
     del kvs
     positions = _positions(dec_tokens.shape[1], dec_tokens.device)

@@ -14,11 +14,15 @@ host read.
 When the params are DTensors (placed by ``launch.sharding.named`` over a
 ``DeviceMesh``, the state likewise by ``optimizer.state_specs``), the step
 is the reference's sharded step, run on each rank's local tensors
-(``_sharded_step``): every leaf gathered whole at the start (the MoE
-experts kept split over ``model``), the loss of this rank's rows of the
-batch (its block over the rules' batch axes), the gradients summed over
-the batch axes into each leaf's shard (``distributed.sharded``), and the
-optimizer on the shards.  Every data shard holds the same number of
+(``_sharded_step``): every leaf gathered whole at the start but those
+kept split over ``model`` (``_kept``: the MoE experts, and when the mesh
+has a ``model`` axis of more than one rank the tensor-parallel leaves,
+computed on in place under ``common.tensor_parallel``: the MLPs' ``d_ff``,
+the vocab of ``embed`` and ``head``, and the attention heads where the
+rules split them), the loss of this rank's rows of the batch (its block
+over the rules' batch axes), the gradients summed over the batch axes
+into each leaf's shard (``distributed.sharded``), and the optimizer on
+the shards.  Every data shard holds the same number of
 tokens, so the loss, the mean of the shards' token means, is the global
 token mean; ``grad_norm`` is global.  The mesh comes from the leaves'
 placements; a MoE model reads it through ``common.current_mesh()``, which
@@ -33,19 +37,22 @@ cache)``.  When the params are DTensors, the cache's leaves are too
 same rules; a cache placed otherwise raises: ``launch.sharding.move``
 re-places it), and the step is the reference's sharded serve step on
 each rank's local tensors (``sharded_serve``): the params gathered as
-the train step gathers them, this rank's rows of the tokens (and
-patches, frames), and the one-device function on the local cache inside
-``attention.local_cache``, which computes on the cache's slots and KV
+the train step gathers them (the tensor-parallel leaves kept split),
+this rank's rows of the tokens (and patches, frames), and the one-device
+function on the local cache inside ``attention.local_cache`` and
+``common.tensor_parallel``, which computes on the cache's slots and KV
 heads where they lie (split-KV and context-parallel decode, ``kv_seq``;
-head-split caches, ``kv_heads``).  The cache leaves split over other
-mesh axes, an SSM's ``state`` (over ``model``) and a hybrid model's
-``state`` and ``conv`` rows (over ``d_ff``), are gathered whole for the
-step and their shards written back; every other leaf is written in
-place.  The tokens come back as this rank's rows of a DTensor placed
+head-split caches, ``kv_heads``, are the tensor-parallel heads).  The
+cache leaves split over other mesh axes, an SSM's ``state`` (over
+``model``) and a hybrid model's ``state`` and ``conv`` rows (over
+``d_ff``), are gathered whole for the step and their shards written
+back; every other leaf is written in place.  The tokens come back as this rank's rows of a DTensor placed
 ``P(batch)``, which the next decode step takes as they are (``[:, None]``
 of them; the prefill's, placed by the prefill rules, move with the cache
-to the decode rules).  Serving needs no gradient: the serve steps run
-under ``torch.no_grad``.
+to the decode rules): under a tensor-parallel vocab each rank takes the
+argmax of its columns and the ranks the first global index of the row's
+maximum (``common.vocab_argmax``: two all-reduces, no all-gather).
+Serving needs no gradient: the serve steps run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -55,7 +62,8 @@ import torch
 
 from .. import models as M
 from ..device import is_dtensor
-from ..models.common import ModelConfig, ShardingRules, current_mesh
+from ..models.common import (ModelConfig, ShardingRules, TensorParallel,
+                             current_mesh, tensor_parallel, vocab_argmax)
 from ..tree import (cache_build, cache_items, tree_items, tree_leaves,
                     tree_map)
 from .optimizer import cosine_schedule, get_optimizer
@@ -130,14 +138,66 @@ def make_train_step(cfg: ModelConfig, rules: ShardingRules, optimizer,
 # the MoE experts' leaves: their dim ndim - 3 (E) stays split over
 # ``model`` in the sharded step
 _EXPERT_LEAVES = ("e_gate", "e_up", "e_down")
+# the tensor-parallel leaves by part: name -> the dim (from the end) split
+# over ``model`` (``d_ff``, vocab, heads)
+_TP_LEAVES = {
+    "mlp": {"w_gate": -1, "w_up": -1, "w_down": -2, "r_gate": -1,
+            "r_up": -1, "r_down": -2, "m_gate": -1, "m_up": -1,
+            "m_down": -2},
+    "vocab": {"embed": -2, "head": -1},
+    "heads": {"wq": -2, "wk": -2, "wv": -2, "wo": -3, "xq": -2, "xk": -2,
+              "xv": -2, "xo": -3},
+}
 
 
-def _kept(path: str, leaf):
-    """The mesh dims of ``leaf`` that the sharded step keeps split: those
-    of an expert leaf's expert dim, while a mesh is current (else every
-    dim is gathered)."""
-    if current_mesh() is None or not path.endswith(
-            tuple(f"[{n!r}]" for n in _EXPERT_LEAVES)):
+def _name(path: str) -> str:
+    """The leaf's own key of the tree path ``path`` (``...['name']``)."""
+    return path[path.rindex("[") + 2:-2]
+
+
+def _model_dims(leaf, dim: int):
+    """The mesh dims that split ``leaf``'s dim ``dim`` when that is the
+    ``model`` axis alone, else ()."""
+    from ..distributed.sharded import split_dims
+
+    names = tuple(leaf.device_mesh.mesh_dim_names or ())
+    m = split_dims(leaf.placements).get(dim % leaf.ndim, [])
+    return tuple(m) if [names[i] for i in m] == ["model"] else ()
+
+
+def tensor_parallel_of(items, mesh):
+    """The ``TensorParallel`` of the sharded step on the param leaves
+    ``items`` (path, DTensor) over ``mesh``, or None: a part is computed
+    tensor-parallel when the mesh's ``model`` axis has more than one rank
+    and every leaf of the part is split over it alone along its
+    tensor-parallel dim (the heads are split so only under
+    ``attn_shard="heads"``, where H and KV divide the axis, or the
+    placement raises)."""
+    from ..distributed.sharded import AxisComm
+
+    names = tuple(mesh.mesh_dim_names or ())
+    if "model" not in names or int(mesh.size(names.index("model"))) == 1:
+        return None
+    on = {}
+    for part, dims in _TP_LEAVES.items():
+        leaves = [(leaf, dims[_name(p)]) for p, leaf in items
+                  if _name(p) in dims]
+        on[part] = bool(leaves) and all(_model_dims(l, d) for l, d in leaves)
+    if not any(on.values()):
+        return None
+    return TensorParallel(AxisComm(mesh, ("model",)), **on)
+
+
+def _kept(path: str, leaf, tp: Optional[TensorParallel]):
+    """The mesh dims of ``leaf`` that the sharded step keeps split: the
+    ``model`` dim of a leaf of a part ``tp`` computes tensor-parallel, and
+    an expert leaf's expert dim while a mesh is current (else every dim
+    is gathered)."""
+    name = _name(path)
+    for part, dims in _TP_LEAVES.items():
+        if name in dims and tp is not None and getattr(tp, part):
+            return _model_dims(leaf, dims[name])
+    if current_mesh() is None or name not in _EXPERT_LEAVES:
         return ()
     edim = leaf.ndim - 3
     return tuple(i for i, pl in enumerate(leaf.placements)
@@ -174,13 +234,13 @@ def _mesh_of(items):
     return mesh
 
 
-def _keep(items, mesh):
+def _keep(items, mesh, tp):
     """path -> the mesh dims each param leaf keeps split (``_kept``); a
     current mesh other than the params' raises."""
     if current_mesh() is not None and current_mesh() != mesh:
         raise ValueError("the current mesh (models.common.set_current_mesh) "
                          "is not the params' mesh")
-    return {path: _kept(path, leaf) for path, leaf in items}
+    return {path: _kept(path, leaf, tp) for path, leaf in items}
 
 
 def sharded_value_and_grad(loss_fn, params, batch, rules: ShardingRules,
@@ -200,7 +260,8 @@ def sharded_value_and_grad(loss_fn, params, batch, rules: ShardingRules,
 
     items = tree_items(params)
     mesh = _mesh_of(items)
-    keep = _keep(items, mesh)
+    tp = tensor_parallel_of(items, mesh)
+    keep = _keep(items, mesh, tp)
     axes = _batch_axes(rules)
     comm = AxisComm(mesh, axes) if axes else None
     n_data = comm.size if comm is not None else 1
@@ -216,8 +277,9 @@ def sharded_value_and_grad(loss_fn, params, batch, rules: ShardingRules,
     acc, loss = None, 0.0
     for i in range(accum_steps):
         micro = {k: v[i * mb:(i + 1) * mb] for k, v in local.items()}
-        l = loss_fn(tree, micro)
-        g = torch.autograd.grad(l, list(xs.values()))
+        with tensor_parallel(tp):
+            l = loss_fn(tree, micro)
+            g = torch.autograd.grad(l, list(xs.values()))
         loss = loss + l.detach()
         if accum_steps == 1:
             acc = list(g)
@@ -320,15 +382,19 @@ def sharded_serve(cfg: ModelConfig, rules: ShardingRules, serve_fn, params,
     serve step (see the module's docstring): ``params`` and ``cache``
     trees of DTensors on one mesh, the cache placed by
     ``models.cache_specs(cfg, rules)``, ``inputs`` a dict of tensors whole
-    on every rank or DTensors placed over the rules' batch axes.  The cache's leaves are
-    written in place and keep their placements."""
+    on every rank or DTensors placed over the rules' batch axes.  Under a
+    tensor-parallel vocab (``tensor_parallel_of``) the logits are this
+    rank's rows and its vocab columns.  The cache's leaves are written in
+    place and keep their placements.  A cache whose KV heads are split
+    while the params' heads are not raises."""
     from ..distributed.sharded import AxisComm, _chunk, gather, split_dims
     from ..launch.sharding import placements
     from ..models.attention import local_cache, shard_of
 
     items = tree_items(params)
     mesh = _mesh_of(items)
-    keep = _keep(items, mesh)
+    tp = tensor_parallel_of(items, mesh)
+    keep = _keep(items, mesh, tp)
     axes = _batch_axes(rules)
     comm = AxisComm(mesh, axes) if axes else None
     names = tuple(mesh.mesh_dim_names)
@@ -350,6 +416,11 @@ def sharded_serve(cfg: ModelConfig, rules: ShardingRules, serve_fn, params,
                 f"(launch.sharding.move)")
         beyond = [d for d, m in split_dims(leaf.placements).items()
                   if not bdims.issuperset(m)]
+        if (path.rsplit(".", 1)[-1] in ("k", "v", "cross_k", "cross_v")
+                and leaf.ndim - 2 in beyond
+                and (tp is None or not tp.heads)):
+            raise ValueError(f"cache leaf {path!r} splits its KV heads, the "
+                             f"params do not split theirs over 'model'")
         if beyond and path.rsplit(".", 1)[-1] not in _ATTENTION_LEAVES:
             whole.add(path)
             local[path] = gather(leaf, tuple(sorted(bdims)))
@@ -359,7 +430,7 @@ def sharded_serve(cfg: ModelConfig, rules: ShardingRules, serve_fn, params,
         ps = _unflatten(params, {path: gather(leaf, keep[path])
                                  for path, leaf in items})
         rows = {k: _serve_rows(k, v, comm, bdims) for k, v in inputs.items()}
-        with local_cache(shard_of(mesh, rules)):
+        with local_cache(shard_of(mesh, rules)), tensor_parallel(tp):
             logits, out = serve_fn(ps, rows, cache_build(cache, local))
         for (path, leaf), (_, new) in zip(citems, cache_items(out)):
             if new is local[path] and path not in whole:
@@ -373,14 +444,18 @@ def sharded_serve(cfg: ModelConfig, rules: ShardingRules, serve_fn, params,
 
 
 def _next_tokens(logits, rules: ShardingRules, params):
-    """The argmax of the last position's logits (this rank's rows) as a
-    DTensor placed ``P(batch)`` on the params' mesh."""
+    """The argmax of the last position's logits (this rank's rows; its
+    vocab columns under a tensor-parallel vocab, of which the ranks take
+    the first global index of the maximum) as a DTensor placed
+    ``P(batch)`` on the params' mesh."""
     from torch.distributed.tensor import DTensor
     from ..launch.sharding import placements
     from ..models.common import P
 
-    tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
     mesh = tree_leaves(params)[0].device_mesh
+    tp = tensor_parallel_of(tree_items(params), mesh)
+    tok = vocab_argmax(logits[:, -1, :],
+                       tp.comm if tp is not None and tp.vocab else None)
     pl = placements(mesh, P(rules.resolve("batch")))
     n = 1
     for i, p in enumerate(pl):

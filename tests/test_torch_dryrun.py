@@ -15,7 +15,9 @@
   group), runs reduced granite-moe, internlm2 and mamba2 train steps on a
   (2, 2) fake mesh, reduced internlm2 serve steps there (a batch-split
   prefill, a split-KV decode under ``pad_heads`` and a context-parallel
-  decode), granite-moe's full-width ``train_4k`` cell on (16, 16),
+  decode), internlm2-1.8b's full-width split-KV decode of batch 8 over
+  2,048 slots on (2, 2) (the card's (d_tp) cell, its bytes reckoned from
+  the config), granite-moe's full-width ``train_4k`` cell on (16, 16),
   gemma-2b's full-width ``decode_32k`` cell on (16, 16), the paper cell
   on (16, 16) (exact GMM) and (2, 16, 16) (b = 8), an invalid cell,
   granite-moe with its experts gathered (``shard_map_moe=False``) and a
@@ -101,6 +103,13 @@ _TRACES = textwrap.dedent("""
             rec[name] = record(*dryrun.lower_config(cfg, serve,
                                                     small_mesh((2, 2))))
         rec[name]["after"] = after()
+    # (d_tp): internlm2-1.8b at full width, split-KV decode of batch 8 over
+    # 2,048 slots on (2, 2)
+    with dryrun.fake_group(4):
+        rec["d_tp"] = record(*dryrun.lower_config(
+            get_config("internlm2-1.8b"), ShapeCell("decode", "decode", 2048,
+                                                    8), small_mesh((2, 2))))
+    rec["d_tp"]["after"] = after()
     with dryrun.fake_group(256):
         rec["full_decode"] = record(*dryrun.lower_cell(
             "gemma-2b", "decode_32k", make_production_mesh()))
@@ -318,7 +327,7 @@ def _check_serve(info):
     assert np.isfinite(info["flops_per_device"])
     assert info["flops_per_device"] > 0
     coll = info["collective_bytes_per_device"]
-    assert coll["all-gather"] > 0 and coll["reduce-scatter"] == 0, coll
+    assert coll["reduce-scatter"] == 0, coll
     assert coll["all-to-all"] == coll["collective-permute"] == 0
     assert info["collective_total"] == sum(coll.values())
     assert set(info["argument_bytes_by_tree"]) == {"params", "batch",
@@ -330,14 +339,60 @@ def _check_serve(info):
 @pytest.mark.parametrize("cell,combine", [
     ("prefill", False), ("split_kv", True), ("context_parallel", True)])
 def test_reduced_serve_trace_on_a_fake_2x2_mesh(traced, cell, combine):
-    """A serve cell traces its sharded step: the params gathered, and a
-    decode over a cache split over ``kv_seq`` all-reduces its softmax
-    partials (max, then the sums)."""
+    """A serve cell traces its sharded step: the tensor-parallel products
+    all-reduce in every cell, and a decode over a cache split over
+    ``kv_seq`` (``combine``) all-reduces its softmax partials too (max,
+    then the sums); the params' ``fsdp`` dim is gathered where the rules
+    keep it (the prefill, the context-parallel decode of batch 2), and the
+    split-KV decode (``fsdp=None``, every ``model``-split leaf kept)
+    gathers nothing."""
     info = traced("traces")[cell]
     _check_serve(info)
-    assert (info["collective_bytes_per_device"]["all-reduce"] > 0) == combine
+    coll = info["collective_bytes_per_device"]
+    assert coll["all-reduce"] > 0, coll
+    assert (coll["all-gather"] == 0) == (info["rules"]["fsdp"] is None)
+    assert (coll["all-gather"] == 0) == (cell == "split_kv"), coll
+    assert (info["rules"]["kv_seq"] is not None) == combine
     assert info["rules"]["kv_seq"] == {"prefill": None, "split_kv": "model",
                                        "context_parallel": "data"}[cell]
+
+
+def test_tensor_parallel_decode_cell_to_the_byte(traced):
+    """(d_tp), internlm2-1.8b's split-KV decode of batch 8 over 2,048 slots
+    on (2, 2): every ``model``-split leaf kept (``fsdp=None``), so nothing
+    is all-gathered, and the all-reduces are, to the byte, the ones the
+    specs give a rank of 4 rows: the embedding's sum and each layer's
+    MLP row sum, (4, 1, D) fp32 each; each layer's split softmax, its max
+    (4, KV, H / KV, 1) and its sums (4, KV, H / KV, 1, hd + 1) fp32; the
+    next tokens' argmax over the split vocab, a max (4,) fp32 and an index
+    (4,) int64."""
+    info = traced("traces")["d_tp"]
+    _check_serve(info)
+    cfg = get_config("internlm2-1.8b")
+    assert info["rules"]["kv_seq"] == "model" and info["rules"]["fsdp"] is None
+    rows, f32 = 4, 4
+    g = cfg.num_heads // cfg.num_kv_heads
+    layer = (rows * cfg.d_model * f32
+             + rows * cfg.num_kv_heads * g * f32
+             + rows * cfg.num_kv_heads * g * (cfg.head_dim + 1) * f32)
+    want = rows * cfg.d_model * f32 + cfg.num_layers * layer + rows * (
+        f32 + 8)
+    coll = info["collective_bytes_per_device"]
+    assert coll == {"all-gather": 0, "all-reduce": want, "reduce-scatter": 0,
+                    "all-to-all": 0, "collective-permute": 0}, (coll, want)
+    # the params a rank holds: the attention and norms whole, the MLPs and
+    # the vocab halved
+    from repro_torch import models as M
+    from repro_torch.tree import tree_items
+    whole = split = 0
+    for path, leaf in tree_items(M.param_shapes(cfg)):
+        n = leaf.numel() * leaf.element_size()
+        if any(k in path for k in ("w_gate", "w_up", "w_down", "embed",
+                                   "head")):
+            split += n
+        else:
+            whole += n
+    assert info["argument_bytes_by_tree"]["params"] == whole + split // 2
 
 
 def test_full_width_decode_cell_on_16x16(traced):

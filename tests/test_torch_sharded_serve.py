@@ -33,11 +33,16 @@ over ``model``); phi-3-vision, one prefill with patches (KV heads over
 prompt, where the second data rank holds no live slot; and granite-moe
 with the experts gathered on every rank (no current mesh, the
 reference's ``--no-shard-map-moe``): one train step and one batch-split
-decode step.  ``pad_heads`` with ``attn_pad_to = 4``: the published
-internlm2 and granite-moe pad 16 query heads to 16 on a 16-wide model
-axis (no padding, the K/V repeated a head); the reduced 4 heads on the
-2-wide axis keep that (4 heads, no padding).  Slots are few enough that
-both halves of a split sequence hold live slots (but in the empty-rank
+decode step; internlm2 under ``attn_shard="heads"``, batch-split (the
+attention head-parallel over a cache whose KV heads are split).  The
+port's steps compute tensor-parallel over ``model`` (the MLPs, the
+vocab, the heads under ``"heads"``): a rank's logits are its rows and
+its vocab columns, gathered over both axes before they are compared.
+``pad_heads`` with ``attn_pad_to = 4``: the published internlm2 and
+granite-moe pad 16 query heads to 16 on a 16-wide model axis (no
+padding, the K/V repeated a head); the reduced 4 heads on the 2-wide
+axis keep that (4 heads, no padding).  Slots are few enough that both
+halves of a split sequence hold live slots (but in the empty-rank
 case).
 
 Held:
@@ -54,13 +59,16 @@ Held:
   equal, logits and every cache leaf within 1e-10 (relative to the
   leaf's largest entry);
 * planted faults read above 1e-3 (context-parallel internlm2, float64):
-  the combine without its all-reduces (each rank's own softmax) and the
-  decode write made at every rank's local slot;
+  the combine without its all-reduces (each rank's own softmax), the
+  decode write made at every rank's local slot, and the MLP's row
+  product without its all-reduce over ``model``;
 * every rank's local cache shapes are its specs' shards, under the
   prefill and under the decode rules;
 * the dry run's collective bytes of a step and cache shard bytes equal
   each rank's, to the byte, for the batch-split prefill, the split-KV
-  decode and the context-parallel decode.
+  decode and the context-parallel decode (a prefill's collectives carry
+  its prompt's activations, so its bytes are the cell of the prompt's
+  length).
 """
 import os
 import pickle
@@ -93,6 +101,10 @@ CASES = {
     "seamless_cp": ("seamless-m4t-large-v2", {}, 2, 32, 20, 3),
     "phi3_prefill": ("phi-3-vision-4.2b", {}, 8, 32, 12, 0),
     "empty_rank": ("internlm2-1.8b", {}, 2, 64, 12, 3),
+    # H = 4 and KV = 2 divide the 2 model ranks: head-parallel attention
+    # over a cache whose KV heads are split, batch-split decode
+    "internlm2_heads": ("internlm2-1.8b", {"attn_shard": "heads"}, 8, 32, 12,
+                        3),
     "granite_gathered": ("granite-moe-1b-a400m", {}, 8, 32, 12, 1),
 }
 ARCHS = sorted({c[0] for c in CASES.values()})
@@ -151,7 +163,7 @@ _RANK = _COMMON + textwrap.dedent("""
     from repro_torch.launch import RULES
     from repro_torch.launch.sharding import (cache_struct, distribute,
                                              init_state, move, rules_for)
-    from repro_torch.models import attention
+    from repro_torch.models import attention, common
     from repro_torch.models.common import P, set_current_mesh
     from repro_torch.train import AdamW, make_train_step
     from repro_torch.train.step import make_decode_step, make_prefill_step
@@ -258,13 +270,17 @@ _RANK = _COMMON + textwrap.dedent("""
             tok, cache = step(sp, fed, start(name) + i, cache)
             rec["decode_bytes"].append(dict(sharded.BYTES))
             rec["tokens"].append(sharded.gather(tok).numpy())
-        rec["logits"] = [gather_rows(l, rp if j == 0 else rd)
+        rec["logits"] = [gather_rows(l, rp if j == 0 else rd, cfg)
                          for j, l in enumerate(LOGITS)]
         rec["cache"] = {path: whole(l) for path, l in cache_items(cache)}
         return rec
 
-    def gather_rows(logits, rules):
-        # the data ranks' rows of the logits, in order
+    def gather_rows(logits, rules, cfg):
+        # the data ranks' rows of the logits, in order, and the model
+        # ranks' columns of a tensor-parallel vocab
+        if logits.shape[-1] < cfg.vocab_size:
+            logits = sharded.AxisComm(MESH, ("model",)).gather(
+                logits.movedim(-1, 0)).movedim(0, -1)
         bt = rules.resolve("batch")
         if not bt:
             return logits.double().numpy()
@@ -312,6 +328,13 @@ _RANK = _COMMON + textwrap.dedent("""
             out["write_on_every_rank"] = serve(name, True, True)
         finally:
             attention.cache_write = write
+        tp_sum = common.tp_sum
+        common.tp_sum = lambda y, part: (y if part == "mlp"
+                                         else tp_sum(y, part))
+        try:
+            out["row_without_all_reduce"] = serve(name, True, True)
+        finally:
+            common.tp_sum = tp_sum
         return out
 
     def gathered_experts(name):
@@ -529,19 +552,28 @@ _DRYRUN = _COMMON + textwrap.dedent("""
 
     torch.set_num_threads(1)
     DRY = @DRY@
+
+    def trace(cfg, kind, C, B):
+        with dryrun.fake_group(4):
+            mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data",
+                                                                  "model"))
+            return dryrun.analyze(dryrun.lower_config(
+                cfg, ShapeCell(kind, kind, C, B), mesh)[0])
+
     out = {}
     for name, kind in DRY.items():
         arch, kw, B, C, S, steps = CASES[name]
         cfg = dataclasses.replace(get_config(arch, reduced=True), **kw)
-        with dryrun.fake_group(4):
-            mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data",
-                                                                  "model"))
-            trace, _ = dryrun.lower_config(cfg, ShapeCell(kind, kind, C, B),
-                                           mesh)
-        info = dryrun.analyze(trace)
+        info = trace(cfg, kind, C, B)
         out[name] = {k: info[k] for k in (
             "collective_bytes_per_device", "argument_bytes_by_tree",
             "null_reason", "flops_per_device")}
+        if kind == "prefill" and S != C:
+            # a prefill's collectives carry its S prompt tokens' activations
+            # (the tensor-parallel sums), whatever the cache's C slots: the
+            # bytes of the cell of S slots
+            out[name]["collective_bytes_per_device"] = trace(
+                cfg, kind, S, B)["collective_bytes_per_device"]
     dump("dryrun", out)
 """)
 
@@ -709,7 +741,8 @@ def test_sharded_serve_matches_one_rank_in_float64(runs, case):
 
 
 @pytest.mark.parametrize("fault", ["combine_without_all_reduce",
-                                   "write_on_every_rank"])
+                                   "write_on_every_rank",
+                                   "row_without_all_reduce"])
 def test_planted_faults_read_above_1e_3(runs, fault):
     got = runs("rank0")["internlm2_cp"]
     want = got["one_rank"]["logits"]
@@ -740,7 +773,8 @@ def test_rules_of_the_cases(runs):
             "recurrentgemma_cp": (("data",), None, (), "data", "data"),
             "mamba2": (("data",), None, ("data",), None, None),
             "seamless_cp": (("data",), None, (), "data", "data"),
-            "empty_rank": (("data",), None, (), "data", "data")}
+            "empty_rank": (("data",), None, (), "data", "data"),
+            "internlm2_heads": (("data",), None, ("data",), None, None)}
     rec = runs("rank0")
     for case, rules in want.items():
         assert rec[case]["bf16"]["rules"] == rules, case

@@ -13,9 +13,15 @@ each step compiled once); and the training launcher on four ranks.  All
 read the same seeded numpy params (N(0, 0.05), norms zero) and batches
 (8 x 32 tokens, 2 steps, lr 1e-3).  Cases: granite-moe reduced on a
 (2, 2) ``("data", "model")`` mesh with AdamW and with
-Adafactor(beta1=0.9), internlm2 reduced on (2, 2) and (4, 1) with AdamW,
-and granite-moe with AdamW, ``accum_steps=2`` on both sides and capacity
-factor 0.5, at which every MoE dispatch drops assignments (printed).  A
+Adafactor(beta1=0.9), internlm2 reduced on (2, 2) and (4, 1) with AdamW
+(its ``head_dim`` attention whole on each rank, the MLPs and the vocab
+tensor-parallel on (2, 2)), internlm2 reduced under
+``attn_shard="heads"`` on (2, 2) (H = 4 and KV = 2 divide the two
+``model`` ranks: the attention head-parallel too), and granite-moe with
+AdamW, ``accum_steps=2`` on both sides and capacity factor 0.5, at which
+every MoE dispatch drops assignments (printed).  On (2, 2) the port's
+step computes tensor-parallel over ``model`` (``common.tensor_parallel``);
+on (4, 1) the axis has one rank and the step runs the one-device code.  A
 sixth process runs the dry run (``launch.dryrun``) of the granite AdamW
 case on ``meta`` tensors over a fake group of four.
 
@@ -38,7 +44,11 @@ Held:
   updated params agree to fp32 roundings (8 fp32 ulps of the leaf's
   largest entry);
 * the planted faults read above 1e-3: the MoE copy's backward without
-  its all-reduce over ``model``, and no gradient sum over ``data``;
+  its all-reduce over ``model``, and no gradient sum over ``data``
+  (granite-moe); the MLP's row product without its ``ReduceFromGroup``
+  and ``CopyToGroup``'s backward without its all-reduce (internlm2);
+* a rank's all-gather bytes of a step fall, from every leaf gathered to
+  the tensor-parallel leaves kept, by exactly those leaves' whole bytes;
 * every rank's local shapes are its specs' shards, ``init_state``
   equals the full state placed by ``distribute``, and a dim split over
   ``("pod", "data")`` gives each mesh position JAX's rows;
@@ -69,19 +79,26 @@ WORLD = 4
 SPAWN_TIMEOUT = 600
 STEPS = 2
 LR = 1e-3
-# name: (arch, mesh shape, optimizer, accum_steps, capacity factor or None
-# for the config's own)
+# name: (arch, mesh shape, optimizer, accum_steps, config overrides)
 CASES = {"granite_adamw_2x2": ("granite-moe-1b-a400m", (2, 2), "adamw", 1,
-                               None),
+                               {}),
          "granite_adafactor_2x2": ("granite-moe-1b-a400m", (2, 2),
-                                   "adafactor", 1, None),
-         "internlm2_adamw_2x2": ("internlm2-1.8b", (2, 2), "adamw", 1, None),
-         "internlm2_adamw_4x1": ("internlm2-1.8b", (4, 1), "adamw", 1, None),
+                                   "adafactor", 1, {}),
+         # head_dim attention: the MLPs and the vocab tensor-parallel
+         "internlm2_adamw_2x2": ("internlm2-1.8b", (2, 2), "adamw", 1, {}),
+         "internlm2_adamw_4x1": ("internlm2-1.8b", (4, 1), "adamw", 1, {}),
+         # H = 4 and KV = 2 divide the 2 model ranks: the attention heads
+         # tensor-parallel too
+         "internlm2_heads_2x2": ("internlm2-1.8b", (2, 2), "adamw", 1,
+                                 {"attn_shard": "heads"}),
          # micro-batches of capacity-bound MoE layers: every data shard's
          # micro-batch of 2 x 32 tokens sends 128 assignments to 4 experts
          # of capacity 16, so the layers drop
          "granite_adamw_2x2_accum2": ("granite-moe-1b-a400m", (2, 2),
-                                      "adamw", 2, 0.5)}
+                                      "adamw", 2, {"capacity_factor": 0.5})}
+# the cases whose all-gather bytes are held with and without the
+# tensor-parallel leaves kept
+KEPT = ("granite_adamw_2x2", "internlm2_adamw_2x2", "internlm2_heads_2x2")
 ARCHS = sorted({c[0] for c in CASES.values()})
 
 _COMMON = textwrap.dedent("""
@@ -89,6 +106,7 @@ _COMMON = textwrap.dedent("""
     import numpy as np
     OUT = sys.argv[1]
     CASES = @CASES@
+    KEPT = @KEPT@
     INPUTS = dict(np.load(os.path.join(OUT, "inputs.npz")))
 
     def nested(prefix):
@@ -131,8 +149,9 @@ _RANK = _COMMON + textwrap.dedent("""
     from repro_torch.launch import RULES
     from repro_torch.launch.sharding import (distribute, init_state, named,
                                              rules_for)
-    from repro_torch.models import moe
+    from repro_torch.models import common, moe
     from repro_torch.models.common import P, set_current_mesh
+    from repro_torch.train import step as step_mod
     from repro_torch.train import Adafactor, AdamW, make_train_step
     from repro_torch.train.step import (_value_and_grad, make_loss,
                                         sharded_value_and_grad)
@@ -143,10 +162,8 @@ _RANK = _COMMON + textwrap.dedent("""
     def make_opt(name):
         return AdamW() if name == "adamw" else Adafactor(beta1=0.9)
 
-    def configs(arch, cf):
-        cfg = get_config(arch, reduced=True)
-        if cf is not None:
-            cfg = dataclasses.replace(cfg, capacity_factor=cf)
+    def configs(arch, kw):
+        cfg = dataclasses.replace(get_config(arch, reduced=True), **kw)
         return {"bf16": cfg, "f64": dataclasses.replace(
             cfg, dtype=F64, param_dtype=F64)}
 
@@ -210,6 +227,43 @@ _RANK = _COMMON + textwrap.dedent("""
             stride=v.stride())).numpy()
             for (k, v), (_, gl) in zip(tree_items(sp), tree_items(g))}
 
+    def tp_faults(arch, cfg, rules, mesh):
+        # the MLP's row product without its sum over the model ranks, and
+        # the copy's backward without its all-reduce
+        out = {}
+        tp_sum = common.tp_sum
+        common.tp_sum = lambda y, part: (y if part == "mlp"
+                                         else tp_sum(y, part))
+        try:
+            out["fault_row"] = sharded_grads(arch, cfg, rules, mesh)
+        finally:
+            common.tp_sum = tp_sum
+        copy_bwd = sharded.CopyToGroup.backward
+        sharded.CopyToGroup.backward = staticmethod(lambda ctx, g: (g, None))
+        try:
+            out["fault_tp_copy"] = sharded_grads(arch, cfg, rules, mesh)
+        finally:
+            sharded.CopyToGroup.backward = copy_bwd
+        return out
+
+    def gather_bytes(arch, cfg, rules, mesh):
+        # the all-gather bytes of the step's gradient, with the
+        # tensor-parallel leaves kept and with every leaf gathered
+        out = {}
+        tp_of = step_mod.tensor_parallel_of
+        for key, fn in (("kept", tp_of), ("gathered", lambda i, m: None)):
+            step_mod.tensor_parallel_of = fn
+            try:
+                sp = distribute(params(arch, cfg), mesh,
+                                M.param_specs(cfg, rules))
+                sharded.reset()
+                sharded_value_and_grad(make_loss(cfg, rules), sp,
+                                       tbatch(arch, 0), rules)
+                out[key] = sharded.BYTES["all_gather"]
+            finally:
+                step_mod.tensor_parallel_of = tp_of
+        return out
+
     DROPS = []
 
     def counted(fn):
@@ -225,12 +279,12 @@ _RANK = _COMMON + textwrap.dedent("""
 
     moe._dispatch_local = counted(moe._dispatch_local)
 
-    def run_case(name, arch, shape, optname, accum, cf):
+    def run_case(name, arch, shape, optname, accum, kw):
         mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data",
                                                               "model"))
         set_current_mesh(mesh)
         rec = {}
-        for dt, cfg in configs(arch, cf).items():
+        for dt, cfg in configs(arch, kw).items():
             rules = rules_for(cfg, SHAPES["train_4k"], mesh)
             opt = make_opt(optname)
             specs = M.param_specs(cfg, rules)
@@ -280,6 +334,10 @@ _RANK = _COMMON + textwrap.dedent("""
                                                           mesh)
                     finally:
                         sharded.reduce_grad = reduce
+                if name == "internlm2_adamw_2x2":
+                    rec.update(tp_faults(arch, cfg, rules, mesh))
+            if dt == "bf16" and name in KEPT:
+                rec["gather_bytes"] = gather_bytes(arch, cfg, rules, mesh)
             step = make_train_step(cfg, rules, opt, lambda s: LR,
                                    accum_steps=accum)
             ms = []
@@ -349,9 +407,9 @@ _RANK = _COMMON + textwrap.dedent("""
     STEPS, LR = @STEPS@, @LR@
     record = {"tuple_order": tuple_order()}
     dump(f"rank{RANK}", record)
-    for name, (arch, shape, optname, accum, cf) in CASES.items():
+    for name, (arch, shape, optname, accum, kw) in CASES.items():
         try:
-            record[name] = run_case(name, arch, shape, optname, accum, cf)
+            record[name] = run_case(name, arch, shape, optname, accum, kw)
         except Exception:
             record[name] = {"error": traceback.format_exc()}
             raise
@@ -402,10 +460,8 @@ _REFERENCE = _COMMON + textwrap.dedent("""
         put = lambda sh: (lambda t: jax.device_put(t, sh))
         return fn, put(ps), put(ss), put(bs)
 
-    def run(arch, opt, mesh, accum=1, cf=None):
-        cfg = get_config(arch, reduced=True)
-        if cf is not None:
-            cfg = dataclasses.replace(cfg, capacity_factor=cf)
+    def run(arch, opt, mesh, accum=1, kw={}):
+        cfg = dataclasses.replace(get_config(arch, reduced=True), **kw)
         fn, pp, ps, pb = jitted(cfg, opt, mesh, accum)
         p = pp(params(arch, cfg))
         st = ps(opt.init(p))
@@ -428,12 +484,12 @@ _REFERENCE = _COMMON + textwrap.dedent("""
              for d in mesh.devices.flat}
     record = {"tuple_order": {where[sh.device]: np.asarray(sh.data).tolist()
                               for sh in placed.addressable_shards}}
-    for name, (arch, shape, optname, accum, cf) in CASES.items():
+    for name, (arch, shape, optname, accum, kw) in CASES.items():
         opt = AdamW() if optname == "adamw" else Adafactor(beta1=0.9)
         mesh = jax.make_mesh(shape, ("data", "model"),
                              axis_types=(AxisType.Auto,) * 2)
-        record[name] = {"sharded": run(arch, opt, mesh, accum, cf),
-                        "one": run(arch, opt, None, accum, cf)}
+        record[name] = {"sharded": run(arch, opt, mesh, accum, kw),
+                        "one": run(arch, opt, None, accum, kw)}
     # jax.make_mesh's default axes (Explicit): the reference's step raises
     try:
         run("granite-moe-1b-a400m", AdamW(), jax.make_mesh(
@@ -469,7 +525,8 @@ _DRYRUN = _COMMON + textwrap.dedent("""
 
 def _script(text):
     return (text.replace("@CASES@", repr(CASES))
-            .replace("@STEPS@", repr(STEPS)).replace("@LR@", repr(LR)))
+            .replace("@KEPT@", repr(KEPT)).replace("@STEPS@", repr(STEPS))
+            .replace("@LR@", repr(LR)))
 
 
 def _inputs(path):
@@ -633,6 +690,47 @@ def test_planted_faults_read_above_1e_3(runs, fault):
     worst = max(np.linalg.norm(got[fault][k] - w) / np.linalg.norm(w)
                 for k, w in want.items() if np.linalg.norm(w) > 0)
     assert worst > 1e-3, (fault, worst)
+
+
+@pytest.mark.parametrize("fault", ["fault_row", "fault_tp_copy"])
+def test_tensor_parallel_faults_read_above_1e_3(runs, fault):
+    """internlm2 on (2, 2), float64: the MLP's row product without its
+    ``ReduceFromGroup``, and ``CopyToGroup``'s backward without its
+    all-reduce (the MLPs' and the vocab's inputs), part the step-0
+    gradient from the one-rank step's by more than 1e-3."""
+    got = runs("rank0")["internlm2_adamw_2x2"]
+    want = got["one_rank"]["grads0"]
+    worst = max(np.linalg.norm(got[fault][k] - w) / np.linalg.norm(w)
+                for k, w in want.items() if np.linalg.norm(w) > 0)
+    assert worst > 1e-3, (fault, worst)
+
+
+_TP_NAMES = {False: ("w_gate", "w_up", "w_down", "embed", "head"),
+             True: ("w_gate", "w_up", "w_down", "embed", "head", "wq", "wk",
+                    "wv", "wo")}
+
+
+@pytest.mark.parametrize("case", KEPT)
+def test_kept_leaves_leave_the_all_gather(runs, case):
+    """A rank's all-gather bytes of a step fall, from every leaf gathered
+    to the tensor-parallel leaves kept split, by exactly those leaves'
+    whole bytes (their ``model`` half and their ``data`` gather of it);
+    the kept step's bytes are the ones the dry run reckons
+    (``test_dry_run_reckons_the_ranks_bytes``)."""
+    import dataclasses
+
+    from repro_torch import models as M
+    from repro_torch.configs import get_config
+    from repro_torch.tree import tree_items
+    arch, kw = CASES[case][0], CASES[case][4]
+    cfg = dataclasses.replace(get_config(arch, reduced=True), **kw)
+    names = _TP_NAMES[cfg.attn_shard == "heads"]
+    kept = sum(leaf.numel() * leaf.element_size()
+               for path, leaf in tree_items(M.param_shapes(cfg))
+               if re.search(r"\['(\w+)'\]$", path).group(1) in names)
+    for rank in range(WORLD):
+        got = runs(f"rank{rank}")[case]["gather_bytes"]
+        assert got["gathered"] - got["kept"] == kept, (rank, got, kept)
 
 
 @pytest.mark.parametrize("rank", range(WORLD))
