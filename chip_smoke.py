@@ -403,7 +403,9 @@ Phases, each printing one JSON line (or one per call):
               phase 22's (d_sh), (cp_sh) and (d_tp) decode cells, whose
               bytes a step and cache shard bytes must equal every decode
               step's
-              and every rank's of phase 22, to the byte; (dr_pod)
+              and every rank's of phase 22, to the byte, and their
+              prefills (cells of the prompt's length), whose bytes must
+              equal every rank's prefill's; (dr_pod)
               arctic-480b x train_4k on (2, 16, 16) at 512 ranks,
               recurrentgemma-9b x long_500k and gemma-2b x decode_32k on
               (16, 16), each traced (FLOPs, collective bytes), a JSON
@@ -439,13 +441,25 @@ Phases, each printing one JSON line (or one per call):
               'model', 8 x 1,024 then 8 steps, with a float64 witness at
               full depth (8 x 16, 2 steps); (d_tp) internlm2-1.8b at full
               width and depth under its published ``pad_heads`` (the
-              attention whole on each rank, the MLPs and the vocab
-              tensor-parallel), 8 x 1,024 host-drawn tokens into 2,048
-              slots, then 8 split-KV decode steps (fsdp None: 0 B
+              prefill's 16 padded heads 8 a 'model' rank, a decode
+              step's attention whole on each rank, the MLPs and the
+              vocab tensor-parallel), 8 x 1,024 host-drawn tokens into
+              2,048 slots, then 8 split-KV decode steps (fsdp None: 0 B
               all-gathered a step, held), its float64 witness (w_tp) on
               the model cut to one layer (8 x 96 into 128, 2 steps)
-              within 1e-10 and the MLP's row product without its
-              all-reduce above 1e-3.  For each run: each step's ms on
+              within 1e-10, the MLP's row product without its
+              all-reduce above 1e-3 and the padded heads'
+              out-projection without its sum over 'model' above 0.1;
+              (w_pad) gemma-2b at full width (8 query heads, one KV
+              head, padded to 16: rank 1 of each 'model' pair attends
+              padding alone; vocab 256,000) cut to one layer in float64:
+              the prefill of 2 x 128 tokens and the loss and gradient of
+              ``sharded_value_and_grad`` on them against the one-process
+              steps within 1e-10, the 'model' ranks' gradients of
+              ``wq``/``wo`` equal, and the padded heads' gradient left
+              partial (``SplitToGroup``'s backward without its gather)
+              above 1e-3, each rank's peak printed; it runs first, on an
+              empty card.  For each run: each step's ms on
               the slowest rank (CUDA events and host clock), the
               collective bytes by kind and their host ms, each rank's
               cache and param shard bytes against the whole divided as
@@ -6931,6 +6945,175 @@ def _sharded_witness(cfg, mesh, rules, full, batch):
     return out
 
 
+PAD_WITNESS_ARCH = "gemma-2b"
+
+
+def pad_witness_sizes(full: bool):
+    """(w_pad): gemma-2b at full width (8 query heads, one KV head, padded
+    to 16: rank 1 of each 'model' pair attends padding alone), cut to one
+    layer, in float64; the reduced config in the rehearsal, under
+    ``pad_heads`` with its 4 heads padded to 8 (the same split)."""
+    return {"batch": 2, "seq": 128 if full else 16,
+            "pad_to": None if full else 8}
+
+
+def _block_of(t, placements, mesh, coord):
+    """The block of ``t`` that the rank at mesh coordinate ``coord`` holds
+    of a leaf placed by ``placements`` (``distributed.sharded._chunk``'s
+    rule, for any rank)."""
+    from repro_torch.distributed.sharded import split_dims
+    for dim, mdims in split_dims(placements).items():
+        idx, n = 0, 1
+        for i in mdims:
+            size = int(mesh.size(i))
+            idx, n = idx * size + coord[i], n * size
+        per = t.shape[dim] // n
+        t = t.narrow(dim, idx * per, per)
+    return t
+
+
+def _pad_witness(mesh, seed: int, device, full: bool):
+    """(w_pad) on this rank, before any other work of phase 22 (the card
+    is still empty): the sharded prefill of ``pad_witness_sizes``'
+    tokens (last-position logits and the cache) against the one-process
+    prefill; the loss and gradient of ``sharded_value_and_grad`` on the
+    same tokens against the one-process step's, relative, leaf by leaf;
+    the largest relative distance between the 'model' ranks' gradient
+    shards of ``wq`` and ``wo`` (leaves no rank splits over 'model', so
+    every rank's must be the same); and the padded heads' gradient left
+    partial (``SplitToGroup``'s backward without its all-gather, the trap
+    of a replicated leaf), which must read far off.  The one-process
+    gradient is taken on the first rank alone, the other ranks dropping
+    their whole copy first (four float64 copies and their gradients do
+    not fit one card beside the ranks' shards), and each rank receives
+    its block of it, one leaf at a time, and compares its own shard (a
+    whole 4 GB embedding gradient a rank does not fit either)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch import models as M
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.distributed import sharded
+    from repro_torch.launch import RULES
+    from repro_torch.launch.sharding import distribute, rules_for
+    from repro_torch.models.common import set_current_mesh
+    from repro_torch.train.step import (_value_and_grad, make_loss,
+                                        sharded_value_and_grad)
+    from repro_torch.tree import tree_items, tree_map
+    sz = pad_witness_sizes(full)
+    f64 = torch.float64
+    cfg = dataclasses.replace(get_config(PAD_WITNESS_ARCH, reduced=not full),
+                              num_layers=1, dtype=f64, param_dtype=f64)
+    if sz["pad_to"]:
+        cfg = dataclasses.replace(cfg, attn_shard="pad_heads",
+                                  attn_pad_to=sz["pad_to"])
+    B, S = sz["batch"], sz["seq"]
+    out = {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "padded": cfg.attn_pad_to, "vocab": cfg.vocab_size,
+           "d_model": cfg.d_model, "tokens": (B, S)}
+    params = tree_map(lambda t: t.to(f64),
+                      M.init_params(cfg, seed, device=device))
+    out["params"] = _tree_numel(params)
+    prompt, _ = _serve_inputs(cfg, seed + 1, B, S, 0, device)
+    want = _one_process_logits(cfg, mesh, params, prompt, [], S)
+    got = _sharded_logits(cfg, mesh, params, prompt, [], S)
+    out["prefill"] = {
+        "logits": _rel_err(got[0][0], want[0][0]),
+        "cache": max(_rel_err(got[1][k], v) for k, v in want[1].items()
+                     if v.is_floating_point())}
+    del want, got
+
+    rules = rules_for(cfg, SHAPES["train_4k"], mesh)
+    batch = {k: v.to(device) for k, v in lm_batch(
+        cfg, seed=seed, step=0, batch=B, seq=S, device="cpu").items()}
+    sp = distribute(params, mesh, M.param_specs(cfg, rules))
+    first = dist.get_rank() == 0
+    if not first:
+        params = None
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    loss_fn = make_loss(cfg, rules)
+    loss, got = sharded_value_and_grad(loss_fn, sp, batch, rules)
+    split_bwd = sharded.SplitToGroup.backward
+
+    def partial(ctx, g):
+        comm, dim, n = ctx.args
+        per = g.shape[dim]
+        whole = torch.cat([g.new_zeros(g.shape)] * comm.size, dim)
+        whole.narrow(dim, comm.rank * per, per).copy_(g)
+        return whole.narrow(dim, 0, n), None, None, None
+    sharded.SplitToGroup.backward = staticmethod(partial)
+    try:
+        _, bad = sharded_value_and_grad(loss_fn, sp, batch, rules)
+    finally:
+        sharded.SplitToGroup.backward = split_bwd
+    model = sharded.AxisComm(mesh, ("model",))
+    out["model_ranks_parted"] = {}
+    for path, g in tree_items(got):
+        name = path[path.rindex("[") + 2:-2]
+        if name in ("wq", "wo"):
+            both = model.gather(g[None].contiguous())
+            out["model_ranks_parted"][name] = float(
+                (both - both[:1]).abs().max()) / max(
+                float(both.abs().max()), 1e-300)
+    want = None
+    if first:
+        if device == "cuda":
+            torch.cuda.empty_cache()     # the sharded steps' cached blocks
+        n_data = int(mesh.size(0))
+        per = B // n_data
+        set_current_mesh(None)
+        try:
+            want_loss = 0.0
+            for j in range(n_data):
+                l, g = _value_and_grad(make_loss(cfg, RULES), params, {
+                    k: v[j * per:(j + 1) * per] for k, v in batch.items()})
+                want_loss += float(l) / n_data
+                want = (g if want is None else
+                        tree_map(lambda a, x: a.add_(x), want, g))
+                del g
+        finally:
+            set_current_mesh(mesh)
+        want = dict(tree_items(tree_map(lambda a: a.div_(n_data), want)))
+        out["loss"] = abs(float(loss) - want_loss) / abs(want_loss)
+        params = None
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    # each rank gets its block of each leaf's one-process gradient from
+    # the first rank (point to point) and compares its own shard; the
+    # squared sums meet in one all-reduce
+    ranks = sharded.AxisComm(mesh, tuple(mesh.mesh_dim_names))
+    src = ranks.order.index(0)
+    coord = [tuple(int(c) for c in (mesh.mesh == r).nonzero()[0])
+             for r in ranks.order]
+    sums, names = [], []
+    for (path, leaf), (_, g), (_, b) in zip(tree_items(sp), tree_items(got),
+                                            tree_items(bad)):
+        if first:
+            blocks = {j: _block_of(want[path], leaf.placements, mesh,
+                                   coord[j]) for j in range(ranks.size)}
+            w = blocks.pop(ranks.rank).contiguous()
+            ranks.exchange(blocks, {}, w)
+        else:
+            w = ranks.exchange({}, {src: tuple(g.shape)}, g)[src]
+        r = sharded.replicas(leaf)
+        sums += [((g - w) ** 2).sum() / r, ((b - w) ** 2).sum() / r,
+                 (w ** 2).sum() / r]
+        names.append(path)
+        del w
+    tot = sharded.mesh_sum(torch.stack(sums), mesh).cpu()
+    errs = {"grads": [], "planted_partial_padded_grad": []}
+    for i in range(len(names)):
+        norm = max(float(tot[3 * i + 2]), 1e-300)
+        errs["grads"].append(float(tot[3 * i] / norm) ** 0.5)
+        errs["planted_partial_padded_grad"].append(
+            float(tot[3 * i + 1] / norm) ** 0.5)
+    if first:
+        out.update({k: max(v) for k, v in errs.items()})
+    return out
+
+
 def _spec_bytes(shapes, specs, mesh):
     """The bytes a rank holds of the ``meta`` tree ``shapes`` split as the
     ``PartitionSpec`` tree ``specs`` divides it over ``mesh``."""
@@ -7213,6 +7396,9 @@ def phase_sharded(device: str, seed: int, card: str = "",
 
 SERVE_PHASE_LIMIT_S = 210       # phase 22 on the card
 SERVE_WITNESS_LIMIT = 1e-10     # (w_sh), float64, relative to the largest
+# the floor of the planted padded-head attention's out-projection without
+# its sum over 'model' (the other faults read above SHARDED_PLANTED_FLOOR)
+ATTN_PLANTED_FLOOR = 0.1
 
 
 def sharded_serve_sizes(full: bool):
@@ -7302,8 +7488,9 @@ def _sharded_logits(cfg, mesh, full, prompt, dec, C: int):
         cfg, rp, lambda p, b, c: M.prefill_fn(p, cfg, rp, b, c), sp,
         {"tokens": prompt}, cache)
     out = [rows(logits, rp)]
-    cache = move(cache, mesh, specs_d)
-    sp = move(sp, mesh, M.param_specs(cfg, rd))
+    if dec:
+        cache = move(cache, mesh, specs_d)
+        sp = move(sp, mesh, M.param_specs(cfg, rd))
     for i, t in enumerate(dec):
         logits, cache = sharded_serve(
             cfg, rd, lambda p, b, c: M.decode_fn(p, cfg, rd, b["tokens"],
@@ -7385,7 +7572,9 @@ def _serve_witness(cfg, mesh, sizes, steps: int, seed: int, device,
     and one decode step: ``"combine"`` and ``"write"`` on the
     context-parallel layout (the combine without its all-reduces, the
     decode write at every rank's local slot), ``"row"`` on the split-KV
-    layout (the MLP's row product without its all-reduce over 'model')."""
+    layout (the MLP's row product without its all-reduce over 'model');
+    ``"attn"`` on the split-KV layout (the padded-head attention's
+    out-projection without its sum over 'model', in the prefill)."""
     from repro_torch import models as M
     from repro_torch.distributed import sharded
     from repro_torch.models import attention, common
@@ -7408,9 +7597,11 @@ def _serve_witness(cfg, mesh, sizes, steps: int, seed: int, device,
         out[name] = dict(errs(got), tokens_equal=all(
             bool((a.argmax(-1) == b.argmax(-1)).all())
             for a, b in zip(got[0], want[0])))
-        if "row" in faults and name == "split_kv":
+        if faults and name == "split_kv":
+            # the faults run the prefill and one decode step
             dec = dec[:1]
             want = _one_process_logits(cfg, mesh, full, prompt, dec, C)
+        if "row" in faults and name == "split_kv":
             tp_sum = common.tp_sum
             common.tp_sum = lambda y, part: (y if part == "mlp"
                                              else tp_sum(y, part))
@@ -7419,6 +7610,15 @@ def _serve_witness(cfg, mesh, sizes, steps: int, seed: int, device,
                     _sharded_logits(cfg, mesh, full, prompt, dec, C))
             finally:
                 common.tp_sum = tp_sum
+        if "attn" in faults and name == "split_kv":
+            attn_sum = attention.tp_sum
+            attention.tp_sum = lambda y, part: (y if part == "pad_heads"
+                                                else attn_sum(y, part))
+            try:
+                out["planted_attn_without_sum"] = errs(
+                    _sharded_logits(cfg, mesh, full, prompt, dec, C))
+            finally:
+                attention.tp_sum = attn_sum
         if "combine" in faults and name == "context_parallel":
             # each fault over the prefill and one decode step, against the
             # one-process steps as far
@@ -7618,6 +7818,18 @@ def _serve_rank(rank: int, world: int, store: str, out: str, seed: int,
         if full:
             torch.cuda.reset_peak_memory_stats()
         f64 = torch.float64
+
+        # (w_pad): gemma-2b's padded heads, one layer, float64, held; first,
+        # while the card holds none of the phase's other trees
+        t0 = time.perf_counter()
+        record["pad_witness"] = _pad_witness(mesh, seed, device, full)
+        record["pad_witness"]["seconds"] = time.perf_counter() - t0
+        if full:
+            record["pad_witness"]["peak_allocated"] = (
+                torch.cuda.max_memory_allocated())
+            record["pad_witness"]["peak_reserved"] = (
+                torch.cuda.max_memory_reserved())
+            torch.cuda.empty_cache()
         cfg = _serve_cfg(sz["arch"], not full)
 
         # (w_sh): one layer, float64, held
@@ -7685,7 +7897,7 @@ def _serve_rank(rank: int, world: int, store: str, out: str, seed: int,
             dataclasses.replace(tcfg, num_layers=1, dtype=f64,
                                 param_dtype=f64), mesh,
             {"split_kv": sz["w_tp"]}, sz["w_steps"], seed, device,
-            faults=("row",))
+            faults=("row", "attn"))
         record["tp_witness_s"] = time.perf_counter() - t0
         before = (0, 0)
         if full:
@@ -7712,6 +7924,7 @@ def _serve_rank(rank: int, world: int, store: str, out: str, seed: int,
         dist.barrier()
         record["tp_compare_s"] = time.perf_counter() - t0
         del params
+
         record["peak_bytes"] = (max(before[0],
                                     torch.cuda.max_memory_allocated())
                                 if full else None)
@@ -7818,21 +8031,55 @@ def phase_sharded_serve(device: str, seed: int, card: str = "",
         planted = {k: max(v["logits"], v["cache"]) for k, v in w.items()
                    if k.startswith("planted")}
         emit({"phase": "sharded_serve", "call": wit, "arch": arch,
-              "layers": 1 if key == "witness" else "all",
+              "layers": "all" if key == "s_witness" else 1,
               "dtype": "float64", "mesh": "(2, 2) ('data', 'model')",
               "ranks": SHARDED_WORLD, "backend": "gloo",
               "layouts": layouts, "max_rel_err": worst,
               "limit": SERVE_WITNESS_LIMIT, **planted,
-              "planted_floor": SHARDED_PLANTED_FLOOR})
+              "planted_floor": SHARDED_PLANTED_FLOOR,
+              "attn_planted_floor": ATTN_PLANTED_FLOOR})
         if not worst <= SERVE_WITNESS_LIMIT:
             fail(f"sharded_serve ({wit}): the float64 steps part from the "
                  f"one-process steps by {worst:.3e}")
         if not all(v["tokens_equal"] for v in layouts.values()):
             fail(f"sharded_serve ({wit}): float64 tokens differ")
         for k, v in planted.items():
-            if not v > SHARDED_PLANTED_FLOOR:
+            floor = (ATTN_PLANTED_FLOOR if k == "planted_attn_without_sum"
+                     else SHARDED_PLANTED_FLOOR)
+            if not v > floor:
                 fail(f"sharded_serve ({wit}): planted fault {k} reads "
                      f"{v:.3e}")
+    pads = [rec["pad_witness"] for rec in recs]
+    w = pads[0]                     # the one-process gradient is rank 0's
+    worst = max([w["loss"], w["grads"]] + [
+        max(p["prefill"]["logits"], p["prefill"]["cache"]) for p in pads])
+    parted = max(max(p["model_ranks_parted"].values()) for p in pads)
+    planted = w["planted_partial_padded_grad"]
+    emit({"phase": "sharded_serve", "call": "w_pad",
+          "arch": PAD_WITNESS_ARCH, "layers": 1, "dtype": "float64",
+          "heads": w["heads"], "kv_heads": w["kv_heads"],
+          "padded_heads": w["padded"], "vocab": w["vocab"],
+          "params": w["params"], "tokens": w["tokens"],
+          "mesh": "(2, 2) ('data', 'model')", "ranks": SHARDED_WORLD,
+          "prefill": [p["prefill"] for p in pads], "loss_rel_err": w["loss"],
+          "grad_max_rel_err": w["grads"], "max_rel_err": worst,
+          "limit": SERVE_WITNESS_LIMIT,
+          "model_ranks_parted_wq_wo": parted,
+          "planted_partial_padded_grad": planted,
+          "planted_floor": SHARDED_PLANTED_FLOOR,
+          "seconds_slowest": max(p["seconds"] for p in pads),
+          "peak_allocated_per_rank": [p.get("peak_allocated") for p in pads],
+          "peak_reserved_per_rank": [p.get("peak_reserved") for p in pads],
+          "card": card})
+    if not worst <= SERVE_WITNESS_LIMIT:
+        fail(f"sharded_serve (w_pad): the float64 prefill or gradient parts "
+             f"from the one-process steps by {worst:.3e}")
+    if parted != 0.0:
+        fail(f"sharded_serve (w_pad): the 'model' ranks' gradients of wq/wo "
+             f"part by {parted:.3e}")
+    if not planted > SHARDED_PLANTED_FLOOR:
+        fail(f"sharded_serve (w_pad): the partial padded-head gradient reads "
+             f"{planted:.3e}")
     readings = {}
     for key, arch, (B, S, C) in (
             ("d_sh", sz["arch"], sz["d"]), ("cp_sh", sz["arch"], sz["cp"]),
@@ -7898,6 +8145,11 @@ def phase_sharded_serve(device: str, seed: int, card: str = "",
                                                for s in rec[key]["steps"]]
                                               for rec in recs],
                          "cache_bytes": shard, "batch": B, "slots": C}
+        if key != "s_sh":
+            readings[f"{key}:prefill"] = {
+                "collective_bytes": [[rec[key]["prefill"]["collective_bytes"]]
+                                     for rec in recs],
+                "cache_bytes": None, "batch": B, "slots": S}
     parent = (torch.cuda.memory_reserved() if full else None)
     peaks = [rec["peak_reserved"] for rec in recs]
     emit({"phase": "sharded_serve", "call": "memory",
@@ -7911,6 +8163,8 @@ def phase_sharded_serve(device: str, seed: int, card: str = "",
           "spawn_to_join_s": spawn_s,
           "witness_s_slowest": max(rec["witness_s"] for rec in recs),
           "s_witness_s_slowest": max(rec["s_witness_s"] for rec in recs),
+          "pad_witness_s_slowest": max(rec["pad_witness"]["seconds"]
+                                       for rec in recs),
           "tp_witness_s_slowest": max(rec["tp_witness_s"] for rec in recs),
           "d_tp_s_slowest": max(rec["d_tp"]["seconds"] for rec in recs),
           "one_process_s_slowest": max(rec["compare_s"] for rec in recs),
@@ -8440,21 +8694,27 @@ def _dryrun_child(out: str, full: bool):
                 cfg, ShapeCell("train", "train", sz["seq"], sz["batch"]),
                 mesh)
         record["dr_sh"] = {**dryrun.analyze(trace), **meta}
-        # (dr_sv): phase 22's decode cells, (d_sh) and (cp_sh)
+        # (dr_sv): phase 22's decode cells, (d_sh), (cp_sh) and (d_tp),
+        # and their prefills, cells of the prompt's length (a prefill's
+        # collectives carry its prompt's activations)
         ssz = sharded_serve_sizes(full)
         scfg = _serve_cfg(ssz["arch"], ssz["reduced"])
         tcfg = _serve_cfg(ssz["tp_arch"], ssz["reduced"])
         record["dr_sv"] = {}
         for key, size, c in (("d_sh", "d", scfg), ("cp_sh", "cp", scfg),
                              ("d_tp", "tp", tcfg)):
-            B, _, C = ssz[size]
-            with dryrun.fake_group(SHARDED_WORLD):
-                mesh = init_device_mesh(
-                    "cpu", (SHARDED_WORLD // model, model),
-                    mesh_dim_names=("data", "model"))
-                trace, meta = dryrun.lower_config(
-                    c, ShapeCell("decode", "decode", C, B), mesh)
-            record["dr_sv"][key] = {**dryrun.analyze(trace), **meta}
+            B, S, C = ssz[size]
+            for kind, cell in (("decode", ShapeCell("decode", "decode", C,
+                                                    B)),
+                               ("prefill", ShapeCell("prefill", "prefill",
+                                                     S, B))):
+                with dryrun.fake_group(SHARDED_WORLD):
+                    mesh = init_device_mesh(
+                        "cpu", (SHARDED_WORLD // model, model),
+                        mesh_dim_names=("data", "model"))
+                    trace, meta = dryrun.lower_config(c, cell, mesh)
+                name = key if kind == "decode" else f"{key}:prefill"
+                record["dr_sv"][name] = {**dryrun.analyze(trace), **meta}
         record["dr_pod"] = []
         for arch, shape, multi_pod in (DRYRUN_POD_CELLS if full else ()):
             with dryrun.fake_group(512 if multi_pod else 256):
@@ -8531,8 +8791,10 @@ def phase_dryrun(device: str, seed: int, sharded: dict, serve: dict,
     per-step ``sharded.BYTES`` that phase 20 read in this run, and its
     shard bytes each rank's, to the byte (its peak estimate printed
     beside the ranks' measured peaks); (dr_sv) the dry runs of phase
-    22's (d_sh) and (cp_sh) decode cells, held likewise to every decode
-    step of phase 22 and each rank's cache shard bytes; (dr_pod) at full
+    22's (d_sh), (cp_sh) and (d_tp) decode cells, held likewise to every
+    decode step of phase 22 and each rank's cache shard bytes, and of
+    their prefills (cells of the prompt's length), held to each rank's
+    prefill; (dr_pod) at full
     size, the
     ``DRYRUN_POD_CELLS`` on the card machine's torch, a JSON line each
     with its trace seconds; (dr_paper) one rank of the paper cell at its
@@ -8598,7 +8860,8 @@ def phase_dryrun(device: str, seed: int, sharded: dict, serve: dict,
         fail(f"dryrun (dr_sh): shard bytes {shard_want}, phase 20's ranks "
              f"{[sharded['shard_bytes'][r] for r in shard_differ]}")
 
-    # (dr_sv): phase 22's decode cells against its ranks, to the byte
+    # (dr_sv): phase 22's decode cells and prefills against its ranks, to
+    # the byte (a prefill cell's cache is the prompt's: not compared)
     for key, dr in rec["dr_sv"].items():
         want = {k: v for k, v in dr["collective_bytes_per_device"].items()
                 if v}
@@ -8625,7 +8888,8 @@ def phase_dryrun(device: str, seed: int, sharded: dict, serve: dict,
         if differ:
             fail(f"dryrun (dr_sv) {key}: the trace reckons {want}, phase "
                  f"22's ranks counted otherwise: {differ[:3]}")
-        if any(b != cache_want for b in got["cache_bytes"]):
+        if got["cache_bytes"] is not None and any(
+                b != cache_want for b in got["cache_bytes"]):
             fail(f"dryrun (dr_sv) {key}: cache shard bytes {cache_want}, "
                  f"phase 22's ranks {got['cache_bytes']}")
 

@@ -24,6 +24,16 @@ step computes on plain local tensors:
   ``models.common``), each sum taken in fp32 (float64 kept) and rounded
   once to the operand's dtype, as the reference's compiled all-reduces
   are promoted;
+* ``SplitToGroup`` — Megatron's scatter-to-group: this rank's block of an
+  input every rank holds whole, the blocks' cotangents all-gathered
+  backward, so the gradient of a replicated leaf is whole and the same
+  on every rank (the padded query heads and ``wo``'s rows under
+  ``pad_heads``);
+* ``Reshard`` — a tensor split along a dim re-split into other blocks,
+  each piece sent point to point by the rank that holds it (the
+  reference's collective-permutes: the context heads under
+  ``pad_heads``, RoPE's partner columns under ``head_dim``); backward the
+  cotangent's pieces sent back;
 * ``LeafMeans`` — Adafactor's row and column means and its RMS over a
   whole leaf, summed over the ranks that split the dims they reduce;
 * ``softmax_combine`` — the sharded serve steps' attention over a cache
@@ -34,7 +44,8 @@ Every collective runs over the process group of its mesh axes (the mesh's
 own for one axis), through pinned host memory when the group's backend is
 not NCCL (gloo ranks may hold CUDA tensors), and adds the bytes of its
 buffer to ``BYTES`` (all-gather: its output; reduce-scatter: its input;
-all-reduce: its buffer) and its host seconds, staging included, to
+all-reduce: its buffer; collective-permute: what this rank sends) and its
+host seconds, staging included, to
 ``SECONDS``.  A collective that fails raises; nothing falls back.
 """
 from __future__ import annotations
@@ -128,6 +139,34 @@ class AxisComm(_Comm):
         out = out.to(t.device)
         _count("reduce_scatter", buf, t0)
         return out
+
+    def exchange(self, sends: dict, recvs: dict, like):
+        """Point to point: each ``sends[j]`` to the group's rank ``j`` and
+        from each rank ``j`` of ``recvs`` a tensor of shape ``recvs[j]`` and
+        ``like``'s dtype; returns {j: tensor} on ``like``'s device.  Counted
+        as ``collective_permute``, the bytes this rank sends.  On ``meta``
+        tensors (the dry run) nothing moves."""
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        dev = "cpu" if self._host(like) else like.device
+        ops, out, nbytes = [], {}, 0
+        for j, t in sends.items():
+            buf = t.contiguous().to(dev)
+            nbytes += buf.numel() * buf.element_size()
+            ops.append(dist.P2POp(dist.isend, buf, self.order[j], self.group))
+        for j, shape in recvs.items():
+            out[j] = torch.empty(shape, dtype=like.dtype, device=dev)
+            ops.append(dist.P2POp(dist.irecv, out[j], self.order[j],
+                                  self.group))
+        if ops and not like.is_meta:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        if nbytes:
+            BYTES["collective_permute"] += nbytes
+        if ops:
+            SECONDS["collective_permute"] += time.perf_counter() - t0
+        return {j: t.to(like.device) for j, t in out.items()}
 
 
 def softmax_combine(m, l, o, comm):
@@ -276,6 +315,87 @@ class ReduceFromGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class SplitToGroup(torch.autograd.Function):
+    """This rank's block of ``x`` along ``dim``, ``x`` zero-padded there to
+    ``total`` (a multiple of the group's size) and held whole by every
+    rank of ``comm``; backward the blocks' cotangents all-gathered, so each
+    rank's gradient of ``x`` is whole (scatter-to-group)."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim, total):
+        dim %= x.ndim
+        n = x.shape[dim]
+        ctx.args = (comm, dim, n)
+        per = total // comm.size
+        lo = min(comm.rank * per, n)
+        part = x.narrow(dim, lo, min(lo + per, n) - lo)
+        if part.shape[dim] == per:
+            return part.clone()
+        shape = list(x.shape)
+        shape[dim] = per - part.shape[dim]
+        return torch.cat([part, x.new_zeros(shape)], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, dim, n = ctx.args
+        whole = comm.gather(g.movedim(dim, 0)).movedim(0, dim)
+        return whole.narrow(dim, 0, n), None, None, None
+
+
+def _overlap(a, b):
+    lo, hi = max(a[0], b[0]), min(a[1], b[1])
+    return (lo, hi) if lo < hi else None
+
+
+def _move(x, comm, dim: int, src, dst):
+    """``x``, rows ``src[comm.rank]`` along ``dim`` of a tensor whose rows
+    ``src[j]`` rank ``j`` holds, as the rows ``dst[comm.rank]``: each piece
+    sent by the rank that holds it (``src``'s blocks are disjoint, as are
+    ``dst``'s)."""
+    me, dim = comm.rank, dim % x.ndim
+    sends, recvs, where = {}, {}, {}
+    for j in range(comm.size):
+        if j == me:
+            continue
+        o = _overlap(src[me], dst[j])
+        if o:
+            sends[j] = x.narrow(dim, o[0] - src[me][0], o[1] - o[0])
+        o = _overlap(src[j], dst[me])
+        if o:
+            shape = list(x.shape)
+            shape[dim] = o[1] - o[0]
+            recvs[j], where[j] = shape, o
+    got = comm.exchange(sends, recvs, x)
+    shape = list(x.shape)
+    shape[dim] = dst[me][1] - dst[me][0]
+    out = x.new_zeros(shape)
+    o = _overlap(src[me], dst[me])
+    if o:
+        out.narrow(dim, o[0] - dst[me][0], o[1] - o[0]).copy_(
+            x.narrow(dim, o[0] - src[me][0], o[1] - o[0]))
+    for j, o in where.items():
+        out.narrow(dim, o[0] - dst[me][0], o[1] - o[0]).copy_(got[j])
+    return out
+
+
+class Reshard(torch.autograd.Function):
+    """``x``, this rank's rows ``src[rank]`` (a ``(start, stop)`` of global
+    indices) along ``dim`` of a tensor split over ``comm``'s ranks, as the
+    rows ``dst[rank]``, each piece sent point to point by the rank that
+    holds it; backward the cotangent's pieces sent back (rows no rank
+    asks for get a zero gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim, src, dst):
+        ctx.args = (comm, dim, src, dst)
+        return _move(x, comm, dim, src, dst)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, dim, src, dst = ctx.args
+        return _move(g, comm, dim, dst, src), None, None, None, None
 
 
 class LeafMeans:

@@ -30,11 +30,12 @@ Every collective of ``distributed.sharded`` is counted in
 lowers and compiles the same cells with XLA; the numbers here are the
 port's own, reckoned by its code on ``meta`` tensors: no time, rate or
 memory of a device.  The port's steps compute tensor-parallel over
-``model`` (the MLPs, the vocab, the heads under ``attn_shard="heads"``;
+``model`` (the MLPs, the vocab and the attention: its heads under
+``attn_shard="heads"``, its head dim under ``"head_dim"``, its padded
+activation heads under ``"pad_heads"`` with more than one query;
 ``train.step``), so a decode step where ``fsdp`` is dropped gathers no
-weight; the attention under ``pad_heads``/``head_dim``, a hybrid's
-recurrent block and an SSM's projections are still gathered, and the
-``fsdp`` halves where the rules keep them.  ``--no-shard-map-moe``
+weight; a hybrid's recurrent block and an SSM's projections are still
+gathered, and the ``fsdp`` halves where the rules keep them.  ``--no-shard-map-moe``
 traces a MoE arch with its
 experts gathered on every rank (no current mesh), as the reference's
 flag runs its GSPMD dispatch.
@@ -53,9 +54,10 @@ counterpart:
   ``reduce-scatter`` (its input) and ``all-reduce`` (its buffer; a
   decode step's split-softmax combine is two all-reduces a layer) of
   one step on rank 0 (the tensor-parallel sums and the vocab-parallel
-  loss's among the all-reduces), ``all-to-all`` and
-  ``collective-permute`` 0 (the port makes neither), and
-  ``collective_total``;
+  loss's among the all-reduces), ``collective-permute`` (the bytes a
+  rank sends point to point: the ``pad_heads`` context's re-split heads,
+  ``head_dim``'s RoPE partner columns), ``all-to-all`` 0 (the port makes
+  none), and ``collective_total``;
 * ``argument_bytes``: rank 0's local params, optimizer state, batch and
   cache;
 * ``params``, ``active_ratio``, ``chips``, ``arch``, ``shape``,
@@ -99,7 +101,8 @@ _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                 "collective-permute")
 # sharded.BYTES's kinds under the reference's names
 KINDS = {"all_gather": "all-gather", "all_reduce": "all-reduce",
-          "reduce_scatter": "reduce-scatter"}
+          "reduce_scatter": "reduce-scatter",
+          "collective_permute": "collective-permute"}
 _XLA_ONLY = ("bytes_per_device", "xla_flops_single_visit",
              "xla_bytes_single_visit", "collective_single_visit",
              "output_bytes", "temp_bytes")

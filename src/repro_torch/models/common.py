@@ -28,7 +28,16 @@ every rank uses, ``ReduceFromGroup`` on the partial sums):
   over the split vocab and ``vocab_argmax`` the first global index of the
   row's maximum;
 * ``heads``: ``attention`` projects, attends and caches this rank's
-  heads, and ``out_project`` sums the ranks' parts.
+  heads, and ``out_project`` sums the ranks' parts;
+* ``pad_heads``: no leaf is split; ``attention.attend`` with more than
+  one query pads the query heads to ``attn_pad_to``, repeats K/V per
+  padded head and attends this rank's block of them, and
+  ``out_project`` takes this rank's block of the real heads through its
+  rows of ``wo`` and sums the ranks' parts;
+* ``head_dim``: ``attention`` projects onto this rank's columns of the
+  head dim (``wq``/``wk``/``wv``'s last dim, ``wo``'s rows), exchanges
+  RoPE's partner columns, sums the ranks' partial scores and
+  ``out_project`` the ranks' parts.
 
 The reference's compiled sharded step (XLA on the CPU, a (2, 2) mesh of
 Auto axes, ``lowered.compile().as_text()``) promotes these all-reduces to
@@ -196,12 +205,15 @@ def current_mesh():
 
 class TensorParallel(NamedTuple):
     """The ``model`` ranks the sharded step computes over (``comm``, a
-    ``distributed.sharded.AxisComm``) and the parts whose leaves it keeps
-    split over them."""
+    ``distributed.sharded.AxisComm``) and the parts it computes over them:
+    those whose leaves it keeps split, and ``pad_heads``, the padded
+    activation heads of attention (no leaf split)."""
     comm: Any
     mlp: bool = False
     vocab: bool = False
     heads: bool = False
+    head_dim: bool = False
+    pad_heads: bool = False
 
 
 _TP: "contextvars.ContextVar" = contextvars.ContextVar(
@@ -220,8 +232,8 @@ def tensor_parallel(tp: Optional[TensorParallel]):
 
 
 def tp_comm(part: str):
-    """The ``model`` ranks' ``AxisComm`` when ``part`` (``"mlp"``,
-    ``"vocab"`` or ``"heads"``) is computed tensor-parallel, else None."""
+    """The ``model`` ranks' ``AxisComm`` when ``part`` (a field of
+    ``TensorParallel``) is computed tensor-parallel, else None."""
     tp = _TP.get()
     return tp.comm if tp is not None and getattr(tp, part) else None
 

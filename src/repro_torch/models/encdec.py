@@ -130,8 +130,11 @@ def encode(params, cfg: ModelConfig, rules: ShardingRules, frames):
 
 
 def _cross_kv(enc_out, wk, wv):
-    return (torch.einsum("btd,dhk->bthk", enc_out, wk),
-            torch.einsum("btd,dhk->bthk", enc_out, wv))
+    """The cross K/V of ``enc_out`` (under a tensor-parallel ``head_dim``
+    this rank's columns, each projection's input through its own
+    ``CopyToGroup``, as ``attention.qkv_project``'s)."""
+    return (torch.einsum("btd,dhk->bthk", tp_copy(enc_out, "head_dim"), wk),
+            torch.einsum("btd,dhk->bthk", tp_copy(enc_out, "head_dim"), wv))
 
 
 def _decode_stack(params, cfg: ModelConfig, rules: ShardingRules, x,
@@ -166,7 +169,8 @@ def _decode_stack(params, cfg: ModelConfig, rules: ShardingRules, x,
             ctx = attn.attend(q, k, v, positions, positions, cfg, rules)
         x, s = _residual(x, attn.out_project(ctx, lp.wo, rules))
 
-        hx = tp_copy(rms_norm(s, lp.lnx).to(x.dtype), "heads")
+        hx = tp_copy(tp_copy(rms_norm(s, lp.lnx).to(x.dtype), "heads"),
+                     "head_dim")
         qx = torch.einsum("bsd,dhk->bshk", hx, lp.xq)
         if use_cache:
             xk, xv = cache.cross_k[l], cache.cross_v[l]
@@ -218,8 +222,8 @@ def prefill(params, cfg: ModelConfig, rules: ShardingRules, frames,
            for wk, wv in zip(dec["xk"].unbind(0), dec["xv"].unbind(0))]
     shard = attn.cache_shard()
     cache = cache._replace(**{
-        name: attn.local_slots(torch.stack([t[i] for t in kvs]), shard,
-                               2).to(getattr(cache, name).dtype)
+        name: attn.local_slots(attn.whole_columns(torch.stack(
+            [t[i] for t in kvs])), shard, 2).to(getattr(cache, name).dtype)
         for i, name in enumerate(("cross_k", "cross_v"))})
     del kvs
     positions = _positions(dec_tokens.shape[1], dec_tokens.device)

@@ -18,8 +18,10 @@ is the reference's sharded step, run on each rank's local tensors
 kept split over ``model`` (``_kept``: the MoE experts, and when the mesh
 has a ``model`` axis of more than one rank the tensor-parallel leaves,
 computed on in place under ``common.tensor_parallel``: the MLPs' ``d_ff``,
-the vocab of ``embed`` and ``head``, and the attention heads where the
-rules split them), the loss of this rank's rows of the batch (its block
+the vocab of ``embed`` and ``head``, and the attention heads or head dim
+where the rules split them; under ``pad_heads`` the attention weights
+are whole and the padded activation heads split, ``models.attention``),
+the loss of this rank's rows of the batch (its block
 over the rules' batch axes), the gradients summed over the batch axes
 into each leaf's shard (``distributed.sharded``), and the optimizer on
 the shards.  Every data shard holds the same number of
@@ -42,7 +44,10 @@ this rank's rows of the tokens (and patches, frames), and the one-device
 function on the local cache inside ``attention.local_cache`` and
 ``common.tensor_parallel``, which computes on the cache's slots and KV
 heads where they lie (split-KV and context-parallel decode, ``kv_seq``;
-head-split caches, ``kv_heads``, are the tensor-parallel heads).  The
+head-split caches, ``kv_heads``, are the tensor-parallel heads; a
+``head_dim`` cache is whole in the head dim: K/V's columns are gathered
+before the write and each rank attends its own columns; a ``pad_heads``
+prefill attends its padded heads).  The
 cache leaves split over other mesh axes, an SSM's ``state`` (over
 ``model``) and a hybrid model's ``state`` and ``conv`` rows (over
 ``d_ff``), are gathered whole for the step and their shards written
@@ -147,6 +152,8 @@ _TP_LEAVES = {
     "vocab": {"embed": -2, "head": -1},
     "heads": {"wq": -2, "wk": -2, "wv": -2, "wo": -3, "xq": -2, "xk": -2,
               "xv": -2, "xo": -3},
+    "head_dim": {"wq": -1, "wk": -1, "wv": -1, "wo": -2, "xq": -1, "xk": -1,
+                 "xv": -1, "xo": -2},
 }
 
 
@@ -165,14 +172,17 @@ def _model_dims(leaf, dim: int):
     return tuple(m) if [names[i] for i in m] == ["model"] else ()
 
 
-def tensor_parallel_of(items, mesh):
+def tensor_parallel_of(items, mesh, rules: ShardingRules):
     """The ``TensorParallel`` of the sharded step on the param leaves
-    ``items`` (path, DTensor) over ``mesh``, or None: a part is computed
-    tensor-parallel when the mesh's ``model`` axis has more than one rank
-    and every leaf of the part is split over it alone along its
-    tensor-parallel dim (the heads are split so only under
+    ``items`` (path, DTensor) over ``mesh`` under ``rules``, or None: when
+    the mesh's ``model`` axis has more than one rank, a part with leaves
+    is computed tensor-parallel when every leaf of it is split over that
+    axis alone along its tensor-parallel dim (the heads under
     ``attn_shard="heads"``, where H and KV divide the axis, or the
-    placement raises)."""
+    placement raises; the head dim under ``"head_dim"``), and the padded
+    heads (``pad_heads``, no leaf) when the rules split the activation
+    heads over ``model`` and not the param heads (``attn_shard=
+    "pad_heads"``)."""
     from ..distributed.sharded import AxisComm
 
     names = tuple(mesh.mesh_dim_names or ())
@@ -183,6 +193,7 @@ def tensor_parallel_of(items, mesh):
         leaves = [(leaf, dims[_name(p)]) for p, leaf in items
                   if _name(p) in dims]
         on[part] = bool(leaves) and all(_model_dims(l, d) for l, d in leaves)
+    on["pad_heads"] = rules.act_heads == "model" and rules.heads is None
     if not any(on.values()):
         return None
     return TensorParallel(AxisComm(mesh, ("model",)), **on)
@@ -260,7 +271,7 @@ def sharded_value_and_grad(loss_fn, params, batch, rules: ShardingRules,
 
     items = tree_items(params)
     mesh = _mesh_of(items)
-    tp = tensor_parallel_of(items, mesh)
+    tp = tensor_parallel_of(items, mesh, rules)
     keep = _keep(items, mesh, tp)
     axes = _batch_axes(rules)
     comm = AxisComm(mesh, axes) if axes else None
@@ -393,7 +404,7 @@ def sharded_serve(cfg: ModelConfig, rules: ShardingRules, serve_fn, params,
 
     items = tree_items(params)
     mesh = _mesh_of(items)
-    tp = tensor_parallel_of(items, mesh)
+    tp = tensor_parallel_of(items, mesh, rules)
     keep = _keep(items, mesh, tp)
     axes = _batch_axes(rules)
     comm = AxisComm(mesh, axes) if axes else None
@@ -453,7 +464,7 @@ def _next_tokens(logits, rules: ShardingRules, params):
     from ..models.common import P
 
     mesh = tree_leaves(params)[0].device_mesh
-    tp = tensor_parallel_of(tree_items(params), mesh)
+    tp = tensor_parallel_of(tree_items(params), mesh, rules)
     tok = vocab_argmax(logits[:, -1, :],
                        tp.comm if tp is not None and tp.vocab else None)
     pl = placements(mesh, P(rules.resolve("batch")))

@@ -304,7 +304,7 @@ def _check_traced(info):
     coll = info["collective_bytes_per_device"]
     for kind in ("all-gather", "reduce-scatter", "all-reduce"):
         assert coll[kind] > 0, (kind, coll)
-    assert coll["all-to-all"] == coll["collective-permute"] == 0
+    assert coll["all-to-all"] == 0
     assert info["collective_total"] == sum(coll.values())
     assert info["argument_bytes"] == sum(
         info["argument_bytes_by_tree"].values()) > 0
@@ -316,9 +316,14 @@ def _check_traced(info):
 
 @pytest.mark.parametrize("arch", REDUCED)
 def test_reduced_trace_on_a_fake_2x2_mesh(traced, arch):
+    """A reduced train cell on (2, 2): the transformers' ``head_dim``
+    attention exchanges RoPE's partner columns point to point (the
+    collective-permutes); mamba2 has no attention."""
     info = traced("traces")[arch]
     _check_traced(info)
     assert info["chips"] == 4
+    permuted = info["collective_bytes_per_device"]["collective-permute"]
+    assert (permuted > 0) == (arch != "mamba2-130m"), permuted
 
 
 def _check_serve(info):
@@ -328,7 +333,7 @@ def _check_serve(info):
     assert info["flops_per_device"] > 0
     coll = info["collective_bytes_per_device"]
     assert coll["reduce-scatter"] == 0, coll
-    assert coll["all-to-all"] == coll["collective-permute"] == 0
+    assert coll["all-to-all"] == 0, coll
     assert info["collective_total"] == sum(coll.values())
     assert set(info["argument_bytes_by_tree"]) == {"params", "batch",
                                                    "cache"}
@@ -345,11 +350,14 @@ def test_reduced_serve_trace_on_a_fake_2x2_mesh(traced, cell, combine):
     then the sums); the params' ``fsdp`` dim is gathered where the rules
     keep it (the prefill, the context-parallel decode of batch 2), and the
     split-KV decode (``fsdp=None``, every ``model``-split leaf kept)
-    gathers nothing."""
+    gathers nothing.  The ``head_dim`` cells (the prefill and the
+    context-parallel decode) exchange RoPE's partner columns point to
+    point; the split-KV decode under ``pad_heads`` (one query) none."""
     info = traced("traces")[cell]
     _check_serve(info)
     coll = info["collective_bytes_per_device"]
     assert coll["all-reduce"] > 0, coll
+    assert (coll["collective-permute"] > 0) == (cell != "split_kv"), coll
     assert (coll["all-gather"] == 0) == (info["rules"]["fsdp"] is None)
     assert (coll["all-gather"] == 0) == (cell == "split_kv"), coll
     assert (info["rules"]["kv_seq"] is not None) == combine
@@ -396,8 +404,11 @@ def test_tensor_parallel_decode_cell_to_the_byte(traced):
 
 
 def test_full_width_decode_cell_on_16x16(traced):
+    """gemma-2b's decode on (16, 16): one query a step takes the plain
+    attention under ``pad_heads``, so nothing is permuted."""
     info = traced("traces")["full_decode"]
     _check_serve(info)
+    assert info["collective_bytes_per_device"]["collective-permute"] == 0
     assert (info["arch"], info["shape"], info["chips"]) == (
         "gemma-2b", "decode_32k", 256)
     assert info["rules"]["kv_seq"] == "model"
@@ -407,8 +418,12 @@ def test_full_width_decode_cell_on_16x16(traced):
 
 
 def test_full_width_train_cell_on_16x16(traced):
+    """granite-moe's published ``pad_heads`` on (16, 16): its 16 heads are
+    their own padding, so each rank's block of the padded heads is its
+    block of the real ones and the context's re-split permutes nothing."""
     info = traced("traces")["full"]
     _check_traced(info)
+    assert info["collective_bytes_per_device"]["collective-permute"] == 0
     assert (info["arch"], info["shape"], info["chips"]) == (
         "granite-moe-1b-a400m", "train_4k", 256)
     placed = dryrun.place_cell(get_config("granite-moe-1b-a400m"),

@@ -34,16 +34,19 @@ prompt, where the second data rank holds no live slot; and granite-moe
 with the experts gathered on every rank (no current mesh, the
 reference's ``--no-shard-map-moe``): one train step and one batch-split
 decode step; internlm2 under ``attn_shard="heads"``, batch-split (the
-attention head-parallel over a cache whose KV heads are split).  The
-port's steps compute tensor-parallel over ``model`` (the MLPs, the
-vocab, the heads under ``"heads"``): a rank's logits are its rows and
-its vocab columns, gathered over both axes before they are compared.
-``pad_heads`` with ``attn_pad_to = 4``: the published internlm2 and
-granite-moe pad 16 query heads to 16 on a 16-wide model axis (no
-padding, the K/V repeated a head); the reduced 4 heads on the 2-wide
-axis keep that (4 heads, no padding).  Slots are few enough that both
-halves of a split sequence hold live slots (but in the empty-rank
-case).
+attention head-parallel over a cache whose KV heads are split); and an
+internlm2 prefill under ``attn_pad_to = 8`` (rank 1 of each ``model``
+pair attends padded heads alone).  The port's steps compute
+tensor-parallel over ``model`` (the MLPs, the vocab, the heads under
+``"heads"``, the head dim under ``"head_dim"`` with the cache whole in
+it, the padded heads of a prefill under ``"pad_heads"``): a rank's
+logits are its rows and its vocab columns, gathered over both axes
+before they are compared.  ``pad_heads`` with ``attn_pad_to = 4``: the
+published internlm2 and granite-moe pad 16 query heads to 16 on a
+16-wide model axis (no padding, the K/V repeated a head); the reduced 4
+heads on the 2-wide axis keep that (4 heads, no padding; the prefill
+attends 2 a rank).  Slots are few enough that both halves of a split
+sequence hold live slots (but in the empty-rank case).
 
 Held:
 
@@ -106,6 +109,11 @@ CASES = {
     "internlm2_heads": ("internlm2-1.8b", {"attn_shard": "heads"}, 8, 32, 12,
                         3),
     "granite_gathered": ("granite-moe-1b-a400m", {}, 8, 32, 12, 1),
+    # 8 padded heads, 4 a model rank: rank 1 of each pair holds padding
+    # alone in the prefill
+    "internlm2_pad8_prefill": ("internlm2-1.8b", {"attn_shard": "pad_heads",
+                                                  "attn_pad_to": 8},
+                               8, 32, 12, 0),
 }
 ARCHS = sorted({c[0] for c in CASES.values()})
 # the cells the dry run traces, held to the ranks' bytes
@@ -855,7 +863,8 @@ def test_dry_run_reckons_the_ranks_bytes(runs, case):
     dry = runs("dryrun")[case]
     assert dry["null_reason"] is None and dry["flops_per_device"] > 0
     names = {"all_gather": "all-gather", "all_reduce": "all-reduce",
-             "reduce_scatter": "reduce-scatter"}
+             "reduce_scatter": "reduce-scatter",
+             "collective_permute": "collective-permute"}
     want = {k: v for k, v in dry["collective_bytes_per_device"].items() if v}
     for rank in range(WORLD):
         rec = runs(f"rank{rank}")[case]["bf16"]

@@ -14,10 +14,12 @@ read the same seeded numpy params (N(0, 0.05), norms zero) and batches
 (8 x 32 tokens, 2 steps, lr 1e-3).  Cases: granite-moe reduced on a
 (2, 2) ``("data", "model")`` mesh with AdamW and with
 Adafactor(beta1=0.9), internlm2 reduced on (2, 2) and (4, 1) with AdamW
-(its ``head_dim`` attention whole on each rank, the MLPs and the vocab
-tensor-parallel on (2, 2)), internlm2 reduced under
+(on (2, 2) its ``head_dim`` attention split on the head dim, the MLPs
+and the vocab tensor-parallel), internlm2 reduced under
 ``attn_shard="heads"`` on (2, 2) (H = 4 and KV = 2 divide the two
-``model`` ranks: the attention head-parallel too), and granite-moe with
+``model`` ranks: the attention head-parallel too) and under
+``attn_shard="pad_heads"`` with ``attn_pad_to=6`` (3 padded heads a
+``model`` rank, rank 1 holding one real head), and granite-moe with
 AdamW, ``accum_steps=2`` on both sides and capacity factor 0.5, at which
 every MoE dispatch drops assignments (printed).  On (2, 2) the port's
 step computes tensor-parallel over ``model`` (``common.tensor_parallel``);
@@ -48,7 +50,8 @@ Held:
   (granite-moe); the MLP's row product without its ``ReduceFromGroup``
   and ``CopyToGroup``'s backward without its all-reduce (internlm2);
 * a rank's all-gather bytes of a step fall, from every leaf gathered to
-  the tensor-parallel leaves kept, by exactly those leaves' whole bytes;
+  the tensor-parallel leaves kept, by exactly those leaves' whole bytes
+  (the attention's among them under ``head_dim`` and ``heads``);
 * every rank's local shapes are its specs' shards, ``init_state``
   equals the full state placed by ``distribute``, and a dim split over
   ``("pod", "data")`` gives each mesh position JAX's rows;
@@ -91,6 +94,11 @@ CASES = {"granite_adamw_2x2": ("granite-moe-1b-a400m", (2, 2), "adamw", 1,
          # tensor-parallel too
          "internlm2_heads_2x2": ("internlm2-1.8b", (2, 2), "adamw", 1,
                                  {"attn_shard": "heads"}),
+         # the padded heads: 6 of them, 3 a model rank, rank 1 holding one
+         # real head and two padded
+         "internlm2_pad6_2x2": ("internlm2-1.8b", (2, 2), "adamw", 1,
+                                {"attn_shard": "pad_heads",
+                                 "attn_pad_to": 6}),
          # micro-batches of capacity-bound MoE layers: every data shard's
          # micro-batch of 2 x 32 tokens sends 128 assignments to 4 experts
          # of capacity 16, so the layers drop
@@ -122,8 +130,9 @@ _COMMON = textwrap.dedent("""
         return tree
 
     def batch(arch, i):
-        return {k: INPUTS[f"batch|{arch}|{i}|{k}"]
-                for k in ("tokens", "labels")}
+        head = f"batch|{arch}|{i}|"
+        return {k[len(head):]: a for k, a in INPUTS.items()
+                if k.startswith(head)}
 
     def dump(name, obj):
         with open(os.path.join(OUT, name + ".pkl"), "wb") as f:
@@ -203,7 +212,7 @@ _RANK = _COMMON + textwrap.dedent("""
         losses, g0 = [], None
         for i in range(STEPS):
             b = tbatch(arch, i)
-            per = b["tokens"].shape[0] // (accum * n_data)
+            per = next(iter(b.values())).shape[0] // (accum * n_data)
             parts = [_value_and_grad(loss_fn, p, {
                 k: v[(m * n_data + j) * per:(m * n_data + j + 1) * per]
                 for k, v in b.items()})
@@ -251,7 +260,7 @@ _RANK = _COMMON + textwrap.dedent("""
         # tensor-parallel leaves kept and with every leaf gathered
         out = {}
         tp_of = step_mod.tensor_parallel_of
-        for key, fn in (("kept", tp_of), ("gathered", lambda i, m: None)):
+        for key, fn in (("kept", tp_of), ("gathered", lambda *a: None)):
             step_mod.tensor_parallel_of = fn
             try:
                 sp = distribute(params(arch, cfg), mesh,
@@ -484,21 +493,37 @@ _REFERENCE = _COMMON + textwrap.dedent("""
              for d in mesh.devices.flat}
     record = {"tuple_order": {where[sh.device]: np.asarray(sh.data).tolist()
                               for sh in placed.addressable_shards}}
-    for name, (arch, shape, optname, accum, kw) in CASES.items():
+    def job(key):
+        name, which = key
+        arch, shape, optname, accum, kw = CASES[name]
         opt = AdamW() if optname == "adamw" else Adafactor(beta1=0.9)
-        mesh = jax.make_mesh(shape, ("data", "model"),
-                             axis_types=(AxisType.Auto,) * 2)
-        record[name] = {"sharded": run(arch, opt, mesh, accum, kw),
-                        "one": run(arch, opt, None, accum, kw)}
+        mesh = (jax.make_mesh(shape, ("data", "model"),
+                              axis_types=(AxisType.Auto,) * 2)
+                if which == "sharded" else None)
+        return run(arch, opt, mesh, accum, kw)
+
+    # a MoE layer reads the current mesh (a global) when it is traced:
+    # those steps one at a time, the others' programs compiled together
+    from concurrent.futures import ThreadPoolExecutor
+    keys = [(n, w) for n in CASES for w in ("sharded", "one")]
+    moe = [k for k in keys
+           if get_config(CASES[k[0]][0], reduced=True).num_experts > 0]
+    rest = [k for k in keys if k not in moe]
+    done = {k: job(k) for k in moe}
+    with ThreadPoolExecutor(max(len(rest), 1)) as ex:
+        done.update(zip(rest, ex.map(job, rest)))
+    for name in CASES:
+        record[name] = {w: done[(name, w)] for w in ("sharded", "one")}
     # jax.make_mesh's default axes (Explicit): the reference's step raises
-    try:
-        run("granite-moe-1b-a400m", AdamW(), jax.make_mesh(
-            (2, 2), ("data", "model")))
-        record["explicit"] = {"raised": None}
-    except Exception as e:
-        record["explicit"] = {"raised": type(e).__name__,
-                              "message": str(e)[:400]}
-    dump("reference", record)
+    if any(c[0] == "granite-moe-1b-a400m" for c in CASES.values()):
+        try:
+            run("granite-moe-1b-a400m", AdamW(), jax.make_mesh(
+                (2, 2), ("data", "model")))
+            record["explicit"] = {"raised": None}
+        except Exception as e:
+            record["explicit"] = {"raised": type(e).__name__,
+                                  "message": str(e)[:400]}
+    dump("reference" + (sys.argv[2] if len(sys.argv) > 2 else ""), record)
 """)
 
 
@@ -523,22 +548,44 @@ _DRYRUN = _COMMON + textwrap.dedent("""
 """)
 
 
-def _script(text):
-    return (text.replace("@CASES@", repr(CASES))
-            .replace("@KEPT@", repr(KEPT)).replace("@STEPS@", repr(STEPS))
-            .replace("@LR@", repr(LR)))
+def _script(text, cases=None, kept=None):
+    return (text.replace("@CASES@", repr(CASES if cases is None else cases))
+            .replace("@KEPT@", repr(KEPT if kept is None else kept))
+            .replace("@STEPS@", repr(STEPS)).replace("@LR@", repr(LR)))
 
 
-def _inputs(path):
+def _batch(cfg, rng):
+    """One seeded batch of 8 rows for ``cfg``'s family (32 tokens; vlm:
+    its patches, N(0, 1), then 32 - P text tokens; encdec: 16 frames,
+    N(0, 1), and 16 decoder tokens)."""
+    tok = lambda n: rng.integers(0, cfg.vocab_size, (8, n)).astype(np.int32)
+    if cfg.family == "encdec":
+        return {"frames": rng.normal(size=(8, 16, cfg.d_model)).astype(
+            np.float32), "dec_tokens": tok(16), "labels": tok(16)}
+    if cfg.family == "vlm":
+        from repro_torch.models.vlm import D_VISION
+        P = cfg.num_patches
+        return {"tokens": tok(32 - P), "patch_embeds": rng.normal(
+            size=(8, P, D_VISION)).astype(np.float32), "labels": tok(32 - P)}
+    return {"tokens": tok(32), "labels": tok(32)}
+
+
+def _inputs(path, cases=None):
     """Seeded numpy params (N(0, 0.05), norms zero) and batches, keyed
-    ``<arch>|<keystr path>`` and ``batch|<arch>|<step>|<field>``."""
+    ``<arch>|<keystr path>`` and ``batch|<arch>|<step>|<field>``: each
+    arch's reduced config with the first of ``cases``' overrides for it
+    (its cases' shapes must agree)."""
+    import dataclasses
+
     from repro_torch import models as M
     from repro_torch.configs import get_config
     from repro_torch.tree import tree_items
+    cases = CASES if cases is None else cases
     rng = np.random.default_rng(0)
     arrays = {}
-    for arch in ARCHS:
-        cfg = get_config(arch, reduced=True)
+    for arch in sorted({c[0] for c in cases.values()}):
+        kw = next(c[4] for c in cases.values() if c[0] == arch)
+        cfg = dataclasses.replace(get_config(arch, reduced=True), **kw)
         for key, leaf in tree_items(M.param_shapes(cfg)):
             norm = re.search(r"(ln\d?|norm)'\]$", key) is not None
             arrays[f"{arch}|{key}"] = (
@@ -546,10 +593,28 @@ def _inputs(path):
                 (rng.normal(size=tuple(leaf.shape)) * 0.05).astype(
                     np.float32))
         for i in range(STEPS):
-            for k in ("tokens", "labels"):
-                arrays[f"batch|{arch}|{i}|{k}"] = rng.integers(
-                    0, cfg.vocab_size, (8, 32)).astype(np.int32)
+            for k, a in _batch(cfg, rng).items():
+                arrays[f"batch|{arch}|{i}|{k}"] = a
     np.savez(path, **arrays)
+
+
+def spawn(out, env, cases=None, kept=None, split=False):
+    """The four ranks running ``cases`` and the reference subprocess
+    running them (``split``: one a case, each writing
+    ``reference<case>.pkl``), started on the inputs in ``out``."""
+    ranks = [subprocess.Popen(
+        [sys.executable, "-c", _script(_RANK, cases, kept), str(out), str(r),
+         str(WORLD), str(out / "store")], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(WORLD)]
+    cases = CASES if cases is None else cases
+    runs = ([({k: v}, k) for k, v in cases.items()] if split
+            else [(cases, "")])
+    refs = [subprocess.Popen(
+        [sys.executable, "-c", _script(_REFERENCE, c, kept), str(out), tag],
+        env=dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=4"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for c, tag in runs]
+    return ranks + refs
 
 
 def _free_port():
@@ -600,14 +665,7 @@ def runs(tmp_path_factory):
     env = dict(SUBPROC_ENV, OMP_NUM_THREADS="1")
     t0 = time.monotonic()
     deadline = t0 + SPAWN_TIMEOUT
-    ranks = [subprocess.Popen(
-        [sys.executable, "-c", _script(_RANK), str(out), str(r), str(WORLD),
-         str(out / "store")], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(WORLD)]
-    ref = subprocess.Popen(
-        [sys.executable, "-c", _script(_REFERENCE), str(out)],
-        env=dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=4"),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    procs = spawn(out, env)
     dry = subprocess.Popen(
         [sys.executable, "-c", _script(_DRYRUN), str(out)], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -617,7 +675,7 @@ def runs(tmp_path_factory):
     first = _finish(_launcher(whole, env), deadline)
     shutil.copytree(whole / "step_000000002", resumed / "step_000000002")
     second = _finish(_launcher(resumed, env), deadline)
-    _finish(ranks + [ref, dry], deadline)
+    _finish(procs + [dry], deadline)
 
     def load(who):
         with open(out / f"{who}.pkl", "rb") as f:
@@ -724,7 +782,7 @@ def test_kept_leaves_leave_the_all_gather(runs, case):
     from repro_torch.tree import tree_items
     arch, kw = CASES[case][0], CASES[case][4]
     cfg = dataclasses.replace(get_config(arch, reduced=True), **kw)
-    names = _TP_NAMES[cfg.attn_shard == "heads"]
+    names = _TP_NAMES[cfg.attn_shard in ("heads", "head_dim")]
     kept = sum(leaf.numel() * leaf.element_size()
                for path, leaf in tree_items(M.param_shapes(cfg))
                if re.search(r"\['(\w+)'\]$", path).group(1) in names)
@@ -804,7 +862,8 @@ def test_dry_run_reckons_the_ranks_bytes(runs):
     and each rank's shard bytes of the params and the optimizer state."""
     dry = runs("dryrun")
     names = {"all_gather": "all-gather", "all_reduce": "all-reduce",
-             "reduce_scatter": "reduce-scatter"}
+             "reduce_scatter": "reduce-scatter",
+             "collective_permute": "collective-permute"}
     want = {k: v for k, v in dry["collective_bytes_per_device"].items() if v}
     assert set(want) == set(names.values()), want
     for rank in range(WORLD):

@@ -47,6 +47,16 @@ import torch
 WORLD = 2
 TIMEOUT = 120
 V, D, F = 64, 8, 12
+# the attention cases: reduced internlm2 at these widths (D = 8, 2 x 6
+# tokens); padded heads Hp > H with a rank holding one real head and two
+# padded (pad6), and with rank 1 holding padding alone (pad_gemma: KV = 1,
+# H = 4, Hp = 8, as gemma-2b's 8 of 16); the head dim split in two
+ATTN = {"pad6": dict(d_model=D, num_heads=4, num_kv_heads=2, head_dim=4,
+                     attn_shard="pad_heads", attn_pad_to=6),
+        "pad_gemma": dict(d_model=D, num_heads=4, num_kv_heads=1,
+                          head_dim=4, attn_shard="pad_heads", attn_pad_to=8),
+        "head_dim": dict(d_model=D, num_heads=4, num_kv_heads=2, head_dim=8,
+                         attn_shard="head_dim")}
 
 _RANK = textwrap.dedent("""
     import datetime, os, pickle, sys
@@ -68,6 +78,7 @@ _RANK = textwrap.dedent("""
     from repro_torch.launch import RULES
 
     IN = dict(np.load(os.path.join(OUT, "inputs.npz")))
+    ATTN = @ATTN@
     mesh = init_device_mesh("cpu", (WORLD,), mesh_dim_names=("model",))
     comm = AxisComm(mesh, ("model",))
     TP = TensorParallel(comm, mlp=True, vocab=True)
@@ -122,9 +133,71 @@ _RANK = textwrap.dedent("""
             y, gs[0], *map(summed, gs[1:]))]
     ties = torch.tensor(IN["ties"])
     out["argmax"] = vocab_argmax(half(ties, -1), comm).numpy()
-    if RANK == 0:
-        with open(os.path.join(OUT, "rank0.pkl"), "wb") as f:
-            pickle.dump(out, f)
+
+    # attention: qkv_project -> attend -> out_project, the weights whole
+    # (pad_heads) or split on the head dim (head_dim)
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+    from repro_torch.distributed import sharded
+
+    def attn(kind, dt, tp_on=True):
+        cfg = dataclasses.replace(get_config("internlm2-1.8b", reduced=True),
+                                  **ATTN[kind], dtype=dt, param_dtype=dt)
+        ws = [leaf(IN[f"{kind}_{k}"], dt) for k in ("x", "wq", "wk", "wv",
+                                                    "wo")]
+        x, wq, wk, wv, wo = ws
+        split = cfg.attn_shard == "head_dim"
+        if split:
+            wq, wk, wv, wo = (half(wq, -1), half(wk, -1), half(wv, -1),
+                              half(wo, -2))
+        pos = torch.arange(x.shape[1], dtype=torch.int32)
+        tp = TensorParallel(comm, head_dim=split, pad_heads=not split)
+        with tensor_parallel(tp if tp_on else None):
+            q, k, v = A.qkv_project(x, wq, wk, wv, cfg, RULES, pos)
+            ctx = A.attend(q, k, v, pos, pos, cfg, RULES)
+            y = A.out_project(ctx, wo, RULES)
+        gs = torch.autograd.grad(y, ws, torch.tensor(IN[f"{kind}_cot"],
+                                                     dtype=dt))
+        gs = [gs[0], *(map(summed, gs[1:]) if split else gs[1:])]
+        return [t.detach().double().numpy() for t in (y, *gs)]
+
+    for kind in ATTN:
+        for name, dt in (("f64", torch.float64), ("bf16", torch.bfloat16)):
+            sharded.reset()
+            out[f"attn_{kind}_{name}"] = attn(kind, dt)
+            out[f"attn_{kind}_{name}_bytes"] = dict(sharded.BYTES)
+    # planted faults, float64: RoPE on the local columns alone; the
+    # probabilities without their CopyToGroup; the padded heads'
+    # gradient left partial (SplitToGroup's backward without its gather)
+    rope_cols = A._rope_cols
+    A._rope_cols = lambda x, positions, theta, angles, comm: A.rope(
+        x, positions, theta)
+    try:
+        out["fault_rope"] = attn("head_dim", torch.float64)
+    finally:
+        A._rope_cols = rope_cols
+    copy = A.tp_copy
+    A.tp_copy = lambda x, part: x if x.ndim == 5 else copy(x, part)
+    try:
+        out["fault_probs"] = attn("head_dim", torch.float64)
+    finally:
+        A.tp_copy = copy
+    split_bwd = sharded.SplitToGroup.backward
+
+    def partial(ctx, g):
+        comm_, dim, n = ctx.args
+        per = g.shape[dim]
+        whole = torch.cat([g.new_zeros(g.shape)] * comm_.size, dim)
+        whole.narrow(dim, comm_.rank * per, per).copy_(g)
+        return whole.narrow(dim, 0, n), None, None, None
+    sharded.SplitToGroup.backward = staticmethod(partial)
+    try:
+        out["fault_partial"] = attn("pad_gemma", torch.float64)
+    finally:
+        sharded.SplitToGroup.backward = split_bwd
+    with open(os.path.join(OUT, f"rank{RANK}.pkl"), "wb") as f:
+        pickle.dump(out, f)
     dist.destroy_process_group()
 """)
 
@@ -158,7 +231,20 @@ def _inputs(path):
              w_gate=rng.normal(scale=0.4, size=(D, F)),
              w_up=rng.normal(scale=0.4, size=(D, F)),
              w_down=rng.normal(scale=0.4, size=(F, D)),
-             cot_mlp=rng.normal(size=(B, S, D)), ties=_ties())
+             cot_mlp=rng.normal(size=(B, S, D)), ties=_ties(),
+             **_attn_inputs(rng))
+
+
+def _attn_inputs(rng, B=2, S=6):
+    out = {}
+    for kind, kw in ATTN.items():
+        H, KV, hd = kw["num_heads"], kw["num_kv_heads"], kw["head_dim"]
+        for name, shape in (("x", (B, S, D)), ("wq", (D, H, hd)),
+                            ("wk", (D, KV, hd)), ("wv", (D, KV, hd)),
+                            ("wo", (H, hd, D)), ("cot", (B, S, D))):
+            scale = 1.0 if name in ("x", "cot") else D ** -0.5
+            out[f"{kind}_{name}"] = rng.normal(scale=scale, size=shape)
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -167,7 +253,8 @@ def runs(tmp_path_factory):
     _inputs(out / "inputs.npz")
     env = dict(SUBPROC_ENV, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
-        [sys.executable, "-c", _RANK, str(out), str(r), str(WORLD),
+        [sys.executable, "-c", _RANK.replace("@ATTN@", repr(ATTN)),
+         str(out), str(r), str(WORLD),
          str(out / "store")], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for r in range(WORLD)]
     deadline = time.monotonic() + TIMEOUT
@@ -181,9 +268,12 @@ def runs(tmp_path_factory):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    with open(out / "rank0.pkl", "rb") as f:
-        got = pickle.load(f)
-    return got, dict(np.load(out / "inputs.npz"))
+    got = []
+    for r in range(WORLD):
+        with open(out / f"rank{r}.pkl", "rb") as f:
+            got.append(pickle.load(f))
+    got[0]["rank1"] = got[1]
+    return got[0], dict(np.load(out / "inputs.npz"))
 
 
 def _rel(a, b):
@@ -282,3 +372,104 @@ def test_split_mlp_bf16(runs, kind):
               f"split vs float64 {_rel(have, exact):.2e}, whole vs "
               f"float64 {_rel(want, exact):.2e}")
         assert err <= 2e-2, (kind, i, err)
+
+
+def _whole_attn(inputs, kind, dtype):
+    """qkv_project -> attend -> out_project on the whole weights in one
+    process: output and the gradients of x, wq, wk, wv and wo."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import RULES
+    from repro_torch.models import attention as A
+    cfg = dataclasses.replace(get_config("internlm2-1.8b", reduced=True),
+                              **ATTN[kind], dtype=dtype, param_dtype=dtype)
+    ws = [torch.tensor(inputs[f"{kind}_{k}"], dtype=dtype).requires_grad_()
+          for k in ("x", "wq", "wk", "wv", "wo")]
+    x, wq, wk, wv, wo = ws
+    pos = torch.arange(x.shape[1], dtype=torch.int32)
+    q, k, v = A.qkv_project(x, wq, wk, wv, cfg, RULES, pos)
+    y = A.out_project(A.attend(q, k, v, pos, pos, cfg, RULES), wo, RULES)
+    gs = torch.autograd.grad(y, ws, torch.tensor(inputs[f"{kind}_cot"],
+                                                 dtype=dtype))
+    return [t.detach().double().numpy() for t in (y, *gs)]
+
+
+@pytest.mark.parametrize("kind", list(ATTN))
+def test_split_attention_float64(runs, kind):
+    """``pad_heads`` (Hp > H; a rank of padding alone in ``pad_gemma``)
+    and ``head_dim`` attention on two ranks: the output and the gradients
+    of the input and every weight within 1e-12 (relative) of the whole
+    function's."""
+    got, inputs = runs
+    names = ("out", "x", "wq", "wk", "wv", "wo")
+    for name, have, want in zip(names, got[f"attn_{kind}_f64"],
+                                _whole_attn(inputs, kind, torch.float64)):
+        assert _rel(have, want) <= 1e-12, (kind, name, _rel(have, want))
+
+
+@pytest.mark.parametrize("kind", list(ATTN))
+def test_split_attention_bf16(runs, kind):
+    got, inputs = runs
+    whole = _whole_attn(inputs, kind, torch.bfloat16)
+    truth = _whole_attn(inputs, kind, torch.float64)
+    names = ("out", "x", "wq", "wk", "wv", "wo")
+    for name, have, want, exact in zip(names, got[f"attn_{kind}_bf16"],
+                                       whole, truth):
+        err = _rel(have, want)
+        print(f"{kind} {name}: split vs whole bf16 {err:.2e}, split vs "
+              f"float64 {_rel(have, exact):.2e}, whole vs float64 "
+              f"{_rel(want, exact):.2e}")
+        assert err <= 2e-2, (kind, name, err)
+
+
+@pytest.mark.parametrize("kind", ["pad6", "pad_gemma"])
+def test_padded_heads_replicated_leaves_equal_on_every_rank(runs, kind):
+    """Under ``pad_heads`` no weight is split over ``model``: both ranks'
+    gradients of x, ``wq``, ``wk``, ``wv`` and ``wo`` are whole and equal
+    (``reduce_grad`` takes each rank's as the leaf's), bit for bit."""
+    got, _ = runs
+    for dt in ("f64", "bf16"):
+        mine, theirs = got[f"attn_{kind}_{dt}"], got["rank1"][
+            f"attn_{kind}_{dt}"]
+        for i, (a, b) in enumerate(zip(mine, theirs)):
+            np.testing.assert_array_equal(a, b, err_msg=f"{kind} {dt} {i}")
+
+
+def test_padded_heads_collectives(runs):
+    """The padded heads move what the reference's compiled step moves
+    (see ``models/attention.py``): pad6 re-splits one head of the context
+    point to point (H = 4 held 3 + 1, wanted 2 + 2), rank 0 sending it
+    forward and rank 1 its cotangent backward; pad_gemma two (4 + 0 held);
+    both all-gather the q and ``wo`` blocks' cotangents.  The head-dim
+    split sends each rank's q and k columns to its partner and their
+    cotangents back."""
+    got, _ = runs
+    B, S = 2, 6
+    for rank in (got, got["rank1"]):
+        for kind, heads in (("pad6", 1), ("pad_gemma", 2)):
+            hd = ATTN[kind]["head_dim"]
+            moved = rank[f"attn_{kind}_f64_bytes"]
+            assert moved["collective_permute"] == heads * B * S * hd * 8, (
+                kind, moved)
+            assert moved["all_gather"] > 0, (kind, moved)
+        moved = rank["attn_head_dim_f64_bytes"]
+        c = ATTN["head_dim"]["head_dim"] // WORLD
+        H, KV = (ATTN["head_dim"]["num_heads"],
+                 ATTN["head_dim"]["num_kv_heads"])
+        assert moved["collective_permute"] == 2 * (H + KV) * B * S * c * 8, (
+            moved)
+        assert moved["all_reduce"] > 0 and "all_gather" not in moved, moved
+
+
+@pytest.mark.parametrize("fault", ["fault_rope", "fault_probs",
+                                   "fault_partial"])
+def test_attention_planted_faults_read_far_off(runs, fault):
+    """RoPE on the local columns alone, the probabilities' cotangent left
+    partial (no ``CopyToGroup``) and the padded heads' gradient left
+    partial (``SplitToGroup``'s backward without its gather) each part the
+    output or a gradient from the whole function's by more than 1e-3."""
+    got, inputs = runs
+    kind = "pad_gemma" if fault == "fault_partial" else "head_dim"
+    worst = max(_rel(have, want) for have, want in zip(
+        got[fault], _whole_attn(inputs, kind, torch.float64)))
+    assert worst > 1e-3, (fault, worst)
